@@ -1,0 +1,101 @@
+"""Multi-head attention: the reference semantics and the flash-kernel
+dispatch.
+
+Counterpart of ``rafiki_tpu/ops/attention.py``. Parameters keep the JAX
+layouts: ``wq/wk/wv`` are (dim, heads, dh), ``wo`` is (heads, dh, dim).
+
+Dispatch: on a CUDA tensor, ``use_flash=None`` or ``True`` runs the flash
+kernel (the JAX package's 1 GB auto-threshold was measured on and for a
+TPU and does not carry over); ``use_flash=False`` runs
+:func:`mha_reference`. On a CPU tensor ``None`` runs :func:`mha_reference`,
+as the JAX package does off the TPU, and ``True`` runs the flash kernel's
+plain version.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from rafiki_tpu_torch.models.core import own_params, xavier_uniform
+from rafiki_tpu_torch.ops.flash_attention import flash_attention
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = False,
+                  sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Plain attention over (B, H, S, Dh); softmax statistics in f32. Unlike
+    the flash kernel, a row that sees no key averages every value."""
+    dh = q.shape[-1]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(dh)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        sq, skv = s.shape[-2], s.shape[-1]
+        mask = torch.ones(sq, skv, dtype=torch.bool,
+                          device=s.device).tril(skv - sq)
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def attention_init(rng: np.random.Generator, dim: int, heads: int) -> dict:
+    """QKV and output projection weights (numpy, JAX layout); fans of the
+    logical (dim, heads * dh) product, as in the JAX package."""
+    dh = dim // heads
+    shape = (dim, heads, dh)
+    return {
+        "wq": xavier_uniform(rng, shape, dim, heads * dh),
+        "wk": xavier_uniform(rng, shape, dim, heads * dh),
+        "wv": xavier_uniform(rng, shape, dim, heads * dh),
+        "wo": xavier_uniform(rng, (heads, dh, dim), heads * dh, dim),
+        "bo": np.zeros((dim,), np.float32),
+    }
+
+
+def multi_head_attention(params: Mapping[str, torch.Tensor],
+                         x: torch.Tensor, causal: bool = False,
+                         use_flash: Optional[bool] = None,
+                         fused_qkv: bool = False) -> torch.Tensor:
+    """Self-attention over (B, S, D). ``fused_qkv`` computes the three
+    projections as one (BS, D) x (D, 3HDh) product over weights stacked at
+    run time; the parameter layout is unchanged."""
+    dt = x.dtype
+    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    if fused_qkv:
+        wqkv = torch.stack([wq, wk, wv]).to(dt)
+        q, k, v = torch.einsum("bsd,tdhk->tbhsk", x, wqkv)
+    else:
+        q = torch.einsum("bsd,dhk->bhsk", x, wq.to(dt))
+        k = torch.einsum("bsd,dhk->bhsk", x, wk.to(dt))
+        v = torch.einsum("bsd,dhk->bhsk", x, wv.to(dt))
+    if use_flash or (use_flash is None and x.is_cuda):
+        # the kernel takes contiguous (B, H, S, Dh); einsum hands back views
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=causal)
+    else:
+        o = mha_reference(q, k, v, causal=causal)
+    out = torch.einsum("bhsk,hkd->bsd", o, params["wo"].to(dt))
+    return out + params["bo"].to(dt)
+
+
+class MultiHeadAttention(torch.nn.Module):
+    """Holds the attention parameters in the JAX layouts."""
+
+    def __init__(self, dim: int, heads: int, device=None):
+        super().__init__()
+        dh = dim // heads
+        f32 = dict(dtype=torch.float32, device=device)
+        self.wq = torch.nn.Parameter(torch.empty(dim, heads, dh, **f32))
+        self.wk = torch.nn.Parameter(torch.empty(dim, heads, dh, **f32))
+        self.wv = torch.nn.Parameter(torch.empty(dim, heads, dh, **f32))
+        self.wo = torch.nn.Parameter(torch.empty(heads, dh, dim, **f32))
+        self.bo = torch.nn.Parameter(torch.empty(dim, **f32))
+
+    def forward(self, x: torch.Tensor, causal: bool = False,
+                use_flash: Optional[bool] = None,
+                fused_qkv: bool = False) -> torch.Tensor:
+        return multi_head_attention(own_params(self), x, causal, use_flash,
+                                    fused_qkv)
