@@ -35,17 +35,17 @@ def jax_tree_to_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return state
 
 
-def from_jax_params(tree: Dict[str, Any], cfg: ViTConfig,
-                    device=None) -> ViT:
+def from_jax_params(tree: Dict[str, Any], cfg: ViTConfig, device=None,
+                    train: bool = False) -> ViT:
     """A :class:`ViT` on ``device`` (the default device when None) holding
-    the JAX-layout parameter ``tree``. Names and shapes are checked
-    strictly."""
+    the JAX-layout parameter ``tree``, in training mode when ``train``
+    (else in eval mode). Names and shapes are checked strictly."""
     dev = default_device(device)
     with torch.device("meta"):
         model = ViT(cfg)
     model.load_state_dict(jax_tree_to_state_dict(tree), strict=True,
                           assign=True)
-    return model.to(dev).eval()
+    return model.to(dev).train(train)
 
 
 def to_jax_params(model: ViT) -> Dict[str, Any]:

@@ -12,7 +12,21 @@
 //   - masked columns get p = 0 explicitly, so a row whose running max is
 //     still the -1e30 sentinel does not collect exp(0) = 1 per column;
 //   - a row that sees no key (l == 0) writes exactly 0;
-//   - kv tiles wholly above the causal band of a q tile are skipped.
+//   - kv tiles wholly above the causal band of a q tile are skipped;
+//   - with an `lse` pointer (the training forward, JAX's save_lse=True), the
+//     row's logsumexp m + log(l) of the scaled scores is stored in f32, +inf
+//     for a row that sees no key (so the backward's exp(s - lse) is 0 there).
+//     The TPU kernel broadcasts it over 128 lanes because Mosaic needs a
+//     lane-wide minor tile; here it is stored compact, one float per row, as
+//     (B*H, Sq). The training forward of a bf16 call also writes the f32
+//     output (`o32`, the accumulator before the bf16 rounding), from which
+//     the backward's delta = rowsum(dO o O) is taken: delta from the
+//     rounded output carries a per-row error that the backward adds up
+//     coherently over every key, and at ViT-B/16's initialization, where
+//     dP - delta is a small difference, it moved the q/k projection
+//     gradients by 58% of their norm (CPU measurement against an f32 run;
+//     5% with this output). With lse == o32 == nullptr (serving) nothing
+//     more is written.
 //
 // Design. On the TPU the kv grid axis runs in order and carries acc/m/l in
 // VMEM scratch; Hopper runs blocks in no order, so one CUDA block owns one
@@ -67,6 +81,12 @@ __device__ __forceinline__ int kv_tile_end(int q0, int rows, int sq, int skv,
   return max(0, min(skv, q_last + off + 1));
 }
 
+// logsumexp of a row's scaled scores from its running max and sum; +inf
+// when the row saw no key (l == 0)
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
+}
+
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
@@ -107,8 +127,9 @@ __global__ void __launch_bounds__(128)
     flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o, int sq, int skv,
-                          float scale, int causal) {
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, float* __restrict__ o32,
+                          int sq, int skv, float scale, int causal) {
   constexpr int LD = D + 8;  // padded shared row: conflict-free fragments
   constexpr int KD = D / 16;  // k steps of Q K^T
   constexpr int NT = BK / 8;  // n tiles of S
@@ -246,18 +267,24 @@ __global__ void __launch_bounds__(128)
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = r0 + i * 8;
+    if (lse != nullptr && t == 0 && row < sq) {
+      lse[(int64_t)bh * sq + row] = row_lse(m[i], l[i]);
+    }
     l[i] = fmaxf(l[i], 1e-30f);  // l == 0 -> acc == 0 -> out 0
   }
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
     const int c = dt * 8 + 2 * t;
-    if (r0 < sq) {
-      *reinterpret_cast<uint32_t*>(o + ((int64_t)bh * sq + r0) * D + c) =
-          pack_bf16(acc[dt][0] / l[0], acc[dt][1] / l[0]);
-    }
-    if (r0 + 8 < sq) {
-      *reinterpret_cast<uint32_t*>(o + ((int64_t)bh * sq + r0 + 8) * D + c) =
-          pack_bf16(acc[dt][2] / l[1], acc[dt][3] / l[1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + i * 8;
+      if (row >= sq) continue;
+      const float2 out = make_float2(acc[dt][2 * i] / l[i],
+                                     acc[dt][2 * i + 1] / l[i]);
+      const int64_t at = ((int64_t)bh * sq + row) * D + c;
+      *reinterpret_cast<uint32_t*>(o + at) = pack_bf16(out.x, out.y);
+      if (o32 != nullptr) *reinterpret_cast<float2*>(o32 + at) = out;
     }
   }
 }
@@ -275,7 +302,8 @@ __global__ void __launch_bounds__(512)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         int sq, int skv, float scale, int causal) {
+                         float* __restrict__ lse, int sq, int skv,
+                         float scale, int causal) {
   constexpr int TPR = D / kDimsPerThread;  // threads per query row
   extern __shared__ float smem[];
   float* ks = smem;
@@ -351,6 +379,9 @@ __global__ void __launch_bounds__(512)
     m = m_new;
   }
 
+  if (row_valid && lse != nullptr && lane == 0) {
+    lse[(int64_t)bh * sq + qi] = row_lse(m, l);
+  }
   if (row_valid) {
     const float denom = fmaxf(l, 1e-30f);  // l == 0 -> acc == 0 -> out 0
     float* out = o + q_base + (int64_t)qi * D;
@@ -370,6 +401,8 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // nullptr: no LSE output
+  float* o32;  // nullptr: no f32 output (bf16 only)
   int bh, sq, skv;
   float scale;
   int causal, block_q;
@@ -384,7 +417,8 @@ int launch_bf16(const Args& a) {
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<__nv_bfloat16*>(a.o), a.sq, a.skv, a.scale, a.causal);
+      static_cast<__nv_bfloat16*>(a.o), a.lse, a.o32, a.sq, a.skv, a.scale,
+      a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -402,8 +436,8 @@ int launch_f32(const Args& a) {
   const dim3 block(a.block_q * TPR);
   flash_fwd_f32_kernel<D, BK><<<grid, block, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.sq, a.skv,
-      a.scale, a.causal);
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.sq,
+      a.skv, a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -426,15 +460,21 @@ int dispatch_dim(const Args& a, int dh, int is_bf16) {
 }  // namespace
 
 // q, k, v, o: contiguous (bh, sq|skv, dh) device arrays of one type, f32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1), 16-byte aligned. Launches on
-// `stream` and returns 0, the launch's cudaError_t, or a negative code for
-// an unsupported argument: -1 head dim, -2 block_k, -3 block_q.
+// (is_bf16 = 0) or bf16 (is_bf16 = 1), 16-byte aligned; lse: nullptr, or a
+// contiguous (bh, sq) f32 array that receives each row's logsumexp; o32:
+// nullptr, or (bf16 only) a contiguous (bh, sq, dh) f32 array that receives
+// the output before its rounding. Launches on `stream` and returns 0, the
+// launch's cudaError_t, or a negative code for an unsupported argument:
+// -1 head dim, -2 block_k, -3 block_q, -4 o32 with f32 inputs.
 extern "C" int rafiki_flash_fwd(const void* q, const void* k, const void* v,
-                                void* o, int bh, int sq, int skv, int dh,
-                                float scale, int causal, int is_bf16,
-                                int block_q, int block_k, void* stream) {
+                                void* o, void* lse, void* o32, int bh, int sq,
+                                int skv, int dh, float scale, int causal,
+                                int is_bf16, int block_q, int block_k,
+                                void* stream) {
   if (block_q != 16 && block_q != 32 && block_q != 64) return -3;
-  const Args a{q, k, v, o, bh, sq, skv, scale, causal, block_q,
+  if (o32 != nullptr && !is_bf16) return -4;
+  const Args a{q, k, v, o, static_cast<float*>(lse), static_cast<float*>(o32),
+               bh, sq, skv, scale, causal, block_q,
                static_cast<cudaStream_t>(stream)};
   switch (block_k) {
     case 16:
@@ -456,6 +496,8 @@ extern "C" const char* rafiki_flash_error(int code) {
       return "unsupported block_k";
     case -3:
       return "unsupported block_q";
+    case -4:
+      return "an f32 output copy is for bf16 inputs only";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

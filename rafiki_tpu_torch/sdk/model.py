@@ -1,11 +1,14 @@
-"""The model-template contract, serving half.
+"""The model-template contract.
 
 Counterpart of ``rafiki_tpu/sdk/model.py``: ``BaseModel`` with the methods
-an inference worker calls (``predict``, ``load_parameters``,
-``dump_parameters``, ``warm_up``, ``destroy``) and ``load_model_class``,
-which imports an uploaded template's bytes and checks that the class
-subclasses this package's ``BaseModel``. ``train``/``evaluate`` and the
-knob classes come with the training slice (ROADMAP.md).
+a train worker calls (``get_knob_config``, ``train``, ``evaluate``,
+``dump_parameters``; ``logger`` and ``checkpoint_path`` are set on the
+instance before ``train``), those an inference worker calls
+(``load_parameters``, ``warm_up``, ``predict``, ``destroy``), and
+``load_model_class``, which imports an uploaded template's bytes and checks
+that the class subclasses this package's ``BaseModel``. The population,
+generation and ensemble hooks and the ``test_model_class`` harness wait
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,22 +21,39 @@ import sys
 import tempfile
 from typing import Any, Dict, List, Optional
 
+from rafiki_tpu_torch.sdk.knob import KnobConfig
+from rafiki_tpu_torch.sdk.log import ModelLogger, logger as _module_logger
+
 
 class InvalidModelClassError(Exception):
     pass
 
 
 class BaseModel(abc.ABC):
-    """What a served template implements. Instantiated once per trial as
-    ``Model(**knobs)``."""
+    """What a template implements. Instantiated once per trial as
+    ``Model(**knobs)`` with a knob assignment proposed by the advisor."""
 
     def __init__(self, **knobs: Any):
         self._knobs = knobs
+        self.logger: ModelLogger = _module_logger
+        #: set by the train worker before ``train()``: a per-trial file path
+        #: templates MAY hand to ``DataParallelTrainer.fit(checkpoint_path=
+        #: ...)`` so a re-run trial resumes from its last epoch. None when
+        #: run outside a worker.
+        self.checkpoint_path: Optional[str] = None
 
     @staticmethod
     @abc.abstractmethod
-    def get_knob_config() -> Dict[str, Any]:
-        """The template's knobs (fixed values in this slice)."""
+    def get_knob_config() -> KnobConfig:
+        """The tunable hyperparameter space for this template."""
+
+    @abc.abstractmethod
+    def train(self, dataset_uri: str) -> None:
+        """Train on the dataset at ``dataset_uri``."""
+
+    @abc.abstractmethod
+    def evaluate(self, dataset_uri: str) -> float:
+        """Return a scalar score (higher is better) on the dataset."""
 
     @abc.abstractmethod
     def predict(self, queries: List[Any]) -> List[Any]:

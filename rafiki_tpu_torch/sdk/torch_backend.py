@@ -1,36 +1,250 @@
-"""Batched prediction in padded buckets.
+"""Training and batched prediction for model templates.
 
-Counterpart of the predict half of ``DataParallelTrainer`` in
-``rafiki_tpu/sdk/jax_backend.py``: the power-of-two bucket ladder, the
-pad-with-repeat chunking, ``predict_batched`` and ``warm_predict``. The
-class keeps its name; the training half lands in it with the training
-slice. One device per trainer in this slice (multi-GPU: ROADMAP.md).
+Counterpart of ``rafiki_tpu/sdk/jax_backend.py``: ``DataParallelTrainer``
+(``init``, ``fit`` with mid-trial checkpoints, the padded predict-bucket
+ladder, ``predict_batched``, ``warm_predict``), ``tunable_optimizer`` and
+``set_opt_hyperparams``, ``shuffled_batches``,
+``softmax_classifier_loss`` and ``classification_accuracy``. The class
+keeps its name; one device per trainer in this slice (multi-GPU:
+ROADMAP.md), so ``n_data`` is 1 and the JAX package's mesh rounding is the
+identity.
 
-PyTorch compiles nothing per shape, but the ladder still bounds the set
-of shapes the kernels see, and ``warm_predict`` builds and loads every
-kernel before the first real request.
+What the JAX trainer's arguments become here:
+
+- params: an ``nn.Module`` (f32 master weights), trained in place;
+- opt_state: a ``torch.optim.Optimizer`` over its parameters;
+- ``loss_fn(model, batch) -> (loss, aux)``; ``predict_fn(model, x)``;
+- ``init_fn(rng) -> nn.Module``, with ``rng`` a seeded
+  ``numpy.random.Generator``.
+
+PyTorch compiles nothing per shape, so there is no ``cached_trainer``
+(ROADMAP.md); the predict ladder still bounds the shapes the kernels see,
+and ``warm_predict`` builds and loads every kernel before the first
+request. ``fit`` moves the whole dataset to the device once and indexes
+batches there (the JAX trainer's device-resident epoch scan); datasets
+larger than device memory wait for a streaming path.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, List, Tuple
+import io
+import logging
+import os
+import time
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from rafiki_tpu_torch.device import default_device
+from rafiki_tpu_torch.sdk.artifact import (
+    ArtifactCorruptError,
+    read_artifact,
+    write_artifact,
+)
+from rafiki_tpu_torch.sdk.log import StopTrialEarly
+
+logger = logging.getLogger(__name__)
+
+LossFn = Callable[[torch.nn.Module, Tuple[torch.Tensor, ...]],
+                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+OptimizerFactory = Callable[[Any], torch.optim.Optimizer]
+
+
+def tunable_optimizer(make: Callable[..., torch.optim.Optimizer],
+                      **hyperparams: float) -> OptimizerFactory:
+    """A factory ``params -> make(params, **hyperparams)``, e.g.
+    ``tunable_optimizer(torch.optim.AdamW, lr=3e-4, weight_decay=1e-4)``;
+    a trial's own values are set at ``DataParallelTrainer.init(...,
+    hyperparams={...})`` through :func:`set_opt_hyperparams`."""
+    def factory(params):
+        return make(params, **hyperparams)
+
+    return factory
+
+
+def set_opt_hyperparams(optimizer: torch.optim.Optimizer,
+                        hyperparams: Dict[str, float]) -> torch.optim.Optimizer:
+    """Override hyperparameter values in every parameter group. An unknown
+    key raises: a typo must not silently train at the wrong lr."""
+    groups = optimizer.param_groups
+    for k, v in hyperparams.items():
+        if k not in groups[0]:
+            raise KeyError(f"optimizer has no hyperparam {k!r}; has "
+                           f"{sorted(groups[0])}")
+        for group in groups:
+            group[k] = v
+    return optimizer
+
+
+def shuffled_batches(n: int, batch_size: int, rng: np.random.Generator,
+                     drop_remainder: bool = True) -> Iterator[np.ndarray]:
+    """Yield shuffled index batches of a fixed size."""
+    perm = rng.permutation(n)
+    n_full = n // batch_size
+    for i in range(n_full):
+        yield perm[i * batch_size: (i + 1) * batch_size]
+    if not drop_remainder and n % batch_size:
+        yield perm[n_full * batch_size:]
 
 
 class DataParallelTrainer:
     # padding 1 query to 8 wastes little, and bounds the shapes served
     MIN_PREDICT_BUCKET = 8
 
-    def __init__(self, predict_fn: Callable[[torch.Tensor], torch.Tensor],
+    def __init__(self, loss_fn: Optional[LossFn] = None,
+                 optimizer: Optional[OptimizerFactory] = None,
+                 predict_fn: Optional[Callable[..., torch.Tensor]] = None,
                  device=None):
-        """``predict_fn`` maps a batch tensor on ``device`` to a batch of
-        outputs; ``device`` defaults to :func:`default_device`."""
+        """``loss_fn`` and ``optimizer`` are needed to train, ``predict_fn``
+        to predict; ``device`` defaults to :func:`default_device`."""
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
         self.predict_fn = predict_fn
         self.device = default_device(device)
+        self.n_data = 1  # devices on the data axis
+
+    # -- training ---------------------------------------------------------
+
+    def init(self, init_fn: Callable[[np.random.Generator], torch.nn.Module],
+             seed: int = 0, hyperparams: Optional[Dict[str, float]] = None
+             ) -> Tuple[torch.nn.Module, torch.optim.Optimizer]:
+        """(model on the trainer's device, its optimizer). ``init_fn``
+        gets ``np.random.default_rng(seed)``; ``hyperparams`` overrides the
+        optimizer's values (see :func:`tunable_optimizer`)."""
+        model = init_fn(np.random.default_rng(seed)).to(self.device)
+        opt = self.optimizer(model.parameters())
+        if hyperparams:
+            set_opt_hyperparams(opt, hyperparams)
+        return model, opt
+
+    def train_step(self, model: torch.nn.Module,
+                   opt: torch.optim.Optimizer,
+                   batch: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """One forward, backward and optimizer step; returns the loss (a
+        device scalar, not synchronised)."""
+        loss, _ = self.loss_fn(model, batch)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    def fit(self, params: torch.nn.Module, opt_state: torch.optim.Optimizer,
+            data: Tuple[np.ndarray, ...], epochs: int, batch_size: int,
+            seed: int = 0, log: Optional[Callable[..., None]] = None,
+            checkpoint_path: Optional[str] = None,
+            checkpoint_every_epochs: int = 1
+            ) -> Tuple[torch.nn.Module, torch.optim.Optimizer]:
+        """Run the epoch loop over in-memory arrays (equal leading dim; a
+        step's batch is the tuple of their rows). Returns
+        ``(params, opt_state)``, trained in place.
+
+        As in the JAX trainer: remainder batches are dropped; the batch
+        order of epoch e comes from ``np.random.default_rng([seed, e])``;
+        ``loss``, ``epoch`` and ``epoch_time`` are logged each epoch and a
+        ``StopTrialEarly`` from ``log`` ends the fit after that epoch. With
+        ``checkpoint_path``, (params, optimizer state, next epoch) are
+        written every ``checkpoint_every_epochs`` and at the end, and a fit
+        that finds the file resumes from it; a resumed run takes exactly
+        the steps the uninterrupted run would have."""
+        model, opt = params, opt_state
+        n = len(data[0])
+        # the largest multiple of the data-axis size that fits the dataset
+        fit_cap = (n // self.n_data) * self.n_data
+        batch_size = min(batch_size, fit_cap or self.n_data)
+        start_epoch = 0
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            try:
+                start_epoch = self._restore_checkpoint(checkpoint_path,
+                                                       model, opt)
+                logger.info("resuming fit from %s at epoch %d",
+                            checkpoint_path, start_epoch)
+            except (ArtifactCorruptError, KeyError, ValueError):
+                # losing the saved epochs beats crashing the trial over a
+                # damaged cache of them
+                logger.warning("checkpoint %s is corrupt or unreadable; "
+                               "restarting the trial from scratch",
+                               checkpoint_path, exc_info=True)
+                start_epoch = 0
+        data_dev = None  # uploaded once: a resume at epoch == epochs skips it
+        for epoch in range(start_epoch, epochs):
+            t0 = time.time()
+            epoch_rng = np.random.default_rng([seed, epoch])
+            if fit_cap == 0:
+                batches: Any = [epoch_rng.choice(n, self.n_data)]
+            else:
+                batches = shuffled_batches(n, batch_size, epoch_rng)
+            if data_dev is None:
+                data_dev = tuple(torch.as_tensor(d, device=self.device)
+                                 for d in data)
+            losses: List[torch.Tensor] = []
+            for idx in batches:
+                idx = torch.as_tensor(idx, device=self.device)
+                losses.append(self.train_step(
+                    model, opt, tuple(d[idx] for d in data_dev)))
+            stop_early = False
+            if losses and log is not None:
+                try:
+                    log(loss=float(torch.stack(losses).mean()),
+                        epoch=float(epoch), epoch_time=time.time() - t0)
+                except StopTrialEarly:
+                    logger.info("early stop after epoch %d", epoch)
+                    stop_early = True
+            if checkpoint_path and (
+                    (epoch + 1) % max(checkpoint_every_epochs, 1) == 0
+                    or epoch + 1 == epochs or stop_early):
+                self._save_checkpoint(checkpoint_path, model, opt, epoch + 1)
+            if stop_early:
+                break
+        return model, opt
+
+    @staticmethod
+    def _save_checkpoint(path: str, model: torch.nn.Module,
+                         opt: torch.optim.Optimizer, next_epoch: int) -> None:
+        """npz (no pickle) inside the checksummed artifact frame: the
+        model's state, each parameter's optimizer state by index, the
+        epoch to resume at."""
+        arrays = {f"params/{k}": v.detach().cpu().numpy()
+                  for k, v in model.state_dict().items()}
+        for i, state in opt.state_dict()["state"].items():
+            for k, v in state.items():
+                arrays[f"opt/{i}/{k}"] = torch.as_tensor(v).cpu().numpy()
+        arrays["epoch"] = np.asarray(next_epoch)
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        write_artifact(path, buf.getvalue())
+
+    def _restore_checkpoint(self, path: str, model: torch.nn.Module,
+                            opt: torch.optim.Optimizer) -> int:
+        """Load a checkpoint into ``model`` and ``opt``; returns the epoch
+        to resume at. A checkpoint whose parameter names or shapes differ
+        from the model's was written under another program: typed
+        corruption, so the fit starts fresh."""
+        with np.load(io.BytesIO(read_artifact(path)),
+                     allow_pickle=False) as z:
+            arrays = {k: z[k] for k in z.files}
+        own = model.state_dict()
+        params = {k[len("params/"):]: v for k, v in arrays.items()
+                  if k.startswith("params/")}
+        if {k: v.shape for k, v in params.items()} != {
+                k: tuple(v.shape) for k, v in own.items()}:
+            raise ArtifactCorruptError(
+                path, "checkpoint parameters do not match this model's "
+                "(written under a different program)")
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in params.items()})
+        state: Dict[int, Dict[str, torch.Tensor]] = {}
+        for k, v in arrays.items():
+            if k.startswith("opt/"):
+                _, i, name = k.split("/", 2)
+                state.setdefault(int(i), {})[name] = torch.from_numpy(v)
+        opt_sd = opt.state_dict()
+        opt_sd["state"] = state
+        opt.load_state_dict(opt_sd)  # moves the state to the params' device
+        return int(arrays["epoch"])
+
+    # -- inference --------------------------------------------------------
 
     def predict_buckets(self, cap: int) -> List[int]:
         """Powers of two from MIN_PREDICT_BUCKET up to ``cap``, and ``cap``."""
@@ -62,22 +276,23 @@ class DataParallelTrainer:
             yield chunk, pad
             i += len(chunk) - pad
 
-    def _run_predict(self, chunk: np.ndarray) -> np.ndarray:
+    def _run_predict(self, params: Any, chunk: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-            return self.predict_fn(x).cpu().numpy()
+            return self.predict_fn(params, x).cpu().numpy()
 
-    def predict_batched(self, x: np.ndarray,
+    def predict_batched(self, params: Any, x: np.ndarray,
                         batch_size: int = 256) -> np.ndarray:
-        """Run ``predict_fn`` over ``x`` in padded buckets; the padding rows
-        are dropped from the result."""
+        """Run ``predict_fn(params, batch)`` over ``x`` in padded buckets,
+        under ``torch.inference_mode``; the padding rows are dropped from
+        the result."""
         outs = []
         for chunk, pad in self._bucket_chunks(x, batch_size):
-            out = self._run_predict(chunk)
+            out = self._run_predict(params, chunk)
             outs.append(out[: len(out) - pad] if pad else out)
         return np.concatenate(outs) if outs else np.zeros((0,))
 
-    def warm_predict(self, example: np.ndarray,
+    def warm_predict(self, params: Any, example: np.ndarray,
                      batch_size: int = 256) -> int:
         """Run every bucket once on copies of ``example`` (one query), so
         kernels are built and loaded before real traffic. Returns the
@@ -86,5 +301,25 @@ class DataParallelTrainer:
         buckets = self.predict_buckets(max(batch_size, 1))
         for b in buckets:
             self._run_predict(
-                np.broadcast_to(example[None], (b,) + example.shape))
+                params, np.broadcast_to(example[None], (b,) + example.shape))
         return len(buckets)
+
+
+def softmax_classifier_loss(apply_fn: Callable[..., torch.Tensor]) -> LossFn:
+    """Cross-entropy for an ``apply_fn(model, x) -> logits`` classifier;
+    batch = (x, labels)."""
+
+    def loss_fn(model, batch):
+        x, y = batch
+        logits = apply_fn(model, x).float()
+        loss = F.cross_entropy(logits, y.long())
+        acc = (logits.argmax(-1) == y).float().mean()
+        return loss, {"acc": acc}
+
+    return loss_fn
+
+
+def classification_accuracy(trainer: DataParallelTrainer, params: Any,
+                            x: np.ndarray, y: np.ndarray) -> float:
+    logits = trainer.predict_batched(params, x)
+    return float((np.argmax(logits, -1) == np.asarray(y)).mean())

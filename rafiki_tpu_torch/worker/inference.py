@@ -1,7 +1,8 @@
 """Inference worker: serves one trial's model with continuous batching.
 
 Counterpart of ``rafiki_tpu/worker/inference.py``: register a queue with
-the broker, load the trial (template bytes, knobs, parameters), warm every
+the broker, load the trial (its model's template bytes, its knobs, its
+params artifact, as a train job left them in the store), warm every
 batch bucket up before reporting ready, then take batches and resolve
 their futures. Chaos injection, the sandbox, the stats reporter and fused
 ensembles are not ported yet (ROADMAP.md).
@@ -63,10 +64,13 @@ class InferenceWorker:
         trial = self._store.get_trial(self._trial_id)
         if trial is None:
             raise KeyError(f"no trial {self._trial_id}")
-        clazz = load_model_class(trial["model_file_bytes"],
-                                 trial["model_class"])
+        model_row = self._store.get_model(trial["model_id"])
+        clazz = load_model_class(model_row["model_file_bytes"],
+                                 model_row["model_class"])
         model = clazz(**trial["knobs"])
-        model.load_parameters(load_params(trial["params_bytes"]))
+        # verified read: a damaged artifact raises ArtifactCorruptError
+        model.load_parameters(
+            load_params(self._store.get_trial_params(self._trial_id)))
         return model
 
     def start(self, ctx: ServiceContext) -> None:

@@ -135,4 +135,4 @@ def test_load_model_class_refuses(source, name, match):
 def test_load_model_class_takes_the_template():
     path = ROOT / "rafiki_tpu_torch" / "templates" / "torch_vit.py"
     clazz = load_model_class(path.read_bytes(), "TorchViT")
-    assert clazz.get_knob_config()["dim"] == 768
+    assert clazz.get_knob_config()["dim"].value == 768

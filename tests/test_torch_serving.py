@@ -205,7 +205,7 @@ def test_bucket_ladder_matches_jax(cap):
     identity), called on a stand-in for its ``self``."""
     fake = types.SimpleNamespace(MIN_PREDICT_BUCKET=8,
                                  round_batch=lambda b: b)
-    trainer = DataParallelTrainer(lambda x: x, device="cpu")
+    trainer = DataParallelTrainer(device="cpu")
     assert trainer.predict_buckets(cap) == \
         JaxDataParallelTrainer.predict_buckets(fake, cap)
 
@@ -218,7 +218,8 @@ def test_serving_settings_match_jax():
 
 
 def test_bucket_ladder():
-    trainer = DataParallelTrainer(lambda x: x * 2, device="cpu")
+    trainer = DataParallelTrainer(predict_fn=lambda model, x: x * 2,
+                                  device="cpu")
     assert trainer.predict_buckets(64) == [8, 16, 32, 64]
     assert trainer.predict_buckets(48) == [8, 16, 32, 48]
     assert [trainer._bucket_for(n, 64) for n in (1, 8, 9, 33, 64)] == [
@@ -227,8 +228,8 @@ def test_bucket_ladder():
     chunks = list(trainer._bucket_chunks(x, 64))
     assert [(len(c), pad) for c, pad in chunks] == [(64, 0), (8, 2)]
     assert (chunks[1][0][-3:] == 69).all()  # padded by repeating the last
-    np.testing.assert_array_equal(trainer.predict_batched(x, 64), x * 2)
-    assert trainer.warm_predict(np.zeros(1, np.float32), 64) == 4
+    np.testing.assert_array_equal(trainer.predict_batched(None, x, 64), x * 2)
+    assert trainer.warm_predict(None, np.zeros(1, np.float32), 64) == 4
 
 
 def test_worker_queue_bounds_and_expiry():
