@@ -15,8 +15,10 @@ Phases, each of which must pass (any failure exits non-zero):
    seeded inputs, at the main paths' shapes and at edge cases, with
    device times (CUDA events around queued back-to-back calls) beside the
    bound and PyTorch's own call for the same function: K1 (flash_fwd) at
-   the serving shapes, K1 with the LSE (flash_fwd_lse), K2 (flash_bwd_dq)
-   and K3 (flash_bwd_dkv) at the training shape;
+   the serving shapes, contiguous and on the projection's strided views,
+   K1 with the LSE (flash_fwd_lse), K2 (flash_bwd_dq) and K3
+   (flash_bwd_dkv) at the training shape; K1's and K1-LSE's achieved TB/s
+   and share of their bounds;
 3. train: a seeded synthetic 10-class image dataset written as ``.npz``,
    and a 2-trial ViT-B/16 train job through ``TrainWorker`` (GP advisor,
    store, ``TorchViT.train`` -> ``DataParallelTrainer.fit`` with AdamW,
@@ -31,7 +33,8 @@ Phases, each of which must pass (any failure exits non-zero):
    /predict`` answers are checked against the two models' plain-attention
    forward on the card, and K1's launch count against the number of
    bucketed forwards; then where a request's time goes (one forward per
-   call and on the card, and a kernel profile of the bucket-64 forward).
+   call and on the card, and a kernel profile of the bucket-64 forward,
+   beside the same forward with q, k, v copied before K1).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -168,7 +171,8 @@ def print_device_profile(fn, label: str, top: int = 8,
 
 
 def attention_bound(kind, b, h, sq, skv, dh, causal, dtype):
-    """(bound_ms, bound_by) of one call of an attention kernel: the larger
+    """(bound_ms, bound_by, bytes) of one call of an attention kernel: the
+    bytes it must move and the larger
     of its bytes over HBM bandwidth (each input read once, each output
     written once) and its FLOPs over the type's peak, both counted from
     the visible (query, key) pairs of this call.
@@ -199,15 +203,22 @@ def attention_bound(kind, b, h, sq, skv, dh, causal, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+                                 "operations"), nbytes
+
+
+def rate(bound, ms) -> str:
+    """Achieved device-memory rate and share of the bound of a call that
+    took ``ms``."""
+    return (f"{bound[2] / ms / 1e9:.2f} TB/s, {100 * bound[0] / ms:.0f}% of "
+            f"the bound")
 
 
 # ---------------------------------------------------------------------------
 # phase 1: header and build
 # ---------------------------------------------------------------------------
 
-# each kernel's main-path instantiation: bf16, Dh = 64, 64-tiles
-PTXAS = (("K1", "flash_fwd", "flash_fwd_bf16_kernelILi64ELi64EE"),
+# each kernel's main-path instantiation: bf16, Dh = 64 (K2/K3: 64-tiles)
+PTXAS = (("K1", "flash_fwd", "flash_fwd_wgmma_kernelILi64EE"),
          ("K2", "flash_bwd", "flash_bwd_dq_bf16_kernelILi64ELi64EE"),
          ("K3", "flash_bwd", "flash_bwd_dkv_bf16_kernelILi64ELi64EE"))
 
@@ -231,11 +242,13 @@ def header() -> str:
           f"sm_90a, sources {_build.CSRC.relative_to(REPO)}, "
           f"libraries {_build.BUILD_DIR.relative_to(REPO)})")
     for label, source, symbol in PTXAS:
+        log = _build.build_logs.get(source)
         m = re.search(symbol + r".*?\n.*?\n\s*(.*?spill loads)\n.*?(Used .*?)\n",
-                      _build.build_logs.get(source, ""), re.S)
-        print(f"ptxas {label} (bf16, Dh=64, 64-tiles): "
+                      log or "", re.S)
+        print(f"ptxas {label} (bf16, Dh=64, {symbol}): "
               + (f"{m.group(2)}; {m.group(1)}" if m else
-                 "library was already built (no report)"))
+                 "library was already built (no report)" if log is None
+                 else "symbol not found in the build log"))
     return card
 
 
@@ -311,16 +324,49 @@ def kernel_phase():
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, is_causal=causal))
             bound = attention_bound("fwd", b, h, sq, skv, dh, causal, dtype)
-            line += (f"; kernel_ms {kernel_ms:.4f}, plain_ms {plain_ms:.4f}, "
-                     f"library_ms (SDPA) {library_ms:.4f}, bound_ms "
-                     f"{bound[0]:.4f} ({bound[1]})")
+            line += (f"; kernel_ms {kernel_ms:.4f} ({rate(bound, kernel_ms)})"
+                     f", plain_ms {plain_ms:.4f}, library_ms (SDPA) "
+                     f"{library_ms:.4f}, bound_ms {bound[0]:.4f} "
+                     f"({bound[1]})")
             entries["flash_fwd"] = _entry(
                 "flash_fwd", "rafiki_tpu_torch/ops/csrc/flash_fwd.cu",
                 "rafiki_tpu/ops/flash_attention.py:143", err, tol,
                 [b, h, sq, dh], kernel_ms, plain_ms, library_ms, bound)
         print(line, flush=True)
+    entries["flash_fwd"]["strided_ms"] = strided_serving_case(fa, randn)
     entries.update(training_kernels(fa, qkv, randn))
     return entries, times
+
+
+def strided_serving_case(fa, randn) -> float:
+    """K1 at B=64 on the serving layout: q, k, v as the projection einsum
+    hands them over, (B, H, S, Dh) views of (B, S, H, Dh) memory, which the
+    kernel reads through its tensor maps without a copy. Returns its device
+    time."""
+    bf16 = torch.bfloat16
+    b, h, sq, dh = 64, 12, 196, 64
+    x = randn(b, sq, h * dh, dtype=bf16)
+    q, k, v = (torch.einsum("bsd,dhk->bhsk", x, (randn(
+        h * dh, h, dh, dtype=torch.float32) / (h * dh) ** 0.5).to(bf16))
+        for _ in range(3))
+    require(not q.is_contiguous(), f"einsum gave a contiguous q {q.stride()}")
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v)
+    err = float((out.float() - ref.float()).abs().max())
+    line = (f"K1 vit B=64, strided views {tuple(q.stride())}: max_abs_err "
+            f"{err:.3g} (tol {TOL[bf16]:g})")
+    require(bool(torch.isfinite(out).all()), f"{line}: non-finite")
+    require(err <= TOL[bf16], line)
+    kernel_ms = device_ms(lambda: fa.flash_attention(q, k, v))
+    plain_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v))
+    library_ms = device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    bound = attention_bound("fwd", b, h, sq, sq, dh, False, bf16)
+    print(f"{line}; kernel_ms {kernel_ms:.4f} ({rate(bound, kernel_ms)}), "
+          f"plain_ms {plain_ms:.4f}, library_ms (SDPA on the same views) "
+          f"{library_ms:.4f}", flush=True)
+    return kernel_ms
 
 
 def training_kernels(fa, qkv, randn):
@@ -450,8 +496,9 @@ def timed_training_kernels(fa, entries, args, errs, rel) -> str:
         library="scaled_dot_product_attention backward (dq, dk and dv "
                 "together)")
     return "\n".join(
-        f"  {name}: kernel_ms {t[key]:.4f}, plain_ms {t[key + '_plain']:.4f}"
-        f", bound_ms {bounds[key][0]:.4f} ({bounds[key][1]})"
+        f"  {name}: kernel_ms {t[key]:.4f} ({rate(bounds[key], t[key])}), "
+        f"plain_ms {t[key + '_plain']:.4f}, bound_ms {bounds[key][0]:.4f} "
+        f"({bounds[key][1]})"
         for name, key in (("K1-LSE", "fwd_lse"), ("K2", "dq"),
                           ("K3", "dkv"))) + (
         f"\n  library: SDPA forward (grad) {t['sdpa_fwd']:.4f} ms, SDPA "
@@ -623,9 +670,10 @@ def train_step_checks(card, cfg, convert, train_uri):
               f"card {card}", flush=True)
         if n == 64:
             print_device_profile(step, "batch-64 train step", shares=(
-                ("K1-LSE", "flash_fwd_bf16_kernel"),
+                ("K1-LSE", "flash_fwd_wgmma_kernel"),
                 ("K2", "flash_bwd_dq_bf16_kernel"),
-                ("K3", "flash_bwd_dkv_bf16_kernel")))
+                ("K3", "flash_bwd_dkv_bf16_kernel"),
+                ("copies and casts", "copy_kernel")))
     del model, opt
 
 
@@ -803,7 +851,15 @@ def serve_phase(card: str, kernel_ms: dict, store, trials):
                       f"x kernel_ms); the request less 2 forwards "
                       f"{p50[n] * 1e3 - 2 * call_ms:.2f} ms (host and "
                       f"transport)", flush=True)
-            print_device_profile(lambda: model(x), f"bucket-{cap} forward")
+            shares = (("K1", "flash_fwd_wgmma_kernel"),
+                      ("copies and casts", "copy_kernel"))
+            print_device_profile(lambda: model(x), f"bucket-{cap} forward",
+                                 shares=shares)
+            copied_ms = forward_with_copies(model, x, cap, shares)
+            print(f"serve: bucket-{cap} forward on the card: {card_ms:.3f} ms "
+                  f"with K1 reading the projection's views, {copied_ms:.3f} "
+                  f"ms with q, k, v made contiguous before K1 (as before "
+                  f"it read views); card {card}", flush=True)
         del model
         return launches
     finally:
@@ -815,6 +871,27 @@ def serve_phase(card: str, kernel_ms: dict, store, trials):
         for wid, (_, _, thread, _, _) in workers.items():
             thread.join(timeout=30)
             require(not thread.is_alive(), f"{wid} did not stop")
+
+
+def forward_with_copies(model, x, cap, shares) -> float:
+    """The bucket forward's device time and profile with q, k, v copied to
+    contiguous tensors before K1, the serving path before K1 read views:
+    the same model and input, one call apart."""
+    attention = importlib.import_module("rafiki_tpu_torch.ops.attention")
+    real = attention.flash_attention
+
+    def copied(q, k, v, **kw):
+        return real(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+
+    attention.flash_attention = copied
+    try:
+        ms = device_ms(lambda: model(x), reps=3, inner=3,
+                       hold_cycles=400_000_000)
+        print_device_profile(lambda: model(x), f"bucket-{cap} forward, q/k/v "
+                             "copied before K1", shares=shares)
+    finally:
+        attention.flash_attention = real
+    return ms
 
 
 def _count(tree) -> int:

@@ -2,10 +2,11 @@
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``; nothing
-includes PyTorch's headers, so a build takes seconds. Libraries go to
+includes PyTorch's headers, so a build takes seconds. Shared device code
+lives in headers beside the sources (``hopper.cuh``). Libraries go to
 ``build/rafiki_tpu_torch/`` at the root of the checkout, named by a hash
-of the source and the flags, and are built at first use (or all at once,
-in parallel, by :func:`build`). Nothing here runs at import.
+of the source, the headers and the flags, and are built at first use (or
+all at once, in parallel, by :func:`build`). Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -45,8 +46,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu``'s library goes: named by a hash of the
+    source, of every header under ``csrc/`` (a source may include any of
+    them) and of the flags, so an edit to any of them rebuilds."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(p for p in CSRC.iterdir()
+                         if p.suffix in (".cuh", ".h")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

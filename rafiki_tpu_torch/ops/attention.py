@@ -72,9 +72,11 @@ def multi_head_attention(params: Mapping[str, torch.Tensor],
         k = torch.einsum("bsd,dhk->bhsk", x, wk.to(dt))
         v = torch.einsum("bsd,dhk->bhsk", x, wv.to(dt))
     if use_flash or (use_flash is None and x.is_cuda):
-        # the kernel takes contiguous (B, H, S, Dh); einsum hands back views
-        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=causal)
+        if dt == torch.float32:
+            # the f32 kernel takes contiguous tensors; bf16 K1 reads the
+            # einsum's (B, H, S, Dh) views as they are
+            q, k, v = (t.contiguous() for t in (q, k, v))
+        o = flash_attention(q, k, v, causal=causal)
     else:
         o = mha_reference(q, k, v, causal=causal)
     out = torch.einsum("bhsk,hkd->bsd", o, params["wo"].to(dt))

@@ -30,36 +30,59 @@
 //
 // Design. On the TPU the kv grid axis runs in order and carries acc/m/l in
 // VMEM scratch; Hopper runs blocks in no order, so one CUDA block owns one
-// (b*h, q tile) and loops over the kv tiles itself, staging each K and V
-// tile in shared memory. Two bodies share that structure:
+// (b*h, q tile) and loops over the kv tiles itself. Two bodies:
 //
-//   - bf16 (the serving path): each warp owns 16 query rows and computes
-//     S = Q K^T and O += P V with tensor-core mma.sync.m16n8k16 (bf16 in,
-//     f32 accumulate). Q stays in registers as A fragments for the whole
-//     kv loop; P goes from the S accumulators straight into the A
-//     fragments of the PV product without touching shared memory. Rows of
-//     the K/V tiles are padded by 8 elements so the fragment reads hit 32
-//     distinct banks.
+//   - bf16 (the serving and training path), for every head dim: a block is
+//     one producer warp and one consumer warpgroup (64 q rows). The
+//     producer loads the Q tile once and the K/V tiles (64 keys) through a
+//     ring of kStages shared-memory stages with TMA (cp.async.bulk.tensor,
+//     4-d maps over (Dh, S, H, B) with the tensors' own strides, so the
+//     projection's (B, H, S, Dh) views are read without a copy; rows past S
+//     arrive as zeros), each stage tracked by a full and an empty mbarrier.
+//     The consumers run S = Q K^T as wgmma.m64nNk16 with both operands
+//     K-major in shared memory, the online softmax in registers (log2
+//     units, f32; the mask only on tiles that cross the ragged edge or the
+//     causal band), and O += P V as wgmma.m64nDk16 with P from registers
+//     (the S accumulators packed to bf16 are already the A operand's
+//     layout) and V read as loaded: wgmma takes a 16-bit B MN-major, so V
+//     needs no transposing or gathering. A kv tile is N = 64 keys, the last
+//     one only its keys rounded up to 16. Tiles are swizzled by TMA over
+//     min(2 Dh, 128) bytes (panels of 128-byte rows for Dh = 128), and the
+//     descriptors name the same swizzle. The epilogue stages O over the Q
+//     tile and the f32 output over the consumed kv stages, swizzled, and
+//     writes them with TMA stores, whole rows, the ragged edge dropped by
+//     the map. Up to Dh = 64 a thread fits 96 registers, so 4 blocks share
+//     an SM. The tile arguments block_q/block_k are the f32 body's; the
+//     bf16 body uses its own (64 rows, 64 keys), which changes nothing
+//     beyond rounding.
 //   - f32: scalar FMAs on the CUDA cores (tensor cores would round to
-//     TF32). TPR = Dh / 16 adjacent threads of a warp own one query row;
-//     thread r holds dims r, r + TPR, ... of the scaled q row and of the
-//     output accumulator, and a score is 16 FMAs plus log2(TPR) shuffles.
+//     TF32), contiguous inputs. TPR = Dh / 16 adjacent threads of a warp own
+//     one query row; thread r holds dims r, r + TPR, ... of the scaled q row
+//     and of the output accumulator, and a score is 16 FMAs plus log2(TPR)
+//     shuffles; K and V tiles are staged by all threads.
 //
 // Bound. At the ViT-B/16 serving shape (B=64, H=12, S=196, Dh=64, bf16)
-// the function must move q, k, v and o once: 77 MB, 23 us at 3.35 TB/s.
-// Its 7.6 GFLOP of QK^T and PV take 7.7 us at the bf16 tensor-core peak,
-// so the work is memory-bound. Scores never leave the SM, and the K/V
-// re-reads by the 4 q tiles of a head hit L2, so device-memory traffic
-// stays near the 77 MB. What this version leaves on the table: tiles are
-// loaded synchronously (no cp.async/TMA double buffering, so a block waits
-// on each load), the B fragments are read with 32- and 16-bit shared loads
-// rather than ldmatrix, and at S = 196 a 64-row q tile and a 64-key kv
-// tile are 77% used. wgmma fed by TMA, with a producer warp, is the step
-// after this one.
+// the function must move q, k, v and o once: 77 MB, 23 us at 3.35 TB/s
+// (116 MB, 35 us, for the training variant with its f32 output). Its
+// 7.6 GFLOP of QK^T and PV take 7.7 us at the bf16 tensor-core peak, so
+// the work is bound by bytes. The producer warp keeps the next tile's TMA
+// load in flight while the consumers compute, 4 blocks share an SM, the 4
+// q tiles of a head run side by side (q tile fastest in the grid) so its
+// K/V re-reads hit L2, and no thread spends instructions on addresses or
+// fragment gathers. Measured on an H100 (PERF.md): the loads and stores
+// alone, with the products and softmax taken out, take 70% of the
+// kernel's time and 1.5x its bound; the rest is the consumers' serial
+// chain (products, softmax, products) that 4 warpgroups an SM do not fully
+// hide. Persistent blocks, clusters sharing a head's K/V by multicast, two
+// consumer warpgroups a block and 4 stages were each slower.
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -88,204 +111,350 @@ __device__ __forceinline__ float row_lse(float m, float l) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: TMA, mbarriers and wgmma
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kBlockQ = 64;  // q rows of a block: the M of a wgmma
+constexpr int kBlockK = 64;  // keys of a kv tile: the N of S = Q K^T
+constexpr int kStages = 2;   // kv tiles in flight
+constexpr int kThreads = 160;  // a consumer warpgroup and a producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// logsumexp (natural) of a row from its running max in log2 units and its
+// sum; +inf when the row saw no key (l == 0)
+__device__ __forceinline__ float row_lse_log2(float m2, float l) {
+  return l > 0.f ? m2 * kLn2 + logf(l) : __int_as_float(0x7f800000);
 }
 
-// two bf16 from different rows (the low half holds the first)
-__device__ __forceinline__ uint32_t gather_pair(const __nv_bfloat16* lo,
-                                                const __nv_bfloat16* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi))
-          << 16);
+// Shared memory of the bf16 body for head dim D, as byte offsets from a
+// 1024-byte aligned base (every region a multiple of 1024 bytes): the Q
+// tile, then kStages stages of a K and a V tile. Once every tile is
+// consumed, the epilogue stages the bf16 output over the Q tile and the
+// training variant's f32 output (64 x 4 D bytes) over the stages (2 x 64 x
+// 2 D bytes each). A bf16 row of 2 D bytes is swizzled over min(2 D, 128)
+// bytes and kept as panels of 128-byte rows when wider; the f32 output
+// likewise over min(4 D, 128).
+template <int D>
+struct Fwd {
+  static constexpr int kSw = 2 * D < 128 ? 2 * D : 128;
+  static constexpr int kPanelCols = kSw / 2;
+  static constexpr int kPanels = D / kPanelCols;
+  static constexpr int kSw32 = 4 * D < 128 ? 4 * D : 128;
+  static constexpr int kPanelCols32 = kSw32 / 4;
+  static constexpr int kPanels32 = D / kPanelCols32;
+  static constexpr int kTileBytes = kBlockQ * 2 * D;  // a Q, K or V tile
+  static constexpr int kStage0 = kTileBytes;
+  static constexpr int kSmemBytes =
+      kStage0 + kStages * 2 * kTileBytes + 1024;  // + alignment slack
+  static_assert(kBlockQ == kBlockK, "Q, K and V tiles are the same size");
+  static_assert(kBlockQ * 4 * D <= kStages * 2 * kTileBytes, "f32 output");
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// One block per (b*h, q tile of 16 * warps rows); warp w owns rows
-// 16w .. 16w + 15 of the tile. Fragment layouts are those of PTX's
-// mma.m16n8k16: lane = 4 * g + t; A and C hold rows g and g + 8, C holds
-// columns 2t and 2t + 1 of each 8-wide n tile.
-template <int D, int BK>
-__global__ void __launch_bounds__(128)
-    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o,
-                          float* __restrict__ lse, float* __restrict__ o32,
-                          int sq, int skv, float scale, int causal) {
-  constexpr int LD = D + 8;  // padded shared row: conflict-free fragments
-  constexpr int KD = D / 16;  // k steps of Q K^T
-  constexpr int NT = BK / 8;  // n tiles of S
-  constexpr int DT = D / 8;  // n tiles of O
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[BK * LD];
+// The online-softmax step of a tile of N keys for this thread's rows r0
+// and r0 + 8: S (the accumulator of Q K^T) scaled to log2 units and, where
+// kMasked, masked; the running max m and sum l updated and O rescaled; P
+// packed to bf16 straight into the A operand of P V (k step kk is S's n
+// blocks 2 kk and 2 kk + 1). P is re-masked: zero-filled keys past Skv
+// score 0, not -inf, and a row whose max is still the sentinel would get
+// exp2(0) = 1.
+template <bool kMasked, int D, int N>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[N / 2], float (&o)[D / 2], float (&m)[2], float (&l)[2],
+    uint32_t (&pa)[N / 16][4], int kv0, int r0, int t4, int skv, int off,
+    int causal, float scale_log2) {
+  float m_tile[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int r = (i >> 1) & 1;  // a row spans the 4 lanes t4
+    sc[i] *= scale_log2;
+    if (kMasked && !visible(kv0 + (i >> 2) * 8 + 2 * t4 + (i & 1),
+                            r0 + 8 * r, skv, off, causal)) {
+      sc[i] = kNegInf;
+    }
+    m_tile[r] = fmaxf(m_tile[r], sc[i]);
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffffu, m_tile[r], 1));
+    m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffffu, m_tile[r], 2));
+    const float m_new = fmaxf(m[r], m_tile[r]);
+    alpha[r] = ex2(m[r] - m_new);
+    l[r] *= alpha[r];
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) {
+    const int r = (i >> 1) & 1;
+    float p0 = ex2(sc[i] - m[r]);
+    float p1 = ex2(sc[i + 1] - m[r]);
+    if (kMasked) {
+      const int j = kv0 + (i >> 2) * 8 + 2 * t4;
+      if (!visible(j, r0 + 8 * r, skv, off, causal)) p0 = 0.f;
+      if (!visible(j + 1, r0 + 8 * r, skv, off, causal)) p1 = 0.f;
+    }
+    l[r] += p0 + p1;
+    pa[i >> 3][((i >> 2) & 1) * 2 + r] = pack_bf16(p0, p1);
+  }
+}
 
-  const int bh = blockIdx.x;
-  const int rows = (blockDim.x / 32) * 16;
-  const int q0 = blockIdx.y * rows;
-  const int warp = threadIdx.x / 32;
-  const int g = (threadIdx.x % 32) / 4;
-  const int t = threadIdx.x % 4;
-  const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0, r0 + 8
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 16) {
+    hopper::wgmma_m64n16k16_rs(o, a, b);
+  } else if constexpr (D == 32) {
+    hopper::wgmma_m64n32k16_rs(o, a, b);
+  } else if constexpr (D == 64) {
+    hopper::wgmma_m64n64k16_rs(o, a, b);
+  } else {
+    hopper::wgmma_m64n128k16_rs(o, a, b);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&s)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  if constexpr (N == 16) {
+    hopper::wgmma_m64n16k16_ss(s, a, b, accumulate);
+  } else if constexpr (N == 32) {
+    hopper::wgmma_m64n32k16_ss(s, a, b, accumulate);
+  } else if constexpr (N == 48) {
+    hopper::wgmma_m64n48k16_ss(s, a, b, accumulate);
+  } else {
+    hopper::wgmma_m64n64k16_ss(s, a, b, accumulate);
+  }
+}
+
+// One kv tile of N keys from kv0 for a consumer warpgroup: S = Q K^T (both
+// K-major; a k step of 16 is 32 bytes along a swizzled row, a row wider
+// than 128 bytes continues in the next panel), the online softmax, and
+// O += P V (V is the MN-major B, read as loaded). A tile is N = 64 keys,
+// or the keys left at the end rounded up to 16, so that the 4 keys past
+// 192 at S = 196 cost a 16-wide tile, not a 64-wide one. A tile inside the
+// ragged edge and, when causal, wholly on or below the band for every row
+// of the tile (the first is row_min) needs no mask.
+template <int D, int Sw, int N>
+__device__ __forceinline__ void kv_tile(uint32_t q_rows, uint32_t kt,
+                                        uint32_t vt, float (&o)[D / 2],
+                                        float (&m)[2], float (&l)[2],
+                                        int kv0, int r0, int row_min, int t4,
+                                        int skv, int off, int causal,
+                                        float scale_log2) {
+  float s[N / 2];  // the first k step overwrites it
+  uint32_t pa[N / 16][4];
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int panel = kk * 32 / Sw;
+    const int within = kk * 32 % Sw;
+    wgmma_qk<N>(
+        s, hopper::smem_desc<Sw>(q_rows + panel * kBlockQ * Sw + within, 16,
+                                 8 * Sw),
+        hopper::smem_desc<Sw>(kt + panel * kBlockK * Sw + within, 16, 8 * Sw),
+        kk > 0);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait_all();
+  if (kv0 + N > skv || (causal && kv0 + N - 1 > row_min + off)) {
+    softmax_tile<true, D, N>(s, o, m, l, pa, kv0, r0, t4, skv, off, causal,
+                             scale_log2);
+  } else {
+    softmax_tile<false, D, N>(s, o, m, l, pa, kv0, r0, t4, skv, off, causal,
+                              scale_log2);
+  }
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    wgmma_pv<D>(o, pa[kk],
+                hopper::smem_desc<Sw>(vt + kk * 16 * Sw, kBlockK * Sw,
+                                      8 * Sw));
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait_all();
+}
+
+// One block per (b*h, q tile of 64 rows); grid.x = B*H * q tiles, q tile
+// fastest, so the tiles of one head run side by side and share its K/V in
+// L2. Warps 0-3 are the consumer warpgroup, warp 4 the producer. Maps are
+// 4-d over (Dh, S, H, B) with the tensors' own strides. Up to Dh = 64 the
+// consumers fit 96 registers a thread and 4 blocks share an SM; Dh = 128
+// needs more (its O alone is 64).
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap o_map,
+                           const __grid_constant__ CUtensorMap o32_map,
+                           float* __restrict__ lse, int write_o32, int heads,
+                           int sq, int skv, float scale_log2, int causal) {
+  using G = Fwd<D>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t kv_full[kStages];
+  __shared__ __align__(8) uint64_t kv_empty[kStages];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+
+  const int q_tiles = (sq + kBlockQ - 1) / kBlockQ;
+  const int bh = blockIdx.x / q_tiles;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q0 = (blockIdx.x % q_tiles) * kBlockQ;
   const int off = skv - sq;  // end-aligned causal offset
+  // one past the last key any row of the block sees
+  const int kv_end = kv_tile_end(q0, kBlockQ, sq, skv, off, causal);
+  const int n_tiles = (kv_end + kBlockK - 1) / kBlockK;
 
-  const __nv_bfloat16* qb = q + (int64_t)bh * sq * D;
-  const __nv_bfloat16* kb = k + (int64_t)bh * skv * D;
-  const __nv_bfloat16* vb = v + (int64_t)bh * skv * D;
-
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = r0 < sq ? load_pair(qb + (int64_t)r0 * D + c) : 0u;
-    qf[kk][1] = r0 + 8 < sq ? load_pair(qb + (int64_t)(r0 + 8) * D + c) : 0u;
-    qf[kk][2] = r0 < sq ? load_pair(qb + (int64_t)r0 * D + c + 8) : 0u;
-    qf[kk][3] =
-        r0 + 8 < sq ? load_pair(qb + (int64_t)(r0 + 8) * D + c + 8) : 0u;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&kv_full[s], 1);
+      hopper::mbar_init(&kv_empty[s], 4);  // lane 0 of each consumer warp
+    }
+    hopper::fence_barrier_init();
   }
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp == 4) {
+    // producer: the Q tile once, then the kv tiles through the ring; rows
+    // past S arrive as zeros and count in the expected bytes
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(&q_full, G::kTileBytes);
+      for (int p = 0; p < G::kPanels; ++p) {
+        hopper::tma_load_4d(base + p * kBlockQ * G::kSw, &q_map, &q_full,
+                            p * G::kPanelCols, q0, h, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) {
+          hopper::mbar_wait(&kv_empty[s], (t / kStages - 1) & 1);
+        }
+        hopper::mbar_arrive_expect_tx(&kv_full[s], 2 * G::kTileBytes);
+        const uint32_t kt = base + G::kStage0 + s * 2 * G::kTileBytes;
+        for (int p = 0; p < G::kPanels; ++p) {
+          hopper::tma_load_4d(kt + p * kBlockK * G::kSw, &k_map, &kv_full[s],
+                              p * G::kPanelCols, t * kBlockK, h, b);
+          hopper::tma_load_4d(kt + G::kTileBytes + p * kBlockK * G::kSw,
+                              &v_map, &kv_full[s], p * G::kPanelCols,
+                              t * kBlockK, h, b);
+        }
+      }
+    }
+    return;
   }
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
 
-  const int kv_end = kv_tile_end(q0, rows, sq, skv, off, causal);
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
-    __syncthreads();  // every warp is done with the previous tile
-    // 16-byte loads; keys past Skv are zero (V = 0 keeps 0 * p finite)
-    for (int idx = threadIdx.x; idx < BK * (D / 8); idx += blockDim.x) {
-      const int r = idx / (D / 8);
-      const int c = (idx % (D / 8)) * 8;
-      const int j = kv0 + r;
-      uint4 kx = make_uint4(0, 0, 0, 0);
-      uint4 vx = make_uint4(0, 0, 0, 0);
-      if (j < skv) {
-        kx = *reinterpret_cast<const uint4*>(kb + (int64_t)j * D + c);
-        vx = *reinterpret_cast<const uint4*>(vb + (int64_t)j * D + c);
-      }
-      *reinterpret_cast<uint4*>(ks + r * LD + c) = kx;
-      *reinterpret_cast<uint4*>(vs + r * LD + c) = vx;
-    }
-    __syncthreads();
+  // the consumer warpgroup: this thread's rows are row_in and row_in + 8
+  // of the tile
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int row_in = 16 * warp + g;
+  const int r0 = q0 + row_in;
 
-    // S = Q K^T over this warp's 16 rows and the tile's BK keys
-    float s[NT][4];
+  float o[D / 2];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* krow = ks + (nt * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        mma_bf16_16816(s[nt], qf[kk], load_pair(krow + kk * 16),
-                       load_pair(krow + kk * 16 + 8));
-      }
-    }
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max of the scaled scores, log2
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
 
-    // scale, mask, and the tile's row maxima (a row spans the 4 lanes t)
-    float m_tile[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + (e >> 1) * 8;
-        const int j = kv0 + nt * 8 + 2 * t + (e & 1);
-        const bool ok = visible(j, row, skv, off, causal);
-        s[nt][e] = ok ? s[nt][e] * scale : kNegInf;
-        m_tile[e >> 1] = fmaxf(m_tile[e >> 1], s[nt][e]);
-      }
+  hopper::mbar_wait(&q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    hopper::mbar_wait(&kv_full[s], (t / kStages) & 1);
+    const uint32_t kt = base + G::kStage0 + s * 2 * G::kTileBytes;
+    const uint32_t vt = kt + G::kTileBytes;
+    const int kv0 = t * kBlockK;
+    switch (min(kBlockK, kv_end - kv0 + 15) / 16) {
+      case 1:
+        kv_tile<D, G::kSw, 16>(base, kt, vt, o, m, l, kv0, r0, q0, t4, skv,
+                               off, causal, scale_log2);
+        break;
+      case 2:
+        kv_tile<D, G::kSw, 32>(base, kt, vt, o, m, l, kv0, r0, q0, t4, skv,
+                               off, causal, scale_log2);
+        break;
+      case 3:
+        kv_tile<D, G::kSw, 48>(base, kt, vt, o, m, l, kv0, r0, q0, t4, skv,
+                               off, causal, scale_log2);
+        break;
+      default:
+        kv_tile<D, G::kSw, 64>(base, kt, vt, o, m, l, kv0, r0, q0, t4, skv,
+                               off, causal, scale_log2);
     }
-    float alpha[2];
-    float m_new[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m_tile[i] = fmaxf(m_tile[i], __shfl_xor_sync(0xffffffffu, m_tile[i], 1));
-      m_tile[i] = fmaxf(m_tile[i], __shfl_xor_sync(0xffffffffu, m_tile[i], 2));
-      m_new[i] = fmaxf(m[i], m_tile[i]);
-      alpha[i] = __expf(m[i] - m_new[i]);
-      l[i] *= alpha[i];
-      m[i] = m_new[i];
-    }
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-
-    // P, re-masked, straight into the A fragments of P V: n tiles 2kk and
-    // 2kk + 1 of S are columns 0-7 and 8-15 of k step kk
-    uint32_t pf[NT / 2][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + (e >> 1) * 8;
-        const int j = kv0 + nt * 8 + 2 * t + (e & 1);
-        const bool ok = visible(j, row, skv, off, causal);
-        p[e] = ok ? __expf(s[nt][e] - m_new[e >> 1]) : 0.f;
-        l[e >> 1] += p[e];
-      }
-      pf[nt / 2][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pf[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
-
-    // O += P V
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      const __nv_bfloat16* vcol = vs + (2 * t) * LD + dt * 8 + g;
-#pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk) {
-        const __nv_bfloat16* vk = vcol + kk * 16 * LD;
-        mma_bf16_16816(acc[dt], pf[kk], gather_pair(vk, vk + LD),
-                       gather_pair(vk + 8 * LD, vk + 9 * LD));
-      }
-    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&kv_empty[s]);  // the stage is free
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int row = r0 + i * 8;
-    if (lse != nullptr && t == 0 && row < sq) {
-      lse[(int64_t)bh * sq + row] = row_lse(m[i], l[i]);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + 8 * r;
+    if (lse != nullptr && t4 == 0 && row < sq) {
+      lse[(int64_t)bh * sq + row] = row_lse_log2(m[r], l[r]);
     }
-    l[i] = fmaxf(l[i], 1e-30f);  // l == 0 -> acc == 0 -> out 0
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);  // l == 0 -> o == 0 -> out 0
   }
+
+  // epilogue: the normalised rows into shared memory (bf16 over the Q
+  // tile, f32 over the kv stages: every tile has been consumed), swizzled
+  // as the TMA stores read them; the stores write whole rows and drop
+  // those past Sq
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int c = dt * 8 + 2 * t;
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = r0 + i * 8;
-      if (row >= sq) continue;
-      const float2 out = make_float2(acc[dt][2 * i] / l[i],
-                                     acc[dt][2 * i + 1] / l[i]);
-      const int64_t at = ((int64_t)bh * sq + row) * D + c;
-      *reinterpret_cast<uint32_t*>(o + at) = pack_bf16(out.x, out.y);
-      if (o32 != nullptr) *reinterpret_cast<float2*>(o32 + at) = out;
+    for (int r = 0; r < 2; ++r) {
+      const int rr = row_in + 8 * r;
+      const float x0 = o[4 * j + 2 * r] * l[r];
+      const float x1 = o[4 * j + 2 * r + 1] * l[r];
+      const uint32_t at = (c * 2 / G::kSw) * kBlockQ * G::kSw + rr * G::kSw +
+                          c * 2 % G::kSw;
+      *reinterpret_cast<uint32_t*>(gbase + hopper::swizzle<G::kSw>(at)) =
+          pack_bf16(x0, x1);
+      if (write_o32) {
+        const uint32_t at32 = G::kStage0 +
+                              (c * 4 / G::kSw32) * kBlockQ * G::kSw32 +
+                              rr * G::kSw32 + c * 4 % G::kSw32;
+        *reinterpret_cast<float2*>(gbase +
+                                   hopper::swizzle<G::kSw32>(at32)) =
+            make_float2(x0, x1);
+      }
     }
+  }
+  hopper::fence_proxy_async();
+  hopper::named_barrier_sync(1, 128);  // the consumer warpgroup
+  if (threadIdx.x == 0) {
+    for (int p = 0; p < G::kPanels; ++p) {
+      hopper::tma_store_4d(&o_map, base + p * kBlockQ * G::kSw,
+                           p * G::kPanelCols, q0, h, b);
+    }
+    if (write_o32) {
+      for (int p = 0; p < G::kPanels32; ++p) {
+        hopper::tma_store_4d(&o32_map,
+                             base + G::kStage0 + p * kBlockQ * G::kSw32,
+                             p * G::kPanelCols32, q0, h, b);
+      }
+    }
+    hopper::tma_store_commit_and_wait();
   }
 }
 
@@ -396,6 +565,9 @@ __global__ void __launch_bounds__(512)
 // launch
 // ---------------------------------------------------------------------------
 
+constexpr int kErrTensorMap = -5;
+constexpr int kErrNoStrides = -6;
+
 struct Args {
   const void* q;
   const void* k;
@@ -403,22 +575,60 @@ struct Args {
   void* o;
   float* lse;  // nullptr: no LSE output
   float* o32;  // nullptr: no f32 output (bf16 only)
-  int bh, sq, skv;
+  int batch, heads, sq, skv;
   float scale;
   int causal, block_q;
+  const int64_t* strides;  // (b, h, s) of q, k, v, o, in elements
   cudaStream_t stream;
+  int bh() const { return batch * heads; }
 };
 
-template <int D, int BK>
+template <int D>
 int launch_bf16(const Args& a) {
-  const dim3 grid(a.bh, (a.sq + a.block_q - 1) / a.block_q);
-  const dim3 block(a.block_q * 2);  // one warp per 16 rows
-  flash_fwd_bf16_kernel<D, BK><<<grid, block, 0, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<__nv_bfloat16*>(a.o), a.lse, a.o32, a.sq, a.skv, a.scale,
-      a.causal);
+  using G = Fwd<D>;
+  // a bf16 (B, H, S, D) tensor with strides (b, h, s) as a map over
+  // (D, S, H, B), boxes of a panel's columns and `rows` rows
+  const auto bf16_map = [&](CUtensorMap* map, const void* ptr,
+                            const int64_t* bhs, int len, int rows) {
+    return hopper::encode_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, D,
+                             len, a.heads, a.batch, bhs[2], bhs[1], bhs[0],
+                             G::kPanelCols, rows);
+  };
+  CUtensorMap maps[5];
+  bool ok = bf16_map(&maps[0], a.q, a.strides, a.sq, kBlockQ) &&
+            bf16_map(&maps[1], a.k, a.strides + 3, a.skv, kBlockK) &&
+            bf16_map(&maps[2], a.v, a.strides + 6, a.skv, kBlockK) &&
+            bf16_map(&maps[3], a.o, a.strides + 9, a.sq, kBlockQ);
+  if (a.o32 != nullptr) {  // contiguous (B, H, S, D) f32
+    ok = ok && hopper::encode_4d(&maps[4], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                                 a.o32, D, a.sq, a.heads, a.batch, D,
+                                 (int64_t)a.sq * D,
+                                 (int64_t)a.heads * a.sq * D,
+                                 G::kPanelCols32, kBlockQ);
+  } else {
+    maps[4] = maps[3];  // not read
+  }
+  if (!ok) return kErrTensorMap;
+  const int smem = G::kSmemBytes;
+  // the shared-memory limit is a function attribute: set once a device
+  static std::atomic<uint64_t> limit_set{0};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = device < 64 ? 1ull << device : 0;
+  if (!(limit_set.load() & bit)) {
+    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    limit_set.fetch_or(bit);
+  }
+  const int q_tiles = (a.sq + kBlockQ - 1) / kBlockQ;
+  flash_fwd_wgmma_kernel<D>
+      <<<dim3(a.bh() * q_tiles), dim3(kThreads), smem, a.stream>>>(
+          maps[0], maps[1], maps[2], maps[3], maps[4], a.lse,
+          a.o32 != nullptr, a.heads, a.sq, a.skv, a.scale * kLog2e,
+          a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -432,7 +642,7 @@ int launch_f32(const Args& a) {
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(a.bh, (a.sq + a.block_q - 1) / a.block_q);
+  const dim3 grid(a.bh(), (a.sq + a.block_q - 1) / a.block_q);
   const dim3 block(a.block_q * TPR);
   flash_fwd_f32_kernel<D, BK><<<grid, block, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
@@ -441,17 +651,34 @@ int launch_f32(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BK>
-int dispatch_dim(const Args& a, int dh, int is_bf16) {
+// one consumer warpgroup of 64 q rows a block: at S = 196 that is 4 blocks
+// a head, 3,072 at B = 64 and 384 at B = 8 (132 SMs)
+int dispatch_bf16(const Args& a, int dh) {
   switch (dh) {
     case 16:
-      return is_bf16 ? launch_bf16<16, BK>(a) : launch_f32<16, BK>(a);
+      return launch_bf16<16>(a);
     case 32:
-      return is_bf16 ? launch_bf16<32, BK>(a) : launch_f32<32, BK>(a);
+      return launch_bf16<32>(a);
     case 64:
-      return is_bf16 ? launch_bf16<64, BK>(a) : launch_f32<64, BK>(a);
+      return launch_bf16<64>(a);
     case 128:
-      return is_bf16 ? launch_bf16<128, BK>(a) : launch_f32<128, BK>(a);
+      return launch_bf16<128>(a);
+    default:
+      return -1;
+  }
+}
+
+template <int BK>
+int dispatch_f32(const Args& a, int dh) {
+  switch (dh) {
+    case 16:
+      return launch_f32<16, BK>(a);
+    case 32:
+      return launch_f32<32, BK>(a);
+    case 64:
+      return launch_f32<64, BK>(a);
+    case 128:
+      return launch_f32<128, BK>(a);
     default:
       return -1;
   }
@@ -459,32 +686,40 @@ int dispatch_dim(const Args& a, int dh, int is_bf16) {
 
 }  // namespace
 
-// q, k, v, o: contiguous (bh, sq|skv, dh) device arrays of one type, f32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1), 16-byte aligned; lse: nullptr, or a
-// contiguous (bh, sq) f32 array that receives each row's logsumexp; o32:
-// nullptr, or (bf16 only) a contiguous (bh, sq, dh) f32 array that receives
-// the output before its rounding. Launches on `stream` and returns 0, the
-// launch's cudaError_t, or a negative code for an unsupported argument:
-// -1 head dim, -2 block_k, -3 block_q, -4 o32 with f32 inputs.
+// q, k, v, o: (batch, heads, sq|skv, dh) device arrays of one type, f32
+// (is_bf16 = 0) or bf16 (is_bf16 = 1). bf16 arrays may be strided views:
+// `strides` holds the (batch, head, row) strides in elements of q, k, v
+// and o (12 values); the last dim is dense, every stride a multiple of 16
+// bytes and every base 16-byte aligned. f32 arrays are contiguous and
+// `strides` is not read. lse: nullptr, or a contiguous (batch * heads, sq)
+// f32 array that receives each row's logsumexp; o32: nullptr, or (bf16
+// only) a contiguous (batch, heads, sq, dh) f32 array that receives the
+// output before its rounding. block_q and block_k are the f32 body's tiles
+// (the bf16 body has its own: 64 q rows, 64 keys). Launches on `stream` and
+// returns 0, the launch's cudaError_t, or a negative code: -1 head dim,
+// -2 block_k, -3 block_q, -4 o32 with f32 inputs, -5 a tensor map refused,
+// -6 bf16 inputs without strides.
 extern "C" int rafiki_flash_fwd(const void* q, const void* k, const void* v,
-                                void* o, void* lse, void* o32, int bh, int sq,
-                                int skv, int dh, float scale, int causal,
-                                int is_bf16, int block_q, int block_k,
-                                void* stream) {
+                                void* o, void* lse, void* o32, int batch,
+                                int heads, int sq, int skv, int dh,
+                                float scale, int causal, int is_bf16,
+                                int block_q, int block_k,
+                                const int64_t* strides, void* stream) {
   if (block_q != 16 && block_q != 32 && block_q != 64) return -3;
+  if (block_k != 16 && block_k != 32 && block_k != 64) return -2;
   if (o32 != nullptr && !is_bf16) return -4;
+  if (is_bf16 && strides == nullptr) return kErrNoStrides;
   const Args a{q, k, v, o, static_cast<float*>(lse), static_cast<float*>(o32),
-               bh, sq, skv, scale, causal, block_q,
+               batch, heads, sq, skv, scale, causal, block_q, strides,
                static_cast<cudaStream_t>(stream)};
+  if (is_bf16) return dispatch_bf16(a, dh);
   switch (block_k) {
     case 16:
-      return dispatch_dim<16>(a, dh, is_bf16);
+      return dispatch_f32<16>(a, dh);
     case 32:
-      return dispatch_dim<32>(a, dh, is_bf16);
-    case 64:
-      return dispatch_dim<64>(a, dh, is_bf16);
+      return dispatch_f32<32>(a, dh);
     default:
-      return -2;
+      return dispatch_f32<64>(a, dh);
   }
 }
 
@@ -498,6 +733,12 @@ extern "C" const char* rafiki_flash_error(int code) {
       return "unsupported block_q";
     case -4:
       return "an f32 output copy is for bf16 inputs only";
+    case kErrTensorMap:
+      return "cuTensorMapEncodeTiled refused a TMA tensor map (base not "
+             "16-byte aligned, a stride not a multiple of 16 bytes), or "
+             "libcuda has no cuTensorMapEncodeTiled";
+    case kErrNoStrides:
+      return "bf16 inputs need their strides";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

@@ -55,6 +55,8 @@ HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = -1e30
 
 _count_lock = threading.Lock()
+# (batch, head, row) strides of q, k, v and o for the forward's C entry
+_Strides = ctypes.c_int64 * 12
 
 
 def _count(wrapper) -> None:
@@ -194,8 +196,9 @@ def _fwd_kernel():
 
     lib = _build.load("flash_fwd")
     fn = lib.rafiki_flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_float] + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.rafiki_flash_error.argtypes = [ctypes.c_int]
     lib.rafiki_flash_error.restype = ctypes.c_char_p
@@ -219,23 +222,50 @@ def _bwd_kernels():
             lib.rafiki_flash_bwd_error)
 
 
+def _view_strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """(batch, head, row) strides of a (B, H, S, Dh) tensor in elements,
+    with the stride of a dim of size 1 (never stepped) replaced by its
+    contiguous value."""
+    b, h, s, d = t.shape
+    sb, sh, ss, _ = t.stride()
+    return (sb if b > 1 else h * s * d, sh if h > 1 else s * d,
+            ss if s > 1 else d)
+
+
 def _check_kernel_args(q, k, v, block_q: int, block_k: int,
-                       dout: Optional[torch.Tensor] = None) -> None:
+                       dout: Optional[torch.Tensor] = None,
+                       views: bool = False) -> list:
+    """What the kernels do not take raises here, before any launch. With
+    ``views`` (K1), bf16 inputs may be strided views, as the projection's
+    einsum hands them over: TMA reads any layout whose last dim is dense,
+    whose other strides are multiples of 16 bytes and whose base is 16-byte
+    aligned; their :func:`_view_strides` are returned, in order. Everything
+    else, and f32 always, must be contiguous."""
     named = [("q", q), ("k", k), ("v", v)]
     if dout is not None:
         named.append(("dout", dout))
+    device, dtype = q.device, q.dtype
+    strides = []
     for name, t in named:
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, q on {device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {dtype}")
         if t.dim() != 4:
             raise ValueError(f"{name} must be (B, H, S, Dh), got "
                              f"{tuple(t.shape)}")
-        if not t.is_contiguous():
+        if views and dtype == torch.bfloat16:
+            sb, sh, ss = _view_strides(t)
+            # 8 bf16 elements are 16 bytes
+            if t.stride(3) != 1 or sb % 8 or sh % 8 or ss % 8:
+                raise ValueError(
+                    f"{name} (strides {t.stride()}) must have a dense last "
+                    "dim and other strides that are multiples of 16 bytes")
+            strides.append((sb, sh, ss))
+        elif not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
-            # the bf16 kernels move tile rows in 16-byte vectors
+            # TMA and the kernels' 16-byte vectors
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash kernel takes f32 or bf16, got {q.dtype}")
@@ -253,6 +283,7 @@ def _check_kernel_args(q, k, v, block_q: int, block_k: int,
     if block_q not in BLOCK_Q_SIZES or block_k not in BLOCK_K_SIZES:
         raise ValueError(f"block_q must be in {BLOCK_Q_SIZES} and block_k "
                          f"in {BLOCK_K_SIZES}")
+    return strides
 
 
 def _check_row_stats(q: torch.Tensor, **stats: torch.Tensor) -> None:
@@ -291,16 +322,22 @@ def _stream(t: torch.Tensor) -> int:
 
 def _launch_fwd(q, k, v, lse, out_f32, causal, sm_scale, block_q,
                 block_k):
-    _check_kernel_args(q, k, v, block_q, block_k)
+    views = _check_kernel_args(q, k, v, block_q, block_k, views=True)
     b, h, sq, dh = q.shape
     fn, error_name = _fwd_kernel()
+    # q's layout where it is dense (the projection's (B, S, H, Dh) order,
+    # which the output projection reads without a copy), else contiguous
     out = torch.empty_like(q)
+    # bf16: the views' strides; f32 (contiguous) does not read them
+    strides = _Strides(*views[0], *views[1], *views[2],
+                       *_view_strides(out)) if views else None
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if lse is not None else None,
-                out_f32.data_ptr() if out_f32 is not None else None, b * h,
+                out_f32.data_ptr() if out_f32 is not None else None, b, h,
                 sq, k.shape[2], dh, float(_scale(q, sm_scale)), int(causal),
-                int(q.dtype == torch.bfloat16), block_q, block_k, _stream(q))
+                int(q.dtype == torch.bfloat16), block_q, block_k, strides,
+                _stream(q))
     _raise_on(rc, "flash_fwd", error_name)
     return out
 
@@ -397,8 +434,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out_f32, lse = ctx.saved_tensors
-        # the einsum backward hands dO over as a strided view
-        dout = dout.contiguous()
+        # K1 read the projection's views; K2 and K3 take contiguous
+        # tensors, and the einsum backward hands dO over as a view too
+        q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
         delta = _delta(out_f32, dout)
         dq = flash_attention_dq(q, k, v, dout, lse, delta, *ctx.args)
         dk, dv = flash_attention_dkv(q, k, v, dout, lse, delta, *ctx.args)
@@ -415,7 +453,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     training pair: K1 with the LSE forward, K2 and K3 backward. Otherwise
     (serving, ``torch.inference_mode``) K1 alone, writing no LSE:
     ``flash_attention.launches`` counts those launches. CPU tensors take
-    the plain versions."""
+    the plain versions. bf16 inputs may be strided views (see
+    :func:`_check_kernel_args`); f32 inputs are contiguous. ``block_q`` and
+    ``block_k`` are tuning arguments that change nothing beyond rounding,
+    as in the JAX package: they set the f32 kernel's and the plain
+    versions' tiles, and the bf16 forward uses its own warpgroup tiles (64
+    q rows, 64 keys)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, sm_scale, block_q,

@@ -68,6 +68,39 @@ def test_multi_head_attention_bf16_module(fused_qkv):
                                rtol=0)
 
 
+@pytest.mark.parametrize("fused_qkv", [False, True])
+def test_flash_path_reads_projection_views(fused_qkv, monkeypatch):
+    """bf16 with ``use_flash=True``: the flash op gets the projection
+    einsum's views (as K1 reads them on the card), and the layer's output
+    equals, bit for bit, the same call with q, k, v copied to contiguous
+    tensors first, and JAX's flash path within the bf16 tolerance."""
+    tree, x = _setup(4, dim=64, heads=4, s=40)
+    tp = {k: torch.from_numpy(v) for k, v in tree.items()}
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    real = attn.flash_attention
+    seen = []
+
+    def spy(q, k, v, **kw):
+        seen.append(all(t.is_contiguous() for t in (q, k, v)))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(attn, "flash_attention", spy)
+    out = attn.multi_head_attention(tp, xb, use_flash=True,
+                                    fused_qkv=fused_qkv)
+    assert seen == [False]  # views, not copies
+    monkeypatch.setattr(attn, "flash_attention", lambda q, k, v, **kw: real(
+        q.contiguous(), k.contiguous(), v.contiguous(), **kw))
+    copied = attn.multi_head_attention(tp, xb, use_flash=True,
+                                       fused_qkv=fused_qkv)
+    assert torch.equal(out, copied)
+    jp = {k: jnp.asarray(v) for k, v in tree.items()}
+    ref = jattn.multi_head_attention(jp, jnp.asarray(x, jnp.bfloat16),
+                                     use_flash=True, fused_qkv=fused_qkv)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), atol=BF16_ATOL,
+                               rtol=0)
+
+
 def test_mha_reference_matches_jax_bf16():
     """Both references cast p to v's type before the PV product."""
     rng = np.random.default_rng(2)

@@ -161,3 +161,127 @@ def test_cuda_autograd_runs_the_training_kernels():
          flash_attention_dkv), counts)] == [1, 1, 1, 1]
     assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
                for t in (q, k, v))
+
+
+def _projection_views(seed, fused, b, h, s, dh):
+    """bf16 q, k, v on the card as ``multi_head_attention`` hands them to
+    K1: (B, H, S, Dh) views of the projection einsum's (B, S, H, Dh) (or,
+    fused, (B, S, 3, H, Dh)) output, unit variance."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, s, h * dh)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((3, h * dh, h, dh))
+                          / np.sqrt(h * dh)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    if fused:
+        return tuple(torch.einsum("bsd,tdhk->tbhsk", x, w))
+    return tuple(torch.einsum("bsd,dhk->bhsk", x, w[i]) for i in range(3))
+
+
+@pytest.mark.cuda
+def test_cuda_k1_at_the_vit_shape():
+    """K1 (serving) and K1-LSE (training) at ViT-B/16's attention shape,
+    B=64, H=12, S=196, Dh=64 bf16, against their plain versions; each call
+    advances its own launch counter by exactly one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = (t.to("cuda", torch.bfloat16)
+               for t in _qkv(17, b=64, h=12, sq=196))
+    counts = (flash_attention.launches, flash_attention_lse.launches)
+    with torch.inference_mode():
+        out = flash_attention(q, k, v)
+    out_l, lse, out32 = flash_attention_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_lse.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    ref, ref_lse, ref32 = flash_attention_plain(q, k, v, return_lse=True)
+    assert torch.equal(out, out_l)  # the two variants write the same O
+    assert float((out.float() - ref.float()).abs().max()) <= 1e-2
+    assert float((out32 - ref32).abs().max()) <= 1e-2
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+    assert lse.shape == (64 * 12, 196) and bool(torch.isfinite(lse).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dh", flash_mod.HEAD_DIMS)
+def test_cuda_k1_reads_projection_views(fused, dh):
+    """K1 and K1-LSE read the projection's strided views through their
+    tensor maps: the same bits as on contiguous copies, within tolerance of
+    the plain version, and the output keeps q's memory order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = _projection_views(18, fused, b=3, h=4, s=196, dh=dh)
+    assert not q.is_contiguous()
+    copies = [t.contiguous() for t in (q, k, v)]
+    before = flash_attention.launches
+    with torch.inference_mode():
+        out = flash_attention(q, k, v)
+        out_c = flash_attention(*copies)
+    got = flash_attention_lse(q, k, v)
+    got_c = flash_attention_lse(*copies)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert torch.equal(out, out_c)
+    assert all(torch.equal(a, b) for a, b in zip(got, got_c))
+    assert out.stride() == torch.empty_like(q).stride()
+    ref = flash_attention_plain(*copies)
+    assert float((out.float() - ref.float()).abs().max()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", flash_mod.HEAD_DIMS)
+def test_cuda_k1_large_batch_causal(dh):
+    """K1-LSE at a batch of many blocks: causal S=196, causal Sq<Skv, and
+    dead rows, every head dim. A row that sees few keys has outputs up to
+    ~3, where one bf16 rounding of the output is 2^-8 of it: the
+    tolerance is 1e-2 of max(1, |ref|) per element (the f32 output and
+    the LSE as in the tests above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for sq, skv in ((196, 196), (64, 196), (196, 64)):
+        q, k, v = (t.to("cuda", torch.bfloat16)
+                   for t in _qkv(19, b=16, h=12, sq=sq, skv=skv, dh=dh))
+        out, lse, out32 = flash_attention_lse(q, k, v, True)
+        ref, ref_lse, ref32 = flash_attention_plain(q, k, v, True,
+                                                    return_lse=True)
+        torch.cuda.synchronize()
+        rel = (out.float() - ref.float()).abs() / ref.float().abs().clamp(
+            min=1.0)
+        assert float(rel.max()) <= 1e-2, (sq, skv)
+        assert float((out32 - ref32).abs().max()) <= 1e-2, (sq, skv)
+        live = torch.isfinite(ref_lse)
+        assert torch.equal(torch.isfinite(lse), live), (sq, skv)
+        assert float((lse[live] - ref_lse[live]).abs().max()) <= 1e-3
+        if sq > skv:
+            assert float(out[:, :, :sq - skv].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_refused_launch_raises(monkeypatch):
+    """With the Python checks bypassed, what the C entry refuses (a tensor
+    map cuTensorMapEncodeTiled refuses, a head dim without a body, missing
+    strides) raises from the wrapper, returns no output and counts no
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = (t.to("cuda", torch.bfloat16)
+               for t in _qkv(20, b=1, h=2, sq=40))
+    # the checks pass everything on, with the strides the C entry reads
+    monkeypatch.setattr(
+        flash_mod, "_check_kernel_args", lambda q, k, v, *args, **kwargs: [
+            flash_mod._view_strides(t) for t in (q, k, v)])
+    before = flash_attention.launches
+    # rows 136 bytes apart: TMA takes strides in multiples of 16 bytes
+    padded = [torch.nn.functional.pad(t, (0, 4))[..., :64] for t in (q, k, v)]
+    with torch.inference_mode():
+        with pytest.raises(RuntimeError, match="tensor map"):
+            flash_attention(*padded)
+        with pytest.raises(RuntimeError, match="head dim"):
+            flash_attention(q[..., :24], k[..., :24], v[..., :24])
+        # and bf16 inputs whose strides never reach it
+        monkeypatch.setattr(flash_mod, "_check_kernel_args",
+                            lambda *args, **kwargs: [])
+        with pytest.raises(RuntimeError, match="strides"):
+            flash_attention(q, k, v)
+    assert flash_attention.launches == before

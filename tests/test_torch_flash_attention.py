@@ -138,17 +138,61 @@ BAD_ARGS = {
     "block_q 128": lambda q, k, v: (q, k, v, 128, BK),
     "block_k 128": lambda q, k, v: (q, k, v, BQ, 128),
     "misaligned": lambda q, k, v: (_misaligned(q), k, v, BQ, BK),
+    # bf16 views that TMA cannot read: a strided last dim, and rows whose
+    # pitch (Dh + 4 elements, 136 bytes) is no multiple of 16 bytes
+    "bf16 last dim strided": lambda q, k, v: (
+        *(torch.cat([t, t], -1).to(torch.bfloat16)[..., ::2]
+          for t in (q, k, v)), BQ, BK),
+    "bf16 row pitch not a multiple of 16 bytes": lambda q, k, v: (
+        *(torch.nn.functional.pad(t, (0, 4)).to(torch.bfloat16)[..., :64]
+          for t in (q, k, v)), BQ, BK),
 }
 
 
 @pytest.mark.parametrize("label", sorted(BAD_ARGS))
 def test_kernel_arguments_are_checked(label):
-    """What the CUDA kernel does not take raises before any launch; the
-    checks are plain Python, so they run here on CPU tensors."""
+    """What the CUDA kernels do not take raises before any launch, for K1
+    (which reads bf16 views) and for K2/K3 (contiguous only); the checks
+    are plain Python, so they run here on CPU tensors."""
     q, k, v = _torch(*_qkv(10, sq=16, dh=64))
     flash_mod._check_kernel_args(q, k, v, BQ, BK)  # well formed: passes
-    with pytest.raises(ValueError):
-        flash_mod._check_kernel_args(*BAD_ARGS[label](q, k, v))
+    for views in (False, True):
+        with pytest.raises(ValueError):
+            flash_mod._check_kernel_args(*BAD_ARGS[label](q, k, v),
+                                         views=views)
+
+
+def _projection_views(seed, fused, b=2, s=9, heads=4, dh=64):
+    """q, k, v in bf16 as ``multi_head_attention`` hands them to K1: views
+    of the projection einsum's output, not copies."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, s, heads * dh)).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((3, heads * dh, heads, dh))
+                         .astype(np.float32)).to(torch.bfloat16)
+    if fused:
+        return tuple(torch.einsum("bsd,tdhk->tbhsk", x, w))
+    return tuple(torch.einsum("bsd,dhk->bhsk", x, w[i]) for i in range(3))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_bf16_projection_views_go_to_k1_without_a_copy(fused):
+    """The einsum's (B, H, S, Dh) views are strided (the heads interleave
+    in memory); K1 takes them as they are, K2/K3 only contiguous."""
+    q, k, v = _projection_views(12, fused)
+    assert not q.is_contiguous() and q.stride(3) == 1
+    flash_mod._check_kernel_args(q, k, v, BQ, BK, views=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_mod._check_kernel_args(q, k, v, BQ, BK)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_mod._check_kernel_args(q, k, v, BQ, BK, dout=q)
+    # the strides the kernel's tensor maps get, in elements
+    b, h, s, dh = q.shape
+    assert flash_mod._view_strides(q) == q.stride()[:3]
+    assert flash_mod._view_strides(q.contiguous()) == (h * s * dh, s * dh, dh)
+    # a dim of size 1 is never stepped: its stride is taken as contiguous
+    assert flash_mod._view_strides(q[:1, :1]) == (s * dh, s * dh,
+                                                  q.stride(2))
 
 
 def test_non_cpu_non_cuda_tensor_raises():
