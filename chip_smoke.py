@@ -17,8 +17,11 @@ Phases, each of which must pass (any failure exits non-zero):
    bound and PyTorch's own call for the same function: K1 (flash_fwd) at
    the serving shapes, contiguous and on the projection's strided views,
    K1 with the LSE (flash_fwd_lse), K2 (flash_bwd_dq) and K3
-   (flash_bwd_dkv) at the training shape; K1's and K1-LSE's achieved TB/s
-   and share of their bounds;
+   (flash_bwd_dkv) at the training shape, contiguous and on the
+   projection's strided views; K2 and K3 at every head dim, at the ragged,
+   causal (Sq<Skv) and dead-row cases and on strided views (the same bits
+   as contiguous copies); each kernel's achieved TB/s and share of its
+   bound;
 3. train: a seeded synthetic 10-class image dataset written as ``.npz``,
    and a 2-trial ViT-B/16 train job through ``TrainWorker`` (GP advisor,
    store, ``TorchViT.train`` -> ``DataParallelTrainer.fit`` with AdamW,
@@ -70,6 +73,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # Gradients are not O(1): their error is taken relative to max(1, max|ref|)
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 LSE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+# K2's delta = rowsum(dO o O) against PyTorch's: f32 sums of Dh products
+# in another order, relative to max(1, max |delta|)
+DELTA_TOL = 1e-5
 DEPTH = 12  # ViT-B/16 blocks: one launch of each attention kernel per block
 # served probabilities vs the plain-attention forward: both run bf16
 # through 12 blocks and differ where bf16 rounds (the kernel keeps PV in
@@ -180,8 +186,9 @@ def attention_bound(kind, b, h, sq, skv, dh, causal, dtype):
     - fwd: reads q, k, v; writes o; 4 Dh FLOPs a pair (QK^T, PV);
     - fwd_lse: fwd, and writes the (B*H, Sq) f32 LSE and, for bf16, the
       f32 output the backward's delta is taken from;
-    - dq: reads q, k, v, dO, lse, delta; writes dq; 6 Dh a pair (QK^T,
-      dO V^T, dS K);
+    - dq: reads q, k, v, dO, lse and the f32 output; writes dq and delta
+      = rowsum(dO o O); 6 Dh FLOPs a pair (QK^T, dO V^T, dS K) and 2 Dh a
+      row (delta);
     - dkv: reads as dq; writes dk, dv; 8 Dh a pair (K Q^T, V dO^T, P^T dO,
       dS^T Q)."""
     size = torch.tensor([], dtype=dtype).element_size()
@@ -190,7 +197,7 @@ def attention_bound(kind, b, h, sq, skv, dh, causal, dtype):
         "fwd": ((2 * q_el + 2 * kv_el) * size, 4),
         "fwd_lse": ((2 * q_el + 2 * kv_el) * size + 4 * rows
                     + (4 * q_el if size < 4 else 0), 4),
-        "dq": ((3 * q_el + 2 * kv_el) * size + 8 * rows, 6),
+        "dq": ((3 * q_el + 2 * kv_el) * size + 4 * q_el + 8 * rows, 6),
         "dkv": ((2 * q_el + 4 * kv_el) * size + 8 * rows, 8),
     }[kind]
     if causal:
@@ -199,7 +206,7 @@ def attention_bound(kind, b, h, sq, skv, dh, causal, dtype):
         pairs = int((j <= i + (skv - sq)).sum())
     else:
         pairs = sq * skv
-    flops = per_pair * b * h * pairs * dh
+    flops = per_pair * b * h * pairs * dh + (2 * q_el if kind == "dq" else 0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -217,10 +224,10 @@ def rate(bound, ms) -> str:
 # phase 1: header and build
 # ---------------------------------------------------------------------------
 
-# each kernel's main-path instantiation: bf16, Dh = 64 (K2/K3: 64-tiles)
+# each kernel's main-path instantiation: bf16, Dh = 64
 PTXAS = (("K1", "flash_fwd", "flash_fwd_wgmma_kernelILi64EE"),
-         ("K2", "flash_bwd", "flash_bwd_dq_bf16_kernelILi64ELi64EE"),
-         ("K3", "flash_bwd", "flash_bwd_dkv_bf16_kernelILi64ELi64EE"))
+         ("K2", "flash_bwd", "flash_bwd_dq_wgmma_kernelILi64EE"),
+         ("K3", "flash_bwd", "flash_bwd_dkv_wgmma_kernelILi64EE"))
 
 
 def header() -> str:
@@ -335,7 +342,22 @@ def kernel_phase():
         print(line, flush=True)
     entries["flash_fwd"]["strided_ms"] = strided_serving_case(fa, randn)
     entries.update(training_kernels(fa, qkv, randn))
+    backward_head_dims(fa, randn)
     return entries, times
+
+
+def projection_views(randn, b, h, s, dh, n=3):
+    """``n`` bf16 (B, H, S, Dh) views of (B, S, H, Dh) memory, as the
+    projection einsum hands q, k, v (and its backward dO) over, unit
+    variance."""
+    bf16 = torch.bfloat16
+    x = randn(b, s, h * dh, dtype=bf16)
+    views = [torch.einsum("bsd,dhk->bhsk", x, (randn(
+        h * dh, h, dh, dtype=torch.float32) / (h * dh) ** 0.5).to(bf16))
+        for _ in range(n)]
+    require(not views[0].is_contiguous(),
+            f"einsum gave a contiguous view {views[0].stride()}")
+    return views
 
 
 def strided_serving_case(fa, randn) -> float:
@@ -345,11 +367,7 @@ def strided_serving_case(fa, randn) -> float:
     time."""
     bf16 = torch.bfloat16
     b, h, sq, dh = 64, 12, 196, 64
-    x = randn(b, sq, h * dh, dtype=bf16)
-    q, k, v = (torch.einsum("bsd,dhk->bhsk", x, (randn(
-        h * dh, h, dh, dtype=torch.float32) / (h * dh) ** 0.5).to(bf16))
-        for _ in range(3))
-    require(not q.is_contiguous(), f"einsum gave a contiguous q {q.stride()}")
+    q, k, v = projection_views(randn, b, h, sq, dh)
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     ref = fa.flash_attention_plain(q, k, v)
@@ -390,10 +408,12 @@ def training_kernels(fa, qkv, randn):
         torch.cuda.synchronize()
         ref_out, ref_lse, ref_out32 = fa.flash_attention_plain(
             q, k, v, causal, None, bk, return_lse=True)
-        # K2 and K3 get the plain forward's out and lse: each kernel alone
+        # K2 and K3 get the plain forward's out and lse, K3 PyTorch's
+        # delta: each kernel alone
         delta = fa._delta(ref_out32, dout)
         args = (q, k, v, dout, ref_lse, delta, causal, None, bq, bk)
-        dq = fa.flash_attention_dq(*args)
+        dq, dq_delta = fa.flash_attention_dq(q, k, v, dout, ref_lse,
+                                             ref_out32, *args[6:])
         dk, dv = fa.flash_attention_dkv(*args)
         torch.cuda.synchronize()
         ref_dq = fa.flash_attention_dq_plain(*args[:-2], bk)
@@ -406,6 +426,7 @@ def training_kernels(fa, qkv, randn):
             "dq": float((dq.float() - ref_dq.float()).abs().max()),
             "dk": float((dk.float() - ref_dk.float()).abs().max()),
             "dv": float((dv.float() - ref_dv.float()).abs().max()),
+            "delta": _rel_err(dq_delta, delta),
         }
         rel = {"dq": _rel_err(dq, ref_dq), "dk": _rel_err(dk, ref_dk),
                "dv": _rel_err(dv, ref_dv)}
@@ -416,9 +437,12 @@ def training_kernels(fa, qkv, randn):
                 f"{LSE_TOL[dtype]:g}), dq {errs['dq']:.3g}, dk "
                 f"{errs['dk']:.3g}, dv {errs['dv']:.3g}; relative "
                 + ", ".join(f"{n} {e:.3g}" for n, e in rel.items())
-                + f" (tol {TOL[dtype]:g})")
+                + f" (tol {TOL[dtype]:g}), K2's delta {errs['delta']:.3g} "
+                f"(tol {DELTA_TOL:g})")
         require(all(bool(torch.isfinite(t).all())
-                    for t in (out, dq, dk, dv)), f"{line}: non-finite")
+                    for t in (out, dq, dk, dv, dq_delta)),
+                f"{line}: non-finite")
+        require(errs["delta"] <= DELTA_TOL, line)
         require(torch.equal(torch.isfinite(lse), live),
                 f"{line}: LSE finite on other rows than the plain one")
         require(errs["out"] <= TOL[dtype], line)
@@ -435,17 +459,79 @@ def training_kernels(fa, qkv, randn):
             line += (f"; dead rows: out and dq exactly 0, lse +inf "
                      f"({dead} rows)")
         if label.startswith("train"):
-            line += "\n" + timed_training_kernels(fa, entries, args, errs,
-                                                   rel)
+            line += "\n" + timed_training_kernels(fa, randn, entries, args,
+                                                   ref_out32, errs, rel)
         print(line, flush=True)
     return entries
 
 
-def timed_training_kernels(fa, entries, args, errs, rel) -> str:
+def backward_head_dims(fa, randn) -> None:
+    """K2 and K3 against their plain versions at every head dim: S=196,
+    causal with Sq<Skv, and dead rows (contiguous inputs), then on the
+    projection's strided views of q, k, v and dO, which must give the same
+    bits as contiguous copies. Each kernel gets the plain forward's lse and
+    f32 output (K3 PyTorch's delta), so it is held alone; K2's delta is
+    checked against PyTorch's."""
+    tol = TOL[torch.bfloat16]
+    for dh in fa.HEAD_DIMS:
+        # (label, b, h, sq, skv, causal)
+        cases = [("S=196", 2, 4, 196, 196, False),
+                 ("Sq<Skv causal", 2, 4, 64, 196, True),
+                 ("dead rows", 2, 4, 196, 64, True),
+                 ("views", 2, 4, 196, 196, False)]
+        parts = []
+        for label, b, h, sq, skv, causal in cases:
+            if label == "views":
+                q, k, v, dout = projection_views(randn, b, h, sq, dh, n=4)
+            else:
+                q, k, v, dout = (randn(b, h, s, dh, dtype=torch.bfloat16)
+                                 for s in (sq, skv, skv, sq))
+            copies = [t.contiguous() for t in (q, k, v, dout)]
+            _, lse, out32 = fa.flash_attention_plain(*copies[:3], causal,
+                                                     return_lse=True)
+            delta = fa._delta(out32, copies[3])
+            args = (lse, delta, causal)
+            dq, dq_delta = fa.flash_attention_dq(q, k, v, dout, lse, out32,
+                                                 causal)
+            got = (dq, *fa.flash_attention_dkv(q, k, v, dout, *args))
+            torch.cuda.synchronize()
+            ref = (fa.flash_attention_dq_plain(*copies, *args),
+                   *fa.flash_attention_dkv_plain(*copies, *args))
+            rel = max(_rel_err(a, r) for a, r in zip(got, ref))
+            delta_err = _rel_err(dq_delta, delta)
+            where = (f"K2/K3 Dh={dh} {label} (B={b} H={h} Sq={sq} Skv={skv} "
+                     f"causal={causal})")
+            require(all(bool(torch.isfinite(t).all())
+                        for t in (*got, dq_delta)), f"{where}: non-finite")
+            require(rel <= tol, f"{where}: relative error {rel:.3g} > {tol}")
+            require(delta_err <= DELTA_TOL,
+                    f"{where}: K2's delta off by {delta_err:.3g}")
+            part = f"{label} {rel:.3g} (delta {delta_err:.2g})"
+            if label == "dead rows":
+                dq_dead = float(got[0][:, :, :sq - skv].abs().max())
+                require(dq_dead == 0.0, f"{where}: dead rows' dq {dq_dead}")
+                part += " (dead rows' dq 0)"
+            if label == "views":
+                same = (*fa.flash_attention_dq(*copies, lse, out32, causal),
+                        *fa.flash_attention_dkv(*copies, *args))
+                require(all(torch.equal(a, c) for a, c in zip(
+                    (dq, dq_delta, *got[1:]), same)),
+                        f"{where}: views and contiguous copies differ")
+                part += " (bits of contiguous copies)"
+            parts.append(part)
+        print(f"K2/K3 at Dh={dh}, max relative error of dq, dk, dv (tol "
+              f"{tol:g}): " + ", ".join(parts), flush=True)
+
+
+def timed_training_kernels(fa, randn, entries, args, out32, errs,
+                           rel) -> str:
     """Device times of K1 with the LSE, K2 and K3 at the training shape,
     beside their plain versions, their bounds and PyTorch's SDPA: its
     forward with inputs that require grad (it then keeps the LSE too) for
-    K1, its backward for K2 and K3 together."""
+    K1, its backward for K2 and K3 together; and K2, K3 on the
+    projection's strided views, as the train step hands them over. K2
+    takes delta from the f32 output (``out32``); its plain version
+    includes PyTorch's delta, which is also timed alone."""
     q, k, v, dout, lse, delta, causal, _, bq, bk = args
     b, h, sq, dh = q.shape
     skv = k.shape[2]
@@ -456,13 +542,22 @@ def timed_training_kernels(fa, entries, args, errs, rel) -> str:
         "fwd_lse_plain": device_ms(
             lambda: fa.flash_attention_plain(q, k, v, causal, None, bk,
                                              return_lse=True), reps=3),
-        "dq": device_ms(lambda: fa.flash_attention_dq(*args)),
-        "dq_plain": device_ms(
-            lambda: fa.flash_attention_dq_plain(*args[:-2], bk), reps=3),
+        "dq": device_ms(lambda: fa.flash_attention_dq(
+            q, k, v, dout, lse, out32, causal, None, bq, bk)),
+        "dq_plain": device_ms(lambda: fa.flash_attention_dq_plain(
+            q, k, v, dout, lse, fa._delta(out32, dout), causal, None, bk),
+            reps=3),
+        "delta_torch": device_ms(lambda: fa._delta(out32, dout)),
         "dkv": device_ms(lambda: fa.flash_attention_dkv(*args)),
         "dkv_plain": device_ms(
             lambda: fa.flash_attention_dkv_plain(*args[:-2], bq), reps=3),
     }
+    views = projection_views(randn, *q.shape, n=4)
+    _, view_lse, view_out32 = fa.flash_attention_lse(*views[:3], causal)
+    view_args = (*views, view_lse, fa._delta(view_out32, views[3]), causal)
+    t["dq_views"] = device_ms(lambda: fa.flash_attention_dq(
+        *views, view_lse, view_out32, causal))
+    t["dkv_views"] = device_ms(lambda: fa.flash_attention_dkv(*view_args))
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t["sdpa_fwd"] = device_ms(lambda: sdpa(qg, kg, vg, is_causal=causal))
@@ -485,7 +580,8 @@ def timed_training_kernels(fa, entries, args, errs, rel) -> str:
         "flash_bwd_dq", bwd, "rafiki_tpu/ops/flash_attention.py:207",
         errs["dq"], TOL[q.dtype], shape, t["dq"], t["dq_plain"],
         t["sdpa_bwd"], bounds["dq"], max_rel_err=rel["dq"],
-        tolerance_on="max_rel_err",
+        tolerance_on="max_rel_err", strided_ms=t["dq_views"],
+        delta_max_rel_err=errs["delta"], pytorch_delta_ms=t["delta_torch"],
         library="scaled_dot_product_attention backward (dq, dk and dv "
                 "together)")
     entries["flash_bwd_dkv"] = _entry(
@@ -493,6 +589,7 @@ def timed_training_kernels(fa, entries, args, errs, rel) -> str:
         max(errs["dk"], errs["dv"]), TOL[q.dtype], shape, t["dkv"],
         t["dkv_plain"], t["sdpa_bwd"], bounds["dkv"],
         max_rel_err=max(rel["dk"], rel["dv"]), tolerance_on="max_rel_err",
+        strided_ms=t["dkv_views"],
         library="scaled_dot_product_attention backward (dq, dk and dv "
                 "together)")
     return "\n".join(
@@ -501,6 +598,10 @@ def timed_training_kernels(fa, entries, args, errs, rel) -> str:
         f"({bounds[key][1]})"
         for name, key in (("K1-LSE", "fwd_lse"), ("K2", "dq"),
                           ("K3", "dkv"))) + (
+        f"\n  PyTorch's delta alone (which K2 takes itself): "
+        f"{t['delta_torch']:.4f} ms"
+        f"\n  on the projection's strided views: K2 {t['dq_views']:.4f} ms, "
+        f"K3 {t['dkv_views']:.4f} ms"
         f"\n  library: SDPA forward (grad) {t['sdpa_fwd']:.4f} ms, SDPA "
         f"backward {t['sdpa_bwd']:.4f} ms; K2 + K3 {t['dq'] + t['dkv']:.4f}"
         f" ms")
@@ -671,8 +772,8 @@ def train_step_checks(card, cfg, convert, train_uri):
         if n == 64:
             print_device_profile(step, "batch-64 train step", shares=(
                 ("K1-LSE", "flash_fwd_wgmma_kernel"),
-                ("K2", "flash_bwd_dq_bf16_kernel"),
-                ("K3", "flash_bwd_dkv_bf16_kernel"),
+                ("K2", "flash_bwd_dq_wgmma_kernel"),
+                ("K3", "flash_bwd_dkv_wgmma_kernel"),
                 ("copies and casts", "copy_kernel")))
     del model, opt
 

@@ -121,11 +121,6 @@ constexpr int kThreads = 160;  // a consumer warpgroup and a producer warp
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // logsumexp (natural) of a row from its running max in log2 units and its
 // sum; +inf when the row saw no key (l == 0)
 __device__ __forceinline__ float row_lse_log2(float m2, float l) {
@@ -156,12 +151,6 @@ struct Fwd {
   static_assert(kBlockQ * 4 * D <= kStages * 2 * kTileBytes, "f32 output");
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The online-softmax step of a tile of N keys for this thread's rows r0
 // and r0 + 8: S (the accumulator of Q K^T) scaled to log2 units and, where
 // kMasked, masked; the running max m and sum l updated and O rescaled; P
@@ -191,7 +180,7 @@ __device__ __forceinline__ void softmax_tile(
     m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffffu, m_tile[r], 1));
     m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffffu, m_tile[r], 2));
     const float m_new = fmaxf(m[r], m_tile[r]);
-    alpha[r] = ex2(m[r] - m_new);
+    alpha[r] = hopper::ex2(m[r] - m_new);
     l[r] *= alpha[r];
     m[r] = m_new;
   }
@@ -200,43 +189,15 @@ __device__ __forceinline__ void softmax_tile(
 #pragma unroll
   for (int i = 0; i < N / 2; i += 2) {
     const int r = (i >> 1) & 1;
-    float p0 = ex2(sc[i] - m[r]);
-    float p1 = ex2(sc[i + 1] - m[r]);
+    float p0 = hopper::ex2(sc[i] - m[r]);
+    float p1 = hopper::ex2(sc[i + 1] - m[r]);
     if (kMasked) {
       const int j = kv0 + (i >> 2) * 8 + 2 * t4;
       if (!visible(j, r0 + 8 * r, skv, off, causal)) p0 = 0.f;
       if (!visible(j + 1, r0 + 8 * r, skv, off, causal)) p1 = 0.f;
     }
     l[r] += p0 + p1;
-    pa[i >> 3][((i >> 2) & 1) * 2 + r] = pack_bf16(p0, p1);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 16) {
-    hopper::wgmma_m64n16k16_rs(o, a, b);
-  } else if constexpr (D == 32) {
-    hopper::wgmma_m64n32k16_rs(o, a, b);
-  } else if constexpr (D == 64) {
-    hopper::wgmma_m64n64k16_rs(o, a, b);
-  } else {
-    hopper::wgmma_m64n128k16_rs(o, a, b);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_qk(float (&s)[N / 2], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  if constexpr (N == 16) {
-    hopper::wgmma_m64n16k16_ss(s, a, b, accumulate);
-  } else if constexpr (N == 32) {
-    hopper::wgmma_m64n32k16_ss(s, a, b, accumulate);
-  } else if constexpr (N == 48) {
-    hopper::wgmma_m64n48k16_ss(s, a, b, accumulate);
-  } else {
-    hopper::wgmma_m64n64k16_ss(s, a, b, accumulate);
+    pa[i >> 3][((i >> 2) & 1) * 2 + r] = hopper::pack_bf16(p0, p1);
   }
 }
 
@@ -262,7 +223,7 @@ __device__ __forceinline__ void kv_tile(uint32_t q_rows, uint32_t kt,
   for (int kk = 0; kk < D / 16; ++kk) {
     const int panel = kk * 32 / Sw;
     const int within = kk * 32 % Sw;
-    wgmma_qk<N>(
+    hopper::wgmma_ss<N>(
         s, hopper::smem_desc<Sw>(q_rows + panel * kBlockQ * Sw + within, 16,
                                  8 * Sw),
         hopper::smem_desc<Sw>(kt + panel * kBlockK * Sw + within, 16, 8 * Sw),
@@ -280,7 +241,7 @@ __device__ __forceinline__ void kv_tile(uint32_t q_rows, uint32_t kt,
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
-    wgmma_pv<D>(o, pa[kk],
+    hopper::wgmma_rs<D>(o, pa[kk],
                 hopper::smem_desc<Sw>(vt + kk * 16 * Sw, kBlockK * Sw,
                                       8 * Sw));
   }
@@ -429,7 +390,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1)
       const uint32_t at = (c * 2 / G::kSw) * kBlockQ * G::kSw + rr * G::kSw +
                           c * 2 % G::kSw;
       *reinterpret_cast<uint32_t*>(gbase + hopper::swizzle<G::kSw>(at)) =
-          pack_bf16(x0, x1);
+          hopper::pack_bf16(x0, x1);
       if (write_o32) {
         const uint32_t at32 = G::kStage0 +
                               (c * 4 / G::kSw32) * kBlockQ * G::kSw32 +

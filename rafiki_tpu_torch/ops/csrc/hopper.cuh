@@ -16,6 +16,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,6 +63,15 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// expect `bytes` more of TMA transactions in this phase, without arriving
+// (the arrivals come from threads that write the stage themselves)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
 // wait until the phase of parity `parity` has completed
@@ -321,6 +331,58 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], both K-major in shared memory, for
+// N = 16, 32, 48, 64
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  if constexpr (N == 16) {
+    wgmma_m64n16k16_ss(d, a, b, accumulate);
+  } else if constexpr (N == 32) {
+    wgmma_m64n32k16_ss(d, a, b, accumulate);
+  } else if constexpr (N == 48) {
+    wgmma_m64n48k16_ss(d, a, b, accumulate);
+  } else {
+    static_assert(N == 64, "wgmma_ss: N in 16, 32, 48, 64");
+    wgmma_m64n64k16_ss(d, a, b, accumulate);
+  }
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N], A from registers, B MN-major in shared
+// memory, for N = 16, 32, 64, 128
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 16) {
+    wgmma_m64n16k16_rs(d, a, b);
+  } else if constexpr (N == 32) {
+    wgmma_m64n32k16_rs(d, a, b);
+  } else if constexpr (N == 64) {
+    wgmma_m64n64k16_rs(d, a, b);
+  } else {
+    static_assert(N == 128, "wgmma_rs: N in 16, 32, 64, 128");
+    wgmma_m64n128k16_rs(d, a, b);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// registers
+// ---------------------------------------------------------------------------
+
+// two floats as a pair of bf16 (round to nearest), the low half first: one
+// register of a wgmma A operand
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x (MUFU; ex2(-inf) = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------------

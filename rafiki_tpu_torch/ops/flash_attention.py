@@ -11,7 +11,8 @@ three Pallas kernels:
   forward: the per-row logsumexp too, compact as (B*H, Sq) f32, and the
   output in f32);
 - K2, ``_dq_kernel``: ``csrc/flash_bwd.cu``, wrapped by
-  :func:`flash_attention_dq`;
+  :func:`flash_attention_dq` (the bf16 kernel also takes delta itself,
+  from the forward's f32 output);
 - K3, ``_dkv_kernel``: ``csrc/flash_bwd.cu``, wrapped by
   :func:`flash_attention_dkv`.
 
@@ -25,16 +26,17 @@ kernel or raises.
 
 Under autograd (grad enabled and an input that requires it),
 :func:`flash_attention` runs K1 with the LSE and saves q, k, v, the f32
-output and lse; its backward computes delta = rowsum(dO o O) in f32, as
-the JAX package does outside Pallas, and runs K2 and K3. One difference
-from the JAX package, on purpose: delta is taken from the output before
-its rounding to the input type, not after. delta's error is a per-row
-shift that the backward adds up over every key; where dP - delta is a
-small difference (nearly uniform attention over similar tokens, as at
-ViT-B/16's initialization), delta from the bf16 output moved the q/k
-projection gradients by 58% of their norm against an f32 run, and delta
-from the f32 output by 5%, as much as plain bf16 attention (CPU
-measurement, scripts/torch_grad_precision.py; PERF.md).
+output and lse; its backward runs K2, which for bf16 also takes
+delta = rowsum(dO o O) in f32 (the JAX package computes it outside
+Pallas, as :func:`_delta` does here for f32 and on the CPU), and K3. One
+difference from the JAX package, on purpose: delta is taken from the
+output before its rounding to the input type, not after. delta's error
+is a per-row shift that the backward adds up over every key; where
+dP - delta is a small difference (nearly uniform attention over similar
+tokens, as at ViT-B/16's initialization), delta from the bf16 output
+moved the q/k projection gradients by 58% of their norm against an f32
+run, and delta from the f32 output by 5%, as much as plain bf16
+attention (CPU measurement, scripts/torch_grad_precision.py; PERF.md).
 """
 
 from __future__ import annotations
@@ -55,8 +57,6 @@ HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = -1e30
 
 _count_lock = threading.Lock()
-# (batch, head, row) strides of q, k, v and o for the forward's C entry
-_Strides = ctypes.c_int64 * 12
 
 
 def _count(wrapper) -> None:
@@ -210,9 +210,9 @@ def _bwd_kernels():
     from rafiki_tpu_torch.ops import _build
 
     lib = _build.load("flash_bwd")
-    tail = [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    lib.rafiki_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + tail
+    tail = [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]
+    lib.rafiki_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + tail
     lib.rafiki_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 + tail
     lib.rafiki_flash_bwd_dq.restype = ctypes.c_int
     lib.rafiki_flash_bwd_dkv.restype = ctypes.c_int
@@ -232,15 +232,28 @@ def _view_strides(t: torch.Tensor) -> Tuple[int, int, int]:
             ss if s > 1 else d)
 
 
+def _tma_strides_ok(t: torch.Tensor) -> bool:
+    """Whether TMA can walk a bf16 (B, H, S, Dh) tensor's layout: a dense
+    last dim and other strides that are multiples of 16 bytes (8
+    elements)."""
+    return t.stride(3) == 1 and not any(s % 8 for s in _view_strides(t))
+
+
+def _tma_readable(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernels read ``t`` as it is: its layout
+    (:func:`_tma_strides_ok`) and a base on a 16-byte boundary."""
+    return _tma_strides_ok(t) and t.data_ptr() % 16 == 0
+
+
 def _check_kernel_args(q, k, v, block_q: int, block_k: int,
-                       dout: Optional[torch.Tensor] = None,
-                       views: bool = False) -> list:
-    """What the kernels do not take raises here, before any launch. With
-    ``views`` (K1), bf16 inputs may be strided views, as the projection's
-    einsum hands them over: TMA reads any layout whose last dim is dense,
-    whose other strides are multiples of 16 bytes and whose base is 16-byte
-    aligned; their :func:`_view_strides` are returned, in order. Everything
-    else, and f32 always, must be contiguous."""
+                       dout: Optional[torch.Tensor] = None) -> list:
+    """What the kernels do not take raises here, before any launch. bf16
+    inputs may be strided views, as the projection's einsum hands them over
+    (and its backward dO): every bf16 kernel reads through TMA, which takes
+    any layout whose last dim is dense, whose other strides are multiples of
+    16 bytes and whose base is 16-byte aligned; their :func:`_view_strides`
+    are returned, in order. f32 inputs must be contiguous (an empty list is
+    returned)."""
     named = [("q", q), ("k", k), ("v", v)]
     if dout is not None:
         named.append(("dout", dout))
@@ -254,14 +267,12 @@ def _check_kernel_args(q, k, v, block_q: int, block_k: int,
         if t.dim() != 4:
             raise ValueError(f"{name} must be (B, H, S, Dh), got "
                              f"{tuple(t.shape)}")
-        if views and dtype == torch.bfloat16:
-            sb, sh, ss = _view_strides(t)
-            # 8 bf16 elements are 16 bytes
-            if t.stride(3) != 1 or sb % 8 or sh % 8 or ss % 8:
+        if dtype == torch.bfloat16:
+            if not _tma_strides_ok(t):
                 raise ValueError(
                     f"{name} (strides {t.stride()}) must have a dense last "
                     "dim and other strides that are multiples of 16 bytes")
-            strides.append((sb, sh, ss))
+            strides.append(_view_strides(t))
         elif not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
@@ -320,17 +331,26 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _c_strides(views: list, *outs: torch.Tensor):
+    """The (batch, head, row) strides of the checked inputs (``views``, as
+    :func:`_check_kernel_args` returns them) and of the outputs, flat, for a
+    C entry; None without views (f32: contiguous, the strides not read)."""
+    if not views:
+        return None
+    flat = [s for bhs in views for s in bhs]
+    flat += [s for t in outs for s in _view_strides(t)]
+    return (ctypes.c_int64 * len(flat))(*flat)
+
+
 def _launch_fwd(q, k, v, lse, out_f32, causal, sm_scale, block_q,
                 block_k):
-    views = _check_kernel_args(q, k, v, block_q, block_k, views=True)
+    views = _check_kernel_args(q, k, v, block_q, block_k)
     b, h, sq, dh = q.shape
     fn, error_name = _fwd_kernel()
     # q's layout where it is dense (the projection's (B, S, H, Dh) order,
     # which the output projection reads without a copy), else contiguous
     out = torch.empty_like(q)
-    # bf16: the views' strides; f32 (contiguous) does not read them
-    strides = _Strides(*views[0], *views[1], *views[2],
-                       *_view_strides(out)) if views else None
+    strides = _c_strides(views, out)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if lse is not None else None,
@@ -366,30 +386,46 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse, out if out_f32 is None else out_f32
 
 
-def flash_attention_dq(q, k, v, dout, lse, delta, causal: bool = False,
+def flash_attention_dq(q, k, v, dout, lse, out, causal: bool = False,
                        sm_scale: Optional[float] = None,
                        block_q: int = DEFAULT_BLOCK_Q,
-                       block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
-    """K2: dq from q, k, v, dO (B, H, S, Dh) and the row statistics lse
-    and delta ((B*H, Sq) f32). ``flash_attention_dq.launches`` counts its
-    kernel launches."""
-    if _on_cpu(q, k, v, dout, lse, delta):
+                       block_k: int = DEFAULT_BLOCK_K
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: ``(dq, delta)`` from q, k, v, dO (B, H, S, Dh), the forward's
+    lse ((B*H, Sq) f32) and its output ``out`` (the f32 output for bf16
+    inputs, (B, H, Sq, Dh)), with delta = rowsum(dO o out) in f32 as
+    (B*H, Sq), which K3 reads. The bf16 kernel takes delta itself as it
+    loads each q tile; for f32 inputs :func:`_delta` (its plain version)
+    computes it and the kernel reads it. ``flash_attention_dq.launches``
+    counts its kernel launches."""
+    if _on_cpu(q, k, v, dout, lse, out):
+        delta = _delta(out, dout)
         return flash_attention_dq_plain(q, k, v, dout, lse, delta, causal,
-                                        sm_scale, block_k)
-    _check_kernel_args(q, k, v, block_q, block_k, dout)
-    _check_row_stats(q, lse=lse, delta=delta)
+                                        sm_scale, block_k), delta
+    views = _check_kernel_args(q, k, v, block_q, block_k, dout)
+    if (out.dtype != torch.float32 or out.shape != q.shape
+            or out.device != q.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {tuple(q.shape)} f32 "
+                         f"tensor on {q.device}, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
+    _check_row_stats(q, lse=lse)
+    bf16 = q.dtype == torch.bfloat16
+    delta = (torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+             if bf16 else _delta(out, dout))
     b, h, sq, dh = q.shape
     dq_fn, _, error_name = _bwd_kernels()
+    # in q's layout, as K1's output: the gradient of the projection's view
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = dq_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, sq,
-                   k.shape[2], dh, float(_scale(q, sm_scale)), int(causal),
-                   int(q.dtype == torch.bfloat16), block_q, block_k,
-                   _stream(q))
+                   lse.data_ptr(), delta.data_ptr(),
+                   out.data_ptr() if bf16 else None, dq.data_ptr(), b, h,
+                   sq, k.shape[2], dh, float(_scale(q, sm_scale)),
+                   int(causal), int(bf16), block_q, block_k,
+                   _c_strides(views, dq), _stream(q))
     _raise_on(rc, "flash_bwd_dq", error_name)
     _count(flash_attention_dq)
-    return dq
+    return dq, delta
 
 
 def flash_attention_dkv(q, k, v, dout, lse, delta, causal: bool = False,
@@ -397,12 +433,14 @@ def flash_attention_dkv(q, k, v, dout, lse, delta, causal: bool = False,
                         block_q: int = DEFAULT_BLOCK_Q,
                         block_k: int = DEFAULT_BLOCK_K
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3: (dk, dv), arguments as :func:`flash_attention_dq`.
+    """K3: (dk, dv) from q, k, v, dO (B, H, S, Dh) and the row statistics
+    lse and delta ((B*H, Sq) f32, delta as :func:`flash_attention_dq`
+    returns it).
     ``flash_attention_dkv.launches`` counts its kernel launches."""
     if _on_cpu(q, k, v, dout, lse, delta):
         return flash_attention_dkv_plain(q, k, v, dout, lse, delta, causal,
                                          sm_scale, block_q)
-    _check_kernel_args(q, k, v, block_q, block_k, dout)
+    views = _check_kernel_args(q, k, v, block_q, block_k, dout)
     _check_row_stats(q, lse=lse, delta=delta)
     b, h, sq, dh = q.shape
     _, dkv_fn, error_name = _bwd_kernels()
@@ -410,10 +448,10 @@ def flash_attention_dkv(q, k, v, dout, lse, delta, causal: bool = False,
     with torch.cuda.device(q.device):
         rc = dkv_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dk.data_ptr(), dv.data_ptr(), b * h, sq, k.shape[2], dh,
+                    dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[2], dh,
                     float(_scale(q, sm_scale)), int(causal),
                     int(q.dtype == torch.bfloat16), block_q, block_k,
-                    _stream(q))
+                    _c_strides(views, dk, dv), _stream(q))
     _raise_on(rc, "flash_bwd_dkv", error_name)
     _count(flash_attention_dkv)
     return dk, dv
@@ -434,11 +472,14 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out_f32, lse = ctx.saved_tensors
-        # K1 read the projection's views; K2 and K3 take contiguous
-        # tensors, and the einsum backward hands dO over as a view too
-        q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
-        delta = _delta(out_f32, dout)
-        dq = flash_attention_dq(q, k, v, dout, lse, delta, *ctx.args)
+        # bf16 K2 and K3 read the projection's views, as K1 did, and the
+        # einsum backward's dO, through their tensor maps; a layout TMA
+        # cannot walk (an expanded dO, a misaligned slice) and f32 are copied
+        bf16 = q.dtype == torch.bfloat16
+        q, k, v, dout = (t if bf16 and _tma_readable(t) else t.contiguous()
+                         for t in (q, k, v, dout))
+        dq, delta = flash_attention_dq(q, k, v, dout, lse, out_f32,
+                                       *ctx.args)
         dk, dv = flash_attention_dkv(q, k, v, dout, lse, delta, *ctx.args)
         return dq, dk, dv, None, None, None, None
 
@@ -456,9 +497,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the plain versions. bf16 inputs may be strided views (see
     :func:`_check_kernel_args`); f32 inputs are contiguous. ``block_q`` and
     ``block_k`` are tuning arguments that change nothing beyond rounding,
-    as in the JAX package: they set the f32 kernel's and the plain
-    versions' tiles, and the bf16 forward uses its own warpgroup tiles (64
-    q rows, 64 keys)."""
+    as in the JAX package: they set the f32 kernels' and the plain
+    versions' tiles, and the bf16 kernels use their own warpgroup tiles (64
+    rows, 64 keys)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, sm_scale, block_q,

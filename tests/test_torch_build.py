@@ -41,10 +41,9 @@ def test_other_files_do_not(csrc):
 
 
 def test_the_shipped_sources_include_the_shared_header():
-    """flash_fwd.cu builds on hopper.cuh: both sit under csrc/ and the
-    header is part of every library's hash."""
+    """flash_fwd.cu and flash_bwd.cu build on hopper.cuh: all sit under
+    csrc/ and the header is part of every library's hash."""
     assert (_build.CSRC / "hopper.cuh").exists()
-    source = (_build.CSRC / "flash_fwd.cu").read_text()
-    assert '#include "hopper.cuh"' in source
     for name in _build.SOURCES:
-        assert (_build.CSRC / f"{name}.cu").exists()
+        source = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "hopper.cuh"' in source, name

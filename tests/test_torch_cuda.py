@@ -84,12 +84,14 @@ def _rel_err(out, ref):
                                                ("float32", 1e-5, 1e-5)])
 @pytest.mark.parametrize("dh", flash_mod.HEAD_DIMS)
 def test_cuda_training_kernels_match_plain(dtype, tol, lse_tol, dh):
-    """On the card: K1 with the LSE (and its f32 output), K2 (dq) and K3
-    (dk, dv) against their plain versions, for every head dim and tile pair the wrappers take, on
-    the shapes above. K2/K3 get the plain forward's out and lse, so each
-    kernel is held alone. bf16 tolerance: the kernels round P and dS to
-    bf16 before the second products and the gradients to bf16 at the end
-    (2^-8 relative each); f32: summation order and expf only."""
+    """On the card: K1 with the LSE (and its f32 output), K2 (dq, and
+    delta) and K3 (dk, dv) against their plain versions, for every head
+    dim and tile pair the wrappers take, on the shapes above. K2/K3 get
+    the plain forward's out and lse (K3 PyTorch's delta), so each kernel
+    is held alone. bf16 tolerance: the kernels round P and dS to bf16
+    before the second products and the gradients to bf16 at the end (2^-8
+    relative each); f32: summation order and expf only. K2's delta: f32
+    sums in another order, 1e-5 of max(1, |delta|)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -107,11 +109,12 @@ def test_cuda_training_kernels_match_plain(dtype, tol, lse_tol, dh):
         ref_out, ref_lse, ref_out32 = flash_attention_plain(
             q, k, v, causal, None, block_k, return_lse=True)
         delta = flash_mod._delta(ref_out32, dout)
-        dq = flash_attention_dq(q, k, v, dout, ref_lse, delta, causal, None,
-                                block_q, block_k)
+        dq, dq_delta = flash_attention_dq(q, k, v, dout, ref_lse, ref_out32,
+                                          causal, None, block_q, block_k)
         dk, dv = flash_attention_dkv(q, k, v, dout, ref_lse, delta, causal,
                                      None, block_q, block_k)
         torch.cuda.synchronize()
+        assert _rel_err(dq_delta, delta) <= 1e-5, where
         assert (flash_attention_lse.launches, flash_attention_dq.launches,
                 flash_attention_dkv.launches) == tuple(c + 1 for c in counts)
         out_tol = 1e-2 if dt == torch.bfloat16 else 1e-5
@@ -227,6 +230,110 @@ def test_cuda_k1_reads_projection_views(fused, dh):
     assert out.stride() == torch.empty_like(q).stride()
     ref = flash_attention_plain(*copies)
     assert float((out.float() - ref.float()).abs().max()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dh", flash_mod.HEAD_DIMS)
+def test_cuda_k2_k3_read_projection_views(fused, dh):
+    """K2 and K3 read the projection's strided views of q, k, v and a
+    strided dO through their tensor maps: the same bits as on contiguous
+    copies, within tolerance of the plain versions (as
+    test_cuda_training_kernels_match_plain), and the gradients keep their
+    inputs' memory order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = _projection_views(21, fused, b=3, h=4, s=196, dh=dh)
+    dout = _projection_views(22, False, b=3, h=4, s=196, dh=dh)[0]
+    assert not any(t.is_contiguous() for t in (q, k, v, dout))
+    copies = [t.contiguous() for t in (q, k, v, dout)]
+    _, lse, out32 = flash_attention_plain(*copies[:3], return_lse=True)
+    delta = flash_mod._delta(out32, copies[3])
+    counts = (flash_attention_dq.launches, flash_attention_dkv.launches)
+    dq, dq_delta = flash_attention_dq(q, k, v, dout, lse, out32)
+    dk, dv = flash_attention_dkv(q, k, v, dout, lse, delta)
+    dq_c, dq_delta_c = flash_attention_dq(*copies, lse, out32)
+    dk_c, dv_c = flash_attention_dkv(*copies, lse, delta)
+    torch.cuda.synchronize()
+    assert (flash_attention_dq.launches, flash_attention_dkv.launches) == (
+        counts[0] + 2, counts[1] + 2)
+    ref_dq = flash_attention_dq_plain(*copies, lse, delta)
+    ref_dk, ref_dv = flash_attention_dkv_plain(*copies, lse, delta)
+    for name, got, same, ref, like in (("dq", dq, dq_c, ref_dq, q),
+                                       ("dk", dk, dk_c, ref_dk, k),
+                                       ("dv", dv, dv_c, ref_dv, v)):
+        assert torch.equal(got, same), name
+        assert got.stride() == torch.empty_like(like).stride(), name
+        assert _rel_err(got, ref) <= 1e-2, (name, _rel_err(got, ref))
+    assert torch.equal(dq_delta, dq_delta_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", flash_mod.HEAD_DIMS)
+def test_cuda_k2_takes_delta(dh):
+    """bf16 K2 takes delta = rowsum(dO o O) in the kernel from the
+    forward's f32 output: within 1e-5 of PyTorch's (relative to max(1,
+    max |delta|): f32 sums in another order) and exactly 0 on dead rows,
+    with dq within tolerance of the plain version, on the shapes above,
+    in one launch. f32 K2 returns PyTorch's delta itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for shape, causal in SHAPES:
+        q, k, v = (t.to("cuda", torch.bfloat16)
+                   for t in _qkv(24, dh=dh, **shape))
+        dout = _qkv(25, dh=dh, **shape)[0].to("cuda", torch.bfloat16)
+        _, lse, out32 = flash_attention_plain(q, k, v, causal,
+                                              return_lse=True)
+        delta = flash_mod._delta(out32, dout)
+        before = flash_attention_dq.launches
+        dq, got = flash_attention_dq(q, k, v, dout, lse, out32, causal)
+        torch.cuda.synchronize()
+        assert flash_attention_dq.launches == before + 1
+        assert got.shape == delta.shape and got.dtype == torch.float32
+        assert _rel_err(got, delta) <= 1e-5, (shape, causal)
+        ref = flash_attention_dq_plain(q, k, v, dout, lse, delta, causal)
+        assert _rel_err(dq, ref) <= 1e-2, (shape, causal)
+        sq, skv = q.shape[2], k.shape[2]
+        if causal and sq > skv:
+            assert float(got.view(q.shape[:3])[:, :, :sq - skv].abs().max()
+                         ) == 0.0
+            assert float(dq[:, :, :sq - skv].abs().max()) == 0.0
+    q, k, v, dout = (t.float() for t in (q, k, v, dout))
+    _, lse, out = flash_attention_plain(q, k, v, return_lse=True)
+    _, delta = flash_attention_dq(q, k, v, dout, lse, out)
+    assert torch.equal(delta, flash_mod._delta(out, dout))
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_refused_launch_raises(monkeypatch):
+    """With the Python checks bypassed, what K2's and K3's C entries refuse
+    (a tensor map cuTensorMapEncodeTiled refuses, bf16 inputs without
+    strides) raises from the wrappers and counts no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = (t.to("cuda", torch.bfloat16)
+               for t in _qkv(23, b=1, h=2, sq=40))
+    _, lse, out32 = flash_attention_plain(q, k, v, return_lse=True)
+    delta = flash_mod._delta(out32, q)
+    monkeypatch.setattr(
+        flash_mod, "_check_kernel_args", lambda q, k, v, *args, **kwargs: [
+            flash_mod._view_strides(t) for t in (q, k, v, args[2])])
+    before = (flash_attention_dq.launches, flash_attention_dkv.launches)
+    # rows 136 bytes apart: TMA takes strides in multiples of 16 bytes
+    padded = [torch.nn.functional.pad(t, (0, 4))[..., :64]
+              for t in (q, k, v, q)]
+    with pytest.raises(RuntimeError, match="tensor map"):
+        flash_attention_dq(*padded, lse, out32)
+    with pytest.raises(RuntimeError, match="tensor map"):
+        flash_attention_dkv(*padded, lse, delta)
+    monkeypatch.setattr(flash_mod, "_check_kernel_args",
+                        lambda *args, **kwargs: [])
+    with pytest.raises(RuntimeError, match="strides"):
+        flash_attention_dq(q, k, v, q, lse, out32)
+    with pytest.raises(RuntimeError, match="strides"):
+        flash_attention_dkv(q, k, v, q, lse, delta)
+    assert (flash_attention_dq.launches,
+            flash_attention_dkv.launches) == before
 
 
 @pytest.mark.cuda

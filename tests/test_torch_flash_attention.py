@@ -138,6 +138,10 @@ BAD_ARGS = {
     "block_q 128": lambda q, k, v: (q, k, v, 128, BK),
     "block_k 128": lambda q, k, v: (q, k, v, BQ, 128),
     "misaligned": lambda q, k, v: (_misaligned(q), k, v, BQ, BK),
+    # a bf16 layout TMA could walk, from a base 4 bytes past a boundary
+    "bf16 misaligned": lambda q, k, v: (
+        _misaligned(q.to(torch.bfloat16)), k.to(torch.bfloat16),
+        v.to(torch.bfloat16), BQ, BK),
     # bf16 views that TMA cannot read: a strided last dim, and rows whose
     # pitch (Dh + 4 elements, 136 bytes) is no multiple of 16 bytes
     "bf16 last dim strided": lambda q, k, v: (
@@ -152,14 +156,16 @@ BAD_ARGS = {
 @pytest.mark.parametrize("label", sorted(BAD_ARGS))
 def test_kernel_arguments_are_checked(label):
     """What the CUDA kernels do not take raises before any launch, for K1
-    (which reads bf16 views) and for K2/K3 (contiguous only); the checks
-    are plain Python, so they run here on CPU tensors."""
+    (q, k, v) and for K2/K3 (with dO): f32 views, bf16 layouts TMA cannot
+    walk, misaligned bases, and the rest; the checks are plain Python, so
+    they run here on CPU tensors."""
     q, k, v = _torch(*_qkv(10, sq=16, dh=64))
     flash_mod._check_kernel_args(q, k, v, BQ, BK)  # well formed: passes
-    for views in (False, True):
+    flash_mod._check_kernel_args(q, k, v, BQ, BK, dout=q)
+    bad = BAD_ARGS[label](q, k, v)
+    for dout in (None, bad[0]):
         with pytest.raises(ValueError):
-            flash_mod._check_kernel_args(*BAD_ARGS[label](q, k, v),
-                                         views=views)
+            flash_mod._check_kernel_args(*bad, dout=dout)
 
 
 def _projection_views(seed, fused, b=2, s=9, heads=4, dh=64):
@@ -178,14 +184,20 @@ def _projection_views(seed, fused, b=2, s=9, heads=4, dh=64):
 @pytest.mark.parametrize("fused", [False, True])
 def test_bf16_projection_views_go_to_k1_without_a_copy(fused):
     """The einsum's (B, H, S, Dh) views are strided (the heads interleave
-    in memory); K1 takes them as they are, K2/K3 only contiguous."""
+    in memory); K1, and K2/K3 with a dO view, take them as they are and get
+    their strides; the same views in f32 must be contiguous."""
     q, k, v = _projection_views(12, fused)
     assert not q.is_contiguous() and q.stride(3) == 1
-    flash_mod._check_kernel_args(q, k, v, BQ, BK, views=True)
+    assert flash_mod._check_kernel_args(q, k, v, BQ, BK) == [
+        t.stride()[:3] for t in (q, k, v)]
+    assert flash_mod._check_kernel_args(q, k, v, BQ, BK, dout=q) == [
+        t.stride()[:3] for t in (q, k, v, q)]
+    assert all(flash_mod._tma_readable(t) for t in (q, k, v))
     with pytest.raises(ValueError, match="contiguous"):
-        flash_mod._check_kernel_args(q, k, v, BQ, BK)
+        flash_mod._check_kernel_args(q.float(), k.float(), v.float(), BQ, BK)
     with pytest.raises(ValueError, match="contiguous"):
-        flash_mod._check_kernel_args(q, k, v, BQ, BK, dout=q)
+        flash_mod._check_kernel_args(q.float(), k.float(), v.float(), BQ, BK,
+                                     dout=q.float())
     # the strides the kernel's tensor maps get, in elements
     b, h, s, dh = q.shape
     assert flash_mod._view_strides(q) == q.stride()[:3]

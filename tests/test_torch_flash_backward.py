@@ -217,10 +217,10 @@ def test_backward_arguments_are_checked(label):
 
 def test_mixed_devices_raise():
     q, k, v, g = (torch.from_numpy(a) for a in _arrays(12, sq=16))
-    _, lse, _ = flash_attention_plain(q, k, v, return_lse=True)
+    out, lse, _ = flash_attention_plain(q, k, v, return_lse=True)
     delta = flash_mod._delta(q, g)
     with pytest.raises(ValueError):
-        flash_attention_dq(q, k, v, g, lse.to("meta"), delta)
+        flash_attention_dq(q, k, v, g, lse.to("meta"), out)
     with pytest.raises(ValueError):
         flash_attention_dkv(q, k.to("meta"), v, g, lse, delta)
 
@@ -257,3 +257,97 @@ def test_delta_from_the_f32_output():
         rounded_err = rel(rounded[i].float().numpy(), exact[i])
         assert ours_err < 0.05, (name, ours_err)
         assert rounded_err > 4 * ours_err, (name, rounded_err, ours_err)
+
+
+def _mha_grads(fused_qkv, monkeypatch, readable=None):
+    """bf16 multi-head attention through the flash op on CPU tensors, with
+    the wrappers of K2 and K3 spied on: the gradients of x and the
+    projection weights, and what the backward handed each wrapper (q, k, v,
+    dO). With ``readable`` set, every layout is taken as TMA-readable (True)
+    or not (False: the backward copies everything)."""
+    from rafiki_tpu_torch.ops import attention as attn
+
+    rng = np.random.default_rng(14)
+    tree = attn.attention_init(rng, 64, 4)
+    params = {k: torch.from_numpy(v).requires_grad_() for k, v in tree.items()}
+    x = torch.from_numpy(rng.standard_normal((2, 40, 64)).astype(
+        np.float32)).to(torch.bfloat16).requires_grad_()
+    seen = []
+
+    def spy(real):
+        def call(q, k, v, dout, *args):
+            seen.append((q, k, v, dout))
+            return real(q, k, v, dout, *args)
+        return call
+
+    monkeypatch.setattr(flash_mod, "flash_attention_dq",
+                        spy(flash_mod.flash_attention_dq))
+    monkeypatch.setattr(flash_mod, "flash_attention_dkv",
+                        spy(flash_mod.flash_attention_dkv))
+    if readable is not None:
+        monkeypatch.setattr(flash_mod, "_tma_readable", lambda t: readable)
+    out = attn.multi_head_attention(params, x, use_flash=True,
+                                    fused_qkv=fused_qkv)
+    out.float().square().sum().backward()
+    grads = [x.grad] + [params[k].grad for k in ("wq", "wk", "wv", "wo")]
+    return grads, seen
+
+
+@pytest.mark.parametrize("fused_qkv", [False, True])
+def test_backward_hands_bf16_views_to_k2_k3(fused_qkv, monkeypatch):
+    """The backward passes the projection's bf16 views of q, k, v and the
+    einsum backward's dO to K2 and K3 as they are (the kernels read them
+    through their tensor maps on the card), and the gradients equal those
+    of the same backward with every input copied to a contiguous tensor."""
+    grads, seen = _mha_grads(fused_qkv, monkeypatch)
+    assert len(seen) == 2  # one call of each wrapper, the same tensors
+    assert all(a is b for a, b in zip(*seen))
+    q, k, v, dout = seen[0]
+    assert not any(t.is_contiguous() for t in (q, k, v))
+    assert all(flash_mod._tma_readable(t) for t in (q, k, v, dout))
+    copied, seen_c = _mha_grads(fused_qkv, monkeypatch, readable=False)
+    assert all(t.is_contiguous() for t in seen_c[0])
+    for got, ref in zip(grads, copied):
+        assert torch.equal(got, ref)
+
+
+def test_backward_copies_what_tma_cannot_read(monkeypatch):
+    """An upstream gradient TMA cannot walk (an expanded dO, stride 0 on
+    every dim, as ``out.sum()`` gives) reaches K2 and K3 as a contiguous
+    copy; q, k and v stay views."""
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal((3, 2, 24, 64)).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((3, 64, 4, 16)) / 8).astype(
+        np.float32)).to(torch.bfloat16)
+    q, k, v = (torch.einsum("bsd,dhk->bhsk", x[i], w[i]).requires_grad_()
+               for i in range(3))
+    assert not q.is_contiguous()
+    seen = []
+    real = flash_mod.flash_attention_dq
+    monkeypatch.setattr(
+        flash_mod, "flash_attention_dq",
+        lambda q, k, v, dout, *a: seen.append((q, dout)) or real(
+            q, k, v, dout, *a))
+    flash_attention(q, k, v, False, None, 16, 16).sum().backward()
+    (q_seen, dout_seen), = seen
+    assert q_seen.data_ptr() == q.data_ptr() and not q_seen.is_contiguous()
+    assert dout_seen.is_contiguous() and bool((dout_seen == 1).all())
+    assert all(bool(torch.isfinite(t.grad.float()).all()) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dq_returns_the_delta_k3_reads(dtype):
+    """K2's wrapper takes the forward's f32 output and returns (dq,
+    delta); on CPU tensors delta is :func:`_delta` (the plain version of
+    the bf16 kernel's own) and dq the plain K2 with it, bit for bit."""
+    q, k, v, g = (torch.from_numpy(a).to(dtype)
+                  for a in _arrays(16, sq=40, dh=64))
+    _, lse, out32 = flash_attention_plain(q, k, v, True, None, 16,
+                                          return_lse=True)
+    dq, delta = flash_attention_dq(q, k, v, g, lse, out32, True, None, 16,
+                                   16)
+    want = flash_mod._delta(out32, g)
+    assert torch.equal(delta, want)
+    assert torch.equal(dq, flash_mod.flash_attention_dq_plain(
+        q, k, v, g, lse, want, True, None, 16))
