@@ -1,0 +1,55 @@
+"""The admin as a process: ``python -m rafiki_tpu_torch.admin``.
+
+Seeds the superadmin, serves the REST door until SIGTERM or SIGINT, then
+stops every job and exits 0. Settings, from the environment:
+
+    RAFIKI_WORKDIR      params and store root         (default: cwd)
+    RAFIKI_DB_PATH      store file     (default: WORKDIR/rafiki_torch.sqlite3)
+    RAFIKI_ADMIN_HOST   bind host                     (default: 127.0.0.1)
+    RAFIKI_ADMIN_PORT   bind port                     (default: 3000; 0 = any)
+
+Services run as threads of this process on the visible CUDA devices; it
+refuses to start without one.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import signal
+import sys
+import threading
+
+
+def main() -> int:
+    logging.basicConfig(
+        level=os.environ.get("RAFIKI_LOG_LEVEL", "INFO"),
+        format="%(levelname)s:%(asctime)s:%(name)s: %(message)s")
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.http import AdminServer
+    from rafiki_tpu_torch.db.database import Database
+
+    os.makedirs(config.PARAMS_DIR, exist_ok=True)
+    admin = Admin(db=Database(config.DB_PATH))
+    host = os.environ.get("RAFIKI_ADMIN_HOST", "127.0.0.1")
+    port = int(os.environ.get("RAFIKI_ADMIN_PORT", "3000"))
+    server = AdminServer(admin, host=host, port=port).start()
+    print(f"rafiki_tpu_torch admin on http://{host}:{server.port} "
+          f"(db={admin.db.path}, placement="
+          f"{type(admin.placement).__name__})", flush=True)
+
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
+    signal.signal(signal.SIGINT, lambda *a: stop.set())
+    try:
+        stop.wait()
+    finally:
+        print("shutting down...", flush=True)
+        server.stop()
+        admin.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

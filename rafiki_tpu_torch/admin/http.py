@@ -1,0 +1,290 @@
+"""The REST door over ``Admin``.
+
+Own copy of ``rafiki_tpu/admin/http.py`` for the routes whose ``Admin``
+method this package has: the same paths, methods, user-type gates,
+``{"data": ...}`` envelope and error-to-status mapping. Built on the
+standard library's threading HTTP server; every route body is one
+``Admin`` call. A model upload is JSON with the template base64-encoded.
+
+Not carried (ROADMAP.md): the trace, scale, rollout and drift routes, the
+advisor routes (thread placement does not need them), fleet health,
+metrics, the web UI, and the standby and recovery gates.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import logging
+import re
+import threading
+import traceback
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs, urlparse
+
+from rafiki_tpu_torch import config
+from rafiki_tpu_torch.admin.admin import Admin, InvalidRequestError
+from rafiki_tpu_torch.cache.queue import QueueFullError
+from rafiki_tpu_torch.constants import UserType
+from rafiki_tpu_torch.placement.manager import InsufficientChipsError
+from rafiki_tpu_torch.sdk.artifact import ArtifactCorruptError
+from rafiki_tpu_torch.sdk.model import InvalidModelClassError
+from rafiki_tpu_torch.utils.auth import (
+    UnauthorizedError,
+    auth_check,
+    decode_token,
+)
+from rafiki_tpu_torch.utils.reqfields import (
+    LowLatencyHandler,
+    read_bounded_body,
+)
+
+logger = logging.getLogger(__name__)
+
+_ANY = None  # any authenticated user
+_ADMINS = [UserType.ADMIN, UserType.SUPERADMIN]
+_MODEL_DEVS = [UserType.MODEL_DEVELOPER] + _ADMINS
+_APP_DEVS = [UserType.APP_DEVELOPER] + _ADMINS
+
+Route = Tuple[str, re.Pattern, Optional[List[str]], Callable]
+
+
+def _field(body: Dict[str, Any], name: str) -> Any:
+    """A required body field; missing is a 400 at the route boundary, so a
+    KeyError from inside Admin stays a genuine 500."""
+    try:
+        return body[name]
+    except (KeyError, TypeError):
+        raise InvalidRequestError(f"missing body field '{name}'")
+
+
+def _b64_field(body: Dict[str, Any], name: str) -> bytes:
+    try:
+        return base64.b64decode(_field(body, name))
+    except (ValueError, TypeError) as e:
+        raise InvalidRequestError(f"field '{name}' is not valid base64: {e}")
+
+
+def _int_param(query: Dict[str, str], name: str, default: int) -> int:
+    try:
+        return int(query.get(name, default))
+    except (ValueError, TypeError) as e:
+        raise InvalidRequestError(f"query param '{name}' must be an int: {e}")
+
+
+class AdminServer:
+    """The HTTP door; ``start()`` binds and serves on a daemon thread."""
+
+    def __init__(self, admin: Admin, host: str = "127.0.0.1", port: int = 0):
+        self.admin = admin
+        self.host = host
+        self.port = port
+        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._thread: Optional[threading.Thread] = None
+        self.routes: List[Route] = self._build_routes()
+
+    def start(self) -> "AdminServer":
+        server = self
+
+        class Handler(LowLatencyHandler):
+            # keep-alive: every response sends Content-Length; the idle
+            # timeout reaps the thread of a client that died silently
+            protocol_version = "HTTP/1.1"
+            timeout = 300
+
+            def do_GET(self):
+                server._dispatch(self, "GET")
+
+            def do_POST(self):
+                server._dispatch(self, "POST")
+
+            def do_DELETE(self):
+                server._dispatch(self, "DELETE")
+
+        self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
+        self._httpd.daemon_threads = True
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="admin-door", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._httpd is None:
+            return
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=5.0)
+        self._httpd = None
+
+    # -- routing -----------------------------------------------------------
+
+    def _build_routes(self) -> List[Route]:
+        A = self.admin
+
+        def r(method: str, pattern: str, allowed, fn) -> Route:
+            return (method, re.compile(f"^{pattern}$"), allowed, fn)
+
+        return [
+            r("GET", "/", "public", lambda au, m, b, q: {
+                "name": "rafiki_tpu_torch admin", "status": "ok",
+                "recovery": {"state": "ready"}, "ha": {"role": "leader"}}),
+            r("POST", "/tokens", "public", lambda au, m, b, q:
+                A.authenticate_user(_field(b, "email"),
+                                    _field(b, "password"))),
+            # users
+            r("POST", "/users", _ADMINS, lambda au, m, b, q: A.create_user(
+                _field(b, "email"), _field(b, "password"),
+                _field(b, "user_type"))),
+            r("GET", "/users", _ADMINS, lambda au, m, b, q: A.get_users()),
+            r("DELETE", "/users", _ADMINS, lambda au, m, b, q: A.ban_user(
+                _field(b, "email"))),
+            # models
+            r("POST", "/models", _MODEL_DEVS, lambda au, m, b, q:
+                A.create_model(
+                    au["user_id"], _field(b, "name"), _field(b, "task"),
+                    _b64_field(b, "model_file_base64"),
+                    _field(b, "model_class"), b.get("dependencies"),
+                    b.get("access_right", "PRIVATE"))),
+            r("POST", "/models/verify", _MODEL_DEVS, lambda au, m, b, q:
+                A.verify_model(_b64_field(b, "model_file_base64"),
+                               _field(b, "model_class"),
+                               b.get("dependencies"))),
+            r("GET", "/models", _ANY, lambda au, m, b, q: A.get_models(
+                au["user_id"], q.get("task"))),
+            r("GET", r"/models/(?P<name>[^/]+)", _ANY, lambda au, m, b, q:
+                A.get_model(au["user_id"], m["name"], q.get("owner_id"))),
+            r("GET", r"/models/(?P<name>[^/]+)/file", _ANY,
+                lambda au, m, b, q: {"model_file_base64": base64.b64encode(
+                    A.get_model_file(au["user_id"], m["name"],
+                                     q.get("owner_id"))).decode()}),
+            r("DELETE", r"/models/(?P<name>[^/]+)", _MODEL_DEVS,
+                lambda au, m, b, q: A.delete_model(au["user_id"],
+                                                   m["name"]) or {}),
+            # train jobs
+            r("POST", "/train_jobs", _APP_DEVS, lambda au, m, b, q:
+                A.create_train_job(
+                    au["user_id"], _field(b, "app"), _field(b, "task"),
+                    _field(b, "train_dataset_uri"),
+                    _field(b, "test_dataset_uri"), b.get("budget"),
+                    b.get("models"))),
+            r("GET", "/train_jobs", _ANY, lambda au, m, b, q:
+                A.get_train_jobs_of_user(au["user_id"])),
+            r("GET", r"/train_jobs/(?P<app>[^/]+)", _ANY, lambda au, m, b, q:
+                A.get_train_jobs_of_app(au["user_id"], m["app"])),
+            r("GET", r"/train_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)", _ANY,
+                lambda au, m, b, q: A.get_train_job(
+                    au["user_id"], m["app"], int(m["v"]))),
+            r("POST", r"/train_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/stop",
+                _APP_DEVS, lambda au, m, b, q: A.stop_train_job(
+                    au["user_id"], m["app"], int(m["v"]))),
+            r("GET", r"/train_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/trials", _ANY,
+                lambda au, m, b, q: A.get_trials_of_train_job(
+                    au["user_id"], m["app"], int(m["v"]))),
+            r("GET", r"/train_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/best_trials",
+                _ANY, lambda au, m, b, q: A.get_best_trials_of_train_job(
+                    au["user_id"], m["app"], int(m["v"]),
+                    _int_param(q, "max_count", 2))),
+            # trials
+            r("GET", r"/trials/(?P<tid>[^/]+)/logs", _ANY, lambda au, m, b, q:
+                A.get_trial_logs(m["tid"])),
+            r("GET", r"/trials/(?P<tid>[^/]+)/parameters", _ANY,
+                lambda au, m, b, q: {"params_base64": base64.b64encode(
+                    A.get_trial_params(m["tid"])).decode()}),
+            r("GET", r"/trials/(?P<tid>[^/]+)", _ANY, lambda au, m, b, q:
+                A.get_trial(m["tid"])),
+            # inference jobs
+            r("POST", "/inference_jobs", _APP_DEVS, lambda au, m, b, q:
+                A.create_inference_job(
+                    au["user_id"], _field(b, "app"), b.get("app_version", -1),
+                    budget=b.get("budget"))),
+            r("GET", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)", _ANY,
+                lambda au, m, b, q: A.get_inference_job(
+                    au["user_id"], m["app"], int(m["v"]))),
+            r("GET", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/stats",
+                _ANY, lambda au, m, b, q: A.get_inference_job_stats(
+                    au["user_id"], m["app"], int(m["v"]))),
+            r("POST", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/stop",
+                _APP_DEVS, lambda au, m, b, q: A.stop_inference_job(
+                    au["user_id"], m["app"], int(m["v"]))),
+            # serving
+            r("POST", r"/predict/(?P<app>[^/]+)", _ANY, lambda au, m, b, q:
+                {"predictions": A.predict(
+                    au["user_id"], m["app"], _field(b, "queries"),
+                    b.get("app_version", -1))}),
+            # admin actions
+            r("POST", "/actions/stop_all_jobs", _ADMINS,
+                lambda au, m, b, q: A.stop_all_jobs() or {}),
+            # worker events: workers authenticate as superadmin; plain users
+            # must not stop other tenants' services through this
+            r("POST", r"/event/(?P<name>[^/]+)", _ADMINS, lambda au, m, b, q:
+                A.handle_event(m["name"], b) or {}),
+        ]
+
+    def _dispatch(self, handler: BaseHTTPRequestHandler, method: str) -> None:
+        try:
+            parsed = urlparse(handler.path)
+            path = parsed.path.rstrip("/") or "/"
+            # the body is read before any answer: an early answer that
+            # leaves it unread desyncs keep-alive framing
+            raw, berr = read_bounded_body(handler, config.ADMIN_MAX_BODY_MB)
+            if berr:
+                raise InvalidRequestError(f"{berr[1]} (ADMIN_MAX_BODY_MB)")
+            query = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+            body: Dict[str, Any] = {}
+            try:
+                if raw:
+                    body = json.loads(raw)
+            except (ValueError, UnicodeDecodeError) as e:
+                raise InvalidRequestError(f"malformed request body: {e}")
+            if raw and not isinstance(body, dict):
+                raise InvalidRequestError("request body must be a JSON object")
+            for m, pattern, allowed, fn in self.routes:
+                if m != method:
+                    continue
+                match = pattern.match(path)
+                if not match:
+                    continue
+                auth: Dict[str, Any] = {}
+                if allowed != "public":
+                    token = (handler.headers.get("Authorization")
+                             or "").removeprefix("Bearer ")
+                    auth = decode_token(token)
+                    if allowed is not _ANY:
+                        auth_check(auth, allowed)
+                result = fn(auth, match.groupdict(), body, query)
+                self._respond(handler, 200, {"data": result})
+                return
+            self._respond(handler, 404, {"error": f"No route {method} {path}"})
+        except UnauthorizedError as e:
+            self._respond(handler, 401, {"error": str(e)})
+        except (InvalidRequestError, InvalidModelClassError) as e:
+            self._respond(handler, 400, {"error": f"{type(e).__name__}: {e}"})
+        except ArtifactCorruptError as e:
+            self._respond(handler, 500, {"error": f"{type(e).__name__}: {e}"})
+        except QueueFullError as e:
+            self._respond(handler, 429, {"error": f"{type(e).__name__}: {e}"},
+                          headers={"Retry-After": str(max(
+                              1, round(e.retry_after_s)))})
+        except TimeoutError as e:
+            self._respond(handler, 504, {"error": f"{type(e).__name__}: {e}"})
+        except InsufficientChipsError as e:
+            self._respond(handler, 503, {"error": f"{type(e).__name__}: {e}"})
+        except Exception:
+            # the traceback stays in the server's log, never in an answer
+            logger.error("unhandled error on %s %s:\n%s", method,
+                         handler.path, traceback.format_exc())
+            self._respond(handler, 500, {"error": "internal server error"})
+
+    @staticmethod
+    def _respond(handler, code: int, payload: Dict[str, Any],
+                 headers: Optional[Dict[str, str]] = None) -> None:
+        data = json.dumps(payload).encode()
+        handler.send_response(code)
+        handler.send_header("Content-Type", "application/json")
+        handler.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            handler.send_header(k, v)
+        handler.end_headers()
+        handler.wfile.write(data)

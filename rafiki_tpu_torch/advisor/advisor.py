@@ -140,6 +140,10 @@ class AdvisorStore:
     def propose(self, advisor_id: str) -> Dict[str, Any]:
         return self.get(advisor_id).propose()
 
+    def delete_advisor(self, advisor_id: str) -> None:
+        with self._lock:
+            self._advisors.pop(advisor_id, None)
+
     def feedback(self, advisor_id: str, knobs: Dict[str, Any],
                  score: float) -> Dict[str, Any]:
         """Record a score; returns the next proposal (the reference's

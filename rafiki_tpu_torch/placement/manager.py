@@ -1,0 +1,187 @@
+"""Device-affine service placement: services run as threads of this
+process, each with a device grant.
+
+Own copy of ``rafiki_tpu/placement/manager.py``: ``ChipAllocator`` owns
+the host's device inventory, ``LocalPlacementManager`` runs each service
+entry point on a daemon thread with its grant (the runner sets the
+thread's grant with :func:`~rafiki_tpu_torch.device.set_device_grant`
+through the worker's ``start``), reports RUNNING when the service calls
+``ctx.ready()``, restarts a crashing service up to ``max_restarts``
+times, and releases the grant once the thread is off the devices.
+
+The JAX package's ``PlacementManager`` seam waits for a second placement
+(process or host agents, ROADMAP.md). Two differences from it:
+
+- ``ChipAllocator()`` lists the visible CUDA devices and raises when
+  there is none. Only an allocator built over ``["cpu"]`` (the tests)
+  grants the CPU.
+- A service that asks for no device, or a serving worker whose exclusive
+  grant cannot be met (``best_effort_chips``), shares the allocator's
+  first device instead of getting an empty grant. An empty grant in the
+  JAX package means "every visible device", the CPU when there is no TPU;
+  here it never means the CPU. So on a one-card host the two best trials
+  of an inference job are both served on ``cuda:0``.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import traceback
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from rafiki_tpu_torch.device import DeviceSpec, ServiceContext, visible_devices
+
+logger = logging.getLogger(__name__)
+
+
+class InsufficientChipsError(Exception):
+    pass
+
+
+class ChipAllocator:
+    """Per-host device bookkeeping. ``device_indices`` are CUDA indices,
+    or ``"cpu"``; by default the visible CUDA devices (``RAFIKI_VISIBLE_
+    DEVICES`` or all), and a RuntimeError without CUDA."""
+
+    def __init__(self, device_indices: Optional[List[DeviceSpec]] = None):
+        if device_indices is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "no CUDA device to place services on; build the "
+                    "allocator over ['cpu'] to run on the CPU")
+            device_indices = [d.index for d in visible_devices()]
+        self._lock = threading.Lock()
+        self._free: List[DeviceSpec] = list(device_indices)
+        self._total: List[DeviceSpec] = list(device_indices)
+
+    @property
+    def total_chips(self) -> int:
+        return len(self._total)
+
+    @property
+    def free_chips(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    def allocate(self, n: int) -> List[DeviceSpec]:
+        with self._lock:
+            if n > len(self._free):
+                raise InsufficientChipsError(
+                    f"Requested {n} chips, only {len(self._free)} free")
+            grant, self._free = self._free[:n], self._free[n:]
+            return grant
+
+    def shared(self, n: int) -> List[DeviceSpec]:
+        """``n`` devices (at least one) to share with their owners: the
+        first of the inventory, marked busy for no one."""
+        return list(self._total[:max(n, 1)])
+
+    def release(self, chips: List[DeviceSpec]) -> None:
+        with self._lock:
+            for c in chips:
+                if c in self._total and c not in self._free:
+                    self._free.append(c)
+            self._free.sort(key=self._total.index)
+
+
+RunFn = Callable[[ServiceContext], None]
+StatusFn = Callable[[str, str], None]  # (service_id, status)
+
+
+class _ServiceRunner:
+    def __init__(self, ctx: ServiceContext, run_fn: RunFn,
+                 on_status: Optional[StatusFn], max_restarts: int,
+                 on_exit: Optional[Callable[[], None]] = None):
+        self.ctx = ctx
+        self.run_fn = run_fn
+        self.on_status = on_status
+        self.max_restarts = max_restarts
+        self.on_exit = on_exit
+        ctx.on_ready = lambda: self._status("RUNNING")
+        self.thread = threading.Thread(target=self._run,
+                                       name=f"svc-{ctx.service_id[:8]}",
+                                       daemon=True)
+
+    def _status(self, status: str) -> None:
+        if self.on_status:
+            try:
+                self.on_status(self.ctx.service_id, status)
+            except Exception:
+                logger.exception("status callback failed")
+
+    def _run(self) -> None:
+        # RUNNING comes from ctx.ready() inside run_fn, once the service
+        # has started: one that crashes on start lands ERRORED without
+        # ever having claimed to run
+        try:
+            restarts = 0
+            while not self.ctx.stop_event.is_set():
+                try:
+                    self.run_fn(self.ctx)
+                    break
+                except Exception:
+                    logger.error("service %s crashed:\n%s",
+                                 self.ctx.service_id, traceback.format_exc())
+                    restarts += 1
+                    if restarts > self.max_restarts:
+                        self._status("ERRORED")
+                        return
+            self._status("STOPPED")
+        finally:
+            # the grant comes home only once the thread is off the devices
+            if self.on_exit:
+                self.on_exit()
+
+
+class LocalPlacementManager:
+    """Runs services as daemon threads of this process."""
+
+    def __init__(self, allocator: Optional[ChipAllocator] = None,
+                 on_status: Optional[StatusFn] = None,
+                 max_restarts: int = 3):
+        self.allocator = allocator or ChipAllocator()
+        self.on_status = on_status
+        self.max_restarts = max_restarts
+        self._lock = threading.Lock()
+        self._runners: Dict[str, _ServiceRunner] = {}  # guarded-by: _lock
+
+    def create_service(self, service_id: str, service_type: str,
+                       run_fn: RunFn, n_chips: int = 0,
+                       best_effort_chips: bool = False) -> ServiceContext:
+        """Deploy a service on ``n_chips`` devices of its own. With none
+        asked for, or with ``best_effort_chips`` when too few are free, it
+        shares the allocator's first devices instead (see the module
+        docstring)."""
+        owned: List[DeviceSpec] = []
+        try:
+            owned = self.allocator.allocate(n_chips) if n_chips > 0 else []
+        except InsufficientChipsError:
+            if not best_effort_chips:
+                raise
+        chips = owned or self.allocator.shared(n_chips)
+        ctx = ServiceContext(service_id=service_id, chips=chips)
+        runner = _ServiceRunner(
+            ctx, run_fn, self.on_status, self.max_restarts,
+            on_exit=lambda: self.allocator.release(owned))
+        with self._lock:
+            self._runners[service_id] = runner
+        runner.thread.start()
+        return ctx
+
+    def destroy_service(self, service_id: str, wait: bool = True) -> None:
+        with self._lock:
+            runner = self._runners.pop(service_id, None)
+        if runner is None:
+            return  # already gone: concurrent teardowns are expected
+        runner.ctx.stop_event.set()
+        if wait:
+            runner.thread.join(timeout=30)
+
+    def stop_all(self) -> None:
+        with self._lock:
+            ids = list(self._runners)
+        for sid in ids:
+            self.destroy_service(sid)

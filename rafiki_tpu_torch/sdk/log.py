@@ -3,8 +3,8 @@
 Own copy of ``ModelLogger`` and ``StopTrialEarly`` from
 ``rafiki_tpu/sdk/log.py``: model code logs messages, metrics and plot
 definitions as typed JSON lines; the train worker installs a sink that
-appends each line to the trial's log in the store. ``parse_logs`` (the
-admin's reader) comes with the control-plane slice (ROADMAP.md).
+appends each line to the trial's log in the store; ``parse_logs`` is the
+admin's reader of those lines.
 """
 
 from __future__ import annotations
@@ -83,6 +83,30 @@ class ModelLogger:
             self._sink(line)
         if self._echo:
             print(f"[model] {line}")
+
+
+def parse_logs(lines: List[LogLine]) -> Dict[str, List[Dict[str, Any]]]:
+    """Reassemble raw log lines into messages, metrics and plots."""
+    messages: List[Dict[str, Any]] = []
+    metrics: List[Dict[str, Any]] = []
+    plots: List[Dict[str, Any]] = []
+    for line in lines:
+        try:
+            rec = json.loads(line)
+        except (json.JSONDecodeError, TypeError):
+            messages.append({"message": str(line), "time": None})
+            continue
+        rtype = rec.get("type")
+        if rtype == LogType.MESSAGE:
+            messages.append({"message": rec.get("message"),
+                             "time": rec.get("time")})
+        elif rtype == LogType.METRICS:
+            metrics.append({**rec.get("metrics", {}), "time": rec.get("time")})
+        elif rtype == LogType.PLOT:
+            plots.append({"title": rec.get("title"),
+                          "metrics": rec.get("metrics"),
+                          "x_axis": rec.get("x_axis")})
+    return {"messages": messages, "metrics": metrics, "plots": plots}
 
 
 #: module singleton used by model code outside a worker

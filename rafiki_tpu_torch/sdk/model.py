@@ -6,9 +6,10 @@ a train worker calls (``get_knob_config``, ``train``, ``evaluate``,
 instance before ``train``), those an inference worker calls
 (``load_parameters``, ``warm_up``, ``predict``, ``destroy``), and
 ``load_model_class``, which imports an uploaded template's bytes and checks
-that the class subclasses this package's ``BaseModel``. The population,
-generation and ensemble hooks and the ``test_model_class`` harness wait
-(ROADMAP.md).
+that the class subclasses this package's ``BaseModel``, and
+``validate_model_dependencies``, which the admin runs at upload. The
+population, generation and ensemble hooks, dependency provisioning and
+the ``test_model_class`` harness wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,9 +30,17 @@ class InvalidModelClassError(Exception):
     pass
 
 
+#: pip names whose import name differs (``rafiki_tpu/sdk/deps.py``)
+IMPORT_ALIASES = {"scikit-learn": "sklearn", "pillow": "PIL",
+                  "pyyaml": "yaml", "opencv-python": "cv2"}
+
+
 class BaseModel(abc.ABC):
     """What a template implements. Instantiated once per trial as
     ``Model(**knobs)`` with a knob assignment proposed by the advisor."""
+
+    #: declared dependencies: {package_name: version_spec_or_None}
+    dependencies: Dict[str, Optional[str]] = {}
 
     def __init__(self, **knobs: Any):
         self._knobs = knobs
@@ -106,3 +115,10 @@ def load_model_class(model_bytes: bytes, class_name: str,
             os.unlink(tmp.name)
         except OSError:
             pass
+
+
+def validate_model_dependencies(clazz: type) -> List[str]:
+    """The declared dependencies of ``clazz`` that do not import here."""
+    deps = getattr(clazz, "dependencies", {}) or {}
+    return [dep for dep in deps if importlib.util.find_spec(
+        IMPORT_ALIASES.get(dep.lower(), dep.replace("-", "_"))) is None]

@@ -2,27 +2,53 @@
 
 Counterpart of ``rafiki_tpu/worker/inference.py``: register a queue with
 the broker, load the trial (its model's template bytes, its knobs, its
-params artifact, as a train job left them in the store), warm every
+params artifact, as a train job left them in the database), warm every
 batch bucket up before reporting ready, then take batches and resolve
-their futures. Chaos injection, the sandbox, the stats reporter and fused
-ensembles are not ported yet (ROADMAP.md).
+their futures. Each served batch counts into :func:`serving_stats`
+(batches, queries, and the queue's depth, expired and shed queries),
+which ``Admin.get_inference_job_stats`` reads. Chaos injection, the
+sandbox, the remote stats reporter and fused ensembles are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Any, List
+import threading
+from typing import Any, Dict, List
 
 import numpy as np
 
 from rafiki_tpu_torch import config
 from rafiki_tpu_torch.cache.queue import Broker
-from rafiki_tpu_torch.db.store import TrialStore
+from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.device import ServiceContext, set_device_grant
+from rafiki_tpu_torch.sdk.artifact import read_artifact
 from rafiki_tpu_torch.sdk.model import load_model_class
 from rafiki_tpu_torch.sdk.params import load_params
 
 logger = logging.getLogger(__name__)
+
+# serving counters of this process's workers, by service id
+_stats_lock = threading.Lock()
+SERVING_STATS: Dict[str, Dict[str, int]] = {}  # guarded-by: _stats_lock
+
+
+def serving_stats() -> Dict[str, Dict[str, int]]:
+    """Snapshot of {service_id: {batches, queries, queue_depth, expired,
+    shed}} for this process."""
+    with _stats_lock:
+        return {k: dict(v) for k, v in SERVING_STATS.items()}
+
+
+def _record_batch(service_id: str, n_queries: int, queue) -> None:
+    q = queue.stats()
+    with _stats_lock:
+        s = SERVING_STATS.setdefault(service_id, {"batches": 0, "queries": 0})
+        s["batches"] += 1
+        s["queries"] += n_queries
+        s.update(queue_depth=q["depth"], expired=q["expired"],
+                 shed=q["rejected"])
 
 
 def _resolve_batch(futures: List[Any], predictions: Any,
@@ -53,24 +79,24 @@ def _assemble(queries: List[Any]) -> Any:
 
 
 class InferenceWorker:
-    def __init__(self, inference_job_id: str, trial_id: str,
-                 store: TrialStore, broker: Broker):
+    def __init__(self, inference_job_id: str, trial_id: str, db: Database,
+                 broker: Broker):
         self._job_id = inference_job_id
         self._trial_id = trial_id
-        self._store = store
+        self._db = db
         self._broker = broker
 
     def _load_model(self):
-        trial = self._store.get_trial(self._trial_id)
-        if trial is None:
-            raise KeyError(f"no trial {self._trial_id}")
-        model_row = self._store.get_model(trial["model_id"])
+        trial = self._db.get_trial(self._trial_id)
+        if trial is None or not trial["params_file_path"]:
+            raise KeyError(f"no trained trial {self._trial_id}")
+        model_row = self._db.get_model(trial["model_id"])
         clazz = load_model_class(model_row["model_file_bytes"],
                                  model_row["model_class"])
         model = clazz(**trial["knobs"])
         # verified read: a damaged artifact raises ArtifactCorruptError
         model.load_parameters(
-            load_params(self._store.get_trial_params(self._trial_id)))
+            load_params(read_artifact(trial["params_file_path"])))
         return model
 
     def start(self, ctx: ServiceContext) -> None:
@@ -93,6 +119,7 @@ class InferenceWorker:
                     break
                 if not batch:
                     continue
+                _record_batch(ctx.service_id, len(batch), queue)
                 futures = [f for f, _ in batch]
                 try:
                     predictions = model.predict(_assemble([q for _, q in batch]))

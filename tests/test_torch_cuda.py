@@ -392,3 +392,96 @@ def test_cuda_refused_launch_raises(monkeypatch):
         with pytest.raises(RuntimeError, match="strides"):
             flash_attention(q, k, v)
     assert flash_attention.launches == before
+
+
+#: the TorchViT template at test width (the architecture knobs narrowed)
+_NARROW_EDITS = [
+    ("class TorchViT(BaseModel):", "class NarrowViT(BaseModel):"),
+    ('"image_size": FixedKnob(224)', '"image_size": FixedKnob(32)'),
+    ('"patch_size": FixedKnob(16)', '"patch_size": FixedKnob(4)'),
+    ('"dim": FixedKnob(768)', '"dim": FixedKnob(128)'),
+    ('"depth": FixedKnob(12)', '"depth": FixedKnob(2)'),
+    ('"heads": FixedKnob(12)', '"heads": FixedKnob(2)'),
+    ('"num_classes": FixedKnob(1000)', '"num_classes": FixedKnob(10)'),
+    ('"batch_size": CategoricalKnob([64, 128])',
+     '"batch_size": CategoricalKnob([16, 32])'),
+]
+
+
+@pytest.mark.cuda
+def test_cuda_client_admin_cycle(tmp_path):
+    """On the card, through the port's Client -> AdminServer -> Admin with
+    its default placement (the visible CUDA devices): a 2-trial train job
+    of a narrow ViT granted cuda:0, whose steps launch K1-LSE, K2 and K3,
+    then an inference job whose answers (K1 in every forward) agree with
+    the plain-attention ensemble of the downloaded trials."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pathlib import Path
+
+    from rafiki_tpu_torch import config, convert
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.http import AdminServer
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.models import vit
+    from rafiki_tpu_torch.models.transformer import TransformerConfig
+    from rafiki_tpu_torch.sdk.dataset import write_numpy_dataset
+    from rafiki_tpu_torch.sdk.params import load_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    source = (Path(flash_mod.__file__).parents[1] / "templates"
+              / "torch_vit.py").read_text()
+    for old, new in _NARROW_EDITS:
+        assert source.count(old) == 1, old
+        source = source.replace(old, new)
+    rng = np.random.default_rng(0)
+    patterns = rng.random((10, 32, 32, 3), dtype=np.float32)
+    uris = []
+    for name, n in (("train", 128), ("test", 32)):
+        y = rng.integers(0, 10, n).astype(np.int32)
+        x = 0.6 * patterns[y] + 0.4 * rng.random((n, 32, 32, 3),
+                                                 dtype=np.float32)
+        uris.append(write_numpy_dataset(x, y, str(tmp_path / f"{name}.npz")))
+    admin = Admin(db=Database(str(tmp_path / "store.sqlite3")),
+                  params_dir=str(tmp_path / "params"))
+    server = AdminServer(admin).start()
+    kernels = (flash_attention_lse, flash_attention_dq, flash_attention_dkv)
+    try:
+        c = Client("127.0.0.1", server.port, timeout_s=300)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        c.create_model("narrow", "IMAGE_CLASSIFICATION", source.encode(),
+                       "NarrowViT")
+        before = [k.launches for k in kernels]
+        c.create_train_job("narrow", "IMAGE_CLASSIFICATION", *uris,
+                           budget={"MODEL_TRIAL_COUNT": 2, "CHIP_COUNT": 1})
+        job = c.wait_until_train_job_stopped("narrow", timeout_s=300)
+        assert job["status"] == "STOPPED"
+        assert [w["chips"] for w in job["workers"]] == [[0]]
+        trials = c.get_trials_of_train_job("narrow")
+        assert [t["status"] for t in trials] == ["COMPLETED"] * 2
+        steps = sum(128 // t["knobs"]["batch_size"] for t in trials)
+        assert [k.launches - b for k, b in zip(kernels, before)] == [
+            2 * steps] * 3
+        trees = [load_params(c.download_trial_params(t["id"]))
+                 for t in trials]
+        c.create_inference_job("narrow")
+        with np.load(uris[1]) as z:
+            images = z["x"][:8]
+        k1 = flash_attention.launches
+        probs = np.asarray(c.predict("narrow", images.tolist()))
+        assert flash_attention.launches > k1
+        c.stop_inference_job("narrow")
+    finally:
+        server.stop()
+        admin.shutdown()
+    cfg = vit.ViTConfig(image_size=32, patch_size=4, num_classes=10,
+                        encoder=TransformerConfig(dim=128, depth=2, heads=2,
+                                                  use_flash=False))
+    with torch.inference_mode():
+        x = torch.from_numpy(images).cuda()
+        ref = sum(torch.softmax(convert.from_jax_params(t, cfg, "cuda:0")(x),
+                                -1).double().cpu().numpy()
+                  for t in trees) / 2
+    assert probs.shape == (8, 10) and np.isfinite(probs).all()
+    assert float(np.abs(probs - ref).max()) <= 1e-3

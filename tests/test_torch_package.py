@@ -3,7 +3,9 @@ entry points never fall back to the CPU quietly.
 
 The import ban is checked statically, over the source: this test process
 imports JAX itself (and some environments pre-import it), so a
-``sys.modules`` check could not tell.
+``sys.modules`` check could not tell. Banned: JAX and the JAX package, and
+the modules the machine with the card lacks (``requests``, ``psycopg2``,
+``PIL``, ``flax``, ``optax``, ``msgpack``).
 """
 
 import ast
@@ -18,7 +20,8 @@ from rafiki_tpu_torch import device
 from rafiki_tpu_torch.sdk.model import InvalidModelClassError, load_model_class
 
 ROOT = Path(rafiki_tpu_torch.__file__).resolve().parents[1]
-BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "rafiki_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "rafiki_tpu",
+          "requests", "psycopg2", "PIL")
 
 
 def _sources():
@@ -59,6 +62,15 @@ def test_the_ban_catches_what_it_should(tmp_path):
                    "from rafiki_tpu_torch import config\nimport optax\n")
     assert [f.split(" imports ")[1] for f in _banned_imports(bad)] == [
         "jax.numpy", "rafiki_tpu.ops", "optax"]
+
+
+def test_the_ban_catches_modules_absent_on_the_card(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("import requests\nimport urllib.request\n"
+                   "from PIL import Image\nimport psycopg2.extras\n"
+                   "import msgpack, flax\n")
+    assert [f.split(" imports ")[1] for f in _banned_imports(bad)] == [
+        "requests", "PIL", "psycopg2.extras", "msgpack", "flax"]
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -1,8 +1,8 @@
 """The port's serving slice end to end on the CPU.
 
 Two trials of the tiny ``TorchViT`` template (seeded numpy weights in the
-JAX layout, npz artifacts, template bytes and knobs in the in-memory trial
-store) are served by two ``InferenceWorker`` threads behind one
+JAX layout, npz artifacts, template bytes and knobs as COMPLETED trial rows
+of the port's database) are served by two ``InferenceWorker`` threads behind one
 ``Predictor`` and its ``PredictorServer``. Answers over ``POST /predict``
 are held against the JAX package: the mean over the two trials of
 ``softmax(vit.apply(tree))``.
@@ -34,12 +34,13 @@ from rafiki_tpu_torch.cache.queue import (
     QueueFullError,
     WorkerQueue,
 )
-from rafiki_tpu_torch.db.store import TrialStore
+from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.device import ServiceContext
 from rafiki_tpu_torch.models import vit
 from rafiki_tpu_torch.predictor.ensemble import ensemble_predictions
 from rafiki_tpu_torch.predictor.predictor import Predictor
 from rafiki_tpu_torch.predictor.server import PredictorServer
+from rafiki_tpu_torch.sdk.artifact import write_artifact
 from rafiki_tpu_torch.sdk.params import dump_params
 from rafiki_tpu_torch.sdk.torch_backend import DataParallelTrainer
 from rafiki_tpu_torch.worker.inference import InferenceWorker, _resolve_batch
@@ -80,15 +81,34 @@ def post_json(url, payload):
                  {"Content-Type": "application/json"})
 
 
+def add_trained_trials(db, params_dir, template, model_class, knobs,
+                       trees):
+    """A COMPLETED trial row for each params tree of ``trees`` (its
+    artifact written under ``params_dir``); returns {trial_id: tree}."""
+    user = db.create_user("dev@x", "-", "MODEL_DEVELOPER")
+    model = db.create_model(user["id"], model_class, "IMAGE_CLASSIFICATION",
+                            template, model_class, {}, "PRIVATE")
+    job = db.create_train_job(user["id"], "app", 1, "IMAGE_CLASSIFICATION",
+                              "-", "-", {})
+    sub = db.create_sub_train_job(job["id"], model["id"])
+    out = {}
+    for tree in trees:
+        tid = db.create_trial(sub["id"], model["id"], knobs)["id"]
+        path = str(params_dir / f"{tid}.params")
+        write_artifact(path, dump_params(tree))
+        db.mark_trial_as_complete(tid, 0.5, path)
+        out[tid] = tree
+    return out
+
+
 @pytest.fixture(scope="module")
-def stack():
+def stack(tmp_path_factory):
     cfg = vit.tiny()
-    trees = {f"trial-{i}": vit.init(np.random.default_rng(20 + i), cfg)
-             for i in range(2)}
-    store = TrialStore()
-    for tid, tree in trees.items():
-        store.add_trial(tid, TEMPLATE.read_bytes(), "TorchViT", KNOBS,
-                        dump_params(tree))
+    store = Database(":memory:")
+    trees = add_trained_trials(
+        store, tmp_path_factory.mktemp("params"), TEMPLATE.read_bytes(),
+        "TorchViT", KNOBS,
+        [vit.init(np.random.default_rng(20 + i), cfg) for i in range(2)])
     broker = InProcessBroker()
     workers = []
     for i, tid in enumerate(trees):

@@ -1,5 +1,5 @@
 """The port's training stack against the JAX package's: the own copies of
-knobs, advisor, artifact and dataset I/O, the store's trial reservation,
+knobs, advisor, artifact and dataset I/O, the database's trial reservation,
 and ``DataParallelTrainer.fit`` on a tiny ViT.
 
 Inputs are made with numpy from a seed and handed to both packages. The
@@ -26,7 +26,8 @@ from rafiki_tpu.sdk import jax_backend
 from rafiki_tpu.sdk import knob as jax_knob
 from rafiki_tpu_torch import convert
 from rafiki_tpu_torch.advisor import advisor
-from rafiki_tpu_torch.db.store import TrialStatus, TrialStore
+from rafiki_tpu_torch.constants import TrialStatus
+from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.models import vit
 from rafiki_tpu_torch.sdk import artifact, dataset, knob, torch_backend
 from rafiki_tpu_torch.sdk.log import ModelLogger, StopTrialEarly
@@ -153,11 +154,14 @@ def test_set_opt_hyperparams():
 
 
 def test_reserve_trial_never_overshoots():
-    """Count and insert under one lock: 16 threads racing for 5 slots
+    """Count and insert in one transaction: 16 threads racing for 5 slots
     reserve exactly 5; a TERMINATED trial frees its slot."""
-    store = TrialStore()
-    model = store.create_model(b"", "M")
-    job = store.create_train_job({"MODEL_TRIAL_COUNT": 5}, "a", "b")
+    store = Database(":memory:")
+    user = store.create_user("dev@x", "-", "MODEL_DEVELOPER")
+    model = store.create_model(user["id"], "m", "IMAGE_CLASSIFICATION", b"",
+                               "M", {}, "PRIVATE")
+    job = store.create_train_job(user["id"], "app", 1, "IMAGE_CLASSIFICATION",
+                                 "a", "b", {"MODEL_TRIAL_COUNT": 5})
     sub = store.create_sub_train_job(job["id"], model["id"])
     got, barrier = [], threading.Barrier(16)
 

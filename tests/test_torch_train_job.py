@@ -2,8 +2,8 @@
 
 A tiny-ViT variant of the ``TorchViT`` template, handed over as bytes as
 a user's upload is, runs a 2-trial train job through the port's
-``TrainWorker`` on a ``["cpu"]`` grant: the GP advisor proposes, the store
-reserves, the template trains (``fit``, through the flash op's plain
+``TrainWorker`` on a ``["cpu"]`` grant: the GP advisor proposes, the
+database reserves, the template trains (``fit``, through the flash op's plain
 forward and backward), evaluates and dumps its parameters. The best trial
 is then served by an ``InferenceWorker`` behind a ``Predictor``, and its
 answers are held against JAX's ``vit.apply`` softmax on the same dumped
@@ -22,11 +22,13 @@ import pytest
 from rafiki_tpu.models import vit as jvit
 from rafiki_tpu_torch.advisor.advisor import AdvisorStore
 from rafiki_tpu_torch.cache.queue import InProcessBroker
-from rafiki_tpu_torch.db.store import TrialStatus, TrialStore
+from rafiki_tpu_torch.constants import TrialStatus
+from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.device import ServiceContext
 from rafiki_tpu_torch.predictor.predictor import Predictor
 from rafiki_tpu_torch.sdk.dataset import write_numpy_dataset
 from rafiki_tpu_torch.sdk.log import LogType
+from rafiki_tpu_torch.sdk.artifact import read_artifact
 from rafiki_tpu_torch.sdk.params import load_params
 from rafiki_tpu_torch.worker.inference import InferenceWorker
 from rafiki_tpu_torch.worker.train import TrainWorker
@@ -89,16 +91,25 @@ def _dataset(tmp_path):
     return split(64, "train"), split(32, "test")
 
 
+def _sub_train_job(db, template, model_class, budget, train_uri, test_uri):
+    """The rows a train worker reads: a user's model, a train job with
+    ``budget``, and its sub-train-job."""
+    user = db.create_user("dev@x", "-", "MODEL_DEVELOPER")
+    model = db.create_model(user["id"], model_class, "IMAGE_CLASSIFICATION",
+                            template, model_class, {}, "PRIVATE")
+    job = db.create_train_job(user["id"], "app", 1, "IMAGE_CLASSIFICATION",
+                              train_uri, test_uri, budget)
+    return db.create_sub_train_job(job["id"], model["id"])
+
+
 def _run_job(tmp_path, template, model_class, trials=2):
-    store, advisors = TrialStore(), AdvisorStore()
+    db, advisors = Database(":memory:"), AdvisorStore()
     train_uri, test_uri = _dataset(tmp_path)
-    model = store.create_model(template, model_class)
-    job = store.create_train_job({"MODEL_TRIAL_COUNT": trials}, train_uri,
-                                 test_uri)
-    sub = store.create_sub_train_job(job["id"], model["id"])
+    sub = _sub_train_job(db, template, model_class,
+                         {"MODEL_TRIAL_COUNT": trials}, train_uri, test_uri)
     ready = threading.Event()
     ctx = ServiceContext("train-worker-0", chips=["cpu"], on_ready=ready.set)
-    worker = TrainWorker(sub["id"], store, advisors,
+    worker = TrainWorker(sub["id"], db, advisors,
                          params_dir=str(tmp_path / "params"))
     errors = []
 
@@ -113,8 +124,8 @@ def _run_job(tmp_path, template, model_class, trials=2):
     thread.join(timeout=600)
     assert not thread.is_alive() and not errors, errors
     assert ready.is_set()
-    assert store.get_sub_train_job(sub["id"])["advisor_id"] == sub["id"]
-    return store, advisors, sub, test_uri
+    assert db.get_sub_train_job(sub["id"])["advisor_id"] == sub["id"]
+    return db, advisors, sub, test_uri
 
 
 @pytest.fixture(scope="module")
@@ -123,8 +134,8 @@ def job(tmp_path_factory):
 
 
 def test_trials_complete_with_finite_scores(job):
-    store, advisors, sub, _ = job
-    trials = store.get_trials_of_sub_train_job(sub["id"])
+    db, advisors, sub, _ = job
+    trials = db.get_trials_of_sub_train_job(sub["id"])
     assert len(trials) == 2
     for t in trials:
         assert t["status"] == TrialStatus.COMPLETED, t["fault_detail"]
@@ -135,9 +146,9 @@ def test_trials_complete_with_finite_scores(job):
 
 
 def test_trial_logs_carry_epoch_losses(job):
-    store, _, sub, _ = job
-    for t in store.get_trials_of_sub_train_job(sub["id"]):
-        records = [json.loads(line) for line in store.get_trial_logs(t["id"])]
+    db, _, sub, _ = job
+    for t in db.get_trials_of_sub_train_job(sub["id"]):
+        records = [json.loads(line) for line in db.get_trial_logs(t["id"])]
         losses = [r["metrics"] for r in records
                   if r["type"] == LogType.METRICS]
         assert [m["epoch"] for m in losses] == [0.0, 1.0]
@@ -146,8 +157,8 @@ def test_trial_logs_carry_epoch_losses(job):
 
 
 def test_checkpoints_are_cleaned_up(job):
-    store, _, sub, _ = job
-    for t in store.get_trials_of_sub_train_job(sub["id"]):
+    db, _, sub, _ = job
+    for t in db.get_trials_of_sub_train_job(sub["id"]):
         path = t["params_file_path"]
         assert path.endswith(".params") and os.path.exists(path)
         assert not os.path.exists(path[:-len(".params")] + ".ckpt")
@@ -157,16 +168,16 @@ def test_best_trial_serves_jax_answers(job):
     """The best trial behind InferenceWorker -> Predictor answers as JAX's
     forward on the same dumped tree; its score is that forward's accuracy
     on the test set."""
-    store, _, sub, test_uri = job
-    best = max(store.get_trials_of_sub_train_job(sub["id"]),
+    db, _, sub, test_uri = job
+    best = max(db.get_trials_of_sub_train_job(sub["id"]),
                key=lambda t: t["score"])
-    tree = load_params(store.get_trial_params(best["id"]))
+    tree = load_params(read_artifact(best["params_file_path"]))
     broker = InProcessBroker()
     ready = threading.Event()
     ctx = ServiceContext("inference-worker-0", chips=["cpu"],
                          on_ready=ready.set)
     thread = threading.Thread(
-        target=InferenceWorker("inf-job", best["id"], store, broker).start,
+        target=InferenceWorker("inf-job", best["id"], db, broker).start,
         args=(ctx,), daemon=True)
     thread.start()
     try:
@@ -199,26 +210,24 @@ def test_errored_trials_do_not_stop_the_loop(tmp_path, model_class, kind,
     """A template whose train raises, or whose evaluate returns NaN: each
     trial is ERRORED with its kind and traceback, the NaN never reaches
     the advisor, and the loop goes on until the budget is spent."""
-    store, advisors, sub, _ = _run_job(tmp_path, BROKEN_TEMPLATE,
+    db, advisors, sub, _ = _run_job(tmp_path, BROKEN_TEMPLATE,
                                        model_class, trials=3)
-    trials = store.get_trials_of_sub_train_job(sub["id"])
+    trials = db.get_trials_of_sub_train_job(sub["id"])
     assert [t["status"] for t in trials] == [TrialStatus.ERRORED] * 3
     for t in trials:
         assert t["fault_kind"] == kind
         assert detail in t["fault_detail"]
-        with pytest.raises(KeyError):
-            store.get_trial_params(t["id"])
+        assert t["params_file_path"] is None
     assert advisors.get(sub["id"]).observation_count == 0
 
 
 def test_stop_event_ends_the_loop(tmp_path):
     """A worker whose context is already stopping reserves no trial."""
-    store, advisors = TrialStore(), AdvisorStore()
-    model = store.create_model(TINY_TEMPLATE, "TinyViT")
-    job = store.create_train_job({"MODEL_TRIAL_COUNT": 2}, "a.npz", "b.npz")
-    sub = store.create_sub_train_job(job["id"], model["id"])
+    db, advisors = Database(":memory:"), AdvisorStore()
+    sub = _sub_train_job(db, TINY_TEMPLATE, "TinyViT",
+                         {"MODEL_TRIAL_COUNT": 2}, "a.npz", "b.npz")
     ctx = ServiceContext("w", chips=["cpu"])
     ctx.stop_event.set()
-    TrainWorker(sub["id"], store, advisors,
+    TrainWorker(sub["id"], db, advisors,
                 params_dir=str(tmp_path)).start(ctx)
-    assert store.get_trials_of_sub_train_job(sub["id"]) == []
+    assert db.get_trials_of_sub_train_job(sub["id"]) == []
