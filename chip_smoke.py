@@ -55,9 +55,29 @@ Phases, each of which must pass (any failure exits non-zero):
    first, on a cold process), the p50 of ``/predict/<app>`` on the admin
    door beside a ``PredictorServer`` on the same job's ``Predictor``,
    the two doors taking the same JSON bodies in turns, and the parameter
-   download's time and bytes with the verified read's share. Last, ``python -m rafiki_tpu_torch.admin``
-   boots on port 0, answers ``GET /`` and a login, and exits 0 on
-   SIGTERM.
+   download's time and bytes with the verified read's share. Last,
+   ``python -m rafiki_tpu_torch.admin`` boots on port 0, answers ``GET /``
+   and a login, and exits 0 on SIGTERM;
+6. process: the cycle of phase 5 under ``RAFIKI_PLACEMENT=process``
+   (store ``build/chip_smoke/process.sqlite3``, the children's logs in
+   ``build/chip_smoke/process_logs/``). The shm ring is chosen from
+   ``df -B1 /dev/shm`` (16 MiB when its 3 rings fit in 80% of the free
+   space) and printed. The 2-trial job runs in a train child granted the
+   card through ``CUDA_VISIBLE_DEVICES``, whose advisor is the admin's
+   REST door; both trials COMPLETED with finite scores, their rows
+   written by the child, and none of this process's kernel counts moved.
+   Then both trials are served by two children over the rings, and a
+   second admin (thread placement) serves the same trials' artifacts:
+   ``Client.predict`` of 1 and 8 images held within 0.05 p + 1e-5 of the
+   plain-attention ensemble, and the same JSON bodies timed on both
+   admin doors in turns. Printed: the job's wall time beside phase 5's
+   and where it went (child start-up, each trial's set-up and epochs),
+   each child's spawn to RUNNING split into interpreter and package
+   import, torch import, CUDA init, kernel library load and the rest,
+   the deploy time, and the p50 of each door. Each child's launches come
+   from its exit line: the train child K1-LSE, K2 and K3 12 a step and K1
+   12 an evaluate, each serving child K1 12 a bucketed forward. After the
+   stop no child is alive and no ring of the broker is left in /dev/shm.
 
 The line before the last is ``{"kernels": [...]}``, each kernel's
 ``launches`` from phase 5 and ``launches_by_path`` from every path; the
@@ -1266,7 +1286,7 @@ def stack_phase(card: str, uris: dict, direct_job_s: float):
         server.stop()
         admin.shutdown()
     admin_process(card)
-    return [a + b for a, b in zip(train_counts, serve_counts)]
+    return [a + b for a, b in zip(train_counts, serve_counts)], job_s
 
 
 def admin_process(card: str) -> None:
@@ -1321,6 +1341,342 @@ def admin_process(card: str) -> None:
             proc.wait(timeout=30)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: process placement
+# ---------------------------------------------------------------------------
+
+IMAGE_BYTES_JSON = 224 * 224 * 3 * 8  # a JSON image crosses the ring as f64
+RING_SEGMENTS = 3  # a query ring per serving child, one response ring
+
+
+def choose_ring() -> tuple:
+    """(ring bytes, the request sizes whose frame fits it): the largest of
+    16, 8, 4, 2 MiB whose segments take at most 80% of /dev/shm's free
+    space, after printing ``df -B1 /dev/shm``."""
+    import shutil
+
+    df = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True,
+                        text=True, check=True).stdout.strip()
+    print("process: df -B1 /dev/shm:\n  " + df.replace("\n", "\n  "),
+          flush=True)
+    free = shutil.disk_usage("/dev/shm").free
+    ring = next((mib << 20 for mib in (16, 8, 4, 2)
+                 if RING_SEGMENTS * (mib << 20) <= 0.8 * free), 0)
+    sizes = [n for n in (1, 8) if n * IMAGE_BYTES_JSON + 4096 <= ring]
+    require(1 in sizes, f"/dev/shm has {free} bytes free: no ring of 2 MiB "
+            f"or more fits {RING_SEGMENTS} segments")
+    return ring, sizes
+
+
+def child_records(logs: Path, kind: str) -> dict:
+    """{service id: [JSON of each ``kind`` line]} from the children's logs
+    (a restarted child appends a line)."""
+    out = {}
+    for path in logs.glob("service-*.log"):
+        out[path.stem[len("service-"):]] = [
+            json.loads(m.group(2)) | {"pid": int(m.group(1))}
+            for m in re.finditer(kind + r" \(pid (\d+)\): (\{.*\})",
+                                 path.read_text())]
+    return out
+
+
+def train_timeline(c, trials: list, t0: float, job_s: float,
+                   started: dict) -> None:
+    """Where the process-placed train job's wall time went, on the wall
+    clock (the child's stamps and the trial rows are ``time.time()``):
+    create to the child's start, the child's start-up, then each trial's
+    set-up and epochs, and the tail to STOPPED."""
+    trials = sorted(trials, key=lambda t: t["datetime_started"])
+    parts = [("create to child start", started["t_start"] - t0),
+             ("child start to RUNNING",
+              started["t_ready"] - started["t_start"]),
+             ("RUNNING to the first trial",
+              trials[0]["datetime_started"] - started["t_ready"])]
+    for i, t in enumerate(trials):
+        if i:
+            parts.append((f"between trials {i} and {i + 1}",
+                          t["datetime_started"]
+                          - trials[i - 1]["datetime_stopped"]))
+        wall = t["datetime_stopped"] - t["datetime_started"]
+        fit = sum(m["epoch_time"] for m in c.get_trial_logs(t["id"])[
+            "metrics"] if "epoch_time" in m)
+        parts += [(f"trial {i + 1} set-up and evaluate", wall - fit),
+                  (f"trial {i + 1} epochs", fit)]
+    parts.append(("last trial to STOPPED seen",
+                  t0 + job_s - trials[-1]["datetime_stopped"]))
+    print("process: the train job's time: " + ", ".join(
+        f"{label} {sec:.2f} s" for label, sec in parts), flush=True)
+
+
+def thread_twin(uris: dict, trials: list, store: Path):
+    """An admin over thread placement (cuda:0, in-process broker) whose
+    store holds the same model and the same two trials (their artifacts),
+    with an inference job of them RUNNING; (admin, door, token)."""
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.http import AdminServer
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.placement.manager import LocalPlacementManager
+
+    for path in store.parent.glob(store.name + "*"):
+        path.unlink()
+    db = Database(str(store))
+    admin = Admin(db=db, placement=LocalPlacementManager(),
+                  params_dir=str(WORK / "process_params"))
+    auth = admin.authenticate_user(config.SUPERADMIN_EMAIL,
+                                   config.SUPERADMIN_PASSWORD)
+    model = db.create_model(auth["user_id"], "vit-b16",
+                            "IMAGE_CLASSIFICATION", TEMPLATE.read_bytes(),
+                            "TorchViT", {}, "PRIVATE")
+    job = db.create_train_job(auth["user_id"], "vit", 1,
+                              "IMAGE_CLASSIFICATION", uris["train"],
+                              uris["test"], {"MODEL_TRIAL_COUNT": TRIALS})
+    sub = db.create_sub_train_job(job["id"], model["id"])
+    for t in trials:
+        row = db.create_trial(sub["id"], model["id"], t["knobs"])
+        db.mark_trial_as_complete(row["id"], t["score"],
+                                  t["params_file_path"])
+    db.mark_train_job_as_stopped(job["id"])
+    admin.create_inference_job(auth["user_id"], "vit")
+    return admin, AdminServer(admin).start(), auth["token"]
+
+
+def process_phase(card: str, uris: dict, thread_job_s: float):
+    """The cycle of phase 5 with every worker a child process
+    (``RAFIKI_PLACEMENT=process``): a 2-trial train job in a train child
+    whose advisor is the admin's (REST), then the two trials served by two
+    children over the shm rings, timed in turns against a thread-placed
+    inference job of the same trials. Returns each kernel's launches in
+    the children, from their exit lines, in ``KERNEL_NAMES`` order."""
+    from rafiki_tpu_torch import config, convert
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.http import AdminServer
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.models import vit
+    from rafiki_tpu_torch.placement.process import ProcessPlacementManager
+    from rafiki_tpu_torch.sdk.artifact import read_artifact
+    from rafiki_tpu_torch.sdk.params import load_params
+    from rafiki_tpu_torch.sdk.torch_backend import DataParallelTrainer
+
+    ring, sizes = choose_ring()
+    logs = WORK / "process_logs"
+    store = WORK / "process.sqlite3"
+    for path in [*logs.glob("*"), *WORK.glob("process*.sqlite3*")]:
+        path.unlink()
+    settings = {"RAFIKI_PLACEMENT": "process", "RAFIKI_LOGS_DIR": str(logs),
+                "RAFIKI_SHM_RING_BYTES": str(ring)}
+    saved = {k: os.environ.get(k) for k in settings}
+    os.environ.update(settings)
+    print(f"process: RAFIKI_SHM_RING_BYTES={ring} ({ring >> 20} MiB; "
+          f"{RING_SEGMENTS} rings); JSON requests of {sizes} images fit "
+          f"(a 224x224x3 JSON image is {IMAGE_BYTES_JSON} bytes of f64 in "
+          f"the frame)", flush=True)
+    kernels = _kernels()
+    admin = Admin(db=Database(str(store)),
+                  params_dir=str(WORK / "process_params"))
+    server = twin = twin_server = None
+    try:
+        require(isinstance(admin.placement, ProcessPlacementManager),
+                f"placement {type(admin.placement).__name__}")
+        server = AdminServer(admin).start()
+        c = Client("127.0.0.1", server.port, timeout_s=900)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        c.create_model("vit-b16", "IMAGE_CLASSIFICATION",
+                       TEMPLATE.read_bytes(), "TorchViT")
+        for kernel in kernels:
+            kernel.launches = 0
+
+        # ---- the main path's run (train job in a child) ----
+        t0, t0_wall = time.perf_counter(), time.time()
+        c.create_train_job("vit", "IMAGE_CLASSIFICATION", uris["train"],
+                           uris["test"], budget={"MODEL_TRIAL_COUNT": TRIALS,
+                                                 "CHIP_COUNT": 1})
+        job = c.wait_until_train_job_stopped("vit", timeout_s=900,
+                                             poll_s=0.05)
+        job_s = time.perf_counter() - t0
+        # ----------------------------------------------------
+        require([k.launches for k in kernels] == [0] * 4,
+                f"this process launched {[k.launches for k in kernels]} "
+                "while the train child trained")
+        require(job["status"] == "STOPPED", f"train job {job['status']}")
+        (train_sid,) = [w["service_id"] for w in job["workers"]]
+        require(job["workers"][0]["chips"] == [0],
+                f"train grant {job['workers'][0]['chips']}")
+        trials = [admin.db.get_trial(t["id"])
+                  for t in c.get_trials_of_train_job("vit")]
+        require([t["status"] for t in trials] == ["COMPLETED"] * TRIALS,
+                f"trials {[(t['status'], t['fault_detail']) for t in trials]}")
+        require(all(np.isfinite(t["score"]) for t in trials),
+                f"scores {[t['score'] for t in trials]}")
+        require({t["worker_id"] for t in trials} == {train_sid},
+                "trial rows not written by the train child")
+        steps = sum((TRAIN_IMAGES // t["knobs"]["batch_size"])
+                    * t["knobs"]["epochs"] for t in trials)
+        print(f"process: train job of {TRIALS} trials STOPPED in {job_s:.1f}"
+              f" s in a child process (Client.create_train_job to STOPPED), "
+              f"{thread_job_s:.1f} s for phase 5's thread-placed job; scores "
+              f"{[round(t['score'], 4) for t in trials]}; {steps} steps; "
+              f"card {card}", flush=True)
+        train_timeline(c, trials, t0_wall, job_s,
+                       child_records(logs, "startup")[train_sid][0])
+
+        twin, twin_server, twin_token = thread_twin(
+            uris, trials, WORK / "process_threads.sqlite3")
+        cap = config.PREDICT_MAX_BATCH_SIZE
+        buckets = DataParallelTrainer(device="cpu").predict_buckets(cap)
+        rng = np.random.default_rng(SEED + 10)
+        images = rng.standard_normal((8, 224, 224, 3)).astype(np.float32)
+        timed = [(kind, n) for kind, n in JSON_TIMED if n in sizes]
+        bodies = {(kind, n): request_body(kind, images[:n])
+                  for kind, n in timed}
+        token = admin.authenticate_user(config.SUPERADMIN_EMAIL,
+                                        config.SUPERADMIN_PASSWORD)["token"]
+        for kernel in kernels:
+            kernel.launches = 0
+
+        # ---- the main path's run (inference job in children) ----
+        t0 = time.perf_counter()
+        inf = c.create_inference_job("vit")
+        deploy_s = time.perf_counter() - t0
+        answers = [(n, np.asarray(c.predict("vit", images[:n].tolist())))
+                   for n in sizes]
+        doors = {"process": (f"http://127.0.0.1:{server.port}/predict/vit",
+                             token),
+                 "thread": (f"http://127.0.0.1:{twin_server.port}/predict/"
+                            "vit", twin_token)}
+        lat = {door: {} for door in doors}
+        for i, (kind, n) in enumerate(timed):
+            for door in sorted(doors, reverse=bool(i % 2)):
+                url, auth = doors[door]
+                t = time.perf_counter()
+                post(url, *bodies[kind, n], token=auth)
+                lat[door].setdefault((kind, n), []).append(
+                    time.perf_counter() - t)
+        c.stop_inference_job("vit")
+        # ----------------------------------------------------------
+        twin_launches = [k.launches for k in kernels]
+        require(inf["status"] == "RUNNING" and len(inf["workers"]) == TRIALS,
+                f"inference job {inf['status']}, {len(inf['workers'])} "
+                "workers")
+        require([w["chips"] for w in inf["workers"]] == [[0]] * TRIALS,
+                f"serving grants {[w['chips'] for w in inf['workers']]}")
+    finally:
+        if twin_server is not None:
+            twin_server.stop()
+        if twin is not None:
+            twin.shutdown()
+        if server is not None:
+            server.stop()
+        admin.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # every child gone, every ring unlinked
+    started = child_records(logs, "startup")
+    counted = child_records(logs, "kernel launches")
+    serving = [w["service_id"] for w in inf["workers"]]
+    require(sorted(started) == sorted([train_sid] + serving)
+            and all(len(v) == 1 for v in started.values()),
+            f"startup lines {started}")
+    pids = [r["pid"] for v in started.values() for r in v]
+    alive = [pid for pid in pids if _alive(pid)]
+    segments = list(Path("/dev/shm").glob(f"{admin.broker.prefix}-*"))
+    require(not alive and not segments and os.getpid() not in pids,
+            f"after stop: children alive {alive}, segments {segments}")
+    print(f"process: after stop_all: children {pids} all exited, no "
+          f"/dev/shm/{admin.broker.prefix}-* segment left", flush=True)
+    # the grant, cuda:0 here, is the first card this process sees
+    parent = os.environ.get("CUDA_VISIBLE_DEVICES", "").strip()
+    card0 = parent.split(",")[0].strip() if parent else "0"
+    for sid, (rec,) in started.items():
+        role = "train" if sid == train_sid else "serving"
+        require(rec["cuda_visible_devices"] == card0 and rec["grant"] == [0],
+                f"{role} child {sid[:8]} saw CUDA_VISIBLE_DEVICES="
+                f"{rec['cuda_visible_devices']!r}, grant {rec['grant']}")
+        parts = (("interpreter and package import", "t_start", "t_main"),
+                 ("torch import", "t_main", "t_torch"),
+                 ("CUDA init", "t_torch", "t_cuda"),
+                 ("kernel library load", "t_cuda", "t_kernels"),
+                 ("job read and advisor session" if role == "train" else
+                  "model load and bucket warm-up", "t_kernels", "t_ready"))
+        print(f"process: {role} child {sid[:8]} (pid {rec['pid']}, "
+              f"CUDA_VISIBLE_DEVICES={card0}): spawn to RUNNING "
+              f"{rec['t_ready'] - rec['t_start']:.2f} s = "
+              + " + ".join(f"{label} {rec[b] - rec[a]:.2f}"
+                           for label, a, b in parts), flush=True)
+
+    # launches, from the children's exit lines
+    sums = {name: 0 for name in KERNEL_NAMES}
+    for sid, records in counted.items():
+        require(len(records) == 1, f"{sid[:8]}: {len(records)} exit lines")
+        got = [records[0][attr] for attr in (
+            "flash_attention", "flash_attention_lse", "flash_attention_dq",
+            "flash_attention_dkv")]
+        forwards = len(buckets) + len(sizes) + len(timed)
+        expect = ([DEPTH * TRIALS] + [DEPTH * steps] * 3 if sid == train_sid
+                  else [DEPTH * forwards, 0, 0, 0])
+        require(got == expect, f"child {sid[:8]} launches {got}, expected "
+                f"{expect}")
+        for name, n in zip(KERNEL_NAMES, got):
+            sums[name] += n
+    # the twin warmed up before the counts were zeroed
+    twin_expect = [DEPTH * TRIALS * len(timed), 0, 0, 0]
+    require(twin_launches == twin_expect,
+            f"thread twin launches {twin_launches}, expected {twin_expect}")
+    print(f"process: launches in the children (exit lines): train child "
+          f"K1 {DEPTH * TRIALS} ({TRIALS} evaluates), K1-LSE = K2 = K3 = "
+          f"{DEPTH * steps} ({steps} steps); each serving child K1 "
+          f"{DEPTH * (len(buckets) + len(sizes) + len(timed))} "
+          f"({len(buckets)} warm-up buckets + {len(sizes) + len(timed)} "
+          f"requests); none in this process but the thread twin's "
+          f"{twin_launches[0]}", flush=True)
+
+    cfg = vit.vit_b16()
+    plain_cfg = dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, use_flash=False))
+    refs = []
+    with torch.inference_mode():
+        x = torch.from_numpy(images).cuda()
+        for t in trials:
+            tree = load_params(read_artifact(t["params_file_path"]))
+            m = convert.from_jax_params(tree, plain_cfg, "cuda:0")
+            refs.append(torch.softmax(m(x), -1).double().cpu().numpy())
+            del m
+    ref = sum(refs) / len(refs)
+    for n, probs in answers:
+        require(probs.shape == (n, cfg.num_classes),
+                f"process /predict/vit {n}: shape {probs.shape}")
+        require(bool(np.isfinite(probs).all()),
+                f"process /predict/vit {n}: non-finite")
+        held = prob_check(f"process /predict/vit {n}", probs, ref[:n])
+        print(f"process: Client.predict of {n} (JSON) answered by the "
+              f"serving children: {held}; against the plain-attention "
+              f"ensemble of the trials", flush=True)
+    p50 = {door: p50_ms(v) for door, v in lat.items()}
+    print(f"process: inference job RUNNING in {deploy_s:.1f} s (2 serving "
+          f"children spawned, loaded and warmed); /predict/vit p50 of the "
+          f"same JSON bodies in turns, process vs thread placement: "
+          + ", ".join(f"{n} image{'s' if n > 1 else ''} "
+                      f"{p50['process']['json', n]:.2f} vs "
+                      f"{p50['thread']['json', n]:.2f} ms"
+                      for n in sizes)
+          + f" ({len(timed) // len(sizes)} requests of each size a door, "
+          f"sequential); card {card}", flush=True)
+    return [sums[name] for name in KERNEL_NAMES]
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
 def _count(tree) -> int:
     return sum(_count(v) if isinstance(v, dict) else v.size
                for v in tree.values())
@@ -1339,13 +1695,17 @@ def main() -> int:
     entries, kernel_ms = kernel_phase()
     db, uris, trials, job_s, train_launches = train_phase(card)
     serve_launches = serve_phase(card, kernel_ms, db, trials)
-    stack_launches = stack_phase(card, uris, job_s)
+    stack_launches, stack_job_s = stack_phase(card, uris, job_s)
+    process_launches = process_phase(card, uris, stack_job_s)
     for i, name in enumerate(KERNEL_NAMES):
         by_path = {"train (phase 3)": train_launches[i],
                    "serve (phase 4)": serve_launches[i],
-                   "stack (phase 5)": stack_launches[i]}
+                   "stack (phase 5)": stack_launches[i],
+                   "process (phase 6)": process_launches[i]}
         require(by_path["stack (phase 5)"] > 0,
                 f"{name} was not launched through the admin")
+        require(by_path["process (phase 6)"] > 0,
+                f"{name} was not launched in a child process")
         entries[name]["launches"] = stack_launches[i]
         entries[name]["launches_by_path"] = by_path
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.0f} s",

@@ -8,8 +8,9 @@ stops every job and exits 0. Settings, from the environment:
     RAFIKI_ADMIN_HOST   bind host                     (default: 127.0.0.1)
     RAFIKI_ADMIN_PORT   bind port                     (default: 3000; 0 = any)
 
-Services run as threads of this process on the visible CUDA devices; it
-refuses to start without one.
+Services run as threads of this process on the visible CUDA devices, or
+as child processes under ``RAFIKI_PLACEMENT=process``; it refuses to
+start without a CUDA device.
 """
 
 from __future__ import annotations

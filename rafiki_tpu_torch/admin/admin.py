@@ -10,12 +10,19 @@ route cache; and worker events driving job status. ``AdminServer``
 (``admin/http.py``) is a thin shell over this class, so library and REST
 use run the same code.
 
-The admin composes an in-process stack: the SQLite ``Database``, an
-``InProcessBroker``, ``LocalPlacementManager`` over the visible CUDA
-devices (it raises without CUDA; tests pass a placement over ``["cpu"]``)
-and an ``AdvisorStore``. HA leases, admission control, the shm and fleet
-brokers, recovery, rollout, drift, the autoscaler and warm pool are not
-ported; the settings that would turn them on raise
+The admin composes its stack: the SQLite ``Database``, an
+``AdvisorStore``, and a placement with its broker, chosen as the JAX
+package chooses them. By default services are threads of this process
+(``LocalPlacementManager`` over the visible CUDA devices; it raises
+without CUDA, and tests pass a placement over ``["cpu"]``) and the broker
+is in-process, or the ``ShmBroker`` under ``RAFIKI_BROKER=shm``.
+``RAFIKI_PLACEMENT=process`` makes every service a child process
+(``ProcessPlacementManager``), which forces the ``ShmBroker``: the serving
+children attach to its rings, and the predictor stays here. A process
+placement passed in gets this store, and the shm broker when it has none.
+HA leases, admission control, host placement and the fleet broker,
+recovery, rollout, drift, the autoscaler and warm pool are not ported;
+the settings that would turn them on raise
 :class:`~rafiki_tpu_torch.config.NotPortedError`. ``TEXT_GENERATION``
 jobs are refused with a 400 until generation is ported (ROADMAP.md).
 """
@@ -25,6 +32,7 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -32,7 +40,8 @@ from typing import Any, Dict, List, Optional
 from rafiki_tpu_torch import analysis, config
 from rafiki_tpu_torch.admin.services import ServicesManager
 from rafiki_tpu_torch.advisor.advisor import AdvisorStore
-from rafiki_tpu_torch.cache.queue import InProcessBroker, QueueFullError
+from rafiki_tpu_torch.cache.queue import QueueFullError
+from rafiki_tpu_torch.cache.shm_broker import ShmBroker, make_broker
 from rafiki_tpu_torch.constants import (
     BudgetType,
     InferenceJobStatus,
@@ -43,7 +52,11 @@ from rafiki_tpu_torch.constants import (
     UserType,
 )
 from rafiki_tpu_torch.db.database import Database
-from rafiki_tpu_torch.placement.manager import LocalPlacementManager
+from rafiki_tpu_torch.placement.manager import (
+    LocalPlacementManager,
+    PlacementManager,
+)
+from rafiki_tpu_torch.placement.process import ProcessPlacementManager
 from rafiki_tpu_torch.sdk.artifact import read_artifact
 from rafiki_tpu_torch.sdk.knob import serialize_knob_config
 from rafiki_tpu_torch.sdk.log import parse_logs
@@ -58,7 +71,10 @@ from rafiki_tpu_torch.utils.auth import (
     hash_password,
     verify_password,
 )
-from rafiki_tpu_torch.worker.inference import serving_stats
+from rafiki_tpu_torch.worker.inference import (
+    EVENT_INFERENCE_WORKER_STATS,
+    serving_stats,
+)
 from rafiki_tpu_torch.worker.train import EVENT_BUDGET_REACHED
 
 logger = logging.getLogger(__name__)
@@ -70,12 +86,25 @@ class InvalidRequestError(Exception):
 
 class Admin:
     def __init__(self, db: Optional[Database] = None,
-                 placement: Optional[LocalPlacementManager] = None,
+                 placement: Optional[PlacementManager] = None,
                  params_dir: Optional[str] = None):
         config.refuse_unported()
         self.db = db or Database()
         self.advisor_store = AdvisorStore()
-        self.broker = InProcessBroker()
+        if placement is None and os.environ.get(
+                "RAFIKI_PLACEMENT", "").strip() == "process":
+            placement = ProcessPlacementManager()
+        if isinstance(placement, ProcessPlacementManager):
+            # the children open this store and attach to the shm rings
+            placement.db = placement.db or self.db
+            placement.broker = placement.broker or ShmBroker()
+            self.broker = placement.broker
+        else:
+            self.broker = make_broker()
+        # serving counters relayed by worker processes (the
+        # inference_worker_stats event), by service id
+        self._remote_stats_lock = threading.Lock()
+        self._remote_serving_stats: Dict[str, Dict[str, int]] = {}
         # predict hot path: (user, app, version) -> (time, Predictor); the
         # epoch lets a stop's invalidation win over in-flight resolutions
         self._predict_route_lock = threading.Lock()
@@ -484,7 +513,12 @@ class Admin:
         """Per-worker batch and query counters and the batch occupancy
         (mean queries a batch)."""
         inf = self.get_inference_job(user_id, app, app_version)
+        # workers that are threads of this process count here directly;
+        # worker processes relay the same counters (handle_event)
         local = serving_stats()
+        with self._remote_stats_lock:
+            for sid, s in self._remote_serving_stats.items():
+                local.setdefault(sid, {}).update(s)
         workers = []
         total_b = total_q = 0
         for w in inf["workers"]:
@@ -597,14 +631,20 @@ class Admin:
             self.services._destroy_service(svc["id"], wait=False)
 
     def handle_event(self, name: str, payload: Dict[str, Any]) -> None:
-        """Worker events drive job status. (The JAX package's fail-fast,
-        process and agent events wait for those ports.)"""
+        """Worker events drive job status, and carry the serving counters
+        of worker processes. (The JAX package's fail-fast and agent events
+        wait for those ports.)"""
         try:
             if name == EVENT_BUDGET_REACHED:
                 # the workers exit on their own once the shared budget is
                 # spent: fold that into the job's status
                 self.services.refresh_train_job_status(
                     payload["train_job_id"])
+            elif name == EVENT_INFERENCE_WORKER_STATS:
+                with self._remote_stats_lock:
+                    self._remote_serving_stats[payload["service_id"]] = {
+                        k: int(payload[k]) for k in _RELAYED_STATS
+                        if k in payload}
         except Exception:
             logger.exception("event %s failed", name)
 
@@ -633,7 +673,12 @@ class Admin:
     def shutdown(self) -> None:
         self.stop_all_jobs()
         self.placement.stop_all()
+        if isinstance(self.broker, ShmBroker):
+            self.broker.close()  # unlinks every ring
 
+
+#: the serving counters a worker process relays
+_RELAYED_STATS = ("batches", "queries", "queue_depth", "expired", "shed")
 
 #: budget keys, and the values of them, that ask for what is not ported:
 #: multi-card trials, ASHA, trial deadlines and population trials; multi-

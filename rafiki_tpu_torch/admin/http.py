@@ -6,9 +6,12 @@ method this package has: the same paths, methods, user-type gates,
 standard library's threading HTTP server; every route body is one
 ``Admin`` call. A model upload is JSON with the template base64-encoded.
 
-Not carried (ROADMAP.md): the trace, scale, rollout and drift routes, the
-advisor routes (thread placement does not need them), fleet health,
-metrics, the web UI, and the standby and recovery gates.
+The advisor routes a process-placed train worker uses (create, propose,
+propose_batch, feedback, feedback_batch, delete) are carried; ``start``
+tells a process placement the door's address (``admin_addr``). Not
+carried (ROADMAP.md): the advisor's infeasible, replay and rung routes,
+the trace, scale, rollout and drift routes, fleet health, metrics, the
+web UI, and the standby and recovery gates.
 """
 
 from __future__ import annotations
@@ -25,10 +28,11 @@ from urllib.parse import parse_qs, urlparse
 
 from rafiki_tpu_torch import config
 from rafiki_tpu_torch.admin.admin import Admin, InvalidRequestError
-from rafiki_tpu_torch.cache.queue import QueueFullError
+from rafiki_tpu_torch.cache.queue import FrameTooLargeError, QueueFullError
 from rafiki_tpu_torch.constants import UserType
 from rafiki_tpu_torch.placement.manager import InsufficientChipsError
 from rafiki_tpu_torch.sdk.artifact import ArtifactCorruptError
+from rafiki_tpu_torch.sdk.knob import deserialize_knob_config
 from rafiki_tpu_torch.sdk.model import InvalidModelClassError
 from rafiki_tpu_torch.utils.auth import (
     UnauthorizedError,
@@ -64,6 +68,42 @@ def _b64_field(body: Dict[str, Any], name: str) -> bytes:
         return base64.b64decode(_field(body, name))
     except (ValueError, TypeError) as e:
         raise InvalidRequestError(f"field '{name}' is not valid base64: {e}")
+
+
+def _num_field(body: Dict[str, Any], name: str, cast, default=None):
+    """A numeric body field coerced with ``cast``; a malformed value is a
+    400. ``default=None`` makes the field required."""
+    if name not in body:
+        if default is None:
+            raise InvalidRequestError(f"missing body field '{name}'")
+        return default
+    try:
+        return cast(body[name])
+    except (ValueError, TypeError) as e:
+        raise InvalidRequestError(
+            f"field '{name}' must be {cast.__name__}: {e}")
+
+
+def _list_field(body: Dict[str, Any], name: str) -> list:
+    """A required body field that must be a JSON array."""
+    value = _field(body, name)
+    if not isinstance(value, list):
+        raise InvalidRequestError(
+            f"field '{name}' must be a list, got {type(value).__name__}")
+    return value
+
+
+#: the door's cap on one batch of proposals: each draw is a GP fit and an
+#: EI search under the session's lock
+PROPOSE_BATCH_MAX = 64
+
+
+def _knob_config_field(body: Dict[str, Any]):
+    """A client's serialized knob config; a malformed one is a 400."""
+    try:
+        return deserialize_knob_config(_field(body, "knob_config"))
+    except (ValueError, TypeError, KeyError, AttributeError) as e:
+        raise InvalidRequestError(f"invalid knob_config: {e}")
 
 
 def _int_param(query: Dict[str, str], name: str, default: int) -> int:
@@ -105,6 +145,10 @@ class AdminServer:
         self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
         self._httpd.daemon_threads = True
         self.port = self._httpd.server_address[1]
+        # worker processes reach the advisor and send events through this
+        # door: tell a process placement where it is
+        if hasattr(self.admin.placement, "admin_addr"):
+            self.admin.placement.admin_addr = (self.host, self.port)
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="admin-door", daemon=True)
         self._thread.start()
@@ -213,6 +257,31 @@ class AdminServer:
                 {"predictions": A.predict(
                     au["user_id"], m["app"], _field(b, "queries"),
                     b.get("app_version", -1))}),
+            # advisor sessions: process-placed train workers propose and
+            # feed back through these (advisor/remote.py)
+            r("POST", "/advisors", _ANY, lambda au, m, b, q: {
+                "advisor_id": A.advisor_store.create_advisor(
+                    _knob_config_field(b),
+                    advisor_id=b.get("advisor_id"))}),
+            r("POST", r"/advisors/(?P<aid>[^/]+)/propose", _ANY,
+                lambda au, m, b, q: {
+                    "knobs": A.advisor_store.propose(m["aid"])}),
+            r("POST", r"/advisors/(?P<aid>[^/]+)/propose_batch", _ANY,
+                lambda au, m, b, q: {
+                    "knobs_list": A.advisor_store.propose_batch(
+                        m["aid"], max(1, min(_num_field(b, "k", int, 1),
+                                             PROPOSE_BATCH_MAX)))}),
+            r("POST", r"/advisors/(?P<aid>[^/]+)/feedback", _ANY,
+                lambda au, m, b, q: {"knobs": A.advisor_store.feedback(
+                    m["aid"], _field(b, "knobs"), _field(b, "score"))}),
+            r("POST", r"/advisors/(?P<aid>[^/]+)/feedback_batch", _ANY,
+                lambda au, m, b, q: {
+                    "count": A.advisor_store.feedback_batch(
+                        m["aid"],
+                        [(_field(i, "knobs"), _field(i, "score"))
+                         for i in _list_field(b, "items")])}),
+            r("DELETE", r"/advisors/(?P<aid>[^/]+)", _ANY, lambda au, m, b, q:
+                A.advisor_store.delete_advisor(m["aid"]) or {}),
             # admin actions
             r("POST", "/actions/stop_all_jobs", _ADMINS,
                 lambda au, m, b, q: A.stop_all_jobs() or {}),
@@ -261,6 +330,9 @@ class AdminServer:
             self._respond(handler, 401, {"error": str(e)})
         except (InvalidRequestError, InvalidModelClassError) as e:
             self._respond(handler, 400, {"error": f"{type(e).__name__}: {e}"})
+        except FrameTooLargeError as e:
+            # permanent for this payload: 413, never the retryable 429
+            self._respond(handler, 413, {"error": f"{type(e).__name__}: {e}"})
         except ArtifactCorruptError as e:
             self._respond(handler, 500, {"error": f"{type(e).__name__}: {e}"})
         except QueueFullError as e:

@@ -37,7 +37,7 @@ from rafiki_tpu_torch.constants import (
     TrainJobStatus,
 )
 from rafiki_tpu_torch.db.database import Database
-from rafiki_tpu_torch.placement.manager import LocalPlacementManager
+from rafiki_tpu_torch.placement.manager import PlacementManager
 from rafiki_tpu_torch.predictor.predictor import Predictor
 from rafiki_tpu_torch.worker.inference import InferenceWorker
 from rafiki_tpu_torch.worker.train import EventFn, TrainWorker
@@ -50,7 +50,7 @@ class ServiceDeploymentError(Exception):
 
 
 class ServicesManager:
-    def __init__(self, db: Database, placement: LocalPlacementManager,
+    def __init__(self, db: Database, placement: PlacementManager,
                  advisor_store: AdvisorStore, broker: Broker,
                  send_event: EventFn, params_dir: Optional[str] = None):
         self._db = db
@@ -102,7 +102,8 @@ class ServicesManager:
         try:
             ctx = self._placement.create_service(
                 service["id"], ServiceType.TRAIN, worker.start,
-                n_chips=n_chips)
+                n_chips=n_chips,
+                extra={"sub_train_job_id": sub_train_job_id})
         except Exception:
             # the rows exist but nothing runs: close the service row
             self._db.mark_service_as_stopped(service["id"])
@@ -226,7 +227,9 @@ class ServicesManager:
             # one when training or its siblings hold them all
             ctx = self._placement.create_service(
                 service["id"], ServiceType.INFERENCE, worker.start,
-                n_chips=1, best_effort_chips=True)
+                n_chips=1, best_effort_chips=True,
+                extra={"inference_job_id": inference_job_id,
+                       "trial_id": trial_id})
         except Exception:
             self._db.mark_service_as_stopped(service["id"])
             raise

@@ -3,15 +3,17 @@
 Own copy of ``rafiki_tpu/advisor/advisor.py``: the ``BaseAdvisor``
 contract, the GP-backed default ``Advisor``, ``RandomAdvisor``, and the
 thread-safe ``AdvisorStore`` keyed by advisor id (one session per
-sub-train-job, shared by its workers). Batch proposals, infeasible
-feedback, replay after a restart and the ASHA scheduler wait (ROADMAP.md).
+sub-train-job, shared by its workers, and served on the admin's REST door
+to worker processes), with batch proposals and feedback. Infeasible
+feedback, replay after a restart and the ASHA scheduler wait
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import threading
 import uuid
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -48,8 +50,20 @@ class BaseAdvisor:
     def propose(self) -> Dict[str, Any]:
         raise NotImplementedError
 
+    def propose_batch(self, k: int) -> List[Dict[str, Any]]:
+        """``k`` assignments to evaluate together; each advisor keeps its
+        sequential proposals apart, so the default loops ``propose``."""
+        return [self.propose() for _ in range(max(int(k), 1))]
+
     def feedback(self, knobs: Dict[str, Any], score: float) -> None:
         raise NotImplementedError
+
+    def feedback_batch(self,
+                       items: List[Tuple[Dict[str, Any], float]]) -> int:
+        """Record (knobs, score) observations one by one; how many."""
+        for knobs, score in items:
+            self.feedback(knobs, float(score))
+        return len(items)
 
     @property
     def observation_count(self) -> int:
@@ -71,12 +85,22 @@ class Advisor(BaseAdvisor):
 
     def propose(self) -> Dict[str, Any]:
         with self._lock:
-            u = self._opt.suggest(register_pending=False)
-            knobs = knobs_from_unit(self.knob_config, u)
-            # register the *quantized* point (integer/categorical knobs
-            # round to a grid) so feedback's re-encoding retires it by value
-            self._opt.mark_pending(knobs_to_unit(self.knob_config, knobs))
-            return _jsonify(knobs)
+            return self._propose_locked()
+
+    def _propose_locked(self) -> Dict[str, Any]:  # guarded-by: _lock
+        u = self._opt.suggest(register_pending=False)
+        knobs = knobs_from_unit(self.knob_config, u)
+        # register the *quantized* point (integer/categorical knobs round
+        # to a grid) so feedback's re-encoding retires it by value
+        self._opt.mark_pending(knobs_to_unit(self.knob_config, knobs))
+        return _jsonify(knobs)
+
+    def propose_batch(self, k: int) -> List[Dict[str, Any]]:
+        """``k`` proposals under one lock hold, each registered as pending
+        before the next is drawn, so a sibling worker cannot interleave
+        and the batch spreads."""
+        with self._lock:
+            return [self._propose_locked() for _ in range(max(int(k), 1))]
 
     def feedback(self, knobs: Dict[str, Any], score: float) -> None:
         u = knobs_to_unit(self.knob_config, knobs)
@@ -100,6 +124,11 @@ class RandomAdvisor(BaseAdvisor):
     def propose(self) -> Dict[str, Any]:
         return _jsonify(knobs_from_unit(self.knob_config,
                                         self._rng.random(self._dims)))
+
+    def propose_batch(self, k: int) -> List[Dict[str, Any]]:
+        # one draw for the batch: uniform draws need no spreading
+        u = self._rng.random((max(int(k), 1), self._dims))
+        return [_jsonify(knobs_from_unit(self.knob_config, row)) for row in u]
 
     def feedback(self, knobs: Dict[str, Any], score: float) -> None:
         self._n_observed += 1
@@ -139,6 +168,13 @@ class AdvisorStore:
 
     def propose(self, advisor_id: str) -> Dict[str, Any]:
         return self.get(advisor_id).propose()
+
+    def propose_batch(self, advisor_id: str, k: int) -> List[Dict[str, Any]]:
+        return self.get(advisor_id).propose_batch(k)
+
+    def feedback_batch(self, advisor_id: str,
+                       items: List[Tuple[Dict[str, Any], float]]) -> int:
+        return int(self.get(advisor_id).feedback_batch(items))
 
     def delete_advisor(self, advisor_id: str) -> None:
         with self._lock:

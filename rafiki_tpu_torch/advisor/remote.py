@@ -1,0 +1,125 @@
+"""Advisor sessions over the admin's REST door: a worker process's view.
+
+Own copy of ``rafiki_tpu/advisor/remote.py``. The advisor store lives in
+the admin process and is served on its door (``/advisors/*``,
+``admin/http.py``); :class:`RemoteAdvisorStore` gives a process-placed
+``TrainWorker`` the in-process ``AdvisorStore``'s interface over it, so
+the train workers of one sub-train-job, each its own process, still share
+one GP.
+
+An advisor call rides out an admin that cannot be reached for a while
+(connection refused or reset) or that answers 5xx: it retries with
+jittered backoff for ``RAFIKI_ADVISOR_RETRY_S`` seconds (default 60; 0
+retries never), then raises the last error. A retried call whose first
+answer was lost after the admin applied it is applied twice; a duplicate
+observation is noise the GP tolerates.
+
+Differences from the original: it speaks through the port's ``urllib``
+``Client`` (``requests`` is not on the card's machine); the HA
+recovering-503 is not ported (any 5xx is retried); and the worker's
+per-trial feedback goes through the batch route, which returns no
+proposal. The original's ``/feedback`` answers with a next proposal that
+the GP registers as pending and no trial ever takes, so a process-placed
+worker would leave the GP in another state than a thread-placed one.
+Infeasible feedback, replay and rung reports go with ROADMAP.md A.3.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import random
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple, TypeVar
+
+from rafiki_tpu_torch.client.client import (
+    AdminUnavailableError,
+    Client,
+    RafikiError,
+)
+from rafiki_tpu_torch.sdk.knob import serialize_knob_config
+
+logger = logging.getLogger(__name__)
+
+T = TypeVar("T")
+
+
+def _retry_window_s() -> float:
+    return float(os.environ.get("RAFIKI_ADVISOR_RETRY_S", "60"))
+
+
+def _retryable(e: RafikiError) -> bool:
+    return isinstance(e, AdminUnavailableError) or (
+        e.status is not None and e.status >= 500)
+
+
+def _ride_out(fn: Callable[[], T], what: str) -> T:
+    """Run one advisor call, retrying an unreachable or failing (5xx)
+    admin until the window closes; then the last error propagates."""
+    deadline = time.monotonic() + _retry_window_s()
+    delay = 0.2
+    while True:
+        try:
+            return fn()
+        except RafikiError as e:
+            if not _retryable(e) or time.monotonic() >= deadline:
+                raise
+            logger.warning("advisor call %s failed (%s: %s); retrying for "
+                           "up to RAFIKI_ADVISOR_RETRY_S", what,
+                           type(e).__name__, e)
+            time.sleep(delay * random.uniform(0.5, 1.5))
+            delay = min(delay * 2, 5.0)
+
+
+class _RemoteAdvisor:
+    """Duck-types ``BaseAdvisor`` for the call ``TrainWorker`` makes."""
+
+    def __init__(self, client: Client, advisor_id: str):
+        self._client = client
+        self._id = advisor_id
+
+    def feedback(self, knobs: Dict[str, Any], score: float) -> None:
+        # the batch route: no next proposal is drawn (module docstring)
+        _ride_out(lambda: self._client.feedback_knobs_batch(
+            self._id, [(knobs, float(score))]), "feedback")
+
+
+class RemoteAdvisorStore:
+    """``AdvisorStore``'s interface over the admin's REST door."""
+
+    def __init__(self, client: Client):
+        self._client = client
+
+    def create_advisor(self, knob_config: Dict[str, Any],
+                       advisor_id: Optional[str] = None) -> str:
+        return _ride_out(lambda: self._client.create_advisor(
+            serialize_knob_config(knob_config), advisor_id=advisor_id),
+            "create_advisor")
+
+    def get(self, advisor_id: str) -> _RemoteAdvisor:
+        return _RemoteAdvisor(self._client, advisor_id)
+
+    def propose(self, advisor_id: str) -> Dict[str, Any]:
+        return _ride_out(lambda: self._client.propose_knobs(advisor_id),
+                         "propose")
+
+    def propose_batch(self, advisor_id: str, k: int) -> List[Dict[str, Any]]:
+        return _ride_out(
+            lambda: self._client.propose_knobs_batch(advisor_id, k),
+            "propose_batch")
+
+    def feedback(self, advisor_id: str, knobs: Dict[str, Any],
+                 score: float) -> Dict[str, Any]:
+        """Record a score; returns the next proposal."""
+        return _ride_out(lambda: self._client.feedback_knobs(
+            advisor_id, knobs, float(score)), "feedback")
+
+    def feedback_batch(self, advisor_id: str,
+                       items: List[Tuple[Dict[str, Any], float]]) -> int:
+        return _ride_out(
+            lambda: self._client.feedback_knobs_batch(advisor_id, items),
+            "feedback_batch")
+
+    def delete_advisor(self, advisor_id: str) -> None:
+        # teardown is best-effort: never worth stalling a stop on
+        self._client.delete_advisor(advisor_id)

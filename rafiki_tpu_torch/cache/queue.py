@@ -4,8 +4,9 @@ Counterpart of ``rafiki_tpu/cache/queue.py`` without the generation
 streams: the predictor submits a request's queries atomically
 (``submit_many``) and gets futures back; each inference worker blocks on
 its bounded queue, wakes the moment work arrives, drains what has queued
-(``take_batch``) and resolves the futures itself. ``Broker`` is the seam a
-remote transport would implement; ``InProcessBroker`` serves one host.
+(``take_batch``) and resolves the futures itself. ``Broker`` is the transport
+seam: ``InProcessBroker`` serves workers that are threads of this
+process, ``ShmBroker`` (``cache/shm_broker.py``) worker processes.
 """
 
 from __future__ import annotations
@@ -25,6 +26,13 @@ class QueueFullError(RuntimeError):
     def __init__(self, message: str, retry_after_s: float = 1.0) -> None:
         super().__init__(message)
         self.retry_after_s = max(float(retry_after_s), 0.0)
+
+
+class FrameTooLargeError(ValueError):
+    """A request's wire frame is larger than the shm ring: permanent for
+    this request (retrying the same payload never succeeds), unlike the
+    retryable :class:`QueueFullError`. The door answers 413: split the
+    request or raise ``RAFIKI_SHM_RING_BYTES``."""
 
 
 class QueryFuture:

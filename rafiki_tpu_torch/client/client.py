@@ -4,11 +4,13 @@ Own copy of ``rafiki_tpu/client/client.py`` for the routes this package
 serves, with the same method names, arguments and return values: login,
 users, models (upload from a file path or bytes, download, dry-run
 verification), train jobs, trials (logs, params, ``load_trial_model``),
-inference jobs and ``predict``. It speaks HTTP with the standard
-library's ``urllib.request``; a non-200 answer raises :class:`RafikiError`
-with the status, and an admin that cannot be reached raises
-:class:`AdminUnavailableError`. Multi-address failover, generation,
-rollout, drift and the advisor calls are not ported (ROADMAP.md).
+inference jobs and ``predict``, and the advisor sessions a process-placed
+train worker uses (``advisor/remote.py``). It speaks HTTP with the
+standard library's ``urllib.request``; a non-200 answer raises
+:class:`RafikiError` with the status, and an admin that cannot be reached
+raises :class:`AdminUnavailableError`. Multi-address failover,
+generation, rollout, drift and the advisor's infeasible, replay and rung
+calls are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import time
 import urllib.error
 import urllib.parse
 import urllib.request
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 from rafiki_tpu_torch.sdk.model import load_model_class
 from rafiki_tpu_torch.sdk.params import load_params
@@ -247,6 +249,44 @@ class Client:
         data = self._call("POST", f"/predict/{app}",
                           {"queries": queries, "app_version": app_version})
         return data["predictions"]
+
+    # -- advisor sessions ----------------------------------------------------
+
+    def create_advisor(self, knob_config_json: Dict[str, Any],
+                       advisor_id: Optional[str] = None) -> str:
+        """A GP advisor session over a serialized knob config
+        (``serialize_knob_config``); its id."""
+        return self._call("POST", "/advisors", {
+            "knob_config": knob_config_json,
+            "advisor_id": advisor_id})["advisor_id"]
+
+    def propose_knobs(self, advisor_id: str) -> Dict[str, Any]:
+        return self._call("POST", f"/advisors/{advisor_id}/propose")["knobs"]
+
+    def propose_knobs_batch(self, advisor_id: str,
+                            k: int) -> List[Dict[str, Any]]:
+        """``k`` proposals in one call, spread by the GP's pending-point
+        fantasies."""
+        return self._call("POST", f"/advisors/{advisor_id}/propose_batch",
+                          {"k": int(k)})["knobs_list"]
+
+    def feedback_knobs(self, advisor_id: str, knobs: Dict[str, Any],
+                       score: float) -> Dict[str, Any]:
+        """Record a score; returns the next proposal."""
+        return self._call("POST", f"/advisors/{advisor_id}/feedback",
+                          {"knobs": knobs, "score": score})["knobs"]
+
+    def feedback_knobs_batch(self, advisor_id: str,
+                             items: List[Tuple[Dict[str, Any], float]]
+                             ) -> int:
+        """Record (knobs, score) observations; how many were applied."""
+        return int(self._call(
+            "POST", f"/advisors/{advisor_id}/feedback_batch",
+            {"items": [{"knobs": kn, "score": float(sc)}
+                       for kn, sc in items]})["count"])
+
+    def delete_advisor(self, advisor_id: str) -> None:
+        self._call("DELETE", f"/advisors/{advisor_id}")
 
     # -- admin ---------------------------------------------------------------
 

@@ -72,6 +72,13 @@ _DYNAMIC = {
     # per-worker inbox cap; submits beyond it raise QueueFullError
     # (0 = uncapped)
     "PREDICT_QUEUE_DEPTH": lambda: _env_int("RAFIKI_PREDICT_QUEUE_DEPTH", 256),
+    # where a process-placed service's log goes (service-<id>.log)
+    "LOGS_DIR": lambda: os.environ.get(
+        "RAFIKI_LOGS_DIR", os.path.join(workdir(), "logs")),
+    # bytes of each shm ring of the serving data plane (one query ring per
+    # serving worker, one response ring per inference job); a request's
+    # frame larger than the ring is refused (413)
+    "SHM_RING_BYTES": lambda: _env_int("RAFIKI_SHM_RING_BYTES", 1 << 20),
 }
 
 
@@ -96,8 +103,7 @@ class NotPortedError(RuntimeError):
 #: (environment name, the values that select a missing subsystem, its name)
 _UNPORTED = (
     ("RAFIKI_ADMIN_HA", ("1",), "control-plane HA (lease, standby)"),
-    ("RAFIKI_PLACEMENT", ("process", "hosts"), "process and host placement"),
-    ("RAFIKI_BROKER", ("shm",), "the shared-memory broker"),
+    ("RAFIKI_PLACEMENT", ("hosts",), "host placement (agents)"),
     ("RAFIKI_SANDBOX", ("1",), "the trial sandbox"),
     ("RAFIKI_INSTALL_DEPS", ("1",), "dependency provisioning"),
 )

@@ -1,11 +1,14 @@
 """Device grant and service context.
 
 Counterpart of ``rafiki_tpu/parallel/mesh.py`` (the thread grant) and
-``rafiki_tpu/placement/manager.py`` (``ServiceContext``). Executors run as
-threads of one process, so the placement layer grants each thread its
-devices with :func:`set_device_grant`; model code asks
-:func:`default_device` for the device to run on. ``RAFIKI_VISIBLE_DEVICES``
-(comma-separated CUDA indices) is the process-wide fallback.
+``rafiki_tpu/placement/manager.py`` (``ServiceContext``). Under thread
+placement executors are threads of one process, so the placement layer
+grants each thread its devices with :func:`set_device_grant`; under
+process placement a child sees only its granted cards
+(``CUDA_VISIBLE_DEVICES``) and its grant is their indices there. Model
+code asks :func:`default_device` for the device to run on.
+``RAFIKI_VISIBLE_DEVICES`` (comma-separated CUDA indices) is the
+process-wide fallback.
 
 A grant names CUDA indices (ints) or ``"cpu"``. With no grant and no CUDA
 device, :func:`default_device` raises: the port never carries on quietly
@@ -22,7 +25,8 @@ from __future__ import annotations
 import os
 import threading
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
@@ -93,12 +97,16 @@ def default_device(device: Optional[DeviceSpec] = None) -> torch.device:
 class ServiceContext:
     """Handed to a service entry point: identity, device grant, stop
     signal. ``chips`` are CUDA indices, or ``["cpu"]``; empty means the
-    process default (:func:`default_device`)."""
+    process default (:func:`default_device`). ``extra`` is the service's
+    declarative payload (``sub_train_job_id``; ``inference_job_id`` and
+    ``trial_id``), which a process placement hands its child."""
 
     service_id: str
     chips: List[DeviceSpec] = field(default_factory=list)
     stop_event: threading.Event = field(default_factory=threading.Event)
     on_ready: Optional[Callable[[], None]] = None
+    service_type: str = ""
+    extra: Dict[str, Any] = field(default_factory=dict)
 
     @property
     def stopping(self) -> bool:

@@ -1,16 +1,17 @@
-"""Device-affine service placement: services run as threads of this
-process, each with a device grant.
+"""Device-affine service placement.
 
 Own copy of ``rafiki_tpu/placement/manager.py``: ``ChipAllocator`` owns
-the host's device inventory, ``LocalPlacementManager`` runs each service
-entry point on a daemon thread with its grant (the runner sets the
-thread's grant with :func:`~rafiki_tpu_torch.device.set_device_grant`
+the host's device inventory; ``PlacementManager`` is the seam both
+placements implement. ``LocalPlacementManager`` runs each service entry
+point on a daemon thread of this process with its grant (the runner sets
+the thread's grant with :func:`~rafiki_tpu_torch.device.set_device_grant`
 through the worker's ``start``), reports RUNNING when the service calls
-``ctx.ready()``, restarts a crashing service up to ``max_restarts``
-times, and releases the grant once the thread is off the devices.
+``ctx.ready()``, restarts a crashing service up to ``max_restarts`` times,
+and releases the grant once the thread is off the devices.
+``ProcessPlacementManager`` (``placement/process.py``) runs each service as
+a child process instead.
 
-The JAX package's ``PlacementManager`` seam waits for a second placement
-(process or host agents, ROADMAP.md). Two differences from it:
+Two differences from the JAX package:
 
 - ``ChipAllocator()`` lists the visible CUDA devices and raises when
   there is none. Only an allocator built over ``["cpu"]`` (the tests)
@@ -20,15 +21,17 @@ The JAX package's ``PlacementManager`` seam waits for a second placement
   first device instead of getting an empty grant. An empty grant in the
   JAX package means "every visible device", the CPU when there is no TPU;
   here it never means the CPU. So on a one-card host the two best trials
-  of an inference job are both served on ``cuda:0``.
+  of an inference job are both served on ``cuda:0``, under either
+  placement.
 """
 
 from __future__ import annotations
 
+import abc
 import logging
 import threading
 import traceback
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -91,6 +94,47 @@ RunFn = Callable[[ServiceContext], None]
 StatusFn = Callable[[str, str], None]  # (service_id, status)
 
 
+class PlacementManager(abc.ABC):
+    """The seam both placements implement: deploy a service on its device
+    grant, report its status through ``on_status``, stop it."""
+
+    def __init__(self, allocator: Optional[ChipAllocator],
+                 on_status: Optional[StatusFn], max_restarts: int):
+        self.allocator = allocator or ChipAllocator()
+        self.on_status = on_status
+        self.max_restarts = max_restarts
+
+    def _grant(self, n_chips: int, best_effort_chips: bool
+               ) -> Tuple[List[DeviceSpec], List[DeviceSpec]]:
+        """(the devices the service owns, its grant). With none asked for,
+        or with ``best_effort_chips`` when too few are free, the grant is
+        the allocator's first devices, shared and owned by no one."""
+        owned: List[DeviceSpec] = []
+        try:
+            owned = self.allocator.allocate(n_chips) if n_chips > 0 else []
+        except InsufficientChipsError:
+            if not best_effort_chips:
+                raise
+        return owned, owned or self.allocator.shared(n_chips)
+
+    @abc.abstractmethod
+    def create_service(self, service_id: str, service_type: str,
+                       run_fn: Optional[RunFn], n_chips: int = 0,
+                       extra: Optional[Dict[str, Any]] = None,
+                       best_effort_chips: bool = False) -> ServiceContext:
+        """Deploy a service on ``n_chips`` devices of its own (see
+        :meth:`_grant`). A thread runs ``run_fn``; a process is launched
+        from the declarative ``extra`` payload."""
+
+    @abc.abstractmethod
+    def destroy_service(self, service_id: str, wait: bool = True) -> None:
+        ...
+
+    @abc.abstractmethod
+    def stop_all(self) -> None:
+        ...
+
+
 class _ServiceRunner:
     def __init__(self, ctx: ServiceContext, run_fn: RunFn,
                  on_status: Optional[StatusFn], max_restarts: int,
@@ -136,33 +180,24 @@ class _ServiceRunner:
                 self.on_exit()
 
 
-class LocalPlacementManager:
+class LocalPlacementManager(PlacementManager):
     """Runs services as daemon threads of this process."""
 
     def __init__(self, allocator: Optional[ChipAllocator] = None,
                  on_status: Optional[StatusFn] = None,
                  max_restarts: int = 3):
-        self.allocator = allocator or ChipAllocator()
-        self.on_status = on_status
-        self.max_restarts = max_restarts
+        super().__init__(allocator, on_status, max_restarts)
         self._lock = threading.Lock()
         self._runners: Dict[str, _ServiceRunner] = {}  # guarded-by: _lock
 
     def create_service(self, service_id: str, service_type: str,
-                       run_fn: RunFn, n_chips: int = 0,
+                       run_fn: Optional[RunFn], n_chips: int = 0,
+                       extra: Optional[Dict[str, Any]] = None,
                        best_effort_chips: bool = False) -> ServiceContext:
-        """Deploy a service on ``n_chips`` devices of its own. With none
-        asked for, or with ``best_effort_chips`` when too few are free, it
-        shares the allocator's first devices instead (see the module
-        docstring)."""
-        owned: List[DeviceSpec] = []
-        try:
-            owned = self.allocator.allocate(n_chips) if n_chips > 0 else []
-        except InsufficientChipsError:
-            if not best_effort_chips:
-                raise
-        chips = owned or self.allocator.shared(n_chips)
-        ctx = ServiceContext(service_id=service_id, chips=chips)
+        owned, chips = self._grant(n_chips, best_effort_chips)
+        ctx = ServiceContext(service_id=service_id, chips=chips,
+                             service_type=service_type,
+                             extra=dict(extra or {}))
         runner = _ServiceRunner(
             ctx, run_fn, self.on_status, self.max_restarts,
             on_exit=lambda: self.allocator.release(owned))

@@ -1,0 +1,221 @@
+"""A service's child process: ``python -m rafiki_tpu_torch.worker.bootstrap``.
+
+Own copy of ``rafiki_tpu/worker/bootstrap.py``. ``ProcessPlacementManager``
+starts it with what it needs in the environment:
+
+    RAFIKI_SERVICE_ID / RAFIKI_SERVICE_TYPE   identity and dispatch
+    CUDA_VISIBLE_DEVICES                      the granted cards (physical ids)
+    RAFIKI_CHIP_GRANT                         their indices here (0..n-1),
+                                              or "cpu"
+    RAFIKI_DB_PATH                            the shared SQLite/WAL file
+    RAFIKI_SUB_TRAIN_JOB_ID                   (TRAIN)
+    RAFIKI_INFERENCE_JOB_ID, RAFIKI_TRIAL_ID  (INFERENCE)
+    RAFIKI_ADMIN_ADDR                         host:port of the admin's door
+    RAFIKI_BROKER_PREFIX                      the shm data plane's namespace
+
+Status protocol: the service's row goes RUNNING on ``ctx.ready()``, STOPPED
+on a clean exit or SIGTERM, ERRORED on a crash, and the exit code mirrors
+it (0 or 1) for the parent's monitor. A child whose parent dies stops (the
+orphan watchdog). A child granted a card that finds no CUDA raises before
+it reports ready.
+
+Log lines the smoke test reads, each with the pid: ``startup`` (JSON of
+wall-clock stamps: the process's start, ``main``, torch imported, CUDA
+ready, kernel libraries loaded, ready; and the grant) and, at exit,
+``kernel launches`` (JSON of the four attention kernels' launch counters
+in this process, which the parent cannot see).
+
+Not ported: the JAX platform override, and surviving the parent for
+control-plane recovery (ROADMAP.md A.10).
+"""
+
+from __future__ import annotations
+
+import importlib
+import json
+import logging
+import os
+import signal
+import sys
+import threading
+import time
+import traceback
+
+logger = logging.getLogger(__name__)
+
+#: the attention kernels' wrappers, by name in ops/flash_attention.py
+KERNELS = ("flash_attention", "flash_attention_lse", "flash_attention_dq",
+           "flash_attention_dkv")
+
+
+def _require(name: str) -> str:
+    v = os.environ.get(name)
+    if not v:
+        raise RuntimeError(f"bootstrap: missing env {name}")
+    return v
+
+
+def _process_start_time() -> float:
+    """This process's start on the wall clock, to a clock tick: its age
+    is the boot clock now less its start on that clock (/proc)."""
+    with open(f"/proc/{os.getpid()}/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    age = (time.clock_gettime(time.CLOCK_BOOTTIME)
+           - ticks / os.sysconf("SC_CLK_TCK"))
+    return time.time() - age
+
+
+def _parse_grant(spec: str) -> list:
+    return ["cpu"] if spec.strip() == "cpu" else [
+        int(c) for c in spec.split(",") if c.strip()]
+
+
+def main() -> int:
+    stamps = {"t_main": time.time()}
+    service_id = _require("RAFIKI_SERVICE_ID")
+    service_type = _require("RAFIKI_SERVICE_TYPE")
+    logging.basicConfig(
+        level=logging.INFO,
+        format=f"%(levelname)s:%(asctime)s:{service_id[:8]}:%(name)s: "
+               "%(message)s")
+    stamps["t_start"] = _process_start_time()
+
+    import torch
+
+    stamps["t_torch"] = time.time()
+    chips = _parse_grant(os.environ.get("RAFIKI_CHIP_GRANT", ""))
+    cuda = bool(chips) and chips != ["cpu"]
+    if cuda:
+        # granted a card: it must be there (no quiet run on the CPU)
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"granted CUDA devices {chips} (CUDA_VISIBLE_DEVICES="
+                f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r}) but CUDA is "
+                "not available")
+        torch.empty(1, device=f"cuda:{chips[0]}")
+        torch.cuda.synchronize()
+    stamps["t_cuda"] = time.time()
+    if cuda:
+        from rafiki_tpu_torch.ops import _build
+
+        for name in _build.SOURCES:
+            _build.load(name)
+    stamps["t_kernels"] = time.time()
+
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.constants import ServiceType
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.device import ServiceContext
+
+    db = Database(_require("RAFIKI_DB_PATH"))
+    stop_event = threading.Event()
+
+    def on_signal(signum, frame):
+        logger.info("signal %s: stopping", signum)
+        stop_event.set()
+
+    signal.signal(signal.SIGTERM, on_signal)
+    signal.signal(signal.SIGINT, on_signal)
+
+    # orphan watchdog: a child whose parent died without stopping it (hard
+    # kill) must not linger on a torn-down data plane; reparenting tells
+    parent0 = os.getppid()
+
+    def watch_parent():
+        while not stop_event.wait(2.0):
+            if os.getppid() != parent0:
+                logger.warning("parent %d died; stopping", parent0)
+                stop_event.set()
+                return
+
+    threading.Thread(target=watch_parent, name="orphan-watchdog",
+                     daemon=True).start()
+
+    def on_ready():
+        db.mark_service_as_running(service_id)
+        stamps["t_ready"] = time.time()
+        logger.info("startup (pid %d): %s", os.getpid(), json.dumps({
+            **stamps, "cuda_visible_devices": os.environ.get(
+                "CUDA_VISIBLE_DEVICES"), "grant": chips}))
+
+    ctx = ServiceContext(service_id=service_id, chips=chips,
+                         stop_event=stop_event, on_ready=on_ready,
+                         service_type=service_type)
+    admin_client = None
+    addr = os.environ.get("RAFIKI_ADMIN_ADDR")
+    if addr:
+        from rafiki_tpu_torch.client.client import Client
+
+        host, port = addr.rsplit(":", 1)
+        admin_client = Client(admin_host=host, admin_port=int(port))
+        admin_client.login(config.SUPERADMIN_EMAIL,
+                           config.SUPERADMIN_PASSWORD)
+    try:
+        if service_type == ServiceType.TRAIN:
+            _run_train(ctx, db, admin_client)
+        elif service_type == ServiceType.INFERENCE:
+            _run_inference(ctx, db, admin_client)
+        else:
+            raise RuntimeError(f"bootstrap: unsupported type {service_type}")
+    except Exception:
+        logger.error("service crashed:\n%s", traceback.format_exc())
+        try:
+            db.mark_service_as_errored(service_id)
+        except Exception:
+            logger.exception("could not mark errored")
+        return 1
+    finally:
+        _log_launches()
+    db.mark_service_as_stopped(service_id)
+    return 0
+
+
+def _log_launches() -> None:
+    fa = importlib.import_module("rafiki_tpu_torch.ops.flash_attention")
+    logger.info("kernel launches (pid %d): %s", os.getpid(), json.dumps(
+        {name: getattr(fa, name).launches for name in KERNELS}))
+
+
+def _run_train(ctx, db, admin_client) -> None:
+    from rafiki_tpu_torch.advisor.remote import RemoteAdvisorStore
+    from rafiki_tpu_torch.worker.train import TrainWorker
+
+    if admin_client is None:
+        raise RuntimeError("bootstrap: a train worker needs "
+                           "RAFIKI_ADMIN_ADDR (the advisor is the admin's)")
+
+    def send_event(name, payload):
+        # advisory: the job's refresh also rides the service rows, so an
+        # admin that cannot be reached now must not error a finished worker
+        try:
+            admin_client.send_event(name, **payload)
+        except Exception as e:
+            logger.warning("event %s could not reach the admin (%s); "
+                           "continuing", name, e)
+
+    TrainWorker(_require("RAFIKI_SUB_TRAIN_JOB_ID"), db,
+                RemoteAdvisorStore(admin_client),
+                send_event=send_event).start(ctx)
+
+
+def _run_inference(ctx, db, admin_client) -> None:
+    from rafiki_tpu_torch.cache.shm_broker import ShmBrokerClient
+    from rafiki_tpu_torch.worker.inference import (
+        EVENT_INFERENCE_WORKER_STATS,
+        InferenceWorker,
+    )
+
+    report = None
+    if admin_client is not None:
+        # the admin cannot see this process's serving counters: relay them
+        # for /inference_jobs/<app>/<v>/stats
+        report = lambda payload: admin_client.send_event(  # noqa: E731
+            EVENT_INFERENCE_WORKER_STATS, **payload)
+    InferenceWorker(_require("RAFIKI_INFERENCE_JOB_ID"),
+                    _require("RAFIKI_TRIAL_ID"), db,
+                    ShmBrokerClient(_require("RAFIKI_BROKER_PREFIX")),
+                    report_stats=report).start(ctx)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

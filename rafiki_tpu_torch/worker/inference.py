@@ -6,20 +6,20 @@ params artifact, as a train job left them in the database), warm every
 batch bucket up before reporting ready, then take batches and resolve
 their futures. Each served batch counts into :func:`serving_stats`
 (batches, queries, and the queue's depth, expired and shed queries),
-which ``Admin.get_inference_job_stats`` reads. Chaos injection, the
-sandbox, the remote stats reporter and fused ensembles are not ported
-yet (ROADMAP.md).
+which ``Admin.get_inference_job_stats`` reads; a worker process relays
+its counters to the admin (``report_stats``), which cannot see them.
+Chaos injection, the sandbox and fused ensembles are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import logging
 import threading
-from typing import Any, Dict, List
-
-import numpy as np
+from typing import Any, Callable, Dict, List, Optional
 
 from rafiki_tpu_torch import config
+from rafiki_tpu_torch.cache import wire
 from rafiki_tpu_torch.cache.queue import Broker
 from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.device import ServiceContext, set_device_grant
@@ -28,6 +28,12 @@ from rafiki_tpu_torch.sdk.model import load_model_class
 from rafiki_tpu_torch.sdk.params import load_params
 
 logger = logging.getLogger(__name__)
+
+#: seconds between a worker process's relays of its serving counters
+REPORT_INTERVAL_S = 5.0
+#: the event that relays them to the admin; payload: service_id and the
+#: counters of :func:`serving_stats`
+EVENT_INFERENCE_WORKER_STATS = "inference_worker_stats"
 
 # serving counters of this process's workers, by service id
 _stats_lock = threading.Lock()
@@ -42,13 +48,15 @@ def serving_stats() -> Dict[str, Dict[str, int]]:
 
 
 def _record_batch(service_id: str, n_queries: int, queue) -> None:
+    # an shm worker queue knows no depth or shed count: those are the
+    # predictor's side of the ring
     q = queue.stats()
     with _stats_lock:
         s = SERVING_STATS.setdefault(service_id, {"batches": 0, "queries": 0})
         s["batches"] += 1
         s["queries"] += n_queries
-        s.update(queue_depth=q["depth"], expired=q["expired"],
-                 shed=q["rejected"])
+        s.update(queue_depth=q.get("depth", 0), expired=q["expired"],
+                 shed=q.get("rejected", 0))
 
 
 def _resolve_batch(futures: List[Any], predictions: Any,
@@ -70,21 +78,49 @@ def _resolve_batch(futures: List[Any], predictions: Any,
 def _assemble(queries: List[Any]) -> Any:
     """One contiguous (n, ...) array when the queries are ndarrays of one
     shape and numeric dtype; otherwise the list as it came."""
-    first = queries[0]
-    if (isinstance(first, np.ndarray) and first.dtype.kind in "biuf"
-            and all(isinstance(q, np.ndarray) and q.dtype == first.dtype
-                    and q.shape == first.shape for q in queries)):
-        return np.stack(queries)
-    return queries
+    stacked = wire.stack_batch(queries)
+    return queries if stacked is None else stacked
 
 
 class InferenceWorker:
     def __init__(self, inference_job_id: str, trial_id: str, db: Database,
-                 broker: Broker):
+                 broker: Broker,
+                 report_stats: Optional[Callable[[Dict[str, Any]],
+                                                 None]] = None):
+        """``report_stats({"service_id", "batches", "queries", ...})``
+        relays this worker's cumulative counters to a remote admin, from a
+        thread, every ``REPORT_INTERVAL_S`` and once more at exit;
+        best-effort."""
         self._job_id = inference_job_id
         self._trial_id = trial_id
         self._db = db
         self._broker = broker
+        self._report_stats = report_stats
+
+    def _stats_reporter(self, ctx: ServiceContext,
+                        done: threading.Event) -> None:
+        """Push the counters on a fixed beat, whatever the traffic, the
+        first at once and the last when ``done`` is set; a push that fails
+        is tried again at the next."""
+        last = None
+
+        def push():
+            nonlocal last
+            s = serving_stats().get(ctx.service_id,
+                                    {"batches": 0, "queries": 0})
+            if s == last:
+                return
+            try:
+                self._report_stats({"service_id": ctx.service_id, **s})
+                last = s
+            except Exception:
+                logger.warning("stats report failed (continuing)",
+                               exc_info=True)
+
+        push()
+        while not done.wait(REPORT_INTERVAL_S):
+            push()
+        push()  # the batches since the last beat
 
     def _load_model(self):
         trial = self._db.get_trial(self._trial_id)
@@ -103,12 +139,18 @@ class InferenceWorker:
         """Serve until ``ctx`` stops or the queue closes. Runs in the
         calling thread, on the devices ``ctx`` grants."""
         set_device_grant(ctx.chips)
-        model = None
+        model = reporter = None
+        done = threading.Event()
         queue = self._broker.register_worker(self._job_id, ctx.service_id)
         try:
             model = self._load_model()
             model.warm_up()  # every bucket runs before traffic arrives
             ctx.ready()
+            if self._report_stats is not None:
+                reporter = threading.Thread(
+                    target=self._stats_reporter, args=(ctx, done),
+                    name="stats-reporter", daemon=True)
+                reporter.start()
             while not ctx.stopping:
                 batch = queue.take_batch(
                     max_size=config.PREDICT_MAX_BATCH_SIZE,
@@ -134,3 +176,6 @@ class InferenceWorker:
             if model is not None:
                 model.destroy()
             set_device_grant(None)
+            done.set()
+            if reporter is not None:
+                reporter.join(timeout=10)

@@ -485,3 +485,76 @@ def test_cuda_client_admin_cycle(tmp_path):
                   for t in trees) / 2
     assert probs.shape == (8, 10) and np.isfinite(probs).all()
     assert float(np.abs(probs - ref).max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_process_placement_cycle(tmp_path, monkeypatch):
+    """On the card, under RAFIKI_PLACEMENT=process: a 2-trial narrow-ViT
+    job in a train child (granted the card through CUDA_VISIBLE_DEVICES),
+    then two serving children over the shm rings. Each child's exit line
+    reports its kernel launches: K1 in every child, and K1-LSE, K2 and K3
+    in the train child, 2 a step (2 blocks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    import re
+    from pathlib import Path
+
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.http import AdminServer
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.placement.process import ProcessPlacementManager
+    from rafiki_tpu_torch.sdk.dataset import write_numpy_dataset
+
+    monkeypatch.setenv("RAFIKI_PLACEMENT", "process")
+    monkeypatch.setenv("RAFIKI_LOGS_DIR", str(tmp_path / "logs"))
+    monkeypatch.setenv("RAFIKI_SHM_RING_BYTES", str(4 << 20))
+    source = (Path(flash_mod.__file__).parents[1] / "templates"
+              / "torch_vit.py").read_text()
+    for old, new in _NARROW_EDITS:
+        source = source.replace(old, new)
+    rng = np.random.default_rng(0)
+    uris = []
+    for name, n in (("train", 64), ("test", 16)):
+        x = rng.random((n, 32, 32, 3), dtype=np.float32)
+        y = rng.integers(0, 10, n).astype(np.int32)
+        uris.append(write_numpy_dataset(x, y, str(tmp_path / f"{name}.npz")))
+    admin = Admin(db=Database(str(tmp_path / "store.sqlite3")),
+                  params_dir=str(tmp_path / "params"))
+    assert isinstance(admin.placement, ProcessPlacementManager)
+    server = AdminServer(admin).start()
+    try:
+        c = Client("127.0.0.1", server.port, timeout_s=300)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        c.create_model("narrow", "IMAGE_CLASSIFICATION", source.encode(),
+                       "NarrowViT")
+        c.create_train_job("narrow", "IMAGE_CLASSIFICATION", *uris,
+                           budget={"MODEL_TRIAL_COUNT": 2, "CHIP_COUNT": 1})
+        job = c.wait_until_train_job_stopped("narrow", timeout_s=300)
+        assert job["status"] == "STOPPED"
+        trials = c.get_trials_of_train_job("narrow")
+        assert [t["status"] for t in trials] == ["COMPLETED"] * 2
+        steps = sum(64 // t["knobs"]["batch_size"] for t in trials)
+        c.create_inference_job("narrow")
+        with np.load(uris[1]) as z:
+            probs = np.asarray(c.predict("narrow", z["x"][:8].tolist()))
+        assert probs.shape == (8, 10) and np.isfinite(probs).all()
+        c.stop_inference_job("narrow")
+    finally:
+        server.stop()
+        admin.shutdown()
+    by_service = {}
+    for path in (tmp_path / "logs").glob("service-*.log"):
+        lines = re.findall(r"kernel launches \(pid \d+\): (\{.*\})",
+                           path.read_text())
+        assert len(lines) == 1, path
+        by_service[path.stem[len("service-"):]] = json.loads(lines[0])
+    train = by_service.pop(job["workers"][0]["service_id"])
+    assert train["flash_attention"] == 2 * 2  # an evaluate a trial
+    assert [train[k] for k in ("flash_attention_lse", "flash_attention_dq",
+                               "flash_attention_dkv")] == [2 * steps] * 3
+    assert len(by_service) == 2
+    assert all(v["flash_attention"] > 0 and v["flash_attention_lse"] == 0
+               for v in by_service.values())

@@ -16,7 +16,9 @@
   are held against JAX's ``vit.apply`` softmax on the downloaded trees.
 - No fallback: without CUDA the default allocator, ``Admin`` and
   ``python -m rafiki_tpu_torch.admin`` refuse to start, and each setting
-  for a subsystem the port lacks raises its typed error.
+  for a subsystem the port lacks raises its typed error;
+  ``RAFIKI_PLACEMENT=process`` and ``RAFIKI_BROKER=shm`` select the
+  process placement and the shm broker.
 """
 
 import os
@@ -46,10 +48,12 @@ from rafiki_tpu_torch.client.client import Client, RafikiError
 from rafiki_tpu_torch.config import NotPortedError
 from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.device import set_device_grant
+from rafiki_tpu_torch.cache.shm_broker import ShmBroker
 from rafiki_tpu_torch.placement.manager import (
     ChipAllocator,
     LocalPlacementManager,
 )
+from rafiki_tpu_torch.placement.process import ProcessPlacementManager
 from rafiki_tpu_torch.sdk.dataset import write_numpy_dataset
 from rafiki_tpu_torch.sdk.params import load_params
 
@@ -113,15 +117,9 @@ LATER = {
     ("POST", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/rollout/ack"),
     ("GET", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/drift"),
     ("POST", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/drift/ack"),
-    ("POST", "/advisors"),
-    ("POST", r"/advisors/(?P<aid>[^/]+)/propose"),
-    ("POST", r"/advisors/(?P<aid>[^/]+)/propose_batch"),
-    ("POST", r"/advisors/(?P<aid>[^/]+)/feedback"),
-    ("POST", r"/advisors/(?P<aid>[^/]+)/feedback_batch"),
     ("POST", r"/advisors/(?P<aid>[^/]+)/infeasible"),
     ("POST", r"/advisors/(?P<aid>[^/]+)/replay"),
     ("POST", r"/advisors/(?P<aid>[^/]+)/report_rung"),
-    ("DELETE", r"/advisors/(?P<aid>[^/]+)"),
     ("GET", "/fleet/health"),
 }
 
@@ -133,10 +131,22 @@ def _route_table(server_cls):
             for m, p, allowed, _ in srv._build_routes()}
 
 
+#: the advisor routes a process-placed train worker uses
+ADVISOR_ROUTES = {
+    ("POST", "/advisors"),
+    ("POST", r"/advisors/(?P<aid>[^/]+)/propose"),
+    ("POST", r"/advisors/(?P<aid>[^/]+)/propose_batch"),
+    ("POST", r"/advisors/(?P<aid>[^/]+)/feedback"),
+    ("POST", r"/advisors/(?P<aid>[^/]+)/feedback_batch"),
+    ("DELETE", r"/advisors/(?P<aid>[^/]+)"),
+}
+
+
 def test_route_table_matches_the_jax_door():
     theirs, ours = _route_table(JaxAdminServer), _route_table(AdminServer)
     assert set(ours) | LATER == set(theirs)
     assert not set(ours) & LATER
+    assert ADVISOR_ROUTES <= set(ours)
     for key, allowed in ours.items():
         assert allowed == theirs[key], key
 
@@ -490,9 +500,7 @@ def test_the_admin_process_refuses_without_cuda(tmp_path):
 
 @pytest.mark.parametrize("name,value,subsystem", [
     ("RAFIKI_ADMIN_HA", "1", "HA"),
-    ("RAFIKI_PLACEMENT", "process", "placement"),
     ("RAFIKI_PLACEMENT", "hosts", "placement"),
-    ("RAFIKI_BROKER", "shm", "shared-memory broker"),
     ("RAFIKI_SANDBOX", "1", "sandbox"),
     ("RAFIKI_INSTALL_DEPS", "1", "dependency provisioning"),
 ])
@@ -502,6 +510,38 @@ def test_unported_settings_raise(monkeypatch, name, value, subsystem):
         Admin(db=Database(":memory:"),
               placement=LocalPlacementManager(ChipAllocator(["cpu"])))
     assert err.value.setting == f"{name}={value}"
+
+
+@pytest.mark.parametrize("name,value", [("RAFIKI_PLACEMENT", "process"),
+                                        ("RAFIKI_BROKER", "shm")])
+def test_process_and_shm_settings_select_their_subsystems(
+        monkeypatch, tmp_path, name, value):
+    """RAFIKI_PLACEMENT=process makes every service a child process over
+    the shm broker (forced); RAFIKI_BROKER=shm alone selects the shm
+    broker under thread placement. Both were refused before they were
+    ported."""
+    monkeypatch.setenv(name, value)
+    if value == "process":
+        # the default allocator lists the visible cards: one, here
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        monkeypatch.delenv("RAFIKI_VISIBLE_DEVICES", raising=False)
+        admin = Admin(db=Database(str(tmp_path / "store.sqlite3")))
+    else:
+        admin = Admin(db=Database(":memory:"),
+                      placement=LocalPlacementManager(ChipAllocator(["cpu"])))
+    try:
+        assert isinstance(admin.broker, ShmBroker)
+        if value == "process":
+            assert isinstance(admin.placement, ProcessPlacementManager)
+            assert admin.placement.broker is admin.broker
+            assert admin.placement.db is admin.db
+            assert admin.placement.allocator.total_chips == 1
+        else:
+            assert type(admin.placement) is LocalPlacementManager
+    finally:
+        admin.shutdown()
+    assert not list(Path("/dev/shm").glob(f"{admin.broker.prefix}-*"))
 
 
 def test_spent_time_budget_stops_the_job_before_any_trial(tmp_path):
