@@ -78,6 +78,25 @@ Phases, each of which must pass (any failure exits non-zero):
    from its exit line: the train child K1-LSE, K2 and K3 12 a step and K1
    12 an evaluate, each serving child K1 12 a bucketed forward. After the
    stop no child is alive and no ring of the broker is left in /dev/shm.
+7. zoo: the image-classification twins. 7a: ``test_model_class`` of each
+   of the six (``TorchFeedForward``, ``TorchCnn``, ``TorchVgg16``,
+   ``TorchResNet``, ``NpDecisionTree``, ``NpLinearSvm``) on cuda:0, knobs
+   from the port's advisor, on a seeded synthetic set of 512 train and
+   128 test images (32x32x3) written as image zips. 7b: a synthetic set
+   at CIFAR-10's own size (50,000 + 10,000 images, 32x32x3, 10 classes, a
+   prototype a class plus noise) written as image zips by the port's PNG
+   writer; ``TorchResNet`` with ``depth`` fixed to ResNet-50 and one
+   epoch uploaded through ``Client`` (enforce), a 2-trial job
+   (``CHIP_COUNT=1``, the GP over the learning rate and the batch size),
+   both trials COMPLETED above chance; an inference job of both,
+   ``Client.predict`` of 8 images within 1e-3 of the mean of the two
+   trials' own ``predict`` on the card, each image alone within 2e-2 of
+   its row in the batch; then 10 timed JSON requests of 1 and of 64
+   images. Printed: the job's wall time, each trial's split (dataset read
+   and decode, parameter init, upload, epochs, evaluate, artifact write),
+   the deploy time, the p50s, and the train step at the best trial's
+   batch, per call, on the card and by kernel. No attention kernel is on
+   this path: every count must read 0.
 
 The line before the last is ``{"kernels": [...]}``, each kernel's
 ``launches`` from phase 5 and ``launches_by_path`` from every path; the
@@ -1669,6 +1688,308 @@ def process_phase(card: str, uris: dict, thread_job_s: float):
     return [sums[name] for name in KERNEL_NAMES]
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the image-classification zoo
+# ---------------------------------------------------------------------------
+
+TEMPLATES = REPO / "rafiki_tpu_torch" / "templates"
+#: the six twins of the JAX package's image-classification templates
+ZOO_TWINS = (("torch_feedforward", "TorchFeedForward"),
+             ("torch_cnn", "TorchCnn"), ("torch_vgg16", "TorchVgg16"),
+             ("torch_resnet", "TorchResNet"),
+             ("np_decision_tree", "NpDecisionTree"),
+             ("np_linear_svm", "NpLinearSvm"))
+ZOO_SMALL = (512, 128)         # 7a: train and test images
+CIFAR_SIZES = (50_000, 10_000)  # 7b: CIFAR-10's own train and test sizes
+#: TorchResNet with the plan and the epochs fixed: the GP tunes the
+#: learning rate and the batch size
+RESNET50 = """
+
+class TorchResNet50(TorchResNet):
+    @staticmethod
+    def get_knob_config():
+        knobs = TorchResNet.get_knob_config()
+        knobs.update(depth=FixedKnob("resnet50"), epochs=FixedKnob(1))
+        return knobs
+"""
+# the served ensemble against the mean of its trials' own predict on the
+# card: the same forward at the same bucket (8), the mean taken in f64 by
+# both; and one image alone (padded to the 8-bucket with copies of
+# itself) against its row in a batch of 8: in evaluation mode BatchNorm
+# uses the running statistics, so only cuDNN's choice of algorithm for
+# another batch's contents may move a bf16 logit
+ENSEMBLE_ATOL = 1e-3
+ALONE_ATOL = 2e-2
+ZOO_TIMED = [1] * 10 + [64] * 10  # JSON requests on /predict/<app>
+
+
+def synthetic_cifar(rng: np.random.Generator, protos: np.ndarray, n: int):
+    """``n`` CIFAR-10-shaped images (32x32x3 uint8) and labels: each
+    class's 8x8x3 prototype blown up 4x, x 55 + 128, plus N(0, 14) noise
+    (the synthetic set of ``examples/datasets/image_classification/
+    load_cifar10.py``)."""
+    y = rng.integers(0, len(protos), n)
+    x = np.kron(protos[y], np.ones((1, 4, 4, 1), np.float32))
+    x = x * 55.0 + 128.0 + rng.normal(scale=14.0, size=x.shape)
+    return np.clip(x, 0, 255).astype(np.uint8), y
+
+
+def zoo_datasets(name: str, sizes: tuple, seed: int) -> tuple:
+    """Image-zip train and test sets under ``build/chip_smoke/zoo/``, and
+    the test images as [0, 1] floats."""
+    from rafiki_tpu_torch.sdk.dataset import write_image_files_dataset
+
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(size=(CLASSES, 8, 8, 3)).astype(np.float32)
+    out = WORK / "zoo"
+    out.mkdir(parents=True, exist_ok=True)
+    uris = []
+    for split, n in zip(("train", "test"), sizes):
+        x, y = synthetic_cifar(rng, protos, n)
+        uris.append(write_image_files_dataset(
+            x, y, str(out / f"{name}_{split}.zip")))
+    return uris[0], uris[1], x.astype(np.float32) / 255
+
+
+def zoo_contract(card: str) -> None:
+    """7a: ``test_model_class`` of each twin on cuda:0, its knobs proposed
+    by the port's advisor."""
+    from rafiki_tpu_torch.sdk import model as sdk_model
+
+    t0 = time.perf_counter()
+    train, test, x = zoo_datasets("small", ZOO_SMALL, SEED + 70)
+    print(f"zoo: image-zip sets of {ZOO_SMALL[0]} + {ZOO_SMALL[1]} images "
+          f"(32x32x3) written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for module, class_name in ZOO_TWINS:
+        t0 = time.perf_counter()
+        preds = np.asarray(sdk_model.test_model_class(
+            model_file_path=str(TEMPLATES / f"{module}.py"),
+            model_class=class_name, task="IMAGE_CLASSIFICATION",
+            train_dataset_uri=train, test_dataset_uri=test,
+            queries=x[:2].tolist()))
+        require(preds.shape == (2, CLASSES) and np.isfinite(preds).all()
+                and np.allclose(preds.sum(-1), 1, atol=1e-4),
+                f"{class_name} predictions {preds}")
+        print(f"zoo: test_model_class {class_name} OK on "
+              f"{torch.cuda.get_device_name(0)} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"zoo: the six twins passed test_model_class; card {card}",
+          flush=True)
+
+
+def trial_split(logs: list, wall: float) -> str:
+    """Where a trial's wall time went, from its logged metrics: the
+    template's ``read_time`` and ``init_time``, ``fit``'s ``upload_time``
+    and ``epoch_time``, and the worker's phase breakdown
+    (``trace_{train,evaluate,persist_params}_s``)."""
+    m = {}
+    for record in logs:
+        for key, value in record.items():
+            if key.endswith(("_time", "_s")):
+                m[key] = m.get(key, 0.0) + value
+    inside = [("dataset read and decode", "read_time"),
+              ("parameter init", "init_time"), ("upload", "upload_time"),
+              ("epochs", "epoch_time")]
+    parts = inside + [
+        ("the rest of train()", m.get("trace_train_s", 0.0)
+         - sum(m.get(key, 0.0) for _, key in inside)),
+        ("evaluate", "trace_evaluate_s"),
+        ("artifact write", "trace_persist_params_s")]
+    seconds = [(label, m.get(key, 0.0) if isinstance(key, str) else key)
+               for label, key in parts]
+    rest = wall - sum(v for _, v in seconds)
+    return ", ".join(f"{label} {v:.2f} s" for label, v in seconds) + (
+        f", outside the phases {rest:.2f} s")
+
+
+def zoo_step_time(card: str, batch: int, train_uri: str) -> None:
+    """The ResNet-50 train step at ``batch``, per call and on the card,
+    and a kernel profile of one step."""
+    from rafiki_tpu_torch.convert import from_jax_tree
+    from rafiki_tpu_torch.models import resnet
+    from rafiki_tpu_torch.sdk.dataset import dataset_utils
+    from rafiki_tpu_torch.sdk.torch_backend import (
+        DataParallelTrainer,
+        tunable_optimizer,
+    )
+    from rafiki_tpu_torch.templates import torch_resnet
+
+    x, y = dataset_utils.load_image_arrays(train_uri, image_size=(32, 32))
+    cfg = resnet.resnet50(num_classes=CLASSES, small_inputs=True)
+    with torch.device("meta"):
+        model = resnet.ResNet(cfg)
+    model = from_jax_tree(model, *resnet.init(np.random.default_rng(0), cfg),
+                          "cuda:0", train=True)
+    state = model.state()
+    trainer = DataParallelTrainer(
+        torch_resnet._loss, tunable_optimizer(
+            torch.optim.AdamW, lr=1e-4, weight_decay=1e-4),
+        device="cuda:0", stateful=True)
+    opt = trainer.optimizer(model.parameters())
+    data = (torch.from_numpy(x[:batch]).cuda(),
+            torch.from_numpy(y[:batch]).cuda())
+    step = lambda: trainer.train_step(model, opt, data, state)  # noqa: E731
+    call_ms = median_ms(step, reps=10)
+    card_ms = device_ms(step, reps=3, inner=3, hold_cycles=400_000_000)
+    print(f"zoo: ResNet-50 train step at batch {batch} (32x32x3, bf16): "
+          f"{call_ms:.2f} ms per call, {card_ms:.2f} ms on the card; "
+          f"{batch / call_ms * 1e3:.0f} images/s per call "
+          f"({batch / card_ms * 1e3:.0f} on the card); card {card}",
+          flush=True)
+    print_device_profile(step, f"batch-{batch} ResNet-50 train step")
+    del model, opt, state, data
+
+
+def zoo_phase(card: str) -> list:
+    """7a, then 7b: a 2-trial ResNet-50 job on a CIFAR-10-sized image-zip
+    set through ``Client`` (GP over the learning rate and the batch
+    size), served. Returns each kernel's launches on this path, in
+    ``KERNEL_NAMES`` order (none is on it)."""
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.http import AdminServer
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.sdk.model import load_model_class
+    from rafiki_tpu_torch.sdk.params import load_params
+
+    t_phase = time.perf_counter()
+    zoo_contract(card)
+    t0 = time.perf_counter()
+    train_uri, test_uri, x = zoo_datasets("cifar", CIFAR_SIZES, SEED + 71)
+    mb = sum(Path(u).stat().st_size for u in (train_uri, test_uri)) / 1e6
+    print(f"zoo: CIFAR-10-sized synthetic set ({CIFAR_SIZES[0]} + "
+          f"{CIFAR_SIZES[1]} images, 32x32x3, {CLASSES} classes) made and "
+          f"written as image zips (PNG, filter 0) in "
+          f"{time.perf_counter() - t0:.1f} s ({mb:.0f} MB)", flush=True)
+
+    store = WORK / "zoo.sqlite3"
+    for path in WORK.glob("zoo.sqlite3*"):
+        path.unlink()
+    source = (TEMPLATES / "torch_resnet.py").read_text() + RESNET50
+    admin = Admin(db=Database(str(store)),
+                  params_dir=str(WORK / "zoo_params"))
+    server = AdminServer(admin).start()
+    kernels = _kernels()
+    try:
+        c = Client("127.0.0.1", server.port, timeout_s=900)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        model = c.create_model("resnet50", "IMAGE_CLASSIFICATION",
+                               source.encode(), "TorchResNet50")
+        require(model["verification"] is not None
+                and model["verification"]["ok"],
+                f"TorchResNet50 upload not verified: "
+                f"{model['verification']}")
+
+        # ---- the main path's run (train job): counts from zero ----
+        for kernel in kernels:
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        c.create_train_job("cifar", "IMAGE_CLASSIFICATION", train_uri,
+                           test_uri, budget={"MODEL_TRIAL_COUNT": TRIALS,
+                                             "CHIP_COUNT": 1})
+        job = c.wait_until_train_job_stopped("cifar", timeout_s=900,
+                                             poll_s=0.05)
+        torch.cuda.synchronize()
+        job_s = time.perf_counter() - t0
+        train_counts = [k.launches for k in kernels]
+        # ---------------------------------------------------------------
+        require(job["status"] == "STOPPED", f"train job {job['status']}: "
+                f"{job.get('error_reason')}")
+        trials = c.get_trials_of_train_job("cifar")
+        require([t["status"] for t in trials] == ["COMPLETED"] * TRIALS,
+                f"trials {[(t['status'], t['fault_detail']) for t in trials]}")
+        for t in trials:
+            require(np.isfinite(t["score"]) and t["score"] > 1 / CLASSES,
+                    f"trial score {t['score']} not above chance")
+            wall = t["datetime_stopped"] - t["datetime_started"]
+            print(f"zoo: trial {t['id'][:8]} COMPLETED: learning_rate "
+                  f"{t['knobs']['learning_rate']:.3g}, batch_size "
+                  f"{t['knobs']['batch_size']}, test accuracy "
+                  f"{t['score']:.4f}; {wall:.2f} s in the trial: "
+                  f"{trial_split(c.get_trial_logs(t['id'])['metrics'], wall)}",
+                  flush=True)
+        print(f"zoo: train job of {TRIALS} ResNet-50 trials (1 epoch of "
+              f"{CIFAR_SIZES[0]} images each, GP) STOPPED in {job_s:.1f} s "
+              f"(Client.create_train_job to STOPPED); card {card}",
+              flush=True)
+        best = max(trials, key=lambda t: t["score"])
+        blobs = [load_params(c.download_trial_params(t["id"]))
+                 for t in trials]
+
+        token = admin.authenticate_user(config.SUPERADMIN_EMAIL,
+                                        config.SUPERADMIN_PASSWORD)["token"]
+        url = f"http://127.0.0.1:{server.port}/predict/cifar"
+        bodies = {n: request_body("json", x[:n]) for n in set(ZOO_TIMED)}
+        # ---- the main path's run (inference job): counts from zero ----
+        for kernel in kernels:
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        inf = c.create_inference_job("cifar")
+        deploy_s = time.perf_counter() - t0
+        batch8 = np.asarray(c.predict("cifar", x[:8].tolist()))
+        alone = np.concatenate([np.asarray(c.predict(
+            "cifar", x[i:i + 1].tolist())) for i in range(8)])
+        lat = {}
+        for n in ZOO_TIMED:
+            t = time.perf_counter()
+            post(url, *bodies[n], token=token)
+            lat.setdefault(("json", n), []).append(time.perf_counter() - t)
+        serve_counts = [k.launches for k in kernels]
+        # ---------------------------------------------------------------
+        stats = c.get_inference_job_stats("cifar")
+        c.stop_inference_job("cifar")
+        require(inf["status"] == "RUNNING"
+                and len(inf["workers"]) == TRIALS,
+                f"inference job {inf['status']} with "
+                f"{len(inf['workers'])} workers")
+        p50 = p50_ms(lat)
+        print(f"zoo: inference job RUNNING in {deploy_s:.1f} s (deploy and "
+              f"warm-up of {TRIALS} ResNet-50 workers on "
+              f"{[w['chips'] for w in inf['workers']]}); p50 of "
+              f"/predict/cifar (JSON, admin door, sequential): "
+              + ", ".join(f"{n} image{'s' if n > 1 else ''} "
+                          f"{p50['json', n]:.2f} ms" for n in (1, 64))
+              + f" ({ZOO_TIMED.count(1)} requests each); serving stats "
+              f"{stats['batches']} batches, {stats['queries']} queries; "
+              f"card {card}", flush=True)
+    finally:
+        server.stop()
+        admin.shutdown()
+
+    clazz = load_model_class(source.encode(), "TorchResNet50")
+    refs = []
+    for t, blob in zip(trials, blobs):
+        m = clazz(**t["knobs"])
+        m.load_parameters(blob)
+        refs.append(np.asarray(m.predict(x[:8]), np.float64))
+        del m
+    mean = sum(refs) / len(refs)
+    for label, got in (("batch of 8", batch8), ("one at a time", alone)):
+        require(got.shape == (8, CLASSES) and np.isfinite(got).all(),
+                f"/predict/cifar {label}: {got.shape}")
+    err = float(np.abs(batch8 - mean).max())
+    require(err <= ENSEMBLE_ATOL, f"ensemble off its trials' mean by "
+            f"{err:.3g} (tol {ENSEMBLE_ATOL:g})")
+    err_alone = float(np.abs(alone - batch8).max())
+    require(err_alone <= ALONE_ATOL, f"one image alone off its row in the "
+            f"batch by {err_alone:.3g} (tol {ALONE_ATOL:g})")
+    agree = float((batch8.argmax(-1) == mean.argmax(-1)).mean())
+    print(f"zoo: Client.predict of 8 images: the ensemble within "
+          f"{err:.3g} of the mean of its {TRIALS} trials' predict on the "
+          f"card (tol {ENSEMBLE_ATOL:g}; argmax agreement {agree:.2f}); each "
+          f"image alone within {err_alone:.3g} of its row in the batch "
+          f"(tol {ALONE_ATOL:g})", flush=True)
+    zoo_step_time(card, best["knobs"]["batch_size"], train_uri)
+    counts = [a + b for a, b in zip(train_counts, serve_counts)]
+    require(counts == [0] * len(KERNEL_NAMES),
+            f"the zoo path launched attention kernels: {counts}")
+    print(f"zoo: phase 7 took {time.perf_counter() - t_phase:.0f} s",
+          flush=True)
+    return counts
+
+
 def _alive(pid: int) -> bool:
     try:
         os.kill(pid, 0)
@@ -1697,11 +2018,13 @@ def main() -> int:
     serve_launches = serve_phase(card, kernel_ms, db, trials)
     stack_launches, stack_job_s = stack_phase(card, uris, job_s)
     process_launches = process_phase(card, uris, stack_job_s)
+    zoo_launches = zoo_phase(card)
     for i, name in enumerate(KERNEL_NAMES):
         by_path = {"train (phase 3)": train_launches[i],
                    "serve (phase 4)": serve_launches[i],
                    "stack (phase 5)": stack_launches[i],
-                   "process (phase 6)": process_launches[i]}
+                   "process (phase 6)": process_launches[i],
+                   "zoo (phase 7)": zoo_launches[i]}
         require(by_path["stack (phase 5)"] > 0,
                 f"{name} was not launched through the admin")
         require(by_path["process (phase 6)"] > 0,

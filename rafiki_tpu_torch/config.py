@@ -1,12 +1,15 @@
 """Settings, read from the same environment names with the same defaults
 as ``rafiki_tpu/config.py``.
 
-Paths and the settings a live deployment may retune
-(``PREDICT_QUEUE_DEPTH``) are read at each use (module ``__getattr__``),
-as in the JAX package, so a test or an operator can repoint
-``RAFIKI_WORKDIR`` without re-importing. One default differs: the
-metadata store is ``WORKDIR/rafiki_torch.sqlite3``, so the two packages
-never open one file with different schemas.
+Paths, the settings a live deployment may retune
+(``PREDICT_QUEUE_DEPTH``) and the wall-clock budgets
+(``PREDICT_TIMEOUT_S``, ``SERVICE_DEPLOY_TIMEOUT_S``) are read at each
+use (module ``__getattr__``), so a test or an operator can repoint
+``RAFIKI_WORKDIR`` or give a loaded host longer budgets without
+re-importing (the JAX package reads the two budgets once, at import).
+One default differs: the metadata store is
+``WORKDIR/rafiki_torch.sqlite3``, so the two packages never open one
+file with different schemas.
 
 :func:`refuse_unported` turns the settings that would select a subsystem
 the port does not have yet into a typed :class:`NotPortedError`.
@@ -40,8 +43,6 @@ INFERENCE_WORKER_REPLICAS_PER_TRIAL = _env_int(
 PREDICT_MAX_BATCH_SIZE = _env_int("PREDICT_MAX_BATCH_SIZE", 64)
 #: coalescing wait after the first query of a batch (0 = serve at once)
 PREDICT_BATCH_DEADLINE_MS = _env_float("PREDICT_BATCH_DEADLINE_MS", 0.0)
-#: default request deadline at the predictor
-PREDICT_TIMEOUT_S = _env_float("PREDICT_TIMEOUT_S", 30.0)
 #: request-body ceiling on the /predict door (413 above it)
 PREDICT_MAX_BODY_MB = _env_float("PREDICT_MAX_BODY_MB", 64.0)
 #: how long the admin door reuses an app's resolved predictor
@@ -50,8 +51,6 @@ PREDICT_ROUTE_TTL_S = _env_float("PREDICT_ROUTE_TTL_S", 5.0)
 ADMIN_MAX_BODY_MB = _env_float("ADMIN_MAX_BODY_MB", 256.0)
 #: trials per train job when its budget names no MODEL_TRIAL_COUNT
 DEFAULT_TRIAL_COUNT = _env_int("DEFAULT_TRIAL_COUNT", 5)
-#: how long a deploy waits for its services to report RUNNING
-SERVICE_DEPLOY_TIMEOUT_S = _env_float("SERVICE_DEPLOY_TIMEOUT_S", 60.0)
 
 
 def workdir() -> str:
@@ -79,6 +78,11 @@ _DYNAMIC = {
     # serving worker, one response ring per inference job); a request's
     # frame larger than the ring is refused (413)
     "SHM_RING_BYTES": lambda: _env_int("RAFIKI_SHM_RING_BYTES", 1 << 20),
+    # default request deadline at the predictor
+    "PREDICT_TIMEOUT_S": lambda: _env_float("PREDICT_TIMEOUT_S", 30.0),
+    # how long a deploy waits for its services to report RUNNING
+    "SERVICE_DEPLOY_TIMEOUT_S": lambda: _env_float(
+        "SERVICE_DEPLOY_TIMEOUT_S", 60.0),
 }
 
 

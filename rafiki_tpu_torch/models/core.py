@@ -3,8 +3,11 @@
 Counterpart of ``rafiki_tpu/models/core.py``. Weights are f32 masters;
 ``cast_for_compute`` brings activations to bf16 and each layer casts its
 weights to the activation's type, as the JAX forward does. Dense kernels
-are (in, out), not ``nn.Linear``'s (out, in); convolution kernels are HWIO
-over NHWC activations.
+are (in, out), not ``nn.Linear``'s (out, in). Activations are NHWC, as
+there. A :class:`Conv2d` holds its kernel as OIHW in ``channels_last``
+memory (cuDNN's layout, which is OHWI in memory); the JAX tree's HWIO
+kernel is permuted on the way in and out (``convert.py``). The ViT's
+patchify kernel stays HWIO (:class:`PatchEmbed`): it is one product.
 
 The initializers draw from a ``numpy.random.Generator`` and return numpy
 arrays in the JAX layout (the same fan scalings as the JAX package, not
@@ -14,7 +17,7 @@ its random numbers), so one seeded tree feeds both packages.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -104,6 +107,73 @@ def patch_project(params: Mapping[str, torch.Tensor],
     return y + params["bias"].to(x.dtype)
 
 
+def same_pads(size: int, window: int, stride: int) -> Tuple[int, int]:
+    """XLA's ``"SAME"`` padding of one spatial dim: (low, high), the odd
+    pixel on the high side."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_nchw(x: torch.Tensor, window: Tuple[int, int], stride: int,
+              padding: str, value: float = 0.0) -> torch.Tensor:
+    """``x`` (N, C, H, W) padded as XLA pads ``padding`` ("SAME" or
+    "VALID") for ``window`` at ``stride``."""
+    if padding == "VALID":
+        return x
+    if padding != "SAME":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', not "
+                         f"{padding!r}")
+    top, bottom = same_pads(x.shape[2], window[0], stride)
+    left, right = same_pads(x.shape[3], window[1], stride)
+    if not (top or bottom or left or right):
+        return x
+    return F.pad(x, (left, right, top, bottom), value=value)
+
+
+def hwio_to_oihw(kernel: torch.Tensor) -> torch.Tensor:
+    """A JAX HWIO conv kernel as OIHW in ``channels_last`` memory."""
+    return kernel.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+
+
+def oihw_to_hwio(kernel: torch.Tensor) -> torch.Tensor:
+    return kernel.permute(2, 3, 1, 0).contiguous()
+
+
+def conv2d(params: Mapping[str, torch.Tensor], x: torch.Tensor,
+           stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+    """``jax.lax.conv_general_dilated`` over NHWC ``x`` with the kernel
+    (OIHW, ``channels_last``) and bias cast to x's type: (N, H, W, C) ->
+    (N, H', W', O). ``"SAME"`` pads as XLA does, the odd pixel low-right
+    (a 3x3/2 conv on 32 px pads (0, 1), not ``padding=1``'s (1, 1)). The
+    NCHW view of NHWC memory is already ``channels_last``: no copy on
+    either side."""
+    kernel = params["kernel"]
+    y = F.conv2d(_pad_nchw(x.permute(0, 3, 1, 2), kernel.shape[2:], stride,
+                           padding),
+                 kernel.to(x.dtype), params["bias"].to(x.dtype),
+                 stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int,
+             padding: str = "VALID") -> torch.Tensor:
+    """``reduce_window(x, -inf, max, ...)`` over NHWC ``x``; ``"SAME"``
+    pads with -inf as XLA does."""
+    y = F.max_pool2d(_pad_nchw(x.permute(0, 3, 1, 2), (window, window),
+                               stride, padding, float("-inf")),
+                     window, stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def mean_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """``reduce_window(x, 0, add, ..., "VALID") / window**2`` over NHWC
+    ``x``."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride)
+    return y.permute(0, 2, 3, 1)
+
+
 def own_params(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """A module's direct parameters by name: the mapping the functions
     above take."""
@@ -119,6 +189,23 @@ class Dense(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(own_params(self), x)
+
+
+class Conv2d(torch.nn.Module):
+    """A convolution's parameters: kernel (O, I, H, W) in ``channels_last``
+    memory, bias (O,)."""
+
+    def __init__(self, kh: int, kw: int, cin: int, cout: int, device=None):
+        super().__init__()
+        f32 = dict(dtype=torch.float32, device=device)
+        self.kernel = torch.nn.Parameter(torch.empty(
+            cout, cin, kh, kw, **f32).contiguous(
+                memory_format=torch.channels_last))
+        self.bias = torch.nn.Parameter(torch.empty(cout, **f32))
+
+    def forward(self, x: torch.Tensor, stride: int = 1,
+                padding: str = "SAME") -> torch.Tensor:
+        return conv2d(own_params(self), x, stride, padding)
 
 
 class LayerNorm(torch.nn.Module):

@@ -1,21 +1,36 @@
-"""Datasets for model templates: the dense ``.npz`` path.
+"""Datasets for model templates: the dense ``.npz`` and the image zip.
 
-Own copy of the ``.npz`` path of ``rafiki_tpu/sdk/dataset.py``:
-``NumpyDataset``, ``dataset_utils.load_image_arrays`` for ``.npz`` files
-(with its in-memory cache, so the trials of one job share one load) and
-``write_numpy_dataset``. Local paths and ``file://`` URIs resolve; remote
-URIs come with the control-plane slice. The image-zip format
-(``ImageFilesDataset``) decodes with PIL, which the machine with the card
-lacks: asking for it raises :class:`InvalidDatasetError` (ROADMAP.md).
+Own copy of the image paths of ``rafiki_tpu/sdk/dataset.py``:
+
+- ``NumpyDataset`` (an ``.npz`` of ``x`` and ``y``) and
+  ``write_numpy_dataset``;
+- ``ImageFilesDataset``: a zip of ``images.csv`` (columns ``path,class``)
+  and PNG files, decoded by the port's own codec (:mod:`.png`; the JAX
+  package decodes with PIL, which the port does not use), and
+  ``write_image_files_dataset``, its inverse;
+- ``dataset_utils.load_image_arrays`` for either format, with its
+  in-memory cache, so the trials of one job share one load.
+
+An image whose size differs from the requested ``image_size``, or a
+member that is not a PNG the codec reads (a palette or 16-bit PNG, an
+interlaced one, a JPEG), raises :class:`InvalidDatasetError`: the JAX
+package resizes with PIL's bicubic filter, which the port does not
+reproduce (ROADMAP.md). Local paths and ``file://`` URIs resolve; remote
+URIs wait (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import collections
+import csv
+import io
 import os
-from typing import Optional, Tuple
+import zipfile
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from rafiki_tpu_torch.sdk import png
 
 
 class InvalidDatasetError(Exception):
@@ -45,17 +60,18 @@ class DatasetUtils:
             raise InvalidDatasetError(f"Dataset not found: {uri}")
         return uri
 
+    def load_dataset_of_image_files(
+        self, uri: str, image_size: Optional[Tuple[int, int]] = None
+    ) -> "ImageFilesDataset":
+        return ImageFilesDataset(self.download_dataset_from_uri(uri),
+                                 image_size)
+
     def load_image_arrays(
         self, uri: str, image_size: Optional[Tuple[int, int]] = None
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """An ``.npz`` dataset -> (x float32, y int32) dense arrays, cached
-        in memory per file identity: repeat loads return the SAME array
-        objects, which callers must treat as read-only."""
-        if not uri.endswith(".npz"):
-            raise InvalidDatasetError(
-                "only .npz datasets are ported to rafiki_tpu_torch; the "
-                "image-zip format needs PIL, which is not available on the "
-                f"GPU machine (ROADMAP.md): {uri}")
+        """Either format -> (x float32, y int32) dense arrays, cached in
+        memory per (file identity, image_size): repeat loads return the
+        SAME array objects, which callers must treat as read-only."""
         path = self.download_dataset_from_uri(uri)
         st = os.stat(path)
         key = (path, st.st_mtime_ns, st.st_size, st.st_ino, image_size)
@@ -63,12 +79,89 @@ class DatasetUtils:
         if hit is not None:
             self._array_cache.move_to_end(key)
             return hit
-        ds = NumpyDataset(path)
-        out = (ds.x.astype(np.float32), ds.y.astype(np.int32))
+        if uri.endswith(".npz"):
+            ds = NumpyDataset(path)
+            out = (ds.x.astype(np.float32), ds.y.astype(np.int32))
+        else:
+            x, y = ImageFilesDataset(path, image_size).load_as_arrays()
+            out = (x.astype(np.float32), y.astype(np.int32))
         self._array_cache[key] = out
         while len(self._array_cache) > self._array_cache_cap:
             self._array_cache.popitem(last=False)
         return out
+
+
+class ImageFilesDataset:
+    """Zip of ``images.csv`` (columns ``path,class``) and PNG files.
+
+    Iterating yields (``uint8`` (H, W, C) array, class), decoded lazily;
+    ``load_as_arrays`` decodes the whole set into dense arrays.
+    ``image_size`` is (H, W); every image must already have that size.
+    """
+
+    def __init__(self, path: str,
+                 image_size: Optional[Tuple[int, int]] = None):
+        self.path = path
+        self._image_size = image_size
+        try:
+            with zipfile.ZipFile(path) as zf:
+                if "images.csv" not in zf.namelist():
+                    raise InvalidDatasetError(
+                        "image dataset zip must contain images.csv")
+                with zf.open("images.csv") as f:
+                    rows = list(csv.DictReader(
+                        io.TextIOWrapper(f, encoding="utf-8")))
+        except zipfile.BadZipFile as e:
+            raise InvalidDatasetError(f"not a zip archive: {path}") from e
+        if not rows or "path" not in rows[0] or "class" not in rows[0]:
+            raise InvalidDatasetError(
+                "images.csv must have columns: path, class")
+        self._rows = [(r["path"], int(r["class"])) for r in rows]
+        self.classes = sorted({c for _, c in self._rows})
+        self.label_num_classes = max(self.classes) + 1 if self.classes else 0
+        self.size = len(self._rows)
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, int]]:
+        with zipfile.ZipFile(self.path) as zf:
+            for rel, cls in self._rows:
+                yield self._decode(rel, zf.read(rel), self._image_size), cls
+
+    @staticmethod
+    def _decode(rel: str, data: bytes,
+                size: Optional[Tuple[int, int]]) -> np.ndarray:
+        try:
+            pixels = png.decode(data)
+        except png.PngError as e:
+            raise InvalidDatasetError(f"{rel}: {e}") from e
+        if size is not None and pixels.shape[:2] != tuple(size):
+            raise InvalidDatasetError(
+                f"{rel} is {pixels.shape[0]}x{pixels.shape[1]}, not the "
+                f"requested {size[0]}x{size[1]}; resizing is not ported to "
+                "rafiki_tpu_torch (ROADMAP.md)")
+        return pixels
+
+    def load_as_arrays(
+        self, image_size: Optional[Tuple[int, int]] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Every image as (N, H, W, C) float32 in [0, 1], and the int32
+        labels."""
+        size = image_size or self._image_size
+        xs: List[np.ndarray] = []
+        with zipfile.ZipFile(self.path) as zf:
+            for rel, _ in self._rows:
+                xs.append(self._decode(rel, zf.read(rel), size))
+        if not xs:
+            raise InvalidDatasetError("image dataset holds no images")
+        try:
+            x = np.stack(xs)
+        except ValueError as e:
+            raise InvalidDatasetError(
+                f"images of different shapes: {e}") from e
+        return (x.astype(np.float32) / 255.0,
+                np.asarray([c for _, c in self._rows], dtype=np.int32))
 
 
 class NumpyDataset:
@@ -88,6 +181,25 @@ class NumpyDataset:
 
     def __len__(self) -> int:
         return self.size
+
+
+def write_image_files_dataset(images: np.ndarray, labels: np.ndarray,
+                              out_path: str) -> str:
+    """An image-zip dataset from dense arrays (the inverse of
+    :class:`ImageFilesDataset`): float images are clipped to [0, 1] and
+    scaled to ``uint8``, as in the JAX package; every PNG row uses
+    filter 0."""
+    with zipfile.ZipFile(out_path, "w", zipfile.ZIP_STORED) as zf:
+        lines = ["path,class"]
+        for i, (img, lbl) in enumerate(zip(images, labels)):
+            arr = img
+            if arr.dtype != np.uint8:
+                arr = (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
+            rel = f"images/{i}.png"
+            zf.writestr(rel, png.encode(arr))
+            lines.append(f"{rel},{int(lbl)}")
+        zf.writestr("images.csv", "\n".join(lines) + "\n")
+    return out_path
 
 
 def write_numpy_dataset(x: np.ndarray, y: np.ndarray, out_path: str) -> str:

@@ -7,9 +7,11 @@ instance before ``train``), those an inference worker calls
 (``load_parameters``, ``warm_up``, ``predict``, ``destroy``), and
 ``load_model_class``, which imports an uploaded template's bytes and checks
 that the class subclasses this package's ``BaseModel``, and
-``validate_model_dependencies``, which the admin runs at upload. The
-population, generation and ensemble hooks, dependency provisioning and
-the ``test_model_class`` harness wait (ROADMAP.md).
+``validate_model_dependencies``, which the admin runs at upload, and
+``test_model_class``, the local contract harness (over the port's
+advisor, parameter serialization and ensemble). The population,
+generation and ensemble hooks and dependency provisioning wait
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,12 +19,18 @@ from __future__ import annotations
 import abc
 import importlib.util
 import inspect
+import json
 import os
 import sys
 import tempfile
 from typing import Any, Dict, List, Optional
 
-from rafiki_tpu_torch.sdk.knob import KnobConfig
+from rafiki_tpu_torch.sdk.knob import (
+    BaseKnob,
+    KnobConfig,
+    serialize_knob_config,
+    validate_knobs,
+)
 from rafiki_tpu_torch.sdk.log import ModelLogger, logger as _module_logger
 
 
@@ -122,3 +130,81 @@ def validate_model_dependencies(clazz: type) -> List[str]:
     deps = getattr(clazz, "dependencies", {}) or {}
     return [dep for dep in deps if importlib.util.find_spec(
         IMPORT_ALIASES.get(dep.lower(), dep.replace("-", "_"))) is None]
+
+
+def test_model_class(
+    model_file_path: Optional[str] = None,
+    model_class: Optional[str] = None,
+    task: Optional[str] = None,
+    dependencies: Optional[Dict[str, Optional[str]]] = None,
+    train_dataset_uri: Optional[str] = None,
+    test_dataset_uri: Optional[str] = None,
+    queries: Optional[List[Any]] = None,
+    clazz: Optional[type] = None,
+    knobs: Optional[Dict[str, Any]] = None,
+) -> List[Any]:
+    """The local contract harness (``rafiki_tpu/sdk/model.py``): the
+    lifecycle a deployed trial runs. Dependency check, knob-config check
+    (and its wire format), an advisor proposal (unless ``knobs`` is
+    given), train, evaluate (a float score), parameters through bytes,
+    a fresh instance, predict (one JSON-able prediction per query) and an
+    ensemble of two copies. Returns the predictions. Call with ``clazz=``
+    or with ``model_file_path=`` and ``model_class=``; the models run on
+    the thread's default device."""
+    from rafiki_tpu_torch.advisor.advisor import Advisor
+    from rafiki_tpu_torch.predictor.ensemble import ensemble_predictions
+    from rafiki_tpu_torch.sdk.params import dump_params, load_params
+
+    if clazz is None:
+        assert model_file_path is not None and model_class is not None
+        with open(model_file_path, "rb") as f:
+            clazz = load_model_class(f.read(), model_class)
+
+    missing = validate_model_dependencies(clazz)
+    if missing:
+        raise InvalidModelClassError(f"Missing dependencies: {missing}")
+
+    knob_config = clazz.get_knob_config()
+    for name, knob in knob_config.items():
+        if not isinstance(knob, BaseKnob):
+            raise InvalidModelClassError(f"Knob {name!r} is not a BaseKnob")
+    serialize_knob_config(knob_config)  # must survive the HTTP wire format
+
+    if knobs is None:
+        knobs = Advisor(knob_config).propose()
+    validate_knobs(knob_config, knobs)
+    print(f"[test_model_class] knobs: {knobs}")
+
+    model = clazz(**knobs)
+    assert train_dataset_uri is not None and test_dataset_uri is not None
+    model.train(train_dataset_uri)
+    try:
+        score = float(model.evaluate(test_dataset_uri))
+    except (TypeError, ValueError):
+        raise InvalidModelClassError("evaluate() must return a float score")
+    print(f"[test_model_class] score: {score}")
+
+    # parameters through bytes, as the worker and the predictor pass them
+    params_bytes = dump_params(model.dump_parameters())
+    model.destroy()
+
+    model = clazz(**knobs)
+    model.load_parameters(load_params(params_bytes))
+
+    queries = queries if queries is not None else []
+    predictions = model.predict(queries)
+    if not isinstance(predictions, list) or len(predictions) != len(queries):
+        raise InvalidModelClassError(
+            "predict() must return one prediction per query")
+    try:
+        json.dumps(predictions)
+    except (TypeError, ValueError) as e:
+        raise InvalidModelClassError(
+            f"Predictions not JSON-serializable: {e}")
+
+    if queries:
+        ensemble_predictions([predictions, predictions], task)
+
+    model.destroy()
+    print("[test_model_class] OK")
+    return predictions

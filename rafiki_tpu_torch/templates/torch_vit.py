@@ -5,10 +5,10 @@ Written as a user's template is, in the shape of the JAX examples'
 architecture from fixed knobs (ViT-B/16 at 224 px with ImageNet's 1000
 classes) and tunes the learning rate and batch size. ``train`` fits the
 model with ``DataParallelTrainer`` (AdamW with optax.adamw's defaults)
-on an ``.npz`` image dataset; ``evaluate`` scores its accuracy;
-``dump_parameters`` hands back the parameter tree in the JAX layout; and
-``predict`` answers each query (an (H, W, C) float image) with its softmax
-class probabilities.
+on an image dataset (``.npz`` or image zip); ``evaluate`` scores its
+accuracy; ``dump_parameters`` hands back the parameter tree in the JAX
+layout; and ``predict`` answers each query (an (H, W, C) float image)
+with its softmax class probabilities.
 """
 
 from __future__ import annotations

@@ -8,16 +8,18 @@ event, the trial budget (``MODEL_TRIAL_COUNT``) or the job's
 ``TIME_HOURS`` deadline (checked between trials): propose knobs, reserve
 a trial row atomically, ``Model(**knobs).train(train_uri)``,
 ``evaluate(test_uri)`` through the score gate, write the params artifact
-(atomic, checksummed), feed the score back to the advisor and only then
-mark the trial COMPLETED. A trial that raises is marked ERRORED with its
-kind and traceback, and the loop goes on; a stop that lands mid-trial
-marks it TERMINATED. When the budget is spent the worker sends
+(atomic, checksummed), log the "trial phase breakdown" (train, evaluate
+and persist_params seconds, the JAX worker's tracer summary), feed the
+score back to the advisor and only then mark the trial COMPLETED. A
+trial that raises is marked ERRORED with its kind and traceback, and the
+loop goes on; a stop that lands mid-trial marks it TERMINATED. When the budget is spent the worker sends
 :data:`EVENT_BUDGET_REACHED` to the admin and returns.
 
 Waiting (ROADMAP.md): vectorized population trials, the sandbox, ASHA and
 mid-trial deadlines, poison-knob quarantine and fail-fast, infra retries,
 chaos injection, the compile cache, dependency provisioning, stale-trial
-resume after a worker restart, and the tracer.
+resume after a worker restart, and the tracer (its spans; the phase
+breakdown it logs is kept).
 """
 
 from __future__ import annotations
@@ -71,6 +73,13 @@ def validate_score(raw: Any) -> float:
     if not math.isfinite(score):
         raise InvalidScoreError(f"evaluate() returned non-finite {score!r}")
     return score
+
+
+def _phase(phases: Dict[str, float], name: str, t0: float) -> float:
+    """Record the phase that began at ``t0``; the next one begins now."""
+    now = time.time()
+    phases[name] = now - t0
+    return now
 
 
 class TrainWorker:
@@ -170,6 +179,9 @@ class TrainWorker:
         os.makedirs(self._params_dir, exist_ok=True)
         model.checkpoint_path = os.path.join(self._params_dir,
                                              f"{trial_id}.ckpt")
+        # seconds per phase, logged as the JAX worker's tracer summary is
+        phases: Dict[str, float] = {}
+        t0 = time.time()
         try:
             try:
                 model.train(job["train_dataset_uri"])
@@ -177,15 +189,21 @@ class TrainWorker:
                 # templates with hand-rolled loops surface the verdict here
                 # (fit() absorbs it); the truncated model is still evaluated
                 trial_logger.log("trial stopped early by scheduler")
+            t0 = _phase(phases, "train", t0)
             trial_logger.set_stop_check(None)
             score = validate_score(model.evaluate(job["test_dataset_uri"]))
+            t0 = _phase(phases, "evaluate", t0)
             params_path = os.path.join(self._params_dir,
                                        f"{trial_id}.params")
             write_artifact(params_path, dump_params(model.dump_parameters()))
+            _phase(phases, "persist_params", t0)
             # the trial is complete: its mid-trial checkpoint is dead weight
             self._cleanup_ckpt(trial_id)
             return score, params_path
         finally:
+            trial_logger.set_stop_check(None)
+            trial_logger.log("trial phase breakdown", **{
+                f"trace_{k}_s": round(v, 4) for k, v in phases.items()})
             model.destroy()
 
     def _cleanup_ckpt(self, trial_id: str) -> None:

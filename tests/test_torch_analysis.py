@@ -1,8 +1,9 @@
 """The port's template verifier against the JAX package's.
 
 Both verifiers run over every template in the repo: the JAX examples,
-the test fixtures (the bad-template corpus included), the port's
-``TorchViT`` and the tiny templates that the port's tests upload. They
+the test fixtures (the bad-template corpus included), the port's own
+templates (``TorchViT`` and the image-classification twins) and the tiny
+templates that the port's tests upload. They
 must give the same findings (code, severity, line) and capabilities.
 The one difference allowed is named here: each package treats its own
 platform modules as implicit, so an import of ``torch`` or
@@ -63,7 +64,8 @@ def _templates():
     paths = sorted((ROOT / "examples" / "models").rglob("*.py")) + sorted(
         (ROOT / "tests" / "fixtures").glob("*.py")) + sorted(
         (ROOT / "tests" / "fixtures" / "bad_templates").glob("*.py")) + [
-        ROOT / "rafiki_tpu_torch" / "templates" / "torch_vit.py"]
+        p for p in sorted((ROOT / "rafiki_tpu_torch" / "templates").glob(
+            "*.py")) if p.name != "__init__.py"]
     cases = [(p.relative_to(ROOT).as_posix(), p.read_bytes()) for p in paths]
     return cases + list(_test_file_templates())
 
@@ -88,6 +90,7 @@ def test_the_corpus_is_found():
     names = [n for n, _ in TEMPLATES]
     assert len(names) >= 30
     assert "rafiki_tpu_torch/templates/torch_vit.py" in names
+    assert "rafiki_tpu_torch/templates/torch_resnet.py" in names
     assert "tests/fixtures/fake_model.py" in names
     assert any(n.startswith("test_torch_train_job.py:") for n in names)
     assert any(n.startswith("test_torch_stack.py:") for n in names)
@@ -122,6 +125,27 @@ def test_torch_vit_passes_enforce():
     assert report.class_name == "TorchViT"
     # the JAX verifier refuses it only for the port's platform modules
     theirs = jax_analysis.verify_template_bytes(source, "TorchViT")
+    assert {f.code for f in theirs.errors} == {"TPL003"}
+
+
+#: the port's image-classification twins: (module, class)
+TWINS = [("torch_feedforward", "TorchFeedForward"), ("torch_cnn", "TorchCnn"),
+         ("torch_vgg16", "TorchVgg16"), ("torch_resnet", "TorchResNet"),
+         ("np_decision_tree", "NpDecisionTree"),
+         ("np_linear_svm", "NpLinearSvm")]
+
+
+@pytest.mark.parametrize("module,class_name", TWINS)
+def test_the_twins_pass_enforce(module, class_name):
+    """Each twin uploads under enforce verification; the JAX verifier
+    refuses the torch ones only for the port's platform modules, and
+    finds nothing in the numpy ones but their import of this package."""
+    source = (ROOT / "rafiki_tpu_torch" / "templates"
+              / f"{module}.py").read_bytes()
+    report = analysis.verify_template_bytes(source, class_name)
+    assert report.ok and report.findings == []
+    assert report.class_name == class_name
+    theirs = jax_analysis.verify_template_bytes(source, class_name)
     assert {f.code for f in theirs.errors} == {"TPL003"}
 
 

@@ -558,3 +558,98 @@ def test_cuda_process_placement_cycle(tmp_path, monkeypatch):
     assert len(by_service) == 2
     assert all(v["flash_attention"] > 0 and v["flash_attention_lse"] == 0
                for v in by_service.values())
+
+
+# ---------------------------------------------------------------------------
+# the image-classification zoo: ResNet on the card against the CPU path
+# ---------------------------------------------------------------------------
+
+def _resnet(bottleneck, device, train=False):
+    from rafiki_tpu_torch.convert import from_jax_tree
+    from rafiki_tpu_torch.models import resnet
+
+    cfg = resnet.ResNetConfig(stage_sizes=(1, 1), bottleneck=bottleneck,
+                              width=16, num_classes=10, small_inputs=True)
+    with torch.device("meta"):
+        model = resnet.ResNet(cfg)
+    return from_jax_tree(model, *resnet.init(np.random.default_rng(0), cfg),
+                         device, train)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bottleneck", [True, False])
+def test_cuda_resnet_forward_matches_cpu(bottleneck):
+    """Training and evaluation forwards on cuda:0 (cuDNN convolutions in
+    channels_last) against the CPU path on the same tree and images: bf16
+    logits a few ulps apart (2e-2 of the logits' scale: one ulp of a
+    logit in [4, 8) is 2^-5), running statistics within 1e-3 of each
+    vector's scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (16, 32, 32, 3)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        model = _resnet(bottleneck, dev)
+        with torch.no_grad():
+            logits, new = model(x.to(dev), train=True)
+            evals, _ = model(x.to(dev), new, train=False)
+        out[dev] = (logits.cpu(), {k: v.cpu() for k, v in new.items()},
+                    evals.cpu())
+    (l_cpu, s_cpu, e_cpu), (l_gpu, s_gpu, e_gpu) = out["cpu"], out["cuda:0"]
+    for got, ref in ((l_gpu, l_cpu), (e_gpu, e_cpu)):
+        assert float((got - ref).abs().max()) <= 2e-2 * max(
+            1.0, float(ref.abs().max()))
+    for k, ref in s_cpu.items():
+        assert float((s_gpu[k] - ref).abs().max()) <= 1e-3 * max(
+            1.0, float(ref.abs().max())), k
+
+
+@pytest.mark.cuda
+def test_cuda_resnet_train_step_matches_cpu():
+    """One stateful AdamW step on cuda:0 and on the CPU from the same
+    tree and batch: the loss within 1e-2; each parameter's gradient
+    within 5e-2 of its L2 norm (bar the convolution biases, which feed a
+    BatchNorm: their gradient is zero but for rounding); the running
+    statistics within 1e-3 of each vector's scale. (Not the updates: an
+    AdamW first step moves each weight by about lr times the sign of its
+    gradient, so a gradient near zero that rounding turns around moves
+    it by 2 lr.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rafiki_tpu_torch.sdk.torch_backend import (
+        DataParallelTrainer,
+        tunable_optimizer,
+    )
+    from rafiki_tpu_torch.templates import torch_resnet
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((32, 32, 32, 3)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 32))
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        model = _resnet(True, dev, train=True)
+        trainer = DataParallelTrainer(
+            torch_resnet._loss, tunable_optimizer(
+                torch.optim.AdamW, lr=1e-3, weight_decay=1e-4),
+            device=dev, stateful=True)
+        state = model.state()
+        opt = trainer.optimizer(model.parameters())
+        loss = trainer.train_step(model, opt, (x.to(dev), y.to(dev)), state)
+        # the step leaves this step's gradients in place
+        out[dev] = (float(loss), {k: v.grad.double().cpu()
+                                  for k, v in model.named_parameters()},
+                    {k: v.cpu() for k, v in state.items()})
+    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = out["cpu"], out["cuda:0"]
+    assert abs(l_gpu - l_cpu) <= 1e-2
+    for k, ref in g_cpu.items():
+        if k.endswith(("conv1.bias", "conv2.bias", "conv3.bias",
+                       "proj.bias", "stem.bias")):
+            continue
+        assert float((g_gpu[k] - ref).norm()) <= 5e-2 * float(ref.norm()), k
+    for k, ref in s_cpu.items():
+        assert float((s_gpu[k] - ref).abs().max()) <= 1e-3 * max(
+            1.0, float(ref.abs().max())), k

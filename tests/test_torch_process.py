@@ -60,6 +60,13 @@ from rafiki_tpu_torch.sdk.knob import (
 ROOT = Path(rafiki_tpu_torch.__file__).resolve().parents[1]
 #: the same forward on the same inputs in two processes
 PROB_ATOL = 1e-6
+#: the cycle test's wall-clock budgets (every wait, the deploy, each
+#: request's deadline). The cycle took 21.7 s alone and 59.5 to 67.3 s
+#: under the whole suite's load (xdist, 6 workers) or beside six busy
+#: processes: ~10x that, so load cannot turn a wait into a failure, where
+#: the port's defaults (deploy 60 s, a request 30 s) could be crossed by
+#: two children importing torch on a loaded host.
+BUDGET_S = 600
 
 #: the TorchViT template at test width (vit.tiny())
 _TINY_EDITS = [
@@ -126,6 +133,10 @@ def workdir(tmp_path, monkeypatch):
 
 def test_tiny_vit_cycle_with_every_worker_a_process(workdir, monkeypatch):
     monkeypatch.setenv("RAFIKI_PLACEMENT", "process")
+    # read at each use, by this process and by the children (they inherit
+    # the environment)
+    monkeypatch.setenv("SERVICE_DEPLOY_TIMEOUT_S", str(BUDGET_S))
+    monkeypatch.setenv("PREDICT_TIMEOUT_S", str(BUDGET_S))
     store = str(workdir / "store.sqlite3")
     admin = Admin(db=Database(store), params_dir=str(workdir / "params"),
                   placement=ProcessPlacementManager(
@@ -135,7 +146,7 @@ def test_tiny_vit_cycle_with_every_worker_a_process(workdir, monkeypatch):
     srv = AdminServer(admin).start()
     assert admin.placement.admin_addr == ("127.0.0.1", srv.port)
     try:
-        c = Client("127.0.0.1", srv.port, timeout_s=120)
+        c = Client("127.0.0.1", srv.port, timeout_s=BUDGET_S)
         c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
         c.create_model("tiny", "IMAGE_CLASSIFICATION", _tiny_template(),
                        "TinyViT")
@@ -143,7 +154,7 @@ def test_tiny_vit_cycle_with_every_worker_a_process(workdir, monkeypatch):
         c.create_train_job("vit", "IMAGE_CLASSIFICATION", train_uri,
                            test_uri, budget={"MODEL_TRIAL_COUNT": 2,
                                              "CHIP_COUNT": 1})
-        job = c.wait_until_train_job_stopped("vit", timeout_s=120)
+        job = c.wait_until_train_job_stopped("vit", timeout_s=BUDGET_S)
         assert job["status"] == "STOPPED"
         (train_sid,) = [w["service_id"] for w in job["workers"]]
         assert job["workers"][0]["chips"] == ["cpu"]
@@ -160,7 +171,7 @@ def test_tiny_vit_cycle_with_every_worker_a_process(workdir, monkeypatch):
             x = z["x"]
         probs = [np.asarray(c.predict("vit", x[:n].tolist()))
                  for n in (1, 8)]
-        deadline = time.monotonic() + 30
+        deadline = time.monotonic() + BUDGET_S
         while c.get_inference_job_stats("vit")["queries"] < 2 * 9:
             assert time.monotonic() < deadline, "serving counters not relayed"
             time.sleep(0.2)
@@ -199,6 +210,20 @@ def test_tiny_vit_cycle_with_every_worker_a_process(workdir, monkeypatch):
     for p, r in zip(probs, ref):
         assert p.shape == r.shape and p.shape[1] == 10
         np.testing.assert_allclose(p, r, atol=PROB_ATOL, rtol=0)
+
+
+def test_wall_clock_budgets_are_read_at_each_use(monkeypatch):
+    """The deploy wait and the request deadline follow the environment
+    after import (the cycle test above gives itself longer ones); with
+    nothing set they are the JAX package's defaults."""
+    for name in ("SERVICE_DEPLOY_TIMEOUT_S", "PREDICT_TIMEOUT_S"):
+        monkeypatch.delenv(name, raising=False)
+    assert (config.SERVICE_DEPLOY_TIMEOUT_S, config.PREDICT_TIMEOUT_S) == (
+        60.0, 30.0)
+    monkeypatch.setenv("SERVICE_DEPLOY_TIMEOUT_S", "600")
+    monkeypatch.setenv("PREDICT_TIMEOUT_S", "450.5")
+    assert (config.SERVICE_DEPLOY_TIMEOUT_S, config.PREDICT_TIMEOUT_S) == (
+        600.0, 450.5)
 
 
 @pytest.fixture()

@@ -146,14 +146,24 @@ def test_trials_complete_with_finite_scores(job):
 
 
 def test_trial_logs_carry_epoch_losses(job):
+    """The template's epoch losses, then the worker's phase breakdown (the
+    JAX worker's tracer summary: train, evaluate, persist_params)."""
     db, _, sub, _ = job
     for t in db.get_trials_of_sub_train_job(sub["id"]):
         records = [json.loads(line) for line in db.get_trial_logs(t["id"])]
-        losses = [r["metrics"] for r in records
-                  if r["type"] == LogType.METRICS]
+        metrics = [r["metrics"] for r in records
+                   if r["type"] == LogType.METRICS]
+        *losses, phases = metrics
         assert [m["epoch"] for m in losses] == [0.0, 1.0]
         assert all(np.isfinite(m["loss"]) for m in losses)
         assert any(r["type"] == LogType.PLOT for r in records)
+        assert set(phases) == {"trace_train_s", "trace_evaluate_s",
+                               "trace_persist_params_s"}
+        assert all(v >= 0 for v in phases.values())
+        assert records[-1] == {"type": LogType.METRICS, "metrics": phases,
+                               "time": records[-1]["time"]}
+        assert {"type": LogType.MESSAGE, "message": "trial phase breakdown",
+                "time": records[-2]["time"]} == records[-2]
 
 
 def test_checkpoints_are_cleaned_up(job):
