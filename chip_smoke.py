@@ -97,6 +97,33 @@ Phases, each of which must pass (any failure exits non-zero):
    the deploy time, the p50s, and the train step at the best trial's
    batch, per call, on the card and by kernel. No attention kernel is on
    this path: every count must read 0.
+8. text. 8a: an SST-2-sized synthetic corpus (6,920 + 1,821 sentences of
+   5-40 words, two disjoint pools) written as corpus zips; ``TorchBert``
+   at BERT-base's widths (12 x 768, 12 heads, vocabulary 30,522, 128
+   tokens, one epoch) uploaded through ``Client`` (enforce), a 2-trial job
+   (GP over the learning rate and the batch size), both trials above
+   chance, K1-LSE, K2 and K3 launched 12 times a step and K1 12 times an
+   evaluate forward; an inference job of both, ``Client.predict`` of 8
+   sentences within 1e-3 of the trials' mean and within 0.05 p + 1e-5 of
+   the plain-attention forward, K1 12 times a bucketed forward; p50 of
+   ``/predict/sst2`` for 1 and 64 sentences; one train step through the
+   kernels against plain attention (phase 3's tolerances) and the step's
+   time and profile. 8b: ``TorchGenLM`` at ``LMConfig``'s defaults
+   (vocabulary 32,000, 2,048 positions, 12 x 768, 12 heads, causal)
+   uploaded under ``TEXT_GENERATION``, trained 4 Adam steps on (8, 512)
+   through ``Client`` (the causal K1-LSE, K2, K3 12 times a step), one
+   step held against plain attention; served on its own door
+   (``RAFIKI_PREDICTOR_PORTS=1``) to 8 concurrent ``Client.generate``
+   streams of 64 tokens (prompts of 128-512 tokens, half sharing a
+   256-token prefix): greedy as JSON and as v3 frames, sampled twice with
+   fixed seeds, greedy on the ring layout, sampled with a pool too small
+   for the streams (preemption). Greedy streams equal the argmax of the
+   f32 plain-attention forward on the card, and sampled ones its draws
+   under the same keys, up to each stream's first near tie; the other
+   passes equal them as far; prefix-cache hits > 0; no slot or page
+   left; no attention kernel launched while serving. Printed: time to
+   first token p50/p95, tokens/s, the decode step per call and its
+   kernels, the KV pool's bytes.
 
 The line before the last is ``{"kernels": [...]}``, each kernel's
 ``launches`` from phase 5 and ``launches_by_path`` from every path; the
@@ -131,8 +158,9 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs its plain version: bf16 outputs are rounded to bf16 (2^-8
-# relative of O(1) values) and the backward kernels also round P and dS to
-# bf16 before their second products; f32 differs by summation order only.
+# relative of O(1) values), serving's K1 rounds P to bf16 before P V and K3
+# before P^T dO (the training K1's P V and the dS products are split into
+# two bf16 products, f32 to ~2^-17); f32 differs by summation order only.
 # Gradients are not O(1): their error is taken relative to max(1, max|ref|)
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 LSE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
@@ -160,6 +188,15 @@ LOSS_ATOL = 1e-2
 GRAD_RTOL = 1e-2
 QK_GRAD_RTOL = 1e-1
 QK_LEAVES = ("attn.wq", "attn.wk")
+# one bf16 step of BERT-base or the LM through the kernels, held against an
+# f32 step through plain attention: at BERT-base's initialization bf16
+# rounding alone moves every gradient ~10% from f32 whichever attention
+# runs (each sentence's first token pools to nearly the same vector, so a
+# gradient is a small difference of per-sentence terms), so the kernels
+# are held to plain bf16 attention's own distance: each leaf's (its worst
+# layer's) within BF16_GRAD_RATIO times plain bf16's
+BF16_GRAD_RATIO = 1.5
+
 TRAIN_IMAGES, TEST_IMAGES, CLASSES = 512, 128, 10
 TRIALS = 2
 
@@ -266,20 +303,23 @@ def attention_bound(kind, b, h, sq, skv, dh, causal, dtype):
 
     - fwd: reads q, k, v; writes o; 4 Dh FLOPs a pair (QK^T, PV);
     - fwd_lse: fwd, and writes the (B*H, Sq) f32 LSE and, for bf16, the
-      f32 output the backward's delta is taken from;
+      f32 output the backward's delta is taken from; for bf16 6 Dh FLOPs a
+      pair (PV is two bf16 products, of P rounded and of its remainder);
     - dq: reads q, k, v, dO, lse and the f32 output; writes dq and delta
-      = rowsum(dO o O); 6 Dh FLOPs a pair (QK^T, dO V^T, dS K) and 2 Dh a
-      row (delta);
+      = rowsum(dO o O); 6 Dh FLOPs a pair (QK^T, dO V^T, dS K), for bf16
+      8 (dS K as two products), and 2 Dh a row (delta);
     - dkv: reads as dq; writes dk, dv; 8 Dh a pair (K Q^T, V dO^T, P^T dO,
-      dS^T Q)."""
+      dS^T Q), for bf16 10 (dS^T Q as two products)."""
     size = torch.tensor([], dtype=dtype).element_size()
+    split = 2 if size < 4 else 0  # bf16: the split product's FLOPs a Dh
     q_el, kv_el, rows = b * h * sq * dh, b * h * skv * dh, b * h * sq
     nbytes, per_pair = {
         "fwd": ((2 * q_el + 2 * kv_el) * size, 4),
         "fwd_lse": ((2 * q_el + 2 * kv_el) * size + 4 * rows
-                    + (4 * q_el if size < 4 else 0), 4),
-        "dq": ((3 * q_el + 2 * kv_el) * size + 4 * q_el + 8 * rows, 6),
-        "dkv": ((2 * q_el + 4 * kv_el) * size + 8 * rows, 8),
+                    + (4 * q_el if size < 4 else 0), 4 + split),
+        "dq": ((3 * q_el + 2 * kv_el) * size + 4 * q_el + 8 * rows,
+               6 + split),
+        "dkv": ((2 * q_el + 4 * kv_el) * size + 8 * rows, 8 + split),
     }[kind]
     if causal:
         i = np.arange(sq)[:, None]
@@ -306,7 +346,8 @@ def rate(bound, ms) -> str:
 # ---------------------------------------------------------------------------
 
 # each kernel's main-path instantiation: bf16, Dh = 64
-PTXAS = (("K1", "flash_fwd", "flash_fwd_wgmma_kernelILi64EE"),
+PTXAS = (("K1", "flash_fwd", "flash_fwd_wgmma_kernelILi64ELb0EE"),
+         ("K1-LSE", "flash_fwd", "flash_fwd_wgmma_kernelILi64ELb1EE"),
          ("K2", "flash_bwd", "flash_bwd_dq_wgmma_kernelILi64EE"),
          ("K3", "flash_bwd", "flash_bwd_dkv_wgmma_kernelILi64EE"))
 
@@ -350,6 +391,20 @@ def _rel_err(out, ref) -> float:
         1.0, float(ref.abs().max()))
 
 
+def _out_err(out, ref, per_element: bool) -> tuple:
+    """(error, what it is) of an attention output against its plain
+    version: the largest absolute error, or where ``per_element`` the
+    largest over max(1, |ref|) element by element (the case of a large
+    causal batch: its first rows see a key or two and output values of
+    ~|v|, up to ~4.5 at B=8, H=12, where one bf16 ulp is 2^-6), as
+    tests/test_torch_cuda.py's large-batch causal test holds them."""
+    err = (out.float() - ref.float()).abs()
+    if not per_element:
+        return float(err.max()), "max_abs_err"
+    return (float((err / ref.float().abs().clamp(min=1.0)).max()),
+            "max error over max(1, |ref|)")
+
+
 def _entry(name, source, replaces, err, tol, shape, kernel_ms, plain_ms,
            library_ms, bound, **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -374,27 +429,32 @@ def kernel_phase():
     def qkv(b, h, sq, skv, dh, dtype):
         return [randn(b, h, s, dh, dtype=dtype) for s in (sq, skv, skv)]
 
-    # (label, b, h, sq, skv, dh, causal, dtype, block_q, block_k)
+    # (label, b, h, sq, skv, dh, causal, dtype, block_q, block_k, the
+    # output's error per element)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        ("vit B=8", 8, 12, 196, 196, 64, False, bf16, 64, 64),
-        ("vit B=64", 64, 12, 196, 196, 64, False, bf16, 64, 64),
-        ("S=40, 16-tiles", 2, 4, 40, 40, 64, False, bf16, 16, 16),
-        ("Sq<Skv causal", 2, 4, 64, 196, 64, True, bf16, 64, 64),
-        ("dead rows: causal Skv<Sq", 2, 4, 196, 64, 64, True, bf16, 32, 16),
-        ("f32", 4, 12, 196, 196, 64, False, f32, 64, 32),
+        ("vit B=8", 8, 12, 196, 196, 64, False, bf16, 64, 64, False),
+        ("vit B=64", 64, 12, 196, 196, 64, False, bf16, 64, 64, False),
+        # phase 8's shapes: BERT-base serving, the LM's causal evaluate
+        ("bert B=64", 64, 12, 128, 128, 64, False, bf16, 64, 64, False),
+        ("lm causal B=8", 8, 12, 512, 512, 64, True, bf16, 64, 64, True),
+        ("S=40, 16-tiles", 2, 4, 40, 40, 64, False, bf16, 16, 16, False),
+        ("Sq<Skv causal", 2, 4, 64, 196, 64, True, bf16, 64, 64, False),
+        ("dead rows: causal Skv<Sq", 2, 4, 196, 64, 64, True, bf16, 32, 16,
+         False),
+        ("f32", 4, 12, 196, 196, 64, False, f32, 64, 32, False),
     ]
     entries, times = {}, {}
-    for label, b, h, sq, skv, dh, causal, dtype, bq, bk in cases:
+    for label, b, h, sq, skv, dh, causal, dtype, bq, bk, per_el in cases:
         q, k, v = qkv(b, h, sq, skv, dh, dtype)
         out = fa.flash_attention(q, k, v, causal, None, bq, bk)
         torch.cuda.synchronize()
         ref = fa.flash_attention_plain(q, k, v, causal, None, bk)
-        err = float((out.float() - ref.float()).abs().max())
+        err, measure = _out_err(out, ref, per_el)
         tol = TOL[dtype]
         line = (f"K1 {label}: B={b} H={h} Sq={sq} Skv={skv} Dh={dh} "
                 f"causal={causal} {str(dtype).split('.')[-1]} "
-                f"tiles {bq}x{bk}: max_abs_err {err:.3g} (tol {tol:g})")
+                f"tiles {bq}x{bk}: {measure} {err:.3g} (tol {tol:g})")
         require(bool(torch.isfinite(out).all()), f"{line}: non-finite")
         require(err <= tol, line)
         if label.startswith("dead rows"):
@@ -472,16 +532,21 @@ def training_kernels(fa, qkv, randn):
     """K1 with the LSE, K2 and K3 against their plain versions at the
     training shape (timed) and at K1's edge cases."""
     bf16, f32 = torch.bfloat16, torch.float32
-    # (label, b, h, sq, skv, dh, causal, dtype, block_q, block_k)
+    # (label, b, h, sq, skv, dh, causal, dtype, block_q, block_k, the
+    # output's error per element)
     cases = [
-        ("train B=64", 64, 12, 196, 196, 64, False, bf16, 64, 64),
-        ("S=40, 16-tiles", 2, 4, 40, 40, 64, False, bf16, 16, 16),
-        ("Sq<Skv causal", 2, 4, 64, 196, 64, True, bf16, 64, 64),
-        ("dead rows: causal Skv<Sq", 2, 4, 196, 64, 64, True, bf16, 32, 16),
-        ("f32", 4, 12, 196, 196, 64, False, f32, 64, 32),
+        ("train B=64", 64, 12, 196, 196, 64, False, bf16, 64, 64, False),
+        # phase 8's training shapes: BERT-base, and the LM causal
+        ("bert B=32", 32, 12, 128, 128, 64, False, bf16, 64, 64, False),
+        ("lm causal B=8", 8, 12, 512, 512, 64, True, bf16, 64, 64, True),
+        ("S=40, 16-tiles", 2, 4, 40, 40, 64, False, bf16, 16, 16, False),
+        ("Sq<Skv causal", 2, 4, 64, 196, 64, True, bf16, 64, 64, False),
+        ("dead rows: causal Skv<Sq", 2, 4, 196, 64, 64, True, bf16, 32, 16,
+         False),
+        ("f32", 4, 12, 196, 196, 64, False, f32, 64, 32, False),
     ]
     entries = {}
-    for label, b, h, sq, skv, dh, causal, dtype, bq, bk in cases:
+    for label, b, h, sq, skv, dh, causal, dtype, bq, bk, per_el in cases:
         q, k, v = qkv(b, h, sq, skv, dh, dtype)
         dout = randn(b, h, sq, dh, dtype=dtype)
         out, lse, out32 = fa.flash_attention_lse(q, k, v, causal, None, bq,
@@ -500,9 +565,9 @@ def training_kernels(fa, qkv, randn):
         ref_dq = fa.flash_attention_dq_plain(*args[:-2], bk)
         ref_dk, ref_dv = fa.flash_attention_dkv_plain(*args[:-2], bq)
         live = torch.isfinite(ref_lse)
+        out_err, measure = _out_err(out, ref_out, per_el)
         errs = {
-            "out": max(float((out.float() - ref_out.float()).abs().max()),
-                       float((out32 - ref_out32).abs().max())),
+            "out": max(out_err, _out_err(out32, ref_out32, per_el)[0]),
             "lse": float((lse[live] - ref_lse[live]).abs().max()),
             "dq": float((dq.float() - ref_dq.float()).abs().max()),
             "dk": float((dk.float() - ref_dk.float()).abs().max()),
@@ -513,8 +578,8 @@ def training_kernels(fa, qkv, randn):
                "dv": _rel_err(dv, ref_dv)}
         where = (f"B={b} H={h} Sq={sq} Skv={skv} Dh={dh} causal={causal} "
                  f"{str(dtype).split('.')[-1]} tiles {bq}x{bk}")
-        line = (f"K1-LSE/K2/K3 {label}: {where}: max_abs_err out "
-                f"{errs['out']:.3g}, lse {errs['lse']:.3g} (tol "
+        line = (f"K1-LSE/K2/K3 {label}: {where}: out {measure} "
+                f"{errs['out']:.3g}, max_abs_err lse {errs['lse']:.3g} (tol "
                 f"{LSE_TOL[dtype]:g}), dq {errs['dq']:.3g}, dk "
                 f"{errs['dk']:.3g}, dv {errs['dv']:.3g}; relative "
                 + ", ".join(f"{n} {e:.3g}" for n, e in rel.items())
@@ -808,6 +873,98 @@ def direct_train_job(uris: dict, params_dir: Path):
             [kernel.launches for kernel in kernels])
 
 
+def _step_grads(cfg, tree: dict, loss_of, dtype) -> tuple:
+    """(loss, {name: gradient in f64}) of one step from ``tree`` (built by
+    ``convert.from_jax_params`` on cuda:0 under ``cfg``) computing in
+    ``dtype``: ``loss_of(model, dtype)``."""
+    from rafiki_tpu_torch import convert
+
+    model = convert.from_jax_params(tree, cfg, "cuda:0", train=True)
+    loss = loss_of(model, dtype)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.double() for k, p in
+                                  model.named_parameters()}
+
+
+def _rel_l2(a: dict, b: dict) -> dict:
+    return {k: float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30))
+            for k in b}
+
+
+def _worst_by_leaf(errs: dict) -> dict:
+    """The worst layer's error of each leaf."""
+    by_leaf = {}
+    for k, e in errs.items():
+        leaf = re.sub(r"^blocks\.\d+\.", "blocks.*.", k)
+        by_leaf[leaf] = max(by_leaf.get(leaf, 0.0), e)
+    return by_leaf
+
+
+def _leaves(errs: dict) -> str:
+    return ", ".join(f"{k} {e:.2e}" for k, e in
+                     sorted(_worst_by_leaf(errs).items()))
+
+
+def _plain(cfg):
+    return dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, use_flash=False))
+
+
+def step_vs_plain(label: str, cfg, tree: dict, loss_of,
+                  dtype=torch.bfloat16, plain=None) -> None:
+    """One train step's loss and gradients through the kernels against
+    those through plain attention, from the same weights and batch
+    (``loss_of(model, dtype)``), computing in ``dtype``: the loss within
+    LOSS_ATOL, each parameter's gradient within GRAD_RTOL of its L2 norm
+    (the q/k projections' within QK_GRAD_RTOL). ``plain``: the plain
+    step's (loss, gradients), where already taken."""
+    loss_k, g_k = _step_grads(cfg, tree, loss_of, dtype)
+    loss_p, g_p = plain or _step_grads(_plain(cfg), tree, loss_of, dtype)
+    rel = _rel_l2(g_k, g_p)
+    print(f"{label}, kernels vs plain attention ({str(dtype)[6:]}): loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (|diff| {abs(loss_k - loss_p):.3g}, "
+          f"tol {LOSS_ATOL:g}); gradient relative L2 error per leaf (worst "
+          f"layer; tol {GRAD_RTOL:g}, {QK_GRAD_RTOL:g} for "
+          f"{'/'.join(QK_LEAVES)}): {_leaves(rel)}", flush=True)
+    require(abs(loss_k - loss_p) <= LOSS_ATOL, f"{label}: loss differs")
+    for k, e in rel.items():
+        tol = QK_GRAD_RTOL if k.endswith(QK_LEAVES) else GRAD_RTOL
+        require(e <= tol, f"{label}: gradient of {k} off by {e:.3g} (tol "
+                f"{tol:g})")
+
+
+def text_step_gates(label: str, cfg, tree: dict, loss_of) -> None:
+    """One train step from ``tree`` four ways, f32 and bf16, each through
+    the kernels and through plain attention. The f32 kernels are held to
+    the f32 plain step by :func:`step_vs_plain`. The bf16 kernels, which
+    the main path runs, are held to the f32 plain step against plain bf16
+    attention: their loss within LOSS_ATOL of plain bf16's, and each
+    leaf's gradient (its worst layer) within BF16_GRAD_RATIO times plain
+    bf16's distance from f32."""
+    f32 = _step_grads(_plain(cfg), tree, loss_of, torch.float32)
+    step_vs_plain(label, cfg, tree, loss_of, torch.float32, plain=f32)
+    loss_k, g_k = _step_grads(cfg, tree, loss_of, torch.bfloat16)
+    loss_p, g_p = _step_grads(_plain(cfg), tree, loss_of, torch.bfloat16)
+    worst_k, worst_p = (_worst_by_leaf(_rel_l2(g, f32[1]))
+                        for g in (g_k, g_p))
+    ratio = {k: worst_k[k] / max(worst_p[k], 1e-30) for k in worst_k}
+    direct = _worst_by_leaf(_rel_l2(g_k, g_p))
+    far = max(direct, key=direct.get)
+    print(f"{label}, bf16 against f32 plain attention: loss through the "
+          f"kernels {loss_k:.6f}, plain {loss_p:.6f} (|diff| "
+          f"{abs(loss_k - loss_p):.3g}, tol {LOSS_ATOL:g}); gradient "
+          f"relative L2 error per leaf (worst layer), the kernels / plain "
+          f"bf16 (ratio; tol {BF16_GRAD_RATIO:g}): " + ", ".join(
+              f"{k} {worst_k[k]:.2e}/{worst_p[k]:.2e} ({ratio[k]:.2f})"
+              for k in sorted(worst_k)) + "; the kernels against plain "
+          f"bf16 directly, worst leaf: {far} {direct[far]:.2e}", flush=True)
+    require(abs(loss_k - loss_p) <= LOSS_ATOL, f"{label}: bf16 loss differs")
+    for k, r in ratio.items():
+        require(r <= BF16_GRAD_RATIO, f"{label}: bf16 gradient of {k} "
+                f"{worst_k[k]:.3g} from f32, {r:.3g} times plain bf16's "
+                f"{worst_p[k]:.3g} (tol {BF16_GRAD_RATIO:g})")
+
+
 def train_step_checks(card, cfg, convert, train_uri):
     """One train step through the kernels against one through plain
     attention, from the same weights and batch; then the step's time and a
@@ -822,36 +979,10 @@ def train_step_checks(card, cfg, convert, train_uri):
 
     x, y = dataset_utils.load_image_arrays(train_uri)
     tree = vit.init(np.random.default_rng(0), cfg)
-    plain_cfg = dataclasses.replace(
-        cfg, encoder=dataclasses.replace(cfg.encoder, use_flash=False))
     loss_fn = softmax_classifier_loss(lambda m, xb: m(xb))
     batch = (torch.from_numpy(x[:64]).cuda(), torch.from_numpy(y[:64]).cuda())
-    grads = {}
-    for name, c in (("kernel", cfg), ("plain", plain_cfg)):
-        model = convert.from_jax_params(tree, c, "cuda:0", train=True)
-        loss, _ = loss_fn(model, batch)
-        loss.backward()
-        grads[name] = (float(loss.detach()), {k: p.grad.double() for k, p in
-                                     model.named_parameters()})
-        del model
-    (loss_k, g_k), (loss_p, g_p) = grads["kernel"], grads["plain"]
-    rel = {k: float((g_k[k] - g_p[k]).norm() / g_p[k].norm().clamp_min(
-        1e-30)) for k in g_p}
-    by_leaf = {}
-    for k, e in rel.items():  # the worst layer of each leaf
-        leaf = re.sub(r"^blocks\.\d+\.", "blocks.*.", k)
-        by_leaf[leaf] = max(by_leaf.get(leaf, 0.0), e)
-    print(f"train: one step at batch 64, kernels vs plain attention: loss "
-          f"{loss_k:.6f} vs {loss_p:.6f} (|diff| {abs(loss_k - loss_p):.3g}, "
-          f"tol {LOSS_ATOL:g}); gradient relative L2 error per leaf (worst "
-          f"layer; tol {GRAD_RTOL:g}, {QK_GRAD_RTOL:g} for "
-          f"{'/'.join(QK_LEAVES)}): "
-          + ", ".join(f"{k} {e:.2e}" for k, e in sorted(by_leaf.items())),
-          flush=True)
-    require(abs(loss_k - loss_p) <= LOSS_ATOL, "train step loss differs")
-    for k, e in rel.items():
-        tol = QK_GRAD_RTOL if k.endswith(QK_LEAVES) else GRAD_RTOL
-        require(e <= tol, f"gradient of {k} off by {e:.3g} (tol {tol:g})")
+    step_vs_plain("train: one step at batch 64", cfg, tree,
+                  lambda model, dtype: loss_fn(model, batch)[0])
 
     trainer = DataParallelTrainer(
         loss_fn, tunable_optimizer(torch.optim.AdamW, lr=1e-4,
@@ -980,7 +1111,7 @@ def serve_phase(card: str, kernel_ms: dict, db, trials):
               f"({warm_launches} K1 launches)", flush=True)
         require(warm_launches == DEPTH * len(buckets) * len(workers),
                 f"warm-up made {warm_launches} K1 launches")
-        server = PredictorServer(predictor, app="vit").start()
+        server = PredictorServer(predictor, app="vit", auth=False).start()
         url = f"http://127.0.0.1:{server.port}/predict"
 
         rng = np.random.default_rng(SEED + 10)
@@ -1236,7 +1367,7 @@ def stack_phase(card: str, uris: dict, direct_job_s: float):
         # alternating, so both see the same process, job and card
         predictor = admin.services.get_predictor(inf["id"])
         require(predictor is not None, "no Predictor for the inference job")
-        direct = PredictorServer(predictor, app="vit").start()
+        direct = PredictorServer(predictor, app="vit", auth=False).start()
         doors = {"admin": (f"http://127.0.0.1:{server.port}/predict/vit",
                            token),
                  "direct": (f"http://127.0.0.1:{direct.port}/predict", None)}
@@ -1990,6 +2121,638 @@ def zoo_phase(card: str) -> list:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: text
+# ---------------------------------------------------------------------------
+
+SST2_SIZES = (6920, 1821)  # SST-2's train and test sentences
+SENTENCE_TOKENS = (5, 40)
+POOL_WORDS = 1000          # each class's words; the pools are disjoint
+#: TorchBert at BERT-base's published widths (12 x 768, 12 heads, the
+#: uncased vocabulary of 30,522) on 128-token sequences, one epoch; the GP
+#: tunes the learning rate (the fine-tuning decade) and the batch size
+BERT_BASE = """
+
+class TorchBertBase(TorchBert):
+    @staticmethod
+    def get_knob_config():
+        cfg = dict(TorchBert.get_knob_config())
+        cfg["depth"] = FixedKnob(12)
+        cfg["heads"] = FixedKnob(12)
+        cfg["dim"] = FixedKnob(768)
+        cfg["max_len"] = FixedKnob(128)
+        cfg["vocab"] = FixedKnob(30522)
+        cfg["epochs"] = FixedKnob(1)
+        cfg["learning_rate"] = FloatKnob(5e-5, 5e-4, is_exp=True)
+        return cfg
+"""
+#: Adam steps on the (8, 512) pattern rows: after 4 the loss was still
+#: ~ln(32,000) (10.30), and a sampled stream's distribution spread over
+#: thousands of tokens, whose cumulative boundaries lie closer together
+#: than two f32 computations of it may differ; a few dozen steps make it
+#: peaked on the learnt sequence, so its draws can be held token by token
+LM_STEPS = 40
+#: TorchGenLM at LMConfig's defaults (vocab 32,000, 2,048 positions,
+#: 12 x 768, 12 heads, causal), trained LM_STEPS Adam steps on (8, 512)
+LM_FULL = f"""
+
+class TorchGenLMFull(TorchGenLM):
+    generation_spec = GenerationSpec(eos_token_id=None, max_context=2048)
+    arch = {{"vocab": 32000, "depth": 12, "heads": 12}}
+    training = (8, 512, {LM_STEPS})
+
+    @staticmethod
+    def get_knob_config():
+        cfg = dict(TorchGenLM.get_knob_config())
+        cfg["lr"] = FixedKnob(1e-3)
+        cfg["dim"] = FixedKnob(768)
+        return cfg
+"""
+TEXT_TIMED = [1] * 10 + [64] * 10  # JSON requests on /predict/<app>
+PREDICT_BUCKETS = 4                # a worker's warm-up: 8, 16, 32, 64
+EVAL_BATCH = 256                   # predict_batched's default chunk
+# generation traffic: 8 concurrent streams, prompts of 128-512 tokens of
+# the training sequence, half of them sharing a 256-token prefix, 64
+# tokens each
+STREAMS, SHARED_PREFIX, PROMPT_TOKENS, GEN_TOKENS = 8, 256, (128, 512), 64
+SAMPLING = {"temperature": 0.8, "top_p": 0.95}
+# a pool too small for the 8 streams at once (each holds up to 36 pages
+# of 16 tokens): the scheduler must preempt
+SMALL_POOL_BLOCKS = 144
+# a greedy token is compared where the f32 reference's top two logits
+# differ by at least this; a sampled one where its uniform lies at least
+# this far from every cumulative boundary of the reference distribution.
+# Past the first position under either margin, two f32 computations in
+# other orders may rightly differ, and the stream is compared no further
+TIE_GAP = 1e-4
+DRAW_MARGIN = 1e-5
+
+
+def text_corpus():
+    """SST-2-sized synthetic corpus zips under ``build/chip_smoke/text/``:
+    two classes, each sentence 5-40 words of its class's pool (the pools
+    disjoint), the label in the first tag column. Returns the train and
+    test URIs and the test sentences as strings."""
+    from rafiki_tpu_torch.sdk.dataset import write_corpus_dataset
+
+    rng = np.random.default_rng(SEED + 80)
+    pools = [[f"{c}{i}" for i in range(POOL_WORDS)] for c in "np"]
+    out = WORK / "text"
+    out.mkdir(parents=True, exist_ok=True)
+    uris = []
+    for split, n in zip(("train", "test"), SST2_SIZES):
+        sentences = []
+        for y in rng.integers(0, 2, n):
+            k = int(rng.integers(SENTENCE_TOKENS[0], SENTENCE_TOKENS[1] + 1))
+            words = [str(w) for w in rng.choice(pools[y], k)]
+            sentences.append((words, [[("negative", "positive")[y]]] * k))
+        uris.append(write_corpus_dataset(
+            sentences, str(out / f"sst2_{split}.zip")))
+    return uris[0], uris[1], [" ".join(w) for w, _ in sentences]
+
+
+def _stack(name: str, port_store: str):
+    """An admin (thread placement over the visible card), its REST door and
+    a function that makes a logged-in Client, on a fresh store under
+    ``build/chip_smoke/``."""
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.http import AdminServer
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.db.database import Database
+
+    for path in WORK.glob(f"{port_store}*"):
+        path.unlink()
+    admin = Admin(db=Database(str(WORK / port_store)),
+                  params_dir=str(WORK / f"{name}_params"))
+    server = AdminServer(admin).start()
+
+    def new_client():
+        c = Client("127.0.0.1", server.port, timeout_s=900)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        return c
+
+    return admin, server, new_client
+
+
+def bert_phase(card: str) -> list:
+    """8a: a 2-trial BERT-base job on the SST-2-sized corpus through
+    ``Client``, served; returns each kernel's launches on this path."""
+    from rafiki_tpu_torch import config, convert
+    from rafiki_tpu_torch.models import bert
+    from rafiki_tpu_torch.sdk.model import load_model_class
+    from rafiki_tpu_torch.sdk.params import load_params
+    from rafiki_tpu_torch.sdk.torch_backend import (
+        DataParallelTrainer,
+        softmax_classifier_loss,
+        tunable_optimizer,
+    )
+
+    t0 = time.perf_counter()
+    train_uri, test_uri, queries = text_corpus()
+    print(f"bert: SST-2-sized synthetic corpus ({SST2_SIZES[0]} + "
+          f"{SST2_SIZES[1]} sentences of {SENTENCE_TOKENS[0]}-"
+          f"{SENTENCE_TOKENS[1]} words, two disjoint pools of {POOL_WORDS}) "
+          f"written as corpus zips in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    source = (TEMPLATES / "torch_bert.py").read_text() + BERT_BASE
+    admin, server, new_client = _stack("text", "text.sqlite3")
+    kernels = _kernels()
+    try:
+        c = new_client()
+        model = c.create_model("bert-base", "TEXT_CLASSIFICATION",
+                               source.encode(), "TorchBertBase")
+        require(model["verification"] is not None
+                and model["verification"]["ok"],
+                f"TorchBertBase upload not verified: "
+                f"{model['verification']}")
+        # ---- the main path's run (train job): counts from zero ----
+        for kernel in kernels:
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        c.create_train_job("sst2", "TEXT_CLASSIFICATION", train_uri,
+                           test_uri, budget={"MODEL_TRIAL_COUNT": TRIALS,
+                                             "CHIP_COUNT": 1})
+        job = c.wait_until_train_job_stopped("sst2", timeout_s=900,
+                                             poll_s=0.05)
+        torch.cuda.synchronize()
+        job_s = time.perf_counter() - t0
+        train_counts = [k.launches for k in kernels]
+        # ---------------------------------------------------------------
+        require(job["status"] == "STOPPED", f"train job {job['status']}: "
+                f"{job.get('error_reason')}")
+        trials = c.get_trials_of_train_job("sst2")
+        require([t["status"] for t in trials] == ["COMPLETED"] * TRIALS,
+                f"trials {[(t['status'], t['fault_detail']) for t in trials]}")
+        steps = 0
+        for t in trials:
+            require(np.isfinite(t["score"]) and t["score"] > 0.5,
+                    f"trial score {t['score']} not above chance")
+            batch = t["knobs"]["batch_size"]
+            steps += SST2_SIZES[0] // batch
+            wall = t["datetime_stopped"] - t["datetime_started"]
+            epochs = [m for m in c.get_trial_logs(t["id"])["metrics"]
+                      if "epoch_time" in m]
+            print(f"bert: trial {t['id'][:8]} COMPLETED: learning_rate "
+                  f"{t['knobs']['learning_rate']:.3g}, batch_size {batch}, "
+                  f"epoch loss {epochs[-1]['loss']:.4f} in "
+                  f"{epochs[-1]['epoch_time']:.2f} s "
+                  f"({SST2_SIZES[0] // batch} steps), test accuracy "
+                  f"{t['score']:.4f}; {wall:.2f} s in the trial", flush=True)
+        forwards = TRIALS * -(-SST2_SIZES[1] // EVAL_BATCH)
+        expect = [DEPTH * forwards] + [DEPTH * steps] * 3
+        print(f"bert: train job of {TRIALS} BERT-base trials (1 epoch, GP) "
+              f"STOPPED in {job_s:.1f} s (Client.create_train_job to "
+              f"STOPPED); {steps} steps, {forwards} evaluate forwards; "
+              f"launches K1 {train_counts[0]}, K1-LSE {train_counts[1]}, "
+              f"K2 {train_counts[2]}, K3 {train_counts[3]} (expected "
+              f"{expect}); card {card}", flush=True)
+        require(train_counts == expect,
+                f"launches {train_counts}, expected {expect}")
+        blobs = [load_params(c.download_trial_params(t["id"]))
+                 for t in trials]
+        token = admin.authenticate_user(config.SUPERADMIN_EMAIL,
+                                        config.SUPERADMIN_PASSWORD)["token"]
+        url = f"http://127.0.0.1:{server.port}/predict/sst2"
+        bodies = {n: (json.dumps({"queries": queries[:n]}).encode(),
+                      {"Content-Type": "application/json"})
+                  for n in set(TEXT_TIMED)}
+        # ---- the main path's run (inference job): counts from zero ----
+        for kernel in kernels:
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        inf = c.create_inference_job("sst2")
+        deploy_s = time.perf_counter() - t0
+        batch8 = np.asarray(c.predict("sst2", queries[:8]))
+        lat = {}
+        for n in TEXT_TIMED:
+            t = time.perf_counter()
+            post(url, *bodies[n], token=token)
+            lat.setdefault(("json", n), []).append(time.perf_counter() - t)
+        serve_counts = [k.launches for k in kernels]
+        # ---------------------------------------------------------------
+        stats = c.get_inference_job_stats("sst2")
+        c.stop_inference_job("sst2")
+    finally:
+        server.stop()
+        admin.shutdown()
+    require(inf["status"] == "RUNNING" and len(inf["workers"]) == TRIALS,
+            f"inference job {inf['status']} with {len(inf['workers'])} "
+            "workers")
+    forwards = stats["batches"] + PREDICT_BUCKETS * TRIALS
+    expect = [DEPTH * forwards, 0, 0, 0]
+    require(serve_counts == expect,
+            f"serving launches {serve_counts}, expected {expect}")
+    p50 = p50_ms(lat)
+    print(f"bert: inference job RUNNING in {deploy_s:.1f} s ({TRIALS} "
+          f"workers on {[w['chips'] for w in inf['workers']]}); p50 of "
+          f"/predict/sst2 (JSON, admin door, sequential): "
+          + ", ".join(f"{n} sentence{'s' if n > 1 else ''} "
+                      f"{p50['json', n]:.2f} ms" for n in (1, 64))
+          + f"; K1 launched {serve_counts[0]} times in {forwards} bucketed "
+          f"forwards ({DEPTH} a forward); card {card}", flush=True)
+
+    # the served answers against each trial's own predict on the card and
+    # against the plain-attention forward of the same parameters
+    clazz = load_model_class(source.encode(), "TorchBertBase")
+    own, plain = [], []
+    for t, blob in zip(trials, blobs):
+        m = clazz(**t["knobs"])
+        m.load_parameters(blob)
+        own.append(np.asarray(m.predict(queries[:8]), np.float64))
+        plain_cfg = dataclasses.replace(m._cfg, encoder=dataclasses.replace(
+            m._cfg.encoder, use_flash=False))
+        m._model = convert.from_jax_params(blob["params"], plain_cfg,
+                                           "cuda:0")
+        plain.append(np.asarray(m.predict(queries[:8]), np.float64))
+        del m
+    require(batch8.shape == (8, 2) and np.isfinite(batch8).all(),
+            f"/predict/sst2 answered {batch8.shape}")
+    err = float(np.abs(batch8 - sum(own) / TRIALS).max())
+    require(err <= ENSEMBLE_ATOL, f"ensemble off its trials' mean by "
+            f"{err:.3g} (tol {ENSEMBLE_ATOL:g})")
+    print(f"bert: Client.predict of 8 sentences: the ensemble within "
+          f"{err:.3g} of its trials' mean (tol {ENSEMBLE_ATOL:g}); against "
+          f"the plain-attention forward: "
+          + prob_check("bert /predict/sst2", batch8, sum(plain) / TRIALS),
+          flush=True)
+
+    # one train step through the kernels against plain attention from the
+    # initial weights, in f32 and in bf16 (text_step_gates); then the
+    # step's time at batch 32
+    cfg = clazz(**trials[0]["knobs"])._make_cfg(2)
+    x, y = clazz(**trials[0]["knobs"])._load(train_uri)
+    tree = bert.init(np.random.default_rng(0), cfg)
+    loss_fn = softmax_classifier_loss(lambda m, ids: m(ids))
+    batch = (torch.from_numpy(x[:32]).cuda(), torch.from_numpy(y[:32]).cuda())
+
+    def loss_of(model, dtype):
+        return torch.nn.functional.cross_entropy(
+            model(batch[0], dtype), batch[1].long())
+
+    text_step_gates("bert: one step at batch 32 (S=128)", cfg, tree, loss_of)
+    trainer = DataParallelTrainer(loss_fn, tunable_optimizer(
+        torch.optim.AdamW, lr=1e-4, weight_decay=1e-4))
+    model, opt = trainer.init(lambda rng: convert.from_jax_params(
+        tree, cfg, "cuda:0", train=True))
+    step = lambda: trainer.train_step(model, opt, batch)  # noqa: E731
+    call_ms = median_ms(step, reps=10)
+    card_ms = device_ms(step, reps=3, inner=3, hold_cycles=400_000_000)
+    print(f"bert: BERT-base train step at batch 32 x 128 tokens: "
+          f"{call_ms:.2f} ms per call, {card_ms:.2f} ms on the card "
+          f"({32 * 128 / card_ms * 1e3:.0f} tokens/s); card {card}",
+          flush=True)
+    print_device_profile(step, "batch-32 BERT-base train step", shares=(
+        ("K1-LSE", "flash_fwd_wgmma_kernel"),
+        ("K2", "flash_bwd_dq_wgmma_kernel"),
+        ("K3", "flash_bwd_dkv_wgmma_kernel")))
+    del model, opt
+    return [a + b for a, b in zip(train_counts, serve_counts)]
+
+
+def lm_prompts(rng: np.random.Generator, vocab: int) -> list:
+    """STREAMS prompts of PROMPT_TOKENS tokens from the sequence the LM
+    was trained on (``_pattern_batch``: token (3 b + 2) mod vocab at
+    position b); the first half start at its beginning, so they share a
+    SHARED_PREFIX-token prefix, the others at random offsets."""
+    out = []
+    for i in range(STREAMS):
+        n = int(rng.integers(PROMPT_TOKENS[0], PROMPT_TOKENS[1] + 1))
+        if i < STREAMS // 2:
+            start, n = 0, max(n, SHARED_PREFIX + 1)
+        else:
+            start = int(rng.integers(SHARED_PREFIX, 4096 - n - GEN_TOKENS))
+        out.append(((3 * np.arange(start, start + n) + 2) % vocab).tolist())
+    return out
+
+
+def generate_pass(c, app: str, prompts: list, **kw) -> dict:
+    """STREAMS concurrent ``Client.generate`` streams of GEN_TOKENS
+    tokens; returns the streams, each one's time to first token, and the
+    pass's seconds. ``kw`` rides every request; a ``seeds`` list gives
+    each stream its own seed."""
+    seeds = kw.pop("seeds", None)
+    out = {"tokens": [None] * len(prompts), "ttft": [None] * len(prompts)}
+    errors = []
+
+    def run(i):
+        try:
+            extra = dict(kw, seed=seeds[i]) if seeds else kw
+            t0 = time.perf_counter()
+            toks = []
+            for d in c.generate(app, prompts[i], max_tokens=GEN_TOKENS,
+                                timeout_s=300, **extra):
+                if not toks and d["tokens"]:
+                    out["ttft"][i] = time.perf_counter() - t0
+                toks += d["tokens"]
+            out["tokens"][i] = toks
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            errors.append(f"stream {i}: {e!r}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    out["seconds"] = time.perf_counter() - t0
+    require(not errors and not any(th.is_alive() for th in threads),
+            f"generation pass failed: {errors}")
+    require(all(len(t) == GEN_TOKENS for t in out["tokens"]),
+            f"streams of {[len(t) for t in out['tokens']]} tokens")
+    return out
+
+
+def serve_lm(new_client, app: str, env: dict, passes):
+    """Deploy ``app`` with ``env`` set, run ``passes(c)`` on a fresh
+    client (a client caches the door it resolved, and each deployment has
+    its own), read the worker's stats once its slots are empty, stop the
+    job. Returns (passes' result, stats, deploy seconds)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    c = new_client()
+    try:
+        t0 = time.perf_counter()
+        inf = c.create_inference_job(app)
+        deploy_s = time.perf_counter() - t0
+        require(inf["status"] == "RUNNING" and len(inf["workers"]) == 1
+                and inf["predictor_port"], f"inference job {inf}")
+        result = passes(c)
+        deadline = time.monotonic() + 30
+        while True:
+            stats = c.get_inference_job_stats(app)["workers"][0]
+            if stats.get("gen_resident_streams", 1) == 0 \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        c.stop_inference_job(app)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return result, stats, deploy_s
+
+
+def lm_reference(model, prompts: list, streams: list):
+    """Each stream's f32 plain-attention reference, teacher-forced on the
+    stream itself: (the logits that predict each generated token, the gap
+    between their top two)."""
+    out = []
+    with torch.inference_mode():
+        for p, s in zip(prompts, streams):
+            ids = torch.tensor([p + s[:-1]], device=model.pos.device)
+            logits = model(ids, dtype=torch.float32)[0, len(p) - 1:]
+            top2 = logits.topk(2, dim=-1).values
+            out.append((logits, (top2[:, 0] - top2[:, 1]).cpu().numpy()))
+    return out
+
+
+def compared_greedy(stream: list, ref) -> int:
+    """Positions at which a greedy stream was held against its reference
+    (up to the first whose top-2 gap is under TIE_GAP); raises at a
+    mismatch before it."""
+    logits, gaps = ref
+    want = logits.argmax(-1).tolist()
+    for i, (got, w) in enumerate(zip(stream, want)):
+        if gaps[i] < TIE_GAP:
+            return i
+        require(got == w, f"greedy token {i} is {got}, the f32 reference's "
+                f"argmax {w} (top-2 gap {gaps[i]:.3g})")
+    return len(stream)
+
+
+def compared_sampled(stream: list, ref, prompt: list, seed: int) -> int:
+    """Positions at which a sampled stream was held against the draw from
+    its f32 reference distribution under the same key (up to the first
+    whose uniform lies within DRAW_MARGIN of a cumulative boundary)."""
+    from rafiki_tpu_torch.models import lm
+
+    logits, _ = ref
+    n = len(stream)
+    probs = lm.modified_dist(logits, np.full(n, SAMPLING["temperature"]),
+                             np.zeros(n, np.int64),
+                             np.full(n, SAMPLING["top_p"]))
+    positions = len(prompt) + np.arange(n)
+    u = lm._uniform_at(np.full(n, seed, np.uint32), positions,
+                       lm.ROLE_TARGET)
+    u = torch.from_numpy(u).to(probs.device)
+    want = lm.sample_from(probs, u).tolist()
+    margin = (probs.cumsum(-1) - u[:, None]).abs()
+    margin = margin.min(-1).values.cpu().numpy()
+    for i, (got, w) in enumerate(zip(stream, want)):
+        if margin[i] < DRAW_MARGIN:
+            return i
+        require(got == w, f"sampled token {i} is {got}, the reference's "
+                f"draw {w} (margin {margin[i]:.3g})")
+    return n
+
+
+def same_until(a: list, b: list, upto: int, what: str) -> None:
+    require(a[:upto] == b[:upto], f"{what} differ in their first {upto} "
+            "tokens")
+
+
+def lm_phase(card: str) -> list:
+    """8b: the LM at full width trained through ``Client`` under
+    ``TEXT_GENERATION``, then served on its own door: greedy, binary,
+    sampled, ring and preempted passes of 8 concurrent streams. Returns
+    each kernel's launches on this path."""
+    from rafiki_tpu_torch import convert
+    from rafiki_tpu_torch.models import lm
+    from rafiki_tpu_torch.sdk.model import load_model_class
+    from rafiki_tpu_torch.sdk.params import load_params
+    from rafiki_tpu_torch.templates.torch_gen_lm import _pattern_batch
+
+    source = (TEMPLATES / "torch_gen_lm.py").read_text() + LM_FULL
+    admin, server, new_client = _stack("lm", "text_lm.sqlite3")
+    kernels = _kernels()
+    try:
+        c = new_client()
+        model = c.create_model("lm", "TEXT_GENERATION", source.encode(),
+                               "TorchGenLMFull")
+        require(model["verification"] is not None
+                and model["verification"]["ok"]
+                and model["verification"]["capabilities"]["generation"],
+                f"TorchGenLMFull upload: {model['verification']}")
+        # ---- the main path's run (train job): counts from zero ----
+        for kernel in kernels:
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        c.create_train_job("lm", "TEXT_GENERATION", "pattern://train",
+                           "pattern://test",
+                           budget={"MODEL_TRIAL_COUNT": 1, "CHIP_COUNT": 1})
+        job = c.wait_until_train_job_stopped("lm", timeout_s=900,
+                                             poll_s=0.05)
+        torch.cuda.synchronize()
+        job_s = time.perf_counter() - t0
+        train_counts = [k.launches for k in kernels]
+        # ---------------------------------------------------------------
+        require(job["status"] == "STOPPED", f"train job {job['status']}: "
+                f"{job.get('error_reason')}")
+        (trial,) = c.get_trials_of_train_job("lm")
+        require(trial["status"] == "COMPLETED"
+                and np.isfinite(trial["score"]),
+                f"trial {trial['status']} {trial['score']}")
+        expect = [DEPTH] + [DEPTH * LM_STEPS] * 3
+        print(f"lm: train job (1 trial, {LM_STEPS} Adam steps on (8, 512), "
+              f"causal) STOPPED in {job_s:.1f} s; loss after training "
+              f"{-trial['score']:.4f}; launches K1 {train_counts[0]}, "
+              f"K1-LSE {train_counts[1]}, K2 {train_counts[2]}, K3 "
+              f"{train_counts[3]} (expected {expect}); card {card}",
+              flush=True)
+        require(train_counts == expect,
+                f"launches {train_counts}, expected {expect}")
+        blob = load_params(c.download_trial_params(trial["id"]))
+        clazz = load_model_class(source.encode(), "TorchGenLMFull")
+        cfg = clazz(**trial["knobs"])._cfg
+        batch = tuple(torch.from_numpy(a).cuda() for a in _pattern_batch(
+            *clazz.training[:2], cfg.vocab))
+        tree = lm.init(np.random.default_rng(0), cfg)
+
+        def loss_of(model, dtype):
+            return torch.nn.functional.cross_entropy(
+                model(batch[0], dtype)[:, :-1].flatten(0, 1),
+                batch[0][:, 1:].flatten().long())
+
+        text_step_gates("lm: one step at (8, 512), causal", cfg, tree,
+                        loss_of)
+        del tree
+        prompts = lm_prompts(np.random.default_rng(SEED + 81), cfg.vocab)
+        seeds = list(range(1, STREAMS + 1))
+
+        # ---- the main path's run (serving): counts from zero ----
+        for kernel in kernels:
+            kernel.launches = 0
+        door = {"RAFIKI_PREDICTOR_PORTS": "1"}
+
+        def paged_passes(c):
+            return {"greedy": generate_pass(c, "lm", prompts),
+                    "binary": generate_pass(c, "lm", prompts, binary=True),
+                    "sampled": generate_pass(c, "lm", prompts, seeds=seeds,
+                                             **SAMPLING),
+                    "sampled again": generate_pass(c, "lm", prompts,
+                                                   seeds=seeds, **SAMPLING)}
+
+        paged, paged_stats, deploy_s = serve_lm(new_client, "lm", door,
+                                                paged_passes)
+        ring, ring_stats, _ = serve_lm(
+            new_client, "lm", {**door, "RAFIKI_GEN_KV_PAGED": "0"},
+            lambda c: generate_pass(c, "lm", prompts))
+        small, small_stats, _ = serve_lm(
+            new_client, "lm", {**door, "RAFIKI_GEN_KV_POOL_BLOCKS":
+                      str(SMALL_POOL_BLOCKS)},
+            lambda c: generate_pass(c, "lm", prompts, seeds=seeds,
+                                    **SAMPLING))
+        serve_counts = [k.launches for k in kernels]
+        # ---------------------------------------------------------------
+    finally:
+        server.stop()
+        admin.shutdown()
+    require(serve_counts == [0, 0, 0, 0], f"attention kernels launched "
+            f"while serving generation: {serve_counts}")
+
+    greedy = paged["greedy"]
+    ttft = sorted(greedy["ttft"])
+    print(f"lm: {STREAMS} concurrent Client.generate streams of "
+          f"{GEN_TOKENS} tokens, prompts {sorted(len(p) for p in prompts)} "
+          f"tokens ({STREAMS // 2} sharing a {SHARED_PREFIX}-token prefix), "
+          f"paged KV (deploy {deploy_s:.1f} s): time to first token p50 "
+          f"{statistics.median(ttft) * 1e3:.1f} ms, p95 "
+          f"{np.percentile(ttft, 95) * 1e3:.1f} ms; "
+          f"{STREAMS * GEN_TOKENS / greedy['seconds']:.0f} tokens/s in all "
+          f"({greedy['seconds']:.2f} s the pass; sampled "
+          f"{STREAMS * GEN_TOKENS / paged['sampled']['seconds']:.0f}, ring "
+          f"{STREAMS * GEN_TOKENS / ring['seconds']:.0f}, small pool "
+          f"{STREAMS * GEN_TOKENS / small['seconds']:.0f}); card {card}",
+          flush=True)
+    for name, stats in (("paged", paged_stats), ("ring", ring_stats),
+                        ("small pool", small_stats)):
+        print(f"lm: {name} worker stats: " + ", ".join(
+            f"{k[4:]} {v}" for k, v in sorted(stats.items())
+            if k.startswith("gen_") and k != "gen_job"), flush=True)
+        require(stats["gen_slots_busy"] == 0
+                and stats["gen_resident_streams"] == 0,
+                f"{name}: slots left after the streams: {stats}")
+        if name != "ring":
+            require(stats["gen_kv_blocks_used"]
+                    == stats["gen_kv_blocks_cached"],
+                    f"{name}: pages left after the streams (only the prefix "
+                    f"cache may hold any): {stats}")
+    require(paged_stats["gen_prefix_hits"] > 0, "no prefix-cache hit")
+    require(small_stats["gen_preemptions"] > 0,
+            f"a pool of {SMALL_POOL_BLOCKS} blocks preempted no stream")
+
+    # the streams against the f32 plain-attention forward on the card
+    ref_cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, use_flash=False))
+    ref_model = convert.from_jax_params(blob, ref_cfg, "cuda:0")
+    refs = lm_reference(ref_model, prompts, greedy["tokens"])
+    held = [compared_greedy(s, r) for s, r in zip(greedy["tokens"], refs)]
+    for other, label in ((paged["binary"]["tokens"], "binary (v3) and JSON"),
+                         (ring["tokens"], "ring and paged")):
+        for a, b, n in zip(greedy["tokens"], other, held):
+            same_until(a, b, n, f"{label} greedy streams")
+    srefs = lm_reference(ref_model, prompts, paged["sampled"]["tokens"])
+    sheld = [compared_sampled(s, r, p, seed) for s, r, p, seed in zip(
+        paged["sampled"]["tokens"], srefs, prompts, seeds)]
+    for other, label in ((paged["sampled again"]["tokens"], "two runs'"),
+                         (small["tokens"], "preempted and uncontended")):
+        for a, b, n in zip(paged["sampled"]["tokens"], other, sheld):
+            same_until(a, b, n, f"{label} sampled streams")
+    print(f"lm: greedy streams equal the f32 plain-attention argmax for "
+          f"{sum(held)} of {STREAMS * GEN_TOKENS} tokens (each stream up to "
+          f"its first top-2 gap under {TIE_GAP:g}: {held}), and so do the "
+          f"binary and ring streams; sampled streams (temperature "
+          f"{SAMPLING['temperature']}, top_p {SAMPLING['top_p']}, seeds "
+          f"{seeds}) equal the reference's draws for {sum(sheld)} tokens "
+          f"({sheld}), twice and under preemption "
+          f"({small_stats['gen_preemptions']} preemptions)", flush=True)
+    del ref_model
+
+    # the decode step alone: per call, its kernels, the pool's bytes
+    m = clazz(**trial["knobs"])
+    m.load_parameters(blob)
+    bt, pos = 16, 575
+    per_slot = -(-cfg.max_len // bt)
+    cache = m.init_paged_kv_cache(STREAMS * per_slot, bt)
+    tables = np.arange(STREAMS * per_slot, dtype=np.int32).reshape(
+        STREAMS, per_slot)
+    ids = np.arange(STREAMS, dtype=np.int32)
+    positions = np.full(STREAMS, pos, np.int32)
+    step = lambda: m.paged_decode_step(cache, ids, positions,  # noqa: E731
+                                       tables)
+    call_ms = median_ms(step, reps=20)
+    ring_cache = m.init_kv_cache(STREAMS)
+    ring_step = lambda: m.decode_step(ring_cache, ids,  # noqa: E731
+                                      positions)
+    ring_ms = median_ms(ring_step, reps=20)
+    weights = sum(p.numel() * p.element_size()
+                  for p in m._model.parameters())
+    print(f"lm: decode step of {STREAMS} slots at position {pos}: paged "
+          f"{call_ms:.2f} ms per call (argmax to the host included), ring "
+          f"{ring_ms:.2f} ms; KV pool {lm.paged_pool_bytes(cache) / 1e9:.3f}"
+          f" GB ({STREAMS * per_slot} blocks x {bt} tokens), ring "
+          f"{lm.paged_pool_bytes(ring_cache) / 1e9:.3f} GB; weights "
+          f"{weights / 1e9:.3f} GB f32 (bound "
+          f"{weights / HBM_BYTES_PER_S * 1e3:.3f} ms a step); card {card}",
+          flush=True)
+    print_device_profile(step, "paged decode step (8 slots)", top=6)
+    print_device_profile(ring_step, "ring decode step (8 slots)", top=4)
+    del m, cache, ring_cache
+    return [a + b for a, b in zip(train_counts, serve_counts)]
+
+
+def text_phase(card: str) -> tuple:
+    t0 = time.perf_counter()
+    bert_counts = bert_phase(card)
+    lm_counts = lm_phase(card)
+    print(f"text: phase 8 took {time.perf_counter() - t0:.0f} s", flush=True)
+    return bert_counts, lm_counts
+
+
 def _alive(pid: int) -> bool:
     try:
         os.kill(pid, 0)
@@ -2019,16 +2782,23 @@ def main() -> int:
     stack_launches, stack_job_s = stack_phase(card, uris, job_s)
     process_launches = process_phase(card, uris, stack_job_s)
     zoo_launches = zoo_phase(card)
+    bert_launches, lm_launches = text_phase(card)
     for i, name in enumerate(KERNEL_NAMES):
         by_path = {"train (phase 3)": train_launches[i],
                    "serve (phase 4)": serve_launches[i],
                    "stack (phase 5)": stack_launches[i],
                    "process (phase 6)": process_launches[i],
-                   "zoo (phase 7)": zoo_launches[i]}
+                   "zoo (phase 7)": zoo_launches[i],
+                   "bert (phase 8a)": bert_launches[i],
+                   "lm (phase 8b)": lm_launches[i]}
         require(by_path["stack (phase 5)"] > 0,
                 f"{name} was not launched through the admin")
         require(by_path["process (phase 6)"] > 0,
                 f"{name} was not launched in a child process")
+        require(by_path["bert (phase 8a)"] > 0,
+                f"{name} was not launched on the BERT path")
+        require(by_path["lm (phase 8b)"] > 0,
+                f"{name} was not launched on the LM path")
         entries[name]["launches"] = stack_launches[i]
         entries[name]["launches_by_path"] = by_path
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.0f} s",

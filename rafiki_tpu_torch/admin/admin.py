@@ -24,7 +24,11 @@ HA leases, admission control, host placement and the fleet broker,
 recovery, rollout, drift, the autoscaler and warm pool are not ported;
 the settings that would turn them on raise
 :class:`~rafiki_tpu_torch.config.NotPortedError`. ``TEXT_GENERATION``
-jobs are refused with a 400 until generation is ported (ROADMAP.md).
+takes generation-capable templates only (a ``GenerationSpec`` and the
+decode methods; checked at upload and again, statically, at a train
+job), and its inference job streams from the per-job door's
+``/generate`` (``RAFIKI_PREDICTOR_PORTS=1``), whose host and port
+``get_inference_job`` reports.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from rafiki_tpu_torch.sdk.knob import serialize_knob_config
 from rafiki_tpu_torch.sdk.log import parse_logs
 from rafiki_tpu_torch.sdk.model import (
     InvalidModelClassError,
+    generation_capability,
     load_model_class,
     validate_model_dependencies,
 )
@@ -166,17 +171,12 @@ class Admin:
                      model_file_bytes: bytes, model_class: str,
                      dependencies: Optional[Dict[str, Optional[str]]] = None,
                      access_right: str = ModelAccessRight.PRIVATE) -> Dict:
-        _refuse_generation(task)
         # static verification first: at enforce a bad or hostile template
         # is refused before load_model_class runs its module top level
         report = self._verify_template(model_file_bytes, model_class,
                                        dependencies, enforce=True)
         clazz = load_model_class(model_file_bytes, model_class)
-        if report is not None and report.capabilities.get("generation"):
-            raise InvalidModelClassError(
-                f"template advertises a GenerationSpec but was uploaded "
-                f"under task {task}: generative templates belong to task "
-                f"{TaskType.TEXT_GENERATION}")
+        self._validate_task_capability(task, clazz, report)
         missing = validate_model_dependencies(clazz)
         if missing:
             raise InvalidModelClassError(
@@ -191,6 +191,45 @@ class Admin:
             effective_deps, access_right,
             verification=json.dumps(report.to_dict()) if report else None)
         return self._model_view(model)
+
+    @staticmethod
+    def _model_generation_capable(model_row: Dict) -> bool:
+        """Generation capability of a stored model row: its persisted
+        verification report, else a static pass over the stored bytes
+        (the template never runs)."""
+        verification = model_row.get("verification")
+        if isinstance(verification, str):
+            try:
+                verification = json.loads(verification)
+            except ValueError:
+                verification = None
+        caps = (verification or {}).get("capabilities") or {}
+        if "generation" in caps:
+            return bool(caps["generation"])
+        report = analysis.verify_template_bytes(
+            model_row["model_file_bytes"], model_row.get("model_class"))
+        return bool(report.capabilities.get("generation"))
+
+    @staticmethod
+    def _validate_task_capability(task: str, clazz: type, report) -> None:
+        """The template's generation capability (static when verification
+        ran, else the runtime oracle) must match the task, both ways: a
+        typed 400."""
+        if report is not None and "generation" in report.capabilities:
+            capable = bool(report.capabilities["generation"])
+        else:
+            capable = generation_capability(clazz) is not None
+        if task == TaskType.TEXT_GENERATION and not capable:
+            raise InvalidModelClassError(
+                f"task {task} requires a generation-capable template: "
+                "declare a GenerationSpec class attribute and override "
+                "init_kv_cache, prefill and decode_step (sdk/model.py; a "
+                "half-wired spec does not count, see finding GEN001)")
+        if capable and task != TaskType.TEXT_GENERATION:
+            raise InvalidModelClassError(
+                f"template advertises a GenerationSpec but was uploaded "
+                f"under task {task}: generative templates belong to task "
+                f"{TaskType.TEXT_GENERATION}")
 
     @staticmethod
     def _verify_template(model_file_bytes: bytes, model_class: str,
@@ -279,7 +318,6 @@ class Admin:
         budget = {} if budget is None else budget
         self._validate_budget(budget)
         _refuse_unported_budget(budget, _UNPORTED_TRAIN_BUDGET)
-        _refuse_generation(task)
         # the task's PUBLIC models of others first, then the caller's own:
         # another user's same-named public model never shadows one's own
         all_models = self.db.get_models(task)
@@ -298,6 +336,16 @@ class Admin:
             models = list(visible.values())
         if not models:
             raise InvalidRequestError(f"No usable models for task {task}")
+        if task == TaskType.TEXT_GENERATION:
+            # rows uploaded under verification "off" are checked here,
+            # statically
+            incapable = [m["name"] for m in models
+                         if not self._model_generation_capable(m)]
+            if incapable:
+                raise InvalidRequestError(
+                    f"task {task} needs generation-capable templates, but "
+                    f"{incapable} advertise no fully wired GenerationSpec "
+                    "(init_kv_cache, prefill, decode_step; sdk/model.py)")
         version = self.db.get_next_app_version(user_id, app)
         job = self.db.create_train_job(user_id, app, version, task,
                                        train_dataset_uri, test_dataset_uri,
@@ -492,12 +540,14 @@ class Admin:
         def chips(service_id: str) -> list:
             return (self.db.get_service(service_id) or {}).get("chips") or []
 
+        # the job's own door, when RAFIKI_PREDICTOR_PORTS bound one
+        door = (self.db.get_service(inf["predictor_service_id"])
+                if inf.get("predictor_service_id") else None) or {}
         return {
             "id": inf["id"], "train_job_id": job["id"], "app": app,
             "app_version": job["app_version"],
-            # a per-job predictor port is not ported: /predict/<app> on
-            # this door serves every job
-            "predictor_host": None, "predictor_port": None,
+            "predictor_host": door.get("host"),
+            "predictor_port": door.get("port"),
             "status": inf["status"], "budget": inf.get("budget") or {},
             "datetime_started": inf["datetime_started"],
             "datetime_stopped": inf["datetime_stopped"],
@@ -682,7 +732,8 @@ _RELAYED_STATS = ("batches", "queries", "queue_depth", "expired", "shed")
 
 #: budget keys, and the values of them, that ask for what is not ported:
 #: multi-card trials, ASHA, trial deadlines and population trials; multi-
-#: card workers, fused ensembles and speculative decoding (ROADMAP.md)
+#: card workers, fused ensembles and speculative decoding's draft trial
+#: (ROADMAP.md)
 _UNPORTED_TRAIN_BUDGET = {
     BudgetType.CHIPS_PER_TRIAL: lambda v: int(v) > 1,
     BudgetType.EARLY_STOP: bool,
@@ -705,10 +756,3 @@ def _refuse_unported_budget(budget: Dict[str, Any], unported) -> None:
         raise InvalidRequestError(
             f"budget {asked} asks for what rafiki_tpu_torch does not have "
             "yet (ROADMAP.md); drop it")
-
-
-def _refuse_generation(task: str) -> None:
-    if task == TaskType.TEXT_GENERATION:
-        raise InvalidRequestError(
-            f"task {TaskType.TEXT_GENERATION} is not supported by "
-            "rafiki_tpu_torch yet (generation is not ported; ROADMAP.md)")

@@ -9,14 +9,21 @@ Own copy of the core of ``rafiki_tpu/admin/services.py``:
   trials, ``INFERENCE_WORKER_REPLICAS_PER_TRIAL`` serving executors
   (clamped so replicas get a device of their own) and one predictor. A
   worker whose exclusive device is taken shares one (placement/manager.py),
-  so on a one-card host both best trials are served on ``cuda:0``;
+  so on a one-card host both best trials are served on ``cuda:0``. A
+  ``TEXT_GENERATION`` job serves its one best trial with
+  ``GenerationWorker`` s (a token stream answers from one model);
+- with ``RAFIKI_PREDICTOR_PORTS=1`` each inference job gets its own door
+  (``PredictorServer``: ``/predict``, ``/generate``) on
+  ``RAFIKI_PREDICTOR_HOST``, its host and port on the predictor's service
+  row;
 - a deploy waits until its services report RUNNING and rolls back on
   failure; a train job's status is derived from its workers' services.
 
 Not ported (ROADMAP.md; ``Admin`` refuses the budget keys that ask for
-them): multi-card trials and workers, fused ensembles, standby replicas,
-rollout, drain, scaling, chip loans and reclaim, the per-job predictor
-port, generation, and recovery's adoption of running services.
+them): multi-card trials and workers, fused ensembles, speculative
+decoding's draft, generation in worker processes (refused typed), standby
+replicas, rollout, drain, scaling, chip loans and reclaim, and recovery's
+adoption of running services.
 """
 
 from __future__ import annotations
@@ -34,11 +41,15 @@ from rafiki_tpu_torch.constants import (
     InferenceJobStatus,
     ServiceStatus,
     ServiceType,
+    TaskType,
     TrainJobStatus,
 )
 from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.placement.manager import PlacementManager
+from rafiki_tpu_torch.placement.process import ProcessPlacementManager
 from rafiki_tpu_torch.predictor.predictor import Predictor
+from rafiki_tpu_torch.predictor.server import PredictorServer
+from rafiki_tpu_torch.worker.generation import GenerationWorker
 from rafiki_tpu_torch.worker.inference import InferenceWorker
 from rafiki_tpu_torch.worker.train import EventFn, TrainWorker
 
@@ -61,6 +72,8 @@ class ServicesManager:
         self._params_dir = params_dir or config.PARAMS_DIR
         self._lock = threading.Lock()
         self._predictors: Dict[str, Predictor] = {}  # guarded-by: _lock
+        # the per-job doors (RAFIKI_PREDICTOR_PORTS=1)
+        self._servers: Dict[str, PredictorServer] = {}  # guarded-by: _lock
 
     # -- train -------------------------------------------------------------
 
@@ -162,6 +175,9 @@ class ServicesManager:
         inf = self._db.get_inference_job(inference_job_id)
         with self._lock:
             self._predictors.pop(inference_job_id, None)
+            server = self._servers.pop(inference_job_id, None)
+        if server is not None:
+            server.stop()
         if inf and inf.get("predictor_service_id"):
             self._db.mark_service_as_stopped(inf["predictor_service_id"])
         if errored:
@@ -181,6 +197,17 @@ class ServicesManager:
             self._db.mark_inference_job_as_errored(inference_job_id)
             raise ServiceDeploymentError(
                 f"Train job {train_job['id']} has no completed trials")
+        generative = train_job["task"] == TaskType.TEXT_GENERATION
+        if generative:
+            if isinstance(self._placement, ProcessPlacementManager):
+                self._db.mark_inference_job_as_errored(inference_job_id)
+                raise ServiceDeploymentError(
+                    "TEXT_GENERATION serving in worker processes is not "
+                    "ported to rafiki_tpu_torch (ROADMAP.md): token streams "
+                    "do not cross the shm rings; deploy under thread "
+                    "placement")
+            # a token stream answers from one model: one best trial
+            best_trials = best_trials[:1]
         # replicas buy capacity only on devices of their own: same-device
         # replicas in one process just split batches
         n_replicas = max(1, min(
@@ -191,8 +218,9 @@ class ServicesManager:
         try:
             for trial in best_trials:
                 for _ in range(n_replicas):
-                    sid = self._create_inference_worker(inference_job_id,
-                                                        trial["id"])
+                    sid = self._create_inference_worker(
+                        inference_job_id, trial["id"],
+                        GenerationWorker if generative else InferenceWorker)
                     created.append(sid)
                     worker_trials[sid] = trial["id"]
             predictor_service = self._db.create_service(ServiceType.PREDICT)
@@ -203,6 +231,13 @@ class ServicesManager:
                                   worker_trials=worker_trials)
             with self._lock:
                 self._predictors[inference_job_id] = predictor
+            if config.PREDICTOR_PORTS:
+                server = PredictorServer(predictor, train_job["app"],
+                                         host=config.PREDICTOR_HOST).start()
+                with self._lock:
+                    self._servers[inference_job_id] = server
+                self._db.update_service_host_port(
+                    predictor_service["id"], server.host, server.port)
             self._wait_until_services_running(created)
             self._db.mark_service_as_running(predictor_service["id"])
             self._db.mark_inference_job_as_running(inference_job_id)
@@ -210,18 +245,22 @@ class ServicesManager:
         except Exception:
             with self._lock:
                 self._predictors.pop(inference_job_id, None)
+                server = self._servers.pop(inference_job_id, None)
+            if server is not None:
+                server.stop()
             for sid in created:
                 self._destroy_service(sid, wait=False)
             self._db.mark_inference_job_as_errored(inference_job_id)
             raise
 
     def _create_inference_worker(self, inference_job_id: str,
-                                 trial_id: str) -> str:
+                                 trial_id: str, worker_cls=InferenceWorker
+                                 ) -> str:
         service = self._db.create_service(ServiceType.INFERENCE)
         self._db.create_inference_job_worker(service["id"], inference_job_id,
                                              trial_id)
-        worker = InferenceWorker(inference_job_id, trial_id, self._db,
-                                 self._broker)
+        worker = worker_cls(inference_job_id, trial_id, self._db,
+                            self._broker)
         try:
             # a serving executor prefers a device of its own, and shares
             # one when training or its siblings hold them all

@@ -1,12 +1,17 @@
 """Continuous-batching query transport.
 
-Counterpart of ``rafiki_tpu/cache/queue.py`` without the generation
-streams: the predictor submits a request's queries atomically
-(``submit_many``) and gets futures back; each inference worker blocks on
-its bounded queue, wakes the moment work arrives, drains what has queued
-(``take_batch``) and resolves the futures itself. ``Broker`` is the transport
-seam: ``InProcessBroker`` serves workers that are threads of this
-process, ``ShmBroker`` (``cache/shm_broker.py``) worker processes.
+Counterpart of ``rafiki_tpu/cache/queue.py``: the predictor submits a
+request's queries atomically (``submit_many``) and gets futures back;
+each inference worker blocks on its bounded queue, wakes the moment work
+arrives, drains what has queued (``take_batch``) and resolves the futures
+itself. ``Broker`` is the transport seam: ``InProcessBroker`` serves
+workers that are threads of this process, ``ShmBroker``
+(``cache/shm_broker.py``) worker processes.
+
+A generation request's future resolves to a :class:`TokenStream`, the
+channel the generation worker pushes :class:`TokenDelta` s into and the
+streaming door pulls from. The hand-back of a stream to the door for a
+resume on a sibling (``MIGRATING``) is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -62,6 +67,113 @@ class QueryFuture:
         if self._error is not None:
             raise self._error
         return self._value
+
+
+class GenerationError(RuntimeError):
+    """A generation stream ended with a typed terminal fault (a worker
+    error mid-stream, a stalled decode, a malformed request). The
+    streaming door ends the response with a terminal error frame, and
+    :meth:`TokenStream.next_delta` raises it."""
+
+
+class TokenDelta:
+    """One increment of a generation stream: the token ids emitted since
+    the previous delta, and on the last one ``finished`` with its
+    ``reason`` (``eos`` | ``max_tokens`` | ``context`` | ``deadline`` |
+    ``error`` | ``cancelled``) and, for ``error``, the fault's text."""
+
+    __slots__ = ("tokens", "finished", "reason", "error")
+
+    def __init__(self, tokens: List[int], finished: bool = False,
+                 reason: Optional[str] = None,
+                 error: Optional[str] = None) -> None:
+        self.tokens = list(tokens)
+        self.finished = bool(finished)
+        self.reason = reason
+        self.error = error
+
+    def to_json(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"tokens": self.tokens,
+                               "finished": self.finished}
+        if self.reason is not None:
+            out["reason"] = self.reason
+        if self.error is not None:
+            out["error"] = self.error
+        return out
+
+
+class TokenStream:
+    """The channel of one sequence between the generation worker's slot
+    scheduler and the streaming door. The worker pushes deltas and exactly
+    one terminal delta (``finished`` or a typed failure); the door pulls
+    with :meth:`next_delta`. ``cancel`` is the door's back-signal (client
+    gone, stalled stream): the scheduler evicts the slot at its next
+    step."""
+
+    __slots__ = ("seq_id", "_cond", "_deltas", "_finished", "_cancelled")
+
+    def __init__(self, seq_id: str) -> None:
+        self.seq_id = seq_id
+        self._cond = threading.Condition()
+        self._deltas: List[TokenDelta] = []  # guarded-by: _cond
+        self._finished = False  # guarded-by: _cond
+        self._cancelled = False  # guarded-by: _cond
+
+    def push(self, tokens: List[int], finished: bool = False,
+             reason: Optional[str] = None) -> None:
+        """Worker side: one increment (terminal when ``finished``). Pushes
+        after the terminal delta are dropped."""
+        with self._cond:
+            if self._finished:
+                return
+            self._deltas.append(TokenDelta(tokens, finished, reason))
+            self._finished = finished
+            self._cond.notify_all()
+
+    def fail(self, message: str) -> None:
+        """Worker side: the terminal typed fault (reason ``error``)."""
+        with self._cond:
+            if self._finished:
+                return
+            self._deltas.append(
+                TokenDelta([], finished=True, reason="error", error=message))
+            self._finished = True
+            self._cond.notify_all()
+
+    def cancel(self) -> None:
+        """Consumer side: stop decoding this sequence."""
+        with self._cond:
+            self._cancelled = True
+            self._cond.notify_all()
+
+    @property
+    def cancelled(self) -> bool:
+        with self._cond:
+            return self._cancelled
+
+    @property
+    def finished(self) -> bool:
+        """True once the terminal delta has been pushed and consumed."""
+        with self._cond:
+            return self._finished and not self._deltas
+
+    def next_delta(self, timeout: Optional[float] = None) -> TokenDelta:
+        """Block for the next increment. Raises ``TimeoutError`` when none
+        lands inside ``timeout`` (the door's stall detector),
+        :class:`GenerationError` for the terminal error delta, and
+        ``StopIteration`` once the terminal delta has been consumed."""
+        with self._cond:
+            if not self._deltas and self._finished:
+                raise StopIteration
+            if not self._deltas and not self._cond.wait_for(
+                    lambda: bool(self._deltas), timeout):
+                raise TimeoutError(
+                    f"no token for sequence {self.seq_id} within "
+                    f"{(timeout or 0.0):.1f}s")
+            delta = self._deltas.pop(0)
+            if delta.error is not None:
+                raise GenerationError(delta.error)
+            return delta
 
 
 class WorkerQueue:

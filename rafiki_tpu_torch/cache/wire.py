@@ -30,8 +30,15 @@ ndarrays (strings, dicts, object arrays) stay in the JSON header through
 sniffs the magic and falls back to ``json.loads``. Every malformed input
 raises :class:`WireFormatError`.
 
-Not ported: the token-delta frames of streamed generation (version 3,
-ROADMAP.md A.4), trace metadata on the encoding side (the tracer is not
+The token-delta frames of streamed generation are version 3: a frame
+whose header carries a ``"g"`` key (``{"sid": sequence id, "fin":
+finished, "reason": ..., "err": ...}``) and whose one array is the
+delta's int32 token ids (:func:`encode_token_delta`,
+:func:`decode_token_delta`). The streaming door sends them to a client
+that asks for ``CONTENT_TYPE``; no ring carries them, so :func:`decode`
+(request and response frames) refuses version 3 typed.
+
+Not ported: trace metadata on the encoding side (the tracer is not
 ported; a version-2 frame's ``"t"`` is still decoded), the sender's
 JSON framing switch ``RAFIKI_WIRE_BINARY`` (the port sends frames only;
 its receivers still take JSON), and the result cache's
@@ -51,6 +58,10 @@ MAGIC = b"\xabRWF"
 #: versions this receiver decodes: 1, and 2 (a "t" trace key in the
 #: header, which is read and set aside)
 SUPPORTED_VERSIONS = frozenset({1, 2})
+#: the version byte of a token-delta frame
+TOKEN_DELTA_VERSION = 3
+#: the media type a client names in ``Accept`` to get token-delta frames
+CONTENT_TYPE = "application/x-rafiki-wire"
 _ALIGN = 16
 
 # placeholder and escape sentinels: NUL cannot appear in sane user keys,
@@ -149,11 +160,16 @@ def decode(raw: bytes) -> Any:
     """Decode one frame. Array leaves come back as read-only zero-copy
     views into ``raw`` (they keep the frame alive); callers that mutate
     must copy."""
+    return _decode(raw, SUPPORTED_VERSIONS)[0]
+
+
+def _decode(raw: bytes, versions: frozenset) -> tuple:
+    """(body, header) of one frame of one of ``versions``."""
     if not is_frame(raw):
         raise WireFormatError("not a wire frame (bad magic)")
     if len(raw) < 10:
         raise WireFormatError("truncated frame header")
-    if raw[4] not in SUPPORTED_VERSIONS:
+    if raw[4] not in versions:
         raise WireFormatError(f"unsupported wire version {raw[4]}")
     hlen = int.from_bytes(raw[6:10], "little")
     if 10 + hlen > len(raw):
@@ -191,7 +207,7 @@ def decode(raw: bytes) -> Any:
                 payload[off:off + nbytes], dtype=dt).reshape(shape))
         except ValueError as e:  # numpy's own refusals
             raise WireFormatError(f"bad array extent: {e}") from e
-    return _restore_arrays(body, views)
+    return _restore_arrays(body, views), header
 
 
 def decode_any(raw: bytes) -> Any:
@@ -203,6 +219,54 @@ def decode_any(raw: bytes) -> Any:
         return json.loads(raw)
     except (ValueError, UnicodeDecodeError) as e:
         raise WireFormatError(f"neither wire frame nor JSON: {e}") from e
+
+
+def encode_token_delta(seq_id: str, tokens, finished: bool = False,
+                       reason: Any = None, error: Any = None) -> bytes:
+    """One version-3 token-delta frame: the sequence id, this increment's
+    token ids (int32), the finished flag and, on the terminal delta, the
+    reason and the typed error's text."""
+    arr = np.ascontiguousarray(np.asarray(list(tokens), dtype=np.int32))
+    g: dict = {"sid": str(seq_id), "fin": bool(finished)}
+    if reason is not None:
+        g["reason"] = str(reason)
+    if error is not None:
+        g["err"] = str(error)
+    table = [[arr.dtype.str, list(arr.shape), 0, arr.nbytes]]
+    header = json.dumps({"b": {_ND_KEY: 0}, "a": table, "g": g}).encode()
+    return b"".join([
+        MAGIC, bytes([TOKEN_DELTA_VERSION, 0]),
+        len(header).to_bytes(4, "little"), header,
+        b"\x00" * _pad16(len(MAGIC) + 2 + 4 + len(header)),
+        arr.tobytes()])
+
+
+def is_token_delta(raw: bytes) -> bool:
+    """A frame whose version byte marks a token delta (validated in
+    :func:`decode_token_delta`)."""
+    return is_frame(raw) and len(raw) >= 5 and raw[4] == TOKEN_DELTA_VERSION
+
+
+def decode_token_delta(raw: bytes):
+    """``(seq_id, TokenDelta)`` of one token-delta frame; every malformed
+    shape raises :class:`WireFormatError`."""
+    from rafiki_tpu_torch.cache.queue import TokenDelta
+
+    body, header = _decode(raw, frozenset({TOKEN_DELTA_VERSION}))
+    g = header.get("g") if isinstance(header, dict) else None
+    if not isinstance(g, dict):
+        raise WireFormatError("frame carries no token-delta metadata")
+    sid, fin = g.get("sid"), g.get("fin")
+    if not isinstance(sid, str) or not isinstance(fin, bool):
+        raise WireFormatError("garbled token-delta metadata (sid/fin)")
+    reason, err = g.get("reason"), g.get("err")
+    if ((reason is not None and not isinstance(reason, str))
+            or (err is not None and not isinstance(err, str))):
+        raise WireFormatError("garbled token-delta metadata (reason/err)")
+    if not isinstance(body, np.ndarray) or body.dtype.kind not in "iu":
+        raise WireFormatError("token-delta payload is not an integer array")
+    return sid, TokenDelta([int(t) for t in body.ravel()],
+                           finished=fin, reason=reason, error=err)
 
 
 def stackable(queries: List[Any]) -> bool:

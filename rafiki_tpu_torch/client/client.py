@@ -4,18 +4,20 @@ Own copy of ``rafiki_tpu/client/client.py`` for the routes this package
 serves, with the same method names, arguments and return values: login,
 users, models (upload from a file path or bytes, download, dry-run
 verification), train jobs, trials (logs, params, ``load_trial_model``),
-inference jobs and ``predict``, and the advisor sessions a process-placed
-train worker uses (``advisor/remote.py``). It speaks HTTP with the
-standard library's ``urllib.request``; a non-200 answer raises
-:class:`RafikiError` with the status, and an admin that cannot be reached
-raises :class:`AdminUnavailableError`. Multi-address failover,
-generation, rollout, drift and the advisor's infeasible, replay and rung
-calls are not ported (ROADMAP.md).
+inference jobs and ``predict``, ``generate`` (token streaming through the
+job's own door), and the advisor sessions a process-placed train worker
+uses (``advisor/remote.py``). It speaks HTTP with the standard library's
+``urllib.request``, and ``http.client`` for the chunked streams; a
+non-200 answer raises :class:`RafikiError` with the status, and an admin
+that cannot be reached raises :class:`AdminUnavailableError`.
+Multi-address failover, ``predict_direct``, rollout, drift and the
+advisor's infeasible, replay and rung calls are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import base64
+import http.client
 import json
 import time
 import urllib.error
@@ -23,6 +25,8 @@ import urllib.parse
 import urllib.request
 from typing import Any, Dict, List, Optional, Tuple, Union
 
+from rafiki_tpu_torch import config
+from rafiki_tpu_torch.cache import wire
 from rafiki_tpu_torch.sdk.model import load_model_class
 from rafiki_tpu_torch.sdk.params import load_params
 
@@ -40,6 +44,13 @@ class AdminUnavailableError(RafikiError):
     """The admin could not be reached (connection refused or reset)."""
 
 
+class GenerationStreamError(RafikiError):
+    """A generation stream ended with a typed terminal error delta (a
+    worker's fault mid-stream, a decode stalled past the door's timeout).
+    The tokens yielded before it stand: the stream failed, not the
+    transport."""
+
+
 class Client:
     def __init__(self, admin_host: str = "127.0.0.1", admin_port: int = 3000,
                  timeout_s: Optional[float] = None):
@@ -49,6 +60,8 @@ class Client:
         self._timeout_s = timeout_s
         self._token: Optional[str] = None
         self.user: Optional[Dict[str, Any]] = None
+        # (app, version) -> (host, port, expiry) of the job's own door
+        self._predictor_ports: Dict[Any, Any] = {}
 
     # -- plumbing ----------------------------------------------------------
 
@@ -249,6 +262,134 @@ class Client:
         data = self._call("POST", f"/predict/{app}",
                           {"queries": queries, "app_version": app_version})
         return data["predictions"]
+
+    def _dedicated_door(self, app: str, app_version: int):
+        """``(host, port, expiry)`` of the app's own door, cached for
+        ``PREDICT_ROUTE_TTL_S``; a failed request drops the entry."""
+        key = (app, app_version)
+        cached = self._predictor_ports.get(key)
+        now = time.monotonic()
+        if cached is None or cached[2] < now:
+            inf = self.get_inference_job(app, app_version)
+            host, port = inf.get("predictor_host"), inf.get("predictor_port")
+            if not host or not port:
+                raise RafikiError(
+                    f"inference job for {app} has no dedicated predictor "
+                    "port (deployment runs without RAFIKI_PREDICTOR_PORTS)")
+            cached = (host, port, now + config.PREDICT_ROUTE_TTL_S)
+            self._predictor_ports[key] = cached
+        return cached
+
+    def generate(self, app: str, prompt_ids: List[int],
+                 max_tokens: Optional[int] = None, app_version: int = -1,
+                 timeout_s: Optional[float] = None, binary: bool = False,
+                 temperature: Optional[float] = None,
+                 top_k: Optional[int] = None, top_p: Optional[float] = None,
+                 seed: Optional[int] = None):
+        """Stream a ``TEXT_GENERATION`` completion through the app's own
+        door (``POST /generate``): a generator of one delta dict an
+        increment, ``{"tokens": [...], "finished": bool, "reason": ...}``,
+        each as it arrives. ``binary`` asks for version-3 wire frames
+        instead of JSON lines. A typed terminal error delta raises
+        :class:`GenerationStreamError` after the tokens before it were
+        yielded. ``temperature``/``top_k``/``top_p`` sample (unset or 0:
+        greedy); a fixed ``seed`` makes a sampled stream reproducible,
+        through preemption too."""
+        key = (app, app_version)
+        host, port, _ = self._dedicated_door(app, app_version)
+        headers = {"Content-Type": "application/json"}
+        if self._token:
+            headers["Authorization"] = f"Bearer {self._token}"
+        if binary:
+            headers["Accept"] = wire.CONTENT_TYPE
+        body: Dict[str, Any] = {"prompt_ids": list(prompt_ids)}
+        for name, value, cast in (
+                ("max_tokens", max_tokens, int),
+                ("timeout_s", timeout_s, float),
+                ("temperature", temperature, float), ("top_k", top_k, int),
+                ("top_p", top_p, float), ("seed", seed, int)):
+            if value is not None:
+                body[name] = cast(value)
+        conn = http.client.HTTPConnection(host, port, timeout=self._timeout_s)
+        try:
+            try:
+                conn.request("POST", "/generate",
+                             body=json.dumps(body).encode(), headers=headers)
+                resp = conn.getresponse()
+            except (OSError, http.client.HTTPException) as e:
+                self._predictor_ports.pop(key, None)
+                raise RafikiError(f"dedicated predictor unreachable: {e}")
+            if resp.status != 200:
+                self._predictor_ports.pop(key, None)
+                raw = resp.read()
+                try:
+                    error = json.loads(raw).get("error")
+                except (ValueError, AttributeError):
+                    error = None
+                raise RafikiError(error or f"HTTP {resp.status}",
+                                  status=resp.status)
+            ctype = (resp.getheader("Content-Type") or "").split(";")[0]
+            deltas = (self._iter_wire_deltas(resp)
+                      if ctype == wire.CONTENT_TYPE
+                      else self._iter_json_deltas(resp))
+            try:
+                yield from deltas
+            except (OSError, http.client.HTTPException) as e:
+                # the transport cut the stream before a terminal delta
+                self._predictor_ports.pop(key, None)
+                raise RafikiError(f"generation stream cut mid-transfer: {e}")
+        finally:
+            conn.close()
+
+    @staticmethod
+    def _chunks(resp):
+        """The decoded body as it arrives (``http.client`` undoes the
+        chunked transfer coding)."""
+        while True:
+            data = resp.read1(65536)
+            if not data:
+                return
+            yield data
+
+    @classmethod
+    def _iter_json_deltas(cls, resp):
+        buf = b""
+        for data in cls._chunks(resp):
+            buf += data
+            while b"\n" in buf:
+                line, buf = buf.split(b"\n", 1)
+                if not line.strip():
+                    continue
+                try:
+                    delta = json.loads(line)
+                except ValueError as e:
+                    raise RafikiError(f"garbled stream delta: {e}")
+                if delta.get("error"):
+                    raise GenerationStreamError(delta["error"])
+                yield delta
+                if delta.get("finished"):
+                    return
+
+    @classmethod
+    def _iter_wire_deltas(cls, resp):
+        """Length-prefixed (u32 little-endian) token-delta frames."""
+        buf = b""
+        for data in cls._chunks(resp):
+            buf += data
+            while len(buf) >= 4:
+                n = int.from_bytes(buf[:4], "little")
+                if len(buf) < 4 + n:
+                    break
+                frame, buf = buf[4:4 + n], buf[4 + n:]
+                try:
+                    _, delta = wire.decode_token_delta(frame)
+                except wire.WireFormatError as e:
+                    raise RafikiError(f"garbled token-delta frame: {e}")
+                if delta.error is not None:
+                    raise GenerationStreamError(delta.error)
+                yield delta.to_json()
+                if delta.finished:
+                    return
 
     # -- advisor sessions ----------------------------------------------------
 

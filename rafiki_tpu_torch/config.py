@@ -2,11 +2,13 @@
 as ``rafiki_tpu/config.py``.
 
 Paths, the settings a live deployment may retune
-(``PREDICT_QUEUE_DEPTH``) and the wall-clock budgets
-(``PREDICT_TIMEOUT_S``, ``SERVICE_DEPLOY_TIMEOUT_S``) are read at each
-use (module ``__getattr__``), so a test or an operator can repoint
-``RAFIKI_WORKDIR`` or give a loaded host longer budgets without
-re-importing (the JAX package reads the two budgets once, at import).
+(``PREDICT_QUEUE_DEPTH``, the per-job doors ``PREDICTOR_PORTS`` and
+``PREDICTOR_HOST``, the generation worker's ``GEN_*``) and the
+wall-clock budgets (``PREDICT_TIMEOUT_S``, ``SERVICE_DEPLOY_TIMEOUT_S``)
+are read at each use (module ``__getattr__``), so a test or an operator
+can repoint ``RAFIKI_WORKDIR`` or give a loaded host longer budgets
+without re-importing (the JAX package reads the two budgets once, at
+import).
 One default differs: the metadata store is
 ``WORKDIR/rafiki_torch.sqlite3``, so the two packages never open one
 file with different schemas.
@@ -83,6 +85,38 @@ _DYNAMIC = {
     # how long a deploy waits for its services to report RUNNING
     "SERVICE_DEPLOY_TIMEOUT_S": lambda: _env_float(
         "SERVICE_DEPLOY_TIMEOUT_S", 60.0),
+    # a dedicated HTTP door per inference job (POST /predict, /generate)
+    "PREDICTOR_PORTS": lambda: (
+        os.environ.get("RAFIKI_PREDICTOR_PORTS", "0") == "1"),
+    "PREDICTOR_HOST": lambda: (
+        os.environ.get("RAFIKI_PREDICTOR_HOST", "127.0.0.1")),
+    # -- generative serving (worker/generation.py); a worker reads them
+    # when it starts, a request when it is parsed:
+    # co-resident sequences per generation worker (the width of the cache)
+    "GEN_MAX_SLOTS": lambda: _env_int("RAFIKI_GEN_MAX_SLOTS", 8),
+    # per-request decode budget cap (a larger ask is clamped)
+    "GEN_MAX_TOKENS": lambda: _env_int("RAFIKI_GEN_MAX_TOKENS", 64),
+    # the door's inter-token stall timeout: a stream with no delta for
+    # this long ends with a typed terminal error frame
+    "GEN_STREAM_TIMEOUT_S": lambda: _env_float(
+        "RAFIKI_GEN_STREAM_TIMEOUT_S", 10.0),
+    # 0: the contiguous ring a slot; 1: the paged allocator for templates
+    # that implement the paged methods
+    "GEN_KV_PAGED": lambda: os.environ.get(
+        "RAFIKI_GEN_KV_PAGED", "1") != "0",
+    # K/V rows a pool page
+    "GEN_KV_BLOCK_TOKENS": lambda: _env_int(
+        "RAFIKI_GEN_KV_BLOCK_TOKENS", 16),
+    # pages in the pool; 0: the ring's capacity (slots x pages a context)
+    "GEN_KV_POOL_BLOCKS": lambda: _env_int("RAFIKI_GEN_KV_POOL_BLOCKS", 0),
+    # 0: never share prompt-prefix pages across streams
+    "GEN_PREFIX_CACHE": lambda: os.environ.get(
+        "RAFIKI_GEN_PREFIX_CACHE", "1") != "0",
+    # prompt tokens ingested a scheduler round (0: one-shot prefill)
+    "GEN_PREFILL_CHUNK": lambda: _env_int("RAFIKI_GEN_PREFILL_CHUNK", 64),
+    # 0: greedy only; a sampled request gets a typed 400
+    "GEN_SAMPLING": lambda: os.environ.get(
+        "RAFIKI_GEN_SAMPLING", "1") != "0",
 }
 
 
@@ -104,19 +138,34 @@ class NotPortedError(RuntimeError):
         self.setting = setting
 
 
-#: (environment name, the values that select a missing subsystem, its name)
+def _is_one(value: str) -> bool:
+    return value == "1"
+
+
+def _positive(value: str) -> bool:
+    try:
+        return float(value) > 0
+    except ValueError:
+        return False
+
+
+#: (environment name, whether a value selects a missing subsystem, its
+#: name)
 _UNPORTED = (
-    ("RAFIKI_ADMIN_HA", ("1",), "control-plane HA (lease, standby)"),
-    ("RAFIKI_PLACEMENT", ("hosts",), "host placement (agents)"),
-    ("RAFIKI_SANDBOX", ("1",), "the trial sandbox"),
-    ("RAFIKI_INSTALL_DEPS", ("1",), "dependency provisioning"),
+    ("RAFIKI_ADMIN_HA", _is_one, "control-plane HA (lease, standby)"),
+    ("RAFIKI_PLACEMENT", lambda v: v == "hosts", "host placement (agents)"),
+    ("RAFIKI_SANDBOX", _is_one, "the trial sandbox"),
+    ("RAFIKI_INSTALL_DEPS", _is_one, "dependency provisioning"),
+    ("RAFIKI_GEN_SPEC", _is_one, "speculative decoding"),
+    ("RAFIKI_GEN_RESUME_MAX", _positive,
+     "stream resume (the door's journal)"),
 )
 
 
 def refuse_unported() -> None:
     """Raise :class:`NotPortedError` for the first setting in the
     environment that selects a subsystem the port lacks."""
-    for name, values, subsystem in _UNPORTED:
+    for name, selects, subsystem in _UNPORTED:
         value = os.environ.get(name, "").strip()
-        if value in values:
+        if value and selects(value):
             raise NotPortedError(subsystem, f"{name}={value}")

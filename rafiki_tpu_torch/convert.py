@@ -1,11 +1,13 @@
 """Carry parameters between the JAX package's tree layout and the port's
 modules.
 
-The ViT (:func:`from_jax_params`, :func:`to_jax_params`): the JAX tree
-keeps the transformer blocks stacked on a leading ``depth`` axis
-(``blocks/attn/wq`` is (depth, dim, heads, dh)); the port splits it, one
-``Block`` per layer (``blocks.<i>.attn.wq``). Every other leaf keeps its
-JAX shape and layout.
+The transformer families, ViT, BERT and the LM (:func:`from_jax_params`,
+:func:`to_jax_params`): the JAX tree keeps the transformer blocks stacked
+on a leading ``depth`` axis (``blocks/attn/wq`` is (depth, dim, heads,
+dh)); the port splits it, one ``Block`` per layer
+(``blocks.<i>.attn.wq``). Every other leaf keeps its JAX shape and
+layout: ``embed/table`` (vocab, dim), ``pos`` (1, max_len, dim). The
+LM's head is tied to ``embed/table`` and has no leaf of its own.
 
 The image-classification zoo (:func:`from_jax_tree`, :func:`to_jax_tree`):
 a tree path is the module path (``convs/3/kernel`` is ``convs.3.kernel``,
@@ -25,8 +27,13 @@ import numpy as np
 import torch
 
 from rafiki_tpu_torch.device import default_device
+from rafiki_tpu_torch.models.bert import Bert, BertConfig
 from rafiki_tpu_torch.models.core import Conv2d, hwio_to_oihw, oihw_to_hwio
+from rafiki_tpu_torch.models.lm import LM, LMConfig
 from rafiki_tpu_torch.models.vit import ViT, ViTConfig
+
+#: the module each transformer family's config builds
+FAMILIES = {ViTConfig: ViT, BertConfig: Bert, LMConfig: LM}
 from rafiki_tpu_torch.sdk.params import SEP, flatten, unflatten
 
 
@@ -46,20 +53,22 @@ def jax_tree_to_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return state
 
 
-def from_jax_params(tree: Dict[str, Any], cfg: ViTConfig, device=None,
-                    train: bool = False) -> ViT:
-    """A :class:`ViT` on ``device`` (the default device when None) holding
-    the JAX-layout parameter ``tree``, in training mode when ``train``
-    (else in eval mode). Names and shapes are checked strictly."""
+def from_jax_params(tree: Dict[str, Any], cfg, device=None,
+                    train: bool = False) -> torch.nn.Module:
+    """The module of ``cfg``'s family (a :class:`ViTConfig`,
+    :class:`BertConfig` or :class:`LMConfig`) on ``device`` (the default
+    device when None) holding the JAX-layout parameter ``tree``, in
+    training mode when ``train`` (else in eval mode). Names and shapes are
+    checked strictly."""
     dev = default_device(device)
     with torch.device("meta"):
-        model = ViT(cfg)
+        model = FAMILIES[type(cfg)](cfg)
     model.load_state_dict(jax_tree_to_state_dict(tree), strict=True,
                           assign=True)
     return model.to(dev).train(train)
 
 
-def to_jax_params(model: ViT) -> Dict[str, Any]:
+def to_jax_params(model: torch.nn.Module) -> Dict[str, Any]:
     """The inverse of :func:`from_jax_params`: a numpy tree in the JAX
     layout, blocks stacked again."""
     flat: Dict[str, Any] = {}

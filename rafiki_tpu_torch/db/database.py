@@ -622,6 +622,11 @@ class Database:
         self._exec("UPDATE service SET chips=? WHERE id=?",
                    (json.dumps(list(chips)), service_id))
 
+    def update_service_host_port(self, service_id: str, host: str,
+                                 port: int) -> None:
+        self._exec("UPDATE service SET host=?, port=? WHERE id=?",
+                   (host, port, service_id))
+
     def mark_service_as_deploying(self, service_id: str) -> None:
         """Guarded STARTED -> DEPLOYING: a fast worker may already have
         reported RUNNING, and that later status wins."""

@@ -59,6 +59,11 @@ def normal_init(rng: np.random.Generator, shape: Sequence[int],
     return (rng.standard_normal(tuple(shape)) * std).astype(np.float32)
 
 
+def embedding_init(rng: np.random.Generator, vocab: int, dim: int,
+                   std: float = 0.02) -> Tree:
+    return {"table": normal_init(rng, (vocab, dim), std)}
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
@@ -206,6 +211,19 @@ class Conv2d(torch.nn.Module):
     def forward(self, x: torch.Tensor, stride: int = 1,
                 padding: str = "SAME") -> torch.Tensor:
         return conv2d(own_params(self), x, stride, padding)
+
+
+class Embedding(torch.nn.Module):
+    """A token embedding's parameters: table (vocab, dim)."""
+
+    def __init__(self, vocab: int, dim: int, device=None):
+        super().__init__()
+        self.table = torch.nn.Parameter(
+            torch.empty(vocab, dim, dtype=torch.float32, device=device))
+
+    def forward(self, ids: torch.Tensor,
+                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        return embedding(own_params(self), ids, dtype)
 
 
 class LayerNorm(torch.nn.Module):

@@ -67,6 +67,14 @@ def block_init(rng: np.random.Generator, cfg: TransformerConfig) -> dict:
     }
 
 
+def stack_trees(trees: list) -> dict:
+    """Per-layer parameter trees stacked on a leading depth axis, the JAX
+    package's layout (``core.stack_layers`` there)."""
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
 class Block(torch.nn.Module):
     """One pre-LN block: x + attn(ln1(x)), then x + mlp(ln2(x))."""
 

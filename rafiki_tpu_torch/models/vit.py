@@ -18,6 +18,7 @@ from rafiki_tpu_torch.models.transformer import (
     Stack,
     TransformerConfig,
     block_init,
+    stack_trees,
 )
 
 
@@ -57,16 +58,10 @@ def init(rng: np.random.Generator, cfg: ViTConfig) -> dict:
     return {
         "patch": core.conv2d_init(rng, p, p, cfg.channels, dim),
         "pos": core.normal_init(rng, (1, cfg.seq_len, dim)),
-        "blocks": _stack(blocks),
+        "blocks": stack_trees(blocks),
         "ln_f": core.layernorm_init(dim),
         "head": core.dense_init(rng, dim, cfg.num_classes),
     }
-
-
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
 
 
 class ViT(torch.nn.Module):

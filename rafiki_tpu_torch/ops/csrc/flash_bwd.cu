@@ -41,11 +41,23 @@
 //     the tensors' own strides (so q, k, v and dO are read as the
 //     projection's strided views, and dq, dk, dv written in the layout the
 //     wrapper gives them), swizzled over min(2 Dh, 128) bytes, with full
-//     and empty mbarriers per ring stage. All four products are wgmma
-//     (bf16 in, f32 accumulate); the first two of a tile read both operands
-//     K-major from shared memory, the last two take P or dS from registers
-//     (the f32 accumulators of the first products, packed to bf16, are
-//     already the A operand's layout) and read their B MN-major, as loaded.
+//     and empty mbarriers per ring stage. All products are wgmma (bf16 in,
+//     f32 accumulate); the first two of a tile read both operands K-major
+//     from shared memory, the others take P or dS from registers (the f32
+//     accumulators of the first products, packed to bf16, are already the
+//     A operand's layout) and read their B MN-major, as loaded. dS is
+//     split into two bf16 operands, dS rounded and what the rounding left
+//     (hopper::split_bf16), and dS K (dS^T Q) is the sum of their two
+//     products: dS = P o (dP - delta) is a small difference wherever
+//     attention is near uniform, its row sums are 0, and dQ (dK) is that
+//     difference times the keys' (queries') spread about their common
+//     component: with dS rounded to bf16 BERT-base's per-layer dQ at its
+//     initialization lands up to 1.0% from exact attention of the same
+//     inputs (dK 0.17%), split 0.031% (dK 0.0006%; plain bf16 attention:
+//     1.3%, 3.6%), with delta taken as flash_fwd.cu says
+//     (scripts/torch_attention_rounding.py, CPU). The TPU kernels take
+//     these products in f32. P^T dO takes P rounded, as plain bf16
+//     attention's P V and its gradient do: P >= 0, nothing cancels.
 //     The epilogue stages the gradients in bf16 over the resident tiles and
 //     writes them with TMA stores, rows past S dropped by the map.
 //       K2: one block per (b*h, 64-row q tile). The producer loads Q and dO
@@ -56,8 +68,8 @@
 //     with the dO tile in shared memory, and the row's four lanes add up
 //     (the block owns its rows, so delta is written once, for K3). Then
 //     per kv tile S = Q K^T, dP = dO V^T, P and dS = P o (dP - delta) in
-//     registers, and dQ += dS K (K is the MN-major B). The last kv tile is
-//     narrowed to its keys rounded up to 16, as in K1.
+//     registers, and dQ += dS K (K is the MN-major B; two products). The
+//     last kv tile is narrowed to its keys rounded up to 16, as in K1.
 //       K3: one block per (b*h, 64-key kv tile). The producer loads K and V
 //     once and streams 64-row Q and dO tiles with their lse and delta: the
 //     producer warp's lanes write lse * log2(e) and delta (+inf and 0 past
@@ -66,10 +78,10 @@
 //     The consumers compute the transposed scores directly, S^T = K Q^T and
 //     dP^T = V dO^T, so P^T and dS^T land in the accumulator layout (lse
 //     and delta per column, broadcast from shared memory), then dV += P^T
-//     dO and dK += dS^T Q with dO and Q as the MN-major B. dK and dV stay in
-//     f32 registers for the whole loop (64 a thread at Dh = 64). The last q
-//     tile is narrowed to its rows rounded up to 16 (16 for the 4 rows past
-//     192 at S = 196).
+//     dO and dK += dS^T Q (two products) with dO and Q as the MN-major B.
+//     dK and dV stay in f32 registers for the whole loop (64 a thread at
+//     Dh = 64). The last q tile is narrowed to its rows rounded up to 16
+//     (16 for the 4 rows past 192 at S = 196).
 //   - f32: scalar FMAs on the CUDA cores, as in flash_fwd.cu (the tensor
 //     cores would round to TF32), contiguous inputs. D / 16 adjacent
 //     threads of a warp own one query row (K2) or one key (K3), 16
@@ -79,8 +91,9 @@
 // Bound. At the ViT-B/16 training shape (B*H = 768, S = 196, Dh = 64, bf16)
 // K2 must read q, k, v, dO, lse and the f32 output and write dq and delta
 // (136.6 MB; 41 us at 3.35 TB/s) and K3 read q, k, v, dO, lse and delta
-// and write dk, dv (116.8 MB; 35 us); their 11.3 and 15.1 GFLOP take 11
-// and 15 us at the bf16 tensor-core peak, so both are bound by bytes. Each
+// and write dk, dv (116.8 MB; 35 us); their 15.1 and 18.9 GFLOP (the
+// split dS products counted) take 15 and 19 us at the bf16 tensor-core
+// peak, so both are bound by bytes. Each
 // block re-reads the other axis's tiles of its head (K2: K and V; K3: Q
 // and dO, 4 times at S = 196), which hit L2; the producer keeps the next
 // tile's loads in flight while the consumers compute, and no thread spends
@@ -192,13 +205,15 @@ __device__ __forceinline__ void two_products(float (&s)[N / 2],
 }
 
 // K2's P and dS for this thread's rows r0 and r0 + 8 (lse2: the rows' lse
-// in log2 units) over a kv tile of N keys from kv0, dS packed to bf16
-// straight into the A operand of dS K (k step kk is S's n blocks 2 kk and
-// 2 kk + 1). Where kMasked, keys past Skv or above the causal band get P = 0.
+// in log2 units) over a kv tile of N keys from kv0, dS split into bf16
+// (hopper::split_bf16) straight into the A operands of dS K (k step kk is
+// S's n blocks 2 kk and 2 kk + 1): `dsa` rounded, `dsl` its remainder.
+// Where kMasked, keys past Skv or above the causal band get P = 0.
 template <bool kMasked, int N>
 __device__ __forceinline__ void dq_scores(const float (&s)[N / 2],
                                           const float (&dp)[N / 2],
                                           uint32_t (&dsa)[N / 16][4],
+                                          uint32_t (&dsl)[N / 16][4],
                                           const float (&lse2)[2],
                                           const float (&dlt)[2], int kv0,
                                           int r0, int t4, int sq, int skv,
@@ -217,13 +232,15 @@ __device__ __forceinline__ void dq_scores(const float (&s)[N / 2],
       }
       ds[e] = p * (dp[i + e] - dlt[r]);
     }
-    dsa[i >> 3][((i >> 2) & 1) * 2 + r] = hopper::pack_bf16(ds[0], ds[1]);
+    const int at = ((i >> 2) & 1) * 2 + r;
+    hopper::split_bf16(ds[0], ds[1], dsa[i >> 3][at], dsl[i >> 3][at]);
   }
 }
 
 // One kv tile of N keys for K2's consumers: S = Q K^T, dP = dO V^T, dS, and
-// dQ += dS K. A tile inside the ragged edge and, when causal, wholly on or
-// below the band for every row of the q tile needs no mask.
+// dQ += dS K as two products, of dS rounded and of its remainder. A tile
+// inside the ragged edge and, when causal, wholly on or below the band for
+// every row of the q tile needs no mask.
 template <int D, int Sw, int N>
 __device__ __forceinline__ void dq_tile(uint32_t qt, uint32_t dot,
                                         uint32_t kt, uint32_t vt,
@@ -237,17 +254,19 @@ __device__ __forceinline__ void dq_tile(uint32_t qt, uint32_t dot,
   float dp[N / 2];
   two_products<D, Sw, N>(s, dp, qt, kt, dot, vt);
   uint32_t dsa[N / 16][4];
+  uint32_t dsl[N / 16][4];
   if (kv0 + N > skv || (causal && kv0 + N - 1 > q0 + off)) {
-    dq_scores<true, N>(s, dp, dsa, lse2, dlt, kv0, r0, t4, sq, skv, off,
-                       causal, scale_log2);
+    dq_scores<true, N>(s, dp, dsa, dsl, lse2, dlt, kv0, r0, t4, sq, skv,
+                       off, causal, scale_log2);
   } else {
-    dq_scores<false, N>(s, dp, dsa, lse2, dlt, kv0, r0, t4, sq, skv, off,
-                        causal, scale_log2);
+    dq_scores<false, N>(s, dp, dsa, dsl, lse2, dlt, kv0, r0, t4, sq, skv,
+                        off, causal, scale_log2);
   }
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
     hopper::wgmma_rs<D>(dq, dsa[kk], mn_major<Sw>(kt, kk));
+    hopper::wgmma_rs<D>(dq, dsl[kk], mn_major<Sw>(kt, kk));
   }
   hopper::wgmma_commit();
   hopper::wgmma_wait_all();
@@ -255,15 +274,17 @@ __device__ __forceinline__ void dq_tile(uint32_t qt, uint32_t dot,
 
 // K3's P^T and dS^T for this thread's keys j0 and j0 + 8 over a q tile of N
 // rows from q0 (the columns here), each column's lse (log2 units) and
-// delta read from shared memory, both packed to bf16 into the A operands of
-// P^T dO and dS^T Q. Where kMasked, pairs above the causal band get P = 0;
-// rows past Sq need no mask (lse = +inf, delta = 0).
+// delta read from shared memory, packed to bf16 into the A operands of
+// P^T dO (`pa`) and dS^T Q, dS^T split (hopper::split_bf16) into `dsa`
+// rounded and `dsl` its remainder. Where kMasked, pairs above the causal
+// band get P = 0; rows past Sq need no mask (lse = +inf, delta = 0).
 template <bool kMasked, int N>
 __device__ __forceinline__ void dkv_scores(
     const float (&s)[N / 2], const float (&dp)[N / 2],
     uint32_t (&pa)[N / 16][4], uint32_t (&dsa)[N / 16][4],
-    const float* lse2_s, const float* delta_s, int q0, int j0, int t4,
-    int sq, int skv, int off, int causal, float scale_log2) {
+    uint32_t (&dsl)[N / 16][4], const float* lse2_s, const float* delta_s,
+    int q0, int j0, int t4, int sq, int skv, int off, int causal,
+    float scale_log2) {
 #pragma unroll
   for (int i = 0; i < N / 2; i += 2) {
     const int r = (i >> 1) & 1;
@@ -279,13 +300,14 @@ __device__ __forceinline__ void dkv_scores(
     }
     const int at = ((i >> 2) & 1) * 2 + r;
     pa[i >> 3][at] = hopper::pack_bf16(p0, p1);
-    dsa[i >> 3][at] =
-        hopper::pack_bf16(p0 * (dp[i] - d.x), p1 * (dp[i + 1] - d.y));
+    hopper::split_bf16(p0 * (dp[i] - d.x), p1 * (dp[i + 1] - d.y),
+                       dsa[i >> 3][at], dsl[i >> 3][at]);
   }
 }
 
 // One q tile of N rows for K3's consumers: S^T = K Q^T, dP^T = V dO^T, P^T
-// and dS^T, then dV += P^T dO and dK += dS^T Q. A tile wholly on or below
+// and dS^T, then dV += P^T dO and dK += dS^T Q (two products, of dS^T
+// rounded and of its remainder). A tile wholly on or below
 // the band for every key of the block needs no mask.
 template <int D, int Sw, int N>
 __device__ __forceinline__ void dkv_tile(uint32_t kt, uint32_t vt,
@@ -302,18 +324,20 @@ __device__ __forceinline__ void dkv_tile(uint32_t kt, uint32_t vt,
   two_products<D, Sw, N>(s, dp, kt, qt, vt, dot);
   uint32_t pa[N / 16][4];
   uint32_t dsa[N / 16][4];
+  uint32_t dsl[N / 16][4];
   if (causal && k0 + kTile - 1 > q0 + off) {
-    dkv_scores<true, N>(s, dp, pa, dsa, lse2_s, delta_s, q0, j0, t4, sq,
-                        skv, off, causal, scale_log2);
+    dkv_scores<true, N>(s, dp, pa, dsa, dsl, lse2_s, delta_s, q0, j0, t4,
+                        sq, skv, off, causal, scale_log2);
   } else {
-    dkv_scores<false, N>(s, dp, pa, dsa, lse2_s, delta_s, q0, j0, t4, sq,
-                         skv, off, causal, scale_log2);
+    dkv_scores<false, N>(s, dp, pa, dsa, dsl, lse2_s, delta_s, q0, j0, t4,
+                         sq, skv, off, causal, scale_log2);
   }
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
     hopper::wgmma_rs<D>(dv, pa[kk], mn_major<Sw>(dot, kk));
     hopper::wgmma_rs<D>(dk, dsa[kk], mn_major<Sw>(qt, kk));
+    hopper::wgmma_rs<D>(dk, dsl[kk], mn_major<Sw>(qt, kk));
   }
   hopper::wgmma_commit();
   hopper::wgmma_wait_all();

@@ -20,13 +20,20 @@
 //     lane-wide minor tile; here it is stored compact, one float per row, as
 //     (B*H, Sq). The training forward of a bf16 call also writes the f32
 //     output (`o32`, the accumulator before the bf16 rounding), from which
-//     the backward's delta = rowsum(dO o O) is taken: delta from the
-//     rounded output carries a per-row error that the backward adds up
-//     coherently over every key, and at ViT-B/16's initialization, where
-//     dP - delta is a small difference, it moved the q/k projection
-//     gradients by 58% of their norm (CPU measurement against an f32 run;
-//     5% with this output). With lse == o32 == nullptr (serving) nothing
-//     more is written.
+//     the backward's delta = rowsum(dO o O) is taken, and takes P V there
+//     as two bf16 products, of P rounded and of what the rounding left
+//     (hopper::split_bf16), so that o32 is P V to f32's accuracy as the
+//     TPU kernel computes it. The backward recomputes P in f32 from the
+//     LSE, and a row's dS = P o (dP - delta) sums to 0 only with delta =
+//     rowsum(P o dP) of that P: any other delta leaves a per-row error
+//     that dQ and dK add up coherently over every key, times the keys'
+//     (queries') common component. Where dP - delta is a small difference,
+//     as at BERT-base's and ViT-B/16's initialization, that error is most
+//     of the gradient: delta from the rounded output moved ViT's q/k
+//     projection gradients by 58% of their norm, and delta from an o32 of
+//     P rounded to bf16 moved BERT-base's per-layer dQ by up to 14%
+//     (scripts/torch_attention_rounding.py, CPU). With lse == o32 ==
+//     nullptr (serving) nothing more is written and P V is one product.
 //
 // Design. On the TPU the kv grid axis runs in order and carries acc/m/l in
 // VMEM scratch; Hopper runs blocks in no order, so one CUDA block owns one
@@ -44,17 +51,18 @@
 //     units, f32; the mask only on tiles that cross the ragged edge or the
 //     causal band), and O += P V as wgmma.m64nDk16 with P from registers
 //     (the S accumulators packed to bf16 are already the A operand's
-//     layout) and V read as loaded: wgmma takes a 16-bit B MN-major, so V
+//     layout; the training forward adds the product of P's remainder) and
+//     V read as loaded: wgmma takes a 16-bit B MN-major, so V
 //     needs no transposing or gathering. A kv tile is N = 64 keys, the last
 //     one only its keys rounded up to 16. Tiles are swizzled by TMA over
 //     min(2 Dh, 128) bytes (panels of 128-byte rows for Dh = 128), and the
 //     descriptors name the same swizzle. The epilogue stages O over the Q
 //     tile and the f32 output over the consumed kv stages, swizzled, and
 //     writes them with TMA stores, whole rows, the ragged edge dropped by
-//     the map. Up to Dh = 64 a thread fits 96 registers, so 4 blocks share
-//     an SM. The tile arguments block_q/block_k are the f32 body's; the
-//     bf16 body uses its own (64 rows, 64 keys), which changes nothing
-//     beyond rounding.
+//     the map. Up to Dh = 64 a serving thread fits 96 registers, so 4
+//     blocks share an SM (3 for the training forward). The tile arguments
+//     block_q/block_k are the f32 body's; the bf16 body uses its own (64
+//     rows, 64 keys), which changes nothing beyond rounding.
 //   - f32: scalar FMAs on the CUDA cores (tensor cores would round to
 //     TF32), contiguous inputs. TPR = Dh / 16 adjacent threads of a warp own
 //     one query row; thread r holds dims r, r + TPR, ... of the scaled q row
@@ -155,14 +163,15 @@ struct Fwd {
 // and r0 + 8: S (the accumulator of Q K^T) scaled to log2 units and, where
 // kMasked, masked; the running max m and sum l updated and O rescaled; P
 // packed to bf16 straight into the A operand of P V (k step kk is S's n
-// blocks 2 kk and 2 kk + 1). P is re-masked: zero-filled keys past Skv
+// blocks 2 kk and 2 kk + 1), and where kSplit what that rounding left into
+// `pl` (hopper::split_bf16). P is re-masked: zero-filled keys past Skv
 // score 0, not -inf, and a row whose max is still the sentinel would get
 // exp2(0) = 1.
-template <bool kMasked, int D, int N>
+template <bool kMasked, bool kSplit, int D, int N>
 __device__ __forceinline__ void softmax_tile(
     float (&sc)[N / 2], float (&o)[D / 2], float (&m)[2], float (&l)[2],
-    uint32_t (&pa)[N / 16][4], int kv0, int r0, int t4, int skv, int off,
-    int causal, float scale_log2) {
+    uint32_t (&pa)[N / 16][4], uint32_t (&pl)[N / 16][4], int kv0, int r0,
+    int t4, int skv, int off, int causal, float scale_log2) {
   float m_tile[2] = {kNegInf, kNegInf};
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
@@ -197,19 +206,25 @@ __device__ __forceinline__ void softmax_tile(
       if (!visible(j + 1, r0 + 8 * r, skv, off, causal)) p1 = 0.f;
     }
     l[r] += p0 + p1;
-    pa[i >> 3][((i >> 2) & 1) * 2 + r] = hopper::pack_bf16(p0, p1);
+    const int at = ((i >> 2) & 1) * 2 + r;
+    if (kSplit) {
+      hopper::split_bf16(p0, p1, pa[i >> 3][at], pl[i >> 3][at]);
+    } else {
+      pa[i >> 3][at] = hopper::pack_bf16(p0, p1);
+    }
   }
 }
 
 // One kv tile of N keys from kv0 for a consumer warpgroup: S = Q K^T (both
 // K-major; a k step of 16 is 32 bytes along a swizzled row, a row wider
 // than 128 bytes continues in the next panel), the online softmax, and
-// O += P V (V is the MN-major B, read as loaded). A tile is N = 64 keys,
+// O += P V (V is the MN-major B, read as loaded; where kSplit, P's bf16
+// rounding and its remainder in two products). A tile is N = 64 keys,
 // or the keys left at the end rounded up to 16, so that the 4 keys past
 // 192 at S = 196 cost a 16-wide tile, not a 64-wide one. A tile inside the
 // ragged edge and, when causal, wholly on or below the band for every row
 // of the tile (the first is row_min) needs no mask.
-template <int D, int Sw, int N>
+template <bool kSplit, int D, int Sw, int N>
 __device__ __forceinline__ void kv_tile(uint32_t q_rows, uint32_t kt,
                                         uint32_t vt, float (&o)[D / 2],
                                         float (&m)[2], float (&l)[2],
@@ -218,6 +233,7 @@ __device__ __forceinline__ void kv_tile(uint32_t q_rows, uint32_t kt,
                                         float scale_log2) {
   float s[N / 2];  // the first k step overwrites it
   uint32_t pa[N / 16][4];
+  uint32_t pl[N / 16][4];  // read only where kSplit
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -232,18 +248,19 @@ __device__ __forceinline__ void kv_tile(uint32_t q_rows, uint32_t kt,
   hopper::wgmma_commit();
   hopper::wgmma_wait_all();
   if (kv0 + N > skv || (causal && kv0 + N - 1 > row_min + off)) {
-    softmax_tile<true, D, N>(s, o, m, l, pa, kv0, r0, t4, skv, off, causal,
-                             scale_log2);
+    softmax_tile<true, kSplit, D, N>(s, o, m, l, pa, pl, kv0, r0, t4, skv,
+                                     off, causal, scale_log2);
   } else {
-    softmax_tile<false, D, N>(s, o, m, l, pa, kv0, r0, t4, skv, off, causal,
-                              scale_log2);
+    softmax_tile<false, kSplit, D, N>(s, o, m, l, pa, pl, kv0, r0, t4, skv,
+                                      off, causal, scale_log2);
   }
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
-    hopper::wgmma_rs<D>(o, pa[kk],
-                hopper::smem_desc<Sw>(vt + kk * 16 * Sw, kBlockK * Sw,
-                                      8 * Sw));
+    const uint64_t vd = hopper::smem_desc<Sw>(vt + kk * 16 * Sw,
+                                              kBlockK * Sw, 8 * Sw);
+    hopper::wgmma_rs<D>(o, pa[kk], vd);
+    if (kSplit) hopper::wgmma_rs<D>(o, pl[kk], vd);
   }
   hopper::wgmma_commit();
   hopper::wgmma_wait_all();
@@ -252,18 +269,20 @@ __device__ __forceinline__ void kv_tile(uint32_t q_rows, uint32_t kt,
 // One block per (b*h, q tile of 64 rows); grid.x = B*H * q tiles, q tile
 // fastest, so the tiles of one head run side by side and share its K/V in
 // L2. Warps 0-3 are the consumer warpgroup, warp 4 the producer. Maps are
-// 4-d over (Dh, S, H, B) with the tensors' own strides. Up to Dh = 64 the
-// consumers fit 96 registers a thread and 4 blocks share an SM; Dh = 128
-// needs more (its O alone is 64).
-template <int D>
-__global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1)
+// 4-d over (Dh, S, H, B) with the tensors' own strides. kTrain: the
+// training forward, which writes the LSE and the f32 output and takes P V
+// as two products (P's remainder's registers cost it a block an SM). Up to
+// Dh = 64 the serving consumers fit 96 registers a thread and 4 blocks
+// share an SM; Dh = 128 needs more (its O alone is 64).
+template <int D, bool kTrain>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? (kTrain ? 3 : 4) : 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
                            const __grid_constant__ CUtensorMap v_map,
                            const __grid_constant__ CUtensorMap o_map,
                            const __grid_constant__ CUtensorMap o32_map,
-                           float* __restrict__ lse, int write_o32, int heads,
-                           int sq, int skv, float scale_log2, int causal) {
+                           float* __restrict__ lse, int heads, int sq,
+                           int skv, float scale_log2, int causal) {
   using G = Fwd<D>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
@@ -345,20 +364,20 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1)
     const int kv0 = t * kBlockK;
     switch (min(kBlockK, kv_end - kv0 + 15) / 16) {
       case 1:
-        kv_tile<D, G::kSw, 16>(base, kt, vt, o, m, l, kv0, r0, q0, t4, skv,
-                               off, causal, scale_log2);
+        kv_tile<kTrain, D, G::kSw, 16>(base, kt, vt, o, m, l, kv0, r0, q0,
+                                       t4, skv, off, causal, scale_log2);
         break;
       case 2:
-        kv_tile<D, G::kSw, 32>(base, kt, vt, o, m, l, kv0, r0, q0, t4, skv,
-                               off, causal, scale_log2);
+        kv_tile<kTrain, D, G::kSw, 32>(base, kt, vt, o, m, l, kv0, r0, q0,
+                                       t4, skv, off, causal, scale_log2);
         break;
       case 3:
-        kv_tile<D, G::kSw, 48>(base, kt, vt, o, m, l, kv0, r0, q0, t4, skv,
-                               off, causal, scale_log2);
+        kv_tile<kTrain, D, G::kSw, 48>(base, kt, vt, o, m, l, kv0, r0, q0,
+                                       t4, skv, off, causal, scale_log2);
         break;
       default:
-        kv_tile<D, G::kSw, 64>(base, kt, vt, o, m, l, kv0, r0, q0, t4, skv,
-                               off, causal, scale_log2);
+        kv_tile<kTrain, D, G::kSw, 64>(base, kt, vt, o, m, l, kv0, r0, q0,
+                                       t4, skv, off, causal, scale_log2);
     }
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&kv_empty[s]);  // the stage is free
@@ -369,7 +388,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = r0 + 8 * r;
-    if (lse != nullptr && t4 == 0 && row < sq) {
+    if (kTrain && t4 == 0 && row < sq) {
       lse[(int64_t)bh * sq + row] = row_lse_log2(m[r], l[r]);
     }
     l[r] = 1.f / fmaxf(l[r], 1e-30f);  // l == 0 -> o == 0 -> out 0
@@ -391,7 +410,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1)
                           c * 2 % G::kSw;
       *reinterpret_cast<uint32_t*>(gbase + hopper::swizzle<G::kSw>(at)) =
           hopper::pack_bf16(x0, x1);
-      if (write_o32) {
+      if (kTrain) {
         const uint32_t at32 = G::kStage0 +
                               (c * 4 / G::kSw32) * kBlockQ * G::kSw32 +
                               rr * G::kSw32 + c * 4 % G::kSw32;
@@ -408,7 +427,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1)
       hopper::tma_store_4d(&o_map, base + p * kBlockQ * G::kSw,
                            p * G::kPanelCols, q0, h, b);
     }
-    if (write_o32) {
+    if (kTrain) {
       for (int p = 0; p < G::kPanels32; ++p) {
         hopper::tma_store_4d(&o32_map,
                              base + G::kStage0 + p * kBlockQ * G::kSw32,
@@ -544,6 +563,32 @@ struct Args {
   int bh() const { return batch * heads; }
 };
 
+// the bf16 body's launch for the serving (kTrain false) or the training
+// forward, through the maps of q, k, v, o and o32
+template <int D, bool kTrain>
+int launch_wgmma(const Args& a, const CUtensorMap (&maps)[5]) {
+  const int smem = Fwd<D>::kSmemBytes;
+  // the shared-memory limit is a function attribute: set once a device
+  static std::atomic<uint64_t> limit_set{0};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = device < 64 ? 1ull << device : 0;
+  if (!(limit_set.load() & bit)) {
+    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, kTrain>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    limit_set.fetch_or(bit);
+  }
+  const int q_tiles = (a.sq + kBlockQ - 1) / kBlockQ;
+  flash_fwd_wgmma_kernel<D, kTrain>
+      <<<dim3(a.bh() * q_tiles), dim3(kThreads), smem, a.stream>>>(
+          maps[0], maps[1], maps[2], maps[3], maps[4], a.lse, a.heads, a.sq,
+          a.skv, a.scale * kLog2e, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_bf16(const Args& a) {
   using G = Fwd<D>;
@@ -570,27 +615,8 @@ int launch_bf16(const Args& a) {
     maps[4] = maps[3];  // not read
   }
   if (!ok) return kErrTensorMap;
-  const int smem = G::kSmemBytes;
-  // the shared-memory limit is a function attribute: set once a device
-  static std::atomic<uint64_t> limit_set{0};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const uint64_t bit = device < 64 ? 1ull << device : 0;
-  if (!(limit_set.load() & bit)) {
-    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    limit_set.fetch_or(bit);
-  }
-  const int q_tiles = (a.sq + kBlockQ - 1) / kBlockQ;
-  flash_fwd_wgmma_kernel<D>
-      <<<dim3(a.bh() * q_tiles), dim3(kThreads), smem, a.stream>>>(
-          maps[0], maps[1], maps[2], maps[3], maps[4], a.lse,
-          a.o32 != nullptr, a.heads, a.sq, a.skv, a.scale * kLog2e,
-          a.causal);
-  return static_cast<int>(cudaGetLastError());
+  return a.o32 != nullptr ? launch_wgmma<D, true>(a, maps)
+                          : launch_wgmma<D, false>(a, maps);
 }
 
 template <int D, int BK>
@@ -654,12 +680,13 @@ int dispatch_f32(const Args& a, int dh) {
 // bytes and every base 16-byte aligned. f32 arrays are contiguous and
 // `strides` is not read. lse: nullptr, or a contiguous (batch * heads, sq)
 // f32 array that receives each row's logsumexp; o32: nullptr, or (bf16
-// only) a contiguous (batch, heads, sq, dh) f32 array that receives the
-// output before its rounding. block_q and block_k are the f32 body's tiles
-// (the bf16 body has its own: 64 q rows, 64 keys). Launches on `stream` and
-// returns 0, the launch's cudaError_t, or a negative code: -1 head dim,
-// -2 block_k, -3 block_q, -4 o32 with f32 inputs, -5 a tensor map refused,
-// -6 bf16 inputs without strides.
+// only, and then given with lse) a contiguous (batch, heads, sq, dh) f32
+// array that receives the output before its rounding. block_q and block_k
+// are the f32 body's tiles (the bf16 body has its own: 64 q rows, 64 keys).
+// Launches on `stream` and returns 0, the launch's cudaError_t, or a
+// negative code: -1 head dim, -2 block_k, -3 block_q, -4 o32 with f32
+// inputs, or with bf16 inputs one of lse and o32 without the other, -5 a
+// tensor map refused, -6 bf16 inputs without strides.
 extern "C" int rafiki_flash_fwd(const void* q, const void* k, const void* v,
                                 void* o, void* lse, void* o32, int batch,
                                 int heads, int sq, int skv, int dh,
@@ -668,7 +695,10 @@ extern "C" int rafiki_flash_fwd(const void* q, const void* k, const void* v,
                                 const int64_t* strides, void* stream) {
   if (block_q != 16 && block_q != 32 && block_q != 64) return -3;
   if (block_k != 16 && block_k != 32 && block_k != 64) return -2;
-  if (o32 != nullptr && !is_bf16) return -4;
+  // bf16: the training forward writes both, serving neither
+  if (is_bf16 ? (o32 != nullptr) != (lse != nullptr) : o32 != nullptr) {
+    return -4;
+  }
   if (is_bf16 && strides == nullptr) return kErrNoStrides;
   const Args a{q, k, v, o, static_cast<float*>(lse), static_cast<float*>(o32),
                batch, heads, sq, skv, scale, causal, block_q, strides,
@@ -693,7 +723,8 @@ extern "C" const char* rafiki_flash_error(int code) {
     case -3:
       return "unsupported block_q";
     case -4:
-      return "an f32 output copy is for bf16 inputs only";
+      return "an f32 output copy is for bf16 inputs only, and bf16 inputs "
+             "take it with the LSE";
     case kErrTensorMap:
       return "cuTensorMapEncodeTiled refused a TMA tensor map (base not "
              "16-byte aligned, a stride not a multiple of 16 bytes), or "

@@ -378,6 +378,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// two floats split as pack_bf16 would pack them (`hi`) and what that
+// rounding left (`lo`, packed likewise): hi + lo holds each float to ~16
+// bits of mantissa, so a product that takes both as A operands into one
+// f32 accumulator reads its A as f32 would to within ~2^-17
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - f.x, x1 - f.y);
+}
+
 // 2^x (MUFU; ex2(-inf) = 0)
 __device__ __forceinline__ float ex2(float x) {
   float y;

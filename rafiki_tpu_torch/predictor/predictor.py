@@ -2,11 +2,14 @@
 
 Counterpart of the core of ``rafiki_tpu/predictor/predictor.py``
 (``add_worker``, ``drop_worker``, ``predict_batch`` and the fan-out and
-gather of ``_predict_on``). One replica per trial answers each request,
-round-robin over the trial's replicas; a replica that refuses (full queue)
-or fails passes the request to the next replica of its trial; the answers
-are ensembled across trials. Rollout lanes, the result cache, drift,
-hedging and generation are not ported yet (ROADMAP.md).
+gather of ``_predict_on``, and ``generate``). One replica per trial
+answers each request, round-robin over the trial's replicas; a replica
+that refuses (full queue) or fails passes the request to the next replica
+of its trial; the answers are ensembled across trials. A generation
+request goes to ONE replica and answers with its token stream. Rollout
+lanes, the result cache, drift, hedging and the streams' resume journal
+are not ported yet (ROADMAP.md): a stream whose worker fails ends with
+its typed error.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 from rafiki_tpu_torch import config
-from rafiki_tpu_torch.cache.queue import Broker, QueueFullError
+from rafiki_tpu_torch.cache.queue import Broker, QueueFullError, TokenStream
 from rafiki_tpu_torch.predictor.ensemble import ensemble_predictions
 
 logger = logging.getLogger(__name__)
@@ -98,6 +101,36 @@ class Predictor:
         return [ensemble_predictions([preds[i] for preds in answered],
                                      self._task)
                 for i in range(len(queries))]
+
+    def generate(self, query: Dict[str, Any],
+                 timeout_s: Optional[float] = None) -> TokenStream:
+        """Route one generation request to a replica's slot scheduler and
+        return its :class:`TokenStream` once a slot admits it. Round-robin
+        over the job's replicas, past bounded queues that refuse. The
+        request's deadline rides as ``max_duration_s``: the worker ends
+        the stream with reason ``deadline`` past it. Raises
+        :class:`QueueFullError` when every queue refuses,
+        ``TimeoutError`` when no slot admits the request in time, and the
+        worker's typed error for a malformed request."""
+        if timeout_s is None:
+            timeout_s = config.PREDICT_TIMEOUT_S
+        deadline = time.monotonic() + timeout_s
+        queues = self._broker.get_worker_queues(self._job_id)
+        if not queues:
+            raise RuntimeError(
+                f"No inference workers registered for job {self._job_id}")
+        with self._lock:
+            trials = dict(self._worker_trials)
+        routable = [w for w in queues if not trials or w in trials] \
+            or list(queues)
+        rr = next(self._rr) % len(routable)
+        submitted = self._submit(routable[rr:] + routable[:rr], queues,
+                                 [dict(query, max_duration_s=timeout_s)],
+                                 deadline)
+        if submitted is None:
+            raise QueueFullError(
+                f"all serving queues for job {self._job_id} are full")
+        return submitted[1][0].result(max(deadline - time.monotonic(), 0.0))
 
     @staticmethod
     def _submit(order: List[str], queues, queries: List[Any],

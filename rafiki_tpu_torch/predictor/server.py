@@ -1,4 +1,5 @@
-"""The per-inference-job HTTP door: ``POST /predict`` and ``GET /healthz``.
+"""The per-inference-job HTTP door: ``POST /predict``, ``POST /generate``
+and ``GET /healthz``.
 
 Counterpart of ``PredictorServer`` in ``rafiki_tpu/predictor/server.py``,
 with the same request and response shapes:
@@ -10,10 +11,21 @@ with the same request and response shapes:
   when the client sends ``Accept: application/x-npy``;
 - 400 for a malformed request, 413 for a body over ``PREDICT_MAX_BODY_MB``,
   429 + ``Retry-After`` when every queue is full, 503 with no worker,
-  504 when no worker answers in time.
+  504 when no worker answers in time;
+- ``POST /generate`` with ``{"prompt_ids": [...], "max_tokens": N,
+  "timeout_s": T}`` and the optional ``temperature``, ``top_k``, ``top_p``
+  and ``seed``: a chunked response, one delta a chunk, as JSON lines, or
+  as length-prefixed version-3 wire frames when the request's ``Accept``
+  names ``wire.CONTENT_TYPE``. Refusals before the stream starts are
+  status codes; once it streams, a fault (a worker's error, no token for
+  ``RAFIKI_GEN_STREAM_TIMEOUT_S``) ends it with a typed terminal error
+  delta, never a silent hang;
+- with ``auth`` (the default) both POST routes take the admin's bearer
+  tokens (401 without one), so one login works on both doors.
 
-Standard library ``http.server`` only. Authentication, admission control,
-tracing, metrics and ``/generate`` are not ported yet (ROADMAP.md).
+Standard library ``http.server`` only. Admission control (and
+``/generate``'s admission cost), tracing and metrics are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,7 +41,14 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from rafiki_tpu_torch import config
-from rafiki_tpu_torch.cache.queue import QueueFullError
+from rafiki_tpu_torch.cache import wire
+from rafiki_tpu_torch.cache.queue import (
+    GenerationError,
+    QueueFullError,
+    TokenDelta,
+)
+from rafiki_tpu_torch.utils.auth import UnauthorizedError, decode_token
+from rafiki_tpu_torch.worker.generation import GenerationRequestError
 
 logger = logging.getLogger(__name__)
 
@@ -53,11 +72,13 @@ def _parse_timeout_s(value: object):
 
 class PredictorServer:
     def __init__(self, predictor, app: str, host: str = "127.0.0.1",
-                 port: int = 0):
+                 port: int = 0, auth: bool = True):
+        """``auth=False`` serves a trusted network without tokens."""
         self.predictor = predictor
         self.app = app
         self.host = host
         self.port = port
+        self.auth = auth
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -83,7 +104,10 @@ class PredictorServer:
                     server._respond(self, 404, {"error": "no such route"})
 
             def do_POST(self):
-                server._predict(self)
+                if self.path.split("?", 1)[0].rstrip("/") == "/generate":
+                    server._generate(self)
+                else:
+                    server._predict(self)
 
         self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
         self._httpd.daemon_threads = True
@@ -167,6 +191,8 @@ class PredictorServer:
             return
         if handler.path.split("?", 1)[0].rstrip("/") != "/predict":
             return self._respond(handler, 404, {"error": "no such route"})
+        if not self._authorized(handler):
+            return
         queries, timeout_s, err = self._parse(handler, raw)
         if err:
             return self._respond(handler, 400, {"error": err})
@@ -194,6 +220,142 @@ class PredictorServer:
                 np.save(buf, arr, allow_pickle=False)
                 return self._respond_bytes(handler, 200, buf.getvalue(), NPY)
         self._respond(handler, 200, {"data": {"predictions": preds}})
+
+    def _authorized(self, handler) -> bool:
+        """True when auth is off or the request carries a valid token;
+        else answers 401."""
+        if not self.auth:
+            return True
+        token = (handler.headers.get("Authorization")
+                 or "").removeprefix("Bearer ")
+        try:
+            decode_token(token)  # any authenticated user may serve
+        except UnauthorizedError as e:
+            self._respond(handler, 401, {"error": str(e)})
+            return False
+        return True
+
+    def _generate(self, handler) -> None:
+        """``POST /generate``: parse, route to one replica, then stream."""
+        raw = self._read_body(handler)
+        if raw is None or not self._authorized(handler):
+            return
+        try:
+            body = json.loads(raw or b"{}")
+        except (json.JSONDecodeError, UnicodeDecodeError) as e:
+            return self._respond(handler, 400, {"error": f"bad JSON body: {e}"})
+        if not isinstance(body, dict):
+            return self._respond(handler, 400, {
+                "error": 'body must be a JSON object like {"prompt_ids": '
+                         '[...]}'})
+        timeout_s, err = _parse_timeout_s(body.get("timeout_s"))
+        if err:
+            return self._respond(handler, 400, {"error": err})
+        try:
+            max_tokens = int(body.get("max_tokens", config.GEN_MAX_TOKENS))
+        except (TypeError, ValueError):
+            return self._respond(handler, 400, {
+                "error": "max_tokens must be an integer"})
+        query = {"prompt_ids": body.get("prompt_ids"),
+                 "max_tokens": max_tokens}
+        # the worker validates these in full (typed, 400 below); junk that
+        # is not a number is refused here
+        for key, cast in (("temperature", float), ("top_k", int),
+                          ("top_p", float), ("seed", int)):
+            if body.get(key) is not None:
+                try:
+                    query[key] = cast(body[key])
+                except (TypeError, ValueError):
+                    return self._respond(handler, 400, {
+                        "error": f"{key} must be a number"})
+        try:
+            stream = self.predictor.generate(query, timeout_s=timeout_s)
+        except GenerationRequestError as e:
+            return self._respond(handler, 400, {"error": str(e)})
+        except QueueFullError as e:
+            return self._respond(
+                handler, 429, {"error": str(e)},
+                {"Retry-After": str(max(1, math.ceil(e.retry_after_s)))})
+        except TimeoutError as e:  # no slot admitted it in time
+            return self._respond(handler, 504, {"error": str(e)})
+        except RuntimeError as e:  # no workers, a failed prefill
+            return self._respond(handler, 503, {"error": str(e)})
+        except Exception:
+            logger.exception("generate failed for %s", self.app)
+            return self._respond(handler, 500,
+                                 {"error": "internal server error"})
+        self._stream_deltas(handler, stream, self._accepts_wire(handler))
+
+    @staticmethod
+    def _stream_deltas(handler, stream, binary: bool) -> int:
+        """Pump one stream into a chunked response; returns the tokens
+        served. Past the 200 every fault ends the response with a terminal
+        delta (and cancels the slot), never an exception."""
+        handler.send_response(200)
+        handler.send_header(
+            "Content-Type", wire.CONTENT_TYPE if binary
+            else "application/x-ndjson")
+        handler.send_header("Transfer-Encoding", "chunked")
+        handler.send_header("Cache-Control", "no-store")
+        # one stream a connection: the client drops it after the last delta
+        handler.send_header("Connection", "close")
+        handler.close_connection = True
+        handler.end_headers()
+
+        def chunk(payload: bytes) -> bool:
+            try:
+                handler.wfile.write(
+                    b"%x\r\n" % len(payload) + payload + b"\r\n")
+                handler.wfile.flush()
+                return True
+            except OSError:  # client gone: cancelling frees the slot
+                stream.cancel()
+                return False
+
+        def emit(delta: TokenDelta) -> bool:
+            if binary:
+                frame = wire.encode_token_delta(
+                    stream.seq_id, delta.tokens, finished=delta.finished,
+                    reason=delta.reason, error=delta.error)
+                return chunk(len(frame).to_bytes(4, "little") + frame)
+            return chunk(json.dumps(delta.to_json()).encode() + b"\n")
+
+        # one stall window a delta; the request's own deadline is the
+        # worker's (max_duration_s -> reason "deadline")
+        stall_s = max(float(config.GEN_STREAM_TIMEOUT_S), 0.1)
+        served = 0
+        while True:
+            try:
+                delta = stream.next_delta(timeout=stall_s)
+            except StopIteration:
+                break
+            except TimeoutError:
+                emit(TokenDelta([], finished=True, reason="error",
+                                error=f"decode stalled (no token within "
+                                      f"{stall_s:.1f}s)"))
+                stream.cancel()
+                break
+            except GenerationError as e:
+                emit(TokenDelta([], finished=True, reason="error",
+                                error=str(e)))
+                break
+            served += len(delta.tokens)
+            if not emit(delta):
+                return served
+            if delta.finished:
+                break
+        try:
+            handler.wfile.write(b"0\r\n\r\n")
+            handler.wfile.flush()
+        except OSError:
+            stream.cancel()
+        return served
+
+    @staticmethod
+    def _accepts_wire(handler) -> bool:
+        accept = handler.headers.get("Accept") or ""
+        return any(part.split(";")[0].strip().lower() == wire.CONTENT_TYPE
+                   for part in accept.split(","))
 
     @staticmethod
     def _accepts_npy(handler) -> bool:

@@ -1,9 +1,13 @@
-"""Datasets for model templates: the dense ``.npz`` and the image zip.
+"""Datasets for model templates: the dense ``.npz``, the image zip and the
+corpus zip.
 
-Own copy of the image paths of ``rafiki_tpu/sdk/dataset.py``:
+Own copy of ``rafiki_tpu/sdk/dataset.py``:
 
 - ``NumpyDataset`` (an ``.npz`` of ``x`` and ``y``) and
   ``write_numpy_dataset``;
+- ``CorpusDataset``: a zip of ``corpus.tsv`` (a token and its tag columns
+  a line, sentences separated by blank lines), and
+  ``write_corpus_dataset``, its inverse;
 - ``ImageFilesDataset``: a zip of ``images.csv`` (columns ``path,class``)
   and PNG files, decoded by the port's own codec (:mod:`.png`; the JAX
   package decodes with PIL, which the port does not use), and
@@ -26,7 +30,7 @@ import csv
 import io
 import os
 import zipfile
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -60,6 +64,9 @@ class DatasetUtils:
             raise InvalidDatasetError(f"Dataset not found: {uri}")
         return uri
 
+    def load_dataset_of_corpus(self, uri: str) -> "CorpusDataset":
+        return CorpusDataset(self.download_dataset_from_uri(uri))
+
     def load_dataset_of_image_files(
         self, uri: str, image_size: Optional[Tuple[int, int]] = None
     ) -> "ImageFilesDataset":
@@ -89,6 +96,55 @@ class DatasetUtils:
         while len(self._array_cache) > self._array_cache_cap:
             self._array_cache.popitem(last=False)
         return out
+
+
+class CorpusDataset:
+    """Zip of ``corpus.tsv``: tab-separated token and tag columns,
+    sentences separated by blank lines. Iterating yields (tokens, tags)
+    sentence pairs (``tags`` one list of tag columns a token);
+    ``tag_vocabs`` holds each tag column's sorted vocabulary."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.sentences: List[Tuple[List[str], List[List[str]]]] = []
+        tag_vocab: List[set] = []
+        try:
+            with zipfile.ZipFile(path) as zf:
+                if "corpus.tsv" not in zf.namelist():
+                    raise InvalidDatasetError(
+                        "corpus zip must contain corpus.tsv")
+                with zf.open("corpus.tsv") as f:
+                    text = io.TextIOWrapper(f, encoding="utf-8")
+                    tokens: List[str] = []
+                    tags: List[List[str]] = []
+                    for line in text:
+                        line = line.rstrip("\n")
+                        if not line.strip():
+                            if tokens:
+                                self.sentences.append((tokens, tags))
+                                tokens, tags = [], []
+                            continue
+                        cols = line.split("\t")
+                        tokens.append(cols[0])
+                        tags.append(cols[1:])
+                        while len(tag_vocab) < len(cols) - 1:
+                            tag_vocab.append(set())
+                        for i, t in enumerate(cols[1:]):
+                            tag_vocab[i].add(t)
+                    if tokens:
+                        self.sentences.append((tokens, tags))
+        except zipfile.BadZipFile as e:
+            raise InvalidDatasetError(f"not a zip archive: {path}") from e
+        self.tag_num_classes = [len(v) for v in tag_vocab]
+        self.tag_vocabs = [sorted(v) for v in tag_vocab]
+        self.size = len(self.sentences)
+        self.max_len = max((len(t) for t, _ in self.sentences), default=0)
+
+    def __iter__(self) -> Iterator[Tuple[List[str], List[List[str]]]]:
+        return iter(self.sentences)
+
+    def __len__(self) -> int:
+        return self.size
 
 
 class ImageFilesDataset:
@@ -199,6 +255,22 @@ def write_image_files_dataset(images: np.ndarray, labels: np.ndarray,
             zf.writestr(rel, png.encode(arr))
             lines.append(f"{rel},{int(lbl)}")
         zf.writestr("images.csv", "\n".join(lines) + "\n")
+    return out_path
+
+
+def write_corpus_dataset(
+        sentences: Sequence[Tuple[Sequence[str], Sequence[Sequence[str]]]],
+        out_path: str) -> str:
+    """A corpus zip from (tokens, tags) sentence pairs (the inverse of
+    :class:`CorpusDataset`); the same bytes as the JAX package's
+    writer."""
+    lines: List[str] = []
+    for tokens, tags in sentences:
+        for tok, row_tags in zip(tokens, tags):
+            lines.append("\t".join([tok, *row_tags]))
+        lines.append("")
+    with zipfile.ZipFile(out_path, "w") as zf:
+        zf.writestr("corpus.tsv", "\n".join(lines) + "\n")
     return out_path
 
 

@@ -55,6 +55,7 @@ from rafiki_tpu_torch.placement.manager import (
 )
 from rafiki_tpu_torch.placement.process import ProcessPlacementManager
 from rafiki_tpu_torch.sdk.dataset import write_numpy_dataset
+from rafiki_tpu_torch.sdk.model import InvalidModelClassError
 from rafiki_tpu_torch.sdk.params import load_params
 
 ROOT = Path(rafiki_tpu_torch.__file__).resolve().parents[1]
@@ -503,6 +504,8 @@ def test_the_admin_process_refuses_without_cuda(tmp_path):
     ("RAFIKI_PLACEMENT", "hosts", "placement"),
     ("RAFIKI_SANDBOX", "1", "sandbox"),
     ("RAFIKI_INSTALL_DEPS", "1", "dependency provisioning"),
+    ("RAFIKI_GEN_SPEC", "1", "speculative decoding"),
+    ("RAFIKI_GEN_RESUME_MAX", "3", "stream resume"),
 ])
 def test_unported_settings_raise(monkeypatch, name, value, subsystem):
     monkeypatch.setenv(name, value)
@@ -605,18 +608,19 @@ def test_unported_budget_keys_are_refused(tmp_path, call, budget):
 
 
 def test_generation_is_refused_typed(tmp_path):
+    """TEXT_GENERATION takes generation-capable templates only: a
+    classification template uploaded under it is refused typed, and so
+    is a generation train job with no capable model."""
     admin = Admin(db=Database(":memory:"),
                   placement=LocalPlacementManager(ChipAllocator(["cpu"])),
                   params_dir=str(tmp_path))
     try:
         uid = admin.authenticate_user(config.SUPERADMIN_EMAIL,
                                       config.SUPERADMIN_PASSWORD)["user_id"]
-        for call in (
-                lambda: admin.create_model(uid, "g", "TEXT_GENERATION",
-                                           FAKE_TEMPLATE, "FakeModel"),
-                lambda: admin.create_train_job(uid, "g", "TEXT_GENERATION",
-                                               "t", "e")):
-            with pytest.raises(InvalidRequestError, match="TEXT_GENERATION"):
-                call()
+        with pytest.raises(InvalidModelClassError, match="TEXT_GENERATION"):
+            admin.create_model(uid, "g", "TEXT_GENERATION", FAKE_TEMPLATE,
+                               "FakeModel")
+        with pytest.raises(InvalidRequestError, match="TEXT_GENERATION"):
+            admin.create_train_job(uid, "g", "TEXT_GENERATION", "t", "e")
     finally:
         admin.shutdown()

@@ -116,10 +116,51 @@ def test_version_2_frames_of_the_jax_package_decode():
 
 
 def test_token_delta_frames_are_refused_typed():
-    """Version 3 (streamed generation) is not ported: refused typed."""
+    """A token-delta frame (version 3) is no request or response frame: no
+    ring carries one, so ``decode`` refuses it typed (its reader is
+    ``decode_token_delta``)."""
     frame = jwire.encode_token_delta("s1", [1, 2, 3], finished=True)
     with pytest.raises(wire.WireFormatError, match="version 3"):
         wire.decode(frame)
+
+
+TOKEN_DELTAS = {
+    "first tokens": ("a1b2c3", [5, 7, 11], False, None, None),
+    "one token": ("s", [31999], False, None, None),
+    "finished": ("s1", [1, 2, 3], True, "max_tokens", None),
+    "empty terminal error": ("abc", [], True, "error", "decode stalled"),
+    "eos": ("x" * 12, [0], True, "eos", None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TOKEN_DELTAS))
+def test_token_delta_frames_are_byte_identical(name):
+    """The streaming door's version-3 frames: the same bytes as the JAX
+    package's, and each package reads the other's."""
+    args = TOKEN_DELTAS[name]
+    ours, theirs = wire.encode_token_delta(*args), jwire.encode_token_delta(
+        *args)
+    assert ours == theirs and ours[4] == wire.TOKEN_DELTA_VERSION
+    assert wire.is_token_delta(ours) and not wire.is_token_delta(
+        wire.encode({"a": 1}))
+    sid, delta = wire.decode_token_delta(theirs)
+    jsid, jdelta = jwire.decode_token_delta(ours)
+    assert sid == jsid == args[0]
+    assert delta.to_json() == jdelta.to_json()
+    assert (delta.tokens, delta.finished, delta.reason, delta.error) == (
+        list(args[1]), args[2], args[3], args[4])
+
+
+@pytest.mark.parametrize("mutate", [
+    lambda f: f[:12],                              # truncated
+    lambda f: f[:4] + bytes([1]) + f[5:],          # a version-1 frame
+    lambda f: jwire.encode(np.arange(3, dtype=np.int32)),  # no "g"
+    lambda f: f.replace(b'"fin": true', b'"fin": 1'),      # garbled flag
+], ids=["truncated", "version", "no-metadata", "garbled"])
+def test_malformed_token_deltas_raise_the_typed_error(mutate):
+    frame = jwire.encode_token_delta("s1", [1, 2], finished=True)
+    with pytest.raises(wire.WireFormatError):
+        wire.decode_token_delta(mutate(frame))
 
 
 def test_decoded_arrays_are_read_only_views():
