@@ -125,6 +125,37 @@ Phases, each of which must pass (any failure exits non-zero):
    first token p50/p95, tokens/s, the decode step per call and its
    kernels, the KV pool's bytes.
 
+9. trial loop: the seconds and bytes of one ViT-B/16 + AdamW checkpoint
+   write and of its restore onto the card, timed directly. Then four
+   drills through ``Client`` -> ``AdminServer`` -> ``Admin``, each with
+   a store of its own under ``build/chip_smoke/`` and a twin of
+   ``TorchViT`` at full width whose learning rate, batch size and epochs
+   suit it. 9a: every trial of a job (batch 4,096 of a 4,096-image set
+   written with ``np.savez``) raises the allocator's own
+   ``OutOfMemoryError``; with ``RAFIKI_TRIAL_QUARANTINE_K=2`` and
+   ``RAFIKI_TRIAL_FAULT_LIMIT=3`` each trial is ERRORED ``USER`` with its
+   detail, the advisor's infeasible count rises, the signature is
+   quarantined after 2, the third fault errors the job with the
+   fail-fast reason and stops its worker, and ``memory_allocated``
+   returns within 64 MiB of its level before the job. 9b: ASHA
+   (``EARLY_STOP``, eta 2, 6 trials of 4 epochs on phase 3's set) with
+   ``RAFIKI_CHAOS=site=trial;action=error;times=1``: the first trial
+   absorbs the INFRA fault at ``attempt`` 1 in its own row, all 6
+   COMPLETED, at least one stopped at a rung, and every keep/stop verdict
+   equal to ``AshaScheduler`` replayed on the logged losses. 9c:
+   ``TRIAL_TIMEOUT_S`` (9b's first report plus 2.5 of its epochs with
+   their checkpoints) stops two 8-epoch trials at the first epoch
+   boundary past it. 9d: under ``RAFIKI_PLACEMENT=process`` the train
+   child is SIGKILLed once the second trial's checkpoint exists; the
+   placement starts it again under the same service id, it resumes that
+   trial from its checkpoint under its id and knobs, the admin's advisor
+   session survived (``replay_feedback`` returned False), the job counts
+   2 trials and no checkpoint is left. Launches: 12 a step and an
+   evaluate in 9b-9d (the restarted child's exit line in 9d), none of
+   K1, K2, K3 in 9a. Printed: each drill's wall time, each trial's
+   epochs, attempt, kind and score, the epoch with and without its
+   checkpoint, the child's restart time.
+
 The line before the last is ``{"kernels": [...]}``, each kernel's
 ``launches`` from phase 5 and ``launches_by_path`` from every path; the
 last is ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -777,6 +808,27 @@ def make_dataset(rng: np.random.Generator, n: int, patterns: np.ndarray):
     return np.round(x * 255) / np.float32(255), y
 
 
+def write_train_dataset() -> dict:
+    """The seeded synthetic ViT dataset of phases 3-6 and 9, written as
+    ``.npz`` under ``WORK`` (uncompressed: ``savez_compressed`` took ~40 s
+    of the script for 60% of the bytes); its URIs by split."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED + 20)
+    t0 = time.perf_counter()
+    patterns = rng.random((CLASSES, 224, 224, 3), dtype=np.float32)
+    uris = {}
+    for split, n in (("train", TRAIN_IMAGES), ("test", TEST_IMAGES)):
+        x, y = make_dataset(rng, n, patterns)
+        uris[split] = str(WORK / f"{split}.npz")
+        np.savez(uris[split], x=x, y=y)
+    print(f"train: dataset of {TRAIN_IMAGES} + {TEST_IMAGES} images "
+          f"(224x224x3, {CLASSES} classes) made and written as .npz in "
+          f"{time.perf_counter() - t0:.1f} s "
+          f"({sum(Path(u).stat().st_size for u in uris.values()) / 1e6:.0f}"
+          f" MB)", flush=True)
+    return uris
+
+
 def train_phase(card: str):
     """A 2-trial ViT-B/16 train job through ``TrainWorker`` on cuda:0.
     Returns (the store, the dataset's URIs, trial rows, the job's seconds,
@@ -785,23 +837,10 @@ def train_phase(card: str):
     from rafiki_tpu_torch.constants import TrialStatus
     from rafiki_tpu_torch.models import vit
     from rafiki_tpu_torch.sdk.artifact import read_artifact
-    from rafiki_tpu_torch.sdk.dataset import write_numpy_dataset
     from rafiki_tpu_torch.sdk.log import LogType
     from rafiki_tpu_torch.sdk.params import flatten, load_params
 
-    WORK.mkdir(parents=True, exist_ok=True)
-    rng = np.random.default_rng(SEED + 20)
-    t0 = time.perf_counter()
-    patterns = rng.random((CLASSES, 224, 224, 3), dtype=np.float32)
-    uris = {}
-    for split, n in (("train", TRAIN_IMAGES), ("test", TEST_IMAGES)):
-        x, y = make_dataset(rng, n, patterns)
-        uris[split] = write_numpy_dataset(x, y, str(WORK / f"{split}.npz"))
-    print(f"train: dataset of {TRAIN_IMAGES} + {TEST_IMAGES} images "
-          f"(224x224x3, {CLASSES} classes) made and written as .npz in "
-          f"{time.perf_counter() - t0:.1f} s "
-          f"({sum(Path(u).stat().st_size for u in uris.values()) / 1e6:.0f}"
-          f" MB)", flush=True)
+    uris = write_train_dataset()
 
     # ---- the main path's run: counts from zero (inside) ----
     db, trials, job_s, counts = direct_train_job(uris, WORK / "params")
@@ -2753,6 +2792,581 @@ def text_phase(card: str) -> tuple:
     return bert_counts, lm_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the trial loop (faults, ASHA, deadlines, resume)
+# ---------------------------------------------------------------------------
+
+#: 9a: images in the set whose one batch does not fit the card (ViT-B/16's
+#: activations at batch 4,096 come to hundreds of GB; the set itself,
+#: 2.47 GB of f32, does fit)
+OOM_IMAGES = 4096
+#: what a failed trial may leave allocated: a worker thread's first cuBLAS
+#: calls allocate its workspaces through the caching allocator
+OOM_SLACK_BYTES = 64 << 20
+#: 9b: ASHA over 6 trials of 4 epochs (rungs 1, 2, 4 at eta 2)
+ASHA_TRIALS, ASHA_EPOCHS, ASHA_ETA = 6, 4, 2
+#: 9c: epochs budgeted, and the cap past a trial's first report in
+#: epoch-plus-checkpoint times of 9b. The trial's clock starts before its
+#: set-up (ViT-B/16's init and the dataset read, seconds on the card), so
+#: the cap is 9b's median first report plus 2.5 of its epochs: the stop
+#: then falls mid-run, where the first-boundary rule can be seen
+CAP_EPOCHS, CAP_EPOCHS_OF_9B = 8, 2.5
+#: 9c: the trial's stop check starts its clock after the row's
+#: datetime_started (reserve, then the logger and the check are made):
+#: an epoch before the stop may read up to this much past the cap
+CAP_SLACK_S = 0.25
+#: 9d: epochs of the resumed job
+RESUME_EPOCHS = 3
+
+
+def twin_template(cls: str, learning_rate: str, batch_size: int,
+                  epochs: int) -> bytes:
+    """``templates/torch_vit.py`` renamed ``cls`` with its learning rate,
+    batch size and epochs knobs replaced; the architecture stays
+    ViT-B/16's."""
+    source = TEMPLATE.read_text()
+    for old, new in (
+            ("class TorchViT(BaseModel):", f"class {cls}(BaseModel):"),
+            ('"learning_rate": FloatKnob(1e-5, 1e-3, is_exp=True)',
+             f'"learning_rate": {learning_rate}'),
+            ('"batch_size": CategoricalKnob([64, 128])',
+             f'"batch_size": FixedKnob({batch_size})'),
+            ('"epochs": FixedKnob(1)', f'"epochs": FixedKnob({epochs})')):
+        require(source.count(old) == 1, f"template edit {old!r}")
+        source = source.replace(old, new)
+    return source.encode()
+
+
+def _loop_stack(store: str, params: Path):
+    """An admin (this process's placement, or the one the environment
+    selects) with its door and a logged-in Client."""
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.http import AdminServer
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.db.database import Database
+
+    for path in WORK.glob(store + "*"):
+        path.unlink()
+    admin = Admin(db=Database(str(WORK / store)), params_dir=str(params))
+    server = AdminServer(admin).start()
+    c = Client("127.0.0.1", server.port, timeout_s=900)
+    c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+    return admin, server, c
+
+
+class _Env:
+    """Settings for a drill, restored after it."""
+
+    def __init__(self, **settings: str):
+        self.settings = settings
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.settings}
+        os.environ.update(self.settings)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _epoch_records(c, trial_id: str) -> list:
+    """The trial's per-epoch reports (``loss``, ``epoch``, ``epoch_time``,
+    the log's ``time``), in order."""
+    return [m for m in c.get_trial_logs(trial_id)["metrics"] if "loss" in m]
+
+
+def _trial_line(drill: str, t: dict, epochs: int) -> None:
+    score = "none" if t["score"] is None else f"{t['score']:.4f}"
+    print(f"loop: {drill} trial {t['id'][:8]} {t['status']}: {epochs} "
+          f"epochs, attempt {t['attempt']}, kind {t['fault_kind']}, score "
+          f"{score}, learning_rate {t['knobs']['learning_rate']:.3g}",
+          flush=True)
+
+
+def checkpoint_cost(card: str) -> None:
+    """One ViT-B/16 + AdamW checkpoint write and its restore into a fresh
+    model and optimizer, timed directly (a synchronize on each side)."""
+    from rafiki_tpu_torch.convert import from_jax_params
+    from rafiki_tpu_torch.models import vit
+    from rafiki_tpu_torch.sdk.torch_backend import (
+        DataParallelTrainer,
+        softmax_classifier_loss,
+        tunable_optimizer,
+    )
+
+    cfg = vit.vit_b16()
+    tree = vit.init(np.random.default_rng(0), cfg)
+    trainer = DataParallelTrainer(
+        softmax_classifier_loss(lambda m, x: m(x)),
+        tunable_optimizer(torch.optim.AdamW, lr=1e-4), device="cuda:0")
+    model, opt = trainer.init(
+        lambda rng: from_jax_params(tree, cfg, "cuda:0", train=True))
+    rng = np.random.default_rng(SEED + 90)
+    batch = (torch.from_numpy(rng.random((8, 224, 224, 3),
+                                         dtype=np.float32)).cuda(),
+             torch.from_numpy(rng.integers(0, 1000, 8).astype(
+                 np.int32)).cuda())
+    trainer.train_step(model, opt, batch, None)  # AdamW's moments exist
+    path = WORK / "checkpoint_cost.ckpt"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer._save_checkpoint(str(path), model, opt, 1)
+    write_s = time.perf_counter() - t0
+    size = path.stat().st_size
+    model2, opt2 = trainer.init(
+        lambda rng: from_jax_params(tree, cfg, "cuda:0", train=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch = trainer._restore_checkpoint(str(path), model2, opt2)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    require(epoch == 1, f"restored epoch {epoch}")
+    moments = [v for st in opt2.state.values() for k, v in st.items()
+               if k != "step"]
+    require(moments and all(v.device.type == "cuda" for v in moments),
+            "the restored AdamW state is not on the card")
+    for (name, a), b in zip(model.named_parameters(), model2.parameters()):
+        require(torch.equal(a, b), f"restored {name} differs")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"loop: one ViT-B/16 + AdamW checkpoint ({n_params} parameters, "
+          f"two f32 moments each): {size} bytes ({size / 1e9:.3f} GB) "
+          f"written in {write_s:.2f} s ({size / write_s / 1e9:.2f} GB/s: "
+          f"to the host, npz, CRC32, fsync, rename), restored onto the "
+          f"card in {read_s:.2f} s ({size / read_s / 1e9:.2f} GB/s); card "
+          f"{card}", flush=True)
+    path.unlink()
+    del model, opt, model2, opt2, moments, batch
+    torch.cuda.empty_cache()
+
+
+def oom_drill(card: str) -> list:
+    """9a: a job whose every trial raises the allocator's own
+    OutOfMemoryError. Returns the kernels' launches in it."""
+    from rafiki_tpu_torch.worker import faults
+
+    rng = np.random.default_rng(SEED + 91)
+    t0 = time.perf_counter()
+    patterns = rng.random((CLASSES, 224, 224, 3), dtype=np.float32)
+    x, y = make_dataset(rng, TEST_IMAGES, patterns)
+    uris = {"train": str(WORK / "oom_train.npz"),
+            "test": str(WORK / "oom_test.npz")}
+    np.savez(uris["train"], x=np.tile(x, (OOM_IMAGES // len(x), 1, 1, 1)),
+             y=np.tile(y, OOM_IMAGES // len(y)))
+    np.savez(uris["test"], x=x, y=y)
+    del x, y
+    print(f"loop: 9a dataset of {OOM_IMAGES} images (224x224x3 f32, "
+          f"{Path(uris['train']).stat().st_size} bytes, np.savez) written "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    kernels = _kernels()
+    with _Env(RAFIKI_TRIAL_QUARANTINE_K="2", RAFIKI_TRIAL_FAULT_LIMIT="3"):
+        admin, server, c = _loop_stack("loop_oom.sqlite3",
+                                       WORK / "loop_params")
+        # the session's infeasible count as each penalty lands (the job's
+        # teardown deletes the session)
+        counted = []
+        penalize = admin.advisor_store.feedback_infeasible
+
+        def recorded(*args, **kw):
+            counted.append(penalize(*args, **kw))
+            return counted[-1]
+
+        admin.advisor_store.feedback_infeasible = recorded
+        try:
+            c.create_model("vit-oom", "IMAGE_CLASSIFICATION", twin_template(
+                "OomViT", "FixedKnob(1e-4)", OOM_IMAGES, 1), "OomViT")
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(0)
+            for kernel in kernels:
+                kernel.launches = 0
+
+            # ---- the main path's run (9a) ----
+            t0 = time.perf_counter()
+            c.create_train_job("oom", "IMAGE_CLASSIFICATION", uris["train"],
+                               uris["test"], budget={"MODEL_TRIAL_COUNT": 10,
+                                                     "CHIP_COUNT": 1})
+            job = c.wait_until_train_job_stopped("oom", timeout_s=600,
+                                                 poll_s=0.05)
+            fail_s = time.perf_counter() - t0
+            # -----------------------------------
+            counts = [k.launches for k in kernels]
+            row = admin.db.get_train_job(job["id"])
+            (sub,) = admin.db.get_sub_train_jobs_of_train_job(job["id"])
+            (worker,) = admin.db.get_workers_of_train_job(job["id"])
+            deadline = time.monotonic() + 120
+            while admin.db.get_service(worker["service_id"])["status"] not in (
+                    "STOPPED", "ERRORED"):
+                require(time.monotonic() < deadline,
+                        "9a: the job's worker was not stopped")
+                time.sleep(0.05)
+            service = admin.db.get_service(worker["service_id"])["status"]
+            trials = sorted(admin.db.get_trials_of_train_job(job["id"]),
+                            key=lambda t: t["datetime_started"])
+            stats = faults.training_stats().get(sub["id"], {})
+        finally:
+            server.stop()
+            admin.shutdown()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated(0)
+    for t in trials:
+        _trial_line("9a", t, 0)
+    require([(t["status"], t["fault_kind"]) for t in trials]
+            == [("ERRORED", "USER")] * 3,
+            f"9a trials {[(t['status'], t['fault_kind']) for t in trials]}")
+    require(all("OutOfMemoryError" in t["fault_detail"]
+                and "CUDA out of memory" in t["fault_detail"]
+                for t in trials), "9a: a trial's detail is not the "
+            f"allocator's OOM: {trials[0]['fault_detail'][:500]}")
+    infeasible = max(counted, default=0)
+    require(infeasible >= 1 and len(counted) >= 3,
+            f"9a: the advisor's infeasible counts {counted}")
+    require(stats.get("quarantined") == ["u:"]
+            and stats.get("reproposals", 0) >= 1,
+            f"9a: quarantine {stats}")
+    require((row["status"], row["fault_kind"]) == ("ERRORED", "USER")
+            and "RAFIKI_TRIAL_FAULT_LIMIT=3" in (row["error_reason"] or ""),
+            f"9a: job {row['status']} {row['fault_kind']}: "
+            f"{row['error_reason']}")
+    require(after - before <= OOM_SLACK_BYTES,
+            f"9a: {after - before} bytes still allocated after the job")
+    require(counts[0] == counts[2] == counts[3] == 0,
+            f"9a: launches {counts} (no evaluate, no backward)")
+    print(f"loop: 9a the allocator's OutOfMemoryError in each of "
+          f"{len(trials)} trials (batch {OOM_IMAGES}), each ERRORED USER "
+          f"with its detail; the signature quarantined after 2 "
+          f"({stats['reproposals']} re-proposals before the third); the "
+          f"advisor's infeasible count 0 -> {infeasible} over {len(counted)} "
+          f"penalties (one cell: every knob is fixed); the job ERRORED "
+          f"({row['error_reason'][:80]}...) in {fail_s:.1f} s from "
+          f"Client.create_train_job, its worker {service}; "
+          f"memory_allocated {before} -> {after} bytes "
+          f"({(after - before) / 2**20:+.1f} MiB); K1-LSE launched "
+          f"{counts[1]} times before the OOMs; card {card}", flush=True)
+    return counts
+
+
+def asha_drill(card: str, uris: dict) -> tuple:
+    """9b: ASHA on a 6-trial job with one chaos fault. Returns (the
+    kernels' launches, the median epoch-plus-checkpoint seconds, the
+    median seconds from a trial's start to its first report)."""
+    from rafiki_tpu_torch.advisor.asha import AshaScheduler
+
+    kernels = _kernels()
+    with _Env(RAFIKI_CHAOS="site=trial;action=error;times=1",
+              RAFIKI_TRIAL_RETRY_BACKOFF_S="0.05"):
+        admin, server, c = _loop_stack("loop_asha.sqlite3",
+                                       WORK / "loop_params")
+        verdicts = []
+        report = admin.advisor_store.report_rung
+
+        def recorded(advisor_id, trial_id, resource, value, **kw):
+            keep = report(advisor_id, trial_id, resource, value, **kw)
+            verdicts.append((trial_id, resource, value, keep))
+            return keep
+
+        admin.advisor_store.report_rung = recorded
+        try:
+            # the range reaches far below a useful rate: the GP's first
+            # three draws are uniform (numpy's default_rng(0): u = 0.637,
+            # 0.270, 0.041 of the log range), so 1.5e-3, 2.2e-5 and
+            # 1.6e-6; the last two barely move ViT-B/16's loss in 8 steps,
+            # which is not competitive at rung 1 against the first
+            c.create_model("vit-asha", "IMAGE_CLASSIFICATION", twin_template(
+                "AshaViT", "FloatKnob(1e-6, 1e-1, is_exp=True)", 64,
+                ASHA_EPOCHS), "AshaViT")
+            for kernel in kernels:
+                kernel.launches = 0
+
+            # ---- the main path's run (9b) ----
+            t0 = time.perf_counter()
+            c.create_train_job("asha", "IMAGE_CLASSIFICATION", uris["train"],
+                               uris["test"], budget={
+                                   "MODEL_TRIAL_COUNT": ASHA_TRIALS,
+                                   "CHIP_COUNT": 1, "EARLY_STOP": 1,
+                                   "ASHA_MIN_EPOCHS": 1,
+                                   "ASHA_ETA": ASHA_ETA})
+            job = c.wait_until_train_job_stopped("asha", timeout_s=900,
+                                                 poll_s=0.05)
+            torch.cuda.synchronize()
+            job_s = time.perf_counter() - t0
+            # -----------------------------------
+            counts = [k.launches for k in kernels]
+            trials = sorted(admin.db.get_trials_of_train_job(job["id"]),
+                            key=lambda t: t["datetime_started"])
+            reports = {t["id"]: _epoch_records(c, t["id"]) for t in trials}
+            breakdowns = {t["id"]: c.get_trial_logs(t["id"])["metrics"]
+                          for t in trials}
+        finally:
+            server.stop()
+            admin.shutdown()
+    require(job["status"] == "STOPPED", f"9b job {job['status']}")
+    require(len(trials) == ASHA_TRIALS
+            and all(t["status"] == "COMPLETED" and np.isfinite(t["score"])
+                    for t in trials),
+            f"9b trials {[(t['status'], t['score']) for t in trials]}")
+    require([(t["attempt"], t["fault_kind"]) for t in trials]
+            == [(1, "INFRA")] + [(0, None)] * (ASHA_TRIALS - 1),
+            f"9b attempts {[(t['attempt'], t['fault_kind']) for t in trials]}")
+    # the verdicts the system gave, against the port's scheduler replayed
+    # on the logged reports in their order
+    replay = AshaScheduler(min_resource=1, eta=ASHA_ETA)
+    logged = [(t["id"], int(m["epoch"]) + 1, m["loss"],
+               replay.report(t["id"], int(m["epoch"]) + 1, m["loss"]))
+              for t in trials for m in reports[t["id"]]]
+    require(logged == verdicts, f"9b verdicts {verdicts} != replay {logged}")
+    trained = {}
+    for t in trials:
+        mine = [keep for tid, _, _, keep in verdicts if tid == t["id"]]
+        stop = mine.index(False) + 1 if False in mine else ASHA_EPOCHS
+        trained[t["id"]] = len(reports[t["id"]])
+        require(trained[t["id"]] == min(stop, ASHA_EPOCHS),
+                f"9b trial {t['id'][:8]} trained {trained[t['id']]} epochs, "
+                f"its verdicts {mine}")
+        _trial_line("9b", t, trained[t["id"]])
+    require(min(trained.values()) < ASHA_EPOCHS,
+            f"9b: no trial stopped early ({trained})")
+    steps = sum(trained.values()) * (TRAIN_IMAGES // 64)
+    expect = [DEPTH * ASHA_TRIALS] + [DEPTH * steps] * 3
+    require(counts == expect, f"9b launches {counts}, expected {expect}")
+    gaps = [b["time"] - a["time"] for r in reports.values()
+            for a, b in zip(r, r[1:])]
+    steps_s = [m["epoch_time"] for r in reports.values() for m in r]
+    epoch_ckpt = statistics.median(gaps)
+    first = statistics.median(reports[t["id"]][0]["time"]
+                              - t["datetime_started"] for t in trials[1:])
+    # after a trial's last report: its fit's last checkpoint (written at
+    # the end or at the stop, then deleted with the trial), evaluate and
+    # the params write, from the worker's phase breakdown (logged last)
+    tails = []
+    for t in trials:
+        (phases,) = [m for m in breakdowns[t["id"]] if "trace_train_s" in m]
+        train_end = (phases["time"] - phases["trace_evaluate_s"]
+                     - phases["trace_persist_params_s"])
+        tails.append((train_end - reports[t["id"]][-1]["time"],
+                      phases["trace_evaluate_s"],
+                      phases["trace_persist_params_s"]))
+    tail = [statistics.median(x) for x in zip(*tails)]
+    print(f"loop: 9b ASHA (eta {ASHA_ETA}, rungs 1, 2, 4): "
+          f"{sum(trained.values())} epochs trained of "
+          f"{ASHA_TRIALS * ASHA_EPOCHS} budgeted ({sorted(trained.values())}"
+          f"), every one of {len(verdicts)} verdicts equal to "
+          f"AshaScheduler's replay of the logged losses; the chaos fault "
+          f"absorbed by trial 1 at attempt 1 in its own row; job "
+          f"{job_s:.1f} s; an epoch's steps {statistics.median(steps_s):.3f}"
+          f" s (epoch_time, median of {len(steps_s)}), report to report "
+          f"with the checkpoint between {epoch_ckpt:.3f} s (median of "
+          f"{len(gaps)}), a trial's start to its first report {first:.3f} "
+          f"s (median, the chaos-retried trial aside); after the last "
+          f"report, the fit's last checkpoint {tail[0]:.3f} s, evaluate "
+          f"{tail[1]:.3f} s, the params write {tail[2]:.3f} s (medians); "
+          f"launches {counts} (= "
+          f"{DEPTH} x {steps} steps, {DEPTH} x {ASHA_TRIALS} evaluates); "
+          f"card {card}", flush=True)
+    return counts, epoch_ckpt, first
+
+
+def cap_drill(card: str, uris: dict, epoch_ckpt_s: float,
+              first_s: float) -> list:
+    """9c: ``TRIAL_TIMEOUT_S`` at 9b's first report plus 2.5 of its
+    epoch-plus-checkpoint times stops 8-epoch trials at the first epoch
+    boundary past it."""
+    kernels = _kernels()
+    cap = round(first_s + CAP_EPOCHS_OF_9B * epoch_ckpt_s, 3)
+    admin, server, c = _loop_stack("loop_cap.sqlite3", WORK / "loop_params")
+    try:
+        c.create_model("vit-cap", "IMAGE_CLASSIFICATION", twin_template(
+            "CapViT", "FloatKnob(1e-5, 1e-3, is_exp=True)", 64, CAP_EPOCHS),
+            "CapViT")
+        for kernel in kernels:
+            kernel.launches = 0
+
+        # ---- the main path's run (9c) ----
+        t0 = time.perf_counter()
+        c.create_train_job("cap", "IMAGE_CLASSIFICATION", uris["train"],
+                           uris["test"], budget={"MODEL_TRIAL_COUNT": 2,
+                                                 "CHIP_COUNT": 1,
+                                                 "TRIAL_TIMEOUT_S": cap})
+        job = c.wait_until_train_job_stopped("cap", timeout_s=900,
+                                             poll_s=0.05)
+        torch.cuda.synchronize()
+        job_s = time.perf_counter() - t0
+        # -----------------------------------
+        counts = [k.launches for k in kernels]
+        trials = sorted(admin.db.get_trials_of_train_job(job["id"]),
+                        key=lambda t: t["datetime_started"])
+        reports = {t["id"]: _epoch_records(c, t["id"]) for t in trials}
+    finally:
+        server.stop()
+        admin.shutdown()
+    require(job["status"] == "STOPPED" and len(trials) == 2
+            and all(t["status"] == "COMPLETED" and np.isfinite(t["score"])
+                    for t in trials),
+            f"9c job {job['status']}, trials "
+            f"{[(t['status'], t['score']) for t in trials]}")
+    epochs = 0
+    for t in trials:
+        r = reports[t["id"]]
+        at = [m["time"] - t["datetime_started"] for m in r]
+        require(0 < len(r) < CAP_EPOCHS, f"9c trial {t['id'][:8]} trained "
+                f"{len(r)} epochs of {CAP_EPOCHS}")
+        require(at[-1] > cap and all(a <= cap + CAP_SLACK_S
+                                     for a in at[:-1]),
+                f"9c trial {t['id'][:8]}: reports at {at} s, cap {cap} s")
+        epochs += len(r)
+        _trial_line("9c", t, len(r))
+        print(f"loop: 9c trial {t['id'][:8]} reports at "
+              + ", ".join(f"{a:.2f}" for a in at)
+              + f" s from its start (epoch_time "
+              + ", ".join(f"{m['epoch_time']:.2f}" for m in r)
+              + f" s); stopped at the first past the cap of {cap} s",
+              flush=True)
+    steps = epochs * (TRAIN_IMAGES // 64)
+    expect = [DEPTH * 2] + [DEPTH * steps] * 3
+    require(counts == expect, f"9c launches {counts}, expected {expect}")
+    print(f"loop: 9c TRIAL_TIMEOUT_S={cap} (9b's first report at "
+          f"{first_s:.3f} s + {CAP_EPOCHS_OF_9B} x its {epoch_ckpt_s:.3f} s "
+          f"epoch with checkpoint): both trials COMPLETED after {epochs} "
+          f"epochs of {2 * CAP_EPOCHS} budgeted; job {job_s:.1f} s; card "
+          f"{card}", flush=True)
+    return counts
+
+
+def resume_drill(card: str, uris: dict) -> list:
+    """9d: the train child SIGKILLed mid-trial under process placement,
+    restarted under its service id, resumes the trial from its checkpoint.
+    Returns the launches of the restarted child (the killed one's are
+    lost with it)."""
+    from rafiki_tpu_torch.worker import bootstrap
+
+    logs = WORK / "loop_logs"
+    params = WORK / "loop_proc_params"
+    for path in [*logs.glob("*"), *params.glob("*")]:
+        path.unlink()
+    with _Env(RAFIKI_PLACEMENT="process", RAFIKI_LOGS_DIR=str(logs),
+              RAFIKI_PARAMS_DIR=str(params)):
+        admin, server, c = _loop_stack("loop_proc.sqlite3", params)
+        replays = []
+        replay = admin.advisor_store.replay_feedback
+
+        def recorded(*args, **kw):
+            replays.append(replay(*args, **kw))
+            return replays[-1]
+
+        admin.advisor_store.replay_feedback = recorded
+        try:
+            c.create_model("vit-resume", "IMAGE_CLASSIFICATION",
+                           twin_template("ResumeViT",
+                                         "FloatKnob(1e-5, 1e-3, is_exp=True)",
+                                         64, RESUME_EPOCHS), "ResumeViT")
+
+            # ---- the main path's run (9d, in children) ----
+            t0 = time.perf_counter()
+            c.create_train_job("resume", "IMAGE_CLASSIFICATION",
+                               uris["train"], uris["test"],
+                               budget={"MODEL_TRIAL_COUNT": 2,
+                                       "CHIP_COUNT": 1})
+            job_id = c.get_train_job("resume")["id"]
+            # the kill lands in the second trial: the first is COMPLETED,
+            # so the restarted child's replay meets a session that holds
+            # its observation (a kill in the first would leave nothing to
+            # replay, and the guard would never be asked)
+            deadline = time.monotonic() + 600
+            while True:
+                trials = sorted(admin.db.get_trials_of_train_job(job_id),
+                                key=lambda t: t["datetime_started"])
+                if (len(trials) == 2 and (params / f"{trials[1]['id']}.ckpt")
+                        .exists()):
+                    break
+                require(time.monotonic() < deadline,
+                        "9d: no checkpoint of the second trial")
+                time.sleep(0.02)
+            victim = trials[1]
+            (sid, records), = child_records(logs, "startup").items()
+            killed = records[0]["pid"]
+            os.kill(killed, signal.SIGKILL)
+            t_kill = time.time()
+            job = c.wait_until_train_job_stopped("resume", timeout_s=900,
+                                                 poll_s=0.05)
+            job_s = time.perf_counter() - t0
+            # -------------------------------------------------
+            trials = sorted(admin.db.get_trials_of_train_job(job_id),
+                            key=lambda t: t["datetime_started"])
+            reports = {t["id"]: _epoch_records(c, t["id"]) for t in trials}
+        finally:
+            server.stop()
+            admin.shutdown()
+    require(job["status"] == "STOPPED", f"9d job {job['status']}")
+    started = child_records(logs, "startup")[sid]
+    require(len(started) == 2 and started[0]["pid"] == killed
+            and started[1]["pid"] != killed,
+            f"9d: startup lines {started}")
+    log = (logs / f"service-{sid}.log").read_text()
+    m = re.search(r"resuming fit from \S+" + victim["id"]
+                  + r"\.ckpt at epoch (\d+)", log)
+    require(m is not None and int(m.group(1)) >= 1,
+            "9d: the restarted child did not resume from the checkpoint")
+    resumed_at = int(m.group(1))
+    require(len(trials) == 2 and [t["status"] for t in trials]
+            == ["COMPLETED"] * 2 and all(np.isfinite(t["score"])
+                                         for t in trials),
+            f"9d trials {[(t['status'], t['score']) for t in trials]}")
+    again = next(t for t in trials if t["id"] == victim["id"])
+    require(again["knobs"] == victim["knobs"]
+            and again["worker_id"] == victim["worker_id"] == sid,
+            "9d: the resumed trial's knobs or worker changed")
+    require(replays == [False], f"9d: replay_feedback returned {replays}")
+    left = list(params.glob("*.ckpt*"))
+    require(not left, f"9d: checkpoints left {left}")
+    require(not _alive(killed) and not _alive(started[1]["pid"]),
+            "9d: a child outlived the job")
+    (exit_line,) = child_records(logs, "kernel launches")[sid]
+    counts = [exit_line[name] for name in bootstrap.KERNELS]
+    steps = (RESUME_EPOCHS - resumed_at) * (TRAIN_IMAGES // 64)
+    expect = [DEPTH] + [DEPTH * steps] * 3
+    require(counts == expect, f"9d: the restarted child launched {counts}, "
+            f"expected {expect} (one evaluate, {steps} steps)")
+    epochs = [len(reports[t["id"]]) for t in trials]
+    for t, n in zip(trials, epochs):
+        _trial_line("9d", t, n)
+    print(f"loop: 9d the train child (pid {killed}) SIGKILLed once trial "
+          f"{victim['id'][:8]}'s checkpoint existed; started again under "
+          f"service {sid[:8]} as pid {started[1]['pid']}: "
+          f"{started[1]['t_start'] - t_kill:.2f} s kill to the new "
+          f"process, {started[1]['t_ready'] - t_kill:.2f} s to RUNNING; it "
+          f"resumed the trial at epoch {resumed_at} of {RESUME_EPOCHS} under "
+          f"its id and knobs (epochs logged {epochs}); the admin's session "
+          f"survived (replay_feedback returned False); 2 trials, no "
+          f"checkpoint left; job {job_s:.1f} s; the restarted child's "
+          f"launches {counts}; card {card}", flush=True)
+    return counts
+
+
+def trial_loop_phase(card: str, uris: dict) -> list:
+    """Phase 9; each kernel's launches on its paths, summed."""
+    t0 = time.perf_counter()
+    checkpoint_cost(card)
+    drills = {}
+    t = time.perf_counter()
+    drills["9a"] = oom_drill(card)
+    print(f"loop: 9a took {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    drills["9b"], epoch_ckpt, first = asha_drill(card, uris)
+    print(f"loop: 9b took {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    drills["9c"] = cap_drill(card, uris, epoch_ckpt, first)
+    print(f"loop: 9c took {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    drills["9d"] = resume_drill(card, uris)
+    print(f"loop: 9d took {time.perf_counter() - t:.1f} s", flush=True)
+    totals = [sum(c[i] for c in drills.values()) for i in range(4)]
+    print(f"loop: launches by drill {json.dumps(drills)}; phase 9 took "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    return totals
+
+
 def _alive(pid: int) -> bool:
     try:
         os.kill(pid, 0)
@@ -2783,6 +3397,7 @@ def main() -> int:
     process_launches = process_phase(card, uris, stack_job_s)
     zoo_launches = zoo_phase(card)
     bert_launches, lm_launches = text_phase(card)
+    loop_launches = trial_loop_phase(card, uris)
     for i, name in enumerate(KERNEL_NAMES):
         by_path = {"train (phase 3)": train_launches[i],
                    "serve (phase 4)": serve_launches[i],
@@ -2790,7 +3405,8 @@ def main() -> int:
                    "process (phase 6)": process_launches[i],
                    "zoo (phase 7)": zoo_launches[i],
                    "bert (phase 8a)": bert_launches[i],
-                   "lm (phase 8b)": lm_launches[i]}
+                   "lm (phase 8b)": lm_launches[i],
+                   "trial loop (phase 9)": loop_launches[i]}
         require(by_path["stack (phase 5)"] > 0,
                 f"{name} was not launched through the admin")
         require(by_path["process (phase 6)"] > 0,
@@ -2799,6 +3415,8 @@ def main() -> int:
                 f"{name} was not launched on the BERT path")
         require(by_path["lm (phase 8b)"] > 0,
                 f"{name} was not launched on the LM path")
+        require(by_path["trial loop (phase 9)"] > 0,
+                f"{name} was not launched on the trial loop's path")
         entries[name]["launches"] = stack_launches[i]
         entries[name]["launches_by_path"] = by_path
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.0f} s",

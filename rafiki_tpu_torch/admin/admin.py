@@ -80,7 +80,10 @@ from rafiki_tpu_torch.worker.inference import (
     EVENT_INFERENCE_WORKER_STATS,
     serving_stats,
 )
-from rafiki_tpu_torch.worker.train import EVENT_BUDGET_REACHED
+from rafiki_tpu_torch.worker.train import (
+    EVENT_BUDGET_REACHED,
+    EVENT_TRIAL_FAULT_LIMIT,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -682,14 +685,23 @@ class Admin:
 
     def handle_event(self, name: str, payload: Dict[str, Any]) -> None:
         """Worker events drive job status, and carry the serving counters
-        of worker processes. (The JAX package's fail-fast and agent events
-        wait for those ports.)"""
+        of worker processes. (The JAX package's agent events wait for
+        host placement.)"""
         try:
             if name == EVENT_BUDGET_REACHED:
                 # the workers exit on their own once the shared budget is
                 # spent: fold that into the job's status
                 self.services.refresh_train_job_status(
                     payload["train_job_id"])
+            elif name == EVENT_TRIAL_FAULT_LIMIT:
+                # job fail-fast: a worker hit RAFIKI_TRIAL_FAULT_LIMIT
+                # consecutive user-class faults, so the template is broken.
+                # The worker marked the row already (the guarded transition
+                # makes this a no-op then); its siblings fail the same way
+                self.db.mark_train_job_as_errored(
+                    payload["train_job_id"], payload.get("fault_kind"),
+                    payload.get("reason"))
+                self.services.stop_train_services(payload["train_job_id"])
             elif name == EVENT_INFERENCE_WORKER_STATS:
                 with self._remote_stats_lock:
                     self._remote_serving_stats[payload["service_id"]] = {
@@ -731,13 +743,10 @@ class Admin:
 _RELAYED_STATS = ("batches", "queries", "queue_depth", "expired", "shed")
 
 #: budget keys, and the values of them, that ask for what is not ported:
-#: multi-card trials, ASHA, trial deadlines and population trials; multi-
-#: card workers, fused ensembles and speculative decoding's draft trial
-#: (ROADMAP.md)
+#: multi-card trials and population trials; multi-card workers, fused
+#: ensembles and speculative decoding's draft trial (ROADMAP.md)
 _UNPORTED_TRAIN_BUDGET = {
     BudgetType.CHIPS_PER_TRIAL: lambda v: int(v) > 1,
-    BudgetType.EARLY_STOP: bool,
-    BudgetType.TRIAL_TIMEOUT_S: lambda v: True,
     BudgetType.TRIAL_VMAP_K: lambda v: v not in (0, 1),
 }
 _UNPORTED_SERVING_BUDGET = {

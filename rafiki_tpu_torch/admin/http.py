@@ -7,11 +7,11 @@ standard library's threading HTTP server; every route body is one
 ``Admin`` call. A model upload is JSON with the template base64-encoded.
 
 The advisor routes a process-placed train worker uses (create, propose,
-propose_batch, feedback, feedback_batch, delete) are carried; ``start``
-tells a process placement the door's address (``admin_addr``). Not
-carried (ROADMAP.md): the advisor's infeasible, replay and rung routes,
-the trace, scale, rollout and drift routes, fleet health, metrics, the
-web UI, and the standby and recovery gates.
+propose_batch, feedback, feedback_batch, infeasible, replay, report_rung,
+delete) are carried; ``start`` tells a process placement the door's
+address (``admin_addr``). Not carried (ROADMAP.md): the trace, scale,
+rollout and drift routes, fleet health, metrics, the web UI, and the
+standby and recovery gates.
 """
 
 from __future__ import annotations
@@ -280,6 +280,33 @@ class AdminServer:
                         m["aid"],
                         [(_field(i, "knobs"), _field(i, "score"))
                          for i in _list_field(b, "items")])}),
+            # scoreless-failure signal (the trial fault taxonomy): the GP
+            # steers away; trial_id makes the session's ASHA scheduler
+            # forget the dead trial's rung records
+            r("POST", r"/advisors/(?P<aid>[^/]+)/infeasible", _ANY,
+                lambda au, m, b, q: {
+                    "infeasible": A.advisor_store.feedback_infeasible(
+                        m["aid"], _field(b, "knobs"),
+                        kind=b.get("kind", "USER"),
+                        trial_id=b.get("trial_id"))}),
+            r("POST", r"/advisors/(?P<aid>[^/]+)/replay", _ANY,
+                lambda au, m, b, q: {
+                    "replayed": A.advisor_store.replay_feedback(
+                        m["aid"],
+                        [(_field(i, "knobs"), _field(i, "score"))
+                         for i in _list_field(b, "items")],
+                        infeasible=[
+                            (_field(i, "knobs"), i.get("kind", "USER"))
+                            for i in b.get("infeasible") or []])}),
+            # ASHA rung report (early stopping, advisor/asha.py)
+            r("POST", r"/advisors/(?P<aid>[^/]+)/report_rung", _ANY,
+                lambda au, m, b, q: {"keep": A.advisor_store.report_rung(
+                    m["aid"], _field(b, "trial_id"),
+                    _num_field(b, "resource", int),
+                    _num_field(b, "value", float),
+                    min_resource=_num_field(b, "min_resource", int, 1),
+                    eta=_num_field(b, "eta", int, 3),
+                    mode=b.get("mode", "min"))}),
             r("DELETE", r"/advisors/(?P<aid>[^/]+)", _ANY, lambda au, m, b, q:
                 A.advisor_store.delete_advisor(m["aid"]) or {}),
             # admin actions

@@ -4,19 +4,22 @@ Own copy of ``rafiki_tpu/advisor/advisor.py``: the ``BaseAdvisor``
 contract, the GP-backed default ``Advisor``, ``RandomAdvisor``, and the
 thread-safe ``AdvisorStore`` keyed by advisor id (one session per
 sub-train-job, shared by its workers, and served on the admin's REST door
-to worker processes), with batch proposals and feedback. Infeasible
-feedback, replay after a restart and the ASHA scheduler wait
-(ROADMAP.md).
+to worker processes), with batch proposals and feedback, infeasible
+feedback (a trial that failed without a score), the replay that rebuilds
+a fresh session after a restart, and each session's ASHA scheduler
+(``report_rung``, ``advisor/asha.py``).
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from rafiki_tpu_torch.advisor.asha import AshaScheduler
 from rafiki_tpu_torch.advisor.gp import BayesOpt
 from rafiki_tpu_torch.sdk.knob import (
     KnobConfig,
@@ -41,8 +44,13 @@ def _jsonify(value: Any) -> Any:
     return value
 
 
+logger = logging.getLogger(__name__)
+
+
 class BaseAdvisor:
-    """Contract: propose a knob assignment; feed back its achieved score."""
+    """Contract: propose a knob assignment; feed back its achieved score.
+    ``observation_count`` is part of it: the store's empty-only replay
+    reads it."""
 
     def __init__(self, knob_config: KnobConfig):
         self.knob_config = knob_config
@@ -65,9 +73,18 @@ class BaseAdvisor:
             self.feedback(knobs, float(score))
         return len(items)
 
+    def feedback_infeasible(self, knobs: Dict[str, Any],
+                            kind: str = "USER") -> None:
+        """The trial at ``knobs`` failed without a usable score. Optional:
+        ignored here; the GP steers its proposals away."""
+
     @property
     def observation_count(self) -> int:
         raise NotImplementedError
+
+    @property
+    def infeasible_count(self) -> int:
+        return 0
 
 
 class Advisor(BaseAdvisor):
@@ -107,9 +124,23 @@ class Advisor(BaseAdvisor):
         with self._lock:
             self._opt.observe(u, float(score))
 
+    def feedback_infeasible(self, knobs: Dict[str, Any],
+                            kind: str = "USER") -> None:
+        u = knobs_to_unit(self.knob_config, knobs)
+        with self._lock:
+            self._opt.mark_infeasible(u)
+
+    @property
+    def history(self) -> List[Tuple[np.ndarray, float]]:
+        return list(zip(self._opt.observed_X, self._opt.observed_y))
+
     @property
     def observation_count(self) -> int:
         return len(self._opt.observed_y)
+
+    @property
+    def infeasible_count(self) -> int:
+        return len(self._opt.infeasible_X)
 
 
 class RandomAdvisor(BaseAdvisor):
@@ -120,6 +151,7 @@ class RandomAdvisor(BaseAdvisor):
         self._rng = np.random.default_rng(seed)
         self._dims = knob_config_dims(knob_config)
         self._n_observed = 0
+        self._n_infeasible = 0
 
     def propose(self) -> Dict[str, Any]:
         return _jsonify(knobs_from_unit(self.knob_config,
@@ -133,9 +165,18 @@ class RandomAdvisor(BaseAdvisor):
     def feedback(self, knobs: Dict[str, Any], score: float) -> None:
         self._n_observed += 1
 
+    def feedback_infeasible(self, knobs: Dict[str, Any],
+                            kind: str = "USER") -> None:
+        # no model to steer: counted for observability
+        self._n_infeasible += 1
+
     @property
     def observation_count(self) -> int:
         return self._n_observed
+
+    @property
+    def infeasible_count(self) -> int:
+        return self._n_infeasible
 
 
 class AdvisorStore:
@@ -145,6 +186,7 @@ class AdvisorStore:
 
     def __init__(self) -> None:
         self._advisors: Dict[str, BaseAdvisor] = {}
+        self._schedulers: Dict[str, AshaScheduler] = {}
         self._lock = threading.Lock()
 
     def create_advisor(
@@ -179,6 +221,7 @@ class AdvisorStore:
     def delete_advisor(self, advisor_id: str) -> None:
         with self._lock:
             self._advisors.pop(advisor_id, None)
+            self._schedulers.pop(advisor_id, None)
 
     def feedback(self, advisor_id: str, knobs: Dict[str, Any],
                  score: float) -> Dict[str, Any]:
@@ -187,3 +230,62 @@ class AdvisorStore:
         advisor = self.get(advisor_id)
         advisor.feedback(knobs, score)
         return advisor.propose()
+
+    def feedback_infeasible(self, advisor_id: str, knobs: Dict[str, Any],
+                            kind: str = "USER",
+                            trial_id: Optional[str] = None) -> int:
+        """Record a scoreless failure at ``knobs``; with ``trial_id``, the
+        session's ASHA scheduler forgets the trial's rung records. Returns
+        the session's infeasible count."""
+        advisor = self.get(advisor_id)
+        advisor.feedback_infeasible(knobs, kind)
+        if trial_id is not None:
+            with self._lock:
+                sched = self._schedulers.get(advisor_id)
+            if sched is not None:
+                sched.forget(trial_id)
+        return advisor.infeasible_count
+
+    def replay_feedback(
+            self, advisor_id: str, items: List[Tuple[Dict[str, Any], float]],
+            infeasible: Optional[List[Tuple[Dict[str, Any], str]]] = None,
+    ) -> bool:
+        """Seed a FRESH session with already-scored (knobs, score) pairs
+        and (knobs, fault kind) infeasible ones: how a restarted worker
+        rebuilds the GP from the store. Atomic and empty-only: a session
+        holding any observation or infeasible point (it survived, or a
+        sibling replayed first) is left as it is, and False returned."""
+        with self._lock:
+            advisor = self._advisors.get(advisor_id)
+            if advisor is None:
+                raise KeyError(f"No such advisor: {advisor_id}")
+            if advisor.observation_count > 0 or advisor.infeasible_count > 0:
+                return False
+            for knobs, score in items:
+                advisor.feedback(knobs, float(score))
+            for knobs, kind in infeasible or []:
+                advisor.feedback_infeasible(knobs, str(kind))
+            return True
+
+    def report_rung(self, advisor_id: str, trial_id: str, resource: int,
+                    value: float, min_resource: int = 1, eta: int = 3,
+                    mode: str = "min") -> bool:
+        """ASHA's check: record a trial's intermediate metric; whether it
+        should continue. One scheduler a session, made by the first
+        report: a caller asking for another ladder is warned and competes
+        under the existing one."""
+        with self._lock:
+            if advisor_id not in self._advisors:
+                raise KeyError(f"No such advisor: {advisor_id}")
+            sched = self._schedulers.get(advisor_id)
+            if sched is None:
+                sched = self._schedulers[advisor_id] = AshaScheduler(
+                    min_resource=min_resource, eta=eta, mode=mode)
+            elif (sched.min_resource, sched.eta, sched.mode) != (
+                    max(int(min_resource), 1), int(eta), mode):
+                logger.warning(
+                    "ASHA params (%s,%s,%s) differ from session %s's "
+                    "live scheduler (%s,%s,%s); using the existing one",
+                    min_resource, eta, mode, advisor_id,
+                    sched.min_resource, sched.eta, sched.mode)
+        return sched.report(trial_id, resource, value)

@@ -4,9 +4,9 @@ Own copy of ``rafiki_tpu/advisor/gp.py`` (numpy only). Operates on the
 unit cube [0,1]^d (each knob encodes itself, ``sdk/knob.py``) and
 maximizes expected improvement; pending (proposed, not yet scored) points
 are fantasized at the observed minimum (constant liar), so concurrent
-proposals spread out. The original's infeasible-point penalties (a trial
-that failed without a score) wait with the rest of the trial-fault
-taxonomy (ROADMAP.md); without them both propose the same points.
+proposals spread out, and infeasible points (trials that failed without a
+score) one spread below it, so proposals steer away from crashing
+regions.
 """
 
 from __future__ import annotations
@@ -114,6 +114,12 @@ class BayesOpt:
         self.observed_X: List[np.ndarray] = []
         self.observed_y: List[float] = []
         self.pending_X: List[np.ndarray] = []
+        # points that failed without a score (the fault taxonomy's
+        # infeasible kinds), de-duplicated on a grid and capped: repeated
+        # near-identical penalties would bloat the O(n^3) fit and wreck
+        # the kernel's conditioning without adding information
+        self.infeasible_X: List[np.ndarray] = []
+        self._infeasible_cells: set = set()
 
     @property
     def n_warmup(self) -> int:
@@ -129,14 +135,24 @@ class BayesOpt:
         if self.dims == 0:
             return np.zeros(0)
         if len(self.observed_X) < self.n_warmup:
-            x = self.rng.random(self.dims)
+            x = self._warmup_draw()
         else:
             X = np.array(self.observed_X)
             y = np.array(self.observed_y)
+            # the constant liar's level comes from the observed minimum,
+            # taken before the penalty rows join y
+            lie = float(y.min())
+            if self.infeasible_X:
+                # penalty fantasies one spread below the observed minimum:
+                # low enough that EI never chases the region, finite
+                # enough that the GP stays well-conditioned
+                bad = lie - (float(y.std()) or 1.0)
+                X = np.vstack([X, np.array(self.infeasible_X)])
+                y = np.concatenate(
+                    [y, np.full(len(self.infeasible_X), bad)])
             if self.pending_X:
                 X = np.vstack([X, np.array(self.pending_X)])
-                y = np.concatenate([y, np.full(len(self.pending_X),
-                                               float(y.min()))])
+                y = np.concatenate([y, np.full(len(self.pending_X), lie)])
             gp = GaussianProcess()
             gp.fit(X, y)
             cand = self.rng.random((self.N_CANDIDATES, self.dims))
@@ -153,8 +169,42 @@ class BayesOpt:
             self.mark_pending(x)
         return x
 
+    def _warmup_draw(self) -> np.ndarray:
+        """A random warm-up point; with infeasible history, the one of 16
+        candidates farthest from every infeasible point."""
+        if not self.infeasible_X:
+            return self.rng.random(self.dims)
+        cand = self.rng.random((16, self.dims))
+        inf = np.array(self.infeasible_X)
+        d_min = np.sqrt(
+            ((cand[:, None, :] - inf[None, :, :]) ** 2).sum(-1)).min(1)
+        return cand[int(np.argmax(d_min))]
+
     def mark_pending(self, x: np.ndarray) -> None:
         self.pending_X.append(np.asarray(x, dtype=np.float64))
+
+    INFEASIBLE_GRID = 16   # de-duplication cells per dimension
+    INFEASIBLE_CAP = 512   # beyond it the oldest drop
+
+    def mark_infeasible(self, x: np.ndarray) -> None:
+        """Record a point that failed without a usable score. It retires
+        the nearest pending fantasy as ``observe`` does; a point in an
+        already penalized cell adds no row."""
+        x = np.asarray(x, dtype=np.float64)
+        if self.pending_X:
+            d = [float(((p - x) ** 2).sum()) for p in self.pending_X]
+            self.pending_X.pop(int(np.argmin(d)))
+        cell = tuple(np.round(x * self.INFEASIBLE_GRID).astype(int)
+                     .tolist())
+        if cell in self._infeasible_cells:
+            return
+        self._infeasible_cells.add(cell)
+        self.infeasible_X.append(x)
+        if len(self.infeasible_X) > self.INFEASIBLE_CAP:
+            old = self.infeasible_X.pop(0)
+            self._infeasible_cells.discard(
+                tuple(np.round(old * self.INFEASIBLE_GRID).astype(int)
+                      .tolist()))
 
     def observe(self, x: np.ndarray, y: float) -> None:
         x = np.asarray(x, dtype=np.float64)

@@ -21,7 +21,9 @@ per-trial feedback goes through the batch route, which returns no
 proposal. The original's ``/feedback`` answers with a next proposal that
 the GP registers as pending and no trial ever takes, so a process-placed
 worker would leave the GP in another state than a thread-placed one.
-Infeasible feedback, replay and rung reports go with ROADMAP.md A.3.
+Infeasible feedback, replay and rung reports ride out an unreachable
+admin the same way; a re-applied infeasible point lands in an already
+penalized cell of the GP.
 """
 
 from __future__ import annotations
@@ -83,6 +85,11 @@ class _RemoteAdvisor:
         _ride_out(lambda: self._client.feedback_knobs_batch(
             self._id, [(knobs, float(score))]), "feedback")
 
+    def feedback_infeasible(self, knobs: Dict[str, Any],
+                            kind: str = "USER") -> None:
+        _ride_out(lambda: self._client.feedback_infeasible_knobs(
+            self._id, knobs, kind=kind), "feedback_infeasible")
+
 
 class RemoteAdvisorStore:
     """``AdvisorStore``'s interface over the admin's REST door."""
@@ -119,6 +126,28 @@ class RemoteAdvisorStore:
         return _ride_out(
             lambda: self._client.feedback_knobs_batch(advisor_id, items),
             "feedback_batch")
+
+    def feedback_infeasible(self, advisor_id: str, knobs: Dict[str, Any],
+                            kind: str = "USER",
+                            trial_id: Optional[str] = None) -> int:
+        return _ride_out(lambda: self._client.feedback_infeasible_knobs(
+            advisor_id, knobs, kind=kind, trial_id=trial_id),
+            "feedback_infeasible")
+
+    def replay_feedback(self, advisor_id: str,
+                        items: List[Tuple[Dict[str, Any], float]],
+                        infeasible: Optional[List[Tuple[Dict[str, Any],
+                                                        str]]] = None
+                        ) -> bool:
+        return _ride_out(lambda: self._client.replay_advisor_feedback(
+            advisor_id, items, infeasible=infeasible), "replay_feedback")
+
+    def report_rung(self, advisor_id: str, trial_id: str, resource: int,
+                    value: float, min_resource: int = 1, eta: int = 3,
+                    mode: str = "min") -> bool:
+        return _ride_out(lambda: self._client.report_rung(
+            advisor_id, trial_id, resource, value,
+            min_resource=min_resource, eta=eta, mode=mode), "report_rung")
 
     def delete_advisor(self, advisor_id: str) -> None:
         # teardown is best-effort: never worth stalling a stop on

@@ -10,8 +10,8 @@ uses (``advisor/remote.py``). It speaks HTTP with the standard library's
 ``urllib.request``, and ``http.client`` for the chunked streams; a
 non-200 answer raises :class:`RafikiError` with the status, and an admin
 that cannot be reached raises :class:`AdminUnavailableError`.
-Multi-address failover, ``predict_direct``, rollout, drift and the
-advisor's infeasible, replay and rung calls are not ported (ROADMAP.md).
+Multi-address failover, ``predict_direct``, rollout and drift are not
+ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -425,6 +425,38 @@ class Client:
             "POST", f"/advisors/{advisor_id}/feedback_batch",
             {"items": [{"knobs": kn, "score": float(sc)}
                        for kn, sc in items]})["count"])
+
+    def replay_advisor_feedback(self, advisor_id: str, items,
+                                infeasible=None) -> bool:
+        """Seed a fresh advisor session with already-scored (knobs, score)
+        pairs and (knobs, fault kind) infeasible ones; False (a no-op)
+        when the session already holds any."""
+        return bool(self._call(
+            "POST", f"/advisors/{advisor_id}/replay",
+            {"items": [{"knobs": k, "score": s} for k, s in items],
+             "infeasible": [{"knobs": k, "kind": kind}
+                            for k, kind in infeasible or []]})["replayed"])
+
+    def feedback_infeasible_knobs(self, advisor_id: str,
+                                  knobs: Dict[str, Any], kind: str = "USER",
+                                  trial_id: Optional[str] = None) -> int:
+        """The trial at ``knobs`` failed without a usable score (fault
+        kind USER, TIMEOUT, INVALID_SCORE or MEM); returns the session's
+        infeasible count."""
+        return int(self._call(
+            "POST", f"/advisors/{advisor_id}/infeasible",
+            {"knobs": knobs, "kind": kind,
+             "trial_id": trial_id})["infeasible"])
+
+    def report_rung(self, advisor_id: str, trial_id: str, resource: int,
+                    value: float, min_resource: int = 1, eta: int = 3,
+                    mode: str = "min") -> bool:
+        """ASHA's rung report; whether the trial should continue."""
+        return bool(self._call(
+            "POST", f"/advisors/{advisor_id}/report_rung",
+            {"trial_id": trial_id, "resource": int(resource),
+             "value": float(value), "min_resource": int(min_resource),
+             "eta": int(eta), "mode": mode})["keep"])
 
     def delete_advisor(self, advisor_id: str) -> None:
         self._call("DELETE", f"/advisors/{advisor_id}")

@@ -3,9 +3,10 @@ as ``rafiki_tpu/config.py``.
 
 Paths, the settings a live deployment may retune
 (``PREDICT_QUEUE_DEPTH``, the per-job doors ``PREDICTOR_PORTS`` and
-``PREDICTOR_HOST``, the generation worker's ``GEN_*``) and the
-wall-clock budgets (``PREDICT_TIMEOUT_S``, ``SERVICE_DEPLOY_TIMEOUT_S``)
-are read at each use (module ``__getattr__``), so a test or an operator
+``PREDICTOR_HOST``, the generation worker's ``GEN_*``, the trial fault
+settings ``TRIAL_*`` and ``PENDING_FEEDBACK_MAX``) and the wall-clock
+budgets (``PREDICT_TIMEOUT_S``, ``SERVICE_DEPLOY_TIMEOUT_S``) are read
+at each use (module ``__getattr__``), so a test or an operator
 can repoint ``RAFIKI_WORKDIR`` or give a loaded host longer budgets
 without re-importing (the JAX package reads the two budgets once, at
 import).
@@ -14,7 +15,8 @@ One default differs: the metadata store is
 file with different schemas.
 
 :func:`refuse_unported` turns the settings that would select a subsystem
-the port does not have yet into a typed :class:`NotPortedError`.
+the port does not have yet into a typed :class:`NotPortedError`, and so a
+``RAFIKI_CHAOS`` rule at a site whose hook the port lacks.
 """
 
 from __future__ import annotations
@@ -117,6 +119,25 @@ _DYNAMIC = {
     # 0: greedy only; a sampled request gets a typed 400
     "GEN_SAMPLING": lambda: os.environ.get(
         "RAFIKI_GEN_SAMPLING", "1") != "0",
+    # -- trial fault tolerance (worker/train.py, worker/faults.py), read
+    # at each use so a live worker's next trial sees a change:
+    # infra-class faults (INFRA, MEM, STALL) re-run under the same trial
+    # id up to this many times (0: every fault burns its budget slot)
+    "TRIAL_RETRY_MAX": lambda: _env_int("RAFIKI_TRIAL_RETRY_MAX", 2),
+    # backoff base of those re-runs (exponential, full jitter)
+    "TRIAL_RETRY_BACKOFF_S": lambda: _env_float(
+        "RAFIKI_TRIAL_RETRY_BACKOFF_S", 0.5),
+    # poison faults on near-identical knobs before their signature is
+    # quarantined
+    "TRIAL_QUARANTINE_K": lambda: _env_int("RAFIKI_TRIAL_QUARANTINE_K", 3),
+    # proposals rejected a slot for a quarantined signature before the
+    # worker accepts one
+    "TRIAL_REPROPOSE_MAX": lambda: _env_int("RAFIKI_TRIAL_REPROPOSE_MAX", 8),
+    # consecutive user-class faults that error the whole job (0: never)
+    "TRIAL_FAULT_LIMIT": lambda: _env_int("RAFIKI_TRIAL_FAULT_LIMIT", 5),
+    # advisor feedback queued for retry, at most (the oldest drop)
+    "PENDING_FEEDBACK_MAX": lambda: _env_int(
+        "RAFIKI_PENDING_FEEDBACK_MAX", 256),
 }
 
 
@@ -169,3 +190,11 @@ def refuse_unported() -> None:
         value = os.environ.get(name, "").strip()
         if value and selects(value):
             raise NotPortedError(subsystem, f"{name}={value}")
+    spec = os.environ.get("RAFIKI_CHAOS", "").strip()
+    if spec:
+        from rafiki_tpu_torch.utils import chaos
+
+        try:
+            chaos.parse_rules(spec)  # a rule at an unhooked site raises
+        except chaos.ChaosSpecError:
+            pass  # unparseable: logged and ignored where it is read

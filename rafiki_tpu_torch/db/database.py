@@ -484,6 +484,18 @@ class Database:
             (TrialStatus.ERRORED, fault_kind, fault_detail, time.time(),
              trial_id))
 
+    def record_trial_fault(self, trial_id: str, fault_kind: str,
+                           fault_detail: Optional[str]) -> int:
+        """An infra-class fault the worker is about to retry: bump the
+        attempt counter and record the fault, but keep the trial RUNNING
+        (same id, knobs and budget slot). Returns the new attempt."""
+        self._exec(
+            "UPDATE trial SET attempt=attempt+1, fault_kind=?,"
+            " fault_detail=? WHERE id=?",
+            (fault_kind, fault_detail, trial_id))
+        row = self._one("SELECT attempt FROM trial WHERE id=?", (trial_id,))
+        return int(row["attempt"]) if row else 0
+
     def mark_trial_as_terminated(self, trial_id: str) -> None:
         self._exec(
             "UPDATE trial SET status=?, datetime_stopped=? WHERE id=?",

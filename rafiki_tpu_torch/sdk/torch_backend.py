@@ -103,6 +103,17 @@ def trainer_cache_clear() -> None:
         _trainer_cache.clear()
 
 
+def drop_fit_data() -> None:
+    """Drop the dataset uploads that the cached trainers keep for their
+    next ``fit`` (the train worker calls it after a failed trial, whose
+    upload must not hold the card); the next fit uploads again."""
+    with _trainer_cache_lock:
+        trainers = list(_trainer_cache.values())
+    for trainer in trainers:
+        if getattr(trainer, "_fit_data_cache", None) is not None:
+            trainer._fit_data_cache = None
+
+
 def tunable_optimizer(make: Callable[..., torch.optim.Optimizer],
                       **hyperparams: float) -> OptimizerFactory:
     """A factory ``params -> make(params, **hyperparams)``, e.g.

@@ -1,45 +1,75 @@
 """Train worker: the AutoML trial loop.
 
-Counterpart of the core loop of ``rafiki_tpu/worker/train.py``
-(``TrainWorker._loop``, ``_execute_trial``, ``_run_trial``): read the
-sub-train-job, its job and model from the database, load the template
-class, open the sub-train-job's advisor session; then, until the stop
-event, the trial budget (``MODEL_TRIAL_COUNT``) or the job's
-``TIME_HOURS`` deadline (checked between trials): propose knobs, reserve
-a trial row atomically, ``Model(**knobs).train(train_uri)``,
-``evaluate(test_uri)`` through the score gate, write the params artifact
-(atomic, checksummed), log the "trial phase breakdown" (train, evaluate
-and persist_params seconds, the JAX worker's tracer summary), feed the
-score back to the advisor and only then mark the trial COMPLETED. A
-trial that raises is marked ERRORED with its kind and traceback, and the
-loop goes on; a stop that lands mid-trial marks it TERMINATED. When the budget is spent the worker sends
+Own copy of ``rafiki_tpu/worker/train.py``'s scalar trial loop. Read the
+sub-train-job, its job and model, load the template class, open the
+sub-train-job's advisor session; rebuild the poison-knob quarantine from
+the trial rows, replay the scored and infeasible rows into a fresh
+advisor, and re-run the trials a killed predecessor of this service left
+RUNNING (same id, knobs and attempt; a template that hands
+``checkpoint_path`` to ``fit`` resumes from its last epoch), or terminate
+them once the job's deadline has passed. Then, until the stop event, the
+trial budget (``MODEL_TRIAL_COUNT``) or the job's ``TIME_HOURS``
+deadline: propose knobs clear of the quarantine, reserve a trial row
+atomically, ``Model(**knobs).train(train_uri)``, ``evaluate(test_uri)``
+through the score gate, write the params artifact (atomic, checksummed),
+log the "trial phase breakdown" (train, evaluate and persist_params
+seconds), feed the score back and only then mark the trial COMPLETED.
+
+In flight, each metrics report is a stop check: the trial's wall cap
+(budget ``TRIAL_TIMEOUT_S``), the job's ``TIME_HOURS`` deadline, and with
+``EARLY_STOP`` ASHA's rung verdict on the per-epoch ``loss``
+(``ASHA_MIN_EPOCHS``, default 1; ``ASHA_ETA``, default 3); a stopped
+trial is evaluated and completes with its truncated training.
+
+Failures run through the fault taxonomy (``worker/faults.py``):
+infra-class kinds re-run under the same trial id with jittered backoff
+(``RAFIKI_TRIAL_RETRY_MAX``), no budget slot consumed; terminal kinds
+ERROR the trial with its kind and traceback, and the infeasible ones
+(and terminal MEM) feed the advisor an infeasible observation and count
+toward the quarantine (``RAFIKI_TRIAL_QUARANTINE_K``); consecutive
+user-class faults (``RAFIKI_TRIAL_FAULT_LIMIT``) error the job and send
+:data:`EVENT_TRIAL_FAULT_LIMIT`. After a fault the failing frames (which
+hold the trial's device tensors) are dropped and the allocator's cache
+emptied before the next attempt or trial. A stop that lands mid-trial
+marks it TERMINATED. When the budget is spent the worker sends
 :data:`EVENT_BUDGET_REACHED` to the admin and returns.
 
-Waiting (ROADMAP.md): vectorized population trials, the sandbox, ASHA and
-mid-trial deadlines, poison-knob quarantine and fail-fast, infra retries,
-chaos injection, the compile cache, dependency provisioning, stale-trial
-resume after a worker restart, and the tracer (its spans; the phase
-breakdown it logs is kept).
+Not ported (ROADMAP.md): vectorized population trials, the sandbox (and
+its STALL and watchdog TIMEOUT kinds), warm start and the drift loop's
+seeding, the compile cache, dependency provisioning, and the tracer (its
+spans; the phase breakdown it logs is kept).
 """
 
 from __future__ import annotations
 
+import gc
+import glob
 import logging
-import math
 import os
+import random
 import time
 import traceback
 from typing import Any, Callable, Dict, Optional
 
+import torch
+
 from rafiki_tpu_torch import config
 from rafiki_tpu_torch.advisor.advisor import AdvisorStore
-from rafiki_tpu_torch.constants import BudgetType
+from rafiki_tpu_torch.constants import BudgetType, TrialStatus
 from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.device import ServiceContext, set_device_grant
 from rafiki_tpu_torch.sdk.artifact import write_artifact
 from rafiki_tpu_torch.sdk.log import ModelLogger, StopTrialEarly
 from rafiki_tpu_torch.sdk.model import load_model_class
 from rafiki_tpu_torch.sdk.params import dump_params
+from rafiki_tpu_torch.sdk.torch_backend import drop_fit_data
+from rafiki_tpu_torch.utils import chaos
+from rafiki_tpu_torch.worker import faults
+from rafiki_tpu_torch.worker.faults import (
+    FaultKind,
+    TrialChaosError,
+    validate_score,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -47,32 +77,12 @@ logger = logging.getLogger(__name__)
 #: sub_train_job_id
 EVENT_BUDGET_REACHED = "sub_train_job_budget_reached"
 
+#: sent when RAFIKI_TRIAL_FAULT_LIMIT consecutive user-class faults tripped
+#: the job's fail-fast; payload: train_job_id, sub_train_job_id,
+#: fault_kind, reason. The admin errors the job and stops its services.
+EVENT_TRIAL_FAULT_LIMIT = "sub_train_job_fault_limit"
+
 EventFn = Callable[[str, Dict[str, Any]], None]
-
-#: the fault kinds this slice records (``rafiki_tpu/worker/faults.py``)
-FAULT_USER = "USER"
-FAULT_INVALID_SCORE = "INVALID_SCORE"
-FAULT_DETAIL_MAX = 4000
-
-
-class InvalidScoreError(Exception):
-    """evaluate() produced NaN/inf/non-numeric: unusable as a score."""
-
-    kind = FAULT_INVALID_SCORE
-
-
-def validate_score(raw: Any) -> float:
-    """The score gate: a finite float, else :class:`InvalidScoreError`
-    (a NaN must never reach the advisor)."""
-    try:
-        score = float(raw)
-    except (TypeError, ValueError) as e:
-        raise InvalidScoreError(
-            f"evaluate() returned non-numeric {type(raw).__name__}: "
-            f"{e}") from e
-    if not math.isfinite(score):
-        raise InvalidScoreError(f"evaluate() returned non-finite {score!r}")
-    return score
 
 
 def _phase(phases: Dict[str, float], name: str, t0: float) -> float:
@@ -80,6 +90,16 @@ def _phase(phases: Dict[str, float], name: str, t0: float) -> float:
     now = time.time()
     phases[name] = now - t0
     return now
+
+
+def _release_device_memory() -> None:
+    """Free what a failed trial left on the card: its frames are gone once
+    the exception is, but cycles among them wait for the collector, and
+    a cached trainer's dataset upload outlives the trial."""
+    drop_fit_data()
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
 
 
 class TrainWorker:
@@ -94,6 +114,23 @@ class TrainWorker:
         self._advisors = advisor_store
         self._send_event = send_event or (lambda name, payload: None)
         self._params_dir = params_dir or config.PARAMS_DIR
+        # observations whose feedback failed, awaiting retry; bounded
+        # (RAFIKI_PENDING_FEEDBACK_MAX, the oldest drop)
+        self._pending_feedback: list = []
+        self._feedback_drop_warned = False
+        # poison-knob quarantine, rebuilt from the rows at startup (so it
+        # survives a restart), and the consecutive user-fault streak, in
+        # memory on purpose: a restart gathers fresh evidence
+        self._knob_config = None
+        self._quarantine: set = set()
+        self._user_fault_sigs: Dict[str, int] = {}
+        self._fault_streak = 0
+        # in-flight stop conditions, set from the job's budget in _loop
+        self._early_stop = False
+        self._asha_min = 1
+        self._asha_eta = 3
+        self._job_deadline: Optional[float] = None
+        self._trial_timeout_s: Optional[float] = None
 
     def start(self, ctx: ServiceContext) -> None:
         """The trial loop, in the calling thread, on the devices ``ctx``
@@ -116,18 +153,88 @@ class TrainWorker:
         hours = budget.get(BudgetType.TIME_HOURS)
         deadline = (job["datetime_started"] + float(hours) * 3600
                     if hours is not None else None)
+        self._early_stop = bool(budget.get(BudgetType.EARLY_STOP, False))
+        self._asha_min = int(budget.get(BudgetType.ASHA_MIN_EPOCHS, 1))
+        self._asha_eta = int(budget.get(BudgetType.ASHA_ETA, 3))
+        self._job_deadline = deadline
+        tt = budget.get(BudgetType.TRIAL_TIMEOUT_S)
+        self._trial_timeout_s = float(tt) if tt is not None else None
+        chaos.enabled()  # a rule at an unhooked site refuses the start
         clazz = load_model_class(model["model_file_bytes"],
                                  model["model_class"])
+        knob_config = clazz.get_knob_config()
         # one advisor session per sub-train-job, shared by its workers
         advisor_id = self._advisors.create_advisor(
-            clazz.get_knob_config(), advisor_id=self._sub_id)
+            knob_config, advisor_id=self._sub_id)
         self._db.update_sub_train_job_advisor(self._sub_id, advisor_id)
         ctx.ready()  # job read and template loaded: startup succeeded
+
+        all_trials = self._db.get_trials_of_sub_train_job(self._sub_id)
+        # the quarantine, from the recorded poison faults: a restart must
+        # not spend fresh budget re-learning which region crashes
+        self._knob_config = knob_config
+        self._user_fault_sigs = faults.poison_signature_counts(
+            all_trials, knob_config)
+        k = max(int(config.TRIAL_QUARANTINE_K), 1)
+        self._quarantine = {s for s, n in self._user_fault_sigs.items()
+                            if n >= k}
+        if self._quarantine:
+            faults.record_quarantine(self._sub_id, self._quarantine)
+            logger.warning("%d poison-knob signature(s) quarantined from "
+                           "recorded trial faults", len(self._quarantine))
+
+        # a fresh advisor session (its process died too) is rebuilt from
+        # the rows; atomic and empty-only on the store's side, so restarted
+        # siblings cannot feed it twice
+        scored = [(t["knobs"], t["score"]) for t in all_trials
+                  if t["status"] == TrialStatus.COMPLETED
+                  and t["score"] is not None]
+        infeasible = [(t["knobs"], t["fault_kind"]) for t in all_trials
+                      if faults.is_infeasible_row(t)]
+        if scored or infeasible:
+            try:
+                if self._advisors.replay_feedback(advisor_id, scored,
+                                                  infeasible=infeasible):
+                    logger.info("replayed %d completed + %d infeasible "
+                                "trials into advisor %s", len(scored),
+                                len(infeasible), advisor_id)
+            except Exception:
+                logger.warning("advisor replay failed; proposals start from "
+                               "the prior", exc_info=True)
+
+        # trials a killed predecessor of this service left RUNNING (a
+        # restarted worker keeps its service id) re-run under the same id
+        # and knobs, resuming from their checkpoints
+        for stale in all_trials:
+            if ctx.stopping:
+                return
+            if (stale["status"] != TrialStatus.RUNNING
+                    or stale["worker_id"] != ctx.service_id):
+                continue
+            if deadline is not None and time.time() >= deadline:
+                # the time budget ran out while it was down: it will never
+                # run, so its slot is released
+                logger.info("time budget spent; terminating stale trial %s",
+                            stale["id"])
+                self._db.mark_trial_as_terminated(stale["id"])
+                self._cleanup_ckpt(stale["id"])
+                continue
+            logger.info("resuming stale trial %s after worker restart",
+                        stale["id"])
+            if not self._execute_trial(
+                    ctx, clazz, job, advisor_id, stale["id"], stale["knobs"],
+                    start_attempt=int(stale.get("attempt") or 0)):
+                return
 
         while not ctx.stopping:
             trial = None
             if deadline is None or time.time() < deadline:
-                knobs = self._advisors.propose(advisor_id)
+                try:
+                    self._retry_pending_feedback(advisor_id)
+                except Exception:
+                    logger.warning("pending feedback retry failed; "
+                                   "proposing without it", exc_info=True)
+                knobs = self._propose_clear_of_quarantine(advisor_id)
                 trial = self._db.reserve_trial(
                     self._sub_id, model["id"], knobs,
                     worker_id=ctx.service_id, max_trials=max_trials)
@@ -143,32 +250,262 @@ class TrainWorker:
 
     def _execute_trial(self, ctx: ServiceContext, clazz: type,
                        job: Dict[str, Any], advisor_id: str, trial_id: str,
-                       knobs: Dict[str, Any]) -> bool:
-        """Run one trial and record its outcome. Returns False when the
-        worker is stopping (the trial is then TERMINATED)."""
+                       knobs: Dict[str, Any], start_attempt: int = 0) -> bool:
+        """Run one trial and record its outcome, retrying infra-class
+        faults under the same id. Returns False when the worker leaves its
+        loop: stopping (the trial is then TERMINATED) or the job's
+        fail-fast."""
         trial_logger = ModelLogger()
         trial_logger.set_sink(
             lambda line: self._db.add_trial_log(trial_id, line))
-        try:
-            score, params_path = self._run_trial(clazz, knobs, job,
-                                                 trial_id, trial_logger)
-        except Exception as e:
-            if ctx.stopping:
-                self._db.mark_trial_as_terminated(trial_id)
-                self._cleanup_ckpt(trial_id)
-                return False
-            kind = getattr(e, "kind", FAULT_USER)
-            detail = traceback.format_exc()[-FAULT_DETAIL_MAX:]
-            logger.error("trial %s fault %s:\n%s", trial_id, kind, detail)
+        retry_max = max(int(config.TRIAL_RETRY_MAX), 0)
+        attempt = max(int(start_attempt), 0)
+        while True:
+            # a fresh stop check per attempt: TRIAL_TIMEOUT_S measures this
+            # run of the template, not the sum of the retries
+            self._install_stop_check(trial_logger, advisor_id, trial_id)
+            try:
+                self._chaos_trial(trial_id)
+                score, params_path = self._run_trial(clazz, knobs, job,
+                                                     trial_id, trial_logger)
+                # feedback BEFORE mark-complete: a trial visible as
+                # COMPLETED has its observation in the advisor, so a
+                # restarted sibling's empty-only replay cannot feed it
+                # twice; a stop that lands after the work finished keeps
+                # the result and only ends the loop
+                self._feedback_best_effort(advisor_id, knobs, score)
+                self._db.mark_trial_as_complete(trial_id, score, params_path)
+                self._fault_streak = 0
+                faults.record_counter(self._sub_id,
+                                      "consecutive_user_faults", 0,
+                                      absolute=True)
+                return not ctx.stopping
+            except Exception as e:
+                if ctx.stopping:
+                    self._db.mark_trial_as_terminated(trial_id)
+                    self._cleanup_ckpt(trial_id)
+                    return False
+                kind, detail = faults.classify_failure(e)
+            # out of the except block, the exception and its frames (the
+            # trial's tensors, a device OOM's activations) are unreachable
+            _release_device_memory()
+            logger.error("trial %s fault %s (attempt %d):\n%s",
+                         trial_id, kind, attempt, detail)
+            if kind in faults.RETRYABLE_KINDS and attempt < retry_max:
+                # the attempt counter lives on the row, so the bound holds
+                # across worker restarts too
+                attempt = self._db.record_trial_fault(trial_id, kind, detail)
+                faults.record_fault(self._sub_id, kind, retried=True)
+                trial_logger.set_stop_check(None)
+                self._retry_backoff(ctx, attempt)
+                if ctx.stopping:
+                    self._db.mark_trial_as_terminated(trial_id)
+                    self._cleanup_ckpt(trial_id)
+                    return False
+                logger.info("retrying trial %s (attempt %d/%d) after %s "
+                            "fault", trial_id, attempt, retry_max, kind)
+                continue
             self._db.mark_trial_as_errored(trial_id, kind, detail)
             self._cleanup_ckpt(trial_id)
+            faults.record_fault(self._sub_id, kind)
+            if kind in faults.INFEASIBLE_KINDS or kind == FaultKind.MEM:
+                # terminal MEM is knob-driven too: it steers the advisor
+                # and counts toward the quarantine, but only user-class
+                # kinds march the fail-fast streak (MEM on distinct knobs
+                # reads as host pressure, not a broken template)
+                self._feedback_infeasible_best_effort(
+                    advisor_id, knobs, kind, trial_id=trial_id)
+                if not self._note_user_fault(
+                        job, trial_id, knobs, kind,
+                        streak=kind in faults.INFEASIBLE_KINDS):
+                    return False
             return True
-        # feedback BEFORE mark-complete: a trial visible as COMPLETED has
-        # its observation in the advisor; a stop that lands after the work
-        # finished keeps the result and only ends the loop
-        self._advisors.get(advisor_id).feedback(knobs, score)
-        self._db.mark_trial_as_complete(trial_id, score, params_path)
-        return not ctx.stopping
+
+    def _chaos_trial(self, trial_id: str) -> None:
+        """``RAFIKI_CHAOS`` site=trial: the drillable fault chokepoint,
+        one ask per attempt."""
+        rule = chaos.hit(chaos.SITE_TRIAL, f"{self._sub_id} {trial_id}")
+        if rule is None:
+            return
+        if rule.action == chaos.ACTION_DELAY:
+            chaos.sleep_for(rule)
+            return
+        if rule.action == chaos.ACTION_OOM:
+            raise MemoryError("chaos-injected trial OOM (site=trial)")
+        raise TrialChaosError(
+            "chaos-injected transient trial fault (site=trial)")
+
+    def _retry_backoff(self, ctx: ServiceContext, attempt: int) -> None:
+        """Exponential backoff with full jitter (uniform in [0, min(base *
+        2^(n-1), 30 s)]), waiting on the stop event."""
+        base = max(float(config.TRIAL_RETRY_BACKOFF_S), 0.0)
+        ceiling = min(base * (2 ** max(attempt - 1, 0)), 30.0)
+        if ceiling > 0:
+            ctx.stop_event.wait(random.uniform(0, ceiling))
+
+    def _note_user_fault(self, job: Dict[str, Any], trial_id: str,
+                         knobs: Dict[str, Any], kind: str,
+                         streak: bool = True) -> bool:
+        """Quarantine and fail-fast bookkeeping after a terminal poison
+        fault; ``streak=False`` (terminal MEM) counts toward the quarantine
+        only. Returns False when the fault limit tripped and the job was
+        errored."""
+        sig = faults.knob_signature(self._knob_config, knobs)
+        self._user_fault_sigs[sig] = self._user_fault_sigs.get(sig, 0) + 1
+        k = max(int(config.TRIAL_QUARANTINE_K), 1)
+        if self._user_fault_sigs[sig] >= k and sig not in self._quarantine:
+            self._quarantine.add(sig)
+            faults.record_quarantine(self._sub_id, [sig])
+            logger.warning(
+                "knob signature %s quarantined after %d poison faults "
+                "(RAFIKI_TRIAL_QUARANTINE_K=%d); matching proposals will be "
+                "re-proposed", sig, self._user_fault_sigs[sig], k)
+        if not streak:
+            return True
+        self._fault_streak += 1
+        faults.record_counter(self._sub_id, "consecutive_user_faults",
+                              self._fault_streak, absolute=True)
+        limit = int(config.TRIAL_FAULT_LIMIT)
+        if limit <= 0 or self._fault_streak < limit:
+            return True
+        reason = (
+            f"{self._fault_streak} consecutive user-class trial faults "
+            f"(RAFIKI_TRIAL_FAULT_LIMIT={limit}); last: {kind} on trial "
+            f"{trial_id} — template broken at every proposed knob "
+            f"combination, failing the job early instead of burning the "
+            f"remaining budget")
+        logger.error("train job %s fail-fast: %s", job["id"], reason)
+        # the typed reason goes on the row here (it works headless), then
+        # the admin is told so it stops sibling workers; the guarded
+        # transition makes the second mark harmless
+        self._db.mark_train_job_as_errored(job["id"], FaultKind.USER, reason)
+        self._send_event(EVENT_TRIAL_FAULT_LIMIT, {
+            "train_job_id": job["id"],
+            "sub_train_job_id": self._sub_id,
+            "fault_kind": FaultKind.USER,
+            "reason": reason,
+        })
+        return False
+
+    def _propose_clear_of_quarantine(self, advisor_id: str,
+                                     knobs: Optional[Dict[str, Any]] = None
+                                     ) -> Dict[str, Any]:
+        """Propose knobs, re-proposing (at most RAFIKI_TRIAL_REPROPOSE_MAX
+        times) while the draw matches a quarantined signature. Each
+        rejection feeds the advisor an infeasible point there, so the
+        GP's penalty grows until it stops proposing the region; past the
+        bound the last draw is accepted, so a mostly quarantined space
+        degrades to slow progress, never to a spinning worker."""
+        if knobs is None:
+            knobs = self._advisors.propose(advisor_id)
+        if not self._quarantine:
+            return knobs
+        limit = max(int(config.TRIAL_REPROPOSE_MAX), 0)
+        for rejections in range(limit + 1):
+            sig = faults.knob_signature(self._knob_config, knobs)
+            if sig not in self._quarantine:
+                return knobs
+            if rejections == limit:
+                break
+            faults.record_counter(self._sub_id, "reproposals")
+            logger.info("proposal matches quarantined signature %s; "
+                        "re-proposing", sig)
+            self._feedback_infeasible_best_effort(advisor_id, knobs,
+                                                  FaultKind.USER)
+            knobs = self._advisors.propose(advisor_id)
+        logger.warning(
+            "proposal still quarantined after %d re-proposals "
+            "(RAFIKI_TRIAL_REPROPOSE_MAX); accepting it — most of the "
+            "search space may be poisoned", limit)
+        return knobs
+
+    def _feedback_best_effort(self, advisor_id: str, knobs: Dict[str, Any],
+                              score: float) -> None:
+        """Feed a score to the advisor; a failure never costs the finished
+        trial its result: the observation is queued and retried before
+        later proposals (replay seeds only empty sessions, so it cannot
+        recover it), in a bounded queue."""
+        try:
+            self._retry_pending_feedback(advisor_id)
+            self._advisors.get(advisor_id).feedback(knobs, score)
+        except Exception:
+            self._pending_feedback.append((knobs, score))
+            logger.warning(
+                "advisor feedback failed for %s (queued for retry):\n%s",
+                advisor_id, traceback.format_exc())
+            cap = max(int(config.PENDING_FEEDBACK_MAX), 1)
+            if len(self._pending_feedback) > cap:
+                dropped = len(self._pending_feedback) - cap
+                del self._pending_feedback[:dropped]
+                faults.record_counter(self._sub_id, "feedback_dropped",
+                                      dropped)
+                if not self._feedback_drop_warned:
+                    self._feedback_drop_warned = True
+                    logger.warning(
+                        "pending advisor feedback exceeded "
+                        "RAFIKI_PENDING_FEEDBACK_MAX=%d; dropping oldest "
+                        "observations (warning once; drops counted in "
+                        "training stats)", cap)
+
+    def _feedback_infeasible_best_effort(self, advisor_id: str,
+                                         knobs: Dict[str, Any], kind: str,
+                                         trial_id: Optional[str] = None
+                                         ) -> None:
+        """A penalty point is advisory: one that cannot be delivered is
+        logged and dropped, never queued."""
+        try:
+            self._advisors.feedback_infeasible(advisor_id, knobs, kind=kind,
+                                               trial_id=trial_id)
+        except Exception:
+            logger.warning("infeasible feedback for %s dropped",
+                           advisor_id, exc_info=True)
+
+    def _install_stop_check(self, trial_logger: ModelLogger,
+                            advisor_id: str, trial_id: str) -> None:
+        """Wire the trial's logger to its in-flight stop conditions, each
+        metrics report a decision point (a verdict makes that ``log()``
+        raise ``StopTrialEarly``, which ``fit`` takes as a normal,
+        truncated end): the trial's wall cap, the job's deadline, and
+        ASHA's rung check on the per-epoch ``loss`` at resource
+        ``epoch + 1``."""
+        early_stop = self._early_stop
+        job_deadline = self._job_deadline
+        trial_timeout = self._trial_timeout_s
+        if not (early_stop or job_deadline is not None
+                or trial_timeout is not None):
+            return
+        trial_start = time.time()
+
+        def check(metrics: Dict[str, Any]) -> bool:
+            now = time.time()
+            if trial_timeout is not None and now - trial_start > trial_timeout:
+                logger.info("trial %s hit TRIAL_TIMEOUT_S=%.0f; stopping",
+                            trial_id, trial_timeout)
+                return True
+            if job_deadline is not None and now >= job_deadline:
+                logger.info("trial %s crossed the job TIME_HOURS deadline; "
+                            "stopping", trial_id)
+                return True
+            if early_stop and "loss" in metrics and "epoch" in metrics:
+                try:
+                    return not self._advisors.report_rung(
+                        advisor_id, trial_id, int(metrics["epoch"]) + 1,
+                        metrics["loss"], min_resource=self._asha_min,
+                        eta=self._asha_eta)
+                except Exception:
+                    logger.warning("ASHA rung report failed; continuing "
+                                   "trial", exc_info=True)
+            return False
+
+        trial_logger.set_stop_check(check)
+
+    def _retry_pending_feedback(self, advisor_id: str) -> None:
+        """Flush observations whose feedback failed, in order, before a
+        proposal and before new feedback."""
+        while self._pending_feedback:
+            knobs, score = self._pending_feedback[0]
+            self._advisors.get(advisor_id).feedback(knobs, score)
+            self._pending_feedback.pop(0)
 
     def _run_trial(self, clazz: type, knobs: Dict[str, Any],
                    job: Dict[str, Any], trial_id: str,
@@ -190,12 +527,20 @@ class TrainWorker:
                 # (fit() absorbs it); the truncated model is still evaluated
                 trial_logger.log("trial stopped early by scheduler")
             t0 = _phase(phases, "train", t0)
+            # the verdict is delivered: later logs must not raise it again
             trial_logger.set_stop_check(None)
             score = validate_score(model.evaluate(job["test_dataset_uri"]))
             t0 = _phase(phases, "evaluate", t0)
             params_path = os.path.join(self._params_dir,
                                        f"{trial_id}.params")
-            write_artifact(params_path, dump_params(model.dump_parameters()))
+            params_bytes = dump_params(model.dump_parameters())
+            try:
+                write_artifact(params_path, params_bytes)
+            except OSError as e:
+                # the trusted side's I/O (a full disk): the platform's
+                # fault, never the template's knobs
+                raise faults.TrialFault(f"params persist failed: {e}",
+                                        kind=FaultKind.INFRA) from e
             _phase(phases, "persist_params", t0)
             # the trial is complete: its mid-trial checkpoint is dead weight
             self._cleanup_ckpt(trial_id)
@@ -207,7 +552,13 @@ class TrainWorker:
             model.destroy()
 
     def _cleanup_ckpt(self, trial_id: str) -> None:
-        try:
-            os.remove(os.path.join(self._params_dir, f"{trial_id}.ckpt"))
-        except FileNotFoundError:
-            pass
+        """Drop a trial's mid-trial checkpoint once it reached a state it
+        never resumes from, with the temporary file of a write a kill
+        interrupted."""
+        base = os.path.join(self._params_dir, f"{trial_id}.ckpt")
+        for path in [base, base + ".tmp", *glob.glob(
+                glob.escape(base) + ".*.tmp")]:
+            try:
+                os.remove(path)
+            except OSError:
+                pass

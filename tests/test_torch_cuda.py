@@ -814,3 +814,139 @@ def test_cuda_greedy_decode_round_matches_cpu(paged):
             1.0, float(ref.abs().max()))
     assert [f.launches for f in (flash_attention,
                                  flash_attention_lse)] == counts
+
+
+#: what may stay allocated after a failed trial: a worker thread's first
+#: cuBLAS calls allocate its workspaces through the caching allocator
+OOM_SLACK_BYTES = 64 << 20
+
+_OOM_ONCE = b"""
+
+
+class OomOnceViT(NarrowViT):
+    # the first trial asks for a batch of the whole 8,192-image set, which
+    # the capped allocator cannot hold; the later ones take their knob
+    CALLS = [0]
+
+    def train(self, dataset_uri):
+        type(self).CALLS[0] += 1
+        if type(self).CALLS[0] == 1:
+            self._knobs["batch_size"] = 8192
+        super().train(dataset_uri)
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_a_device_oom_trial_is_user_and_frees_the_card(tmp_path,
+                                                             monkeypatch):
+    """A narrow ViT trial whose batch does not fit raises PyTorch's own
+    OutOfMemoryError from the allocator (capped for the test with
+    set_per_process_memory_fraction): the trial is ERRORED as USER (the
+    JAX package's kind for a device OOM), the memory it held is back
+    before the next trial starts, and that trial completes on cuda:0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from pathlib import Path
+
+    from rafiki_tpu_torch.advisor.advisor import AdvisorStore
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.device import ServiceContext
+    from rafiki_tpu_torch.sdk.dataset import write_numpy_dataset
+    from rafiki_tpu_torch.worker import train
+
+    source = (Path(__file__).resolve().parents[1] / "rafiki_tpu_torch"
+              / "templates" / "torch_vit.py").read_text()
+    for old, new in _NARROW_EDITS:
+        source = source.replace(old, new)
+    rng = np.random.default_rng(0)
+    uris = {}
+    for split, n in (("train", 8192), ("test", 64)):
+        x = rng.random((n, 32, 32, 3), dtype=np.float32)
+        y = rng.integers(0, 10, n).astype(np.int32)
+        uris[split] = write_numpy_dataset(x, y, str(tmp_path / f"{split}.npz"))
+    db = Database(":memory:")
+    user = db.create_user("u@x", "h", "MODEL_DEVELOPER")
+    model = db.create_model(user["id"], "vit", "IMAGE_CLASSIFICATION",
+                            source.encode() + _OOM_ONCE, "OomOnceViT", {},
+                            "PRIVATE")
+    job = db.create_train_job(user["id"], "a", 1, "IMAGE_CLASSIFICATION",
+                              uris["train"], uris["test"],
+                              {"MODEL_TRIAL_COUNT": 2})
+    sub = db.create_sub_train_job(job["id"], model["id"])
+    entry = []
+    real = train.TrainWorker._run_trial
+
+    def run_trial(self, *args, **kw):
+        torch.cuda.synchronize()
+        entry.append(torch.cuda.memory_allocated(0))
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(train.TrainWorker, "_run_trial", run_trial)
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = torch.cuda.memory_allocated(0) + (1 << 30)
+    torch.cuda.set_per_process_memory_fraction(cap / total, 0)
+    try:
+        train.TrainWorker(sub["id"], db, AdvisorStore(),
+                          params_dir=str(tmp_path / "params")).start(
+            ServiceContext("svc", chips=[0]))
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, 0)
+    first, second = sorted(db.get_trials_of_sub_train_job(sub["id"]),
+                           key=lambda t: t["datetime_started"])
+    assert (first["status"], first["fault_kind"]) == ("ERRORED", "USER")
+    assert "OutOfMemoryError" in first["fault_detail"]
+    assert second["status"] == "COMPLETED" and np.isfinite(second["score"])
+    assert len(entry) == 2
+    assert entry[1] - entry[0] <= OOM_SLACK_BYTES, entry
+
+
+@pytest.mark.cuda
+def test_cuda_fit_resumed_from_a_checkpoint_ends_where_the_fit_ends(
+        tmp_path):
+    """A narrow ViT fit for 2 epochs on cuda:0 with a checkpoint, then
+    resumed to 3 in a fresh model and AdamW (the state goes back onto the
+    card), lands within twice the distance between two uninterrupted
+    3-epoch fits, plus 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rafiki_tpu_torch import convert
+    from rafiki_tpu_torch.models import vit
+    from rafiki_tpu_torch.models.transformer import TransformerConfig
+    from rafiki_tpu_torch.sdk import torch_backend
+    from rafiki_tpu_torch.templates.torch_vit import _logits
+
+    cfg = vit.ViTConfig(image_size=32, patch_size=4, num_classes=10,
+                        encoder=TransformerConfig(dim=128, depth=2, heads=2))
+    rng = np.random.default_rng(0)
+    x = rng.random((96, 32, 32, 3), dtype=np.float32)
+    y = rng.integers(0, 10, 96).astype(np.int32)
+    tree = vit.init(np.random.default_rng(1), cfg)
+
+    def fit(epochs, path=None):
+        trainer = torch_backend.DataParallelTrainer(
+            torch_backend.softmax_classifier_loss(_logits),
+            torch_backend.tunable_optimizer(
+                torch.optim.AdamW, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                weight_decay=1e-4), device="cuda:0")
+        model, opt = trainer.init(lambda r: convert.from_jax_params(
+            tree, cfg, "cuda:0", train=True))
+        logged = []
+        trainer.fit(model, opt, (x, y), epochs=epochs, batch_size=16, seed=3,
+                    log=lambda **m: logged.append(m["epoch"]),
+                    checkpoint_path=path)
+        states = [s for s in opt.state.values()]
+        assert all(v.device.type == "cuda" for s in states
+                   for k, v in s.items() if k != "step")
+        return {k: v.detach().float().cpu().numpy()
+                for k, v in model.state_dict().items()}, logged
+
+    a, _ = fit(3)
+    b, _ = fit(3)
+    path = str(tmp_path / "trial.ckpt")
+    _, first = fit(2, path)
+    resumed, second = fit(3, path)
+    assert first == [0.0, 1.0] and second == [2.0]
+    runs = max(float(np.abs(a[k] - b[k]).max()) for k in a)
+    off = max(float(np.abs(resumed[k] - a[k]).max()) for k in a)
+    assert off <= 2 * runs + 1e-6, (off, runs)

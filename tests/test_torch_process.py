@@ -10,6 +10,8 @@
   same forward on the same inputs; only the BLAS threads' summation
   order may differ), and the children's relayed serving counters reach
   the job's stats.
+- A train child SIGKILLed after its first checkpoint is started again
+  under the same service id and resumes its trial from the checkpoint.
 - The monitor: a child that crashes is started again, then marked
   ERRORED; ``stop_all`` kills a child that ignores SIGTERM.
 - The grant: ``_child_env`` maps the parent's grant through its own
@@ -210,6 +212,80 @@ def test_tiny_vit_cycle_with_every_worker_a_process(workdir, monkeypatch):
     for p, r in zip(probs, ref):
         assert p.shape == r.shape and p.shape[1] == 10
         np.testing.assert_allclose(p, r, atol=PROB_ATOL, rtol=0)
+
+
+#: the tiny ViT at 3 epochs, each epoch's report held 1 s, so a trial is
+#: still training when its first checkpoint lands
+_SLOW_TINY = b"""
+import time
+
+
+class SlowTinyViT(TinyViT):
+    def train(self, dataset_uri):
+        report = self.logger.log
+
+        def held(*args, **metrics):
+            report(*args, **metrics)
+            time.sleep(1.0)
+
+        self.logger.log = held
+        super().train(dataset_uri)
+"""
+
+
+def test_a_sigkilled_train_child_resumes_its_trial(workdir, monkeypatch):
+    """The train child is SIGKILLed once the first trial's checkpoint
+    exists: the placement starts it again under the same service id, the
+    new child resumes that trial under its id and knobs from the
+    checkpoint (its log says so), and the job counts its 2 trials with
+    no checkpoint left."""
+    monkeypatch.setenv("RAFIKI_PLACEMENT", "process")
+    monkeypatch.setenv("SERVICE_DEPLOY_TIMEOUT_S", str(BUDGET_S))
+    store = str(workdir / "store.sqlite3")
+    params = workdir / "params"
+    admin = Admin(db=Database(store), params_dir=str(params),
+                  placement=ProcessPlacementManager(
+                      allocator=ChipAllocator(["cpu"])))
+    srv = AdminServer(admin).start()
+    try:
+        c = Client("127.0.0.1", srv.port, timeout_s=BUDGET_S)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        source = _tiny_template().replace(b'"epochs": FixedKnob(1)',
+                                          b'"epochs": FixedKnob(3)')
+        c.create_model("tiny", "IMAGE_CLASSIFICATION", source + _SLOW_TINY,
+                       "SlowTinyViT")
+        train_uri, test_uri = _dataset(workdir)
+        c.create_train_job("vit", "IMAGE_CLASSIFICATION", train_uri,
+                           test_uri, budget={"MODEL_TRIAL_COUNT": 2,
+                                             "CHIP_COUNT": 1})
+        _wait(lambda: list(params.glob("*.ckpt")), BUDGET_S,
+              "no checkpoint was written")
+        (first,) = admin.db.get_trials_of_train_job(
+            c.get_train_job("vit")["id"])
+        (pid,) = _log_records(workdir / "logs", "startup")
+        os.kill(pid, signal.SIGKILL)
+        job = c.wait_until_train_job_stopped("vit", timeout_s=BUDGET_S)
+        assert job["status"] == "STOPPED"
+        (train_sid,) = [w["service_id"] for w in job["workers"]]
+        trials = [admin.db.get_trial(t["id"])
+                  for t in c.get_trials_of_train_job("vit")]
+    finally:
+        srv.stop()
+        admin.shutdown()
+    assert len(trials) == 2
+    assert [t["status"] for t in trials] == ["COMPLETED"] * 2
+    resumed = [t for t in trials if t["id"] == first["id"]]
+    assert resumed and resumed[0]["knobs"] == first["knobs"]
+    assert {t["worker_id"] for t in trials} == {train_sid}
+    started = _log_records(workdir / "logs", "startup")
+    assert len(started) == 2 and pid in started  # the same service, twice
+    log = (workdir / "logs" / f"service-{train_sid}.log").read_text()
+    m = re.search(r"resuming fit from \S+" + first["id"]
+                  + r"\.ckpt at epoch (\d+)", log)
+    assert m and int(m.group(1)) >= 1, log[-3000:]
+    assert f"resuming stale trial {first['id']}" in log
+    assert not list(params.glob("*.ckpt*"))
+    assert not any(_alive(p) for p in started)
 
 
 def test_wall_clock_budgets_are_read_at_each_use(monkeypatch):

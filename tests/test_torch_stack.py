@@ -118,9 +118,6 @@ LATER = {
     ("POST", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/rollout/ack"),
     ("GET", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/drift"),
     ("POST", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/drift/ack"),
-    ("POST", r"/advisors/(?P<aid>[^/]+)/infeasible"),
-    ("POST", r"/advisors/(?P<aid>[^/]+)/replay"),
-    ("POST", r"/advisors/(?P<aid>[^/]+)/report_rung"),
     ("GET", "/fleet/health"),
 }
 
@@ -139,6 +136,9 @@ ADVISOR_ROUTES = {
     ("POST", r"/advisors/(?P<aid>[^/]+)/propose_batch"),
     ("POST", r"/advisors/(?P<aid>[^/]+)/feedback"),
     ("POST", r"/advisors/(?P<aid>[^/]+)/feedback_batch"),
+    ("POST", r"/advisors/(?P<aid>[^/]+)/infeasible"),
+    ("POST", r"/advisors/(?P<aid>[^/]+)/replay"),
+    ("POST", r"/advisors/(?P<aid>[^/]+)/report_rung"),
     ("DELETE", r"/advisors/(?P<aid>[^/]+)"),
 }
 
@@ -576,7 +576,10 @@ def test_spent_time_budget_stops_the_job_before_any_trial(tmp_path):
 ])
 def test_unported_budget_keys_are_refused(tmp_path, call, budget):
     """A budget key asking for what the port lacks answers 400 naming it,
-    before any job row is made; the same key at its no-op value passes."""
+    before any job row is made; the same key at its no-op value passes.
+    ``EARLY_STOP`` and ``TRIAL_TIMEOUT_S`` are ported: their budgets are
+    accepted, and a malformed ASHA or cap value gets the JAX package's
+    400 word for word."""
     admin = Admin(db=Database(":memory:"),
                   placement=LocalPlacementManager(ChipAllocator(["cpu"])),
                   params_dir=str(tmp_path))
@@ -596,15 +599,82 @@ def test_unported_budget_keys_are_refused(tmp_path, call, budget):
             admin.wait_until_train_job_stopped(uid, "a", timeout_s=60)
             run = lambda b: admin.create_inference_job(  # noqa: E731
                 uid, "a", budget=b)
+        if key in ("EARLY_STOP", "TRIAL_TIMEOUT_S"):
+            bad = ([{"ASHA_ETA": 1}, {"ASHA_MIN_EPOCHS": 0}]
+                   if key == "EARLY_STOP" else
+                   [{"TRIAL_TIMEOUT_S": 0}, {"TRIAL_TIMEOUT_S": "soon"}])
+            for b in bad:
+                with pytest.raises(InvalidRequestError) as ours:
+                    run({**budget, **b})
+                assert str(ours.value) == _jax_budget_refusal(
+                    tmp_path, {**budget, **b})
+            assert admin.db.get_train_jobs_of_user(uid) == []
+            job = run(budget)
+            assert job["budget"][key] == budget[key]
+            admin.wait_until_train_job_stopped(uid, "a", timeout_s=60)
+            (trial,) = admin.get_trials_of_train_job(uid, "a")
+            assert trial["status"] == "COMPLETED"
+            return
         with pytest.raises(InvalidRequestError, match=key):
             run(budget)
         assert admin.db.get_inference_jobs_by_statuses(
             ["STARTED", "RUNNING", "ERRORED"]) == []
-        if key not in ("TRIAL_TIMEOUT_S", "EARLY_STOP", "GEN_DRAFT_TRIAL"):
+        if key != "GEN_DRAFT_TRIAL":
             run({key: 0 if key in ("ENSEMBLE_FUSED", "TRIAL_VMAP_K")
                  else 1})
     finally:
         admin.shutdown()
+
+
+def _jax_budget_refusal(tmp_path, budget) -> str:
+    """The JAX admin's 400 for a train job with ``budget``."""
+    from rafiki_tpu.admin.admin import InvalidRequestError as JaxInvalid
+
+    jax_admin = JaxAdmin(
+        db=JaxDatabase(":memory:"),
+        placement=jax_manager.LocalPlacementManager(
+            allocator=jax_manager.ChipAllocator([0])),
+        params_dir=str(tmp_path / "jax"))
+    try:
+        uid = jax_admin.authenticate_user(
+            config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)["user_id"]
+        jax_admin.create_model(uid, "fake", "IMAGE_CLASSIFICATION",
+                               JAX_FAKE.read_bytes(), "FakeModel")
+        with pytest.raises(JaxInvalid) as theirs:
+            jax_admin.create_train_job(
+                uid, "a", "IMAGE_CLASSIFICATION", "t", "e",
+                budget={"MODEL_TRIAL_COUNT": 1, **budget})
+        return str(theirs.value)
+    finally:
+        jax_admin.shutdown()
+
+
+def test_chaos_rule_at_an_unhooked_site_is_refused(tmp_path, monkeypatch):
+    """Only the trial site has its chaos hook: a rule naming another site
+    raises NotPortedError when it is made, and a RAFIKI_CHAOS holding one
+    refuses the admin's start, never silently inert; a trial rule passes."""
+    from rafiki_tpu_torch.utils import chaos
+
+    try:
+        for site in ("db", "wire", "worker", "generate", "deploy", "cache",
+                     "drift", "compile", "lease", "agent", "call_agent"):
+            with pytest.raises(NotPortedError, match=f"site={site}"):
+                chaos.parse_rules(f"site={site};action=delay")
+            with pytest.raises(NotPortedError):
+                chaos.install([chaos.ChaosRule(site=site, action="delay")])
+        monkeypatch.setenv("RAFIKI_CHAOS",
+                           "site=trial;action=error|site=db;action=error")
+        with pytest.raises(NotPortedError, match="site=db"):
+            chaos.hit(chaos.SITE_TRIAL, "sub trial")
+        with pytest.raises(NotPortedError, match="site=db"):
+            Admin(db=Database(":memory:"),
+                  placement=LocalPlacementManager(ChipAllocator(["cpu"])),
+                  params_dir=str(tmp_path))
+        monkeypatch.setenv("RAFIKI_CHAOS", "site=trial;action=error;times=1")
+        assert chaos.hit(chaos.SITE_TRIAL, "sub trial").action == "error"
+        assert chaos.hit(chaos.SITE_TRIAL, "sub trial") is None
+    finally:
+        chaos.clear()
 
 
 def test_generation_is_refused_typed(tmp_path):
