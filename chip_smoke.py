@@ -156,6 +156,34 @@ Phases, each of which must pass (any failure exits non-zero):
    epochs, attempt, kind and score, the epoch with and without its
    checkpoint, the child's restart time.
 
+10. several cards, on every visible card up to 4 (``n``; on one card the
+   same runs at a grant of one, and says so). 10a: this process is rank
+   0 of a data group over the ``n`` cards (``parallel/ranks.py``: a
+   follower process a card, NCCL, its INFO lines under
+   ``build/chip_smoke/nccl/``): each follower's start-up and the group's,
+   the transport NCCL chose, K1, K1-LSE, K2 and K3 against their plain
+   versions on every card, one ViT-B/16 step (SGD) over a global batch
+   of 64 a card against one card's step over the same batch (the loss
+   within 1e-3 relative, each leaf's update within phase 3's step
+   tolerance, the same weights on every rank, K1-LSE, K2 and K3 12 times
+   on each), the step's time a call and on the card at 1 card x 64 and
+   n cards x 64, the all-reduce of ViT-B/16's gradients (median of 7,
+   bus bandwidth), and phase 7's ResNet-50 step at 128 a card on one
+   card (ATen's fused batch norm) and on n (BatchNorm's moments over the
+   ranks). 10b: through ``Client`` under thread placement, a
+   ``TorchViT`` twin with ``batch_size`` fixed to 64 n, a 2-trial job
+   with ``CHIP_COUNT = CHIPS_PER_TRIAL = n`` on 512 n synthetic images
+   (both COMPLETED with a score; every rank K1-LSE, K2 and K3 12 times a
+   step and K1 12 times an evaluate: the followers' exit lines, which fd
+   2 sends to ``build/chip_smoke/cards_ranks.log``), then the best trial
+   served with ``CHIPS_PER_WORKER = n``: ``Client.predict`` of 1 and 8
+   images equal to the same trial on one card (argmax, unless a near tie,
+   and every probability within 1e-3), ``/predict`` p50 at 1, 64 and 64 n
+   images on the job's door (each request split over the ranks, each
+   answering its part alone), K1 12 times a bucketed forward on every
+   serving rank, and nothing left behind (no follower alive, no default
+   process group, no new ``/dev/shm`` entry).
+
 The line before the last is ``{"kernels": [...]}``, each kernel's
 ``launches`` from phase 5 and ``launches_by_path`` from every path; the
 last is ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -3367,6 +3395,626 @@ def trial_loop_phase(card: str, uris: dict) -> list:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 10: several cards
+# ---------------------------------------------------------------------------
+
+MAX_CARDS = 4
+PER_CARD = 64         # PERF.md's batch a card, at every world size
+STEP_REPS = 10        # timed steps a rank
+RESNET_PER_CARD = 128  # phase 7's ResNet-50 batch, a card
+ALLREDUCE_REPS = 7
+CARDS_TIMED = 5       # /predict requests of each size on the job's door
+CARDS_TEST_IMAGES = 128
+# n cards against one, same weights, same global batch: the same kernels
+# on the same rows, but each bf16 product over a quarter of the rows may
+# round otherwise and the gradients are summed in another order, so the
+# loss within 1e-3 relative, each leaf's update (SGD at lr 1: minus the
+# gradient) within phase 3's step tolerance (GRAD_RTOL, QK_GRAD_RTOL)
+CARDS_LOSS_RTOL = 1e-3
+# a served answer on n cards against the same trial on one card: argmax
+# equal unless the reference's top two are within this of each other, and
+# every probability within it
+CARDS_PROB_ATOL = 1e-3
+
+
+class _Fd2:
+    """File descriptor 2 sent to ``path`` while open: the followers a
+    thread-placed worker spawns inherit it, and write their ``startup``
+    and ``kernel launches`` lines there."""
+
+    def __init__(self, path: Path):
+        self.path = path
+
+    def __enter__(self):
+        sys.stderr.flush()
+        self.saved = os.dup(2)
+        fd = os.open(self.path, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+        os.dup2(fd, 2)
+        os.close(fd)
+
+    def __exit__(self, *exc):
+        sys.stderr.flush()
+        os.dup2(self.saved, 2)
+        os.close(self.saved)
+
+
+def rank_records(path: Path, kind: str) -> dict:
+    """{pid: JSON of its ``kind`` line} from the followers' lines."""
+    return {int(m.group(1)): json.loads(m.group(2)) for m in re.finditer(
+        kind + r" \(pid (\d+)\): (\{.*\})", path.read_text())}
+
+
+def rank_kernel_checks(seed: int, batch: int) -> dict:
+    """Rank side: K1, K1-LSE, K2 and K3 on this rank's card against their
+    plain versions at the training shape (B=``batch``, H=12, S=196,
+    Dh=64, bf16): each error, with its tolerance (phase 2's)."""
+    from rafiki_tpu_torch.device import default_device
+
+    fa = importlib.import_module("rafiki_tpu_torch.ops.flash_attention")
+    dev = default_device()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn(batch, 12, 196, 64, generator=gen,
+                                 device=dev, dtype=torch.bfloat16)
+                     for _ in range(4))
+    with torch.inference_mode():
+        out = fa.flash_attention(q, k, v)
+    o, lse, o32 = fa.flash_attention_lse(q, k, v)
+    r_out, r_lse, r_o32 = fa.flash_attention_plain(q, k, v,
+                                                   return_lse=True)
+    delta = fa._delta(r_o32, dout)
+    dq, _ = fa.flash_attention_dq(q, k, v, dout, r_lse, r_o32)
+    dk, dv = fa.flash_attention_dkv(q, k, v, dout, r_lse, delta)
+    torch.cuda.synchronize(dev)
+    r_dq = fa.flash_attention_dq_plain(q, k, v, dout, r_lse, delta)
+    r_dk, r_dv = fa.flash_attention_dkv_plain(q, k, v, dout, r_lse, delta)
+    bf16 = torch.bfloat16
+    errs = {"K1": (float((out.float() - r_out.float()).abs().max()),
+                   TOL[bf16]),
+            "K1-LSE out": (max(float((o.float() - r_out.float()).abs().max()),
+                               float((o32 - r_o32.float()).abs().max())),
+                           TOL[bf16]),
+            "K1-LSE lse": (float((lse - r_lse).abs().max()), LSE_TOL[bf16]),
+            "K2 dq": (_rel_err(dq, r_dq), TOL[bf16]),
+            "K3 dk": (_rel_err(dk, r_dk), TOL[bf16]),
+            "K3 dv": (_rel_err(dv, r_dv), TOL[bf16])}
+    return {"device": str(dev), "errs": errs}
+
+
+def rank_step(seed: int, per_card: int, reps: int,
+              profile: bool = False) -> dict:
+    """Rank side: one ViT-B/16 step (SGD at lr 1) over a fixed global
+    batch of ``per_card`` images a rank, from rank 0's weights, with each
+    kernel's launches in it and a checksum of the weights after it, then
+    ``reps`` steps timed per call (host clock to a synchronise) and on
+    the card (CUDA events around the queued steps). Rank 0 first takes
+    the same step on one card over the whole global batch, and times
+    steps of ``per_card`` there, the others waiting in the group. With
+    ``profile``, rank 0 prints where one more step's time goes."""
+    from rafiki_tpu_torch import convert
+    from rafiki_tpu_torch.models import vit
+    from rafiki_tpu_torch.parallel import ranks
+    from rafiki_tpu_torch.sdk import torch_backend as tb
+
+    group = ranks.current_group()
+    n = group.size
+    cfg = vit.vit_b16()
+    tree = vit.init(np.random.default_rng(seed), cfg)
+    rng = np.random.default_rng(seed + 1)
+    x = rng.random((per_card * n, 224, 224, 3), dtype=np.float32)
+    y = rng.integers(0, cfg.num_classes, per_card * n)
+    trainer = tb.DataParallelTrainer(
+        tb.softmax_classifier_loss(lambda m, xb: m(xb)),
+        tb.tunable_optimizer(torch.optim.SGD, lr=1.0))
+    dev = trainer.device
+
+    def init(rng):
+        return convert.from_jax_params(tree, cfg, dev, train=True)
+
+    def batch(rows):
+        return (torch.from_numpy(x[rows]).to(dev),
+                torch.from_numpy(y[rows]).to(dev))
+
+    def step(model, opt, b):
+        before = [p.detach().clone() for p in model.parameters()]
+        loss = trainer.train_step(model, opt, b)
+        return loss, {k: (p.detach() - p0).double() for (k, p), p0 in
+                      zip(model.named_parameters(), before)}
+
+    def timed(model, opt, b):
+        for _ in range(2):
+            trainer.train_step(model, opt, b)
+        torch.cuda.synchronize(dev)
+        calls = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            trainer.train_step(model, opt, b)
+            torch.cuda.synchronize(dev)
+            calls.append((time.perf_counter() - t) * 1e3)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(reps):
+            trainer.train_step(model, opt, b)
+        end.record()
+        torch.cuda.synchronize(dev)
+        return statistics.median(calls), start.elapsed_time(end) / reps
+
+    out = {"rank": group.rank, "device": str(dev)}
+    if group.rank == 0:
+        ranks.set_group(None)  # one card, no group
+        try:
+            model, opt = trainer.init(init)
+            loss, one = step(model, opt, batch(slice(None)))
+            out["one_loss"] = float(loss)
+            out["one_call_ms"], out["one_card_ms"] = timed(
+                model, opt, batch(slice(0, per_card)))
+            del model, opt
+        finally:
+            ranks.set_group(group)
+    model, opt = trainer.init(init)  # rank 0's weights on every rank
+    local = batch(trainer._shard(per_card * n))
+    ranks.reset_launches()
+    loss, upd = step(model, opt, local)
+    torch.cuda.synchronize(dev)
+    out["launches"] = ranks.launch_counts()
+    out["loss"] = float(group.all_reduce_(loss.reshape(1).float())[0]) / n
+    out["checksum"] = float(sum(p.detach().double().sum()
+                                for p in model.parameters()))
+    out["params"] = sum(p.numel() for p in model.parameters())
+    if group.rank == 0:
+        out["leaf_err"] = _worst_by_leaf(_rel_l2(upd, one))
+        del one
+    del upd
+    out["call_ms"], out["card_ms"] = timed(model, opt, local)
+    if profile:
+        # where an n-card step's time goes, on rank 0's card (the others
+        # take the same two steps, unprofiled)
+        def one():
+            trainer.train_step(model, opt, local)
+
+        if group.rank == 0:
+            print_device_profile(one, f"{n}-card step on rank 0 (B={per_card}"
+                                 " a card)", top=10, shares=(
+                                     ("NCCL", "nccl"),
+                                     ("attention kernels", "flash_"),
+                                     ("GEMMs", "gemm")))
+        else:
+            one()
+            one()
+            torch.cuda.synchronize(dev)
+    return out
+
+
+def rank_resnet_step(per_card: int, reps: int) -> dict:
+    """Rank side: the ResNet-50 train step (CIFAR stem, 32x32, AdamW, as
+    in phase 7) at ``per_card`` images, timed per call and on the card:
+    first on rank 0 alone (ATen's fused batch norm), the others waiting
+    in the group, then on every rank at once (BatchNorm's moments over
+    the ranks, written out in f32, and the gradients' all-reduce)."""
+    from rafiki_tpu_torch.convert import from_jax_tree
+    from rafiki_tpu_torch.models import resnet
+    from rafiki_tpu_torch.parallel import ranks
+    from rafiki_tpu_torch.sdk.torch_backend import (
+        DataParallelTrainer,
+        tunable_optimizer,
+    )
+    from rafiki_tpu_torch.templates import torch_resnet
+
+    group = ranks.current_group()
+    dev = group.device
+    cfg = resnet.resnet50(num_classes=CLASSES, small_inputs=True)
+    rng = np.random.default_rng(SEED + 32)
+    data = (torch.from_numpy(rng.random((per_card, 32, 32, 3),
+                                        dtype=np.float32)).to(dev),
+            torch.from_numpy(rng.integers(0, CLASSES, per_card)).to(dev))
+
+    def timed() -> tuple:
+        with torch.device("meta"):
+            model = resnet.ResNet(cfg)
+        model = from_jax_tree(model, *resnet.init(np.random.default_rng(0),
+                                                  cfg), dev, train=True)
+        state = model.state()
+        trainer = DataParallelTrainer(
+            torch_resnet._loss, tunable_optimizer(
+                torch.optim.AdamW, lr=1e-4, weight_decay=1e-4),
+            device=dev, stateful=True)
+        opt = trainer.optimizer(model.parameters())
+        for _ in range(2):
+            trainer.train_step(model, opt, data, state)
+        torch.cuda.synchronize(dev)
+        calls = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            trainer.train_step(model, opt, data, state)
+            torch.cuda.synchronize(dev)
+            calls.append((time.perf_counter() - t) * 1e3)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(reps):
+            trainer.train_step(model, opt, data, state)
+        end.record()
+        torch.cuda.synchronize(dev)
+        return statistics.median(calls), start.elapsed_time(end) / reps
+
+    out = {"rank": group.rank}
+    if group.rank == 0:
+        with ranks.alone():
+            out["one_call_ms"], out["one_card_ms"] = timed()
+    group.all_reduce_(torch.zeros(1, device=dev))  # the others wait here
+    out["call_ms"], out["card_ms"] = timed()
+    return out
+
+
+def rank_allreduce(n_floats: int, reps: int) -> list:
+    """Rank side: ms of each of ``reps`` sums of an f32 buffer of
+    ``n_floats`` over the group (CUDA events), after 3 unmeasured."""
+    from rafiki_tpu_torch.parallel import ranks
+
+    group = ranks.current_group()
+    buf = torch.ones(n_floats, device=group.device)
+    for _ in range(3):
+        group.all_reduce_(buf.fill_(1.0))
+    ms = []
+    for _ in range(reps):
+        buf.fill_(1.0)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        group.all_reduce_(buf)
+        end.record()
+        torch.cuda.synchronize(group.device)
+        ms.append(start.elapsed_time(end))
+    return ms
+
+
+def nccl_transports(logs: Path) -> str:
+    """The transports NCCL chose between the ranks, from its INFO lines."""
+    text = "".join(p.read_text(errors="replace") for p in logs.glob("*"))
+    via = sorted(set(re.findall(r" via (\S+)", text)))
+    nvls = "NVLS" in text and "NVLS multicast support is available" in text
+    return (", ".join(via) or "none reported") + (
+        "; NVLS multicast available" if nvls else "")
+
+
+def cards_own_group(card: str, n: int, profile: bool = False) -> None:
+    """10a: this process as rank 0 of a group over the ``n`` cards:
+    start-up, each kernel against its plain version on every card, one
+    n-card step against one card's, step times at 1 and n cards, the
+    all-reduce of ViT-B/16's gradients, and the ResNet-50 step at 1 and n
+    cards. ``profile`` adds a kernel profile
+    of one n-card step on rank 0 (not in the main run: one of the two
+    processes that profiled NCCL's kernels of a group of 4 on an H100
+    host aborted at its exit after passing)."""
+    from rafiki_tpu_torch.device import set_device_grant
+    from rafiki_tpu_torch.parallel import ranks
+    from rafiki_tpu_torch.worker.bootstrap import KERNELS
+
+    nccl_logs = WORK / "nccl"
+    nccl_logs.mkdir(parents=True, exist_ok=True)
+    for path in nccl_logs.glob("*"):
+        path.unlink()
+    devices = list(range(n))
+    set_device_grant(devices)
+    try:
+        with _Env(NCCL_DEBUG="INFO", NCCL_DEBUG_SUBSYS="INIT",
+                  NCCL_DEBUG_FILE=str(nccl_logs / "nccl.%h.%p.txt")):
+            t0 = time.perf_counter()
+            r = ranks.Ranks(devices)
+        with r:
+            up_s = time.perf_counter() - t0
+            ranks.set_group(r.group)
+            try:
+                checks = r.run(rank_kernel_checks, SEED + 30, PER_CARD)
+                steps = r.run(rank_step, SEED + 31, PER_CARD, STEP_REPS,
+                              profile)
+                n_floats = steps[0]["params"]
+                reduce_ms = (r.run(rank_allreduce, n_floats, ALLREDUCE_REPS)
+                             if n > 1 else None)
+                bn_steps = r.run(rank_resnet_step, RESNET_PER_CARD,
+                                 STEP_REPS)
+            finally:
+                ranks.set_group(None)
+            startups = r.startups
+            pids = r.pids
+    finally:
+        set_device_grant(None)
+    for s in startups:
+        print(f"cards: follower rank {s['rank']} (pid {s['pid']}, "
+              f"{s['device']}): spawn to ready "
+              f"{s['t_group'] - s['t_start']:.2f} s = interpreter, package "
+              f"and torch import {s['t_main'] - s['t_start']:.2f} + CUDA init "
+              f"{s['t_cuda'] - s['t_main']:.2f} + group join "
+              f"{s['t_group'] - s['t_cuda']:.2f}", flush=True)
+    print(f"cards: {n} rank{'s' if n > 1 else ''} up in {r.init_s:.2f} s "
+          f"(first spawn to the last rank ready; {up_s:.2f} s with the "
+          f"store); NCCL transport: "
+          + (nccl_transports(nccl_logs) if n > 1 else "none (one rank)"),
+          flush=True)
+    for rec in checks:
+        line = ", ".join(f"{k} {e:.3g} (tol {tol:g})"
+                         for k, (e, tol) in rec["errs"].items())
+        print(f"cards: kernels against their plain versions on "
+              f"{rec['device']}: {line}", flush=True)
+        require(all(e <= tol for e, tol in rec["errs"].values()),
+                f"a kernel disagrees on {rec['device']}: {line}")
+    s0 = steps[0]
+    rel = abs(s0["loss"] - s0["one_loss"]) / abs(s0["one_loss"])
+    print(f"cards: one step over a global batch of {PER_CARD * n} "
+          f"(ViT-B/16, SGD at lr 1, weights from rank 0) on {n} card"
+          f"{'s' if n > 1 else ''} against one card: loss {s0['loss']:.6f} "
+          f"vs {s0['one_loss']:.6f} (relative {rel:.3g}, tol "
+          f"{CARDS_LOSS_RTOL:g}); each leaf's update, relative L2 (worst "
+          f"layer; tol {GRAD_RTOL:g}, {QK_GRAD_RTOL:g} for "
+          f"{'/'.join(QK_LEAVES)}): "
+          + ", ".join(f"{k} {e:.2e}" for k, e in sorted(
+              s0["leaf_err"].items())), flush=True)
+    require(rel <= CARDS_LOSS_RTOL, "the n-card loss differs")
+    for k, e in s0["leaf_err"].items():
+        tol = QK_GRAD_RTOL if k.endswith(QK_LEAVES) else GRAD_RTOL
+        require(e <= tol, f"the n-card update of {k} off by {e:.3g}")
+    require(len({s["checksum"] for s in steps}) == 1,
+            f"the ranks' weights differ after the step: "
+            f"{[s['checksum'] for s in steps]}")
+    for s in steps:
+        got = [s["launches"][k] for k in KERNELS]
+        require(got == [0, DEPTH, DEPTH, DEPTH],
+                f"rank {s['rank']} launched {got} in one step, expected "
+                f"[0, {DEPTH}, {DEPTH}, {DEPTH}]")
+    print(f"cards: every rank launched K1-LSE, K2 and K3 {DEPTH} times in "
+          f"the step and holds the same weights after it (checksum "
+          f"{s0['checksum']:.6f})", flush=True)
+    one_ips = PER_CARD / (s0["one_call_ms"] / 1e3)
+    n_call = max(s["call_ms"] for s in steps)
+    n_ips = PER_CARD * n / (n_call / 1e3)
+    print(f"cards: the step at 1 card x {PER_CARD}: {s0['one_call_ms']:.2f} "
+          f"ms a call, {s0['one_card_ms']:.2f} ms on the card; at {n} cards "
+          f"x {PER_CARD}: a call " + ", ".join(
+              f"rank {s['rank']} {s['call_ms']:.2f}" for s in steps)
+          + " ms, on the card " + ", ".join(
+              f"rank {s['rank']} {s['card_ms']:.2f}" for s in steps)
+          + f" ms; train images/s {one_ips:.1f} on 1 card, {n_ips:.1f} on "
+          f"{n} (the slowest rank's call), scaling {n_ips / one_ips:.2f}x; "
+          f"card {card}", flush=True)
+    if reduce_ms is not None:
+        med = statistics.median(max(ms) for ms in zip(*reduce_ms))
+        nbytes = 4 * n_floats
+        bus = nbytes * 2 * (n - 1) / n / (med / 1e3)
+        print(f"cards: all_reduce of {nbytes / 1e6:.1f} MB of f32 (ViT-B/16's"
+              f" {n_floats} parameters) over {n} cards: median of "
+              f"{ALLREDUCE_REPS} {med:.3f} ms (the slowest rank's, CUDA "
+              f"events), bus bandwidth {bus / 1e9:.1f} GB/s "
+              f"(2(n-1)/n x bytes / time)", flush=True)
+    b0 = bn_steps[0]
+    print(f"cards: ResNet-50 train step (CIFAR stem, 32x32x3, AdamW) at "
+          f"{RESNET_PER_CARD} images a card: 1 card (ATen's fused batch "
+          f"norm) {b0['one_call_ms']:.2f} ms a call, {b0['one_card_ms']:.2f}"
+          f" ms on the card; {n} card{'s' if n > 1 else ''} (BatchNorm's "
+          f"moments over the ranks, written out in f32, and the gradients' "
+          f"all-reduce) a call " + ", ".join(
+              f"rank {b['rank']} {b['call_ms']:.2f}" for b in bn_steps)
+          + " ms, on the card " + ", ".join(
+              f"rank {b['rank']} {b['card_ms']:.2f}" for b in bn_steps)
+          + f" ms; card {card}", flush=True)
+    require(all(np.isfinite([b["call_ms"], b["card_ms"]]).all()
+                for b in bn_steps), "the ResNet-50 step times")
+    alive = [p for p in pids if _alive(p)]
+    require(not alive, f"followers alive after close: {alive}")
+
+
+def cards_phase(card: str) -> list:
+    """Phase 10; each kernel's launches on the n-card job and its serving,
+    summed over the ranks, in ``KERNEL_NAMES`` order."""
+    from rafiki_tpu_torch import config
+    import multiprocessing
+
+    import torch.distributed as dist
+
+    from rafiki_tpu_torch.predictor.server import PredictorServer
+    from rafiki_tpu_torch.worker.bootstrap import KERNELS
+
+    t_phase = time.perf_counter()
+    n = min(torch.cuda.device_count(), MAX_CARDS)
+    print(f"cards: n = {n} of {torch.cuda.device_count()} visible card"
+          f"{'s' if torch.cuda.device_count() > 1 else ''}"
+          + ("" if n > 1 else ": one card, so the job below runs at a grant "
+             "of one card (CHIPS_PER_TRIAL = CHIPS_PER_WORKER = 1) and no "
+             "several-card result is claimed from this run"), flush=True)
+    shm_before = set(os.listdir("/dev/shm"))
+    cards_own_group(card, n)
+
+    # ---- 10b: the job through Client, thread placement ----
+    rng = np.random.default_rng(SEED + 40)
+    patterns = rng.random((CLASSES, 224, 224, 3), dtype=np.float32)
+    uris = {}
+    for split, count in (("train", TRAIN_IMAGES * n),
+                         ("test", CARDS_TEST_IMAGES)):
+        x, y = make_dataset(rng, count, patterns)
+        uris[split] = str(WORK / f"cards_{split}.npz")
+        np.savez(uris[split], x=x, y=y)
+    del x, y, patterns
+    ranks_log = WORK / "cards_ranks.log"
+    if ranks_log.exists():
+        ranks_log.unlink()
+    kernels = _kernels()
+    best = config.INFERENCE_MAX_BEST_TRIALS
+    body_cap = config.PREDICT_MAX_BODY_MB
+    admin, server, c = _loop_stack("cards.sqlite3", WORK / "cards_params")
+    door = None
+    try:
+        with _Fd2(ranks_log):
+            c.create_model("vit-cards", "IMAGE_CLASSIFICATION", twin_template(
+                "TorchViTCards", "FloatKnob(1e-5, 1e-3, is_exp=True)",
+                PER_CARD * n, 1), "TorchViTCards")
+            for kernel in kernels:
+                kernel.launches = 0
+            # ---- the main path's run: the train job ----
+            t0, t0_wall = time.perf_counter(), time.time()
+            c.create_train_job("cards", "IMAGE_CLASSIFICATION", uris["train"],
+                               uris["test"], budget={
+                                   "MODEL_TRIAL_COUNT": TRIALS,
+                                   "CHIP_COUNT": n, "CHIPS_PER_TRIAL": n})
+            job = c.wait_until_train_job_stopped("cards", timeout_s=900,
+                                                 poll_s=0.05)
+            job_s = time.perf_counter() - t0
+            # ------------------------------------------------
+            train_rank0 = [k.launches for k in kernels]
+            trials = c.get_trials_of_train_job("cards")
+            # one best trial, served on one worker of n cards
+            config.INFERENCE_MAX_BEST_TRIALS = 1
+            for kernel in kernels:
+                kernel.launches = 0
+            t_serve_wall = time.time()
+            # ---- the main path's run: serving ----
+            t0 = time.perf_counter()
+            inf = c.create_inference_job("cards",
+                                         budget={"CHIPS_PER_WORKER": n})
+            deploy_s = time.perf_counter() - t0
+            (served,) = {w["trial_id"] for w in inf["workers"]}
+            served_path = admin.db.get_trial(served)["params_file_path"]
+            images = np.random.default_rng(SEED + 41).random(
+                (PER_CARD * n, 224, 224, 3), dtype=np.float32)
+            answers = {k: np.asarray(c.predict("cards",
+                                               images[:k].tolist()))
+                       for k in (1, 8)}
+            # a request of 64 images a card is larger than the door's
+            # default cap
+            config.PREDICT_MAX_BODY_MB = max(
+                body_cap, images.nbytes / (1 << 20) + 1)
+            door = PredictorServer(admin.services.get_predictor(inf["id"]),
+                                   app="cards", auth=False).start()
+            url = f"http://127.0.0.1:{door.port}/predict"
+            sizes = tuple(sorted({1, PER_CARD, PER_CARD * n}))
+            bodies = {k: request_body("npy", images[:k]) for k in sizes}
+            lat = {k: [] for k in sizes}
+            for _ in range(CARDS_TIMED):
+                for k in sizes:
+                    t = time.perf_counter()
+                    got = post(url, *bodies[k])
+                    lat[k].append(time.perf_counter() - t)
+                    require(got.shape == (k, 1000), f"/predict {k}: shape "
+                            f"{got.shape}")
+            door.stop()
+            door = None
+            c.stop_inference_job("cards")
+            # -------------------------------------
+            serve_rank0 = [k.launches for k in kernels]
+    finally:
+        config.INFERENCE_MAX_BEST_TRIALS = best
+        config.PREDICT_MAX_BODY_MB = body_cap
+        if door is not None:
+            door.stop()
+        server.stop()
+        admin.shutdown()
+
+    require(job["status"] == "STOPPED", f"cards train job {job['status']}")
+    require([w["chips"] for w in job["workers"]] == [list(range(n))],
+            f"train grants {[w['chips'] for w in job['workers']]}")
+    require([t["status"] for t in trials] == ["COMPLETED"] * TRIALS
+            and all(np.isfinite(t["score"]) for t in trials),
+            f"trials {[(t['status'], t['score']) for t in trials]}")
+    require([w["chips"] for w in inf["workers"]] == [list(range(n))],
+            f"serving grants {[w['chips'] for w in inf['workers']]}")
+    steps = TRIALS * (TRAIN_IMAGES * n) // (PER_CARD * n)
+    # the followers' lines (a stopped serving worker closes its ranks after
+    # the stop returns): the train worker's ranks started before the
+    # deploy, the serving worker's after
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and (
+            len(rank_records(ranks_log, "kernel launches")) < 2 * (n - 1)
+            or any(_alive(p) for p in rank_records(ranks_log, "startup"))):
+        time.sleep(0.2)
+    started = rank_records(ranks_log, "startup")
+    counted = rank_records(ranks_log, "kernel launches")
+    require(sorted(started) == sorted(counted)
+            and len(started) == 2 * (n - 1),
+            f"follower lines: startup {sorted(started)}, launches "
+            f"{sorted(counted)} ({2 * (n - 1)} followers expected)")
+    train_f = [p for p, s in started.items() if s["t_main"] < t_serve_wall]
+    serve_f = [p for p in started if p not in train_f]
+    train_ranks = [train_rank0] + [[counted[p][k] for k in KERNELS]
+                                   for p in sorted(train_f)]
+    serve_ranks = [serve_rank0] + [[counted[p][k] for k in KERNELS]
+                                   for p in sorted(serve_f)]
+    expect = [DEPTH * TRIALS] + [DEPTH * steps] * 3
+    for r, got in enumerate(train_ranks):
+        require(got == expect, f"train rank {r} launched {got}, expected "
+                f"{expect} ({steps} steps, {TRIALS} evaluates)")
+    # every rank answers its own part of a batch alone: rank 0's parts
+    # are the larger and it alone answers a request of one image
+    forwards = [got[0] // DEPTH for got in serve_ranks]
+    for r, got in enumerate(serve_ranks):
+        require(got == [DEPTH * forwards[r], 0, 0, 0] and forwards[r] > 0,
+                f"serving rank {r} launched {got}, expected K1 alone, a "
+                f"positive multiple of {DEPTH}")
+    # nothing left behind
+    pids = list(started)
+    alive = [p for p in pids if _alive(p)]
+    children = [p.name for p in multiprocessing.active_children()
+                if p.name.startswith("rafiki-rank")]
+    shm_new = set(os.listdir("/dev/shm")) - shm_before
+    require(not alive and not children and not dist.is_initialized()
+            and not shm_new, f"left behind: followers alive {alive}, "
+            f"children {children}, default group {dist.is_initialized()}, "
+            f"/dev/shm {sorted(shm_new)}")
+    for p in sorted(started):
+        s = started[p]
+        print(f"cards: job follower rank {s['rank']} (pid {p}, {s['device']}"
+              f", {'train' if p in train_f else 'serving'}): spawn to ready "
+              f"{s['t_group'] - s['t_start']:.2f} s", flush=True)
+    print(f"cards: train job of {TRIALS} trials on {n} card"
+          f"{'s' if n > 1 else ''} (CHIP_COUNT = CHIPS_PER_TRIAL = {n}, batch "
+          f"{PER_CARD * n}, {TRAIN_IMAGES * n} images, one epoch) STOPPED in "
+          f"{job_s:.1f} s (Client.create_train_job to STOPPED); scores "
+          f"{[round(t['score'], 4) for t in trials]}; launches a rank "
+          f"{expect} ({steps} steps, {TRIALS} evaluates) on each of {n}; "
+          f"card {card}", flush=True)
+
+    # the answers against the same trial on one card
+    from rafiki_tpu_torch.device import set_device_grant
+    from rafiki_tpu_torch.parallel.ranks import load_params_file
+    from rafiki_tpu_torch.sdk.model import load_model_class
+
+    trial = next(t for t in trials if t["id"] == served)
+    clazz = load_model_class(twin_template(
+        "TorchViTCards", "FloatKnob(1e-5, 1e-3, is_exp=True)", PER_CARD * n,
+        1), "TorchViTCards")
+    set_device_grant([0])
+    try:
+        model = clazz(**trial["knobs"])
+        load_params_file(model, served_path)
+        ref = np.asarray(model.predict(images[:8]))
+        model.destroy()
+    finally:
+        set_device_grant(None)
+    for k, probs in answers.items():
+        top2 = np.sort(ref[:k], -1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > CARDS_PROB_ATOL
+        same = probs.argmax(-1) == ref[:k].argmax(-1)
+        err = float(np.abs(probs - ref[:k]).max())
+        print(f"cards: Client.predict of {k} (JSON) on {n} card"
+              f"{'s' if n > 1 else ''} against the same trial on one: argmax "
+              f"equal on {int(same.sum())} of {k} ({int(clear.sum())} clear "
+              f"of a near tie), max |dp| {err:.3g} (tol "
+              f"{CARDS_PROB_ATOL:g})", flush=True)
+        require(probs.shape == (k, 1000) and bool(np.isfinite(probs).all()),
+                f"/predict/cards {k}: shape {probs.shape} or non-finite")
+        require(bool(same[clear].all()) and err <= CARDS_PROB_ATOL,
+                f"/predict/cards {k}: answers differ from one card's")
+    p50 = {k: statistics.median(v) * 1e3 for k, v in lat.items()}
+    print(f"cards: inference job on {n} card{'s' if n > 1 else ''} "
+          f"(CHIPS_PER_WORKER = {n}, one worker) RUNNING in {deploy_s:.1f} "
+          f"s; /predict p50 on the job's door (.npy bodies, "
+          f"{CARDS_TIMED} requests a size): " + ", ".join(
+              f"{k} image{'s' if k > 1 else ''} {p50[k]:.2f} ms"
+              for k in sizes) + f"; bucketed forwards by rank {forwards}, "
+          f"K1 {DEPTH} each; card {card}", flush=True)
+    print(f"cards: after the stops no follower is alive, no default process "
+          f"group exists and /dev/shm holds no new entry; phase 10 took "
+          f"{time.perf_counter() - t_phase:.0f} s", flush=True)
+    totals = [sum(r[i] for r in train_ranks + serve_ranks)
+              for i in range(4)]
+    return totals
+
+
 def _alive(pid: int) -> bool:
     try:
         os.kill(pid, 0)
@@ -3398,6 +4046,7 @@ def main() -> int:
     zoo_launches = zoo_phase(card)
     bert_launches, lm_launches = text_phase(card)
     loop_launches = trial_loop_phase(card, uris)
+    cards_launches = cards_phase(card)
     for i, name in enumerate(KERNEL_NAMES):
         by_path = {"train (phase 3)": train_launches[i],
                    "serve (phase 4)": serve_launches[i],
@@ -3406,7 +4055,8 @@ def main() -> int:
                    "zoo (phase 7)": zoo_launches[i],
                    "bert (phase 8a)": bert_launches[i],
                    "lm (phase 8b)": lm_launches[i],
-                   "trial loop (phase 9)": loop_launches[i]}
+                   "trial loop (phase 9)": loop_launches[i],
+                   "several cards (phase 10)": cards_launches[i]}
         require(by_path["stack (phase 5)"] > 0,
                 f"{name} was not launched through the admin")
         require(by_path["process (phase 6)"] > 0,
@@ -3417,6 +4067,8 @@ def main() -> int:
                 f"{name} was not launched on the LM path")
         require(by_path["trial loop (phase 9)"] > 0,
                 f"{name} was not launched on the trial loop's path")
+        require(by_path["several cards (phase 10)"] > 0,
+                f"{name} was not launched on the several-card path")
         entries[name]["launches"] = stack_launches[i]
         entries[name]["launches_by_path"] = by_path
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.0f} s",

@@ -522,6 +522,13 @@ class Admin:
         self._validate_budget(budget or {})
         _refuse_unported_budget(budget or {}, _UNPORTED_SERVING_BUDGET)
         job = self._train_job(user_id, app, app_version)
+        if (job["task"] == TaskType.TEXT_GENERATION
+                and int((budget or {}).get(BudgetType.CHIPS_PER_WORKER,
+                                           1)) > 1):
+            raise InvalidRequestError(
+                "budget ['CHIPS_PER_WORKER'] > 1 asks for generation "
+                "across cards, which rafiki_tpu_torch does not have yet "
+                "(ROADMAP.md); drop it")
         if job["status"] != TrainJobStatus.STOPPED:
             raise InvalidRequestError(
                 f"Train job must be STOPPED, is {job['status']}")
@@ -743,14 +750,12 @@ class Admin:
 _RELAYED_STATS = ("batches", "queries", "queue_depth", "expired", "shed")
 
 #: budget keys, and the values of them, that ask for what is not ported:
-#: multi-card trials and population trials; multi-card workers, fused
-#: ensembles and speculative decoding's draft trial (ROADMAP.md)
+#: population trials; fused ensembles and speculative decoding's draft
+#: trial (ROADMAP.md)
 _UNPORTED_TRAIN_BUDGET = {
-    BudgetType.CHIPS_PER_TRIAL: lambda v: int(v) > 1,
     BudgetType.TRIAL_VMAP_K: lambda v: v not in (0, 1),
 }
 _UNPORTED_SERVING_BUDGET = {
-    BudgetType.CHIPS_PER_WORKER: lambda v: int(v) > 1,
     BudgetType.ENSEMBLE_FUSED: lambda v: int(v) != 0,
     BudgetType.GEN_DRAFT_TRIAL: bool,
 }

@@ -3,11 +3,16 @@
 Own copy of the core of ``rafiki_tpu/admin/services.py``:
 
 - train jobs: the chip budget (``CHIP_COUNT``, clamped to the host's
-  inventory) is split evenly across sub-train-jobs, one executor a card,
-  or one executor sharing a device when the budget is 0;
+  inventory) is split evenly across sub-train-jobs, one executor for
+  every ``CHIPS_PER_TRIAL`` cards (clamped to the largest host; a share
+  smaller than that is one smaller executor, and leftover cards are
+  logged as idle), or one executor sharing a device when the budget is
+  0; an executor granted several cards trains each trial over all of
+  them (``parallel/ranks.py``);
 - inference jobs: for each of the best ``INFERENCE_MAX_BEST_TRIALS``
-  trials, ``INFERENCE_WORKER_REPLICAS_PER_TRIAL`` serving executors
-  (clamped so replicas get a device of their own) and one predictor. A
+  trials, ``INFERENCE_WORKER_REPLICAS_PER_TRIAL`` serving executors of
+  ``CHIPS_PER_WORKER`` cards each (clamped to the largest host, and the
+  replicas clamped so each gets cards of its own) and one predictor. A
   worker whose exclusive device is taken shares one (placement/manager.py),
   so on a one-card host both best trials are served on ``cuda:0``. A
   ``TEXT_GENERATION`` job serves its one best trial with
@@ -20,7 +25,7 @@ Own copy of the core of ``rafiki_tpu/admin/services.py``:
   failure; a train job's status is derived from its workers' services.
 
 Not ported (ROADMAP.md; ``Admin`` refuses the budget keys that ask for
-them): multi-card trials and workers, fused ensembles, speculative
+them): generation across cards, fused ensembles, speculative
 decoding's draft, generation in worker processes (refused typed), standby
 replicas, rollout, drain, scaling, chip loans and reclaim, and recovery's
 adoption of running services.
@@ -89,11 +94,33 @@ class ServicesManager:
         # deploy rolls back, never silently sharing with a running job
         total_chips = min(total_chips, alloc.total_chips)
         chips_per_sub = total_chips // len(sub_jobs) if sub_jobs else 0
+        chips_per_trial = max(
+            int(budget.get(BudgetType.CHIPS_PER_TRIAL, 1)), 1)
+        # one executor's grant never spans hosts: downsize, don't fail
+        if chips_per_trial > alloc.max_chips_per_service > 0:
+            logger.info("CHIPS_PER_TRIAL=%d exceeds the largest host (%d "
+                        "chips); downsizing the per-trial mesh",
+                        chips_per_trial, alloc.max_chips_per_service)
+            chips_per_trial = alloc.max_chips_per_service
         created: List[str] = []
         try:
             for sub in sub_jobs:
-                # one executor a card; with none, one on a shared device
-                workers = [1] * chips_per_sub if chips_per_sub else [0]
+                if chips_per_sub == 0:
+                    workers = [0]  # one executor on a shared device
+                elif chips_per_sub < chips_per_trial:
+                    # a downsized grant: still one several-card executor
+                    workers = [chips_per_sub]
+                else:
+                    workers = [chips_per_trial] * (
+                        chips_per_sub // chips_per_trial)
+                    stranded = chips_per_sub % chips_per_trial
+                    if stranded:
+                        # uniform grants on purpose, but say so
+                        logger.info(
+                            "sub_train_job %s: %d of %d chips idle "
+                            "(CHIPS_PER_TRIAL=%d does not divide the "
+                            "per-model share)", sub["id"], stranded,
+                            chips_per_sub, chips_per_trial)
                 for n_chips in workers:
                     created.append(self._create_train_worker(sub["id"],
                                                              n_chips))
@@ -208,11 +235,22 @@ class ServicesManager:
                     "placement")
             # a token stream answers from one model: one best trial
             best_trials = best_trials[:1]
+        # every serving executor holds CHIPS_PER_WORKER cards, never more
+        # than one host has
+        alloc = self._placement.allocator
+        chips_per_worker = max(int((inf_job.get("budget") or {}).get(
+            BudgetType.CHIPS_PER_WORKER, 1)), 1)
+        if chips_per_worker > alloc.max_chips_per_service > 0:
+            logger.warning("CHIPS_PER_WORKER=%d exceeds the largest host "
+                           "(%d chips); downsizing the serving mesh",
+                           chips_per_worker, alloc.max_chips_per_service)
+            chips_per_worker = alloc.max_chips_per_service
         # replicas buy capacity only on devices of their own: same-device
         # replicas in one process just split batches
         n_replicas = max(1, min(
             config.INFERENCE_WORKER_REPLICAS_PER_TRIAL,
-            self._placement.allocator.total_chips // len(best_trials)))
+            alloc.total_chips // max(len(best_trials) * chips_per_worker,
+                                     1)))
         created: List[str] = []
         worker_trials: Dict[str, str] = {}
         try:
@@ -220,7 +258,8 @@ class ServicesManager:
                 for _ in range(n_replicas):
                     sid = self._create_inference_worker(
                         inference_job_id, trial["id"],
-                        GenerationWorker if generative else InferenceWorker)
+                        GenerationWorker if generative else InferenceWorker,
+                        n_chips=chips_per_worker)
                     created.append(sid)
                     worker_trials[sid] = trial["id"]
             predictor_service = self._db.create_service(ServiceType.PREDICT)
@@ -254,8 +293,8 @@ class ServicesManager:
             raise
 
     def _create_inference_worker(self, inference_job_id: str,
-                                 trial_id: str, worker_cls=InferenceWorker
-                                 ) -> str:
+                                 trial_id: str, worker_cls=InferenceWorker,
+                                 n_chips: int = 1) -> str:
         service = self._db.create_service(ServiceType.INFERENCE)
         self._db.create_inference_job_worker(service["id"], inference_job_id,
                                              trial_id)
@@ -266,7 +305,7 @@ class ServicesManager:
             # one when training or its siblings hold them all
             ctx = self._placement.create_service(
                 service["id"], ServiceType.INFERENCE, worker.start,
-                n_chips=1, best_effort_chips=True,
+                n_chips=n_chips, best_effort_chips=True,
                 extra={"inference_job_id": inference_job_id,
                        "trial_id": trial_id})
         except Exception:

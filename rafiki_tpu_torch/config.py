@@ -5,7 +5,8 @@ Paths, the settings a live deployment may retune
 (``PREDICT_QUEUE_DEPTH``, the per-job doors ``PREDICTOR_PORTS`` and
 ``PREDICTOR_HOST``, the generation worker's ``GEN_*``, the trial fault
 settings ``TRIAL_*`` and ``PENDING_FEEDBACK_MAX``) and the wall-clock
-budgets (``PREDICT_TIMEOUT_S``, ``SERVICE_DEPLOY_TIMEOUT_S``) are read
+budgets (``PREDICT_TIMEOUT_S``, ``SERVICE_DEPLOY_TIMEOUT_S``,
+``DIST_TIMEOUT_S``) are read
 at each use (module ``__getattr__``), so a test or an operator
 can repoint ``RAFIKI_WORKDIR`` or give a loaded host longer budgets
 without re-importing (the JAX package reads the two budgets once, at
@@ -138,6 +139,9 @@ _DYNAMIC = {
     # advisor feedback queued for retry, at most (the oldest drop)
     "PENDING_FEEDBACK_MAX": lambda: _env_int(
         "RAFIKI_PENDING_FEEDBACK_MAX", 256),
+    # -- several devices (parallel/ranks.py): seconds a rank waits on the
+    # others, in a collective or for a reply, before the call fails
+    "DIST_TIMEOUT_S": lambda: _env_float("RAFIKI_DIST_TIMEOUT_S", 300.0),
 }
 
 

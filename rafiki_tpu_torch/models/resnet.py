@@ -22,6 +22,15 @@ optimizer never sees (weight decay on them would corrupt them). :meth:`ResNet.fo
 the state as a mapping (default: its own buffers) and returns the new
 state beside the logits; ``DataParallelTrainer(stateful=True)`` writes it
 back after each step.
+
+Over several ranks (a data group, ``parallel/ranks.py``) the training
+moments are the global batch's, as under GSPMD in the JAX package, where
+the mean and variance of a sharded batch are taken over all of it: each
+rank sums its rows, the sums are added over the ranks (two passes, the
+mean and then the squared deviations, in f32), and the gradient of each
+sum is added over the ranks in the backward. The running statistics then
+agree on every rank with no copy from rank 0. That path is the function
+written out in f32 passes; ATen's fused kernels stay for one rank.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 
 from rafiki_tpu_torch.models import core
+from rafiki_tpu_torch.parallel.ranks import current_group
 
 State = Dict[str, torch.Tensor]
 
@@ -70,7 +80,18 @@ def batchnorm(p: Mapping[str, torch.Tensor], stats: Mapping[str, torch.Tensor],
     bf16 input and f32 parameters, and hands back the batch mean and
     ``rsqrt(var + eps)``, from which the variance is recovered."""
     xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
-    if train:
+    group = current_group() if train else None
+    if group is not None:
+        y, mean, var = _global_batchnorm(xc, p["scale"], p["bias"], eps,
+                                         group)
+        with torch.no_grad():
+            new_stats = {
+                "mean": torch.add(stats["mean"] * momentum, mean,
+                                  alpha=1 - momentum),
+                "var": torch.add(stats["var"] * momentum, var,
+                                 alpha=1 - momentum),
+            }
+    elif train:
         y, mean, invstd = torch.ops.aten.native_batch_norm(
             xc, p["scale"], p["bias"], None, None, True, 0.0, eps)
         with torch.no_grad():
@@ -87,6 +108,35 @@ def batchnorm(p: Mapping[str, torch.Tensor], stats: Mapping[str, torch.Tensor],
             0.0, eps)[0]
         new_stats = dict(stats)
     return y.permute(0, 2, 3, 1), new_stats
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """``t`` summed over the ranks; its gradient is summed likewise."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return group.all_reduce_(t.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce_(grad.clone()), None
+
+
+def _global_batchnorm(xc: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, eps: float, group
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(y, mean, biased variance) of NCHW ``xc`` with the moments of the
+    whole batch over the ranks' shards (equal on every rank)."""
+    xf = xc.float()
+    count = xf.numel() // xf.shape[1] * group.size
+    dims = (0, 2, 3)
+    mean = _SumOverRanks.apply(xf.sum(dims), group) / count
+    dev = xf - mean[None, :, None, None]
+    var = _SumOverRanks.apply((dev * dev).sum(dims), group) / count
+    y = (dev * torch.rsqrt(var + eps)[None, :, None, None]
+         * scale[None, :, None, None] + bias[None, :, None, None])
+    return y.to(xc.dtype), mean.detach(), var.detach()
 
 
 def _block_channels(cfg: ResNetConfig, stage: int) -> Tuple[int, int]:

@@ -46,8 +46,10 @@ class InsufficientChipsError(Exception):
 
 class ChipAllocator:
     """Per-host device bookkeeping. ``device_indices`` are CUDA indices,
-    or ``"cpu"``; by default the visible CUDA devices (``RAFIKI_VISIBLE_
-    DEVICES`` or all), and a RuntimeError without CUDA."""
+    or CPU entries (``"cpu"``; ``"cpu:0"``, ``"cpu:1"``, ... for several,
+    each a rank of its own under gloo); by default the visible CUDA
+    devices (``RAFIKI_VISIBLE_DEVICES`` or all), and a RuntimeError
+    without CUDA."""
 
     def __init__(self, device_indices: Optional[List[DeviceSpec]] = None):
         if device_indices is None:
@@ -62,6 +64,12 @@ class ChipAllocator:
 
     @property
     def total_chips(self) -> int:
+        return len(self._total)
+
+    @property
+    def max_chips_per_service(self) -> int:
+        """The largest grant one service can hold: a service's devices
+        never span hosts, and this allocator is one host's."""
         return len(self._total)
 
     @property

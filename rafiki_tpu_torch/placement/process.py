@@ -9,8 +9,11 @@ a parent that may have touched CUDA), with in its environment:
   the cards granted (the parent's grant indices are positions in the
   parent's own visible list, so they are mapped through the parent's
   ``CUDA_VISIBLE_DEVICES``), and ``RAFIKI_CHIP_GRANT`` the child's indices
-  of them, ``0..n-1``; a ``["cpu"]`` grant (tests) reaches the child as
-  ``cpu`` with no card visible;
+  of them, ``0..n-1``; a grant of CPU entries (tests: ``["cpu"]``, or
+  ``["cpu:0", "cpu:1"]`` for gloo ranks) reaches the child as those
+  entries with no card visible; a child granted several devices starts
+  its followers, one process a device (``parallel/ranks.py``), which see
+  the same cards;
 - its payload ids (``sub_train_job_id``; ``inference_job_id`` and
   ``trial_id``), from the service's ``extra``;
 - the metadata store, which every process opens (the same SQLite/WAL
@@ -290,11 +293,12 @@ class ProcessPlacementManager(PlacementManager):
 def _grant_env(chips: List[Any], parent_visible: Optional[str]
                ) -> Dict[str, str]:
     """The child's device environment for a grant of the parent's CUDA
-    indices (or ``["cpu"]``): ``CUDA_VISIBLE_DEVICES`` holds the physical
+    indices (or CPU entries): ``CUDA_VISIBLE_DEVICES`` holds the physical
     ids, taken from the parent's ``CUDA_VISIBLE_DEVICES`` when it has one,
     and ``RAFIKI_CHIP_GRANT`` the child's own indices of them."""
-    if "cpu" in chips:
-        return {"CUDA_VISIBLE_DEVICES": "", "RAFIKI_CHIP_GRANT": "cpu"}
+    if any(str(c).startswith("cpu") for c in chips):
+        return {"CUDA_VISIBLE_DEVICES": "",
+                "RAFIKI_CHIP_GRANT": ",".join(str(c) for c in chips)}
     visible = ([v.strip() for v in parent_visible.split(",")]
                if parent_visible and parent_visible.strip() else None)
     physical = []

@@ -6,9 +6,21 @@ padded predict-bucket ladder, ``predict_batched``, ``warm_predict``),
 ``cached_trainer`` and ``trainer_cache_clear``, ``tunable_optimizer`` and
 ``set_opt_hyperparams``, ``shuffled_batches``,
 ``softmax_classifier_loss`` and ``classification_accuracy``. The class
-keeps its name; one device per trainer in this slice (multi-GPU:
-ROADMAP.md), so ``n_data`` is 1 and the JAX package's mesh rounding is the
-identity.
+keeps its name.
+
+Over several devices each rank of the thread's data group
+(``parallel/ranks.py``) runs the same calls on its own device, and the
+trainer keeps the JAX trainer's semantics by hand, where XLA inserts them
+over the mesh: ``n_data`` is the group's size; the batch is the *global*
+batch, rounded up to a multiple of ``n_data``, and rank ``r`` takes the
+``r``-th contiguous slice of each (every rank draws the same shuffle); the
+parameters are initialised (or restored) on rank 0 and copied to the
+others; the gradients are averaged over the ranks in f32, so a step
+equals one device's step over the global batch; the logged loss is the
+global batch's; rank 0 alone logs, decides a stop and writes the
+checkpoint; each predict bucket (a multiple of ``n_data``) is split over
+the ranks and gathered in order, so every rank returns the whole answer.
+BatchNorm's moments are global (``models/resnet.py``).
 
 What the JAX trainer's arguments become here:
 
@@ -53,6 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from rafiki_tpu_torch.device import default_device, visible_devices
+from rafiki_tpu_torch.parallel.ranks import current_group, verdict_point
 from rafiki_tpu_torch.sdk.artifact import (
     ArtifactCorruptError,
     read_artifact,
@@ -168,11 +181,30 @@ class DataParallelTrainer:
         self.predict_fn = predict_fn
         self.stateful = stateful
         self.device = default_device(device)
-        self.n_data = 1  # devices on the data axis
         # (ids of the host arrays, the host arrays, their device copies):
         # the trials of one job fit the same arrays (dataset_utils caches
         # them); holding the host arrays keeps their ids from being reused
         self._fit_data_cache: Optional[tuple] = None
+
+    @property
+    def n_data(self) -> int:
+        """Devices on the data axis: the size of this thread's data
+        group, 1 without one."""
+        group = current_group()
+        return group.size if group is not None else 1
+
+    def round_batch(self, batch_size: int) -> int:
+        """Round a batch size up to a multiple of the data-axis size."""
+        return -(-batch_size // self.n_data) * self.n_data
+
+    def _shard(self, n: int) -> slice:
+        """This rank's contiguous part of ``n`` rows (a multiple of
+        ``n_data``)."""
+        group = current_group()
+        if group is None:
+            return slice(0, n)
+        part = n // group.size
+        return slice(group.rank * part, (group.rank + 1) * part)
 
     # -- training ---------------------------------------------------------
 
@@ -186,6 +218,13 @@ class DataParallelTrainer:
         out = init_fn(np.random.default_rng(seed))
         model, state = out if self.stateful else (out, None)
         model = model.to(self.device)
+        group = current_group()
+        if group is not None:
+            # rank 0's initialisation is every rank's
+            with torch.no_grad():
+                for t in [*model.parameters(), *model.buffers(),
+                          *(state or {}).values()]:
+                    group.broadcast_(t.data)
         opt = self.optimizer(model.parameters())
         if hyperparams:
             set_opt_hyperparams(opt, hyperparams)
@@ -209,12 +248,29 @@ class DataParallelTrainer:
             loss, _ = self.loss_fn(model, batch)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        group = current_group()
+        if group is not None:
+            self._average_grads(model, group)
         opt.step()
         if self.stateful:
             with torch.no_grad():
                 for k, v in new_state.items():
                     state[k].copy_(v)
         return loss.detach()
+
+    @staticmethod
+    def _average_grads(model: torch.nn.Module, group) -> None:
+        """Each gradient becomes the mean of the ranks' (equal shards, so
+        the global batch's), summed in f32 in one flat buffer."""
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        group.all_reduce_(flat).div_(group.size)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset: offset + g.numel()].view_as(g))
+            offset += g.numel()
 
     def fit(self, params: torch.nn.Module, opt_state: torch.optim.Optimizer,
             data: Tuple[np.ndarray, ...], epochs: int, batch_size: int,
@@ -243,23 +299,14 @@ class DataParallelTrainer:
         if self.stateful and state is None:
             raise ValueError("a stateful trainer's fit needs state=")
         n = len(data[0])
-        # the largest multiple of the data-axis size that fits the dataset
+        group = current_group()
+        lead = group is None or group.rank == 0
+        # the largest multiple of the data-axis size that fits the dataset;
+        # a dataset smaller than the mesh is resampled to one row a rank
         fit_cap = (n // self.n_data) * self.n_data
-        batch_size = min(batch_size, fit_cap or self.n_data)
-        start_epoch = 0
-        if checkpoint_path and os.path.exists(checkpoint_path):
-            try:
-                start_epoch = self._restore_checkpoint(checkpoint_path,
-                                                       model, opt, state)
-                logger.info("resuming fit from %s at epoch %d",
-                            checkpoint_path, start_epoch)
-            except (ArtifactCorruptError, KeyError, ValueError):
-                # losing the saved epochs beats crashing the trial over a
-                # damaged cache of them
-                logger.warning("checkpoint %s is corrupt or unreadable; "
-                               "restarting the trial from scratch",
-                               checkpoint_path, exc_info=True)
-                start_epoch = 0
+        batch_size = min(self.round_batch(batch_size),
+                         fit_cap or self.n_data)
+        start_epoch = self._resume(checkpoint_path, model, opt, state)
         # uploaded once: a resume at epoch == epochs skips it, and the
         # next fit of the same arrays reuses it
         key = tuple(id(d) for d in data)
@@ -282,19 +329,30 @@ class DataParallelTrainer:
                 batches = shuffled_batches(n, batch_size, epoch_rng)
             losses: List[torch.Tensor] = []
             for idx in batches:
-                idx = torch.as_tensor(idx, device=self.device)
+                idx = torch.as_tensor(idx[self._shard(len(idx))],
+                                      device=self.device)
                 losses.append(self.train_step(
                     model, opt, tuple(d[idx] for d in data_dev), state))
             stop_early = False
             if losses and log is not None:
+                loss = torch.stack(losses).float().mean()
+                if group is not None:
+                    loss = group.all_reduce_(loss.reshape(1)) / group.size
                 try:
-                    log(loss=float(torch.stack(losses).mean()),
-                        epoch=float(epoch), epoch_time=time.time() - t0,
-                        **upload)
+                    if lead:
+                        # rank 0's verdict reaches every rank just below
+                        with verdict_point():
+                            log(loss=float(loss), epoch=float(epoch),
+                                epoch_time=time.time() - t0, **upload)
                 except StopTrialEarly:
                     logger.info("early stop after epoch %d", epoch)
                     stop_early = True
-            if checkpoint_path and (
+                if group is not None:
+                    # rank 0's verdict ends every rank's fit
+                    flag = torch.tensor([float(stop_early)],
+                                        device=self.device)
+                    stop_early = bool(group.broadcast_(flag).item())
+            if lead and checkpoint_path and (
                     (epoch + 1) % max(checkpoint_every_epochs, 1) == 0
                     or epoch + 1 == epochs or stop_early):
                 self._save_checkpoint(checkpoint_path, model, opt, epoch + 1,
@@ -324,16 +382,65 @@ class DataParallelTrainer:
         np.savez(buf, **arrays)
         write_artifact(path, buf.getvalue())
 
+    def _resume(self, path: Optional[str], model: torch.nn.Module,
+                opt: torch.optim.Optimizer, state: Optional[State]) -> int:
+        """The epoch a fit starts at: 0, or the one after the checkpoint
+        at ``path``, loaded in place. Over several ranks rank 0 reads the
+        file and every rank loads the bytes it copies to them, so all
+        resume alike (whatever ``path`` a follower was given)."""
+        group = current_group()
+        blob: Optional[bytes] = None
+        if (group is None or group.rank == 0) and path \
+                and os.path.exists(path):
+            try:
+                blob = read_artifact(path)
+            except ArtifactCorruptError:
+                logger.warning("checkpoint %s is corrupt; restarting the "
+                               "trial from scratch", path, exc_info=True)
+        if group is not None:
+            blob = self._broadcast_bytes(group, blob)
+        if blob is None:
+            return 0
+        try:
+            epoch = self._load_checkpoint(blob, path, model, opt, state)
+        except (ArtifactCorruptError, KeyError, ValueError):
+            # losing the saved epochs beats crashing the trial over a
+            # damaged cache of them
+            logger.warning("checkpoint %s is unreadable; restarting the "
+                           "trial from scratch", path, exc_info=True)
+            return 0
+        logger.info("resuming fit from %s at epoch %d", path, epoch)
+        return epoch
+
+    def _broadcast_bytes(self, group, blob: Optional[bytes]
+                         ) -> Optional[bytes]:
+        """Rank 0's ``blob`` (or None) on every rank."""
+        size = torch.tensor([-1 if blob is None else len(blob)],
+                            dtype=torch.int64, device=self.device)
+        n = int(group.broadcast_(size).item())
+        if n < 0:
+            return None
+        buf = (torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+               .to(self.device) if group.rank == 0 else
+               torch.empty(n, dtype=torch.uint8, device=self.device))
+        return group.broadcast_(buf).cpu().numpy().tobytes()
+
     def _restore_checkpoint(self, path: str, model: torch.nn.Module,
                             opt: torch.optim.Optimizer,
                             state: Optional[State] = None) -> int:
-        """Load a checkpoint into ``model``, ``opt`` and ``state`` (in
-        place); returns the epoch to resume at. A checkpoint whose
-        parameter or state names or shapes differ from the fit's was
-        written under another program: typed corruption, so the fit
-        starts fresh."""
-        with np.load(io.BytesIO(read_artifact(path)),
-                     allow_pickle=False) as z:
+        """Load the checkpoint at ``path`` into ``model``, ``opt`` and
+        ``state`` (in place); returns the epoch to resume at."""
+        return self._load_checkpoint(read_artifact(path), path, model, opt,
+                                     state)
+
+    def _load_checkpoint(self, blob: bytes, path: Optional[str],
+                         model: torch.nn.Module, opt: torch.optim.Optimizer,
+                         state: Optional[State] = None) -> int:
+        """Load a checkpoint's bytes in place; returns the epoch to resume
+        at. A checkpoint whose parameter or state names or shapes differ
+        from the fit's was written under another program: typed
+        corruption, so the fit starts fresh."""
+        with np.load(io.BytesIO(blob), allow_pickle=False) as z:
             arrays = {k: z[k] for k in z.files}
         targets = {"params": dict(model.named_parameters()),
                    "state": state or {}}
@@ -363,13 +470,15 @@ class DataParallelTrainer:
     # -- inference --------------------------------------------------------
 
     def predict_buckets(self, cap: int) -> List[int]:
-        """Powers of two from MIN_PREDICT_BUCKET up to ``cap``, and ``cap``."""
+        """Powers of two from MIN_PREDICT_BUCKET up to ``cap``, and
+        ``cap``, each rounded up to a multiple of the data-axis size."""
         buckets = []
         b = self.MIN_PREDICT_BUCKET
         while b < cap:
-            buckets.append(b)
+            buckets.append(self.round_batch(b))
             b *= 2
-        buckets.append(cap)
+        buckets.append(self.round_batch(cap))
+        # rounding can collapse neighbours on a wide group
         return sorted(set(buckets))
 
     def _bucket_for(self, n: int, cap: int) -> int:
@@ -381,7 +490,7 @@ class DataParallelTrainer:
         """``(padded_chunk, pad)`` per bucket; a chunk is padded by
         repeating its last row."""
         n = len(x)
-        cap = max(batch_size, 1)
+        cap = self.round_batch(max(batch_size, 1))
         i = 0
         while i < n:
             chunk = x[i: i + cap]
@@ -394,11 +503,19 @@ class DataParallelTrainer:
 
     def _run_predict(self, params: Any, chunk: np.ndarray,
                      state: Optional[State] = None) -> np.ndarray:
+        """The answer to a bucket; over several ranks each answers its
+        slice and the slices are gathered in rank order."""
+        group = current_group()
+        chunk = chunk[self._shard(len(chunk))]
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
             if self.stateful:
-                return self.predict_fn(params, state, x).cpu().numpy()
-            return self.predict_fn(params, x).cpu().numpy()
+                out = self.predict_fn(params, state, x)
+            else:
+                out = self.predict_fn(params, x)
+            if group is not None:
+                out = group.all_gather(out).flatten(0, 1)
+            return out.cpu().numpy()
 
     def predict_batched(self, params: Any, x: np.ndarray,
                         batch_size: int = 256,
@@ -420,7 +537,7 @@ class DataParallelTrainer:
         kernels are built and loaded before real traffic. Returns the
         number of buckets warmed."""
         example = np.asarray(example)
-        buckets = self.predict_buckets(max(batch_size, 1))
+        buckets = self.predict_buckets(self.round_batch(max(batch_size, 1)))
         for b in buckets:
             self._run_predict(
                 params, np.broadcast_to(example[None], (b,) + example.shape),

@@ -6,7 +6,8 @@ starts it with what it needs in the environment:
     RAFIKI_SERVICE_ID / RAFIKI_SERVICE_TYPE   identity and dispatch
     CUDA_VISIBLE_DEVICES                      the granted cards (physical ids)
     RAFIKI_CHIP_GRANT                         their indices here (0..n-1),
-                                              or "cpu"
+                                              or CPU entries ("cpu",
+                                              "cpu:0,cpu:1")
     RAFIKI_DB_PATH                            the shared SQLite/WAL file
     RAFIKI_SUB_TRAIN_JOB_ID                   (TRAIN)
     RAFIKI_INFERENCE_JOB_ID, RAFIKI_TRIAL_ID  (INFERENCE)
@@ -15,7 +16,10 @@ starts it with what it needs in the environment:
 
 Status protocol: the service's row goes RUNNING on ``ctx.ready()``, STOPPED
 on a clean exit or SIGTERM, ERRORED on a crash, and the exit code mirrors
-it (0 or 1) for the parent's monitor. A child whose parent dies stops (the
+it (0 or 1) for the parent's monitor. A worker granted several devices
+starts its followers here, one process a device, as rank 0 of their data
+group (``parallel/ranks.py``); they write their own ``startup`` and
+``kernel launches`` lines into this child's log. A child whose parent dies stops (the
 orphan watchdog). A child granted a card that finds no CUDA raises before
 it reports ready.
 
@@ -31,7 +35,6 @@ control-plane recovery (ROADMAP.md A.10).
 
 from __future__ import annotations
 
-import importlib
 import json
 import logging
 import os
@@ -66,8 +69,8 @@ def _process_start_time() -> float:
 
 
 def _parse_grant(spec: str) -> list:
-    return ["cpu"] if spec.strip() == "cpu" else [
-        int(c) for c in spec.split(",") if c.strip()]
+    return [c if c.startswith("cpu") else int(c)
+            for c in (c.strip() for c in spec.split(",")) if c]
 
 
 def main() -> int:
@@ -84,7 +87,7 @@ def main() -> int:
 
     stamps["t_torch"] = time.time()
     chips = _parse_grant(os.environ.get("RAFIKI_CHIP_GRANT", ""))
-    cuda = bool(chips) and chips != ["cpu"]
+    cuda = bool(chips) and not any(str(c).startswith("cpu") for c in chips)
     if cuda:
         # granted a card: it must be there (no quiet run on the CPU)
         if not torch.cuda.is_available():
@@ -171,9 +174,10 @@ def main() -> int:
 
 
 def _log_launches() -> None:
-    fa = importlib.import_module("rafiki_tpu_torch.ops.flash_attention")
-    logger.info("kernel launches (pid %d): %s", os.getpid(), json.dumps(
-        {name: getattr(fa, name).launches for name in KERNELS}))
+    from rafiki_tpu_torch.parallel.ranks import launch_counts
+
+    logger.info("kernel launches (pid %d): %s", os.getpid(),
+                json.dumps(launch_counts()))
 
 
 def _run_train(ctx, db, admin_client) -> None:

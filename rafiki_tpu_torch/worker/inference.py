@@ -8,6 +8,17 @@ their futures. Each served batch counts into :func:`serving_stats`
 (batches, queries, and the queue's depth, expired and shed queries),
 which ``Admin.get_inference_job_stats`` reads; a worker process relays
 its counters to the admin (``report_stats``), which cannot see them.
+
+A worker granted several devices (budget ``CHIPS_PER_WORKER``) is rank 0
+of a group of ranks (``parallel/ranks.py``): its followers, one process a
+device, load the same trial and warm it up, and each batch is split in
+order into one contiguous part a device, answered by each rank alone on
+its own device and gathered in order (a rank whose part is empty does
+nothing). A part goes to its follower down its pipe. A follower that
+fails a batch fails it as one device would; one that dies leaves the
+ranks broken, and the worker fails its batch and stops (a process-placed
+worker is started again by its placement).
+
 Chaos injection, the sandbox and fused ensembles are not ported yet
 (ROADMAP.md).
 """
@@ -23,9 +34,8 @@ from rafiki_tpu_torch.cache import wire
 from rafiki_tpu_torch.cache.queue import Broker
 from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.device import ServiceContext, set_device_grant
-from rafiki_tpu_torch.sdk.artifact import read_artifact
+from rafiki_tpu_torch.parallel.ranks import Ranks, load_params_file
 from rafiki_tpu_torch.sdk.model import load_model_class
-from rafiki_tpu_torch.sdk.params import load_params
 
 logger = logging.getLogger(__name__)
 
@@ -82,6 +92,18 @@ def _assemble(queries: List[Any]) -> Any:
     return queries if stacked is None else stacked
 
 
+def _split(queries: Any, n: int) -> List[Any]:
+    """``queries`` (an array or a list) in ``n`` contiguous parts in
+    order, the first ones a query longer where they do not divide."""
+    size, extra = divmod(len(queries), n)
+    parts, start = [], 0
+    for r in range(n):
+        end = start + size + (r < extra)
+        parts.append(queries[start:end])
+        start = end
+    return parts
+
+
 class InferenceWorker:
     def __init__(self, inference_job_id: str, trial_id: str, db: Database,
                  broker: Broker,
@@ -122,7 +144,7 @@ class InferenceWorker:
             push()
         push()  # the batches since the last beat
 
-    def _load_model(self):
+    def _load_model(self, ranks: Optional[Ranks] = None):
         trial = self._db.get_trial(self._trial_id)
         if trial is None or not trial["params_file_path"]:
             raise KeyError(f"no trained trial {self._trial_id}")
@@ -131,20 +153,40 @@ class InferenceWorker:
                                  model_row["model_class"])
         model = clazz(**trial["knobs"])
         # verified read: a damaged artifact raises ArtifactCorruptError
-        model.load_parameters(
-            load_params(read_artifact(trial["params_file_path"])))
+        if ranks is None:
+            load_params_file(model, trial["params_file_path"])
+        else:
+            ranks.new_model(model_row["model_file_bytes"],
+                            model_row["model_class"], trial["knobs"])
+            ranks.load(model, trial["params_file_path"])
         return model
 
     def start(self, ctx: ServiceContext) -> None:
         """Serve until ``ctx`` stops or the queue closes. Runs in the
         calling thread, on the devices ``ctx`` grants."""
         set_device_grant(ctx.chips)
-        model = reporter = None
+        model = reporter = ranks = None
         done = threading.Event()
         queue = self._broker.register_worker(self._job_id, ctx.service_id)
+
+        def predict(queries: Any) -> Any:
+            if ranks is None:
+                return model.predict(queries)
+            parts = _split(queries, ranks.size)
+            answers = ranks.each(model, "predict", [
+                (part,) if len(part) else None for part in parts])
+            return [a for part in answers if part is not None
+                    for a in part]
+
         try:
-            model = self._load_model()
-            model.warm_up()  # every bucket runs before traffic arrives
+            if len(ctx.chips) > 1:
+                ranks = Ranks(ctx.chips)
+            model = self._load_model(ranks)
+            # every bucket runs before traffic arrives, on every device
+            if ranks is None:
+                model.warm_up()
+            else:
+                ranks.each(model, "warm_up", [()] * ranks.size)
             ctx.ready()
             if self._report_stats is not None:
                 reporter = threading.Thread(
@@ -164,17 +206,22 @@ class InferenceWorker:
                 _record_batch(ctx.service_id, len(batch), queue)
                 futures = [f for f, _ in batch]
                 try:
-                    predictions = model.predict(_assemble([q for _, q in batch]))
+                    predictions = predict(
+                        _assemble([q for _, q in batch]))
                     _resolve_batch(futures, predictions, ctx.service_id)
                 except Exception as e:
                     logger.exception("predict failed in worker %s",
                                      ctx.service_id)
                     for fut in futures:
                         fut.set_error(e)
+                    if ranks is not None and ranks.broken:
+                        raise  # a follower is gone
         finally:
             self._broker.unregister_worker(self._job_id, ctx.service_id)
             if model is not None:
                 model.destroy()
+            if ranks is not None:
+                ranks.close()
             set_device_grant(None)
             done.set()
             if reporter is not None:

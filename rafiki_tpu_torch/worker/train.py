@@ -34,6 +34,15 @@ emptied before the next attempt or trial. A stop that lands mid-trial
 marks it TERMINATED. When the budget is spent the worker sends
 :data:`EVENT_BUDGET_REACHED` to the admin and returns.
 
+A worker granted several devices (budget ``CHIPS_PER_TRIAL``) trains each
+trial over all of them: it is rank 0 of a data group
+(``parallel/ranks.py``) whose followers, one process a device, run the
+same template calls on their own devices while rank 0 alone talks to the
+store and the advisor. It starts its ranks once, keeps them for all its
+trials, and starts them again after a fault broke them (a follower's
+exception comes back here and is classified as rank 0's own would be; a
+dead or silent follower is an INFRA fault).
+
 Not ported (ROADMAP.md): vectorized population trials, the sandbox (and
 its STALL and watchdog TIMEOUT kinds), warm start and the drift loop's
 seeding, the compile cache, dependency provisioning, and the tracer (its
@@ -42,7 +51,6 @@ spans; the phase breakdown it logs is kept).
 
 from __future__ import annotations
 
-import gc
 import glob
 import logging
 import os
@@ -51,18 +59,21 @@ import time
 import traceback
 from typing import Any, Callable, Dict, Optional
 
-import torch
-
 from rafiki_tpu_torch import config
 from rafiki_tpu_torch.advisor.advisor import AdvisorStore
 from rafiki_tpu_torch.constants import BudgetType, TrialStatus
 from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.device import ServiceContext, set_device_grant
+from rafiki_tpu_torch.parallel.ranks import (
+    Ranks,
+    in_step,
+    release_device_memory,
+    set_group,
+)
 from rafiki_tpu_torch.sdk.artifact import write_artifact
 from rafiki_tpu_torch.sdk.log import ModelLogger, StopTrialEarly
 from rafiki_tpu_torch.sdk.model import load_model_class
 from rafiki_tpu_torch.sdk.params import dump_params
-from rafiki_tpu_torch.sdk.torch_backend import drop_fit_data
 from rafiki_tpu_torch.utils import chaos
 from rafiki_tpu_torch.worker import faults
 from rafiki_tpu_torch.worker.faults import (
@@ -90,16 +101,6 @@ def _phase(phases: Dict[str, float], name: str, t0: float) -> float:
     now = time.time()
     phases[name] = now - t0
     return now
-
-
-def _release_device_memory() -> None:
-    """Free what a failed trial left on the card: its frames are gone once
-    the exception is, but cycles among them wait for the collector, and
-    a cached trainer's dataset upload outlives the trial."""
-    drop_fit_data()
-    gc.collect()
-    if torch.cuda.is_initialized():
-        torch.cuda.empty_cache()
 
 
 class TrainWorker:
@@ -131,15 +132,45 @@ class TrainWorker:
         self._asha_eta = 3
         self._job_deadline: Optional[float] = None
         self._trial_timeout_s: Optional[float] = None
+        # the template, for the followers of a several-device grant
+        self._model_row: Optional[Dict[str, Any]] = None
+        self._ranks: Optional[Ranks] = None
+        self._devices: list = []
 
     def start(self, ctx: ServiceContext) -> None:
         """The trial loop, in the calling thread, on the devices ``ctx``
         grants; returns when the budget is spent or ``ctx`` stops."""
         set_device_grant(ctx.chips)
+        self._devices = list(ctx.chips)
         try:
             self._loop(ctx)
         finally:
+            self._close_ranks()
             set_device_grant(None)
+
+    def _ensure_ranks(self) -> Optional[Ranks]:
+        """The ranks of a several-device grant, started (again, when a
+        fault broke them) before a trial's attempt; None on one device.
+        A start that fails is the platform's fault (INFRA)."""
+        if len(self._devices) < 2:
+            return None
+        if self._ranks is not None and not self._ranks.broken:
+            return self._ranks
+        self._close_ranks()
+        try:
+            self._ranks = Ranks(self._devices)
+        except Exception as e:
+            raise faults.TrialFault(
+                f"the ranks on {self._devices} did not start: "
+                f"{type(e).__name__}: {e}", kind=FaultKind.INFRA) from e
+        set_group(self._ranks.group)
+        return self._ranks
+
+    def _close_ranks(self) -> None:
+        if self._ranks is not None:
+            set_group(None)
+            self._ranks.close()
+            self._ranks = None
 
     def _loop(self, ctx: ServiceContext) -> None:
         sub = self._db.get_sub_train_job(self._sub_id)
@@ -162,11 +193,13 @@ class TrainWorker:
         chaos.enabled()  # a rule at an unhooked site refuses the start
         clazz = load_model_class(model["model_file_bytes"],
                                  model["model_class"])
+        self._model_row = model
         knob_config = clazz.get_knob_config()
         # one advisor session per sub-train-job, shared by its workers
         advisor_id = self._advisors.create_advisor(
             knob_config, advisor_id=self._sub_id)
         self._db.update_sub_train_job_advisor(self._sub_id, advisor_id)
+        self._ensure_ranks()  # once, for all the trials
         ctx.ready()  # job read and template loaded: startup succeeded
 
         all_trials = self._db.get_trials_of_sub_train_job(self._sub_id)
@@ -266,8 +299,9 @@ class TrainWorker:
             self._install_stop_check(trial_logger, advisor_id, trial_id)
             try:
                 self._chaos_trial(trial_id)
-                score, params_path = self._run_trial(clazz, knobs, job,
-                                                     trial_id, trial_logger)
+                ranks = self._ensure_ranks()
+                score, params_path = self._run_trial(
+                    clazz, knobs, job, trial_id, trial_logger, ranks)
                 # feedback BEFORE mark-complete: a trial visible as
                 # COMPLETED has its observation in the advisor, so a
                 # restarted sibling's empty-only replay cannot feed it
@@ -287,8 +321,12 @@ class TrainWorker:
                     return False
                 kind, detail = faults.classify_failure(e)
             # out of the except block, the exception and its frames (the
-            # trial's tensors, a device OOM's activations) are unreachable
-            _release_device_memory()
+            # trial's tensors, a device OOM's activations) are unreachable;
+            # broken ranks go (their processes take their memory with them)
+            # and start again before the next attempt
+            if self._ranks is not None and self._ranks.broken:
+                self._close_ranks()
+            release_device_memory()
             logger.error("trial %s fault %s (attempt %d):\n%s",
                          trial_id, kind, attempt, detail)
             if kind in faults.RETRYABLE_KINDS and attempt < retry_max:
@@ -467,7 +505,11 @@ class TrainWorker:
         raise ``StopTrialEarly``, which ``fit`` takes as a normal,
         truncated end): the trial's wall cap, the job's deadline, and
         ASHA's rung check on the per-epoch ``loss`` at resource
-        ``epoch + 1``."""
+        ``epoch + 1``. Over several ranks a verdict is taken only at a
+        fit's per-epoch report, where the trainer hands it to every rank
+        (``parallel/ranks.py``, ``in_step``): raised from another log on
+        rank 0, it would leave the followers waiting in the fit's
+        collectives, so the next epoch's report takes it."""
         early_stop = self._early_stop
         job_deadline = self._job_deadline
         trial_timeout = self._trial_timeout_s
@@ -477,6 +519,8 @@ class TrainWorker:
         trial_start = time.time()
 
         def check(metrics: Dict[str, Any]) -> bool:
+            if not in_step():
+                return False
             now = time.time()
             if trial_timeout is not None and now - trial_start > trial_timeout:
                 logger.info("trial %s hit TRIAL_TIMEOUT_S=%.0f; stopping",
@@ -509,19 +553,31 @@ class TrainWorker:
 
     def _run_trial(self, clazz: type, knobs: Dict[str, Any],
                    job: Dict[str, Any], trial_id: str,
-                   trial_logger: ModelLogger) -> tuple:
+                   trial_logger: ModelLogger,
+                   ranks: Optional[Ranks] = None) -> tuple:
         model = clazz(**knobs)
         model.logger = trial_logger
         # per-trial checkpoint slot, handed by templates to fit()
         os.makedirs(self._params_dir, exist_ok=True)
         model.checkpoint_path = os.path.join(self._params_dir,
                                              f"{trial_id}.ckpt")
+        if ranks is not None:
+            ranks.new_model(self._model_row["model_file_bytes"],
+                            self._model_row["model_class"], knobs,
+                            checkpoint_path=model.checkpoint_path)
+
+        def call(method: str, *args: Any) -> Any:
+            # the followers make the same call on their own instances
+            if ranks is None:
+                return getattr(model, method)(*args)
+            return ranks.call(model, method, *args)
+
         # seconds per phase, logged as the JAX worker's tracer summary is
         phases: Dict[str, float] = {}
         t0 = time.time()
         try:
             try:
-                model.train(job["train_dataset_uri"])
+                call("train", job["train_dataset_uri"])
             except StopTrialEarly:
                 # templates with hand-rolled loops surface the verdict here
                 # (fit() absorbs it); the truncated model is still evaluated
@@ -529,7 +585,7 @@ class TrainWorker:
             t0 = _phase(phases, "train", t0)
             # the verdict is delivered: later logs must not raise it again
             trial_logger.set_stop_check(None)
-            score = validate_score(model.evaluate(job["test_dataset_uri"]))
+            score = validate_score(call("evaluate", job["test_dataset_uri"]))
             t0 = _phase(phases, "evaluate", t0)
             params_path = os.path.join(self._params_dir,
                                        f"{trial_id}.params")
@@ -549,7 +605,16 @@ class TrainWorker:
             trial_logger.set_stop_check(None)
             trial_logger.log("trial phase breakdown", **{
                 f"trace_{k}_s": round(v, 4) for k, v in phases.items()})
-            model.destroy()
+            if ranks is None or ranks.broken:
+                model.destroy()
+            else:
+                try:
+                    ranks.drop_model(model)
+                except Exception:
+                    # the ranks are broken now, and start again before
+                    # the next trial
+                    logger.warning("a rank failed to drop trial %s's model",
+                                   trial_id, exc_info=True)
 
     def _cleanup_ckpt(self, trial_id: str) -> None:
         """Drop a trial's mid-trial checkpoint once it reached a state it

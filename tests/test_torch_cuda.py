@@ -950,3 +950,275 @@ def test_cuda_fit_resumed_from_a_checkpoint_ends_where_the_fit_ends(
     runs = max(float(np.abs(a[k] - b[k]).max()) for k in a)
     off = max(float(np.abs(resumed[k] - a[k]).max()) for k in a)
     assert off <= 2 * runs + 1e-6, (off, runs)
+
+
+# ---------------------------------------------------------------------------
+# several cards: a data group of NCCL ranks, one process a card
+# ---------------------------------------------------------------------------
+
+def _need_cards(n):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards")
+
+
+def _on_cards(n, fn, *args):
+    """``fn(*args)`` on ranks over cuda:0..n-1, this thread rank 0."""
+    from rafiki_tpu_torch.device import set_device_grant
+    from rafiki_tpu_torch.parallel import ranks
+
+    devices = list(range(n))
+    set_device_grant(devices)
+    try:
+        with ranks.Ranks(devices) as r:
+            ranks.set_group(r.group)
+            try:
+                return r.run(fn, *args)
+            finally:
+                ranks.set_group(None)
+    finally:
+        set_device_grant(None)
+
+
+def rank_collectives():
+    """Rank side: a sum, a copy from rank 0 and a gather on the card."""
+    from rafiki_tpu_torch.parallel import ranks
+
+    g = ranks.current_group()
+    summed = g.all_reduce_(torch.full((3,), g.rank + 1.0, device=g.device))
+    copied = g.broadcast_(torch.full((2,), float(g.rank), device=g.device))
+    gathered = g.all_gather(torch.tensor([g.rank], device=g.device))
+    return (str(summed.device), summed.tolist(), copied.tolist(),
+            gathered.flatten().tolist())
+
+
+@pytest.mark.cuda
+def test_cuda_ranks_sum_copy_and_gather_over_two_cards():
+    """NCCL ranks on cuda:0 and cuda:1, one process each: the sum, the
+    copy from rank 0 and the gather in rank order."""
+    _need_cards(2)
+    out = _on_cards(2, rank_collectives)
+    assert [o[0] for o in out] == ["cuda:0", "cuda:1"]
+    assert all(o[1:] == ([3.0] * 3, [0.0, 0.0], [0, 1]) for o in out)
+
+
+def rank_resnet_step(batch_rows):
+    """Rank side: one stateful AdamW step of the narrow ResNet over a
+    fixed global batch (this rank's share of it), from one tree; (the
+    loss of the global batch, the averaged gradients, the running
+    statistics) on the host."""
+    from rafiki_tpu_torch.parallel import ranks
+    from rafiki_tpu_torch.sdk.torch_backend import (
+        DataParallelTrainer,
+        tunable_optimizer,
+    )
+    from rafiki_tpu_torch.templates import torch_resnet
+
+    torch.backends.cudnn.allow_tf32 = False
+    group = ranks.current_group()
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal(
+        (batch_rows, 32, 32, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, batch_rows))
+    trainer = DataParallelTrainer(
+        torch_resnet._loss, tunable_optimizer(torch.optim.AdamW, lr=1e-3,
+                                              weight_decay=1e-4),
+        stateful=True)
+    dev = trainer.device
+    model, opt, state = trainer.init(lambda rng: (lambda m: (m, m.state()))(
+        _resnet(True, dev, train=True)))
+    rows = trainer._shard(batch_rows)
+    loss = trainer.train_step(model, opt, (x[rows].to(dev), y[rows].to(dev)),
+                              state)
+    if group is not None:
+        loss = group.all_reduce_(loss.reshape(1).float())[0] / group.size
+    return (float(loss), {k: v.grad.double().cpu()
+                          for k, v in model.named_parameters()},
+            {k: v.cpu() for k, v in state.items()})
+
+
+@pytest.mark.cuda
+def test_cuda_resnet_step_over_two_cards_is_one_cards():
+    """One stateful step over 2 cards (16 rows each, BatchNorm moments of
+    the global batch) against the same step on one card over the 32 rows,
+    with the tolerances of the CPU comparison above: the loss within
+    1e-2, each gradient within 5e-2 of its norm (bar the convolution
+    biases), the running statistics within 1e-3; both ranks hold the same
+    gradients and statistics."""
+    _need_cards(2)
+    from rafiki_tpu_torch.device import set_device_grant
+
+    set_device_grant([0])
+    try:
+        l_one, g_one, s_one = rank_resnet_step(32)
+    finally:
+        set_device_grant(None)
+    (l_two, g_two, s_two), (_, g_r1, s_r1) = _on_cards(2, rank_resnet_step,
+                                                       32)
+    assert abs(l_two - l_one) <= 1e-2
+    for k, ref in g_one.items():
+        assert torch.equal(g_two[k], g_r1[k]), k
+        if k.endswith(("conv1.bias", "conv2.bias", "conv3.bias",
+                       "proj.bias", "stem.bias")):
+            continue
+        assert float((g_two[k] - ref).norm()) <= 5e-2 * float(ref.norm()), k
+    for k, ref in s_one.items():
+        assert torch.equal(s_two[k], s_r1[k]), k
+        assert float((s_two[k] - ref).abs().max()) <= 1e-3 * max(
+            1.0, float(ref.abs().max())), k
+
+
+CARD_PROBE = b'''
+import os
+
+import numpy as np
+import torch
+
+from rafiki_tpu_torch.parallel import ranks
+from rafiki_tpu_torch.sdk.knob import FloatKnob
+from rafiki_tpu_torch.sdk.model import BaseModel
+from rafiki_tpu_torch.sdk.torch_backend import (
+    DataParallelTrainer,
+    softmax_classifier_loss,
+    tunable_optimizer,
+)
+
+_steps = [0]
+
+
+def _apply(model, x):
+    # while the test's marker file exists: a device OOM on rank 1 alone,
+    # at its 20th step
+    _steps[0] += 1
+    group = ranks.current_group()
+    if (os.environ.get("PROBE_FAULT") == "oom" and group is not None
+            and group.rank == 1 and _steps[0] == 20
+            and os.path.exists(os.environ["PROBE_MARKER"])):
+        torch.empty(1 << 42, dtype=torch.uint8, device=x.device)
+    return model(x)
+
+
+class CardProbe(BaseModel):
+    """Trains over its grant's ranks; scores the number of ranks. While
+    the test's marker file exists (read by every rank as the trial
+    starts) the fit is long."""
+
+    @staticmethod
+    def get_knob_config():
+        return {"learning_rate": FloatKnob(1e-2, 1e-1, is_exp=True)}
+
+    def train(self, dataset_uri):
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((4096, 16)).astype(np.float32)
+        y = (x[:, 0] > 0).astype(np.int64)
+        epochs = 100000 if os.path.exists(os.environ["PROBE_MARKER"]) else 2
+        trainer = DataParallelTrainer(
+            softmax_classifier_loss(_apply),
+            tunable_optimizer(torch.optim.SGD,
+                              lr=self._knobs["learning_rate"]))
+        self._n = trainer.n_data
+        self._model, opt = trainer.init(lambda rng: torch.nn.Linear(16, 2))
+        trainer.fit(self._model, opt, (x, y), epochs=epochs, batch_size=64,
+                    log=self.logger.log)
+
+    def evaluate(self, dataset_uri):
+        return float(self._n)
+
+    def predict(self, queries):
+        return [0 for _ in queries]
+
+    def dump_parameters(self):
+        return {"w": self._model.weight.detach().cpu().numpy()}
+
+    def load_parameters(self, params):
+        pass
+'''
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["oom", "kill", "hang"])
+def test_cuda_a_follower_fault_faults_its_trial_and_the_admin_goes_on(
+        tmp_path, monkeypatch, fault):
+    """A 2-card trial under thread placement (rank 0 in this process, as
+    in an admin) whose follower, mid-fit, hits a device OOM (a USER
+    fault, the follower's error), is SIGKILLed (INFRA, at once: the
+    watcher aborts rank 0's communicators) or is stopped (INFRA, by the
+    group's timeout of 20 s). The trial gets its fault row, this process
+    lives on with its card usable, and the next trial over fresh ranks
+    completes."""
+    _need_cards(2)
+    import multiprocessing
+    import os
+    import signal
+    import time
+
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.constants import TrialStatus
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.placement.manager import (
+        ChipAllocator,
+        LocalPlacementManager,
+    )
+    from rafiki_tpu_torch.worker.faults import FaultKind
+
+    timeout_s = 20
+    marker = tmp_path / "long"
+    marker.write_text("")
+    monkeypatch.setenv("RAFIKI_TRIAL_RETRY_MAX", "0")
+    monkeypatch.setenv("RAFIKI_DIST_TIMEOUT_S", str(timeout_s))
+    monkeypatch.setenv("PROBE_FAULT", fault)
+    monkeypatch.setenv("PROBE_MARKER", str(marker))
+    admin = Admin(db=Database(":memory:"),
+                  placement=LocalPlacementManager(ChipAllocator([0, 1])),
+                  params_dir=str(tmp_path / "params"))
+    try:
+        uid = admin.authenticate_user(config.SUPERADMIN_EMAIL,
+                                      config.SUPERADMIN_PASSWORD)["user_id"]
+        admin.create_model(uid, "probe", "IMAGE_CLASSIFICATION", CARD_PROBE,
+                           "CardProbe")
+        admin.create_train_job(
+            uid, "fault", "IMAGE_CLASSIFICATION", "u://t", "u://e",
+            budget={"MODEL_TRIAL_COUNT": 2, "CHIP_COUNT": 2,
+                    "CHIPS_PER_TRIAL": 2})
+        deadline = time.monotonic() + 120
+        victim = None
+        while time.monotonic() < deadline:
+            trials = admin.get_trials_of_train_job(uid, "fault")
+            if trials and trials[0]["status"] != TrialStatus.RUNNING:
+                break
+            if (fault != "oom" and victim is None and trials
+                    and any('"epoch"' in line for line in
+                            admin.db.get_trial_logs(trials[0]["id"]))):
+                (victim,) = [p.pid for p in multiprocessing.active_children()
+                             if p.name.startswith("rafiki-rank")]
+                os.kill(victim, signal.SIGKILL if fault == "kill"
+                        else signal.SIGSTOP)
+                t_fault = time.monotonic()
+            if fault == "oom" and victim is None and trials:
+                victim, t_fault = 0, time.monotonic()
+            time.sleep(0.05)
+        ended_s = time.monotonic() - t_fault
+        marker.unlink()  # the next trial is short
+        job = admin.wait_until_train_job_stopped(uid, "fault",
+                                                 timeout_s=180)
+        first, second = admin.get_trials_of_train_job(uid, "fault")
+        assert first["status"] == TrialStatus.ERRORED, first["status"]
+        if fault == "oom":
+            assert first["fault_kind"] == FaultKind.USER
+            assert "OutOfMemoryError" in first["fault_detail"]
+            assert "raised on rank 1" in first["fault_detail"]
+        else:
+            assert first["fault_kind"] == FaultKind.INFRA
+            if fault == "kill":
+                assert f"pid {victim}" in first["fault_detail"]
+                assert ended_s < 15, ended_s
+            else:
+                assert ended_s < timeout_s + 30, ended_s
+        assert job["status"] == "STOPPED"
+        assert second["status"] == TrialStatus.COMPLETED
+        assert second["score"] == 2.0
+        assert float(torch.ones(4, device="cuda:0").sum()) == 4.0
+    finally:
+        admin.shutdown()
+        if marker.exists():
+            marker.unlink()

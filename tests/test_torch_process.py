@@ -380,6 +380,7 @@ def test_stop_all_kills_a_child_that_ignores_sigterm(placement, workdir,
     ("", [0], ("0", "0")),
     ("GPU-aa,GPU-bb", [1], ("GPU-bb", "0")),
     ("3,5", ["cpu"], ("", "cpu")),
+    ("3,5", ["cpu:0", "cpu:1"], ("", "cpu:0,cpu:1")),
 ])
 def test_the_grant_maps_through_the_parents_visible_devices(
         placement, monkeypatch, parent, chips, child):

@@ -577,9 +577,10 @@ def test_spent_time_budget_stops_the_job_before_any_trial(tmp_path):
 def test_unported_budget_keys_are_refused(tmp_path, call, budget):
     """A budget key asking for what the port lacks answers 400 naming it,
     before any job row is made; the same key at its no-op value passes.
-    ``EARLY_STOP`` and ``TRIAL_TIMEOUT_S`` are ported: their budgets are
-    accepted, and a malformed ASHA or cap value gets the JAX package's
-    400 word for word."""
+    ``EARLY_STOP``, ``TRIAL_TIMEOUT_S``, ``CHIPS_PER_TRIAL`` and
+    ``CHIPS_PER_WORKER`` are ported: their budgets are accepted (a
+    several-card ask clamps to this one-entry host), and a malformed
+    value gets the JAX package's 400 word for word."""
     admin = Admin(db=Database(":memory:"),
                   placement=LocalPlacementManager(ChipAllocator(["cpu"])),
                   params_dir=str(tmp_path))
@@ -599,10 +600,21 @@ def test_unported_budget_keys_are_refused(tmp_path, call, budget):
             admin.wait_until_train_job_stopped(uid, "a", timeout_s=60)
             run = lambda b: admin.create_inference_job(  # noqa: E731
                 uid, "a", budget=b)
-        if key in ("EARLY_STOP", "TRIAL_TIMEOUT_S"):
-            bad = ([{"ASHA_ETA": 1}, {"ASHA_MIN_EPOCHS": 0}]
-                   if key == "EARLY_STOP" else
-                   [{"TRIAL_TIMEOUT_S": 0}, {"TRIAL_TIMEOUT_S": "soon"}])
+        if key == "CHIPS_PER_WORKER":
+            for b in ({key: 0}, {key: "two"}):
+                with pytest.raises(InvalidRequestError) as ours:
+                    run(b)
+                assert str(ours.value) == _jax_budget_refusal(tmp_path, b)
+            job = run(budget)
+            assert job["budget"][key] == budget[key]
+            assert [len(w["chips"]) for w in job["workers"]] == [1]
+            return
+        if key in ("EARLY_STOP", "TRIAL_TIMEOUT_S", "CHIPS_PER_TRIAL"):
+            bad = {"EARLY_STOP": [{"ASHA_ETA": 1}, {"ASHA_MIN_EPOCHS": 0}],
+                   "TRIAL_TIMEOUT_S": [{"TRIAL_TIMEOUT_S": 0},
+                                       {"TRIAL_TIMEOUT_S": "soon"}],
+                   "CHIPS_PER_TRIAL": [{"CHIPS_PER_TRIAL": 0},
+                                       {"CHIPS_PER_TRIAL": "two"}]}[key]
             for b in bad:
                 with pytest.raises(InvalidRequestError) as ours:
                     run({**budget, **b})
