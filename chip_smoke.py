@@ -184,6 +184,32 @@ Phases, each of which must pass (any failure exits non-zero):
    serving rank, and nothing left behind (no follower alive, no default
    process group, no new ``/dev/shm`` entry).
 
+11. generation and tagging (no attention kernel on either path: every
+   count must read 0). 11a: a seeded CIFAR-shaped ``.npz`` set (4,096 +
+   512 images, 32x32x3, phase 7's prototypes); one D step (WGAN-GP with
+   the penalty's double backward) and one G step of the Progressive GAN
+   at ``TorchProGan``'s widths (latent 128, 128 feature maps, 4 stages)
+   at mb 16, lod 1.5, from the same weights and ``jax.random`` draws:
+   f32 on the card against f32 on the CPU (losses 1e-4 relative, each
+   leaf 1e-3 relative L2), bf16 on the card against that f32 step
+   (losses 2e-2, each leaf 5e-2 or 1.5 times the CPU's bf16 step,
+   whichever is larger); the f32 step over every visible card up to 4
+   against one card's (``minibatch_stddev`` over the global batch;
+   phase 10's tolerances); then a 2-trial ``TorchProGan`` job through
+   ``Client`` (4 kimg each, lod 3 -> 0; the minibatch fixed at 16),
+   served: ``/predict`` of
+   ``[[4, 4, 16], [2, 2, 4]]`` writes (128, 128, 3) and (64, 64, 3)
+   uint8 grids, each within 1 of a trial's own ``generate`` at seeds
+   1000 + i; the D and G steps' times and a profile of the D step.
+   11b: a seeded tagged corpus (4,000 + 500 sentences of 5-48 tokens,
+   5,000 words, 45 tags) as corpus zips; one ``TorchBiLstm`` step at its
+   widest knobs, f32 on the card against the CPU (loss 1e-4, leaves
+   1e-3), its time and profile; a 2-trial ``TorchBiLstm`` job (batch
+   fixed at 128) and a 1-trial ``NpBigramHmm`` job (score >= 0.9)
+   through ``Client``, each deployed and tagging 8 sentences, a tag a
+   token. Printed: the job times, each trial's knobs, score and split,
+   kimg/s, the p50s.
+
 The line before the last is ``{"kernels": [...]}``, each kernel's
 ``launches`` from phase 5 and ``launches_by_path`` from every path; the
 last is ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -4015,6 +4041,665 @@ def cards_phase(card: str) -> list:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 11: image generation and tagging
+# ---------------------------------------------------------------------------
+
+GAN_IMAGES = (4096, 512)        # 11a: train and test images (32x32x3)
+#: the run length each trial reads: lod 3 -> 0 (4x4 -> 32x32) within it
+GAN_ENV = {"TORCHPROGAN_TOTAL_KIMG": "4", "TORCHPROGAN_PHASE_KIMG": "0.5"}
+#: the step the gates take: mb 16 at lod 1.5 (stages 1 and 2 blended)
+GAN_MB, GAN_LOD = 16, 1.5
+# f32 on the card against the port's f32 step on the CPU: the same
+# function, summed in other orders (cuDNN's algorithms, the penalty's
+# double backward): losses within 1e-4 relative, each gradient leaf
+# within 1e-3 relative L2
+GAN_F32_LOSS_RTOL, GAN_F32_LEAF_RTOL = 1e-4, 1e-3
+# bf16 on the card (the main path's type) against that f32 step, stated
+# before the first chip run: losses within 2e-2 relative, each leaf
+# within 5e-2 relative L2 or 1.5 times the port's bf16 step on the CPU
+# from the same f32 step, whichever is larger. bf16 rounds every
+# activation (2^-8 relative) through ~20 layers forward and back and the
+# penalty's gradient is a difference of such terms: on the CPU at these
+# widths bf16 puts the leaves 1-12% from f32
+GAN_BF16_LOSS_RTOL, GAN_BF16_LEAF_RTOL, GAN_BF16_RATIO = 2e-2, 5e-2, 1.5
+# a leaf's error is taken relative to its norm, but at least 1e-2 of the
+# step's largest leaf norm: D's head bias gets a difference of the real
+# and fake means (4e-5 against leaves of 0.1-0.4 here), which any
+# rounding moves by all of itself
+GAN_LEAF_FLOOR = 1e-2
+# several cards against one, both f32 (phase 10's tolerances): the loss
+# within 1e-3 relative, each leaf within 1e-2 relative L2. In bf16 the
+# two differ by rounding alone as much as bf16 differs from f32 (each
+# conv runs at another batch size: a leaf 23% apart over 2 CPU ranks),
+# which would hide a fault in the group's semantics
+GAN_CARDS_LEAF_RTOL = 1e-2
+#: TorchProGan with the minibatch fixed at the reference's 16 (the GP
+#: tunes D_repeats and the two learning rates): at the GP's minibatch 4
+#: a trial took 1,000 eager D steps, 53 s of the phase on the card
+PROGAN16 = """
+
+class TorchProGan16(TorchProGan):
+    @staticmethod
+    def get_knob_config():
+        knobs = TorchProGan.get_knob_config()
+        knobs["minibatch_base"] = FixedKnob(16)
+        return knobs
+"""
+GAN_QUERIES = [[4, 4, 16], [2, 2, 4]]
+GAN_TIMED = 10                  # /predict requests of each query
+POS_SIZES = (4000, 500)         # 11b: train and test sentences
+POS_TOKENS = (5, 48)
+POS_TAGS, POS_WORDS = 45, 5000  # the Penn Treebank's tagset size
+#: TorchBiLstm with the batch fixed at its widest (the GP tunes the
+#: widths, the word dropout and the learning rate): 31 steps an epoch
+BILSTM_WIDE = """
+
+class TorchBiLstmWide(TorchBiLstm):
+    @staticmethod
+    def get_knob_config():
+        knobs = TorchBiLstm.get_knob_config()
+        knobs["batch_size"] = FixedKnob(128)
+        return knobs
+"""
+# one BiLSTM step at its widest knobs, f32 on the card against f32 on
+# the CPU: loss within 1e-4 relative, each leaf within 1e-3 relative L2
+POS_LOSS_RTOL, POS_LEAF_RTOL = 1e-4, 1e-3
+POS_TIMED = 10
+HMM_MIN_SCORE = 0.9
+
+
+def gan_datasets() -> tuple:
+    """11a's ``.npz`` sets under ``build/chip_smoke/gan/``: CIFAR-shaped
+    uint8 images from phase 7's prototypes (``synthetic_cifar``)."""
+    from rafiki_tpu_torch.sdk.dataset import write_numpy_dataset
+
+    rng = np.random.default_rng(SEED + 110)
+    protos = rng.normal(size=(CLASSES, 8, 8, 3)).astype(np.float32)
+    out = WORK / "gan"
+    out.mkdir(parents=True, exist_ok=True)
+    uris, first = [], None
+    for split, n in zip(("train", "test"), GAN_IMAGES):
+        x, y = synthetic_cifar(rng, protos, n)
+        first = x if first is None else first
+        uris.append(write_numpy_dataset(x, y.astype(np.int32),
+                                        str(out / f"{split}.npz")))
+    return uris[0], uris[1], first.astype(np.float32) / 127.5 - 1.0
+
+
+def _gan_cfg(dtype):
+    """The template's configuration at 32x32x3 (``TorchProGan.train``)."""
+    from rafiki_tpu_torch.models.pggan import PgganConfig
+
+    return PgganConfig(resolution=32, num_channels=3, compute_dtype=dtype)
+
+
+def gan_step(g, d, cfg, reals, seed: int, group=None) -> dict:
+    """One D step's and one G step's losses and gradients (no optimizer
+    step) at ``GAN_LOD``, with the trainer's draws from ``seed``: the D
+    step's latents and mixing weights, the G step's latents."""
+    from rafiki_tpu_torch.models import pggan
+    from rafiki_tpu_torch.utils import jrandom
+
+    dev = reals.device
+    max_stage = int(np.ceil(cfg.num_stages - 1 - GAN_LOD - 1e-8))
+    n = GAN_MB
+    key, gkey = jrandom.split(jrandom.PRNGKey(seed))
+    zkey, gpkey = jrandom.split(key)
+
+    def part(a):
+        t = torch.from_numpy(a)
+        if group is not None:
+            k = n // group.size
+            t = t[group.rank * k:(group.rank + 1) * k]
+        return t.to(dev)
+
+    z = part(jrandom.normal(zkey, (n, cfg.latent_size)))
+    eps = part(jrandom.uniform(gpkey, (n, 1, 1, 1)))
+    d_loss, aux = pggan.d_loss_fn(d, g, reals, z, None, GAN_LOD, eps, cfg,
+                                  max_stage, group)
+    pggan._grads_of(d_loss, list(d.parameters()), group)
+    z = part(jrandom.normal(gkey, (n, cfg.latent_size)))
+    g_loss = pggan.g_loss_fn(g, d, z, None, GAN_LOD, cfg, max_stage, group)
+    pggan._grads_of(g_loss, list(g.parameters()), group)
+
+    def mean(t):
+        t = t.detach().float().reshape(1)
+        if group is not None:
+            t = group.all_reduce_(t.clone()) / group.size
+        return float(t)
+
+    out = {"d_loss": mean(d_loss), "gp_norm": mean(aux["gp_norm"]),
+           "g_loss": mean(g_loss)}
+    for prefix, model in (("d.", d), ("g.", g)):
+        for name, p in model.named_parameters():
+            out[prefix + name] = p.grad.detach().double().cpu()
+    return out
+
+
+def _gan_models(cfg, device):
+    from rafiki_tpu_torch.models import pggan
+    from rafiki_tpu_torch.utils import jrandom
+
+    kg, kd = jrandom.split(jrandom.PRNGKey(SEED))
+    return (pggan.build(pggan.g_init(kg, cfg), cfg, "g", device),
+            pggan.build(pggan.d_init(kd, cfg), cfg, "d", device))
+
+
+def _gan_errors(got: dict, ref: dict) -> tuple:
+    """({loss: relative error}, {leaf: relative L2 error}) of a step's
+    results against ``ref``'s (leaves that ``ref`` leaves at zero, the
+    dormant stages', are not compared)."""
+    losses = {k: abs(got[k] - ref[k]) / abs(ref[k])
+              for k in ("d_loss", "gp_norm", "g_loss")}
+    norms = {k: float(ref[k].norm()) for k in ref if k not in losses}
+    floor = GAN_LEAF_FLOOR * max(norms.values())
+    leaves = {k: float((got[k] - ref[k]).norm()) / max(n, floor)
+              for k, n in norms.items() if n > 0}
+    return losses, leaves
+
+
+def _gan_compare(label: str, got: dict, ref: dict, loss_rtol: float,
+                 leaf_tol) -> None:
+    """Holds a step against ``ref``: each loss within ``loss_rtol``
+    relative, each leaf within ``leaf_tol`` (a number, or a number a
+    leaf)."""
+    losses, leaves = _gan_errors(got, ref)
+    tol = leaf_tol if isinstance(leaf_tol, dict) else dict.fromkeys(
+        leaves, leaf_tol)
+    used = {k: e / tol[k] for k, e in leaves.items()}
+    worst = max(used, key=used.get)
+    print(f"gan: {label}: D loss {got['d_loss']:.6f} vs {ref['d_loss']:.6f}"
+          f", gp_norm {got['gp_norm']:.6f} vs {ref['gp_norm']:.6f}, G loss "
+          f"{got['g_loss']:.6f} vs {ref['g_loss']:.6f} (relative "
+          + ", ".join(f"{k} {e:.2e}" for k, e in losses.items())
+          + f"; tol {loss_rtol:g}); gradient relative L2 per leaf: median "
+          f"{statistics.median(leaves.values()):.2e}, max "
+          f"{max(leaves.values()):.2e} over {len(leaves)} leaves; closest "
+          f"to its tolerance {worst} {leaves[worst]:.2e} (tol "
+          f"{tol[worst]:.2e})", flush=True)
+    for k, e in losses.items():
+        require(e <= loss_rtol, f"{label}: {k} off by {e:.3g}")
+    for k, e in leaves.items():
+        require(e <= tol[k], f"{label}: gradient of {k} off by {e:.3g} "
+                f"(tol {tol[k]:.3g})")
+
+
+def gan_step_gates(card: str, images: np.ndarray) -> None:
+    """One D step (with the penalty's double backward) and one G step at
+    mb 16, lod 1.5, from the same weights, batch and draws: f32 on the
+    card against f32 on the CPU, and bf16 on the card against that f32
+    step, beside the bf16 step on the CPU."""
+    reals = torch.from_numpy(images[:GAN_MB])
+    steps = {}
+    for dev, dtype in (("cpu", torch.float32), ("cpu", torch.bfloat16),
+                       ("cuda:0", torch.float32),
+                       ("cuda:0", torch.bfloat16)):
+        cfg = _gan_cfg(dtype)
+        g, d = _gan_models(cfg, dev)
+        steps[dev, dtype] = gan_step(
+            g, d, cfg, reals.to(next(g.parameters()).device), SEED)
+    ref = steps["cpu", torch.float32]
+    _, cpu_bf16 = _gan_errors(steps["cpu", torch.bfloat16], ref)
+    print("gan: the bf16 step on the CPU against the f32 one, relative L2 "
+          "per leaf: " + ", ".join(f"{k} {e:.2e}" for k, e in
+                                  cpu_bf16.items()), flush=True)
+    _gan_compare(f"one D and G step at mb {GAN_MB}, lod {GAN_LOD}, f32 on "
+                 f"the card against f32 on the CPU",
+                 steps["cuda:0", torch.float32], ref, GAN_F32_LOSS_RTOL,
+                 GAN_F32_LEAF_RTOL)
+    _gan_compare(f"the same step, bf16 on the card against f32 on the CPU",
+                 steps["cuda:0", torch.bfloat16], ref, GAN_BF16_LOSS_RTOL,
+                 {k: max(GAN_BF16_LEAF_RTOL, GAN_BF16_RATIO * e)
+                  for k, e in cpu_bf16.items()})
+    print(f"gan: the step gates passed; card {card}", flush=True)
+
+
+def rank_gan_step(reals: np.ndarray) -> dict:
+    """Rank side: the f32 D and G step over this thread's group (each
+    rank its contiguous part of the global batch), and on rank 0 first
+    the same step on one card over the whole batch."""
+    from rafiki_tpu_torch.device import default_device
+    from rafiki_tpu_torch.parallel import ranks
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = ranks.current_group()
+    dev = default_device()
+    cfg = _gan_cfg(torch.float32)
+    one = None
+    if group.rank == 0:
+        with ranks.alone():
+            one = gan_step(*_gan_models(cfg, dev), cfg,
+                           torch.from_numpy(reals).to(dev), SEED)
+    k = len(reals) // group.size
+    mine = torch.from_numpy(reals[group.rank * k:(group.rank + 1) * k])
+    got = gan_step(*_gan_models(cfg, dev), cfg, mine.to(dev), SEED, group)
+    return {"rank": group.rank, "one": one, "got": got}
+
+
+def gan_cards_step(card: str, images: np.ndarray) -> None:
+    """The f32 step over a group of every visible card up to 4 (one on a
+    single card: a group of one rank) against one card's."""
+    from rafiki_tpu_torch.device import set_device_grant
+    from rafiki_tpu_torch.parallel import ranks
+
+    n = min(torch.cuda.device_count(), MAX_CARDS)
+    devices = list(range(n))
+    set_device_grant(devices)
+    try:
+        with ranks.Ranks(devices) as r:
+            ranks.set_group(r.group)
+            try:
+                out = r.run(rank_gan_step, images[:GAN_MB])
+            finally:
+                ranks.set_group(None)
+    finally:
+        set_device_grant(None)
+    one = out[0]["one"]
+    for rec in out:
+        _gan_compare(f"rank {rec['rank']} of {n}: the step over {n} card"
+                     f"{'s' if n > 1 else ''} (mb {GAN_MB // n} a card, "
+                     f"minibatch stddev over the global batch) against one "
+                     f"card's", rec["got"], one, CARDS_LOSS_RTOL,
+                     GAN_CARDS_LEAF_RTOL)
+    print(f"gan: the {n}-card step equals one card's; card {card}",
+          flush=True)
+
+
+def gan_step_time(card: str, images: np.ndarray) -> None:
+    """The trainer's D step (with its penalty) and G step at mb 16, lod
+    1.5, bf16: per call and on the card, and a profile of the D step."""
+    from rafiki_tpu_torch.models import pggan
+    from rafiki_tpu_torch.utils import jrandom
+
+    trainer = pggan.PgganTrainer(_gan_cfg(torch.bfloat16), device="cuda:0")
+    trainer.init_optimizers(1e-3, 1e-3)
+    reals = torch.from_numpy(images[:GAN_MB]).cuda()
+    key = jrandom.PRNGKey(SEED)
+    max_stage = 2
+    d_step = lambda: trainer.d_step(reals, None, GAN_LOD, key,  # noqa: E731
+                                    GAN_MB, max_stage)
+    g_step = lambda: trainer.g_step(None, GAN_LOD, key,  # noqa: E731
+                                    GAN_MB, max_stage)
+    times = {}
+    for name, fn in (("D step", d_step), ("G step", g_step)):
+        # the card held ~1 s while the host queues 5 steps (~40 ms each)
+        times[name] = (median_ms(fn, reps=20),
+                       device_ms(fn, reps=5, inner=5,
+                                 hold_cycles=2_000_000_000))
+    print("gan: at mb 16, lod 1.5, bf16: " + "; ".join(
+        f"{k} {call:.2f} ms a call, {dev:.2f} ms on the card"
+        for k, (call, dev) in times.items()) + f"; card {card}", flush=True)
+    print_device_profile(d_step, "D step (mb 16, lod 1.5, with the "
+                         "penalty's double backward)")
+    del trainer
+
+
+def gan_job(card: str, train_uri: str, test_uri: str) -> tuple:
+    """11a's cycle through ``Client``: a 2-trial ``TorchProGan`` job (GP
+    over its knobs but the minibatch, 4 kimg each), its grids on ``/predict``
+    held against the trials' own ``generate``. Returns the launches of
+    the job and of its serving, in ``KERNEL_NAMES`` order."""
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.sdk.params import load_params
+    from rafiki_tpu_torch.templates import torch_progan
+
+    source = (TEMPLATES / "torch_progan.py").read_text() + PROGAN16
+    admin, server, new_client = _stack("gan", "gan.sqlite3")
+    kernels = _kernels()
+    try:
+        c = new_client()
+        model = c.create_model("progan", "IMAGE_GENERATION",
+                               source.encode(), "TorchProGan16")
+        require(model["verification"] is not None
+                and model["verification"]["ok"],
+                f"TorchProGan16 upload not verified: "
+                f"{model['verification']}")
+        # ---- the main path's run (train job): counts from zero ----
+        for kernel in kernels:
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        c.create_train_job("gan", "IMAGE_GENERATION", train_uri, test_uri,
+                           budget={"MODEL_TRIAL_COUNT": TRIALS,
+                                   "CHIP_COUNT": 1})
+        job = c.wait_until_train_job_stopped("gan", timeout_s=900,
+                                             poll_s=0.05)
+        torch.cuda.synchronize()
+        job_s = time.perf_counter() - t0
+        train_counts = [k.launches for k in kernels]
+        # ---------------------------------------------------------------
+        require(job["status"] == "STOPPED", f"train job {job['status']}: "
+                f"{job.get('error_reason')}")
+        trials = c.get_trials_of_train_job("gan")
+        require([t["status"] for t in trials] == ["COMPLETED"] * TRIALS,
+                f"trials {[(t['status'], t['fault_detail']) for t in trials]}")
+        kimg = float(GAN_ENV["TORCHPROGAN_TOTAL_KIMG"])
+        for t in trials:
+            logs = c.get_trial_logs(t["id"])["metrics"]
+            lods = [m["lod"] for m in logs if "lod" in m]
+            ticks = [m for m in logs if "kimg" in m]
+            top = int(np.ceil(3 - min(lods) - 1e-8))
+            require(np.isfinite(t["score"]) and 0 < t["score"] <= 1,
+                    f"trial score {t['score']}")
+            require(lods[0] == 3.0 and min(lods) == 0.0 and top == 3,
+                    f"a trial's lods {lods[0]} .. {min(lods)}: it did not "
+                    "grow to 32x32")
+            wall = t["datetime_stopped"] - t["datetime_started"]
+            train_s = sum(m.get("trace_train_s", 0.0) for m in logs)
+            print(f"gan: trial {t['id'][:8]} COMPLETED: D_repeats "
+                  f"{t['knobs']['D_repeats']}, minibatch_base "
+                  f"{t['knobs']['minibatch_base']}, G_lrate "
+                  f"{t['knobs']['G_lrate']:.3g}, D_lrate "
+                  f"{t['knobs']['D_lrate']:.3g}; {len(ticks)} ticks, lod "
+                  f"{lods[0]:g} -> {min(lods):g} (max_stage {top}), last "
+                  f"d_loss {ticks[-1]['d_loss']:.4f}, g_loss "
+                  f"{ticks[-1]['g_loss']:.4f}; score (1/(1+MMD)) "
+                  f"{t['score']:.4f}; {kimg / train_s:.3f} kimg/s in "
+                  f"train(); {wall:.2f} s in the trial: "
+                  f"{trial_split(logs, wall)}", flush=True)
+        print(f"gan: train job of {TRIALS} TorchProGan trials ({kimg:g} kimg "
+              f"each, 32x32x3, GP) STOPPED in {job_s:.1f} s "
+              f"({TRIALS * kimg / job_s:.3f} kimg/s over the job); card "
+              f"{card}", flush=True)
+        blobs = [load_params(c.download_trial_params(t["id"]))
+                 for t in trials]
+        token = admin.authenticate_user(config.SUPERADMIN_EMAIL,
+                                        config.SUPERADMIN_PASSWORD)["token"]
+        url = f"http://127.0.0.1:{server.port}/predict/gan"
+        # ---- the main path's run (inference job): counts from zero ----
+        for kernel in kernels:
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        inf = c.create_inference_job("gan")
+        deploy_s = time.perf_counter() - t0
+        paths = c.predict("gan", GAN_QUERIES)
+        grids = [np.load(p) for p in paths]
+        lat = {}
+        for q in GAN_QUERIES:
+            body = (json.dumps({"queries": [q]}).encode(),
+                    {"Content-Type": "application/json"})
+            for _ in range(GAN_TIMED):
+                t = time.perf_counter()
+                post(url, *body, token=token)
+                lat.setdefault(tuple(q), []).append(time.perf_counter() - t)
+        serve_counts = [k.launches for k in kernels]
+        # ---------------------------------------------------------------
+        c.stop_inference_job("gan")
+    finally:
+        server.stop()
+        admin.shutdown()
+    require(inf["status"] == "RUNNING", f"inference job {inf['status']}")
+    shapes = [(4 * 32, 4 * 32, 3), (2 * 32, 2 * 32, 3)]
+    require([g.shape for g in grids] == shapes
+            and all(g.dtype == np.uint8 for g in grids),
+            f"grids {[(g.shape, g.dtype) for g in grids]}")
+    # the trials' own generate at seeds 1000 + i; both workers write the
+    # same names in one working directory (the JAX template's behaviour),
+    # so each file is compared with either trial's grid
+    refs = []
+    for t, blob in zip(trials, blobs):
+        m = torch_progan.TorchProGan(**t["knobs"])
+        m.load_parameters(blob)
+        refs.append([torch_progan._to_grid(m._trainer.generate(
+            min(q[2], q[0] * q[1]), seed=1000 + i), q[0], q[1])
+            for i, q in enumerate(GAN_QUERIES)])
+        del m
+    errs = []
+    for i, grid in enumerate(grids):
+        err = min(int(np.abs(grid.astype(int) - ref[i]).max())
+                  for ref in refs)
+        require(err <= 1, f"grid {i} off its trials' generate by {err}")
+        errs.append(err)
+    p50 = {q: statistics.median(v) * 1e3 for q, v in lat.items()}
+    print(f"gan: inference job RUNNING in {deploy_s:.1f} s ({TRIALS} "
+          f"workers); /predict {GAN_QUERIES} wrote grids "
+          f"{[g.shape for g in grids]} uint8, within {errs} of the trials' "
+          f"own generate (tol 1); p50 of /predict/gan (JSON, admin door, "
+          f"sequential, {GAN_TIMED} each): " + ", ".join(
+              f"{list(q)} {ms:.2f} ms" for q, ms in p50.items())
+          + f"; card {card}", flush=True)
+    return train_counts, serve_counts
+
+
+def pos_corpus() -> tuple:
+    """11b's corpus zips under ``build/chip_smoke/pos/``: sentences of
+    5-48 tokens whose tags follow a seeded bigram chain over 45 tags, each
+    tag emitting its own ~111 words, and 1 token in 10 a word from a pool
+    shared by all tags (ambiguous). Returns the train and test URIs and
+    8 test sentences."""
+    from rafiki_tpu_torch.sdk.dataset import write_corpus_dataset
+
+    rng = np.random.default_rng(SEED + 111)
+    trans = rng.dirichlet(np.full(POS_TAGS, 0.1), POS_TAGS)
+    own = POS_WORDS * 9 // 10 // POS_TAGS
+    shared = [f"s{i}" for i in range(POS_WORDS - own * POS_TAGS)]
+    out = WORK / "pos"
+    out.mkdir(parents=True, exist_ok=True)
+    uris = []
+    for split, n in zip(("train", "test"), POS_SIZES):
+        sentences = []
+        for _ in range(n):
+            k = int(rng.integers(POS_TOKENS[0], POS_TOKENS[1] + 1))
+            tag = int(rng.integers(POS_TAGS))
+            toks, tags = [], []
+            for _ in range(k):
+                word = (shared[int(rng.integers(len(shared)))]
+                        if rng.random() < 0.1 else
+                        f"t{tag}w{int(rng.integers(own))}")
+                toks.append(word)
+                tags.append([f"T{tag}"])
+                tag = int(rng.choice(POS_TAGS, p=trans[tag]))
+            sentences.append((toks, tags))
+        uris.append(write_corpus_dataset(sentences,
+                                         str(out / f"{split}.zip")))
+    return uris[0], uris[1], [s for s, _ in sentences[:8]]
+
+
+def bilstm_step_gate(card: str, train_uri: str) -> None:
+    """One ``TorchBiLstm`` step at its widest knobs (embed 128, hidden
+    128, batch 128, the corpus's max_len 48), f32 on the card against
+    f32 on the CPU, then its time on the card."""
+    from rafiki_tpu_torch.convert import from_jax_tree
+    from rafiki_tpu_torch.models import bilstm
+    from rafiki_tpu_torch.sdk.torch_backend import (
+        DataParallelTrainer,
+        tunable_optimizer,
+    )
+    from rafiki_tpu_torch.templates import torch_bilstm
+
+    knobs = {"epochs": 10, "word_embed_dims": 128,
+             "word_rnn_hidden_size": 128, "word_dropout": 1e-2,
+             "learning_rate": 1e-2, "batch_size": 128}
+    m = torch_bilstm.TorchBiLstm(**knobs)
+    ids, mask, tags = m._load(train_uri, fit_vocab=True)
+    cfg = m._make_cfg(128, 128)
+    tree = bilstm.init(np.random.default_rng(SEED), cfg)
+    batch = [torch.from_numpy(a[:128]) for a in (ids, mask, tags)]
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        with torch.device("meta"):
+            model = bilstm.BiLstm(cfg)
+        model = from_jax_tree(model, tree, device=dev, train=True)
+        on = next(model.parameters()).device
+        loss, _ = torch_bilstm._loss(model, [t.to(on) for t in batch])
+        loss.backward()
+        out[dev] = (float(loss.detach()), {
+            k: p.grad.detach().double().cpu()
+            for k, p in model.named_parameters()})
+    (loss_c, g_c), (loss_g, g_g) = out["cpu"], out["cuda:0"]
+    rel = _rel_l2(g_g, g_c)
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    print(f"pos: one TorchBiLstm step (embed 128, hidden 128, batch 128, "
+          f"T {cfg.max_len}, f32) on the card against the CPU: loss "
+          f"{loss_g:.6f} vs {loss_c:.6f} (relative {loss_err:.2e}, tol "
+          f"{POS_LOSS_RTOL:g}); gradient relative L2 per leaf (tol "
+          f"{POS_LEAF_RTOL:g}): " + ", ".join(
+              f"{k} {e:.2e}" for k, e in sorted(rel.items())), flush=True)
+    require(loss_err <= POS_LOSS_RTOL, "the BiLSTM loss differs")
+    for k, e in rel.items():
+        require(e <= POS_LEAF_RTOL, f"the BiLSTM gradient of {k} off by "
+                f"{e:.3g}")
+    trainer = DataParallelTrainer(torch_bilstm._loss, tunable_optimizer(
+        torch.optim.Adam, lr=1e-2), device="cuda:0")
+    with torch.device("meta"):
+        model = bilstm.BiLstm(cfg)
+    model = from_jax_tree(model, tree, device="cuda:0", train=True)
+    opt = trainer.optimizer(model.parameters())
+    gpu_batch = tuple(t.cuda() for t in batch)
+    step = lambda: trainer.train_step(model, opt, gpu_batch)  # noqa: E731
+    call_ms = median_ms(step, reps=10)
+    card_ms = device_ms(step, reps=3, inner=5, hold_cycles=2_000_000_000)
+    print(f"pos: TorchBiLstm train step at batch 128 x {cfg.max_len} "
+          f"tokens (f32): {call_ms:.2f} ms a call, {card_ms:.2f} ms on the "
+          f"card; card {card}", flush=True)
+    print_device_profile(step, "BiLSTM train step (batch 128)")
+
+
+def _tag_job(c, app: str, model: str, train_uri: str, test_uri: str,
+             trials: int) -> tuple:
+    """A ``POS_TAGGING`` job of ``trials`` trials of ``model`` through
+    ``Client`` to STOPPED: (its trials, the job's seconds)."""
+    t0 = time.perf_counter()
+    c.create_train_job(app, "POS_TAGGING", train_uri, test_uri,
+                       budget={"MODEL_TRIAL_COUNT": trials, "CHIP_COUNT": 1},
+                       models=[model])
+    job = c.wait_until_train_job_stopped(app, timeout_s=900, poll_s=0.05)
+    job_s = time.perf_counter() - t0
+    require(job["status"] == "STOPPED", f"train job {app} {job['status']}: "
+            f"{job.get('error_reason')}")
+    done = c.get_trials_of_train_job(app)
+    require([t["status"] for t in done] == ["COMPLETED"] * trials,
+            f"trials {[(t['status'], t['fault_detail']) for t in done]}")
+    for t in done:
+        require(np.isfinite(t["score"]) and 0 <= t["score"] <= 1,
+                f"trial score {t['score']}")
+        wall = t["datetime_stopped"] - t["datetime_started"]
+        print(f"pos: {model} trial {t['id'][:8]} COMPLETED: knobs "
+              + (", ".join(f"{k} {v:.3g}" if isinstance(v, float) else
+                           f"{k} {v}" for k, v in t["knobs"].items())
+                 or "none")
+              + f"; test accuracy {t['score']:.4f}; {wall:.2f} s in the "
+              f"trial: {trial_split(c.get_trial_logs(t['id'])['metrics'], wall)}",
+              flush=True)
+    return done, job_s
+
+
+def pos_jobs(card: str, train_uri: str, test_uri: str,
+             queries: list) -> tuple:
+    """11b's jobs through ``Client``: 2 ``TorchBiLstm`` trials (app
+    ``pos``) and 1 ``NpBigramHmm`` trial (app ``hmm``; the budget's trial
+    count is per model, so the two are two jobs), each deployed and
+    asked to tag 8 sentences. Returns the launches of the jobs and of
+    their serving."""
+    admin, server, new_client = _stack("pos", "pos.sqlite3")
+    kernels = _kernels()
+    try:
+        c = new_client()
+        for name, source, cls in (
+                ("bilstm", (TEMPLATES / "torch_bilstm.py").read_text()
+                 + BILSTM_WIDE, "TorchBiLstmWide"),
+                ("hmm", (TEMPLATES / "np_bigram_hmm.py").read_text(),
+                 "NpBigramHmm")):
+            model = c.create_model(name, "POS_TAGGING", source.encode(), cls)
+            require(model["verification"] is not None
+                    and model["verification"]["ok"],
+                    f"{cls} upload not verified: {model['verification']}")
+        # ---- the main path's run (train jobs): counts from zero ----
+        for kernel in kernels:
+            kernel.launches = 0
+        bilstm_trials, bilstm_s = _tag_job(c, "pos", "bilstm", train_uri,
+                                           test_uri, TRIALS)
+        hmm_trials, hmm_s = _tag_job(c, "hmm", "hmm", train_uri, test_uri, 1)
+        torch.cuda.synchronize()
+        train_counts = [k.launches for k in kernels]
+        # ---------------------------------------------------------------
+        print(f"pos: the BiLSTM job ({TRIALS} trials, 10 epochs of "
+              f"{POS_SIZES[0]} sentences each) STOPPED in {bilstm_s:.1f} s, "
+              f"the HMM job (1 trial) in {hmm_s:.1f} s; card {card}",
+              flush=True)
+        require(hmm_trials[0]["score"] >= HMM_MIN_SCORE,
+                f"the HMM scored {hmm_trials[0]['score']:.4f} (at least "
+                f"{HMM_MIN_SCORE} on this grammar)")
+        # ---- the main path's run (inference jobs): counts from zero ----
+        for kernel in kernels:
+            kernel.launches = 0
+        tags, lat, deploy = {}, {}, {}
+        for app in ("pos", "hmm"):
+            t0 = time.perf_counter()
+            inf = c.create_inference_job(app)
+            deploy[app] = time.perf_counter() - t0
+            require(inf["status"] == "RUNNING",
+                    f"inference job {app} {inf['status']}")
+            tags[app] = c.predict(app, queries)
+            for _ in range(POS_TIMED):
+                t = time.perf_counter()
+                c.predict(app, queries)
+                lat.setdefault(app, []).append(time.perf_counter() - t)
+            c.stop_inference_job(app)
+        serve_counts = [k.launches for k in kernels]
+        # ---------------------------------------------------------------
+    finally:
+        server.stop()
+        admin.shutdown()
+    for app, rows in tags.items():
+        require([len(r) for r in rows] == [len(q) for q in queries],
+                f"{app}: tag lists of {[len(r) for r in rows]} for "
+                f"sentences of {[len(q) for q in queries]}")
+        require(all(t.startswith("T") for r in rows for t in r),
+                f"{app}: tags {rows[0][:5]}")
+    agree = np.mean([a == b for ra, rb in zip(tags["pos"], tags["hmm"])
+                     for a, b in zip(ra, rb)])
+    print(f"pos: both jobs deployed (BiLSTM {deploy['pos']:.1f} s, HMM "
+          f"{deploy['hmm']:.1f} s) and tagged 8 sentences of "
+          f"{[len(q) for q in queries]} tokens, a tag a token (the two "
+          f"agree on {agree:.3f} of the tokens); p50 of Client.predict "
+          f"(the admin door, 8 sentences, {POS_TIMED} requests): BiLSTM "
+          f"{statistics.median(lat['pos']) * 1e3:.2f} ms, HMM "
+          f"{statistics.median(lat['hmm']) * 1e3:.2f} ms; card {card}",
+          flush=True)
+    return train_counts, serve_counts
+
+
+def generation_tagging_phase(card: str) -> list:
+    """Phase 11: 11a image generation, 11b tagging. Returns each kernel's
+    launches on this path, in ``KERNEL_NAMES`` order (none is on it)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    train_uri, test_uri, images = gan_datasets()
+    print(f"gan: synthetic CIFAR-shaped sets ({GAN_IMAGES[0]} + "
+          f"{GAN_IMAGES[1]} images, 32x32x3 uint8) written as .npz in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gan_step_gates(card, images)
+    gan_cards_step(card, images)
+    cwd = os.getcwd()
+    os.chdir(WORK / "gan")  # predict writes its grids to the cwd
+    try:
+        with _Env(**GAN_ENV):
+            gan_train, gan_serve = gan_job(card, train_uri, test_uri)
+    finally:
+        os.chdir(cwd)
+    gan_step_time(card, images)
+    t_gan = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    train_uri, test_uri, queries = pos_corpus()
+    print(f"pos: synthetic tagged corpus ({POS_SIZES[0]} + {POS_SIZES[1]} "
+          f"sentences of {POS_TOKENS[0]}-{POS_TOKENS[1]} tokens, "
+          f"{POS_WORDS} words, {POS_TAGS} tags) written as corpus zips in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    bilstm_step_gate(card, train_uri)
+    pos_train, pos_serve = pos_jobs(card, train_uri, test_uri, queries)
+    counts = [sum(c) for c in zip(gan_train, gan_serve, pos_train,
+                                  pos_serve)]
+    require(counts == [0] * len(KERNEL_NAMES),
+            f"the generation and tagging paths launched attention kernels: "
+            f"{counts}")
+    print(f"gan: 11a took {t_gan:.0f} s; pos: 11b took "
+          f"{time.perf_counter() - t_phase - t_gan:.0f} s; phase 11 took "
+          f"{time.perf_counter() - t_phase:.0f} s", flush=True)
+    return counts
+
+
 def _alive(pid: int) -> bool:
     try:
         os.kill(pid, 0)
@@ -4047,6 +4732,7 @@ def main() -> int:
     bert_launches, lm_launches = text_phase(card)
     loop_launches = trial_loop_phase(card, uris)
     cards_launches = cards_phase(card)
+    gen_launches = generation_tagging_phase(card)
     for i, name in enumerate(KERNEL_NAMES):
         by_path = {"train (phase 3)": train_launches[i],
                    "serve (phase 4)": serve_launches[i],
@@ -4056,7 +4742,8 @@ def main() -> int:
                    "bert (phase 8a)": bert_launches[i],
                    "lm (phase 8b)": lm_launches[i],
                    "trial loop (phase 9)": loop_launches[i],
-                   "several cards (phase 10)": cards_launches[i]}
+                   "several cards (phase 10)": cards_launches[i],
+                   "generation and tagging (phase 11)": gen_launches[i]}
         require(by_path["stack (phase 5)"] > 0,
                 f"{name} was not launched through the admin")
         require(by_path["process (phase 6)"] > 0,

@@ -20,10 +20,20 @@ is in-process, or the ``ShmBroker`` under ``RAFIKI_BROKER=shm``.
 (``ProcessPlacementManager``), which forces the ``ShmBroker``: the serving
 children attach to its rings, and the predictor stays here. A process
 placement passed in gets this store, and the shm broker when it has none.
-HA leases, admission control, host placement and the fleet broker,
-recovery, rollout, drift, the autoscaler and warm pool are not ported;
-the settings that would turn them on raise
-:class:`~rafiki_tpu_torch.config.NotPortedError`. ``TEXT_GENERATION``
+HA leases and admin failover, admission control, host placement and the
+fleet broker, crash recovery, rollout, drift, the autoscaler with its
+fair admission and warm pool, the predict result cache, int8 serving,
+request tracing and device profiling are not ported. The settings that
+turn one of them on raise
+:class:`~rafiki_tpu_torch.config.NotPortedError` (``config._UNPORTED``:
+``RAFIKI_ADMIN_HA``, ``RAFIKI_ADMIN_ADDRS``, ``RAFIKI_PLACEMENT=hosts``,
+``RAFIKI_AGENTS``, ``RAFIKI_ORPHAN_SURVIVE``, ``RAFIKI_DRIFT``,
+``RAFIKI_AUTOSCALE``, ``RAFIKI_AUTOSCALE_FAIR``,
+``RAFIKI_AUTOSCALE_WARM_POOL``, ``RAFIKI_PREDICT_CACHE``,
+``RAFIKI_SERVE_INT8``, ``RAFIKI_TRACE_SAMPLE``, ``RAFIKI_PROFILE``, and
+the sandbox, dependency, speculative-decoding and stream-resume
+switches); admission control and rollout have no switch of their own
+to refuse (ROADMAP.md, queue C). ``TEXT_GENERATION``
 takes generation-capable templates only (a ``GenerationSpec`` and the
 decode methods; checked at upload and again, statically, at a train
 job), and its inference job streams from the per-job door's

@@ -184,6 +184,18 @@ _UNPORTED = (
     ("RAFIKI_GEN_SPEC", _is_one, "speculative decoding"),
     ("RAFIKI_GEN_RESUME_MAX", _positive,
      "stream resume (the door's journal)"),
+    ("RAFIKI_AUTOSCALE", _is_one, "the serving autoscaler"),
+    ("RAFIKI_AUTOSCALE_FAIR", _is_one, "weighted fair admission"),
+    ("RAFIKI_AUTOSCALE_WARM_POOL", _positive, "the warm pool"),
+    ("RAFIKI_DRIFT", _is_one, "drift detection and retraining"),
+    ("RAFIKI_PREDICT_CACHE", _is_one, "the predict result cache"),
+    ("RAFIKI_SERVE_INT8", _is_one, "int8 serving"),
+    ("RAFIKI_AGENTS", bool, "host placement (agents)"),
+    ("RAFIKI_ADMIN_ADDRS", bool, "admin failover (HA)"),
+    ("RAFIKI_ORPHAN_SURVIVE", _is_one, "crash recovery (orphan survival)"),
+    ("RAFIKI_TRACE_SAMPLE", _positive, "request tracing"),
+    ("RAFIKI_PROFILE", lambda v: v not in ("0", "false"),
+     "device profiling"),
 )
 
 

@@ -9,12 +9,15 @@ dh)); the port splits it, one ``Block`` per layer
 layout: ``embed/table`` (vocab, dim), ``pos`` (1, max_len, dim). The
 LM's head is tied to ``embed/table`` and has no leaf of its own.
 
-The image-classification zoo (:func:`from_jax_tree`, :func:`to_jax_tree`):
+The image-classification zoo and the Progressive GAN's G, D and Gs
+(:func:`from_jax_tree`, :func:`to_jax_tree`):
 a tree path is the module path (``convs/3/kernel`` is ``convs.3.kernel``,
 ``layers/0/bias`` is ``layers.0.bias``, ``s1b0/proj_bn/scale`` is
 ``s1b0.proj_bn.scale``); a list in the JAX tree (``convs``, ``layers``)
-is indexed by position. A :class:`~rafiki_tpu_torch.models.core.Conv2d`
-kernel is HWIO there and OIHW (``channels_last``) here. The BatchNorm
+is indexed by position (the GAN's ``torgb/0/w``, ``fromrgb/3/b``,
+``blocks/1/conv0/w``). A :class:`~rafiki_tpu_torch.models.core.Conv2d`
+kernel and a :class:`~rafiki_tpu_torch.models.pggan.EqConv` weight are
+HWIO there and OIHW (``channels_last``) here. The BatchNorm
 state tree (``<bn>/mean``, ``<bn>/var``) maps to the buffers. Both
 directions are exact.
 """
@@ -30,6 +33,7 @@ from rafiki_tpu_torch.device import default_device
 from rafiki_tpu_torch.models.bert import Bert, BertConfig
 from rafiki_tpu_torch.models.core import Conv2d, hwio_to_oihw, oihw_to_hwio
 from rafiki_tpu_torch.models.lm import LM, LMConfig
+from rafiki_tpu_torch.models.pggan import EqConv
 from rafiki_tpu_torch.models.vit import ViT, ViTConfig
 
 #: the module each transformer family's config builds
@@ -86,9 +90,15 @@ def to_jax_params(model: torch.nn.Module) -> Dict[str, Any]:
     return unflatten(flat)
 
 
+#: each conv module's kernel leaf: HWIO in the JAX tree, OIHW here
+_KERNEL_LEAF = {Conv2d: "kernel", EqConv: "w"}
+
+
 def _conv_kernels(model: torch.nn.Module) -> set:
-    return {f"{name}.kernel" if name else "kernel"
-            for name, mod in model.named_modules() if isinstance(mod, Conv2d)}
+    return {f"{name}.{_KERNEL_LEAF[type(mod)]}" if name
+            else _KERNEL_LEAF[type(mod)]
+            for name, mod in model.named_modules()
+            if type(mod) in _KERNEL_LEAF}
 
 
 def from_jax_tree(model: torch.nn.Module, params: Dict[str, Any],
@@ -129,7 +139,8 @@ def to_jax_tree(model: torch.nn.Module) -> Tuple[Dict[str, Any],
     params, state = {}, {}
     buffers = {name for name, _ in model.named_buffers()}
     for name, value in model.state_dict().items():
-        t = value.detach().float().cpu()
+        # a copy: the tree must not alias the live parameters
+        t = value.detach().to("cpu", torch.float32, copy=True)
         t = oihw_to_hwio(t) if name in convs else t
         (state if name in buffers else params)[
             name.replace(".", SEP)] = t.numpy()

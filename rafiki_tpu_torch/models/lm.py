@@ -59,6 +59,7 @@ from rafiki_tpu_torch.sdk.model import (  # noqa: F401
     ROLE_DRAFT,
     ROLE_TARGET,
 )
+from rafiki_tpu_torch.utils.jrandom import threefry2x32
 
 Cache = Dict[str, torch.Tensor]
 
@@ -381,29 +382,6 @@ def greedy_token(logits: torch.Tensor) -> torch.Tensor:
 # preempted stream re-prefilled from its history draws the same tokens.
 # temperature <= 0 gives the one-hot of the argmax, so sampling at 0 is
 # the greedy path, bit for bit.
-
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def _rotl(v: np.ndarray, r: int) -> np.ndarray:
-    return (v << np.uint32(r)) | (v >> np.uint32(32 - r))
-
-
-def threefry2x32(k1: np.ndarray, k2: np.ndarray, x1: np.ndarray,
-                 x2: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """The threefry2x32 block cipher of ``jax.random`` (20 rounds) over
-    uint32 arrays: key (k1, k2), counter (x1, x2)."""
-    k1, k2 = np.asarray(k1, np.uint32), np.asarray(k2, np.uint32)
-    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
-    x = [np.asarray(x1, np.uint32) + ks[0], np.asarray(x2, np.uint32) + ks[1]]
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x[0] = x[0] + x[1]
-            x[1] = _rotl(x[1], r) ^ x[0]
-        x[0] = x[0] + ks[(i + 1) % 3]
-        x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
-    return x[0], x[1]
-
 
 def _fold_in(key: Tuple[np.ndarray, np.ndarray], data: np.ndarray):
     data = np.asarray(data, np.uint32)

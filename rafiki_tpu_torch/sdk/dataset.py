@@ -13,7 +13,8 @@ Own copy of ``rafiki_tpu/sdk/dataset.py``:
   package decodes with PIL, which the port does not use), and
   ``write_image_files_dataset``, its inverse;
 - ``dataset_utils.load_image_arrays`` for either format, with its
-  in-memory cache, so the trials of one job share one load.
+  in-memory cache, so the trials of one job share one load, and
+  ``dataset_utils.load_dataset_of_arrays``, the ``.npz`` as stored.
 
 An image whose size differs from the requested ``image_size``, or a
 member that is not a PNG the codec reads (a palette or 16-bit PNG, an
@@ -63,6 +64,11 @@ class DatasetUtils:
         if not os.path.exists(uri):
             raise InvalidDatasetError(f"Dataset not found: {uri}")
         return uri
+
+    def load_dataset_of_arrays(self, uri: str) -> "NumpyDataset":
+        """The ``.npz`` at ``uri``, its arrays as stored (no cast, no
+        cache)."""
+        return NumpyDataset(self.download_dataset_from_uri(uri))
 
     def load_dataset_of_corpus(self, uri: str) -> "CorpusDataset":
         return CorpusDataset(self.download_dataset_from_uri(uri))

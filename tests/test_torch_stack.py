@@ -506,6 +506,17 @@ def test_the_admin_process_refuses_without_cuda(tmp_path):
     ("RAFIKI_INSTALL_DEPS", "1", "dependency provisioning"),
     ("RAFIKI_GEN_SPEC", "1", "speculative decoding"),
     ("RAFIKI_GEN_RESUME_MAX", "3", "stream resume"),
+    ("RAFIKI_AUTOSCALE", "1", "autoscaler"),
+    ("RAFIKI_AUTOSCALE_FAIR", "1", "fair admission"),
+    ("RAFIKI_AUTOSCALE_WARM_POOL", "2", "warm pool"),
+    ("RAFIKI_DRIFT", "1", "drift"),
+    ("RAFIKI_PREDICT_CACHE", "1", "result cache"),
+    ("RAFIKI_SERVE_INT8", "1", "int8 serving"),
+    ("RAFIKI_AGENTS", "10.0.0.2:7000", "host placement"),
+    ("RAFIKI_ADMIN_ADDRS", "127.0.0.1:3000,127.0.0.1:3001", "failover"),
+    ("RAFIKI_ORPHAN_SURVIVE", "1", "crash recovery"),
+    ("RAFIKI_TRACE_SAMPLE", "0.5", "request tracing"),
+    ("RAFIKI_PROFILE", "1", "device profiling"),
 ])
 def test_unported_settings_raise(monkeypatch, name, value, subsystem):
     monkeypatch.setenv(name, value)
