@@ -20,23 +20,30 @@ is in-process, or the ``ShmBroker`` under ``RAFIKI_BROKER=shm``.
 (``ProcessPlacementManager``), which forces the ``ShmBroker``: the serving
 children attach to its rings, and the predictor stays here. A process
 placement passed in gets this store, and the shm broker when it has none.
-HA leases and admin failover, admission control, host placement and the
-fleet broker, crash recovery, rollout, drift, the autoscaler with its
-fair admission and warm pool, the predict result cache, int8 serving,
-request tracing and device profiling are not ported. The settings that
-turn one of them on raise
+The ``/predict/<app>`` door admits every request through one
+:class:`~rafiki_tpu_torch.predictor.admission.AdmissionController` for
+the whole door (503 at its in-flight cap, 429 when the estimated wait is
+past ``PREDICT_TIMEOUT_S``). An inference job's budget may ask for a
+fused ensemble (``ENSEMBLE_FUSED``: every best trial in each serving
+worker, ``admin/services.py``), and ``RAFIKI_PREDICT_CACHE=1`` puts the
+predict result cache in front of the workers.
+HA leases and admin failover, host placement and the fleet broker, crash
+recovery, rollout, drift, the autoscaler with its fair admission and
+warm pool, int8 serving, request tracing and device profiling are not
+ported. The settings that turn one of them on raise
 :class:`~rafiki_tpu_torch.config.NotPortedError` (``config._UNPORTED``:
 ``RAFIKI_ADMIN_HA``, ``RAFIKI_ADMIN_ADDRS``, ``RAFIKI_PLACEMENT=hosts``,
 ``RAFIKI_AGENTS``, ``RAFIKI_ORPHAN_SURVIVE``, ``RAFIKI_DRIFT``,
 ``RAFIKI_AUTOSCALE``, ``RAFIKI_AUTOSCALE_FAIR``,
-``RAFIKI_AUTOSCALE_WARM_POOL``, ``RAFIKI_PREDICT_CACHE``,
-``RAFIKI_SERVE_INT8``, ``RAFIKI_TRACE_SAMPLE``, ``RAFIKI_PROFILE``, and
-the sandbox, dependency, speculative-decoding and stream-resume
-switches); admission control and rollout have no switch of their own
-to refuse (ROADMAP.md, queue C). ``TEXT_GENERATION``
-takes generation-capable templates only (a ``GenerationSpec`` and the
-decode methods; checked at upload and again, statically, at a train
-job), and its inference job streams from the per-job door's
+``RAFIKI_AUTOSCALE_WARM_POOL``, ``RAFIKI_SERVE_INT8``,
+``RAFIKI_TRACE_SAMPLE``, ``RAFIKI_PROFILE``, and the sandbox,
+dependency, speculative-decoding and stream-resume switches); rollout has
+no switch of its own to refuse (ROADMAP.md, queue C). The budget keys
+still refused are ``TRIAL_VMAP_K`` above 1 and ``GEN_DRAFT_TRIAL``.
+``TEXT_GENERATION`` takes generation-capable templates only (a
+``GenerationSpec`` and the decode methods; checked at upload and again,
+statically, at a train job), and its inference job streams from the
+per-job door's
 ``/generate`` (``RAFIKI_PREDICTOR_PORTS=1``), whose host and port
 ``get_inference_job`` reports.
 """
@@ -71,6 +78,11 @@ from rafiki_tpu_torch.placement.manager import (
     PlacementManager,
 )
 from rafiki_tpu_torch.placement.process import ProcessPlacementManager
+from rafiki_tpu_torch.predictor.admission import (
+    AdmissionController,
+    DeadlineUnmeetableError,
+    ServerOverloadedError,
+)
 from rafiki_tpu_torch.sdk.artifact import read_artifact
 from rafiki_tpu_torch.sdk.knob import serialize_knob_config
 from rafiki_tpu_torch.sdk.log import parse_logs
@@ -128,6 +140,10 @@ class Admin:
         self._predict_route_lock = threading.Lock()
         self._predict_route_cache: Dict[Any, Any] = {}  # guarded-by: lock
         self._predict_route_epoch = 0  # guarded-by: _predict_route_lock
+        # one gate for the whole /predict/<app> door: it protects this
+        # process, whatever job a request is for
+        self._predict_admission = AdmissionController(
+            door="admin", shared_tenants=True)
         self.placement = placement or LocalPlacementManager()
         if self.placement.on_status is None:
             self.placement.on_status = self._on_service_status
@@ -625,16 +641,19 @@ class Admin:
                 app_version: int = -1) -> List[Any]:
         """Route queries to the app's running predictor. The resolution
         (control-plane reads) is cached for ``PREDICT_ROUTE_TTL_S``; a
-        dead route re-resolves at once. ``QueueFullError`` (429 at the
-        door) and ``TimeoutError`` (504) pass through."""
+        dead route re-resolves at once. The door's admission sheds first
+        (``ServerOverloadedError``, 503; ``DeadlineUnmeetableError``,
+        429); ``QueueFullError`` (429) and ``TimeoutError`` (504) pass
+        through."""
         key = (user_id, app, app_version)
         now = time.monotonic()
         with self._predict_route_lock:
             cached = self._predict_route_cache.get(key)
         if cached is not None and now - cached[0] < config.PREDICT_ROUTE_TTL_S:
             try:
-                return self._predict_on(cached[1], queries)
-            except QueueFullError:
+                return self._predict_on(cached[1], queries, app)
+            except (QueueFullError, ServerOverloadedError,
+                    DeadlineUnmeetableError):
                 raise  # overload, not a dead route
             except TimeoutError:
                 # the route may be stale, but a timeout is not retried: the
@@ -670,17 +689,27 @@ class Admin:
         with self._predict_route_lock:
             if self._predict_route_epoch == epoch:
                 self._predict_route_cache[key] = (now, predictor)
-        return self._predict_on(predictor, queries)
+        return self._predict_on(predictor, queries, app)
 
-    @staticmethod
-    def _predict_on(predictor, queries: List[Any]) -> List[Any]:
+    def _predict_on(self, predictor, queries: List[Any],
+                    tenant: str) -> List[Any]:
+        """Admit, predict, release, and feed the latency back."""
         cap = int(config.PREDICT_QUEUE_DEPTH)
         if cap > 0 and len(queries) > cap:
             # can never fit a worker queue: a client error, not a 429
             raise InvalidRequestError(
                 f"request carries {len(queries)} queries but the per-worker "
                 f"queue cap is {cap} (RAFIKI_PREDICT_QUEUE_DEPTH); split it")
-        return predictor.predict_batch(queries)
+        self._predict_admission.admit(
+            config.PREDICT_TIMEOUT_S, backlog_depth=predictor.backlog_depth(),
+            tenant=tenant, cost=predictor.admission_cost(queries))
+        t0 = time.monotonic()
+        try:
+            preds = predictor.predict_batch(queries)
+        finally:
+            self._predict_admission.release(tenant=tenant)
+        self._predict_admission.observe(time.monotonic() - t0, len(queries))
+        return preds
 
     # -- jobs and events -----------------------------------------------------
 
@@ -757,16 +786,15 @@ class Admin:
 
 
 #: the serving counters a worker process relays
-_RELAYED_STATS = ("batches", "queries", "queue_depth", "expired", "shed")
+_RELAYED_STATS = ("batches", "queries", "queue_depth", "expired", "shed",
+                  "fused_dispatch")
 
 #: budget keys, and the values of them, that ask for what is not ported:
-#: population trials; fused ensembles and speculative decoding's draft
-#: trial (ROADMAP.md)
+#: population trials and speculative decoding's draft trial (ROADMAP.md)
 _UNPORTED_TRAIN_BUDGET = {
     BudgetType.TRIAL_VMAP_K: lambda v: v not in (0, 1),
 }
 _UNPORTED_SERVING_BUDGET = {
-    BudgetType.ENSEMBLE_FUSED: lambda v: int(v) != 0,
     BudgetType.GEN_DRAFT_TRIAL: bool,
 }
 

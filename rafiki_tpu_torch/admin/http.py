@@ -31,6 +31,12 @@ from rafiki_tpu_torch.admin.admin import Admin, InvalidRequestError
 from rafiki_tpu_torch.cache.queue import FrameTooLargeError, QueueFullError
 from rafiki_tpu_torch.constants import UserType
 from rafiki_tpu_torch.placement.manager import InsufficientChipsError
+from rafiki_tpu_torch.predictor.admission import (
+    DeadlineUnmeetableError,
+    ServerOverloadedError,
+    retry_after_headers,
+)
+from rafiki_tpu_torch.predictor.server import DoorHTTPServer
 from rafiki_tpu_torch.sdk.artifact import ArtifactCorruptError
 from rafiki_tpu_torch.sdk.knob import deserialize_knob_config
 from rafiki_tpu_torch.sdk.model import InvalidModelClassError
@@ -142,8 +148,7 @@ class AdminServer:
             def do_DELETE(self):
                 server._dispatch(self, "DELETE")
 
-        self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
-        self._httpd.daemon_threads = True
+        self._httpd = DoorHTTPServer((self.host, self.port), Handler)
         self.port = self._httpd.server_address[1]
         # worker processes reach the advisor and send events through this
         # door: tell a process placement where it is
@@ -362,10 +367,14 @@ class AdminServer:
             self._respond(handler, 413, {"error": f"{type(e).__name__}: {e}"})
         except ArtifactCorruptError as e:
             self._respond(handler, 500, {"error": f"{type(e).__name__}: {e}"})
-        except QueueFullError as e:
+        except (QueueFullError, DeadlineUnmeetableError) as e:
+            # overload, retryable: 429 + Retry-After, as the job's own door
             self._respond(handler, 429, {"error": f"{type(e).__name__}: {e}"},
-                          headers={"Retry-After": str(max(
-                              1, round(e.retry_after_s)))})
+                          headers=retry_after_headers(e))
+        except ServerOverloadedError as e:
+            # the door's in-flight slots are gone
+            self._respond(handler, 503, {"error": f"{type(e).__name__}: {e}"},
+                          headers=retry_after_headers(e))
         except TimeoutError as e:
             self._respond(handler, 504, {"error": f"{type(e).__name__}: {e}"})
         except InsufficientChipsError as e:

@@ -17,6 +17,15 @@ Own copy of the core of ``rafiki_tpu/admin/services.py``:
   so on a one-card host both best trials are served on ``cuda:0``. A
   ``TEXT_GENERATION`` job serves its one best trial with
   ``GenerationWorker`` s (a token stream answers from one model);
+- a fused ensemble (budget ``ENSEMBLE_FUSED``): ``n_replicas`` serving
+  executors, each holding every best trial (its row names the group's top
+  trial and carries ``trial_ids``) and answering with the final
+  ensemble, one vmapped forward when the template's ``ensemble_stack``
+  fuses them (``worker/inference.py``); a ``TEXT_GENERATION`` job cannot
+  fuse (a typed ``ServiceDeploymentError``);
+- a serving teardown and a deploy flush the job's predict result cache
+  (``predictor/result_cache.py``), so a redeploy never answers from the
+  old fleet's entries;
 - with ``RAFIKI_PREDICTOR_PORTS=1`` each inference job gets its own door
   (``PredictorServer``: ``/predict``, ``/generate``) on
   ``RAFIKI_PREDICTOR_HOST``, its host and port on the predictor's service
@@ -25,10 +34,10 @@ Own copy of the core of ``rafiki_tpu/admin/services.py``:
   failure; a train job's status is derived from its workers' services.
 
 Not ported (ROADMAP.md; ``Admin`` refuses the budget keys that ask for
-them): generation across cards, fused ensembles, speculative
-decoding's draft, generation in worker processes (refused typed), standby
-replicas, rollout, drain, scaling, chip loans and reclaim, and recovery's
-adoption of running services.
+them): generation across cards, speculative decoding's draft, generation
+in worker processes (refused typed), standby replicas, rollout, drain,
+scaling, chip loans and reclaim, and recovery's adoption of running
+services.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.placement.manager import PlacementManager
 from rafiki_tpu_torch.placement.process import ProcessPlacementManager
 from rafiki_tpu_torch.predictor.predictor import Predictor
+from rafiki_tpu_torch.predictor.result_cache import get_cache
 from rafiki_tpu_torch.predictor.server import PredictorServer
 from rafiki_tpu_torch.worker.generation import GenerationWorker
 from rafiki_tpu_torch.worker.inference import InferenceWorker
@@ -205,6 +215,9 @@ class ServicesManager:
             server = self._servers.pop(inference_job_id, None)
         if server is not None:
             server.stop()
+        # the job's cached answers go with its fleet (the epoch bump also
+        # drops fills racing this teardown)
+        get_cache().flush_job(inference_job_id, reason="teardown")
         if inf and inf.get("predictor_service_id"):
             self._db.mark_service_as_stopped(inf["predictor_service_id"])
         if errored:
@@ -251,17 +264,37 @@ class ServicesManager:
             config.INFERENCE_WORKER_REPLICAS_PER_TRIAL,
             alloc.total_chips // max(len(best_trials) * chips_per_worker,
                                      1)))
+        fused = bool((inf_job.get("budget") or {}).get(
+            BudgetType.ENSEMBLE_FUSED, 0))
+        if fused and generative:
+            # a token stream answers from one model, not a fused ensemble
+            self._db.mark_inference_job_as_errored(inference_job_id)
+            raise ServiceDeploymentError(
+                "budget ENSEMBLE_FUSED is unsupported for TEXT_GENERATION "
+                "jobs: a token stream answers from one model, not a fused "
+                "cross-trial ensemble; drop ENSEMBLE_FUSED")
+        if fused:
+            # a unit serves the whole group: replicas of the unit alone
+            n_replicas = max(1, min(
+                config.INFERENCE_WORKER_REPLICAS_PER_TRIAL,
+                alloc.total_chips // chips_per_worker))
+            units = [(best_trials[0]["id"], f"fused:{inference_job_id}",
+                      [t["id"] for t in best_trials])] * n_replicas
+        else:
+            units = [(t["id"], t["id"], None) for t in best_trials
+                     for _ in range(n_replicas)]
+        # a redeploy never answers from an earlier fleet's cache entries
+        get_cache().flush_job(inference_job_id, reason="deploy")
         created: List[str] = []
         worker_trials: Dict[str, str] = {}
         try:
-            for trial in best_trials:
-                for _ in range(n_replicas):
-                    sid = self._create_inference_worker(
-                        inference_job_id, trial["id"],
-                        GenerationWorker if generative else InferenceWorker,
-                        n_chips=chips_per_worker)
-                    created.append(sid)
-                    worker_trials[sid] = trial["id"]
+            for trial_id, group, trial_ids in units:
+                sid = self._create_inference_worker(
+                    inference_job_id, trial_id,
+                    GenerationWorker if generative else InferenceWorker,
+                    n_chips=chips_per_worker, trial_ids=trial_ids)
+                created.append(sid)
+                worker_trials[sid] = group
             predictor_service = self._db.create_service(ServiceType.PREDICT)
             self._db.update_inference_job_predictor(inference_job_id,
                                                     predictor_service["id"])
@@ -294,12 +327,15 @@ class ServicesManager:
 
     def _create_inference_worker(self, inference_job_id: str,
                                  trial_id: str, worker_cls=InferenceWorker,
-                                 n_chips: int = 1) -> str:
+                                 n_chips: int = 1,
+                                 trial_ids: Optional[List[str]] = None
+                                 ) -> str:
         service = self._db.create_service(ServiceType.INFERENCE)
         self._db.create_inference_job_worker(service["id"], inference_job_id,
                                              trial_id)
+        fused = {"trial_ids": trial_ids} if trial_ids else {}
         worker = worker_cls(inference_job_id, trial_id, self._db,
-                            self._broker)
+                            self._broker, **fused)
         try:
             # a serving executor prefers a device of its own, and shares
             # one when training or its siblings hold them all
@@ -307,7 +343,7 @@ class ServicesManager:
                 service["id"], ServiceType.INFERENCE, worker.start,
                 n_chips=n_chips, best_effort_chips=True,
                 extra={"inference_job_id": inference_job_id,
-                       "trial_id": trial_id})
+                       "trial_id": trial_id, **fused})
         except Exception:
             self._db.mark_service_as_stopped(service["id"])
             raise

@@ -41,8 +41,8 @@ that asks for ``CONTENT_TYPE``; no ring carries them, so :func:`decode`
 Not ported: trace metadata on the encoding side (the tracer is not
 ported; a version-2 frame's ``"t"`` is still decoded), the sender's
 JSON framing switch ``RAFIKI_WIRE_BINARY`` (the port sends frames only;
-its receivers still take JSON), and the result cache's
-``canonical_digest``.
+its receivers still take JSON). :func:`canonical_digest` keys the predict
+result cache with the JAX package's digest.
 """
 
 from __future__ import annotations
@@ -267,6 +267,40 @@ def decode_token_delta(raw: bytes):
         raise WireFormatError("token-delta payload is not an integer array")
     return sid, TokenDelta([int(t) for t in body.ravel()],
                            finished=fin, reason=reason, error=err)
+
+
+def canonical_digest(obj: Any) -> "str | None":
+    """A stable content hash of one query, the predict result cache's key
+    (``predictor/result_cache.py``): blake2b-128 over the version-1 frame
+    (dtype, shape and raw bytes) for a payload that carries an array,
+    else over sorted-key compact JSON, as ``rafiki_tpu.cache.wire`` does,
+    so the two packages give one query the same digest. None for a
+    payload with no canonical encoding: the cache never stores it."""
+    import hashlib
+
+    try:
+        if isinstance(obj, np.ndarray) or _has_array(obj):
+            raw = encode(obj)
+        else:
+            raw = json.dumps(obj, sort_keys=True,
+                             separators=(",", ":")).encode()
+    except (TypeError, ValueError):
+        return None
+    return hashlib.blake2b(raw, digest_size=16).hexdigest()
+
+
+def _has_array(obj: Any, depth: int = 0) -> bool:
+    """Whether ``obj`` carries an ndarray or numpy scalar within 8 levels
+    (deeper payloads take the JSON form)."""
+    if depth > 8:
+        return False
+    if isinstance(obj, (np.ndarray, np.generic)):
+        return True
+    if isinstance(obj, dict):
+        return any(_has_array(v, depth + 1) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return any(_has_array(v, depth + 1) for v in obj)
+    return False
 
 
 def stackable(queries: List[Any]) -> bool:

@@ -4,26 +4,28 @@ Own copy of ``rafiki_tpu/client/client.py`` for the routes this package
 serves, with the same method names, arguments and return values: login,
 users, models (upload from a file path or bytes, download, dry-run
 verification), train jobs, trials (logs, params, ``load_trial_model``),
-inference jobs and ``predict``, ``generate`` (token streaming through the
-job's own door), and the advisor sessions a process-placed train worker
-uses (``advisor/remote.py``). It speaks HTTP with the standard library's
+inference jobs and ``predict``, ``predict_direct`` and ``generate``
+(through the job's own door), and the advisor sessions a process-placed
+train worker uses (``advisor/remote.py``). It speaks HTTP with the standard library's
 ``urllib.request``, and ``http.client`` for the chunked streams; a
 non-200 answer raises :class:`RafikiError` with the status, and an admin
 that cannot be reached raises :class:`AdminUnavailableError`.
-Multi-address failover, ``predict_direct``, rollout and drift are not
-ported (ROADMAP.md).
+Multi-address failover, rollout and drift are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import base64
 import http.client
+import io
 import json
 import time
 import urllib.error
 import urllib.parse
 import urllib.request
 from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
 
 from rafiki_tpu_torch import config
 from rafiki_tpu_torch.cache import wire
@@ -279,6 +281,53 @@ class Client:
             cached = (host, port, now + config.PREDICT_ROUTE_TTL_S)
             self._predictor_ports[key] = cached
         return cached
+
+    def predict_direct(self, app: str, queries: Any,
+                       app_version: int = -1) -> List[Any]:
+        """Predict through the job's own door (``RAFIKI_PREDICTOR_PORTS=1``),
+        past the admin. ``queries`` is a JSON list, or a numpy array (a
+        leading batch axis), which goes as one ``.npy`` body and asks for
+        the answer the same way (``Accept``; the door answers JSON for
+        ragged predictions, and the reply's type decides). The door's
+        address is cached as :meth:`generate` caches it and dropped on
+        any failure, so a redeploy re-resolves."""
+        key = (app, app_version)
+        host, port, _ = self._dedicated_door(app, app_version)
+        headers = {}
+        if self._token:
+            headers["Authorization"] = f"Bearer {self._token}"
+        if isinstance(queries, np.ndarray):
+            buf = io.BytesIO()
+            try:
+                np.save(buf, queries, allow_pickle=False)
+            except ValueError as e:  # the caller's array, not the route
+                raise RafikiError(f"queries array not npy-encodable: {e}")
+            headers["Content-Type"] = "application/x-npy"
+            headers["Accept"] = "application/x-npy, application/json"
+            body = buf.getvalue()
+        else:
+            headers["Content-Type"] = "application/json"
+            body = json.dumps({"queries": queries}).encode()
+        conn = http.client.HTTPConnection(host, port, timeout=self._timeout_s)
+        try:
+            conn.request("POST", "/predict", body=body, headers=headers)
+            resp = conn.getresponse()
+            raw = resp.read()
+            rtype = (resp.getheader("Content-Type") or "").split(";")[0]
+            if resp.status == 200 and rtype == "application/x-npy":
+                return list(np.load(io.BytesIO(raw), allow_pickle=False))
+            payload = json.loads(raw)
+        except (OSError, http.client.HTTPException, ValueError) as e:
+            # unreachable, or not the door (the port reclaimed)
+            self._predictor_ports.pop(key, None)
+            raise RafikiError(f"dedicated predictor unreachable: {e}")
+        finally:
+            conn.close()
+        if resp.status != 200:
+            self._predictor_ports.pop(key, None)
+            raise RafikiError(payload.get("error", f"HTTP {resp.status}"),
+                              status=resp.status)
+        return payload["data"]["predictions"]
 
     def generate(self, app: str, prompt_ids: List[int],
                  max_tokens: Optional[int] = None, app_version: int = -1,

@@ -76,6 +76,27 @@ _DYNAMIC = {
     # per-worker inbox cap; submits beyond it raise QueueFullError
     # (0 = uncapped)
     "PREDICT_QUEUE_DEPTH": lambda: _env_int("RAFIKI_PREDICT_QUEUE_DEPTH", 256),
+    # -- admission at the serving doors (predictor/admission.py): requests
+    # in flight a door admits before it answers 503 (0: no cap)
+    "PREDICT_MAX_INFLIGHT": lambda: _env_int(
+        "RAFIKI_PREDICT_MAX_INFLIGHT", 64),
+    # a hedge to a sibling replica deeper than this is held back (0: never)
+    "PREDICT_HEDGE_SUPPRESS_DEPTH": lambda: _env_int(
+        "RAFIKI_PREDICT_HEDGE_SUPPRESS_DEPTH", PREDICT_MAX_BATCH_SIZE),
+    # seconds a per-job door's stop() waits for the requests in flight
+    "PREDICT_DRAIN_S": lambda: _env_float("RAFIKI_PREDICT_DRAIN_S", 5.0),
+    # -- the predict result cache (predictor/result_cache.py), off by
+    # default as in the JAX package: identical queries to a job answered
+    # from a bounded cache keyed (digest, job, serving version)
+    "PREDICT_CACHE": lambda: os.environ.get(
+        "RAFIKI_PREDICT_CACHE", "0") == "1",
+    "PREDICT_CACHE_TTL_S": lambda: _env_float(
+        "RAFIKI_PREDICT_CACHE_TTL_S", 30.0),
+    "PREDICT_CACHE_MAX_BYTES": lambda: _env_int(
+        "RAFIKI_PREDICT_CACHE_MAX_BYTES", 64 * 1024 * 1024),
+    # 0: concurrent identical misses each pay their own forward
+    "PREDICT_SINGLEFLIGHT": lambda: os.environ.get(
+        "RAFIKI_PREDICT_SINGLEFLIGHT", "1") != "0",
     # where a process-placed service's log goes (service-<id>.log)
     "LOGS_DIR": lambda: os.environ.get(
         "RAFIKI_LOGS_DIR", os.path.join(workdir(), "logs")),
@@ -188,7 +209,6 @@ _UNPORTED = (
     ("RAFIKI_AUTOSCALE_FAIR", _is_one, "weighted fair admission"),
     ("RAFIKI_AUTOSCALE_WARM_POOL", _positive, "the warm pool"),
     ("RAFIKI_DRIFT", _is_one, "drift detection and retraining"),
-    ("RAFIKI_PREDICT_CACHE", _is_one, "the predict result cache"),
     ("RAFIKI_SERVE_INT8", _is_one, "int8 serving"),
     ("RAFIKI_AGENTS", bool, "host placement (agents)"),
     ("RAFIKI_ADMIN_ADDRS", bool, "admin failover (HA)"),

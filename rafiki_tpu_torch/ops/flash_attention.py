@@ -484,6 +484,49 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+@torch.library.custom_op("rafiki::flash_fwd", mutates_args=())
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, sm_scale: Optional[float], block_q: int,
+               block_k: int) -> torch.Tensor:
+    """K1 without the LSE, as an operator of its own, so that
+    ``torch.func.vmap`` reaches it through :func:`_flash_fwd_vmap` (a
+    batched tensor has no data pointer for the kernel to read)."""
+    if _on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, causal, sm_scale, block_k)
+    out = _launch_fwd(q, k, v, None, None, causal, sm_scale, block_q,
+                      block_k)
+    _count(flash_attention)
+    return out
+
+
+def _flash_fwd_vmap(info, in_dims, q, k, v, causal, sm_scale, block_q,
+                    block_k):
+    """The vmap rule of :func:`_flash_fwd`, the counterpart of XLA
+    batching the Pallas call over ``jax.vmap``'s axis: the vmapped axis
+    (T, the trials of a fused ensemble) moves to the front and folds into
+    the batch, so ONE launch attends over all T·B rows, and the output
+    unfolds to (T, B, H, S, Dh). The fold is a view where the stacked
+    projection's strides merge, else a copy (counted in
+    ``flash_attention.vmap_copies``)."""
+    t = info.batch_size
+    folded = []
+    for x, d in zip((q, k, v), in_dims[:3]):
+        x = x.expand(t, *x.shape) if d is None else x.movedim(d, 0)
+        f = x.reshape(t * x.shape[1], *x.shape[2:])
+        # (a view's _base is not kept under inference_mode: the storage
+        # tells a view from a copy)
+        if (f.untyped_storage().data_ptr()
+                != x.untyped_storage().data_ptr()):
+            with _count_lock:
+                flash_attention.vmap_copies += 1
+        folded.append(f)
+    out = _flash_fwd(*folded, causal, sm_scale, block_q, block_k)
+    return out.view(t, -1, *out.shape[1:]), 0
+
+
+_flash_fwd.register_vmap(_flash_fwd_vmap)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, sm_scale: Optional[float] = None,
                     block_q: int = DEFAULT_BLOCK_Q,
@@ -499,20 +542,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``block_k`` are tuning arguments that change nothing beyond rounding,
     as in the JAX package: they set the f32 kernels' and the plain
     versions' tiles, and the bf16 kernels use their own warpgroup tiles (64
-    rows, 64 keys)."""
+    rows, 64 keys). Under ``torch.func.vmap`` (a fused ensemble's stacked
+    forward) the vmapped axis folds into the batch and K1 runs once over
+    every trial's rows (:func:`_flash_fwd_vmap`)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, sm_scale, block_q,
                                      block_k)
-    if _on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, causal, sm_scale, block_k)
-    out = _launch_fwd(q, k, v, None, None, causal, sm_scale, block_q,
-                      block_k)
-    _count(flash_attention)
-    return out
+    _on_cpu(q, k, v)  # a device that is neither raises here
+    return _flash_fwd(q, k, v, causal, sm_scale, block_q, block_k)
 
 
 flash_attention.launches = 0
+flash_attention.vmap_copies = 0
 flash_attention_lse.launches = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0

@@ -267,7 +267,8 @@ class Ranks:
     """Rank 0's side of a data group: the group and the followers' pipes.
 
     ``Ranks(devices)`` starts the followers and the group and returns when
-    every rank is up (bounded by the group's timeout); ``startups`` holds
+    every rank is up (bounded by the group's timeout; a follower that
+    exits before the group forms raises at once); ``startups`` holds
     each follower's wall-clock stamps and ``init_s`` the seconds from the
     first spawn to the last rank up. Use as a context manager, or call
     :meth:`close`."""
@@ -298,8 +299,7 @@ class Ranks:
                 proc.start()
                 child.close()
                 self._followers.append(_Follower(r, proc, parent))
-            self.group = _make_group(self._store, 0, self.size,
-                                     mesh.devices[0])
+            self.group = self._join(mesh.devices[0], timeout)
             for f in self._followers:
                 msg = self._recv(f, timeout.total_seconds())
                 self.startups.append(msg[1])
@@ -310,6 +310,46 @@ class Ranks:
         self.init_s = time.time() - t0
         logger.info("ranks up on %s in %.2f s: %s", self.devices,
                     self.init_s, json.dumps(self.startups))
+
+    def _join(self, device: torch.device,
+              timeout: datetime.timedelta) -> DataGroup:
+        """Rank 0's part of the group, formed on a helper thread while the
+        followers' processes are watched: a follower that exits before it
+        joins (it could not import its main module, or failed on its
+        device) raises at once, naming its rank and exit code, where the
+        store would otherwise wait for it until the group's timeout. The
+        helper is then left to that timeout, which ends it."""
+        box: Dict[str, Any] = {}
+
+        def form() -> None:
+            try:
+                box["group"] = _make_group(self._store, 0, self.size, device)
+            except BaseException as e:  # handed to the caller below
+                box["error"] = e
+
+        helper = threading.Thread(target=form, name="rafiki-ranks-join",
+                                  daemon=True)
+        helper.start()
+        sentinels = {f.proc.sentinel: f for f in self._followers}
+        deadline = time.monotonic() + timeout.total_seconds() \
+            + _REPLY_MARGIN_S
+        while helper.is_alive():
+            for ready in wait_any(list(sentinels), timeout=0.1):
+                f = sentinels[ready]
+                f.proc.join(timeout=1.0)
+                raise TrialFault(
+                    f"rank {f.rank} (pid {f.proc.pid}) of {self.devices} "
+                    f"exited with code {f.proc.exitcode} before the group "
+                    "formed", kind=FaultKind.INFRA)
+            if not sentinels:
+                helper.join(timeout=0.1)
+            if time.monotonic() > deadline:
+                raise TrialFault(
+                    f"the group over {self.devices} did not form within "
+                    f"{timeout.total_seconds():.0f} s", kind=FaultKind.INFRA)
+        if "error" in box:
+            raise box["error"]
+        return box["group"]
 
     def __enter__(self) -> "Ranks":
         return self
@@ -328,6 +368,13 @@ class Ranks:
         """Each follower builds its own instance of the template class
         with ``knobs`` and sets ``attrs`` on it (``checkpoint_path``)."""
         self._send(("model", model_file_bytes, model_class, knobs, attrs))
+        self._settle(None)
+
+    def new_fused(self, members: List[tuple], task: Optional[str]) -> None:
+        """Each follower builds its own fused ensemble of ``members``
+        (``(template bytes, class name, knobs, params path)`` each, as
+        ``worker/inference.load_fused`` takes them) as its model."""
+        self._send(("fused", members, task))
         self._settle(None)
 
     def call(self, model: Any, method: str, *args: Any) -> Any:
@@ -643,6 +690,11 @@ def _dispatch(state: Dict[str, Any], msg: tuple) -> Any:
         for k, v in attrs.items():
             setattr(model, k, v)
         state["model"] = model
+        return None
+    if kind == "fused":
+        from rafiki_tpu_torch.worker.inference import load_fused
+
+        state["model"] = load_fused(msg[1], msg[2])
         return None
     if kind == "call":
         _, method, args = msg

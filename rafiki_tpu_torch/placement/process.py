@@ -15,7 +15,8 @@ a parent that may have touched CUDA), with in its environment:
   its followers, one process a device (``parallel/ranks.py``), which see
   the same cards;
 - its payload ids (``sub_train_job_id``; ``inference_job_id`` and
-  ``trial_id``), from the service's ``extra``;
+  ``trial_id``, and a fused ensemble's ``trial_ids`` as
+  ``RAFIKI_TRIAL_IDS``), from the service's ``extra``;
 - the metadata store, which every process opens (the same SQLite/WAL
   file), the serving data plane's shm namespace (``cache/shm_broker.py``;
   the rings are created here, at placement, so the child only attaches),
@@ -283,6 +284,9 @@ class ProcessPlacementManager(PlacementManager):
                     "(RAFIKI_BROKER=shm) to attach to the serving data plane")
             env["RAFIKI_INFERENCE_JOB_ID"] = ctx.extra["inference_job_id"]
             env["RAFIKI_TRIAL_ID"] = ctx.extra["trial_id"]
+            if ctx.extra.get("trial_ids"):
+                # a fused ensemble's group (budget ENSEMBLE_FUSED)
+                env["RAFIKI_TRIAL_IDS"] = ",".join(ctx.extra["trial_ids"])
             env["RAFIKI_BROKER_PREFIX"] = prefix
         else:
             raise ValueError(

@@ -10,8 +10,10 @@ with the same request and response shapes:
 - the answer is ``{"data": {"predictions": [...]}}``, or one ``.npy`` body
   when the client sends ``Accept: application/x-npy``;
 - 400 for a malformed request, 413 for a body over ``PREDICT_MAX_BODY_MB``,
-  429 + ``Retry-After`` when every queue is full, 503 with no worker,
-  504 when no worker answers in time;
+  429 + ``Retry-After`` when every queue is full or the estimated wait is
+  past the request's deadline, 503 (+ ``Retry-After``) when the door's
+  in-flight cap is reached, 503 with no worker, 504 when no worker
+  answers in time;
 - ``POST /generate`` with ``{"prompt_ids": [...], "max_tokens": N,
   "timeout_s": T}`` and the optional ``temperature``, ``top_k``, ``top_p``
   and ``seed``: a chunked response, one delta a chunk, as JSON lines, or
@@ -21,11 +23,17 @@ with the same request and response shapes:
   ``RAFIKI_GEN_STREAM_TIMEOUT_S``) ends it with a typed terminal error
   delta, never a silent hang;
 - with ``auth`` (the default) both POST routes take the admin's bearer
-  tokens (401 without one), so one login works on both doors.
+  tokens (401 without one), so one login works on both doors;
+- every request passes the door's
+  :class:`~rafiki_tpu_torch.predictor.admission.AdmissionController`
+  first (fed the predictor's ``backlog_depth``; ``/generate`` costs its
+  KV blocks, :func:`_generate_cost`), and ``GET /healthz`` carries its
+  ``stats()``, the predictor's ``overload_stats()`` and ``queue_depths``;
+- ``stop()`` drains: it stops accepting and waits for the requests in
+  flight, up to ``RAFIKI_PREDICT_DRAIN_S``; a second call does nothing.
 
-Standard library ``http.server`` only. Admission control (and
-``/generate``'s admission cost), tracing and metrics are not ported yet
-(ROADMAP.md).
+Standard library ``http.server`` only. Tracing and metrics are not ported
+yet (ROADMAP.md, item 12).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import json
 import logging
 import math
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
@@ -46,6 +55,12 @@ from rafiki_tpu_torch.cache.queue import (
     GenerationError,
     QueueFullError,
     TokenDelta,
+)
+from rafiki_tpu_torch.predictor.admission import (
+    AdmissionController,
+    DeadlineUnmeetableError,
+    ServerOverloadedError,
+    retry_after_headers,
 )
 from rafiki_tpu_torch.utils.auth import UnauthorizedError, decode_token
 from rafiki_tpu_torch.worker.generation import GenerationRequestError
@@ -70,6 +85,26 @@ def _parse_timeout_s(value: object):
     return min(t, MAX_TIMEOUT_S), None
 
 
+class DoorHTTPServer(ThreadingHTTPServer):
+    """The doors' threading server with a listen backlog for a burst: at
+    the standard library's 5, the connections of a burst past it are
+    reset before admission could answer them 503."""
+
+    daemon_threads = True
+    request_queue_size = 128
+
+
+def _generate_cost(prompt_len: int, max_tokens: int) -> int:
+    """A ``/generate`` request's admission cost in the unit that gates the
+    generation worker: KV pool blocks under the paged allocator
+    (ceil((prompt + budget) / block tokens)), or the decode budget under
+    the contiguous ring (every slot holds a whole context there)."""
+    if bool(config.GEN_KV_PAGED):
+        bt = max(int(config.GEN_KV_BLOCK_TOKENS), 1)
+        return max(-(-(prompt_len + max_tokens) // bt), 1)
+    return max(max_tokens, 1)
+
+
 class PredictorServer:
     def __init__(self, predictor, app: str, host: str = "127.0.0.1",
                  port: int = 0, auth: bool = True):
@@ -79,8 +114,12 @@ class PredictorServer:
         self.host = host
         self.port = port
         self.auth = auth
+        self.admission = AdmissionController(door=f"predictor:{app}")
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        self._stop_lock = threading.Lock()
+        self._stopped = False  # guarded-by: _stop_lock
+        self._draining = False
 
     def start(self) -> "PredictorServer":
         server = self
@@ -95,11 +134,7 @@ class PredictorServer:
 
             def do_GET(self):
                 if self.path.split("?", 1)[0].rstrip("/") == "/healthz":
-                    depths = server.predictor.queue_depths()
-                    server._respond(self, 200, {
-                        "app": server.app,
-                        "status": "ok" if depths else "degraded",
-                        "workers": len(depths), "queue_depths": depths})
+                    server._healthz(self)
                 else:
                     server._respond(self, 404, {"error": "no such route"})
 
@@ -109,8 +144,7 @@ class PredictorServer:
                 else:
                     server._predict(self)
 
-        self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
-        self._httpd.daemon_threads = True
+        self._httpd = DoorHTTPServer((self.host, self.port), Handler)
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name=f"predictor-{self.app}",
@@ -120,15 +154,52 @@ class PredictorServer:
                     self.host, self.port)
         return self
 
-    def stop(self) -> None:
-        if self._httpd is None:
-            return
-        self._httpd.shutdown()
+    def stop(self, drain_timeout_s: Optional[float] = None) -> None:
+        """Stop accepting, wait for the requests in flight (at most
+        ``drain_timeout_s``, default ``RAFIKI_PREDICT_DRAIN_S``), then
+        close. Idempotent: teardown paths may race to a second stop."""
+        with self._stop_lock:
+            if self._stopped or self._httpd is None:
+                self._stopped = True
+                return
+            self._stopped = True
+            self._draining = True
+        if drain_timeout_s is None:
+            drain_timeout_s = float(config.PREDICT_DRAIN_S)
+        self._httpd.shutdown()  # the accept loop ends; handlers live on
+        deadline = time.monotonic() + max(drain_timeout_s, 0.0)
+        while self.admission.inflight > 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if self.admission.inflight:
+            logger.warning("predictor %s closed with %d request(s) still in "
+                           "flight after the %.1f s drain", self.app,
+                           self.admission.inflight, drain_timeout_s)
         self._httpd.server_close()
         self._thread.join(timeout=5.0)
-        self._httpd = None
+        self._draining = False
 
     # -- handling ------------------------------------------------------------
+
+    def _backlog(self) -> Optional[int]:
+        fn = getattr(self.predictor, "backlog_depth", None)
+        return fn() if callable(fn) else None
+
+    def _cost(self, queries) -> int:
+        fn = getattr(self.predictor, "admission_cost", None)
+        return fn(queries) if callable(fn) else len(queries)
+
+    def _healthz(self, handler) -> None:
+        """Liveness and load: ``degraded`` with no worker queue,
+        ``draining`` while ``stop()`` drains; the queue depths, the
+        admission counters and the predictor's overload counters."""
+        depths = self.predictor.queue_depths()
+        status = ("draining" if self._draining
+                  else "ok" if depths else "degraded")
+        overload = getattr(self.predictor, "overload_stats", None)
+        self._respond(handler, 200, {
+            "app": self.app, "status": status, "workers": len(depths),
+            "queue_depths": depths, "admission": self.admission.stats(),
+            **({"overload": overload()} if callable(overload) else {})})
 
     def _read_body(self, handler) -> Optional[bytes]:
         """The request body, or None after answering 400/413. A refusal
@@ -197,11 +268,23 @@ class PredictorServer:
         if err:
             return self._respond(handler, 400, {"error": err})
         try:
-            preds = self.predictor.predict_batch(queries, timeout_s=timeout_s)
-        except QueueFullError as e:
-            return self._respond(
-                handler, 429, {"error": str(e)},
-                {"Retry-After": str(max(1, math.ceil(e.retry_after_s)))})
+            # shed here costs microseconds; a doomed admit costs the fleet
+            self.admission.admit(
+                timeout_s, backlog_depth=self._backlog(), tenant=self.app,
+                cost=self._cost(queries))
+            t0 = time.monotonic()
+            try:
+                preds = self.predictor.predict_batch(queries,
+                                                     timeout_s=timeout_s)
+            finally:
+                self.admission.release(tenant=self.app)
+            self.admission.observe(time.monotonic() - t0, len(queries))
+        except (QueueFullError, DeadlineUnmeetableError) as e:
+            return self._respond(handler, 429, {"error": str(e)},
+                                 retry_after_headers(e))
+        except ServerOverloadedError as e:
+            return self._respond(handler, 503, {"error": str(e)},
+                                 retry_after_headers(e))
         except TimeoutError as e:
             return self._respond(handler, 504, {"error": str(e)})
         except RuntimeError as e:  # no workers registered
@@ -268,23 +351,45 @@ class PredictorServer:
                 except (TypeError, ValueError):
                     return self._respond(handler, 400, {
                         "error": f"{key} must be a number"})
+        prompt = query["prompt_ids"]
+        cost = _generate_cost(
+            len(prompt) if isinstance(prompt, (list, tuple)) else 0,
+            max_tokens)
         try:
-            stream = self.predictor.generate(query, timeout_s=timeout_s)
-        except GenerationRequestError as e:
-            return self._respond(handler, 400, {"error": str(e)})
-        except QueueFullError as e:
-            return self._respond(
-                handler, 429, {"error": str(e)},
-                {"Retry-After": str(max(1, math.ceil(e.retry_after_s)))})
-        except TimeoutError as e:  # no slot admitted it in time
-            return self._respond(handler, 504, {"error": str(e)})
-        except RuntimeError as e:  # no workers, a failed prefill
-            return self._respond(handler, 503, {"error": str(e)})
-        except Exception:
-            logger.exception("generate failed for %s", self.app)
-            return self._respond(handler, 500,
-                                 {"error": "internal server error"})
-        self._stream_deltas(handler, stream, self._accepts_wire(handler))
+            self.admission.admit(
+                timeout_s, backlog_depth=self._backlog(), tenant=self.app,
+                cost=cost)
+        except DeadlineUnmeetableError as e:
+            return self._respond(handler, 429, {"error": str(e)},
+                                 retry_after_headers(e))
+        except ServerOverloadedError as e:
+            return self._respond(handler, 503, {"error": str(e)},
+                                 retry_after_headers(e))
+        # the slot is held until the stream ends
+        try:
+            t0 = time.monotonic()
+            try:
+                stream = self.predictor.generate(query, timeout_s=timeout_s)
+            except GenerationRequestError as e:
+                return self._respond(handler, 400, {"error": str(e)})
+            except QueueFullError as e:
+                # admitted here, refused by every replica: a shed too
+                self.admission.note_backend_shed()
+                return self._respond(handler, 429, {"error": str(e)},
+                                     retry_after_headers(e))
+            except TimeoutError as e:  # no slot admitted it in time
+                return self._respond(handler, 504, {"error": str(e)})
+            except RuntimeError as e:  # no workers, a failed prefill
+                return self._respond(handler, 503, {"error": str(e)})
+            except Exception:
+                logger.exception("generate failed for %s", self.app)
+                return self._respond(handler, 500,
+                                     {"error": "internal server error"})
+            served = self._stream_deltas(handler, stream,
+                                         self._accepts_wire(handler))
+            self.admission.observe(time.monotonic() - t0, max(served, 1))
+        finally:
+            self.admission.release(tenant=self.app)
 
     @staticmethod
     def _stream_deltas(handler, stream, binary: bool) -> int:

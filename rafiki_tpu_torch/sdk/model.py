@@ -127,6 +127,18 @@ class BaseModel(abc.ABC):
     def destroy(self) -> None:
         """Release resources (default: no-op)."""
 
+    def ensemble_stack(self, models: List["BaseModel"]) -> Optional[Any]:
+        """The fused-ensemble serving hook (budget ``ENSEMBLE_FUSED``).
+        ``models`` is the whole co-served group, ``self`` included. Return
+        an object with ``predict_all(queries) -> [n_models][n_queries]``
+        (and optionally ``warm_up()``) that answers for every model in one
+        forward: for templates on the SDK trainer,
+        ``sdk.torch_backend.trainer_ensemble_stack``. Return None when the
+        group shares no stacked predict (another architecture, other
+        parameter shapes, a stateful trainer); the fused worker then
+        serves the models one after another. Default: None."""
+        return None
+
     # -- the generation contract (worker/generation.py drives it) ----------
 
     #: a :class:`GenerationSpec` advertises TEXT_GENERATION serving

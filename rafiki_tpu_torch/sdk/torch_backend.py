@@ -3,7 +3,10 @@
 Counterpart of ``rafiki_tpu/sdk/jax_backend.py``: ``DataParallelTrainer``
 (``init``, ``fit`` with mid-trial checkpoints, the stateful variant, the
 padded predict-bucket ladder, ``predict_batched``, ``warm_predict``),
-``cached_trainer`` and ``trainer_cache_clear``, ``tunable_optimizer`` and
+the fused ensemble's stacked predict (``stack_ensemble_params``,
+``predict_batched_stacked``, ``warm_predict_stacked`` and
+``trainer_ensemble_stack``), ``cached_trainer`` and
+``trainer_cache_clear``, ``tunable_optimizer`` and
 ``set_opt_hyperparams``, ``shuffled_batches``,
 ``softmax_classifier_loss`` and ``classification_accuracy``. The class
 keeps its name.
@@ -64,6 +67,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rafiki_tpu_torch import config
 from rafiki_tpu_torch.device import default_device, visible_devices
 from rafiki_tpu_torch.parallel.ranks import current_group, verdict_point
 from rafiki_tpu_torch.sdk.artifact import (
@@ -543,6 +547,169 @@ class DataParallelTrainer:
                 params, np.broadcast_to(example[None], (b,) + example.shape),
                 state)
         return len(buckets)
+
+    # -- fused ensemble serving -------------------------------------------
+
+    def stack_ensemble_params(self, params_list: List[torch.nn.Module]
+                              ) -> "StackedModels":
+        """N models of one architecture as one stacked ensemble on the
+        trainer's device: every parameter and buffer stacked along a new
+        leading axis (the co-resident ensemble's device layout), the first
+        model as the structure :func:`torch.func.functional_call` runs."""
+        return StackedModels(params_list, self.device)
+
+    def _run_predict_stacked(self, stacked: "StackedModels",
+                             chunk: np.ndarray) -> np.ndarray:
+        """(n_models, len(chunk), ...) for one bucket, every model in ONE
+        vmapped forward; over several ranks each answers its slice of the
+        bucket for every model, and the slices are gathered in rank
+        order."""
+        group = current_group()
+        chunk = chunk[self._shard(len(chunk))]
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+            out = stacked.forward(self.predict_fn, x)
+            if group is not None:
+                # (ranks, models, rows, ...) -> (models, ranks * rows, ...)
+                out = group.all_gather(out).transpose(0, 1).flatten(1, 2)
+            return out.cpu().numpy()
+
+    def predict_batched_stacked(self, stacked: "StackedModels",
+                                x: np.ndarray,
+                                batch_size: int = 256) -> np.ndarray:
+        """``predict_batched`` for a fused ensemble: ``(n_models, len(x),
+        ...)``, one vmapped forward a padded bucket, on the same bucket
+        ladder."""
+        if self.stateful or self.predict_fn is None:
+            raise ValueError("fused ensemble serving takes a stateless "
+                             "trainer with a predict_fn")
+        outs = []
+        for chunk, pad in self._bucket_chunks(x, batch_size):
+            out = self._run_predict_stacked(stacked, chunk)
+            outs.append(out[:, : out.shape[1] - pad] if pad else out)
+        if not outs:
+            return np.zeros((stacked.n_models, 0))
+        return np.concatenate(outs, axis=1)
+
+    def warm_predict_stacked(self, stacked: "StackedModels",
+                             example: np.ndarray,
+                             batch_size: int = 256) -> int:
+        """``warm_predict`` for the fused ensemble: every bucket once."""
+        example = np.asarray(example)
+        buckets = self.predict_buckets(self.round_batch(max(batch_size, 1)))
+        for b in buckets:
+            self._run_predict_stacked(
+                stacked,
+                np.broadcast_to(example[None], (b,) + example.shape))
+        return len(buckets)
+
+
+class _Predict(torch.nn.Module):
+    """``predict_fn(model, x)`` as a module's forward, so that
+    :func:`torch.func.functional_call` can run it over another model's
+    parameters."""
+
+    def __init__(self, model: torch.nn.Module, predict_fn: Callable):
+        super().__init__()
+        self.model = model
+        self.predict_fn = predict_fn
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.predict_fn(self.model, x)
+
+
+class StackedModels:
+    """The counterpart of the JAX package's stacked parameter tree: N
+    models of one architecture, their parameters and buffers stacked on a
+    leading axis on one device, answered by ``torch.func.vmap`` of
+    ``functional_call`` over that axis, the counterpart of
+    ``jax.vmap(predict_fn, in_axes=(0, None))``. The attention of a
+    transformer inside runs K1 once a layer over every model's rows (the
+    kernel's vmap rule, ``ops/flash_attention.py``); the other products are
+    batched products."""
+
+    def __init__(self, models: List[torch.nn.Module], device):
+        self.n_models = len(models)
+
+        def stacked(named):
+            # "model.": the parameters' names inside _Predict
+            return {"model." + k: torch.stack([
+                t[k].detach().to(device) for t in named])
+                for k in named[0]}
+
+        with torch.no_grad():
+            self.params = stacked([dict(m.named_parameters())
+                                   for m in models])
+            self.buffers = stacked([dict(m.named_buffers())
+                                    for m in models])
+        self._structure = models[0]
+
+    def forward(self, predict_fn: Callable, x: torch.Tensor) -> torch.Tensor:
+        """(n_models, B, ...): ``predict_fn(model_i, x)`` for every i."""
+        wrapper = _Predict(self._structure, predict_fn)
+
+        def one(params, buffers, x):
+            return torch.func.functional_call(wrapper, (params, buffers),
+                                              (x,))
+
+        return torch.func.vmap(one, in_dims=(0, 0, None))(
+            self.params, self.buffers, x)
+
+
+def trainer_ensemble_stack(models: list, example: np.ndarray,
+                           to_predictions: Optional[Callable] = None,
+                           to_batch: Optional[Callable] = None):
+    """``BaseModel.ensemble_stack`` for templates on
+    :class:`DataParallelTrainer` (a template's ``_trainer``, and its
+    trained module in ``_model``): the co-served group ``models`` fused
+    into one vmapped predict over stacked parameters, or None when they
+    cannot share one. Fusion needs every model on the SAME trainer
+    instance (the ``cached_trainer`` entry: one template, one
+    architecture), a stateless trainer with a predict_fn (a BatchNorm
+    trainer is stateful: None), and parameters of equal names and shapes.
+    ``example`` is one query for the warm-up; ``to_predictions(out)``
+    turns one model's output batch into its answers (default: a list a
+    row); ``to_batch(queries)`` turns queries into the batch (default:
+    ``np.asarray(queries, np.float32)``; a text template passes its
+    tokenizer). Once the stack exists each model's own parameters move to
+    the host: the stack is the device's copy."""
+    first = models[0]
+    trainer = getattr(first, "_trainer", None)
+    if trainer is None or getattr(first, "_model", None) is None:
+        return None
+    if trainer.stateful or trainer.predict_fn is None:
+        return None
+    if any(getattr(m, "_trainer", None) is not trainer for m in models):
+        return None
+    shapes = [{k: tuple(v.shape) for k, v in
+               [*m._model.named_parameters(), *m._model.named_buffers()]}
+              for m in models]
+    if any(s != shapes[0] for s in shapes[1:]):
+        return None
+    stacked = trainer.stack_ensemble_params([m._model for m in models])
+    for m in models:
+        m._model.to("cpu")
+    example = np.asarray(example)
+    convert = to_predictions or (lambda out: [row.tolist() for row in out])
+    batchify = to_batch or (
+        lambda queries: np.asarray(queries, dtype=np.float32))
+
+    class _Fused:
+        n_models = len(models)
+
+        @staticmethod
+        def predict_all(queries):
+            out = trainer.predict_batched_stacked(
+                stacked, batchify(queries),
+                batch_size=config.PREDICT_MAX_BATCH_SIZE)
+            return [convert(per_model) for per_model in out]
+
+        @staticmethod
+        def warm_up():
+            trainer.warm_predict_stacked(
+                stacked, example, batch_size=config.PREDICT_MAX_BATCH_SIZE)
+
+    return _Fused()
 
 
 def softmax_classifier_loss(apply_fn: Callable[..., torch.Tensor]) -> LossFn:

@@ -37,6 +37,7 @@ from rafiki_tpu_torch.sdk.torch_backend import (
     cached_trainer,
     classification_accuracy,
     softmax_classifier_loss,
+    trainer_ensemble_stack,
     tunable_optimizer,
 )
 
@@ -164,6 +165,15 @@ class TorchBert(BaseModel):
         self._trainer.warm_predict(
             self._model, np.zeros((self._knobs["max_len"],), np.int32),
             batch_size=config.PREDICT_MAX_BATCH_SIZE)
+
+    def ensemble_stack(self, models):
+        # fused-ensemble serving (budget ENSEMBLE_FUSED): the queries go
+        # through the tokenizer, as in predict
+        if self._model is None:
+            return None
+        return trainer_ensemble_stack(
+            models, np.zeros((self._knobs["max_len"],), np.int32),
+            to_batch=self._to_ids)
 
     def dump_parameters(self) -> Dict[str, Any]:
         return {"params": to_jax_params(self._model),

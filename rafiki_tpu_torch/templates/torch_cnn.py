@@ -32,6 +32,7 @@ from rafiki_tpu_torch.sdk.torch_backend import (
     cached_trainer,
     classification_accuracy,
     softmax_classifier_loss,
+    trainer_ensemble_stack,
     tunable_optimizer,
 )
 
@@ -164,6 +165,17 @@ class TorchCnn(BaseModel):
         self._trainer.warm_predict(
             self._model, np.zeros((size, size, channels), np.float32),
             batch_size=config.PREDICT_MAX_BATCH_SIZE)
+
+    def ensemble_stack(self, models):
+        # fused-ensemble serving (budget ENSEMBLE_FUSED): trials of one
+        # architecture share the cached trainer and answer a batch in one
+        # vmapped forward; another architecture gives None
+        if self._model is None:
+            return None
+        size = self._knobs["image_size"]
+        channels = self._model.stem.kernel.shape[1]
+        return trainer_ensemble_stack(
+            models, np.zeros((size, size, channels), np.float32))
 
     def dump_parameters(self) -> Dict[str, Any]:
         return {"params": to_jax_tree(self._model)[0],

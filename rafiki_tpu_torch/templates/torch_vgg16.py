@@ -25,6 +25,7 @@ from rafiki_tpu_torch.sdk.torch_backend import (
     cached_trainer,
     classification_accuracy,
     softmax_classifier_loss,
+    trainer_ensemble_stack,
     tunable_optimizer,
 )
 
@@ -110,6 +111,14 @@ class TorchVgg16(BaseModel):
             self._model, np.zeros((size, size, self._cfg.channels),
                                   np.float32),
             batch_size=config.PREDICT_MAX_BATCH_SIZE)
+
+    def ensemble_stack(self, models):
+        # fused-ensemble serving (budget ENSEMBLE_FUSED)
+        if self._model is None or self._cfg is None:
+            return None
+        size = self._knobs["image_size"]
+        return trainer_ensemble_stack(
+            models, np.zeros((size, size, self._cfg.channels), np.float32))
 
     def dump_parameters(self) -> Dict[str, Any]:
         return {"params": to_jax_tree(self._model)[0],

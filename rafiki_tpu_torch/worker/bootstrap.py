@@ -10,7 +10,8 @@ starts it with what it needs in the environment:
                                               "cpu:0,cpu:1")
     RAFIKI_DB_PATH                            the shared SQLite/WAL file
     RAFIKI_SUB_TRAIN_JOB_ID                   (TRAIN)
-    RAFIKI_INFERENCE_JOB_ID, RAFIKI_TRIAL_ID  (INFERENCE)
+    RAFIKI_INFERENCE_JOB_ID, RAFIKI_TRIAL_ID  (INFERENCE; a fused
+    ensemble's RAFIKI_TRIAL_IDS too)
     RAFIKI_ADMIN_ADDR                         host:port of the admin's door
     RAFIKI_BROKER_PREFIX                      the shm data plane's namespace
 
@@ -215,10 +216,14 @@ def _run_inference(ctx, db, admin_client) -> None:
         # for /inference_jobs/<app>/<v>/stats
         report = lambda payload: admin_client.send_event(  # noqa: E731
             EVENT_INFERENCE_WORKER_STATS, **payload)
+    trial_ids = os.environ.get("RAFIKI_TRIAL_IDS")
     InferenceWorker(_require("RAFIKI_INFERENCE_JOB_ID"),
                     _require("RAFIKI_TRIAL_ID"), db,
                     ShmBrokerClient(_require("RAFIKI_BROKER_PREFIX")),
-                    report_stats=report).start(ctx)
+                    report_stats=report,
+                    # a fused ensemble's group (budget ENSEMBLE_FUSED)
+                    trial_ids=trial_ids.split(",") if trial_ids else None
+                    ).start(ctx)
 
 
 if __name__ == "__main__":

@@ -19,8 +19,15 @@ fails a batch fails it as one device would; one that dies leaves the
 ranks broken, and the worker fails its batch and stops (a process-placed
 worker is started again by its placement).
 
-Chaos injection, the sandbox and fused ensembles are not ported yet
-(ROADMAP.md).
+A fused-ensemble worker (budget ``ENSEMBLE_FUSED``; ``trial_ids``) loads
+every best trial and answers each batch with the final cross-trial
+ensemble (:class:`_FusedEnsembleModel`): in ONE vmapped forward over the
+trials' stacked parameters when their template's ``ensemble_stack``
+fuses them, else one model after another. Its stats row says which
+(``fused_dispatch``). Over several devices every rank holds the whole
+group and answers its part of each batch for every trial.
+
+Chaos injection and the sandbox are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from rafiki_tpu_torch.cache.queue import Broker
 from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.device import ServiceContext, set_device_grant
 from rafiki_tpu_torch.parallel.ranks import Ranks, load_params_file
+from rafiki_tpu_torch.predictor.ensemble import ensemble_predictions
 from rafiki_tpu_torch.sdk.model import load_model_class
 
 logger = logging.getLogger(__name__)
@@ -55,6 +63,12 @@ def serving_stats() -> Dict[str, Dict[str, int]]:
     shed}} for this process."""
     with _stats_lock:
         return {k: dict(v) for k, v in SERVING_STATS.items()}
+
+
+def _record_fused(service_id: str, fused: bool) -> None:
+    with _stats_lock:
+        s = SERVING_STATS.setdefault(service_id, {"batches": 0, "queries": 0})
+        s["fused_dispatch"] = fused
 
 
 def _record_batch(service_id: str, n_queries: int, queue) -> None:
@@ -104,17 +118,86 @@ def _split(queries: Any, n: int) -> List[Any]:
     return parts
 
 
+class _FusedEnsembleModel:
+    """The fused-ensemble serving unit: every best trial's model in this
+    worker, answering each batch as one unit with the final ensemble.
+    When the template's ``ensemble_stack`` fuses the group, the whole
+    ensemble is one vmapped forward; when it returns None, or raises (it
+    is template code: a raising hook is logged and the group served one
+    model after another, never a failed worker start), the models answer
+    in turn. The predictor treats the group as one trial."""
+
+    def __init__(self, models: List[Any], task: Optional[str]):
+        self._models = models
+        self._task = task
+        self._stacked = None
+        stack_fn = getattr(models[0], "ensemble_stack", None)
+        if callable(stack_fn):
+            try:
+                self._stacked = stack_fn(models)
+            except Exception:
+                logger.exception(
+                    "fused worker: ensemble_stack hook raised; serving %d "
+                    "models one after another", len(models))
+        if self._stacked is None and len(models) > 1:
+            logger.info("fused worker: the trials share no stacked predict; "
+                        "serving %d models one after another", len(models))
+
+    @property
+    def fused_dispatch(self) -> bool:
+        return self._stacked is not None
+
+    def predict(self, queries):
+        if self._stacked is not None:
+            per_model = self._stacked.predict_all(queries)
+        else:
+            per_model = [m.predict(queries) for m in self._models]
+        return [ensemble_predictions([pm[i] for pm in per_model], self._task)
+                for i in range(len(queries))]
+
+    def warm_up(self) -> None:
+        if self._stacked is not None:
+            self._stacked.warm_up()
+        else:
+            for m in self._models:
+                m.warm_up()
+
+    def destroy(self) -> None:
+        for m in self._models:
+            try:
+                m.destroy()
+            except Exception:
+                logger.exception("destroy failed for a fused-ensemble model")
+
+
+def load_fused(members: List[tuple], task: Optional[str]
+               ) -> _FusedEnsembleModel:
+    """A fused ensemble of ``members``, each ``(template bytes, class
+    name, knobs, params path)``, built in this process (a rank of a
+    several-device worker builds its own)."""
+    models = []
+    for model_bytes, class_name, knobs, params_path in members:
+        model = load_model_class(model_bytes, class_name)(**knobs)
+        load_params_file(model, params_path)
+        models.append(model)
+    return _FusedEnsembleModel(models, task)
+
+
 class InferenceWorker:
     def __init__(self, inference_job_id: str, trial_id: str, db: Database,
                  broker: Broker,
                  report_stats: Optional[Callable[[Dict[str, Any]],
-                                                 None]] = None):
+                                                 None]] = None,
+                 trial_ids: Optional[List[str]] = None):
         """``report_stats({"service_id", "batches", "queries", ...})``
         relays this worker's cumulative counters to a remote admin, from a
         thread, every ``REPORT_INTERVAL_S`` and once more at exit;
-        best-effort."""
+        best-effort. ``trial_ids`` makes the worker a fused ensemble of
+        those trials (budget ``ENSEMBLE_FUSED``); ``trial_id`` is then the
+        group's top trial, its bookkeeping row."""
         self._job_id = inference_job_id
         self._trial_id = trial_id
+        self._trial_ids = list(trial_ids) if trial_ids else [trial_id]
         self._db = db
         self._broker = broker
         self._report_stats = report_stats
@@ -145,6 +228,8 @@ class InferenceWorker:
         push()  # the batches since the last beat
 
     def _load_model(self, ranks: Optional[Ranks] = None):
+        if len(self._trial_ids) > 1:
+            return self._load_fused(ranks)
         trial = self._db.get_trial(self._trial_id)
         if trial is None or not trial["params_file_path"]:
             raise KeyError(f"no trained trial {self._trial_id}")
@@ -160,6 +245,22 @@ class InferenceWorker:
                             model_row["model_class"], trial["knobs"])
             ranks.load(model, trial["params_file_path"])
         return model
+
+    def _load_fused(self, ranks: Optional[Ranks]) -> _FusedEnsembleModel:
+        members = []
+        for tid in self._trial_ids:
+            trial = self._db.get_trial(tid)
+            if trial is None or not trial["params_file_path"]:
+                raise KeyError(f"no trained trial {tid}")
+            model_row = self._db.get_model(trial["model_id"])
+            members.append((model_row["model_file_bytes"],
+                            model_row["model_class"], trial["knobs"],
+                            trial["params_file_path"]))
+        inf = self._db.get_inference_job(self._job_id)
+        task = self._db.get_train_job(inf["train_job_id"])["task"]
+        if ranks is not None:
+            ranks.new_fused(members, task)
+        return load_fused(members, task)
 
     def start(self, ctx: ServiceContext) -> None:
         """Serve until ``ctx`` stops or the queue closes. Runs in the
@@ -187,6 +288,8 @@ class InferenceWorker:
                 model.warm_up()
             else:
                 ranks.each(model, "warm_up", [()] * ranks.size)
+            if isinstance(model, _FusedEnsembleModel):
+                _record_fused(ctx.service_id, model.fused_dispatch)
             ctx.ready()
             if self._report_stats is not None:
                 reporter = threading.Thread(

@@ -274,6 +274,41 @@ def test_cuda_k1_reads_projection_views(fused, dh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh", flash_mod.HEAD_DIMS)
+def test_cuda_vmapped_k1_is_one_launch_over_every_trial(dh):
+    """K1 under ``torch.func.vmap`` over T stacked trials' projections
+    (a fused ensemble's forward): ONE launch a call over all T·B rows,
+    each trial's output the same bits as K1 on that trial alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    t, b, h, s = 3, 4, 2, 130
+    gen = torch.Generator(device="cuda").manual_seed(dh)
+    x = torch.randn(t, b, s, h * dh, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    ws = [(torch.randn(t, h * dh, h, dh, generator=gen, device="cuda")
+           * 0.05).to(torch.bfloat16) for _ in range(3)]
+
+    def project(xt, wq, wk, wv):
+        return [torch.einsum("bsd,dhk->bhsk", xt, w) for w in (wq, wk, wv)]
+
+    with torch.inference_mode():
+        q, k, v = torch.func.vmap(project)(x, *ws)
+        before = flash_attention.launches
+        out = torch.func.vmap(flash_attention)(q, k, v)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        for i in range(t):
+            alone = flash_attention(q[i], k[i], v[i])
+            assert torch.equal(out[i], alone)
+            ref = flash_attention_plain(q[i], k[i], v[i]).float()
+            # an output of a few units rounds by 2^-7 of it in bf16: the
+            # error over max(1, |ref|), as the large-batch causal test
+            # holds it
+            err = (out[i].float() - ref).abs() / ref.abs().clamp(min=1.0)
+            assert float(err.max()) <= 1e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("dh", flash_mod.HEAD_DIMS)
 def test_cuda_k2_k3_read_projection_views(fused, dh):

@@ -17,12 +17,14 @@ rank 0 in the test's process and the followers spawned. Held here:
 - worlds 2 and 4: ``predict_batched`` at 1, 7 and 33 rows against world 1;
 - world 2: a checkpointed fit resumes from rank 0's file;
 - a follower's exception is raised on rank 0 as itself; a SIGKILLed one
-  is an INFRA fault, fast;
+  is an INFRA fault, fast; one that exits before the group forms ends
+  ``Ranks(...)`` with an INFRA fault in seconds, not at the timeout;
 - the stack: ``CHIPS_PER_TRIAL`` and ``CHIPS_PER_WORKER`` deploy as the
   JAX package's do (``tests/test_stack.py``), a trial trains over its
   grant's ranks, a several-rank worker serves one rank's answers, a
-  killed follower's trial is a fault row and the worker goes on, and
-  generation across cards is refused typed.
+  killed follower's trial is a fault row and the worker goes on,
+  generation across cards is refused typed, and a fused ensemble over 2
+  ranks answers as over one.
 
 The rank-side functions live here, at module level: a follower imports
 this module by name to run them.
@@ -32,6 +34,7 @@ import os
 import re
 import signal
 import time
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -506,6 +509,40 @@ def test_a_killed_follower_is_an_infra_fault_not_a_hang():
         assert time.monotonic() - t0 < 15
 
 
+@pytest.mark.parametrize("n", [2, 4])
+def test_a_follower_dead_before_joining_raises_in_seconds(
+        n, tmp_path, monkeypatch):
+    """A follower that cannot start (here, as when the parent's main
+    module is ``<stdin>``, its main module cannot be re-imported, so it
+    exits before joining) ends ``Ranks(...)`` with an INFRA fault naming
+    the rank and its exit code, in seconds, not at the group's timeout
+    (40 s here); no follower is left behind."""
+    import types
+
+    monkeypatch.setenv("RAFIKI_DIST_TIMEOUT_S", "40")
+    gone = types.ModuleType("__main__")
+    gone.__file__ = str(tmp_path / "gone" / "main.py")
+    gone.__spec__ = None
+    monkeypatch.setitem(__import__("sys").modules, "__main__", gone)
+    procs = []
+    real = ranks.Ranks._join
+
+    def spy(self, *args):
+        procs.extend(f.proc for f in self._followers)
+        return real(self, *args)
+
+    monkeypatch.setattr(ranks.Ranks, "_join", spy)
+    t0 = time.monotonic()
+    with pytest.raises(TrialFault, match=r"exited with code \d+ before "
+                                         r"the group formed") as e:
+        ranks.Ranks(CPUS[:n])
+    assert time.monotonic() - t0 < 10
+    assert e.value.kind == FaultKind.INFRA
+    assert re.search(r"rank [1-3] \(pid \d+\)", str(e.value))
+    assert len(procs) == n - 1
+    assert not any(p.is_alive() for p in procs)
+
+
 def test_each_gives_every_rank_its_part_alone(world2):
     """``Ranks.each``: rank r answers ``parts[r]`` outside the group (no
     collective), the results come back in rank order, a rank whose part
@@ -575,6 +612,7 @@ def _is_zombie(pid):
 
 PROBE = b'''
 import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -882,3 +920,53 @@ def test_a_process_placed_worker_starts_its_followers(tmp_path,
     assert ":rank1:" in log
     assert not any(os.path.exists(f"/proc/{p}") and not _is_zombie(p)
                    for p in pids)
+
+
+FUSED_FF = (Path(torch_backend.__file__).parents[1] / "templates"
+            / "torch_feedforward.py").read_text() + '''
+
+class FusedFF(TorchFeedForward):
+    @staticmethod
+    def get_knob_config():
+        cfg = dict(TorchFeedForward.get_knob_config())
+        cfg["epochs"] = FixedKnob(1)
+        cfg["hidden_layer_count"] = FixedKnob(1)
+        cfg["hidden_layer_units"] = FixedKnob(8)
+        cfg["batch_size"] = FixedKnob(16)
+        cfg["image_size"] = FixedKnob(4)
+        return cfg
+'''
+
+
+def test_a_fused_worker_over_ranks_serves_what_one_rank_serves(
+        cpu4_admin, tmp_path):
+    """ENSEMBLE_FUSED with CHIPS_PER_WORKER=2: each worker's ranks hold
+    the whole group (each rank its own stacked ensemble) and answer their
+    part of a batch; the answers equal the fused ensemble on one rank."""
+    from rafiki_tpu_torch.sdk.dataset import write_numpy_dataset
+    from rafiki_tpu_torch.worker.inference import serving_stats
+
+    admin, uid = cpu4_admin
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(64, 4, 4, 3)).astype(np.float32)
+    y = rng.integers(0, 3, size=64).astype(np.int32)
+    uri = write_numpy_dataset(x, y, str(tmp_path / "d.npz"))
+    admin.create_model(uid, "ff", "IMAGE_CLASSIFICATION", FUSED_FF.encode(),
+                       "FusedFF")
+    admin.create_train_job(uid, "ffapp", "IMAGE_CLASSIFICATION", uri, uri,
+                           budget={"MODEL_TRIAL_COUNT": 2})
+    job = admin.wait_until_train_job_stopped(uid, "ffapp", timeout_s=120)
+    assert job["status"] == "STOPPED"
+    queries = [q.tolist() for q in x[:5]]
+    inf = admin.create_inference_job(uid, "ffapp",
+                                     budget={"ENSEMBLE_FUSED": 1})
+    one = admin.predict(uid, "ffapp", queries)
+    admin.stop_inference_job(uid, "ffapp")
+    inf = admin.create_inference_job(
+        uid, "ffapp", budget={"ENSEMBLE_FUSED": 1, "CHIPS_PER_WORKER": 2})
+    assert [len(w["chips"]) for w in inf["workers"]] == [2, 2]
+    two = admin.predict(uid, "ffapp", queries)
+    assert all(serving_stats()[w["service_id"]]["fused_dispatch"]
+               for w in inf["workers"])
+    admin.stop_inference_job(uid, "ffapp")
+    np.testing.assert_allclose(np.asarray(two), np.asarray(one), atol=1e-6)

@@ -10,6 +10,9 @@
   same forward on the same inputs; only the BLAS threads' summation
   order may differ), and the children's relayed serving counters reach
   the job's stats.
+- A fused ensemble (``ENSEMBLE_FUSED``) in a serving child: the group
+  reaches it as ``RAFIKI_TRIAL_IDS``, it fuses and relays
+  ``fused_dispatch``, and answers as the thread-placed fused worker.
 - A train child SIGKILLed after its first checkpoint is started again
   under the same service id and resumes its trial from the checkpoint.
 - The monitor: a child that crashes is started again, then marked
@@ -212,6 +215,70 @@ def test_tiny_vit_cycle_with_every_worker_a_process(workdir, monkeypatch):
     for p, r in zip(probs, ref):
         assert p.shape == r.shape and p.shape[1] == 10
         np.testing.assert_allclose(p, r, atol=PROB_ATOL, rtol=0)
+
+
+_FUSED_FF = (ROOT / "rafiki_tpu_torch" / "templates"
+             / "torch_feedforward.py").read_text() + """
+
+class FusedFF(TorchFeedForward):
+    @staticmethod
+    def get_knob_config():
+        cfg = dict(TorchFeedForward.get_knob_config())
+        cfg["hidden_layer_count"] = FixedKnob(1)
+        cfg["hidden_layer_units"] = FixedKnob(8)
+        cfg["batch_size"] = FixedKnob(16)
+        cfg["image_size"] = FixedKnob(4)
+        return cfg
+"""
+
+
+def test_a_fused_worker_process_serves_the_group(workdir, monkeypatch):
+    """ENSEMBLE_FUSED under process placement: the child gets the group
+    (``RAFIKI_TRIAL_IDS``), fuses it, relays ``fused_dispatch``, and
+    answers as the same fused ensemble under thread placement does."""
+    store = str(workdir / "store.sqlite3")
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(64, 4, 4, 3)).astype(np.float32)
+    uri = write_numpy_dataset(x, rng.integers(0, 3, 64).astype(np.int32),
+                              str(workdir / "d.npz"))
+    queries = [q.tolist() for q in x[:5]]
+    threads = Admin(db=Database(store), params_dir=str(workdir / "params"),
+                    placement=LocalPlacementManager(ChipAllocator(["cpu"])))
+    try:
+        uid = threads.authenticate_user(config.SUPERADMIN_EMAIL,
+                                        config.SUPERADMIN_PASSWORD)["user_id"]
+        threads.create_model(uid, "ff", "IMAGE_CLASSIFICATION",
+                             _FUSED_FF.encode(), "FusedFF")
+        threads.create_train_job(uid, "ff", "IMAGE_CLASSIFICATION", uri, uri,
+                                 budget={"MODEL_TRIAL_COUNT": 2})
+        threads.wait_until_train_job_stopped(uid, "ff", timeout_s=BUDGET_S)
+        threads.create_inference_job(uid, "ff", budget={"ENSEMBLE_FUSED": 1})
+        ref = threads.predict(uid, "ff", queries)
+        threads.stop_inference_job(uid, "ff")
+    finally:
+        threads.shutdown()
+    monkeypatch.setenv("SERVICE_DEPLOY_TIMEOUT_S", str(BUDGET_S))
+    admin = Admin(db=Database(store), params_dir=str(workdir / "params"),
+                  placement=ProcessPlacementManager(
+                      allocator=ChipAllocator(["cpu"])))
+    srv = AdminServer(admin).start()
+    try:
+        c = Client("127.0.0.1", srv.port, timeout_s=BUDGET_S)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        inf = c.create_inference_job("ff", budget={"ENSEMBLE_FUSED": 1})
+        assert len(inf["workers"]) == 1
+        got = c.predict("ff", queries)
+        deadline = time.monotonic() + BUDGET_S
+        while not c.get_inference_job_stats("ff")["workers"][0].get(
+                "fused_dispatch"):
+            assert time.monotonic() < deadline, "fused_dispatch not relayed"
+            time.sleep(0.2)
+        c.stop_inference_job("ff")
+    finally:
+        srv.stop()
+        admin.shutdown()
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
+                               atol=PROB_ATOL, rtol=0)
 
 
 #: the tiny ViT at 3 epochs, each epoch's report held 1 s, so a trial is

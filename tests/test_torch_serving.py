@@ -311,3 +311,116 @@ def test_ensemble_and_short_batches():
     assert futs[0].result(0) == 7
     with pytest.raises(RuntimeError):
         futs[1].result(0)
+
+
+def test_serving_control_settings_match_jax(monkeypatch):
+    """Admission, hedging, drain and the result cache read the JAX
+    package's names and defaults, at each use."""
+    names = ("PREDICT_MAX_INFLIGHT", "PREDICT_HEDGE_SUPPRESS_DEPTH",
+             "PREDICT_DRAIN_S", "PREDICT_CACHE", "PREDICT_CACHE_TTL_S",
+             "PREDICT_CACHE_MAX_BYTES", "PREDICT_SINGLEFLIGHT")
+    for name in names:
+        assert getattr(config, name) == getattr(jax_config, name), name
+    for env, value in (("RAFIKI_PREDICT_MAX_INFLIGHT", "3"),
+                       ("RAFIKI_PREDICT_DRAIN_S", "0.5"),
+                       ("RAFIKI_PREDICT_CACHE", "1")):
+        monkeypatch.setenv(env, value)
+    for name in names:
+        assert getattr(config, name) == getattr(jax_config, name), name
+
+
+PREDICT_DIRECT_TEMPLATE = b'''
+from rafiki_tpu_torch.sdk.knob import FixedKnob
+from rafiki_tpu_torch.sdk.model import BaseModel
+
+
+class SumModel(BaseModel):
+    """Answers [sum(q), 1 - sum(q)] a query."""
+
+    @staticmethod
+    def get_knob_config():
+        return {"k": FixedKnob(1)}
+
+    def train(self, dataset_uri):
+        pass
+
+    def evaluate(self, dataset_uri):
+        return 1.0
+
+    def predict(self, queries):
+        return [[float(sum(q)), 1.0 - float(sum(q))] for q in queries]
+
+    def dump_parameters(self):
+        return {"w": [1.0]}
+
+    def load_parameters(self, params):
+        pass
+'''
+
+
+@pytest.fixture
+def direct_stack(tmp_path, monkeypatch):
+    """An admin with per-job doors, its REST door, and a logged-in
+    Client, over a deployed one-trial job ``sum``."""
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.http import AdminServer
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.placement.manager import (
+        ChipAllocator,
+        LocalPlacementManager,
+    )
+
+    monkeypatch.setenv("RAFIKI_PREDICTOR_PORTS", "1")
+    admin = Admin(db=Database(":memory:"),
+                  placement=LocalPlacementManager(ChipAllocator(["cpu"])),
+                  params_dir=str(tmp_path))
+    server = AdminServer(admin).start()
+    c = Client("127.0.0.1", server.port, timeout_s=60)
+    c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+    c.create_model("sum", "IMAGE_CLASSIFICATION", PREDICT_DIRECT_TEMPLATE,
+                   "SumModel")
+    c.create_train_job("sum", "IMAGE_CLASSIFICATION", "t", "e",
+                       budget={"MODEL_TRIAL_COUNT": 1})
+    c.wait_until_train_job_stopped("sum", timeout_s=60)
+    c.create_inference_job("sum")
+    yield c
+    server.stop()
+    admin.shutdown()
+
+
+def test_predict_direct_answers_json_and_npy_queries(direct_stack):
+    """The job's own door: a JSON list answers a list; a numpy batch goes
+    as one ``.npy`` body and comes back as arrays; both agree with the
+    admin door."""
+    c = direct_stack
+    queries = [[0.25, 0.25], [0.5, 0.0], [1.0, 1.0]]
+    want = [[0.5, 0.5], [0.5, 0.5], [2.0, -1.0]]
+    assert c.predict_direct("sum", queries) == want
+    assert c.predict("sum", queries) == want
+    got = c.predict_direct("sum", np.asarray(queries, np.float32))
+    assert isinstance(got[0], np.ndarray)
+    np.testing.assert_allclose(np.stack(got), want)
+    from rafiki_tpu_torch.client.client import RafikiError
+
+    with pytest.raises(RafikiError, match="npy"):
+        c.predict_direct("sum", np.asarray([object()]))
+    with pytest.raises(RafikiError) as err:
+        c.predict_direct("sum", [])
+    assert err.value.status == 400
+
+
+def test_predict_direct_reresolves_after_a_redeploy(direct_stack):
+    """The door's address is cached; a redeploy moves it, the first
+    request to the old one fails and drops the entry, and the next
+    resolves the new door."""
+    from rafiki_tpu_torch.client.client import RafikiError
+
+    c = direct_stack
+    first = c.get_inference_job("sum")["predictor_port"]
+    assert c.predict_direct("sum", [[0.0]]) == [[0.0, 1.0]]
+    c.stop_inference_job("sum")
+    c.create_inference_job("sum")
+    assert c.get_inference_job("sum")["predictor_port"] != first
+    with pytest.raises(RafikiError):
+        c.predict_direct("sum", [[0.0]])  # the cached door is gone
+    assert c.predict_direct("sum", [[1.0]]) == [[1.0, 0.0]]

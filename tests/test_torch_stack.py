@@ -510,7 +510,6 @@ def test_the_admin_process_refuses_without_cuda(tmp_path):
     ("RAFIKI_AUTOSCALE_FAIR", "1", "fair admission"),
     ("RAFIKI_AUTOSCALE_WARM_POOL", "2", "warm pool"),
     ("RAFIKI_DRIFT", "1", "drift"),
-    ("RAFIKI_PREDICT_CACHE", "1", "result cache"),
     ("RAFIKI_SERVE_INT8", "1", "int8 serving"),
     ("RAFIKI_AGENTS", "10.0.0.2:7000", "host placement"),
     ("RAFIKI_ADMIN_ADDRS", "127.0.0.1:3000,127.0.0.1:3001", "failover"),
@@ -524,6 +523,35 @@ def test_unported_settings_raise(monkeypatch, name, value, subsystem):
         Admin(db=Database(":memory:"),
               placement=LocalPlacementManager(ChipAllocator(["cpu"])))
     assert err.value.setting == f"{name}={value}"
+
+
+def test_predict_cache_setting_is_accepted_and_caches(tmp_path,
+                                                      monkeypatch):
+    """RAFIKI_PREDICT_CACHE=1 is ported (it was refused): the admin starts,
+    and a repeated request through ``/predict/<app>`` is answered from the
+    cache, with the first answer."""
+    from rafiki_tpu_torch.predictor import result_cache
+
+    monkeypatch.setenv("RAFIKI_PREDICT_CACHE", "1")
+    admin = Admin(db=Database(":memory:"),
+                  placement=LocalPlacementManager(ChipAllocator(["cpu"])),
+                  params_dir=str(tmp_path))
+    try:
+        uid = admin.authenticate_user(config.SUPERADMIN_EMAIL,
+                                      config.SUPERADMIN_PASSWORD)["user_id"]
+        admin.create_model(uid, "fake", "IMAGE_CLASSIFICATION",
+                           FAKE_TEMPLATE, "FakeModel")
+        admin.create_train_job(uid, "a", "IMAGE_CLASSIFICATION", "t", "e",
+                               budget={"MODEL_TRIAL_COUNT": 1})
+        admin.wait_until_train_job_stopped(uid, "a", timeout_s=60)
+        inf = admin.create_inference_job(uid, "a")
+        first = admin.predict(uid, "a", [[0.5], [1.5]])
+        second = admin.predict(uid, "a", [[0.5], [1.5]])
+        assert second == first
+        hits, misses = result_cache.get_cache().job_totals(inf["id"])
+        assert (hits, misses) == (2, 2)
+    finally:
+        admin.shutdown()
 
 
 @pytest.mark.parametrize("name,value", [("RAFIKI_PLACEMENT", "process"),
@@ -588,8 +616,9 @@ def test_spent_time_budget_stops_the_job_before_any_trial(tmp_path):
 def test_unported_budget_keys_are_refused(tmp_path, call, budget):
     """A budget key asking for what the port lacks answers 400 naming it,
     before any job row is made; the same key at its no-op value passes.
-    ``EARLY_STOP``, ``TRIAL_TIMEOUT_S``, ``CHIPS_PER_TRIAL`` and
-    ``CHIPS_PER_WORKER`` are ported: their budgets are accepted (a
+    ``EARLY_STOP``, ``TRIAL_TIMEOUT_S``, ``CHIPS_PER_TRIAL``,
+    ``CHIPS_PER_WORKER`` and ``ENSEMBLE_FUSED`` are ported: their budgets
+    are accepted (a
     several-card ask clamps to this one-entry host), and a malformed
     value gets the JAX package's 400 word for word."""
     admin = Admin(db=Database(":memory:"),
@@ -611,6 +640,17 @@ def test_unported_budget_keys_are_refused(tmp_path, call, budget):
             admin.wait_until_train_job_stopped(uid, "a", timeout_s=60)
             run = lambda b: admin.create_inference_job(  # noqa: E731
                 uid, "a", budget=b)
+        if key == "ENSEMBLE_FUSED":
+            # ported: one fused worker holds the trial group
+            for b in ({key: -1}, {key: "yes"}):
+                with pytest.raises(InvalidRequestError) as ours:
+                    run(b)
+                assert str(ours.value) == _jax_budget_refusal(tmp_path, b)
+            job = run(budget)
+            assert job["budget"][key] == budget[key]
+            assert len(job["workers"]) == 1
+            assert admin.predict(uid, "a", [[0.0]])
+            return
         if key == "CHIPS_PER_WORKER":
             for b in ({key: 0}, {key: "two"}):
                 with pytest.raises(InvalidRequestError) as ours:
