@@ -233,6 +233,33 @@ Phases, each of which must pass (any failure exits non-zero):
    sentences through the admin door (misses), the same 10 again: 80
    hits, no K1 launch, the same answers; both p50s.
 
+13. generation, the rest, on phase 8b's trained LM and store, through
+   an admin whose inventory lists the card once a replica. 13a: a draft
+   (``TorchGenLMDraft``: vocab 32,000, 2,048 positions, 2 x 384, 6
+   heads) trained through ``Client`` as a one-trial ``TEXT_GENERATION``
+   job (40 Adam steps on (8, 512) of 8b's pattern): K1 2 launches and
+   K1-LSE, K2, K3 80 each; each kernel against its plain version at its
+   shape (causal, B=8, H=6, S=512, Dh=64). 13b: 8b's trial deployed with
+   ``GEN_DRAFT_TRIAL`` (two replicas): 8b's 8 prompts greedy, 64 tokens,
+   equal to 8b's plain greedy streams up to their first top-2 gap under
+   ``TIE_GAP``; ``gen_spec_on`` and the spec counters in the stats rows;
+   the acceptance rate, time to first token and tokens/s beside 8b's
+   plain pass; one draft burst and one verify timed (host clock, CUDA
+   events, kernel profile). 13c: 8 sampled streams (seeds 1..8) twice,
+   equal; one captured sampled round's ``paged_verify_step`` on the card
+   against a CPU f32 copy, equal where its decisions clear
+   ``DRAW_MARGIN``. 13d: a ``site=generate`` ``error`` rule on one
+   replica's draft: that replica's row has ``gen_spec_degraded``, the
+   streams finish with 13b's tokens. 13e: 8b's trial at three replicas,
+   no draft, one-shot prefill, a 2-s stall window: 8 sampled streams, a
+   ``site=worker``
+   ``drop`` kill of the replica holding the most after their first
+   deltas, then a ``site=worker`` ``error`` retirement of another; every
+   stream finishes with 8b's uninterrupted tokens (``compared_sampled``'s
+   margins) and the door's ``resumes_worker_death`` and
+   ``resumes_migrating`` count the streams each victim held; the time
+   from each rule to the resumed tokens. No kernel is launched serving.
+
 The line before the last is ``{"kernels": [...]}``, each kernel's
 ``launches`` from phase 5 and ``launches_by_path`` from every path; the
 last is ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -637,13 +664,13 @@ def strided_serving_case(fa, randn) -> float:
     return kernel_ms
 
 
-def training_kernels(fa, qkv, randn):
+def training_kernels(fa, qkv, randn, cases=None):
     """K1 with the LSE, K2 and K3 against their plain versions at the
-    training shape (timed) and at K1's edge cases."""
+    training shape (timed) and at K1's edge cases, or at ``cases``."""
     bf16, f32 = torch.bfloat16, torch.float32
     # (label, b, h, sq, skv, dh, causal, dtype, block_q, block_k, the
     # output's error per element)
-    cases = [
+    cases = cases or [
         ("train B=64", 64, 12, 196, 196, 64, False, bf16, 64, 64, False),
         # phase 8's training shapes: BERT-base, and the LM causal
         ("bert B=32", 32, 12, 128, 128, 64, False, bf16, 64, 64, False),
@@ -2328,10 +2355,12 @@ def text_corpus():
     return uris[0], uris[1], [" ".join(w) for w, _ in sentences]
 
 
-def _stack(name: str, port_store: str, fresh: bool = True):
-    """An admin (thread placement over the visible card), its REST door and
-    a function that makes a logged-in Client, on a fresh store under
-    ``build/chip_smoke/`` (or, without ``fresh``, on the one there)."""
+def _stack(name: str, port_store: str, fresh: bool = True,
+           inventory: list = None):
+    """An admin (thread placement over the visible card, or over
+    ``inventory``), its REST door and a function that makes a logged-in
+    Client, on a fresh store under ``build/chip_smoke/`` (or, without
+    ``fresh``, on the one there)."""
     from rafiki_tpu_torch import config
     from rafiki_tpu_torch.admin.admin import Admin
     from rafiki_tpu_torch.admin.http import AdminServer
@@ -2340,7 +2369,15 @@ def _stack(name: str, port_store: str, fresh: bool = True):
 
     for path in WORK.glob(f"{port_store}*") if fresh else ():
         path.unlink()
-    admin = Admin(db=Database(str(WORK / port_store)),
+    placement = None
+    if inventory is not None:
+        from rafiki_tpu_torch.placement.manager import (
+            ChipAllocator,
+            LocalPlacementManager,
+        )
+
+        placement = LocalPlacementManager(ChipAllocator(inventory))
+    admin = Admin(db=Database(str(WORK / port_store)), placement=placement,
                   params_dir=str(WORK / f"{name}_params"))
     server = AdminServer(admin).start()
 
@@ -2822,6 +2859,10 @@ def lm_phase(card: str) -> list:
                          (small["tokens"], "preempted and uncontended")):
         for a, b, n in zip(paged["sampled"]["tokens"], other, sheld):
             same_until(a, b, n, f"{label} sampled streams")
+    # phase 13 serves this trial again, with a draft and through deaths
+    LM_RUN.update(trial=trial, blob=blob, source=source, prompts=prompts,
+                  seeds=seeds, greedy=greedy, held=held,
+                  sampled=paged["sampled"]["tokens"], sheld=sheld)
     print(f"lm: greedy streams equal the f32 plain-attention argmax for "
           f"{sum(held)} of {STREAMS * GEN_TOKENS} tokens (each stream up to "
           f"its first top-2 gap under {TIE_GAP:g}: {held}), and so do the "
@@ -2877,6 +2918,9 @@ def text_phase(card: str) -> tuple:
 # phase 12: serving control (fused ensemble, admission, the result cache)
 # ---------------------------------------------------------------------------
 
+#: what lm_phase hands phase 13: its trial and parameters, prompts and
+#: seeds, the greedy and sampled streams and how far each was held
+LM_RUN: dict = {}
 #: what bert_phase hands phase 12: its queries, the unfused ensemble's
 #: answers to the first 8 and the trials' mean of them, and its p50 of 8
 BERT_RUN: dict = {}
@@ -3188,6 +3232,595 @@ def serving_control_phase(card: str) -> tuple:
     print(f"serve control: phase 12 took {time.perf_counter() - t_phase:.0f}"
           f" s", flush=True)
     return shape_entry, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 13: generation, the rest (speculative decoding, stream continuity)
+# ---------------------------------------------------------------------------
+
+#: the draft: TorchGenLM at 2 x 384, 6 heads (Dh 64, one of the kernels'
+#: head dims), at LMConfig's vocabulary and context, trained as 8b's
+#: target is (LM_STEPS Adam steps on (8, 512) of the pattern)
+DRAFT_DEPTH, DRAFT_DIM, DRAFT_HEADS = 2, 384, 6
+LM_DRAFT = f"""
+
+class TorchGenLMDraft(TorchGenLM):
+    generation_spec = GenerationSpec(eos_token_id=None, max_context=2048)
+    arch = {{"vocab": 32000, "depth": {DRAFT_DEPTH}, "heads": {DRAFT_HEADS}}}
+    training = (8, 512, {LM_STEPS})
+
+    @staticmethod
+    def get_knob_config():
+        cfg = dict(TorchGenLM.get_knob_config())
+        cfg["lr"] = FixedKnob(1e-3)
+        cfg["dim"] = FixedKnob({DRAFT_DIM})
+        return cfg
+"""
+SPEC_K = 4  # RAFIKI_GEN_SPEC_K's default
+#: the one card, listed once a replica: 13b-13d deploy two replicas (the
+#: default), 13e three, each a worker thread holding the card
+REPLICA_INVENTORY = [0, 0, 0]
+DRILL_REPLICAS = 3
+#: 13e's stall window (RAFIKI_GEN_STREAM_TIMEOUT_S), also how long the door
+#: takes to notice a replica's death
+DRILL_STALL_S = 2.0
+
+
+def draft_kernel_checks() -> None:
+    """K1, and K1 with the LSE, K2 and K3, against their plain versions at
+    the draft's shapes (its evaluate forward and its training step:
+    causal, B=8, H=6, S=512, Dh=64, bf16), with phase 2's tolerances."""
+    fa = importlib.import_module("rafiki_tpu_torch.ops.flash_attention")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 130)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def qkv(b, h, sq, skv, dh, dtype):
+        return [randn(b, h, s, dh, dtype=dtype) for s in (sq, skv, skv)]
+
+    bf16 = torch.bfloat16
+    b, h, s, dh = 8, DRAFT_HEADS, 512, DRAFT_DIM // DRAFT_HEADS
+    q, k, v = qkv(b, h, s, s, dh, bf16)
+    out = fa.flash_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    err, measure = _out_err(out, fa.flash_attention_plain(q, k, v, True),
+                            True)
+    line = (f"K1 draft causal: B={b} H={h} Sq={s} Skv={s} Dh={dh} "
+            f"causal=True bf16: {measure} {err:.3g} (tol {TOL[bf16]:g})")
+    require(bool(torch.isfinite(out).all()), f"{line}: non-finite")
+    require(err <= TOL[bf16], line)
+    print(line, flush=True)
+    training_kernels(fa, qkv, randn, cases=[
+        ("draft causal", b, h, s, s, dh, True, bf16, 64, 64, True)])
+
+
+def draft_job(card: str, c, kernels) -> tuple:
+    """13a: the draft through ``Client``, a one-trial ``TEXT_GENERATION``
+    job of ``TorchGenLMDraft``, and its kernels against their plain
+    versions at its shapes. Returns (its trial, its template source, each
+    kernel's launches in the job)."""
+    source = (TEMPLATES / "torch_gen_lm.py").read_text() + LM_DRAFT
+    model = c.create_model("lm-draft", "TEXT_GENERATION", source.encode(),
+                           "TorchGenLMDraft")
+    require(model["verification"] is not None
+            and model["verification"]["ok"]
+            and model["verification"]["capabilities"]["generation"],
+            f"TorchGenLMDraft upload: {model['verification']}")
+    # ---- the main path's run (the draft's train job): counts from zero --
+    for kernel in kernels:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    c.create_train_job("draft", "TEXT_GENERATION", "pattern://train",
+                       "pattern://test",
+                       budget={"MODEL_TRIAL_COUNT": 1, "CHIP_COUNT": 1},
+                       models=["lm-draft"])
+    job = c.wait_until_train_job_stopped("draft", timeout_s=900,
+                                         poll_s=0.05)
+    torch.cuda.synchronize()
+    job_s = time.perf_counter() - t0
+    counts = [k.launches for k in kernels]
+    # -------------------------------------------------------------------
+    require(job["status"] == "STOPPED", f"draft job {job['status']}: "
+            f"{job.get('error_reason')}")
+    (trial,) = c.get_trials_of_train_job("draft")
+    require(trial["status"] == "COMPLETED" and np.isfinite(trial["score"]),
+            f"draft trial {trial['status']} {trial['score']}")
+    expect = [DRAFT_DEPTH] + [DRAFT_DEPTH * LM_STEPS] * 3
+    print(f"spec: draft train job (TorchGenLMDraft {DRAFT_DEPTH} x "
+          f"{DRAFT_DIM}, {DRAFT_HEADS} heads, 1 trial, {LM_STEPS} Adam steps "
+          f"on (8, 512), causal) STOPPED in {job_s:.1f} s "
+          f"(Client.create_train_job to STOPPED); loss after training "
+          f"{-trial['score']:.4f} (the target's "
+          f"{-LM_RUN['trial']['score']:.4f}); launches K1 {counts[0]}, "
+          f"K1-LSE {counts[1]}, K2 {counts[2]}, K3 {counts[3]} (expected "
+          f"{expect}); card {card}", flush=True)
+    require(counts == expect, f"launches {counts}, expected {expect}")
+    draft_kernel_checks()
+    return trial, source, counts
+
+
+def _deploy(c, app: str, budget: dict = None, **env: str) -> tuple:
+    """(inference job, deploy seconds) with its own door, its workers
+    started under ``env``."""
+    t0 = time.perf_counter()
+    with _Env(RAFIKI_PREDICTOR_PORTS="1", **env):
+        inf = c.create_inference_job(app, budget=budget)
+    return inf, time.perf_counter() - t0
+
+
+def _idle_rows(c, app: str, dead: set = frozenset()) -> dict:
+    """The live workers' stats rows by service id, once none holds a
+    stream (30 s at most)."""
+    deadline = time.monotonic() + 30
+    while True:
+        rows = {r["service_id"]: r for r in
+                c.get_inference_job_stats(app)["workers"]
+                if r["service_id"] not in dead}
+        if all(r.get("gen_resident_streams", 1) == 0
+               for r in rows.values()) or time.monotonic() > deadline:
+            return rows
+        time.sleep(0.1)
+
+
+def _spec_counts(rows: dict) -> tuple:
+    return tuple(sum(r.get(f"gen_spec_{k}", 0) for r in rows.values())
+                 for k in ("proposed", "accepted", "rounds"))
+
+
+class _VerifyCapture:
+    """In place of ``models.lm.paged_verify_step`` while installed: keeps
+    the inputs (the pool pages its tables map, copied before the call
+    writes them) and outputs of a call with sampled rows, the first with
+    ``rows`` live slots (until then, of the one with the most)."""
+
+    def __init__(self, rows: int):
+        from rafiki_tpu_torch.models import lm
+
+        self.lm, self.orig, self.got = lm, lm.paged_verify_step, None
+        self.rows, self.live = rows, 0
+        lm.paged_verify_step = self
+
+    def __call__(self, model, cache, ids, positions, block_tables,
+                 draft_probs, sampling):
+        tables = np.array(block_tables)
+        pool = cache["k"].shape[1]
+        live = int((tables < pool).any(1).sum())
+        if self.live >= min(self.rows, live) or not (
+                np.asarray(sampling["temperature"]) > 0).any():
+            return self.orig(model, cache, ids, positions, block_tables,
+                             draft_probs, sampling)
+        self.live = live
+        with torch.inference_mode():
+            used = np.unique(tables[tables < pool])
+            idx = torch.from_numpy(used).to(cache["k"].device)
+            pages = {n: t[:, idx].cpu() for n, t in cache.items()}
+            out = self.orig(model, cache, ids, positions, block_tables,
+                            draft_probs, sampling)
+            self.got = dict(
+                pages=pages, used=used, tables=tables, ids=np.array(ids),
+                positions=np.array(positions),
+                q=torch.as_tensor(draft_probs).float().cpu(),
+                sampling={k: np.array(v) for k, v in sampling.items()},
+                out=tuple(np.array(torch.as_tensor(o).cpu()) for o in out[:2]))
+        return out
+
+    def close(self) -> None:
+        self.lm.paged_verify_step = self.orig
+
+
+def verify_margins(logits, ids, positions, q, sampling) -> np.ndarray:
+    """Each row's least distance of a decision a verify made from the
+    point where it would flip: a greedy row's top-2 gaps at the positions
+    it committed; a sampled row's accept tests |u q(d) - p(d)| up to its
+    first rejection and its last draw's uniform from the cumulative
+    boundaries of the distribution it drew from."""
+    from rafiki_tpu_torch.models import lm
+
+    k = ids.shape[1] - 1
+    d = torch.from_numpy(ids[:, 1:].astype(np.int64))
+    temp = np.asarray(sampling["temperature"], np.float32)
+    top2 = logits.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).numpy()
+    p = lm.modified_dist(logits, temp[:, None],
+                         np.asarray(sampling["top_k"])[:, None],
+                         np.asarray(sampling["top_p"])[:, None])
+    p_d = torch.gather(p[:, :k], -1, d[..., None])[..., 0]
+    q_d = torch.gather(q, -1, d[..., None])[..., 0]
+    u = torch.from_numpy(lm._uniform_at(sampling["seed"], positions[:, 1:],
+                                        lm.ROLE_ACCEPT))
+    a = torch.cumprod((u * q_d < p_d).long(), -1).sum(-1)
+    test = (u * q_d - p_d).abs().numpy()
+    resid = torch.clamp(p[:, :k] - q, min=0.0)
+    rs = resid.sum(-1, keepdim=True)
+    dist = torch.cat([torch.where(rs > 1e-20, resid / rs.clamp_min(1e-20),
+                                  p[:, :k]), p[:, k:]], 1)
+    x = dist[torch.arange(len(a)), a]
+    u_x = torch.from_numpy(lm._uniform_at(
+        sampling["seed"], positions[:, 0] + 1 + a.numpy(), lm.ROLE_TARGET))
+    draw = (x.cumsum(-1) - u_x[:, None]).abs().min(-1).values.numpy()
+    out = []
+    for i, ai in enumerate(a.tolist()):
+        if temp[i] <= 0:
+            out.append(float(gap[i, :ai + 1].min()))
+        else:
+            out.append(float(min(test[i, :min(ai + 1, k)].min(), draw[i])))
+    return np.asarray(out)
+
+
+def verify_on_cpu(card: str, got: dict) -> None:
+    """13c: the captured round's verify on the card against the same call
+    on a CPU f32 copy of the target and of the pages it read: accept
+    lengths and tokens equal on every row whose decisions clear
+    DRAW_MARGIN (a greedy row: TIE_GAP)."""
+    from rafiki_tpu_torch import convert
+    from rafiki_tpu_torch.models import lm
+    from rafiki_tpu_torch.sdk.model import load_model_class
+
+    clazz = load_model_class(LM_RUN["source"].encode(), "TorchGenLMFull")
+    cfg = clazz(**LM_RUN["trial"]["knobs"])._cfg
+    model = convert.from_jax_params(LM_RUN["blob"], cfg, "cpu")
+    used, tables = got["used"], got["tables"]
+    n_used = len(used)
+    live = np.isin(tables, used)
+    remapped = np.where(live, np.searchsorted(used, tables), n_used)
+    rows = [i for i in range(len(tables)) if live[i].any()]
+    with torch.inference_mode():
+        pages = {n: t.clone() for n, t in got["pages"].items()}
+        logits = lm._paged_forward(model, pages, remapped, got["ids"],
+                                   got["positions"])
+        pages = {n: t.clone() for n, t in got["pages"].items()}
+        acc, toks, _ = lm.paged_verify_step(model, pages, got["ids"],
+                                            got["positions"], remapped,
+                                            got["q"], got["sampling"])
+    margins = verify_margins(logits, got["ids"], got["positions"], got["q"],
+                             got["sampling"])
+    temp = got["sampling"]["temperature"]
+    card_acc, card_toks = got["out"]
+    held = []
+    for i in rows:
+        limit = TIE_GAP if temp[i] <= 0 else DRAW_MARGIN
+        if margins[i] < limit:
+            continue
+        require(int(card_acc[i]) == int(acc[i])
+                and card_toks[i].tolist() == toks[i].tolist(),
+                f"verify row {i}: the card accepted {int(card_acc[i])} "
+                f"({card_toks[i].tolist()}), the CPU {int(acc[i])} "
+                f"({toks[i].tolist()}); margin {margins[i]:.3g}")
+        held.append(i)
+    require(held, f"no verify row cleared its margin: {margins[rows]}")
+    print(f"spec: one captured sampled round's paged_verify_step "
+          f"({len(rows)} slots, k={got['ids'].shape[1] - 1}) on the card "
+          f"against a CPU f32 copy: accept lengths "
+          f"{[int(card_acc[i]) for i in rows]} and tokens equal on "
+          f"{len(held)} of {len(rows)} rows (the others' margins under "
+          f"{DRAW_MARGIN:g}: "
+          f"{[float(margins[i]) for i in rows if i not in held]}); card "
+          f"{card}", flush=True)
+
+
+def _host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median host-clock time of one call, to its result on the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def spec_step_times(card: str, dtrial: dict, dsource: str,
+                    dblob: dict) -> None:
+    """13b: one draft burst (k steps on the draft's ring) and one verify
+    (k+1 positions on the target's pool), 8 slots at position 575: the
+    host clock, CUDA events around a call, and the kernels of a call."""
+    from rafiki_tpu_torch.models import lm
+    from rafiki_tpu_torch.sdk.model import load_model_class
+
+    m = load_model_class(LM_RUN["source"].encode(), "TorchGenLMFull")(
+        **LM_RUN["trial"]["knobs"])
+    m.load_parameters(LM_RUN["blob"])
+    d = load_model_class(dsource.encode(), "TorchGenLMDraft")(
+        **dtrial["knobs"])
+    d.load_parameters(dblob)
+    bt, pos = 16, 575
+    per_slot = -(-m._cfg.max_len // bt)
+    cache = m.init_paged_kv_cache(STREAMS * per_slot, bt)
+    tables = np.arange(STREAMS * per_slot, dtype=np.int32).reshape(
+        STREAMS, per_slot)
+    ring = d.init_kv_cache(STREAMS)
+    ids = np.arange(STREAMS, dtype=np.int32)
+    positions = np.full(STREAMS, pos, np.int32)
+
+    def samp(role, temperature=SAMPLING["temperature"]):
+        return {"seed": np.arange(1, STREAMS + 1, dtype=np.uint32),
+                "temperature": np.full(STREAMS, temperature, np.float32),
+                "top_k": np.zeros(STREAMS, np.int32),
+                "top_p": np.full(STREAMS, SAMPLING["top_p"], np.float32),
+                "role": role}
+
+    burst = lambda: d.decode_steps_sampled(  # noqa: E731
+        ring, ids, positions, SPEC_K, samp(lm.ROLE_DRAFT))
+    toks, q, _ = burst()
+    ids2 = np.concatenate([ids[:, None], toks], 1).astype(np.int32)
+    pos2 = positions[:, None] + np.arange(SPEC_K + 1, dtype=np.int32)
+    for label, fn in (
+            (f"draft burst (k={SPEC_K} chained sampled steps, {STREAMS} "
+             f"slots, ring)", burst),
+            (f"sampled verify ({SPEC_K + 1} positions, {STREAMS} slots, "
+             f"paged)", lambda: m.paged_verify_step(
+                 cache, ids2, pos2, tables, q, samp(lm.ROLE_TARGET))),
+            (f"greedy verify ({SPEC_K + 1} positions, {STREAMS} slots, "
+             f"paged)", lambda: m.paged_verify_step(
+                 cache, ids2, pos2, tables, q, samp(lm.ROLE_TARGET, 0.0)))):
+        host = _host_ms(fn)
+        events = median_ms(fn, reps=20)
+        print(f"spec: {label} at position {pos}: {host:.2f} ms a call on "
+              f"the host clock, {events:.2f} ms by CUDA events around a "
+              f"call; card {card}", flush=True)
+        print_device_profile(fn, label, top=6)
+    del m, d, cache, ring
+
+
+def spec_serving(card: str, c, draft_id: str) -> tuple:
+    """13b-13d on one deployment of 8b's trial with the draft, two
+    replicas: greedy, sampled twice, then greedy with one replica's draft
+    failing. Returns the captured verify round."""
+    from rafiki_tpu_torch.utils import chaos
+
+    run = LM_RUN
+    prompts, seeds = run["prompts"], run["seeds"]
+    inf, deploy_s = _deploy(c, "lm", {"GEN_DRAFT_TRIAL": draft_id})
+    require(inf["status"] == "RUNNING" and len(inf["workers"]) == 2
+            and inf["predictor_port"], f"inference job {inf}")
+    capture = _VerifyCapture(STREAMS // 2)
+    try:
+        greedy = generate_pass(c, "lm", prompts)
+        rows = _idle_rows(c, "lm")
+        g_counts = _spec_counts(rows)
+        sampled = [generate_pass(c, "lm", prompts, seeds=seeds, **SAMPLING)
+                   for _ in range(2)]
+    finally:
+        capture.close()
+    rows = _idle_rows(c, "lm")
+    s_counts = [a - b for a, b in zip(_spec_counts(rows), g_counts)]
+    for sid, r in rows.items():
+        require(r.get("gen_spec_on") is True
+                and r.get("gen_spec_rounds", 0) > 0
+                and "gen_spec_degraded" not in r,
+                f"replica {sid} did not speculate: {r}")
+    for a, b, n in zip(greedy["tokens"], run["greedy"]["tokens"],
+                       run["held"]):
+        same_until(a, b, n, "speculative and plain greedy streams")
+    require(sampled[0]["tokens"] == sampled[1]["tokens"],
+            "two sampled speculative passes differ")
+    require(capture.got is not None, "no sampled verify round captured")
+    plain = run["greedy"]
+
+    def rate(pas):
+        return STREAMS * GEN_TOKENS / pas["seconds"]
+
+    print(f"spec: 8b's trial served with the draft (GEN_DRAFT_TRIAL, k="
+          f"{SPEC_K}, 2 replicas on the card, deploy {deploy_s:.1f} s): "
+          f"greedy acceptance {g_counts[1]} of {g_counts[0]} proposed "
+          f"({g_counts[1] / max(g_counts[0], 1):.3f}) in {g_counts[2]} "
+          f"rounds, "
+          f"sampled {s_counts[1]} of {s_counts[0]} "
+          f"({s_counts[1] / max(s_counts[0], 1):.3f}) in {s_counts[2]}; "
+          f"time to first token p50 "
+          f"{statistics.median(greedy['ttft']) * 1e3:.1f} ms (8b plain "
+          f"{statistics.median(plain['ttft']) * 1e3:.1f}); {rate(greedy):.0f} "
+          f"tokens/s greedy (8b plain {rate(plain):.0f}), "
+          f"{rate(sampled[0]):.0f} sampled; greedy streams equal 8b's plain "
+          f"ones up to their first top-2 gap under {TIE_GAP:g} "
+          f"({sum(run['held'])} tokens); the two sampled passes equal; card "
+          f"{card}", flush=True)
+    vocab = run["blob"]["embed"]["table"].shape[0]
+    pattern = [(prompts[0][-1] + 3 * (j + 1)) % vocab for j in range(8)]
+    print(f"spec: stream 0's first greedy tokens {greedy['tokens'][0][:8]}, "
+          f"the training pattern's continuation {pattern} (what a draft "
+          f"that learnt it proposes)", flush=True)
+    # 13d: one replica's draft fails its next round
+    victim = sorted(rows)[0]
+    chaos.install(chaos.parse_rules(
+        f"site=generate;action=error;match=draft/{inf['id']}/{victim};"
+        "times=1"))
+    try:
+        faulted = generate_pass(c, "lm", prompts)
+    finally:
+        chaos.clear()
+    rows = _idle_rows(c, "lm")
+    require("chaos" in rows[victim].get("gen_spec_degraded", "")
+            and rows[victim]["gen_spec_on"] is False,
+            f"the failing draft's replica: {rows[victim]}")
+    for sid, r in rows.items():
+        if sid != victim:
+            require(r["gen_spec_on"] is True, f"replica {sid}: {r}")
+    for a, b, n in zip(faulted["tokens"], run["greedy"]["tokens"],
+                       run["held"]):
+        same_until(a, b, n, "greedy streams past a draft fault and plain")
+    print(f"spec: a draft fault on replica {victim[:8]} (site=generate, "
+          f"action=error): gen_spec_degraded "
+          f"{rows[victim]['gen_spec_degraded']!r}, the other replica still "
+          f"speculating; all {STREAMS} greedy streams finished with 8b's "
+          f"plain tokens ({rate(faulted):.0f} tokens/s); card {card}",
+          flush=True)
+    c.stop_inference_job("lm")
+    return capture.got
+
+
+def _drill_pass(c, job_id: str, action: str, dead: set) -> tuple:
+    """8 sampled streams of 8b's prompts and seeds; once each has its
+    first delta, a ``site=worker`` rule with ``action`` fells the live
+    replica holding the most. Returns (the streams and, for each, its
+    longest wait for a delta after the rule and when that wait ended,
+    from the rule; the victim; the streams it held)."""
+    from rafiki_tpu_torch.utils import chaos
+
+    prompts, seeds = LM_RUN["prompts"], LM_RUN["seeds"]
+    started = threading.Barrier(STREAMS + 1)
+    t_rule = {}
+    out = {"tokens": [None] * STREAMS, "wait": [(0.0, 0.0)] * STREAMS,
+           "ttft": [None] * STREAMS}
+    errors = []
+
+    def run(i):
+        try:
+            toks, last = [], None
+            t0 = time.perf_counter()
+            for d in c.generate("lm", prompts[i], max_tokens=GEN_TOKENS,
+                                timeout_s=300, seed=seeds[i], **SAMPLING):
+                now = time.perf_counter()
+                if not toks and d["tokens"]:
+                    toks += d["tokens"]
+                    out["ttft"][i] = now - t0
+                    started.wait(120)
+                    continue
+                if "t" in t_rule and d["tokens"]:
+                    # the deltas queued before the rule come first; a
+                    # victim's stream then waits out the stall window
+                    gap = now - max(last or t_rule["t"], t_rule["t"])
+                    if gap > out["wait"][i][0]:
+                        out["wait"][i] = (gap, now - t_rule["t"])
+                    last = now
+                toks += d["tokens"]
+            out["tokens"][i] = toks
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"stream {i}: {e!r}")
+            started.abort()
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(STREAMS)]
+    for th in threads:
+        th.start()
+    victim, held = None, 0
+    try:
+        started.wait(120)
+        rows = {r["service_id"]: r for r in
+                c.get_inference_job_stats("lm")["workers"]
+                if r["service_id"] not in dead}
+        victim = max(sorted(rows), key=lambda s: rows[s]["gen_slots_busy"])
+        held = rows[victim]["gen_slots_busy"]
+        t_rule["t"] = time.perf_counter()
+        chaos.install(chaos.parse_rules(
+            f"site=worker;action={action};match={job_id}/{victim};times=1"))
+    except threading.BrokenBarrierError:
+        pass  # a stream failed before its first delta: reported below
+    finally:
+        for th in threads:
+            th.join(600)
+        chaos.clear()
+    require(not errors and not any(th.is_alive() for th in threads)
+            and victim is not None,
+            f"drill pass failed: {errors} (first tokens after "
+            f"{[t and round(t, 2) for t in out['ttft']]} s)")
+    require(all(len(t) == GEN_TOKENS for t in out["tokens"]),
+            f"streams of {[len(t) for t in out['tokens']]} tokens")
+    return out, victim, held
+
+
+def continuity_drills(card: str, admin, c) -> None:
+    """13e: 8b's trial at three replicas, no draft, one-shot prefill, a
+    2-s stall window; a
+    SIGKILL drill (``drop``) on the replica holding the most sampled
+    streams, then a clean retirement (``error``) of another: every stream
+    finishes with 8b's uninterrupted tokens, and the door's continuity
+    counters count the streams each victim held."""
+    from rafiki_tpu_torch import config
+
+    saved = config.INFERENCE_WORKER_REPLICAS_PER_TRIAL
+    config.INFERENCE_WORKER_REPLICAS_PER_TRIAL = DRILL_REPLICAS
+    try:
+        # one-shot prefill: a first token, and a resumed stream's first
+        # token on a sibling, must land inside the short stall window
+        inf, deploy_s = _deploy(c, "lm", RAFIKI_GEN_PREFILL_CHUNK="0")
+    finally:
+        config.INFERENCE_WORKER_REPLICAS_PER_TRIAL = saved
+    require(inf["status"] == "RUNNING"
+            and len(inf["workers"]) == DRILL_REPLICAS,
+            f"inference job {inf}")
+    predictor = admin.services._predictors[inf["id"]]
+    dead: set = set()
+    with _Env(RAFIKI_GEN_STREAM_TIMEOUT_S=str(DRILL_STALL_S)):
+        for drill, action, reason in (("kill", "drop", "worker_death"),
+                                      ("retirement", "error", "migrating")):
+            before = predictor.gen_continuity_stats()
+            out, victim, held = _drill_pass(c, inf["id"], action, dead)
+            dead.add(victim)
+            after = predictor.gen_continuity_stats()
+            resumed = (after[f"resumes_{reason}"]
+                       - before[f"resumes_{reason}"])
+            require(resumed == held and after["resume_failures"] == 0,
+                    f"{drill}: {resumed} streams resumed ({reason}) for "
+                    f"{held} held; {after}")
+            for a, b, n in zip(out["tokens"], LM_RUN["sampled"],
+                               LM_RUN["sheld"]):
+                same_until(a, b, n, f"streams through the {drill} and 8b's "
+                           "uninterrupted sampled")
+            waits = sorted(out["wait"], reverse=True)
+            slowest = [(round(g * 1e3), round(t * 1e3))
+                       for g, t in waits[:held]]
+            print(f"continuity: {drill} ({action}) of replica {victim[:8]} "
+                  f"holding {held} of {STREAMS} sampled streams, "
+                  f"{len(inf['workers']) - len(dead) + 1} replicas live "
+                  f"(deploy {deploy_s:.1f} s, stall window "
+                  f"{DRILL_STALL_S:g} s): resumes_{reason} {resumed}, "
+                  f"resume_failures {after['resume_failures']}; first tokens "
+                  f"after {max(out['ttft']):.2f} s at most; every stream "
+                  f"finished with {GEN_TOKENS} tokens, equal to 8b's "
+                  f"uninterrupted ones up to their draw margins "
+                  f"({sum(LM_RUN['sheld'])} tokens); the client's longest "
+                  f"wait for a token after the rule, in the {held} streams "
+                  f"that waited longest, and when each resumed token came "
+                  f"after the rule: "
+                  f"{slowest}"
+                  f" ms (the others' longest waits "
+                  f"{[round(g * 1e3) for g, _ in waits[held:]]}); card "
+                  f"{card}", flush=True)
+    print(f"continuity: gen_continuity_stats "
+          f"{predictor.gen_continuity_stats()}", flush=True)
+    c.stop_inference_job("lm")
+
+
+def generation_rest_phase(card: str) -> list:
+    """Phase 13 on 8b's trained LM and store: 13a the draft's train job;
+    13b-13d speculative serving; 13e stream continuity. Returns each
+    kernel's launches on this path."""
+    from rafiki_tpu_torch.sdk.params import load_params
+
+    t_phase = time.perf_counter()
+    kernels = _kernels()
+    admin, server, new_client = _stack("lm", "text_lm.sqlite3", fresh=False,
+                                       inventory=REPLICA_INVENTORY)
+    try:
+        c = new_client()
+        dtrial, dsource, train_counts = draft_job(card, c, kernels)
+        dblob = load_params(c.download_trial_params(dtrial["id"]))
+        t_spec = time.perf_counter()
+        # ---- the main path's run (serving): counts from zero ----
+        for kernel in kernels:
+            kernel.launches = 0
+        got = spec_serving(card, new_client(), dtrial["id"])
+        t_drill = time.perf_counter()
+        continuity_drills(card, admin, new_client())
+        serve_counts = [k.launches for k in kernels]
+        # ---------------------------------------------------------------
+    finally:
+        server.stop()
+        admin.shutdown()
+    require(serve_counts == [0, 0, 0, 0], f"attention kernels launched "
+            f"while serving generation: {serve_counts}")
+    verify_on_cpu(card, got)
+    spec_step_times(card, dtrial, dsource, dblob)
+    print(f"generation, the rest: 13a took {t_spec - t_phase:.0f} s, 13b-d "
+          f"{t_drill - t_spec:.0f} s, 13e "
+          f"{time.perf_counter() - t_drill:.0f} s with the checks; phase 13 "
+          f"took {time.perf_counter() - t_phase:.0f} s", flush=True)
+    return [a + b for a, b in zip(train_counts, serve_counts)]
 
 
 # ---------------------------------------------------------------------------
@@ -5079,6 +5712,7 @@ def main() -> int:
     cards_launches = cards_phase(card)
     gen_launches = generation_tagging_phase(card)
     fused_shape, control_launches = serving_control_phase(card)
+    rest_launches = generation_rest_phase(card)
     for i, name in enumerate(KERNEL_NAMES):
         by_path = {"train (phase 3)": train_launches[i],
                    "serve (phase 4)": serve_launches[i],
@@ -5090,7 +5724,8 @@ def main() -> int:
                    "trial loop (phase 9)": loop_launches[i],
                    "several cards (phase 10)": cards_launches[i],
                    "generation and tagging (phase 11)": gen_launches[i],
-                   "serving control (phase 12)": control_launches[i]}
+                   "serving control (phase 12)": control_launches[i],
+                   "generation, the rest (phase 13)": rest_launches[i]}
         require(by_path["stack (phase 5)"] > 0,
                 f"{name} was not launched through the admin")
         require(by_path["process (phase 6)"] > 0,
@@ -5103,6 +5738,8 @@ def main() -> int:
                 f"{name} was not launched on the trial loop's path")
         require(by_path["several cards (phase 10)"] > 0,
                 f"{name} was not launched on the several-card path")
+        require(by_path["generation, the rest (phase 13)"] > 0,
+                f"{name} was not launched on phase 13's path (the draft)")
         if name == "flash_fwd":
             require(by_path["serving control (phase 12)"] > 0,
                     "K1 was not launched on the serving-control path")

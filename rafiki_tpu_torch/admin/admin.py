@@ -36,10 +36,12 @@ ported. The settings that turn one of them on raise
 ``RAFIKI_AGENTS``, ``RAFIKI_ORPHAN_SURVIVE``, ``RAFIKI_DRIFT``,
 ``RAFIKI_AUTOSCALE``, ``RAFIKI_AUTOSCALE_FAIR``,
 ``RAFIKI_AUTOSCALE_WARM_POOL``, ``RAFIKI_SERVE_INT8``,
-``RAFIKI_TRACE_SAMPLE``, ``RAFIKI_PROFILE``, and the sandbox,
-dependency, speculative-decoding and stream-resume switches); rollout has
-no switch of its own to refuse (ROADMAP.md, queue C). The budget keys
-still refused are ``TRIAL_VMAP_K`` above 1 and ``GEN_DRAFT_TRIAL``.
+``RAFIKI_TRACE_SAMPLE``, ``RAFIKI_PROFILE``, and the sandbox and
+dependency switches); rollout has no switch of its own to refuse
+(ROADMAP.md, queue C). The budget key still refused is ``TRIAL_VMAP_K``
+above 1. A ``TEXT_GENERATION`` inference job's budget may name a draft
+trial (``GEN_DRAFT_TRIAL``) for speculative decoding, checked at deploy
+(``admin/services.py``).
 ``TEXT_GENERATION`` takes generation-capable templates only (a
 ``GenerationSpec`` and the decode methods; checked at upload and again,
 statically, at a train job), and its inference job streams from the
@@ -546,7 +548,6 @@ class Admin:
                              app_version: int = -1,
                              budget: Optional[Dict[str, Any]] = None) -> Dict:
         self._validate_budget(budget or {})
-        _refuse_unported_budget(budget or {}, _UNPORTED_SERVING_BUDGET)
         job = self._train_job(user_id, app, app_version)
         if (job["task"] == TaskType.TEXT_GENERATION
                 and int((budget or {}).get(BudgetType.CHIPS_PER_WORKER,
@@ -790,12 +791,9 @@ _RELAYED_STATS = ("batches", "queries", "queue_depth", "expired", "shed",
                   "fused_dispatch")
 
 #: budget keys, and the values of them, that ask for what is not ported:
-#: population trials and speculative decoding's draft trial (ROADMAP.md)
+#: population trials (ROADMAP.md)
 _UNPORTED_TRAIN_BUDGET = {
     BudgetType.TRIAL_VMAP_K: lambda v: v not in (0, 1),
-}
-_UNPORTED_SERVING_BUDGET = {
-    BudgetType.GEN_DRAFT_TRIAL: bool,
 }
 
 

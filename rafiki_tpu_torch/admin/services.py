@@ -23,6 +23,10 @@ Own copy of the core of ``rafiki_tpu/admin/services.py``:
   ensemble, one vmapped forward when the template's ``ensemble_stack``
   fuses them (``worker/inference.py``); a ``TEXT_GENERATION`` job cannot
   fuse (a typed ``ServiceDeploymentError``);
+- speculative decoding (budget ``GEN_DRAFT_TRIAL``): the draft trial is
+  checked at deploy (a generative job, a known trial, COMPLETED, a
+  generation-capable template; each a typed ``ServiceDeploymentError``)
+  and every ``GenerationWorker`` of the job loads it;
 - a serving teardown and a deploy flush the job's predict result cache
   (``predictor/result_cache.py``), so a redeploy never answers from the
   old fleet's entries;
@@ -34,8 +38,8 @@ Own copy of the core of ``rafiki_tpu/admin/services.py``:
   failure; a train job's status is derived from its workers' services.
 
 Not ported (ROADMAP.md; ``Admin`` refuses the budget keys that ask for
-them): generation across cards, speculative decoding's draft, generation
-in worker processes (refused typed), standby replicas, rollout, drain,
+them): generation across cards, generation in worker processes (refused
+typed), standby replicas, rollout, drain,
 scaling, chip loans and reclaim, and recovery's adoption of running
 services.
 """
@@ -57,6 +61,7 @@ from rafiki_tpu_torch.constants import (
     ServiceType,
     TaskType,
     TrainJobStatus,
+    TrialStatus,
 )
 from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.placement.manager import PlacementManager
@@ -273,6 +278,7 @@ class ServicesManager:
                 "budget ENSEMBLE_FUSED is unsupported for TEXT_GENERATION "
                 "jobs: a token stream answers from one model, not a fused "
                 "cross-trial ensemble; drop ENSEMBLE_FUSED")
+        self._check_draft(inference_job_id, inf_job, generative)
         if fused:
             # a unit serves the whole group: replicas of the unit alone
             n_replicas = max(1, min(
@@ -324,6 +330,45 @@ class ServicesManager:
                 self._destroy_service(sid, wait=False)
             self._db.mark_inference_job_as_errored(inference_job_id)
             raise
+
+    def _check_draft(self, inference_job_id: str, inf_job: Dict,
+                     generative: bool) -> None:
+        """The draft trial a budget names for speculative decoding
+        (``GEN_DRAFT_TRIAL``) must exist, be COMPLETED and have a
+        generation-capable template, and the job must be generative: each
+        a typed deploy error here, never a worker that fails to start."""
+        draft_tid = (inf_job.get("budget") or {}).get(
+            BudgetType.GEN_DRAFT_TRIAL)
+        if not draft_tid:
+            return
+        reason = None
+        if not generative:
+            reason = ("budget GEN_DRAFT_TRIAL is only meaningful for "
+                      "TEXT_GENERATION jobs — drop it, or deploy a "
+                      "generative train job")
+        else:
+            draft = self._db.get_trial(str(draft_tid))
+            if draft is None:
+                reason = (f"budget GEN_DRAFT_TRIAL names unknown trial "
+                          f"{draft_tid!r}")
+            elif draft.get("status") != TrialStatus.COMPLETED:
+                reason = (f"budget GEN_DRAFT_TRIAL trial {draft_tid!r} is "
+                          f"{draft.get('status')}, not COMPLETED — a draft "
+                          "model needs trained params to propose tokens")
+            else:
+                from rafiki_tpu_torch.admin.admin import Admin
+
+                model = self._db.get_model(draft["model_id"])
+                if model is None \
+                        or not Admin._model_generation_capable(model):
+                    reason = (
+                        f"budget GEN_DRAFT_TRIAL trial {draft_tid!r} is not "
+                        "generation-capable — the draft must implement the "
+                        "generation contract (init_kv_cache/prefill/"
+                        "decode_step) plus decode_step_sampled")
+        if reason is not None:
+            self._db.mark_inference_job_as_errored(inference_job_id)
+            raise ServiceDeploymentError(reason)
 
     def _create_inference_worker(self, inference_job_id: str,
                                  trial_id: str, worker_cls=InferenceWorker,

@@ -10,8 +10,9 @@ workers that are threads of this process, ``ShmBroker``
 
 A generation request's future resolves to a :class:`TokenStream`, the
 channel the generation worker pushes :class:`TokenDelta` s into and the
-streaming door pulls from. The hand-back of a stream to the door for a
-resume on a sibling (``MIGRATING``) is not ported (ROADMAP.md).
+streaming door pulls from. A retiring replica hands an unfinished stream
+back (:meth:`TokenStream.hand_back`, reason ``migrating``): the door's
+journal then resumes it on a sibling (``predictor/predictor.py``).
 """
 
 from __future__ import annotations
@@ -76,11 +77,24 @@ class GenerationError(RuntimeError):
     :meth:`TokenStream.next_delta` raises it."""
 
 
+#: the reason of a stream a retiring replica handed back unfinished, for
+#: the door to resume on a sibling
+REASON_MIGRATING = "migrating"
+
+
+class StreamMigratingError(GenerationError):
+    """The serving replica handed the stream back (reason ``migrating``):
+    it is retiring. The door's journal catches this before the client
+    sees anything and resumes the stream on a sibling; only when every
+    resume fails does the client get a plain :class:`GenerationError`."""
+
+
 class TokenDelta:
     """One increment of a generation stream: the token ids emitted since
     the previous delta, and on the last one ``finished`` with its
     ``reason`` (``eos`` | ``max_tokens`` | ``context`` | ``deadline`` |
-    ``error`` | ``cancelled``) and, for ``error``, the fault's text."""
+    ``error`` | ``cancelled`` | ``migrating``) and, for ``error`` and
+    ``migrating``, the text."""
 
     __slots__ = ("tokens", "finished", "reason", "error")
 
@@ -140,6 +154,19 @@ class TokenStream:
             self._finished = True
             self._cond.notify_all()
 
+    def hand_back(self, message: str) -> None:
+        """Worker side: the terminal ``migrating`` delta of a retiring
+        replica. The deltas pushed before it are delivered first, so the
+        door's journal holds every committed token when
+        :meth:`next_delta` raises :class:`StreamMigratingError`."""
+        with self._cond:
+            if self._finished:
+                return
+            self._deltas.append(TokenDelta(
+                [], finished=True, reason=REASON_MIGRATING, error=message))
+            self._finished = True
+            self._cond.notify_all()
+
     def cancel(self) -> None:
         """Consumer side: stop decoding this sequence."""
         with self._cond:
@@ -160,7 +187,8 @@ class TokenStream:
     def next_delta(self, timeout: Optional[float] = None) -> TokenDelta:
         """Block for the next increment. Raises ``TimeoutError`` when none
         lands inside ``timeout`` (the door's stall detector),
-        :class:`GenerationError` for the terminal error delta, and
+        :class:`GenerationError` for the terminal error delta
+        (:class:`StreamMigratingError` for a hand-back), and
         ``StopIteration`` once the terminal delta has been consumed."""
         with self._cond:
             if not self._deltas and self._finished:
@@ -172,6 +200,8 @@ class TokenStream:
                     f"{(timeout or 0.0):.1f}s")
             delta = self._deltas.pop(0)
             if delta.error is not None:
+                if delta.reason == REASON_MIGRATING:
+                    raise StreamMigratingError(delta.error)
                 raise GenerationError(delta.error)
             return delta
 

@@ -3,7 +3,8 @@ as ``rafiki_tpu/config.py``.
 
 Paths, the settings a live deployment may retune
 (``PREDICT_QUEUE_DEPTH``, the per-job doors ``PREDICTOR_PORTS`` and
-``PREDICTOR_HOST``, the generation worker's ``GEN_*``, the trial fault
+``PREDICTOR_HOST``, the generation worker's and the door's ``GEN_*``
+(speculation and stream continuity among them), the trial fault
 settings ``TRIAL_*`` and ``PENDING_FEEDBACK_MAX``) and the wall-clock
 budgets (``PREDICT_TIMEOUT_S``, ``SERVICE_DEPLOY_TIMEOUT_S``,
 ``DIST_TIMEOUT_S``) are read
@@ -141,6 +142,27 @@ _DYNAMIC = {
     # 0: greedy only; a sampled request gets a typed 400
     "GEN_SAMPLING": lambda: os.environ.get(
         "RAFIKI_GEN_SAMPLING", "1") != "0",
+    # 0: never speculate; 1: draft-verify speculative decoding on the
+    # paged path whenever the job's budget names a draft trial
+    # (GEN_DRAFT_TRIAL) and the template verifies
+    "GEN_SPEC": lambda: os.environ.get("RAFIKI_GEN_SPEC", "1") != "0",
+    # draft tokens proposed a round (clamped to 1..16); the verify forward
+    # is k+1 positions wide
+    "GEN_SPEC_K": lambda: _env_int("RAFIKI_GEN_SPEC_K", 4),
+    # -- stream continuity (predictor/predictor.py): the door journals each
+    # stream and resumes it on a sibling when its replica dies or hands
+    # it back; resume attempts a stream (0: no resume)
+    "GEN_RESUME_MAX": lambda: _env_int("RAFIKI_GEN_RESUME_MAX", 3),
+    # base of the jittered backoff between attempts (attempt n waits up
+    # to base * 2^(n-2), within the request's deadline)
+    "GEN_RESUME_BACKOFF_S": lambda: _env_float(
+        "RAFIKI_GEN_RESUME_BACKOFF_S", 0.05),
+    # a stream's journal cap (prompt and committed tokens); past it the
+    # stream goes on streaming but can no longer be resumed
+    "GEN_JOURNAL_MAX_KB": lambda: _env_int("RAFIKI_GEN_JOURNAL_MAX_KB", 64),
+    # a stream older than this is never resumed
+    "GEN_JOURNAL_TTL_S": lambda: _env_float(
+        "RAFIKI_GEN_JOURNAL_TTL_S", 600.0),
     # -- trial fault tolerance (worker/train.py, worker/faults.py), read
     # at each use so a live worker's next trial sees a change:
     # infra-class faults (INFRA, MEM, STALL) re-run under the same trial
@@ -202,9 +224,6 @@ _UNPORTED = (
     ("RAFIKI_PLACEMENT", lambda v: v == "hosts", "host placement (agents)"),
     ("RAFIKI_SANDBOX", _is_one, "the trial sandbox"),
     ("RAFIKI_INSTALL_DEPS", _is_one, "dependency provisioning"),
-    ("RAFIKI_GEN_SPEC", _is_one, "speculative decoding"),
-    ("RAFIKI_GEN_RESUME_MAX", _positive,
-     "stream resume (the door's journal)"),
     ("RAFIKI_AUTOSCALE", _is_one, "the serving autoscaler"),
     ("RAFIKI_AUTOSCALE_FAIR", _is_one, "weighted fair admission"),
     ("RAFIKI_AUTOSCALE_WARM_POOL", _positive, "the warm pool"),

@@ -13,7 +13,11 @@ next-token loss, and the decode path the generation worker drives:
   the slot's logical view from the pool, runs the same
   :func:`_cached_forward` as the ring, and writes back only the new rows;
 - sampling keyed by position (:func:`modified_dist`,
-  :func:`sample_from`, :func:`_uniform_at`, the ``*_sampled`` steps).
+  :func:`sample_from`, :func:`_uniform_at`, the ``*_sampled`` steps);
+- speculative decoding: the draft's burst of k chained sampled steps
+  (:func:`decode_steps_sampled`) and the target's verify of k+1
+  positions in one forward with rejection sampling
+  (:func:`paged_verify_step`).
 
 Differences of form, not of result:
 
@@ -26,14 +30,16 @@ Differences of form, not of result:
 - The draws' uniforms are computed on the host in numpy
   (:func:`_uniform_at`: threefry2x32, ``fold_in`` and the mantissa trick
   of ``jax.random.uniform``, bit for bit), since their inputs, the
-  streams' seeds and positions, live there.
+  streams' seeds and positions, live there. A draft's burst and a
+  verify know every position they draw at before they start, so their
+  uniforms are made up front and neither waits on the card mid-call:
+  the burst feeds each sampled token to the next step as a device
+  tensor, and the verify picks its bonus draw's uniform on the card.
 
 ``apply`` (training and evaluation) runs attention through the flash
 kernels on a CUDA tensor (``ops/attention.py``); the cached forward is
 plain products and softmax, as the JAX package's is (no Pallas there).
-MoE, speculative decoding (``decode_steps_sampled``,
-``paged_verify_step``) and the partition specs are not ported
-(ROADMAP.md).
+MoE and the partition specs are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -170,9 +176,11 @@ def cache_max_slots(cache: Cache) -> int:
 
 
 def _cached_forward(model: LM, ck: torch.Tensor, cv: torch.Tensor,
-                    ids: np.ndarray, positions: np.ndarray) -> torch.Tensor:
+                    ids: Any, positions: Any) -> torch.Tensor:
     """The shared prefill/decode forward. ``ids``/``positions``: (B, T)
-    host ints, every position inside the cache's length; ``ck``/``cv``:
+    host ints, or integer tensors (on the card for a draft's chained
+    steps, which then wait on no copy), every position inside the cache's
+    length; ``ck``/``cv``:
     (depth, B, L, H, Dh), written in place at ``positions`` before each
     layer's attention, which reads the cache up to each query's own
     position. Returns logits (B, T, V) f32. Computed in the cache's type,
@@ -181,8 +189,11 @@ def _cached_forward(model: LM, ck: torch.Tensor, cv: torch.Tensor,
     b, _ = ids.shape
     length = ck.shape[2]
     dt = ck.dtype
-    pos = torch.from_numpy(np.ascontiguousarray(positions)).to(dev)
-    x = model.embed(torch.from_numpy(np.ascontiguousarray(ids)).to(dev), dt)
+    pos, ids = (t if isinstance(t, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(t))
+                for t in (positions, ids))
+    pos = pos.to(dev)
+    x = model.embed(ids.to(dev, torch.int64), dt)
     x = x + model.pos[0].to(dt)[pos]
     batch_ix = torch.arange(b, device=dev)[:, None]
     # (B, T, L): the query at positions[b, i] attends cache rows <= it
@@ -421,7 +432,9 @@ def modified_dist(logits: torch.Tensor, temperature: Any, top_k: Any,
     dev = logits.device
 
     def knob(value, dtype):
-        return torch.as_tensor(np.asarray(value), dtype=dtype,
+        if not isinstance(value, torch.Tensor):
+            value = np.asarray(value)
+        return torch.as_tensor(value, dtype=dtype,
                                device=dev).broadcast_to(head)
 
     t = knob(temperature, torch.float32)
@@ -490,3 +503,114 @@ def paged_decode_step_sampled(model: LM, cache: Cache, ids: Any,
                                       block_tables)
     tok, probs = _draw(logits, _host_ints(positions) + 1, sampling)
     return tok, probs, cache
+
+
+@torch.inference_mode()
+def decode_steps_sampled(model: LM, cache: Cache, ids: Any, positions: Any,
+                         k: int, sampling: Dict[str, Any]
+                         ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
+    """``k`` chained :func:`decode_step_sampled` calls on the ring: the
+    draft's proposal burst of a speculative round, the same tokens and
+    distributions. The ids, positions, knobs and the k steps' uniforms go
+    to the cache's device once, and each drawn token feeds the next step
+    there, so no step waits on a copy. Returns (tokens (S, k) int32,
+    modified distributions q (S, k, V) f32, cache)."""
+    dev = cache["k"].device
+    positions = _host_ints(positions)
+    k = int(k)
+    greedy = (np.asarray(sampling["temperature"], np.float32) <= 0.0).all()
+    pos = torch.from_numpy(positions).to(dev)
+    cur = torch.from_numpy(_host_ints(ids)).to(dev)
+    if not greedy:
+        u = torch.from_numpy(_uniform_at(
+            sampling["seed"], positions[:, None] + 1 + np.arange(k),
+            int(sampling["role"]))).to(dev)
+        knobs = [torch.from_numpy(np.asarray(sampling[key], dtype)).to(dev)
+                 for key, dtype in (("temperature", np.float32),
+                                    ("top_k", np.int64),
+                                    ("top_p", np.float32))]
+    toks, probs = [], []
+    for j in range(k):
+        logits = _cached_forward(model, cache["k"], cache["v"],
+                                 cur[:, None], (pos + j)[:, None])[:, 0]
+        if greedy:
+            am = torch.argmax(logits, dim=-1)
+            cur = am.to(torch.int32)
+            pj = F.one_hot(am, logits.shape[-1]).to(torch.float32)
+        else:
+            pj = modified_dist(logits, *knobs)
+            cur = sample_from(pj, u[:, j])
+        toks.append(cur)
+        probs.append(pj)
+    return torch.stack(toks, 1), torch.stack(probs, 1), cache
+
+
+@torch.inference_mode()
+def paged_verify_step(model: LM, cache: Cache, ids: Any, positions: Any,
+                      block_tables: Any, draft_probs: Any,
+                      sampling: Dict[str, Any]
+                      ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
+    """Verify k drafted tokens a slot in one forward over k+1 positions.
+
+    ``ids`` (S, k+1): each slot's last committed token, then the draft's
+    k proposals; ``positions`` (S, k+1) their write positions;
+    ``block_tables`` (S, NB) host ints; ``draft_probs`` (S, k, V) the
+    draft's modified distributions q (a tensor, on the card when the
+    draft ran there). Rejection sampling per slot: proposal d_j is
+    accepted iff u_j q(d_j) < p(d_j), u_j keyed ``ROLE_ACCEPT`` at d_j's
+    position; the first rejection draws from max(p - q, 0) normalised
+    (from p when its mass is at most 1e-20), and a row that accepts all
+    k draws a bonus token from the (k+1)-th target distribution, keyed
+    ``ROLE_TARGET`` at ``positions[:, 0] + a + 1``. A batch that is all
+    greedy takes the argmax path, which gives the same tokens. All k+1
+    rows are written before attention, as every cached forward does; a
+    rejected suffix's rows are overwritten before anything attends them,
+    so nothing is rolled back. Returns (accept_len (S,) int32, tokens
+    (S, k+1) int32: the accepted prefix and the drawn token, then 0,
+    cache)."""
+    ids = _host_ints(ids)
+    positions = _host_ints(positions)
+    logits = _paged_forward(model, cache, _host_ints(block_tables), ids,
+                            positions)                     # (S, k+1, V)
+    dev = logits.device
+    s, k1 = ids.shape
+    k = k1 - 1
+    d = torch.from_numpy(ids[:, 1:]).to(dev)               # (S, k)
+    d_pad = torch.cat([d, torch.zeros(s, 1, dtype=d.dtype, device=dev)], 1)
+    jj = torch.arange(k1, device=dev)[None, :]
+    if (np.asarray(sampling["temperature"], np.float32) <= 0.0).all():
+        am = torch.argmax(logits, dim=-1)                  # (S, k+1)
+        accept = d == am[:, :k]
+        a = torch.cumprod(accept.to(torch.int64), -1).sum(-1)
+        extra = torch.gather(am, 1, a[:, None])
+    else:
+        def col(key, dtype):
+            return np.asarray(sampling[key], dtype)[:, None]
+
+        p = modified_dist(logits, col("temperature", np.float32),
+                          col("top_k", np.int64), col("top_p", np.float32))
+        q = torch.as_tensor(draft_probs, dtype=torch.float32, device=dev)
+        p_head = p[:, :k]
+        p_d = torch.gather(p_head, -1, d[..., None])[..., 0]
+        q_d = torch.gather(q, -1, d[..., None])[..., 0]
+        seed = sampling["seed"]
+        u_acc = torch.from_numpy(_uniform_at(seed, positions[:, 1:],
+                                             ROLE_ACCEPT)).to(dev)
+        accept = u_acc * q_d < p_d
+        a = torch.cumprod(accept.to(torch.int64), -1).sum(-1)
+        resid = torch.clamp(p_head - q, min=0.0)
+        rs = resid.sum(-1, keepdim=True)
+        corr = torch.where(rs > 1e-20, resid / rs.clamp_min(1e-20), p_head)
+        dist_all = torch.cat([corr, p[:, k:]], 1)          # (S, k+1, V)
+        xdist = torch.gather(
+            dist_all, 1,
+            a[:, None, None].expand(-1, 1, dist_all.shape[-1]))[:, 0]
+        # the bonus draw's uniform at each accept length it may follow
+        u_all = torch.from_numpy(_uniform_at(
+            seed, positions[:, :1] + 1 + np.arange(k1), ROLE_TARGET)).to(dev)
+        u_x = torch.gather(u_all, 1, a[:, None])[:, 0]
+        extra = sample_from(xdist, u_x)[:, None].to(d.dtype)
+    toks = torch.where(jj < a[:, None], d_pad,
+                       torch.where(jj == a[:, None], extra,
+                                   torch.zeros_like(d_pad)))
+    return a.to(torch.int32), toks.to(torch.int32), cache

@@ -23,27 +23,35 @@ Own copy of the serving core of ``rafiki_tpu/predictor/predictor.py``:
   touched, identical misses coalesced behind one forward, only the
   misses forwarded, and no answer of an incomplete ensemble stored;
 - ``generate`` routes one generation request to ONE replica and answers
-  with its token stream.
+  with a resumable stream: the door journals the prompt, the sampling
+  seed it pinned and every delivered token, and when the stream's
+  replica dies (its queue gone at the door's stall window) or hands the
+  stream back ``migrating`` it resumes the stream on a sibling of the
+  same model version; the keyed draws make the continuation the same
+  tokens (``gen_continuity_stats``).
 
-Rollout lanes, drift and the streams' resume journal are not ported yet
-(ROADMAP.md, items 8 and 15): a stream whose worker fails ends with its
-typed error, and the serving version the cache keys on stays 0.
+Rollout lanes and drift are not ported yet (ROADMAP.md, item 8): a
+resume targets the fleet's ``serving_version``, which, like the version
+the cache keys on, stays 0 until rollouts.
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
+import random
 import threading
 import time
+import uuid
 from typing import Any, Dict, List, Optional
 
 from rafiki_tpu_torch import config
 from rafiki_tpu_torch.cache.queue import (
     Broker,
+    GenerationError,
     QueryFuture,
     QueueFullError,
-    TokenStream,
+    StreamMigratingError,
 )
 from rafiki_tpu_torch.constants import TaskType
 from rafiki_tpu_torch.predictor.ensemble import (
@@ -52,6 +60,39 @@ from rafiki_tpu_torch.predictor.ensemble import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+class CrossVersionResumeError(GenerationError):
+    """No routable sibling serves the model version a journaled stream
+    started on: resuming on another version would splice two models'
+    distributions into one stream, so the resume is refused, typed."""
+
+
+class _JournalEntry:
+    """One stream's resume record at the door: the query (its seed
+    pinned), the tokens delivered so far, the version it is pinned to and
+    the replica serving it. ``tokens``, ``worker_id`` and ``attempts``
+    belong to the one thread pumping the stream; the byte books and the
+    ``resumable``/``cancelled``/``closed`` flags are shared with the
+    predictor, under its ``_journal_lock``."""
+
+    __slots__ = ("query", "tokens", "deadline", "version", "worker_id",
+                 "t0", "bytes", "resumable", "attempts", "cancelled",
+                 "closed")
+
+    def __init__(self, query: Dict[str, Any], worker_id: str, version: int,
+                 deadline: float) -> None:
+        self.query = query
+        self.tokens: List[int] = []
+        self.deadline = deadline
+        self.version = version
+        self.worker_id = worker_id
+        self.t0 = time.monotonic()
+        self.bytes = 0
+        self.resumable = True
+        self.attempts = 0
+        self.cancelled = False
+        self.closed = False
 
 
 class Predictor:
@@ -87,6 +128,18 @@ class Predictor:
         # the digests admission_cost computed, handed to the serve path
         # on the same thread (one hash pass a request)
         self._tls = threading.local()
+        # the streams' resume journal: each entry lives in its stream's
+        # wrapper; the predictor keeps the byte books and the counters
+        self._journal_lock = threading.Lock()
+        self._journal_bytes = 0    # guarded-by: _journal_lock
+        self._journal_streams = 0  # guarded-by: _journal_lock
+        self._continuity = {       # guarded-by: _journal_lock
+            "resumes_migrating": 0,     # hand-backs resumed
+            "resumes_worker_death": 0,  # dead replicas' streams resumed
+            "resume_failures": 0,       # streams the client lost
+            "journal_overflows": 0,     # past RAFIKI_GEN_JOURNAL_MAX_KB
+            "cross_version_refusals": 0,
+        }
 
     def _bump(self, key: str, n: int = 1) -> None:
         with self._ol_lock:
@@ -493,29 +546,52 @@ class Predictor:
     # -- generate ----------------------------------------------------------
 
     def generate(self, query: Dict[str, Any],
-                 timeout_s: Optional[float] = None) -> TokenStream:
+                 timeout_s: Optional[float] = None) -> "_ResumableStream":
         """Route one generation request to a replica's slot scheduler and
-        return its :class:`TokenStream` once a slot admits it.
-        Round-robin over the job's routable, non-draining replicas, past
-        bounded queues that refuse. The request's deadline rides as
+        return its stream, resumable, once a slot admits it. Round-robin
+        over the job's routable, non-draining replicas, past bounded
+        queues that refuse. The request's deadline rides as
         ``max_duration_s``: the worker ends the stream with reason
-        ``deadline`` past it. Raises :class:`QueueFullError` when every
-        queue refuses, ``TimeoutError`` when no slot admits the request in
-        time, and the worker's typed error for a malformed request."""
+        ``deadline`` past it. A sampled request without a seed gets one
+        here, before its first submit: a seed the worker chose would die
+        with the worker, and a resume must replay the same draws. Raises
+        :class:`QueueFullError` when every queue refuses, ``TimeoutError``
+        when no slot admits the request in time, and the worker's typed
+        error for a malformed request."""
         if timeout_s is None:
             timeout_s = config.PREDICT_TIMEOUT_S
         deadline = time.monotonic() + timeout_s
+        query = dict(query)
+        try:
+            sampled = float(query.get("temperature") or 0.0) > 0.0
+        except (TypeError, ValueError):
+            sampled = False
+        if sampled and query.get("seed") is None:
+            query["seed"] = uuid.uuid4().int & 0x7FFF_FFFF
+        stream, wid, version = self._generate_submit(query, deadline,
+                                                     frozenset())
+        entry = self._journal_open(query, wid, version, deadline)
+        return _ResumableStream(self, entry, stream)
+
+    def _generate_submit(self, query: Dict[str, Any], deadline: float,
+                         exclude: "frozenset[str]"):
+        """One admission pass: walk the routable replicas (less
+        ``exclude``) past full queues and wait for a slot. Returns
+        ``(stream, worker_id, model_version)``."""
         queues = self._broker.get_worker_queues(self._job_id)
         if not queues:
             raise RuntimeError(
                 f"No inference workers registered for job {self._job_id}")
         trials, draining = self._route_snapshot()
         routable = [w for w in queues
-                    if (not trials or w in trials) and w not in draining]
+                    if (not trials or w in trials) and w not in draining
+                    and w not in exclude]
         if not routable:
             routable = [w for w in queues
-                        if not trials or w in trials] or list(queues)
+                        if (not trials or w in trials) and w not in exclude] \
+                or [w for w in queues if w not in exclude] or list(queues)
         rr = next(self._rr) % len(routable)
+        timeout_s = max(deadline - time.monotonic(), 0.0)
         for wid in routable[rr:] + routable[:rr]:
             try:
                 fut = queues[wid].submit_many(
@@ -523,7 +599,245 @@ class Predictor:
                     deadline=deadline)[0]
             except QueueFullError:
                 continue
-            return fut.result(max(deadline - time.monotonic(), 0.0))
+            stream = fut.result(max(deadline - time.monotonic(), 0.0))
+            return stream, wid, self.serving_version()
         self._bump("requests_shed")
         raise QueueFullError(
             f"all serving queues for job {self._job_id} are full")
+
+    # -- stream continuity: the journal and the resume -----------------------
+
+    def _journal_open(self, query: Dict[str, Any], worker_id: str,
+                      version: int, deadline: float) -> _JournalEntry:
+        entry = _JournalEntry(query, worker_id, version, deadline)
+        prompt = query.get("prompt_ids")
+        n_prompt = len(prompt) if isinstance(prompt, (list, tuple)) else 0
+        cost = 8 * n_prompt + 96  # ~8 B a token id and the record
+        with self._journal_lock:
+            entry.bytes = cost
+            self._journal_streams += 1
+            self._journal_bytes += cost
+        return entry
+
+    def _journal_note(self, entry: _JournalEntry, delta) -> None:
+        """Journal one delivered delta. Past ``RAFIKI_GEN_JOURNAL_MAX_KB``
+        the stream streams on but can no longer be resumed (its bytes go
+        back): a bounded journal cannot prefill what it did not keep."""
+        n = len(delta.tokens)
+        if n == 0:
+            return
+        with self._journal_lock:
+            if entry.closed or not entry.resumable:
+                return
+            entry.tokens.extend(delta.tokens)
+            entry.bytes += 8 * n
+            self._journal_bytes += 8 * n
+            cap = int(config.GEN_JOURNAL_MAX_KB) * 1024
+            if cap > 0 and entry.bytes > cap:
+                entry.resumable = False
+                entry.tokens = []
+                self._journal_bytes -= entry.bytes
+                entry.bytes = 0
+                self._continuity["journal_overflows"] += 1
+
+    def _journal_close(self, entry: _JournalEntry,
+                       cancelled: bool = False) -> None:
+        """Retire an entry (the stream ended, or its client left: then a
+        resume in flight gives up instead of prefilling for no one)."""
+        with self._journal_lock:
+            if cancelled:
+                entry.cancelled = True
+            if entry.closed:
+                return
+            entry.closed = True
+            entry.tokens = []
+            self._journal_streams -= 1
+            self._journal_bytes -= entry.bytes
+            entry.bytes = 0
+
+    def _journal_fail(self, entry: _JournalEntry) -> None:
+        """The client lost the stream (a typed fault, or no resume
+        left): retire the entry and count the loss."""
+        with self._journal_lock:
+            already = entry.closed
+        self._journal_close(entry)
+        if not already:
+            with self._journal_lock:
+                self._continuity["resume_failures"] += 1
+
+    def _resume_candidates(self, entry: _JournalEntry):
+        """The replicas a stream may resume on: routable, not draining,
+        not the one it left, and serving its version. Raises
+        :class:`CrossVersionResumeError` when there is none."""
+        queues = self._broker.get_worker_queues(self._job_id)
+        trials, draining = self._route_snapshot()
+        serving = self.serving_version()
+        routable = [w for w in queues
+                    if (not trials or w in trials) and w not in draining
+                    and w != entry.worker_id]
+        cands = routable if entry.version == serving else []
+        if not cands:
+            with self._journal_lock:
+                self._continuity["cross_version_refusals"] += 1
+            raise CrossVersionResumeError(
+                f"stream cannot resume: no routable sibling serves its "
+                f"model_version {entry.version} (fleet serves {serving})")
+        return cands, queues
+
+    def _resume_stream(self, entry: _JournalEntry, reason: str):
+        """Resume a journaled stream on a sibling: a submit of the prompt
+        and the committed tokens at the pinned seed, at most
+        ``RAFIKI_GEN_RESUME_MAX`` attempts in the stream's life, with
+        jittered backoff (base ``RAFIKI_GEN_RESUME_BACKOFF_S``), within
+        the request's deadline and the journal's TTL. Returns the new
+        inner stream; raises :class:`GenerationError` (typed) when the
+        stream cannot be resumed."""
+        max_attempts = int(config.GEN_RESUME_MAX)
+        base = max(float(config.GEN_RESUME_BACKOFF_S), 0.0)
+        with self._journal_lock:
+            ok = entry.resumable and not entry.cancelled and not entry.closed
+        if not ok:
+            raise GenerationError(
+                "stream is not resumable (journal overflowed "
+                "RAFIKI_GEN_JOURNAL_MAX_KB, or the client is gone)")
+        if max_attempts <= 0:
+            raise GenerationError(
+                "stream resume is disabled (RAFIKI_GEN_RESUME_MAX=0)")
+        if time.monotonic() - entry.t0 > float(config.GEN_JOURNAL_TTL_S):
+            raise GenerationError(
+                "resume journal entry expired (RAFIKI_GEN_JOURNAL_TTL_S)")
+        last_err: Optional[Exception] = None
+        while entry.attempts < max_attempts:
+            entry.attempts += 1
+            if entry.attempts > 1:
+                delay = base * (2 ** (entry.attempts - 2)) \
+                    * random.uniform(0.5, 1.0)
+                delay = min(delay, entry.deadline - time.monotonic())
+                if delay > 0:
+                    time.sleep(delay)
+            with self._journal_lock:
+                if entry.cancelled or entry.closed:
+                    raise GenerationError(
+                        "stream resume abandoned: client disconnected")
+                resume_tokens = list(entry.tokens)
+            remaining = entry.deadline - time.monotonic()
+            if remaining <= 0:
+                raise GenerationError(
+                    "request deadline passed before the stream could be "
+                    "resumed")
+            cands, queues = self._resume_candidates(entry)
+            rr = next(self._rr) % len(cands)
+            for wid in cands[rr:] + cands[:rr]:
+                q = dict(entry.query, resume_tokens=resume_tokens,
+                         max_duration_s=remaining)
+                try:
+                    fut = queues[wid].submit_many(
+                        [q], deadline=entry.deadline)[0]
+                    stream = fut.result(
+                        max(entry.deadline - time.monotonic(), 0.0))
+                except Exception as e:
+                    # a sibling that refuses or fails the resume is walked
+                    # past; the bounded attempts own giving up
+                    last_err = e
+                    continue
+                entry.worker_id = wid
+                with self._journal_lock:
+                    self._continuity[f"resumes_{reason}"] += 1
+                logger.info("stream resumed on sibling %s (reason %s, "
+                            "attempt %d/%d, %d committed tokens)", wid,
+                            reason, entry.attempts, max_attempts,
+                            len(resume_tokens))
+                return stream
+        detail = f": {last_err!r}" if last_err is not None else ""
+        raise GenerationError(
+            f"stream resume exhausted after {entry.attempts} attempt(s) "
+            f"(RAFIKI_GEN_RESUME_MAX={max_attempts}){detail}")
+
+    def gen_continuity_stats(self) -> Dict[str, int]:
+        """Resumes by trigger, streams the client lost, journal
+        overflows, cross-version refusals, and the journal's streams and
+        bytes."""
+        with self._journal_lock:
+            out = dict(self._continuity)
+            out["journal_streams"] = self._journal_streams
+            out["journal_bytes"] = self._journal_bytes
+        return out
+
+
+class _ResumableStream:
+    """The stream :meth:`Predictor.generate` returns: the worker's
+    :class:`~rafiki_tpu_torch.cache.queue.TokenStream` surface
+    (``next_delta``, ``cancel``, ``seq_id``), journalling each delta it
+    delivers and resuming the stream on a sibling when it dies of an
+    infrastructure fault:
+
+    - a ``migrating`` hand-back (:class:`StreamMigratingError`: the
+      replica is retiring), or
+    - the replica's death: ``next_delta`` timed out and the worker's
+      queue is gone from the broker (a killed worker unregisters on its
+      way down).
+
+    A time-out while the worker is still registered is a stalled decode
+    and goes to the door's stall handling; a plain
+    :class:`GenerationError` is the model's fault and is never retried
+    (resuming it would replay it)."""
+
+    def __init__(self, predictor: Predictor, entry: _JournalEntry,
+                 inner) -> None:
+        self._p = predictor
+        self._entry = entry
+        self._inner = inner
+
+    @property
+    def seq_id(self):
+        return self._inner.seq_id
+
+    def cancel(self) -> None:
+        """The client left: retire the journal entry first, so a resume
+        backoff in flight gives up, then cancel the worker's slot."""
+        self._p._journal_close(self._entry, cancelled=True)
+        self._inner.cancel()
+
+    def next_delta(self, timeout: Optional[float] = None):
+        while True:
+            try:
+                delta = self._inner.next_delta(timeout=timeout)
+            except StopIteration:
+                self._p._journal_close(self._entry)
+                raise
+            except StreamMigratingError:
+                self._resume_or_raise("migrating")
+                continue
+            except TimeoutError:
+                if self._worker_alive():
+                    raise  # a stall: the door's typed frame
+                self._resume_or_raise("worker_death")
+                continue
+            except GenerationError:
+                self._p._journal_fail(self._entry)
+                raise
+            self._p._journal_note(self._entry, delta)
+            if delta.finished:
+                self._p._journal_close(self._entry)
+            return delta
+
+    def _worker_alive(self) -> bool:
+        queues = self._p._broker.get_worker_queues(self._p._job_id)
+        return self._entry.worker_id in queues
+
+    def _resume_or_raise(self, reason: str) -> None:
+        """Swap in a sibling's resumed stream, or retire the journal entry
+        and raise typed (a cross-version refusal keeps its type; a
+        hand-back never reaches the client as such)."""
+        try:
+            self._inner = self._p._resume_stream(self._entry, reason)
+        except GenerationError as e:
+            self._p._journal_fail(self._entry)
+            if isinstance(e, StreamMigratingError):
+                raise GenerationError(str(e)) from e
+            raise
+        except Exception as e:
+            self._p._journal_fail(self._entry)
+            raise GenerationError(
+                f"stream died ({reason}) and could not be resumed: "
+                f"{e!r}") from e

@@ -426,7 +426,11 @@ class PredictorServer:
             return chunk(json.dumps(delta.to_json()).encode() + b"\n")
 
         # one stall window a delta; the request's own deadline is the
-        # worker's (max_duration_s -> reason "deadline")
+        # worker's (max_duration_s -> reason "deadline"). The stream is the
+        # predictor's resumable one: a window that ends with the worker's
+        # queue gone is its replica's death, and the stream resumes on a
+        # sibling inside next_delta, as a hand-back does; so the window is
+        # also how long a death takes to notice
         stall_s = max(float(config.GEN_STREAM_TIMEOUT_S), 0.1)
         served = 0
         while True:

@@ -11,10 +11,10 @@ that the class subclasses this package's ``BaseModel``, and
 ``test_model_class``, the local contract harness (over the port's
 advisor, parameter serialization and ensemble). The generation contract:
 ``GenerationSpec``, the decode methods a ``TEXT_GENERATION`` template
-overrides (the ring, the paged pool and the sampled steps) and the
-capability oracles the admin and the generation worker consult. The
-population hooks, the speculative-decoding methods
-(``paged_verify_step``, ``decode_steps_sampled``), the fused-ensemble
+overrides (the ring, the paged pool, the sampled steps and speculative
+decoding's ``paged_verify_step``; a draft's optional fused burst
+``decode_steps_sampled``) and the capability oracles the admin and the
+generation worker consult. The population hooks, the fused-ensemble
 hook and dependency provisioning wait (ROADMAP.md).
 """
 
@@ -209,6 +209,18 @@ class BaseModel(abc.ABC):
         ``decode_step_sampled``."""
         raise NotImplementedError
 
+    def paged_verify_step(self, cache: Any, ids: Any, positions: Any,
+                          block_tables: Any, draft_probs: Any,
+                          sampling: Any) -> Tuple[Any, Any, Any]:
+        """Verify k drafted tokens a slot in one forward
+        (``models/lm.py`` ``paged_verify_step``): ``ids`` (S, k+1) the
+        last committed token then the draft's proposals, ``positions``
+        (S, k+1) their write positions, ``draft_probs`` (S, k, V) the
+        draft's modified distributions. ``(accept_len, tokens, cache)``:
+        each slot's accepted-prefix length and its committed tokens,
+        left-packed (accept_len + 1 of them)."""
+        raise NotImplementedError
+
 
 _log = logging.getLogger(__name__)
 
@@ -217,6 +229,13 @@ GENERATION_METHODS = ("init_kv_cache", "prefill", "decode_step")
 #: and those of the paged allocator
 GENERATION_PAGED_METHODS = ("init_paged_kv_cache", "paged_prefill",
                             "paged_decode_step", "kv_copy_blocks")
+
+#: the sampled steps: ``decode_step_sampled``, and the paged one too on
+#: a paged-capable template
+GENERATION_SAMPLING_METHODS = ("decode_step_sampled",
+                               "paged_decode_step_sampled")
+#: the one more method a speculative target overrides
+GENERATION_SPEC_METHODS = ("paged_verify_step",)
 
 #: the roles of the keyed draws (models/lm.py)
 ROLE_TARGET = 0
@@ -265,13 +284,48 @@ def sampling_capability(clazz: type) -> Optional[GenerationSpec]:
     spec = generation_capability(clazz)
     if spec is None:
         return None
-    needed = ["decode_step_sampled"]
+    needed = list(GENERATION_SAMPLING_METHODS[:1])
     if paged_generation_capability(clazz) is not None:
-        needed.append("paged_decode_step_sampled")
+        needed.append(GENERATION_SAMPLING_METHODS[1])
     missing = [m for m in needed if not _overrides(clazz, m)]
     if missing:
         _log.warning("%s does not override %s; template is NOT "
                      "sampling-capable: sampled requests will be refused",
+                     clazz.__name__, missing)
+        return None
+    return spec
+
+
+def draft_capability(clazz: type) -> Optional[GenerationSpec]:
+    """The spec when the template can serve as a speculative draft: the
+    ring contract and ``decode_step_sampled`` (a draft proposes through
+    its own ring and hands back its whole distribution q). Its optional
+    ``decode_steps_sampled(cache, ids, positions, k, sampling)`` runs the
+    k-step burst in one call; without it the worker chains k sampled
+    steps."""
+    spec = generation_capability(clazz)
+    if spec is None:
+        return None
+    if not _overrides(clazz, "decode_step_sampled"):
+        _log.warning("%s does not override decode_step_sampled; template "
+                     "cannot serve as a speculative draft", clazz.__name__)
+        return None
+    return spec
+
+
+def spec_verify_capability(clazz: type) -> Optional[GenerationSpec]:
+    """The spec when the template can serve as a speculative target:
+    paged, sampling-capable and ``paged_verify_step`` overridden. None
+    serves plain paged decode, with the reason in the worker's
+    ``gen_spec_degraded``."""
+    spec = paged_generation_capability(clazz)
+    if spec is None or sampling_capability(clazz) is None:
+        return None
+    missing = [m for m in GENERATION_SPEC_METHODS
+               if not _overrides(clazz, m)]
+    if missing:
+        _log.warning("%s does not override %s; template cannot verify "
+                     "speculative drafts: serving plain paged decode",
                      clazz.__name__, missing)
         return None
     return spec

@@ -7,9 +7,12 @@ three Adam steps, ``evaluate`` the negated loss, a ``GenerationSpec``
 with no EOS and a 64-token context, and every decode method the
 generation worker drives: the ring (``init_kv_cache``, ``prefill``,
 ``decode_step``), the paged pool (``init_paged_kv_cache``,
-``paged_prefill``, ``paged_decode_step``, ``kv_copy_blocks``) and the
-sampled steps (``decode_step_sampled``, ``paged_decode_step_sampled``).
-Speculative decoding's methods are not ported (ROADMAP.md).
+``paged_prefill``, ``paged_decode_step``, ``kv_copy_blocks``), the
+sampled steps (``decode_step_sampled``, ``paged_decode_step_sampled``)
+and speculative decoding's: the target's ``paged_verify_step`` and a
+draft's fused burst ``decode_steps_sampled``. A draft is this class at
+other widths: a subclass sets ``arch`` and the ``dim`` knob, as the
+JAX fixture's ``TinyDraftLM`` narrows ``TinyGenLM``.
 
 The architecture beyond the knobs (``arch``: the vocabulary of 64,
 ``depth`` 1, ``heads`` 2), the training batch and its steps
@@ -189,3 +192,18 @@ class TorchGenLM(BaseModel):
         tok, probs, cache = lm.paged_decode_step_sampled(
             self._model, cache, ids, positions, block_tables, sampling)
         return _host(tok), probs, cache
+
+    def decode_steps_sampled(self, cache, ids, positions, k, sampling):
+        """The draft's burst: (tokens (S, k) on the host, q (S, k, V) on
+        the model's device, cache); the one wait on the card is for the
+        tokens at its end."""
+        toks, probs, cache = lm.decode_steps_sampled(
+            self._model, cache, ids, positions, int(k), sampling)
+        return _host(toks), probs, cache
+
+    def paged_verify_step(self, cache, ids, positions, block_tables,
+                          draft_probs, sampling):
+        acc, toks, cache = lm.paged_verify_step(
+            self._model, cache, ids, positions, block_tables, draft_probs,
+            sampling)
+        return _host(acc), _host(toks), cache

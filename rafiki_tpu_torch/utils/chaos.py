@@ -18,11 +18,25 @@ of the requests a rule has seen, never on randomness; the controller
 re-parses ``RAFIKI_CHAOS`` whenever its value changes (counters reset
 with it).
 
-Only the ``trial`` site has its hook in the port (``worker/train.py``,
-one ask per trial attempt, target ``"{sub_train_job_id} {trial_id}"``:
-``delay`` sleeps, ``oom`` raises a host ``MemoryError``, ``error`` a
-transient ``INFRA`` fault). A rule naming any other site of the original
-raises :class:`~rafiki_tpu_torch.config.NotPortedError` when it is made,
+Three sites have their hooks in the port:
+
+- ``trial`` (``worker/train.py``, one ask per trial attempt, target
+  ``"{sub_train_job_id} {trial_id}"``): ``delay`` sleeps, ``oom`` raises
+  a host ``MemoryError``, ``error`` a transient ``INFRA`` fault;
+- ``worker`` (both serve loops, one ask a batch or a scheduler round,
+  target ``"{inference_job_id}/{service_id}"``): ``delay`` sleeps; in
+  the classification loop ``drop`` swallows the batch and ``error``
+  fails it; in the generation loop ``drop`` is the SIGKILL drill (the
+  replica leaves, its streams abandoned) and ``error`` a clean
+  retirement (its streams handed back ``MIGRATING``);
+- ``generate`` (``worker/generation.py``): at each slot a round, target
+  ``"{job}/{service}/slot{i}/{seq_id}"`` (``drop`` mutes the stream,
+  ``error`` fails it), and at the draft a speculative round, target
+  ``"draft/{job}/{service}"`` (``drop`` skips speculation that round,
+  ``error`` degrades it for good).
+
+A rule naming any other site of the original raises
+:class:`~rafiki_tpu_torch.config.NotPortedError` when it is made,
 installed or read from the environment: it is never silently inert.
 """
 
@@ -60,7 +74,7 @@ SITES = (SITE_CALL_AGENT, SITE_AGENT, SITE_WORKER, SITE_WIRE, SITE_DB,
          SITE_TRIAL, SITE_GENERATE, SITE_DEPLOY, SITE_CACHE, SITE_DRIFT,
          SITE_COMPILE, SITE_LEASE)
 #: the sites whose hook the port has
-HOOKED_SITES = (SITE_TRIAL,)
+HOOKED_SITES = (SITE_TRIAL, SITE_WORKER, SITE_GENERATE)
 
 ACTION_DROP = "drop"
 ACTION_DELAY = "delay"

@@ -25,12 +25,25 @@ Sampling (temperature, top-k, top-p, ``RAFIKI_GEN_SAMPLING``) draws under
 keys of (stream seed, position, role), so a preempted sampled stream
 resumes with the same tokens; temperature 0 is the greedy path.
 
-Not ported (ROADMAP.md): speculative decoding (the draft model,
-``_spec_round``), the hand-back of resident streams to the door for a
-resume on a sibling (a stopping worker ends them with a typed error
-instead) and resume requests (refused typed), chaos injection, and the
-metrics registry (the counters ride the worker's ``serving_stats``
-row).
+Speculative decoding (``RAFIKI_GEN_SPEC``, on by default, whenever the
+inference job's budget names a draft trial, ``GEN_DRAFT_TRIAL``): each
+round the draft LM proposes ``RAFIKI_GEN_SPEC_K`` tokens a stream from
+its own ring cache, the target verifies the k+1 positions in one
+``paged_verify_step`` forward with rejection sampling, and each stream
+commits its accepted prefix and one drawn token. A draft or verify fault
+degrades the worker to plain decode, typed (``gen_spec_degraded`` in the
+stats row), and the round finishes plain: the streams lose the speedup,
+never a token.
+
+Stream continuity: a retiring worker (stopping, its queue closed, a
+``RAFIKI_CHAOS`` ``site=worker`` ``error``) hands each unfinished stream
+back typed ``migrating`` for the door to resume on a sibling; a
+``site=worker`` ``drop`` is the SIGKILL drill, which abandons them. A
+resume request (``resume_tokens``, the committed tokens) prefills the
+prompt and those tokens under the stream's seed and goes on from them.
+
+The metrics registry is not ported: the counters ride the worker's
+``serving_stats`` row.
 """
 
 from __future__ import annotations
@@ -42,17 +55,23 @@ import uuid
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from rafiki_tpu_torch import config
 from rafiki_tpu_torch.cache.queue import TokenStream
+from rafiki_tpu_torch.constants import BudgetType
 from rafiki_tpu_torch.device import set_device_grant
 from rafiki_tpu_torch.sdk.model import (
+    ROLE_DRAFT,
     ROLE_TARGET,
     GenerationSpec,
+    draft_capability,
     generation_capability,
     paged_generation_capability,
     sampling_capability,
+    spec_verify_capability,
 )
+from rafiki_tpu_torch.utils import chaos
 from rafiki_tpu_torch.worker.inference import (
     SERVING_STATS,
     InferenceWorker,
@@ -79,7 +98,8 @@ class _Slot:
 
     __slots__ = ("stream", "last_id", "position", "produced", "max_tokens",
                  "deadline", "prompt", "tokens", "pending_from", "seq",
-                 "temperature", "top_k", "top_p", "rng_seed")
+                 "temperature", "top_k", "top_p", "rng_seed", "muted",
+                 "draft_ready")
 
     def __init__(self, stream: TokenStream, prompt: List[int],
                  max_tokens: int, deadline: Optional[float], seq: int,
@@ -103,6 +123,12 @@ class _Slot:
         self.top_k = int(tk)
         self.top_p = float(tp)
         self.rng_seed = int(sd)
+        #: chaos ``drop`` at the slot: it decodes on, its deltas unsent
+        #: (the door's stall window owns recovery)
+        self.muted = False
+        #: the draft's ring holds this slot's history; a round the slot
+        #: sits out writes junk there, so it is prefilled again lazily
+        self.draft_ready = False
 
 
 class _Pending:
@@ -164,10 +190,10 @@ class GenerationWorker(InferenceWorker):
                     "on" if self._alloc.prefix_cache else "off", self._chunk)
             else:
                 cache = model.init_kv_cache(max_slots)
-            self._sampling_cap = sampling_capability(type(model))
+            self._service_id = ctx.service_id
+            self._init_spec(model, spec, max_slots)
             model.warm_up()
             ctx.ready()
-            self._service_id = ctx.service_id
             self._queue = queue
             slots: List[Optional[_Slot]] = [None] * max_slots
             self._tokens_emitted = 0
@@ -175,7 +201,29 @@ class GenerationWorker(InferenceWorker):
             self._pending: List[_Pending] = []
             self._evictions: Dict[str, int] = {}
             self._preempted = 0
+            killed = False
             while not ctx.stopping:
+                # the replica drills (RAFIKI_CHAOS site=worker): drop is
+                # the SIGKILL drill, its streams abandoned with no last
+                # delta (the door finds the queue gone at its stall window
+                # and resumes them from its journal); error a clean
+                # retirement, its streams handed back MIGRATING
+                rule = chaos.hit(chaos.SITE_WORKER,
+                                 f"{self._job_id}/{ctx.service_id}")
+                if rule is not None:
+                    if rule.action == chaos.ACTION_DELAY:
+                        chaos.sleep_for(rule)
+                    elif rule.action == chaos.ACTION_DROP:
+                        logger.warning("chaos: killing generation replica "
+                                       "%s (streams abandoned)",
+                                       ctx.service_id)
+                        killed = True
+                        break
+                    else:
+                        logger.warning("chaos: retiring generation replica "
+                                       "%s (streams handed back)",
+                                       ctx.service_id)
+                        break
                 n_active = sum(1 for s in slots if s is not None)
                 free = [i for i, s in enumerate(slots) if s is None]
                 # -- admit: resumes first, then queued requests ----------
@@ -204,34 +252,126 @@ class GenerationWorker(InferenceWorker):
                 # -- decode: one token for every resident sequence -------
                 if any(s is not None and s.pending_from is None
                        for s in slots):
-                    cache = self._decode_round(model, spec, cache, slots)
+                    if self._spec_on:
+                        cache = self._spec_round(model, spec, cache, slots)
+                    else:
+                        cache = self._decode_round(model, spec, cache,
+                                                   slots)
                 elif n_active == 0:
                     # only stashed streams remain and none can run yet
                     time.sleep(0.005)
-            self._end_all(slots)
+            # a retiring replica hands every unfinished stream back for a
+            # resume on a sibling; the SIGKILL drill must not
+            if not killed:
+                self._hand_back_all(slots)
         finally:
             self._broker.unregister_worker(self._job_id, ctx.service_id)
+            if getattr(self, "_draft", None) is not None:
+                self._draft.destroy()
             if model is not None:
                 model.destroy()
             set_device_grant(None)
 
-    def _end_all(self, slots: List[Optional[_Slot]]) -> None:
-        """A stopping worker ends every resident and stashed stream with a
-        typed error (the JAX package hands them back for a resume on a
-        sibling, which is not ported), and fails the requests still
-        waiting on their future."""
-        message = ("generation worker stopped mid-stream (resuming a stream "
-                   "on another replica is not ported)")
+    def _hand_back_all(self, slots: List[Optional[_Slot]]) -> None:
+        """Hand every unfinished resident and stashed stream back typed
+        ``migrating``: the door resumes each on a sibling from its journal
+        (with no sibling left, its client gets a typed error). A request
+        still waiting on its future gets the closed queue's error, as the
+        door's submit walk expects."""
+        message = (f"generation replica {self._service_id} is retiring; "
+                   "stream handed back for resume on a sibling")
+        handed = 0
         for i, s in enumerate(slots):
-            if s is not None:
-                s.stream.fail(message)
-                self._evict_slot(slots, i, "error")
+            if s is None:
+                continue
+            if s.stream.cancelled:
+                self._evict_slot(slots, i, "cancelled")
+                continue
+            s.stream.hand_back(message)
+            handed += 1
+            self._evict_slot(slots, i, "migrating")
         for entry in self._pending:
             if entry.stream is not None:
-                entry.stream.fail(message)
+                if not entry.stream.cancelled:
+                    entry.stream.hand_back(message)
+                    handed += 1
             elif entry.fut is not None:
                 entry.fut.set_error(RuntimeError("worker queue closed"))
         self._pending = []
+        if handed:
+            logger.info("generation replica %s handed back %d unfinished "
+                        "stream(s)", self._service_id, handed)
+
+    # -- speculation set-up --------------------------------------------------
+
+    def _init_spec(self, model, spec: GenerationSpec, max_slots: int) -> None:
+        """Sampling needs a capable template; speculation the paged plane,
+        the verify capability and a draft trial in the job's budget.
+        Anything missing serves plain decode, its reason in the stats row
+        (a job that budgets no draft is not a fault)."""
+        self._sampling_cap = sampling_capability(type(model))
+        self._spec_on = False
+        self._spec_degraded: Optional[str] = None
+        self._spec_k = min(max(int(config.GEN_SPEC_K), 1), 16)
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_rounds = 0
+        self._draft = None
+        self._draft_spec: Optional[GenerationSpec] = None
+        self._draft_cache = None
+        if not bool(config.GEN_SPEC) or self._alloc is None:
+            return
+        if spec_verify_capability(type(model)) is None:
+            self._spec_degraded = (
+                "template lacks the speculative verify capability "
+                "(paged_verify_step and the sampled steps)")
+            return
+        try:
+            draft = self._load_draft_model()
+        except Exception:
+            logger.error("draft model failed to load in generation worker "
+                         "%s:\n%s", self._service_id, traceback.format_exc())
+            self._spec_degraded = "draft model failed to load"
+            return
+        if draft is None:
+            return
+        dspec = draft_capability(type(draft))
+        if dspec is None:
+            draft.destroy()
+            self._spec_degraded = (
+                "draft trial's template is not draft-capable (the "
+                "generation contract and decode_step_sampled)")
+            return
+        self._draft = draft
+        self._draft_spec = dspec
+        self._draft_cache = draft.init_kv_cache(max_slots)
+        self._spec_on = True
+        logger.info("generation worker %s: speculative decoding on (k=%d, "
+                    "draft max_context=%d)", self._service_id, self._spec_k,
+                    dspec.max_context)
+
+    def _load_draft_model(self):
+        """The draft trial the inference job's budget names
+        (``GEN_DRAFT_TRIAL``), loaded as the served trial is; None when
+        it names none."""
+        if self._db is None:
+            return None
+        inf = self._db.get_inference_job(self._job_id)
+        draft_tid = ((inf or {}).get("budget") or {}).get(
+            BudgetType.GEN_DRAFT_TRIAL)
+        if not draft_tid:
+            return None
+        return self._load_trial(str(draft_tid))
+
+    def _degrade_spec(self, reason: str) -> None:
+        """A draft or verify fault: plain decode from now on, typed. The
+        resident streams decode on."""
+        if not self._spec_on:
+            return
+        self._spec_on = False
+        self._spec_degraded = reason
+        logger.error("generation worker %s: speculative decoding degraded "
+                     "to plain decode: %s", self._service_id, reason)
 
     def _sampling_arrays(self, slots, role, only=None) -> Dict[str, object]:
         """The slots' sampling parameters as the arrays the sampled steps
@@ -271,12 +411,24 @@ class GenerationWorker(InferenceWorker):
         back through the request's future. A malformed request fails its
         future typed and costs no slot; a failed prefill fails only its
         request. ``seq`` re-admits a stashed request under its first
-        admission order."""
+        admission order.
+
+        A resume request (``resume_tokens``: the committed tokens of a
+        stream a sibling lost) is admitted the same way: the prompt and
+        those tokens are prefilled under the stream's seed, the keyed
+        draws go on where the sibling stopped, and ``produced`` starts at
+        the committed count, so ``max_tokens`` stays the first budget."""
         try:
             prompt, max_tokens, max_duration_s, sampling = \
                 self._parse_query(query)
+            resume = self._parse_resume(query)
         except GenerationRequestError as e:
             fut.set_error(e)
+            return cache
+        if resume and len(resume) >= max_tokens:
+            fut.set_error(GenerationRequestError(
+                f"resume_tokens ({len(resume)}) already meets max_tokens "
+                f"({max_tokens}): nothing left to resume"))
             return cache
         if sampling[0] > 0.0 and self._sampling_cap is None:
             fut.set_error(GenerationRequestError(
@@ -292,24 +444,27 @@ class GenerationWorker(InferenceWorker):
                 f"prompt ({len(prompt)} tokens) + max_tokens ({max_tokens}) "
                 f"exceeds the template's max_context ({spec.max_context})"))
             return cache
+        # the prefill history: the prompt, and a resume's committed tokens
+        history = prompt + resume
+        produced = len(resume)
         deadline = (time.monotonic() + max_duration_s
                     if max_duration_s else None)
         if self._alloc is not None:
-            if self._alloc.blocks_for(len(prompt) + 1) \
+            if self._alloc.blocks_for(len(history) + 1) \
                     > self._alloc.pool_blocks:
                 fut.set_error(GenerationRequestError(
-                    f"prompt ({len(prompt)} tokens) cannot fit the KV pool "
-                    f"({self._alloc.pool_blocks} blocks x "
+                    f"prompt and history ({len(history)} tokens) cannot fit "
+                    f"the KV pool ({self._alloc.pool_blocks} blocks x "
                     f"{self._alloc.block_tokens} tokens); raise "
                     "RAFIKI_GEN_KV_POOL_BLOCKS"))
                 return cache
             return self._admit_paged(model, spec, cache, slots, free, fut,
-                                     prompt, max_tokens, deadline, seq=seq,
-                                     sampling=sampling)
+                                     history, max_tokens, deadline, seq=seq,
+                                     sampling=sampling, produced=produced)
         # -- the contiguous ring ---------------------------------------------
         slot_ix = free.pop(0)
         try:
-            first_id, cache = model.prefill(cache, slot_ix, list(prompt))
+            first_id, cache = model.prefill(cache, slot_ix, list(history))
         except Exception as e:
             free.insert(0, slot_ix)
             logger.error("prefill failed in generation worker %s:\n%s",
@@ -317,22 +472,22 @@ class GenerationWorker(InferenceWorker):
             fut.set_error(RuntimeError(f"prefill failed: {e}"))
             return cache
         stream = TokenStream(seq_id=uuid.uuid4().hex[:12])
-        slot = _Slot(stream, list(prompt), max_tokens, deadline,
+        slot = _Slot(stream, list(history), max_tokens, deadline,
                      self._next_seq() if seq is None else seq,
-                     sampling=sampling)
+                     produced=produced, sampling=sampling)
         slots[slot_ix] = slot
         fut.set_result(stream)
         _record_batch(self._service_id, 1, self._queue)
         if slot.temperature > 0.0:
             # prefill's token is the greedy pick: rewind one row, so the
-            # next decode round rewrites the last prompt position (the same
-            # K/V) and samples the first token under its position's key
-            slot.last_id = prompt[-1]
-            slot.position = len(prompt) - 1
+            # next decode round rewrites the last history position (the
+            # same K/V) and samples the next token under its position's key
+            slot.last_id = history[-1]
+            slot.position = len(history) - 1
             return cache
         first_id = int(first_id)
         slot.last_id = first_id
-        slot.position = len(prompt)
+        slot.position = len(history)
         slot.produced += 1
         slot.tokens.append(first_id)
         self._tokens_emitted += 1
@@ -349,16 +504,19 @@ class GenerationWorker(InferenceWorker):
     # -- paged admission and prefill -------------------------------------------
 
     def _admit_paged(self, model, spec, cache, slots, free, fut, prompt,
-                     max_tokens, deadline, seq=None, sampling=None):
+                     max_tokens, deadline, seq=None, sampling=None,
+                     produced=0):
         """Open a block table for the prompt (mapping any cached prefix),
         run the first prefill chunk and resolve the request's future; the
         other chunks run one a round. A pool too dry for the first chunk
-        stashes the request, the youngest stream, with its future."""
+        stashes the request, the youngest stream, with its future. For a
+        resume ``prompt`` is the whole history and ``produced`` the
+        committed count."""
         slot_ix = free.pop(0)
         slot = _Slot(TokenStream(seq_id=uuid.uuid4().hex[:12]),
                      list(prompt), max_tokens, deadline,
                      self._next_seq() if seq is None else seq,
-                     sampling=sampling)
+                     produced=produced, sampling=sampling)
         plan = self._alloc.open_slot(slot_ix, prompt)
         slot.pending_from = plan.cached_tokens
         slot.position = plan.cached_tokens
@@ -377,11 +535,14 @@ class GenerationWorker(InferenceWorker):
                 free.insert(0, slot_ix)
                 # the derived seed rides along: the resumed parse replays
                 # the same sampled stream
-                query = {"prompt_ids": list(prompt),
+                cut = len(prompt) - produced
+                query = {"prompt_ids": list(prompt[:cut]),
                          "max_tokens": max_tokens, "max_duration_s": None,
                          "temperature": slot.temperature,
                          "top_k": slot.top_k, "top_p": slot.top_p,
                          "seed": slot.rng_seed}
+                if produced:
+                    query["resume_tokens"] = list(prompt[cut:])
                 self._stash(_Pending(slot.seq, fut=fut, query=query,
                                      deadline=deadline))
                 return cache
@@ -601,8 +762,11 @@ class GenerationWorker(InferenceWorker):
     # -- the decode round ----------------------------------------------------
 
     def _decode_round(self, model, spec: GenerationSpec, cache,
-                      slots: List[Optional[_Slot]]):
-        """Advance every resident decoding sequence one token."""
+                      slots: List[Optional[_Slot]], only=None):
+        """Advance every resident decoding sequence one token; ``only``
+        limits the round to those slots (a speculative round's streams
+        that sat its verify out). The ``generate`` chaos rule is asked at
+        each slot: a drill hurts one stream while the others decode on."""
         n = len(slots)
         paged = self._alloc is not None
         if paged:
@@ -610,27 +774,27 @@ class GenerationWorker(InferenceWorker):
             for i, s in enumerate(slots):
                 if s is None or s.pending_from is not None:
                     continue
+                if only is not None and i not in only:
+                    continue
                 if not self._make_capacity(slots, i, s.position):
                     if slots[i] is s:
                         self._preempt(slots, i)
                     continue
                 copies = self._alloc.ensure_writable(i, s.position)
-                if copies is None:
-                    if not self._preempt_youngest(slots, exclude=i):
-                        s.stream.fail("KV pool exhausted and no younger "
-                                      "stream left to preempt; raise "
-                                      "RAFIKI_GEN_KV_POOL_BLOCKS")
-                        self._evict_slot(slots, i, "kv_pool")
-                        continue
+                while copies is None and self._preempt_youngest(slots,
+                                                                exclude=i):
                     copies = self._alloc.ensure_writable(i, s.position)
-                    if copies is None:
-                        s.stream.fail("KV pool exhausted")
-                        self._evict_slot(slots, i, "kv_pool")
-                        continue
+                if copies is None:
+                    # the youngest stream short of a copy-on-write page
+                    # yields its own pages and waits its turn, as it does
+                    # for a dry pool (the JAX worker fails it here)
+                    self._preempt(slots, i)
+                    continue
                 if copies:
                     cache = self._apply_copies(model, cache, copies)
         active = [(i, s) for i, s in enumerate(slots)
-                  if s is not None and s.pending_from is None]
+                  if s is not None and s.pending_from is None
+                  and (only is None or i in only)]
         if not active:
             return cache
         ids = np.zeros(n, np.int32)
@@ -677,6 +841,8 @@ class GenerationWorker(InferenceWorker):
         for i, slot in active:
             if slots[i] is not slot:
                 continue
+            if not self._slot_chaos(slots, i, slot):
+                continue
             if slot.stream.cancelled:
                 self._evict_slot(slots, i, "cancelled")
                 continue
@@ -689,9 +855,195 @@ class GenerationWorker(InferenceWorker):
             finished, reason = self._finish_reason(slot, spec, token)
             if slot.deadline is not None and now >= slot.deadline:
                 finished, reason = True, "deadline"
-            slot.stream.push([token], finished=finished, reason=reason)
+            if not slot.muted:
+                slot.stream.push([token], finished=finished, reason=reason)
             if finished:
                 self._evict_slot(slots, i, reason)
+        return cache
+
+    def _slot_chaos(self, slots, i: int, slot: _Slot) -> bool:
+        """The ``generate`` rule at one slot this round: ``delay`` sleeps,
+        ``drop`` mutes the stream (it decodes on, unheard: the door's
+        stall window owns recovery), ``error`` fails it. False when the
+        slot was evicted."""
+        rule = chaos.hit(chaos.SITE_GENERATE,
+                         f"{self._job_id}/{self._service_id}/slot{i}/"
+                         f"{slot.stream.seq_id}")
+        if rule is None:
+            return True
+        if rule.action == chaos.ACTION_DELAY:
+            chaos.sleep_for(rule)
+        elif rule.action == chaos.ACTION_DROP:
+            logger.warning("chaos: muting generation slot %d (%s)", i,
+                           slot.stream.seq_id)
+            slot.muted = True
+        else:
+            slot.stream.fail("chaos-injected mid-stream generation fault")
+            self._evict_slot(slots, i, "error")
+            return False
+        return True
+
+    # -- the speculative round -----------------------------------------------
+
+    def _spec_round(self, model, spec: GenerationSpec, cache,
+                    slots: List[Optional[_Slot]]):
+        """One draft-propose and verify round: the draft proposes k tokens
+        for each stream that can take them, the target verifies the k+1
+        positions in one ``paged_verify_step``, and each commits its
+        accepted prefix and one drawn token. A stream at a context edge,
+        or whose k+1 pages could not be had, decodes plain this round; a
+        draft or verify fault degrades speculation and the round finishes
+        plain for all."""
+        k = self._spec_k
+        cand = [i for i, s in enumerate(slots)
+                if s is not None and s.pending_from is None
+                and s.position + k < spec.max_context
+                and s.position + k < self._draft_spec.max_context]
+        if not cand:
+            return self._decode_round(model, spec, cache, slots)
+        # the draft drills: a slow or failing draft costs the speedup,
+        # never the streams
+        rule = chaos.hit(chaos.SITE_GENERATE,
+                         f"draft/{self._job_id}/{self._service_id}")
+        if rule is not None:
+            if rule.action == chaos.ACTION_DELAY:
+                chaos.sleep_for(rule)
+            elif rule.action == chaos.ACTION_DROP:
+                return self._decode_round(model, spec, cache, slots)
+            else:
+                self._degrade_spec("chaos-injected draft fault")
+                return self._decode_round(model, spec, cache, slots)
+        # growth and copy-on-write over the whole k+1-row burst: a
+        # published prefix page never takes a verify write
+        bt = self._alloc.block_tokens
+        part: List[int] = []
+        for i in cand:
+            s = slots[i]
+            if s is None:
+                continue  # preempted for an earlier stream's burst
+            ok = self._make_capacity(slots, i, s.position + k)
+            if ok:
+                for bx in range(s.position // bt, (s.position + k) // bt + 1):
+                    copies = self._alloc.ensure_writable(i, bx * bt)
+                    if copies is None:
+                        ok = False
+                        break
+                    if copies:
+                        cache = self._apply_copies(model, cache, copies)
+            if ok:
+                part.append(i)
+        part = [i for i in part if slots[i] is not None]
+        rest = set(i for i, s in enumerate(slots)
+                   if s is not None and s.pending_from is None
+                   and i not in part)
+        if not part:
+            return self._decode_round(model, spec, cache, slots, only=rest)
+        # the burst writes junk into the draft ring rows of the slots
+        # that sit it out: they prefill it again when they next take part
+        for i in rest:
+            slots[i].draft_ready = False
+        n = len(slots)
+        try:
+            for i in part:
+                s = slots[i]
+                if s.draft_ready:
+                    continue
+                # the committed history, rows 0..position (the burst's
+                # first step rewrites row position with the same K/V)
+                _, self._draft_cache = self._draft.prefill(
+                    self._draft_cache, i, list(s.prompt) + list(s.tokens))
+                s.draft_ready = True
+            cur = np.zeros(n, np.int32)
+            cpos = np.zeros(n, np.int32)
+            for i in part:
+                cur[i] = slots[i].last_id
+                cpos[i] = slots[i].position
+            dsamp = self._sampling_arrays(slots, ROLE_DRAFT, only=part)
+            burst = getattr(self._draft, "decode_steps_sampled", None)
+            if callable(burst):
+                d_ids, draft_probs, self._draft_cache = burst(
+                    self._draft_cache, cur, cpos, k, dsamp)
+                d_ids = np.asarray(d_ids, np.int32)          # (S, k)
+            else:
+                d_ids = np.zeros((n, k), np.int32)
+                q_list = []
+                for j in range(k):
+                    nxt, q, self._draft_cache = \
+                        self._draft.decode_step_sampled(
+                            self._draft_cache, cur.copy(), cpos.copy(),
+                            dsamp)
+                    nxt = np.asarray(nxt, np.int32)
+                    d_ids[:, j] = nxt
+                    q_list.append(q)
+                    cur = nxt
+                    cpos = cpos + 1
+                # (S, k, V), on the draft's device
+                draft_probs = torch.stack(
+                    [torch.as_tensor(q) for q in q_list], 1)
+        except Exception:
+            logger.error("draft propose failed in generation worker %s:\n%s",
+                         self._service_id, traceback.format_exc())
+            self._degrade_spec("draft propose failed")
+            return self._decode_round(model, spec, cache, slots)
+        ids2 = np.zeros((n, k + 1), np.int32)
+        pos2 = np.tile(np.arange(k + 1, dtype=np.int32), (n, 1))
+        for i in part:
+            s = slots[i]
+            ids2[i, 0] = s.last_id
+            ids2[i, 1:] = d_ids[i]
+            pos2[i] = s.position + np.arange(k + 1, dtype=np.int32)
+        tables = np.stack([self._alloc.table_row(i) if i in part
+                           else self._alloc.idle_row() for i in range(n)])
+        vsamp = self._sampling_arrays(slots, ROLE_TARGET, only=part)
+        try:
+            acc, toks, cache = model.paged_verify_step(
+                cache, ids2, pos2, tables, draft_probs, vsamp)
+            acc = np.asarray(acc)
+            toks = np.asarray(toks)
+        except Exception:
+            # raised before a new cache came back: the table is whole
+            # (a draft and target of other vocabularies is the usual cause)
+            logger.error("speculative verify failed in generation worker "
+                         "%s:\n%s", self._service_id, traceback.format_exc())
+            self._degrade_spec("verify step failed (draft/target mismatch?)")
+            return self._decode_round(model, spec, cache, slots)
+        now = time.monotonic()
+        self._spec_rounds += 1
+        for i in part:
+            s = slots[i]
+            if s is None or not self._slot_chaos(slots, i, s):
+                continue
+            if s.stream.cancelled:
+                self._evict_slot(slots, i, "cancelled")
+                continue
+            a = int(acc[i])
+            self._spec_proposed += k
+            self._spec_accepted += a
+            emit: List[int] = []
+            finished, reason = False, None
+            for t in toks[i, :a + 1]:
+                token = int(t)
+                s.position += 1
+                s.last_id = token
+                s.produced += 1
+                s.tokens.append(token)
+                emit.append(token)
+                self._tokens_emitted += 1
+                finished, reason = self._finish_reason(s, spec, token)
+                if finished:
+                    break
+            if s.deadline is not None and now >= s.deadline:
+                finished, reason = True, "deadline"
+            if not s.muted:
+                s.stream.push(emit, finished=finished, reason=reason)
+            if finished:
+                self._evict_slot(slots, i, reason)
+            else:
+                # the pages holding only rejected rows go back; a stale
+                # row in the frontier page is written before it is read
+                self._alloc.truncate_to(i, s.position)
+        if rest:
+            cache = self._decode_round(model, spec, cache, slots, only=rest)
         return cache
 
     @staticmethod
@@ -718,16 +1070,10 @@ class GenerationWorker(InferenceWorker):
     def _parse_query(query):
         """(prompt, max_tokens, max_duration_s, (temperature, top_k,
         top_p, seed)); a malformed field raises
-        :class:`GenerationRequestError`, a resume request too (not
-        ported)."""
+        :class:`GenerationRequestError`."""
         if not isinstance(query, dict):
             raise GenerationRequestError(
                 "generation query must be an object with 'prompt_ids'")
-        if query.get("resume_tokens") is not None:
-            raise GenerationRequestError(
-                "resume_tokens asks to resume a stream on this replica; "
-                "stream resume is not ported to rafiki_tpu_torch "
-                "(ROADMAP.md)")
         prompt = query.get("prompt_ids")
         if (not isinstance(prompt, (list, tuple)) or not prompt
                 or not all(isinstance(t, int) and t >= 0 for t in prompt)):
@@ -788,14 +1134,29 @@ class GenerationWorker(InferenceWorker):
         return (list(prompt), max_tokens, max_duration_s,
                 (temperature, top_k, top_p, seed))
 
+    @staticmethod
+    def _parse_resume(query) -> List[int]:
+        """A resume request's committed tokens (``resume_tokens``; [] for
+        a new stream)."""
+        raw = query.get("resume_tokens") if isinstance(query, dict) \
+            else None
+        if raw is None:
+            return []
+        if (not isinstance(raw, (list, tuple))
+                or not all(isinstance(t, int) and t >= 0 for t in raw)):
+            raise GenerationRequestError(
+                "'resume_tokens' must be a list of non-negative token ids")
+        return list(raw)
+
     # -- stats -----------------------------------------------------------------
 
     def _stats_row(self, slots, max_slots: int) -> None:
         """Fold the slot table into this worker's ``serving_stats`` row
         ('queries' stays the admitted-request count): busy slots, resident
         and stashed streams, tokens emitted, evictions by reason,
-        preemptions, and under the paged layout the pool and the prefix
-        cache's counters."""
+        preemptions, speculation (on, tokens proposed and accepted,
+        rounds, and the reason it degraded), and under the paged layout
+        the pool and the prefix cache's counters."""
         busy = sum(1 for s in slots if s is not None)
         with _stats_lock:
             s = SERVING_STATS.setdefault(
@@ -807,6 +1168,12 @@ class GenerationWorker(InferenceWorker):
             s["gen_job"] = self._job_id
             s["gen_evictions"] = dict(self._evictions)
             s["gen_preemptions"] = self._preempted
+            s["gen_spec_on"] = self._spec_on
+            s["gen_spec_proposed"] = self._spec_proposed
+            s["gen_spec_accepted"] = self._spec_accepted
+            s["gen_spec_rounds"] = self._spec_rounds
+            if self._spec_degraded:
+                s["gen_spec_degraded"] = self._spec_degraded
             if self._alloc is not None:
                 st = self._alloc.stats()
                 s["gen_kv_blocks_used"] = st["used_blocks"]
@@ -817,3 +1184,4 @@ class GenerationWorker(InferenceWorker):
                 s["gen_prefix_misses"] = st["prefix_misses"]
                 s["gen_prefix_hit_tokens"] = st["prefix_hit_tokens"]
                 s["gen_cow_copies"] = st["cow_copies"]
+

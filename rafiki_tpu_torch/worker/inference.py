@@ -27,7 +27,11 @@ fuses them, else one model after another. Its stats row says which
 (``fused_dispatch``). Over several devices every rank holds the whole
 group and answers its part of each batch for every trial.
 
-Chaos injection and the sandbox are not ported yet (ROADMAP.md).
+A ``RAFIKI_CHAOS`` rule at site ``worker`` (target
+``"{inference_job_id}/{service_id}"``) is asked once a batch, between
+the take and the forward: ``delay`` sleeps, ``drop`` leaves the batch's
+futures unresolved, ``error`` fails them. The sandbox is not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from rafiki_tpu_torch.device import ServiceContext, set_device_grant
 from rafiki_tpu_torch.parallel.ranks import Ranks, load_params_file
 from rafiki_tpu_torch.predictor.ensemble import ensemble_predictions
 from rafiki_tpu_torch.sdk.model import load_model_class
+from rafiki_tpu_torch.utils import chaos
 
 logger = logging.getLogger(__name__)
 
@@ -230,9 +235,14 @@ class InferenceWorker:
     def _load_model(self, ranks: Optional[Ranks] = None):
         if len(self._trial_ids) > 1:
             return self._load_fused(ranks)
-        trial = self._db.get_trial(self._trial_id)
+        return self._load_trial(self._trial_id, ranks)
+
+    def _load_trial(self, trial_id: str, ranks: Optional[Ranks] = None):
+        """One trained trial's model, its parameters loaded (on every
+        rank of ``ranks``)."""
+        trial = self._db.get_trial(trial_id)
         if trial is None or not trial["params_file_path"]:
-            raise KeyError(f"no trained trial {self._trial_id}")
+            raise KeyError(f"no trained trial {trial_id}")
         model_row = self._db.get_model(trial["model_id"])
         clazz = load_model_class(model_row["model_file_bytes"],
                                  model_row["model_class"])
@@ -308,6 +318,25 @@ class InferenceWorker:
                     continue
                 _record_batch(ctx.service_id, len(batch), queue)
                 futures = [f for f, _ in batch]
+                rule = chaos.hit(chaos.SITE_WORKER,
+                                 f"{self._job_id}/{ctx.service_id}")
+                if rule is not None:
+                    # the overload drills (RAFIKI_CHAOS site=worker): a
+                    # slow replica, a silent one (its futures never
+                    # resolve: the predictor's deadline and hedges own
+                    # recovery), a failing one
+                    if rule.action == chaos.ACTION_DELAY:
+                        chaos.sleep_for(rule)
+                    elif rule.action == chaos.ACTION_DROP:
+                        logger.warning("chaos: worker %s stalling a "
+                                       "%d-query batch", ctx.service_id,
+                                       len(batch))
+                        continue
+                    else:
+                        err = RuntimeError("chaos-injected worker error")
+                        for fut in futures:
+                            fut.set_error(err)
+                        continue
                 try:
                     predictions = predict(
                         _assemble([q for _, q in batch]))

@@ -17,8 +17,9 @@ generation worker, its only caller, drives both from its serve thread,
 so nothing here locks. A matched tail block may carry rows past the
 matched length that belong to the publisher's prompt; the new stream
 writes those positions before attention can read them, so stale rows are
-never attended. The speculative rollback (``truncate_to``) is not ported
-(ROADMAP.md).
+never attended. ``truncate_to`` is the speculative rollback: a verify
+round takes pages for all k drafted positions, and those past the
+accepted frontier go back.
 """
 
 from __future__ import annotations
@@ -227,6 +228,24 @@ class PagedKVAllocator:
             self._refs[b] -= 1
             if self._refs[b] == 0:
                 self._free.append(b)
+
+    def truncate_to(self, slot: Any, tokens: int) -> int:
+        """Shed the pages wholly past logical row ``tokens - 1`` (the
+        rejected suffix of a verify round); no device work, since the
+        next round writes a stale row before any query attends it. Shared
+        pages are dereferenced as :meth:`close_slot` does. Returns the
+        pages freed to the pool."""
+        table = self._tables[slot]
+        keep = self.blocks_for(tokens)
+        freed = 0
+        while len(table) > keep:
+            b = table.pop()
+            self._shared[slot].discard(len(table))
+            self._refs[b] -= 1
+            if self._refs[b] == 0:
+                self._free.append(b)
+                freed += 1
+        return freed
 
     def ensure_capacity(self, slot: Any, position: int) -> bool:
         """Grow the slot's table until it covers logical ``position``

@@ -851,6 +851,170 @@ def test_cuda_greedy_decode_round_matches_cpu(paged):
                                  flash_attention_lse)] == counts
 
 
+#: a verify's decision is compared where it lies at least this far from
+#: where it would flip (as chip_smoke.py's DRAW_MARGIN and TIE_GAP)
+DRAW_MARGIN, TIE_GAP = 1e-5, 1e-4
+
+
+def _spec_lms():
+    """A 2-block, 768-wide target LM and a 2-block, 384-wide draft (6
+    heads, Dh 64) on the same vocabulary, seeded."""
+    from rafiki_tpu_torch.models import lm
+
+    cfg = lm.tiny(vocab=32000, max_len=256, dim=768, depth=2, heads=12)
+    dcfg = lm.tiny(vocab=32000, max_len=256, dim=384, depth=2, heads=6)
+    return (cfg, lm.init(np.random.default_rng(0), cfg), dcfg,
+            lm.init(np.random.default_rng(1), dcfg))
+
+
+def _sampling(temps, role, n):
+    return {"seed": np.arange(1, n + 1, dtype=np.uint32),
+            "temperature": np.asarray(temps, np.float32),
+            "top_k": np.zeros(n, np.int32),
+            "top_p": np.full(n, 0.95, np.float32), "role": role}
+
+
+def _verify_margins(logits, ids, positions, q, sampling):
+    """Each row's least distance of a verify decision from its flip: a
+    greedy row's top-2 gaps where it committed; a sampled row's accept
+    tests up to its first rejection and its last draw's uniform from the
+    cumulative boundaries (the CPU's f32 numbers)."""
+    from rafiki_tpu_torch.models import lm
+
+    k = ids.shape[1] - 1
+    d = torch.from_numpy(ids[:, 1:].astype(np.int64))
+    temp = np.asarray(sampling["temperature"], np.float32)
+    top2 = logits.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).numpy()
+    p = lm.modified_dist(logits, temp[:, None],
+                         np.asarray(sampling["top_k"])[:, None],
+                         np.asarray(sampling["top_p"])[:, None])
+    p_d = torch.gather(p[:, :k], -1, d[..., None])[..., 0]
+    q_d = torch.gather(q, -1, d[..., None])[..., 0]
+    u = torch.from_numpy(lm._uniform_at(sampling["seed"], positions[:, 1:],
+                                        lm.ROLE_ACCEPT))
+    a = torch.cumprod((u * q_d < p_d).long(), -1).sum(-1)
+    test = (u * q_d - p_d).abs().numpy()
+    resid = torch.clamp(p[:, :k] - q, min=0.0)
+    rs = resid.sum(-1, keepdim=True)
+    dist = torch.cat([torch.where(rs > 1e-20, resid / rs.clamp_min(1e-20),
+                                  p[:, :k]), p[:, k:]], 1)
+    x = dist[torch.arange(len(a)), a]
+    u_x = torch.from_numpy(lm._uniform_at(
+        sampling["seed"], positions[:, 0] + 1 + a.numpy(), lm.ROLE_TARGET))
+    draw = (x.cumsum(-1) - u_x[:, None]).abs().min(-1).values.numpy()
+    return np.asarray([
+        gap[i, :ai + 1].min() if temp[i] <= 0
+        else min(test[i, :min(ai + 1, k)].min(), draw[i])
+        for i, ai in enumerate(a.tolist())])
+
+
+@pytest.mark.cuda
+def test_cuda_verify_step_matches_cpu():
+    """``paged_verify_step`` on cuda:0 against the same call on a CPU
+    copy (f32): 4 slots at k=4, one greedy and three sampled (at low
+    temperatures), proposals and q from a draft's burst on the CPU. Accept lengths and tokens
+    equal on every row whose decisions clear DRAW_MARGIN (a greedy row
+    TIE_GAP); the rows written within 1e-3 of max(1, |ref|); no attention
+    kernel launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rafiki_tpu_torch import convert
+    from rafiki_tpu_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, tree, dcfg, dtree = _spec_lms()
+    s, k, bt = 4, 4, 16
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in (40, 100, 61, 17)]
+    tables = np.arange(s * 16, dtype=np.int32).reshape(s, 16)
+    n = np.asarray([len(p) for p in prompts])
+    # low temperatures: a seeded model's distribution over 32,000 tokens
+    # is near flat, its cumulative boundaries closer than DRAW_MARGIN
+    temps = [0.0, 0.1, 0.15, 0.1]
+    draft = convert.from_jax_params(dtree, dcfg, "cpu")
+    ring = lm.init_kv_cache(dcfg, s, 256)
+    firsts = [int(lm.prefill(draft, ring, i, p, len(p))[0].argmax())
+              for i, p in enumerate(prompts)]
+    d_ids, q, _ = lm.decode_steps_sampled(
+        draft, ring, firsts, n, k, _sampling(temps, lm.ROLE_DRAFT, s))
+    ids = np.concatenate([np.asarray(firsts)[:, None], d_ids.numpy()], 1)
+    pos = n[:, None] + np.arange(k + 1)
+    vsamp = _sampling(temps, lm.ROLE_TARGET, s)
+    counts = [f.launches for f in (flash_attention, flash_attention_lse)]
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        model = convert.from_jax_params(tree, cfg, dev)
+        cache = lm.init_paged_kv_cache(cfg, s * 16, bt, device=dev)
+        for i, p in enumerate(prompts):
+            lm.paged_prefill(model, cache, tables[i], p, 0, len(p))
+        if dev == "cpu":
+            with torch.inference_mode():
+                view = {kk: v.clone() for kk, v in cache.items()}
+                logits = lm._paged_forward(model, view, tables, ids, pos)
+        acc, toks, cache = lm.paged_verify_step(
+            model, cache, ids, pos, tables, q.to(dev), vsamp)
+        out[dev] = (acc.cpu(), toks.cpu(), cache["k"].cpu())
+    margins = _verify_margins(logits, ids, pos, q, vsamp)
+    compared = 0
+    for i in range(s):
+        if margins[i] < (TIE_GAP if temps[i] <= 0 else DRAW_MARGIN):
+            continue
+        compared += 1
+        assert int(out["cuda:0"][0][i]) == int(out["cpu"][0][i])
+        assert out["cuda:0"][1][i].tolist() == out["cpu"][1][i].tolist()
+    assert compared >= 3, margins
+    ref = out["cpu"][2]
+    assert float((out["cuda:0"][2] - ref).abs().max()) <= 1e-3 * max(
+        1.0, float(ref.abs().max()))
+    assert [f.launches for f in (flash_attention,
+                                 flash_attention_lse)] == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temp", [0.0, 0.8])
+def test_cuda_draft_burst_equals_its_chained_steps(temp):
+    """The draft's burst on cuda:0 (the drawn tokens fed back on the card)
+    against k chained ``decode_step_sampled`` calls on the card: the same
+    tokens, distributions within 1e-6, the same ring."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rafiki_tpu_torch import convert
+    from rafiki_tpu_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, _, dcfg, dtree = _spec_lms()
+    s, k = 4, 4
+    draft = convert.from_jax_params(dtree, dcfg, "cuda:0")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, dcfg.vocab, n).tolist() for n in (9, 30, 64,
+                                                                 5)]
+    samp = _sampling([temp] * s, lm.ROLE_DRAFT, s)
+    n = np.asarray([len(p) for p in prompts])
+
+    def ring():
+        cache = lm.init_kv_cache(dcfg, s, 256, device="cuda:0")
+        firsts = [int(lm.prefill(draft, cache, i, p, len(p))[0].argmax())
+                  for i, p in enumerate(prompts)]
+        return cache, np.asarray(firsts)
+
+    burst_ring, firsts = ring()
+    toks, q, burst_ring = lm.decode_steps_sampled(draft, burst_ring, firsts,
+                                                  n, k, samp)
+    chained, cur = ring()
+    ref_t, ref_q = [], []
+    for j in range(k):
+        cur, qj, chained = lm.decode_step_sampled(draft, chained, cur, n + j,
+                                                  samp)
+        ref_t.append(cur)
+        ref_q.append(qj)
+    assert toks.cpu().tolist() == torch.stack(ref_t, 1).cpu().tolist()
+    assert float((q - torch.stack(ref_q, 1)).abs().max()) <= 1e-6
+    for key in ("k", "v"):
+        assert torch.equal(burst_ring[key], chained[key])
+
+
 #: what may stay allocated after a failed trial: a worker thread's first
 #: cuBLAS calls allocate its workspaces through the caching allocator
 OOM_SLACK_BYTES = 64 << 20

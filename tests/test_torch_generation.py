@@ -29,7 +29,7 @@ import pytest
 
 from rafiki_tpu.worker import kv_paging as jkv
 from rafiki_tpu_torch import config
-from rafiki_tpu_torch.admin.admin import Admin, InvalidRequestError
+from rafiki_tpu_torch.admin.admin import Admin
 from rafiki_tpu_torch.admin.http import AdminServer
 from rafiki_tpu_torch.cache import wire
 from rafiki_tpu_torch.cache.queue import (
@@ -126,9 +126,17 @@ def _script(mod):
     snap("cow B", a.ensure_writable("B", 9))
     snap("cow A", a.ensure_writable("A", 10))
     snap("cap A 13", a.ensure_capacity("A", 13))
+    # the speculative rollback: A's burst took pages to row 13 and kept 11
+    snap("trunc A 11", a.truncate_to("A", 11))
+    snap("trunc A 12", a.truncate_to("A", 12))
     plan = a.open_slot("C", list(range(4)) + [99, 98])
     snap("open C", (plan.cached_tokens, plan.copies))
     snap("cap C", a.ensure_capacity("C", 20))
+    snap("trunc C 9", a.truncate_to("C", 9))
+    # through B's shared prefix pages: dereferenced, never freed while
+    # the cache holds them
+    snap("trunc B 3", a.truncate_to("B", 3))
+    snap("trunc B 0", a.truncate_to("B", 0))
     a.close_slot("A")
     a.close_slot("B")
     snap("close A B")
@@ -302,6 +310,11 @@ def test_scheduler_admits_mid_decode(monkeypatch):
 
 
 def test_scheduler_refuses_malformed_and_resume_requests_typed(monkeypatch):
+    """Malformed requests are refused typed and cost no slot. A resume
+    request (``resume_tokens``, as the door's journal sends it) is
+    admitted: the prompt and the committed tokens are prefilled, and the
+    stream goes on to the first budget (``max_tokens`` counts the
+    committed tokens), as the JAX package's worker does."""
     monkeypatch.setenv("RAFIKI_GEN_MAX_SLOTS", "1")
     broker = InProcessBroker()
     _, ctx, t = _start_worker(broker, _Scripted())
@@ -310,7 +323,10 @@ def test_scheduler_refuses_malformed_and_resume_requests_typed(monkeypatch):
                 ({"prompt_ids": []}, "prompt_ids"),
                 ({"prompt_ids": [1], "max_tokens": 0}, "max_tokens"),
                 ({"prompt_ids": [1], "top_p": 0}, "top_p"),
-                ({"prompt_ids": [1], "resume_tokens": [2]}, "not ported"),
+                ({"prompt_ids": [1], "resume_tokens": [-2]},
+                 "resume_tokens"),
+                ({"prompt_ids": [1], "max_tokens": 2,
+                  "resume_tokens": [2, 3]}, "nothing left to resume"),
                 # a greedy-only template refuses sampling, typed
                 ({"prompt_ids": [1], "temperature": 0.5},
                  "sampling-capable")):
@@ -319,6 +335,10 @@ def test_scheduler_refuses_malformed_and_resume_requests_typed(monkeypatch):
         # the refusals cost no slot
         assert _drain(_stream(broker, "genjob", {
             "prompt_ids": [10], "max_tokens": 2}))[0] == [11, 12]
+        # a resume continues from its committed tokens
+        assert _drain(_stream(broker, "genjob", {
+            "prompt_ids": [10], "max_tokens": 4,
+            "resume_tokens": [11, 12]})) == ([13, 14], "max_tokens")
     finally:
         _stop(ctx, t)
 
@@ -352,9 +372,13 @@ def test_worker_without_capability_is_a_typed_deploy_error():
 
 
 def test_stopping_worker_ends_resident_streams_typed(monkeypatch):
-    """No hand-back to a sibling in the port: a stopping worker ends its
-    resident streams with a typed error, never silently."""
-    monkeypatch.setenv("RAFIKI_GEN_MAX_SLOTS", "1")
+    """A stopping worker hands its resident streams back typed MIGRATING
+    for a resume on a sibling, never silently; through the door's
+    ``Predictor`` with no sibling left, the client gets a typed
+    ``GenerationError``, not the hand-back."""
+    from rafiki_tpu_torch.cache.queue import StreamMigratingError
+
+    monkeypatch.setenv("RAFIKI_GEN_MAX_SLOTS", "2")
 
     class _Slow(_Scripted):
         def decode_step(self, cache, ids, positions):
@@ -364,11 +388,95 @@ def test_stopping_worker_ends_resident_streams_typed(monkeypatch):
     broker = InProcessBroker()
     _, ctx, t = _start_worker(broker, _Slow())
     s = _stream(broker, "genjob", {"prompt_ids": [1], "max_tokens": 500})
+    door = Predictor("genjob", broker, None).generate(
+        {"prompt_ids": [1], "max_tokens": 500})
     s.next_delta(5)
+    door.next_delta(5)
     _stop(ctx, t)
-    with pytest.raises(GenerationError, match="stopped"):
+    with pytest.raises(StreamMigratingError, match="retiring"):
         while not s.next_delta(5).finished:
             pass
+    with pytest.raises(GenerationError, match="model_version") as err:
+        while not door.next_delta(5).finished:
+            pass
+    assert not isinstance(err.value, StreamMigratingError)
+
+
+def _cow_shortfall(jax_side: bool):
+    """A 3-page pool (4 rows a page) where stream B, the youngest, must
+    copy its published tail page before its next write, no page is free
+    or evictable and no younger stream is left: one decode round, then
+    B's stream, A's new token and whether B waits stashed."""
+    if jax_side:
+        from rafiki_tpu.cache.queue import TokenStream as Stream
+        from rafiki_tpu.worker import generation as gen
+        alloc_mod = jkv
+    else:
+        Stream = TokenStream
+        from rafiki_tpu_torch.worker import generation as gen
+        alloc_mod = kv_paging
+
+    class _Paged:
+        def paged_decode_step(self, cache, ids, positions, tables):
+            return np.asarray(ids) + 1, cache
+
+        def kv_copy_blocks(self, cache, src, dst):
+            return cache
+
+    alloc = alloc_mod.PagedKVAllocator(pool_blocks=3, block_tokens=4,
+                                       table_blocks=4)
+    a_prompt, b_prompt = [1, 2, 3, 4, 5, 6], [1, 2, 3, 4, 9, 9, 9]
+    alloc.open_slot(0, a_prompt)
+    assert alloc.ensure_capacity(0, 5)
+    alloc.publish(0, a_prompt)
+    assert alloc.ensure_writable(0, 6)  # A's tail copied: its own page
+    alloc.open_slot(1, b_prompt)        # the chain page shared
+    assert alloc.ensure_capacity(1, 6)  # evicts A's published tail
+    alloc.publish(1, b_prompt)
+    assert alloc.free_blocks() == 0 and alloc.evictable_blocks() == 0
+    worker = gen.GenerationWorker("cowjob", "t", db=None, broker=None)
+    worker._alloc = alloc
+    worker._sampling_cap = None
+    worker._service_id = "w"
+    worker._pending, worker._evictions = [], {}
+    worker._preempted = worker._tokens_emitted = 0
+    slots = []
+    for seq, (prompt, pos) in enumerate(((a_prompt, 7), (b_prompt, 7)),
+                                        start=1):
+        slot = gen._Slot(Stream(seq_id=f"s{seq}"), list(prompt), 50, None,
+                         seq)
+        slot.position, slot.last_id = pos, 70 + seq
+        slot.tokens = [prompt[-1] + 1]
+        slots.append(slot)
+    b_stream = slots[1].stream
+    args = (_Paged(), gen.GenerationSpec(eos_token_id=None,
+                                         max_context=16), {}, slots)
+    if jax_side:
+        worker._decode_round(*args, _Ctx("w"))
+    else:
+        worker._decode_round(*args)
+    a_token = slots[0].stream.next_delta(1).tokens
+    return b_stream, a_token, [p.stream for p in worker._pending]
+
+
+def test_the_youngest_stream_short_of_a_copy_page_yields(monkeypatch):
+    """The JAX worker fails the youngest stream whose copy-on-write page
+    the pool cannot supply when no younger stream is left to preempt
+    (``rafiki_tpu/worker/generation.py:1053-1061``); the port preempts
+    that stream itself, as for a dry pool: it waits stashed with its
+    history and resumes when pages come back. The oldest decodes on in
+    both."""
+    from rafiki_tpu.cache.queue import GenerationError as JaxGenerationError
+
+    theirs, jax_a, jax_pending = _cow_shortfall(jax_side=True)
+    with pytest.raises(JaxGenerationError, match="KV pool exhausted"):
+        theirs.next_delta(1)
+    assert jax_pending == []
+    ours, a_token, pending = _cow_shortfall(jax_side=False)
+    assert a_token == jax_a == [72]
+    assert pending == [ours] and not ours.cancelled
+    with pytest.raises(TimeoutError):
+        ours.next_delta(0.05)  # no error: it waits for its pages
 
 
 # -- TorchGenLM under the scheduler ---------------------------------------------
@@ -652,9 +760,12 @@ def test_client_cycle_streams_equal_jax_on_the_same_weights(monkeypatch,
             "status"] == "STOPPED"
         trials = c.get_trials_of_train_job("g")
         assert [t["status"] for t in trials] == ["COMPLETED"] * 2
-        with pytest.raises(RafikiError, match="GEN_DRAFT_TRIAL"):
-            c.create_inference_job("g", budget={
-                "GEN_DRAFT_TRIAL": trials[0]["id"]})
+        # GEN_DRAFT_TRIAL is validated at deploy: an unknown trial is a
+        # typed deploy error, which the admin door answers 500, as the JAX
+        # package's does
+        with pytest.raises(RafikiError) as err:
+            c.create_inference_job("g", budget={"GEN_DRAFT_TRIAL": "t404"})
+        assert err.value.status == 500
         inf = c.create_inference_job("g")
         assert inf["status"] == "RUNNING" and len(inf["workers"]) == 1
         assert inf["predictor_host"] and inf["predictor_port"]
@@ -722,8 +833,10 @@ def test_generation_under_process_placement_is_refused_typed(tmp_path):
             allocator=ChipAllocator(["cpu"]))
         with pytest.raises(ServiceDeploymentError, match="not ported"):
             admin.create_inference_job(uid, "g")
-        with pytest.raises(InvalidRequestError, match="GEN_DRAFT_TRIAL"):
-            admin.create_inference_job(uid, "g",
-                                       budget={"GEN_DRAFT_TRIAL": "t1"})
+        # a draft trial does not lift the refusal
+        (trial,) = admin.get_trials_of_train_job(uid, "g")
+        with pytest.raises(ServiceDeploymentError, match="not ported"):
+            admin.create_inference_job(
+                uid, "g", budget={"GEN_DRAFT_TRIAL": trial["id"]})
     finally:
         admin.shutdown()

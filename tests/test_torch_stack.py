@@ -518,6 +518,28 @@ def test_the_admin_process_refuses_without_cuda(tmp_path):
     ("RAFIKI_PROFILE", "1", "device profiling"),
 ])
 def test_unported_settings_raise(monkeypatch, name, value, subsystem):
+    """A setting that selects a subsystem the port lacks refuses the
+    admin's start, typed. Speculative decoding and stream resume are
+    ported: their settings are read, with the JAX package's defaults."""
+    if name in ("RAFIKI_GEN_SPEC", "RAFIKI_GEN_RESUME_MAX"):
+        from rafiki_tpu import config as jax_config
+
+        knobs = {"RAFIKI_GEN_SPEC": ("GEN_SPEC", "GEN_SPEC_K"),
+                 "RAFIKI_GEN_RESUME_MAX": (
+                     "GEN_RESUME_MAX", "GEN_RESUME_BACKOFF_S",
+                     "GEN_JOURNAL_MAX_KB", "GEN_JOURNAL_TTL_S")}[name]
+        monkeypatch.delenv(name, raising=False)
+        for knob in knobs:
+            assert getattr(config, knob) == getattr(jax_config, knob), knob
+        monkeypatch.setenv(name, value)
+        admin = Admin(db=Database(":memory:"),
+                      placement=LocalPlacementManager(ChipAllocator(["cpu"])))
+        admin.shutdown()
+        assert getattr(config, knobs[0]) == getattr(jax_config, knobs[0]) \
+            == (True if name == "RAFIKI_GEN_SPEC" else int(value))
+        monkeypatch.setenv(name, "0")
+        assert not getattr(config, knobs[0])
+        return
     monkeypatch.setenv(name, value)
     with pytest.raises(NotPortedError, match=subsystem) as err:
         Admin(db=Database(":memory:"),
@@ -617,8 +639,9 @@ def test_unported_budget_keys_are_refused(tmp_path, call, budget):
     """A budget key asking for what the port lacks answers 400 naming it,
     before any job row is made; the same key at its no-op value passes.
     ``EARLY_STOP``, ``TRIAL_TIMEOUT_S``, ``CHIPS_PER_TRIAL``,
-    ``CHIPS_PER_WORKER`` and ``ENSEMBLE_FUSED`` are ported: their budgets
-    are accepted (a
+    ``CHIPS_PER_WORKER``, ``ENSEMBLE_FUSED`` and ``GEN_DRAFT_TRIAL`` are
+    ported: their budgets are accepted or, for the draft, checked at
+    deploy (a
     several-card ask clamps to this one-entry host), and a malformed
     value gets the JAX package's 400 word for word."""
     admin = Admin(db=Database(":memory:"),
@@ -651,6 +674,21 @@ def test_unported_budget_keys_are_refused(tmp_path, call, budget):
             assert len(job["workers"]) == 1
             assert admin.predict(uid, "a", [[0.0]])
             return
+        if key == "GEN_DRAFT_TRIAL":
+            # ported: checked at deploy, as in the JAX package; a draft
+            # for a job that is not generative is a typed deploy error
+            from rafiki_tpu_torch.admin.services import (
+                ServiceDeploymentError,
+            )
+
+            with pytest.raises(ServiceDeploymentError,
+                               match="GEN_DRAFT_TRIAL is only meaningful"):
+                run(budget)
+            jobs = admin.db.get_inference_jobs_by_statuses(
+                ["STARTED", "RUNNING", "ERRORED"])
+            assert [j["status"] for j in jobs] == ["ERRORED"]
+            assert run({})["status"] == "RUNNING"
+            return
         if key == "CHIPS_PER_WORKER":
             for b in ({key: 0}, {key: "two"}):
                 with pytest.raises(InvalidRequestError) as ours:
@@ -682,9 +720,7 @@ def test_unported_budget_keys_are_refused(tmp_path, call, budget):
             run(budget)
         assert admin.db.get_inference_jobs_by_statuses(
             ["STARTED", "RUNNING", "ERRORED"]) == []
-        if key != "GEN_DRAFT_TRIAL":
-            run({key: 0 if key in ("ENSEMBLE_FUSED", "TRIAL_VMAP_K")
-                 else 1})
+        run({key: 0 if key in ("ENSEMBLE_FUSED", "TRIAL_VMAP_K") else 1})
     finally:
         admin.shutdown()
 
@@ -713,13 +749,17 @@ def _jax_budget_refusal(tmp_path, budget) -> str:
 
 
 def test_chaos_rule_at_an_unhooked_site_is_refused(tmp_path, monkeypatch):
-    """Only the trial site has its chaos hook: a rule naming another site
-    raises NotPortedError when it is made, and a RAFIKI_CHAOS holding one
-    refuses the admin's start, never silently inert; a trial rule passes."""
+    """Only the trial, worker and generate sites have their chaos hooks: a
+    rule naming another site raises NotPortedError when it is made, and a
+    RAFIKI_CHAOS holding one refuses the admin's start, never silently
+    inert; a rule at a hooked site passes."""
     from rafiki_tpu_torch.utils import chaos
 
     try:
-        for site in ("db", "wire", "worker", "generate", "deploy", "cache",
+        for site in ("trial", "worker", "generate"):
+            (rule,) = chaos.parse_rules(f"site={site};action=delay")
+            assert rule.site == site
+        for site in ("db", "wire", "deploy", "cache",
                      "drift", "compile", "lease", "agent", "call_agent"):
             with pytest.raises(NotPortedError, match=f"site={site}"):
                 chaos.parse_rules(f"site={site};action=delay")
