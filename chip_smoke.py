@@ -144,7 +144,7 @@ Phases, each of which must pass (any failure exits non-zero):
    COMPLETED, at least one stopped at a rung, and every keep/stop verdict
    equal to ``AshaScheduler`` replayed on the logged losses. 9c:
    ``TRIAL_TIMEOUT_S`` (9b's first report plus 2.5 of its epochs with
-   their checkpoints) stops two 8-epoch trials at the first epoch
+   their checkpoints) stops an 8-epoch trial at the first epoch
    boundary past it. 9d: under ``RAFIKI_PLACEMENT=process`` the train
    child is SIGKILLed once the second trial's checkpoint exists; the
    placement starts it again under the same service id, it resumes that
@@ -260,6 +260,39 @@ Phases, each of which must pass (any failure exits non-zero):
    ``resumes_migrating`` count the streams each victim held; the time
    from each rule to the resumed tokens. No kernel is launched serving.
 
+14. populations and int8 serving. 14a: 11a's images scaled to [-1, 1]
+   (``build/chip_smoke/pop/``); ``TorchCnn``'s network at its widest
+   knobs (3 stages, 64 base channels, 32x32x3) as a population of K=4
+   learning rates (``PopulationTrainer``, AdamW): one step on 64 rows,
+   f32 on the card against f32 on the CPU (member losses 1e-4 relative,
+   each member's gradient leaf 1e-3 relative L2) and bf16 on the card
+   against it (2e-2, 5e-2); the f32 step at batch 256 over every visible
+   card up to 4 against one card's (phase 10's tolerances); each member's
+   f32 gradients against its own ``DataParallelTrainer`` step (1e-3), its
+   first update over the elements whose two gradients agree in sign past
+   1e-6 (1e-4, on at least 0.75 of each leaf), and its epoch loss against
+   its own one-epoch fit (2e-2); one bf16
+   population epoch at batch 256, the population step's time a call, on
+   the card and by kernel beside K scalar steps. 14b: a ``TorchCnn`` twin
+   (3 stages, 64 channels, batch 128, 2 epochs fixed) through ``Client``,
+   8 trials at ``TRIAL_VMAP_K`` 4: ``FIT_STATS["member_counts"]`` and
+   ``["completed_member_counts"]`` read ``[4, 4]``, each batch's lead row
+   logs every member's loss each epoch and no other row logs an epoch
+   (a batch re-run as scalar trials fails here), 8 rows COMPLETED with
+   their own scores and parameters, the
+   best served and answering as their own ``predict``; the job's wall
+   time beside a 4-trial scalar twin (``RAFIKI_TRIAL_VMAP=0``), as trials
+   per GPU-hour. 14c: a one-trial ``TorchCnnPopulation`` job
+   (population 8) through ``Client``, its winner served. No attention
+   kernel on 14a-c. 14d: phase 8a's two BERT-base trials, from its
+   store, under ``RAFIKI_SERVE_INT8=1`` (the trainer cache cleared
+   first): solo, K1 12 times a bucketed forward, the answers to 8
+   sentences against 8a's bf16 answers by JAX's rule (argmax agreement
+   >= 0.99, within 0.15) and nearer the same trials' int8 forward on the
+   CPU; ``quantized_bytes`` beside the bf16 bytes, the device memory
+   the job's workers hold, p50 beside 8a's and 12b's; then ``ENSEMBLE_FUSED``: K1 12 times a fused forward, each
+   trial's answer in the int8 stack against its solo int8 answer.
+
 The line before the last is ``{"kernels": [...]}``, each kernel's
 ``launches`` from phase 5 and ``launches_by_path`` from every path; the
 last is ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -267,7 +300,9 @@ last is ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import importlib
 import io
 import json
@@ -3074,6 +3109,7 @@ def serving_control_phase(card: str) -> tuple:
         require(answers.shape == (8, 2) and np.isfinite(answers).all(),
                 f"fused /predict answered {answers.shape}")
         p50 = {k: statistics.median(v) * 1e3 for k, v in lat.items()}
+        BERT_RUN["fused_p50_8"] = p50["admin"]  # phase 14d's int8 beside it
         print(f"serve control: 12b ENSEMBLE_FUSED job RUNNING in "
               f"{deploy_s:.1f} s (1 worker holding {TRIALS} trials on "
               f"{row['chips']}, fused_dispatch {row['fused_dispatch']}); "
@@ -3843,6 +3879,9 @@ ASHA_TRIALS, ASHA_EPOCHS, ASHA_ETA = 4, 4, 2
 #: the cap is 9b's median first report plus 2.5 of its epochs: the stop
 #: then falls mid-run, where the first-boundary rule can be seen
 CAP_EPOCHS, CAP_EPOCHS_OF_9B = 8, 2.5
+#: 9c: trials of the job; 2 until phase 14 needed the run's time (PERF.md,
+#: section 4): each is stopped by its own clock, so one shows the rule
+CAP_TRIALS = 1
 #: 9c: the trial's stop check starts its clock after the row's
 #: datetime_started (reserve, then the logger and the check are made):
 #: an epoch before the stop may read up to this much past the cap
@@ -4203,7 +4242,7 @@ def asha_drill(card: str, uris: dict) -> tuple:
 def cap_drill(card: str, uris: dict, epoch_ckpt_s: float,
               first_s: float) -> list:
     """9c: ``TRIAL_TIMEOUT_S`` at 9b's first report plus 2.5 of its
-    epoch-plus-checkpoint times stops 8-epoch trials at the first epoch
+    epoch-plus-checkpoint times stops an 8-epoch trial at the first epoch
     boundary past it."""
     kernels = _kernels()
     cap = round(first_s + CAP_EPOCHS_OF_9B * epoch_ckpt_s, 3)
@@ -4218,9 +4257,9 @@ def cap_drill(card: str, uris: dict, epoch_ckpt_s: float,
         # ---- the main path's run (9c) ----
         t0 = time.perf_counter()
         c.create_train_job("cap", "IMAGE_CLASSIFICATION", uris["train"],
-                           uris["test"], budget={"MODEL_TRIAL_COUNT": 2,
-                                                 "CHIP_COUNT": 1,
-                                                 "TRIAL_TIMEOUT_S": cap})
+                           uris["test"], budget={
+                               "MODEL_TRIAL_COUNT": CAP_TRIALS,
+                               "CHIP_COUNT": 1, "TRIAL_TIMEOUT_S": cap})
         job = c.wait_until_train_job_stopped("cap", timeout_s=900,
                                              poll_s=0.05)
         torch.cuda.synchronize()
@@ -4233,7 +4272,7 @@ def cap_drill(card: str, uris: dict, epoch_ckpt_s: float,
     finally:
         server.stop()
         admin.shutdown()
-    require(job["status"] == "STOPPED" and len(trials) == 2
+    require(job["status"] == "STOPPED" and len(trials) == CAP_TRIALS
             and all(t["status"] == "COMPLETED" and np.isfinite(t["score"])
                     for t in trials),
             f"9c job {job['status']}, trials "
@@ -4256,13 +4295,13 @@ def cap_drill(card: str, uris: dict, epoch_ckpt_s: float,
               + f" s); stopped at the first past the cap of {cap} s",
               flush=True)
     steps = epochs * (TRAIN_IMAGES // 64)
-    expect = [DEPTH * 2] + [DEPTH * steps] * 3
+    expect = [DEPTH * CAP_TRIALS] + [DEPTH * steps] * 3
     require(counts == expect, f"9c launches {counts}, expected {expect}")
     print(f"loop: 9c TRIAL_TIMEOUT_S={cap} (9b's first report at "
           f"{first_s:.3f} s + {CAP_EPOCHS_OF_9B} x its {epoch_ckpt_s:.3f} s "
-          f"epoch with checkpoint): both trials COMPLETED after {epochs} "
-          f"epochs of {2 * CAP_EPOCHS} budgeted; job {job_s:.1f} s; card "
-          f"{card}", flush=True)
+          f"epoch with checkpoint): {CAP_TRIALS} trial(s) COMPLETED after "
+          f"{epochs} epochs of {CAP_TRIALS * CAP_EPOCHS} budgeted; job "
+          f"{job_s:.1f} s; card {card}", flush=True)
     return counts
 
 
@@ -5678,6 +5717,792 @@ def generation_tagging_phase(card: str) -> list:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: populations and int8 serving
+# ---------------------------------------------------------------------------
+
+#: 14a: TorchCnn at its widest knobs on 11a's set, K learning rates
+POP_STAGES, POP_BASE, POP_BATCH = 3, 64, 256
+POP_LRS = tuple(float(v) for v in np.geomspace(1e-4, 1e-2, 4))
+#: the rows of the batch the CPU's f32 step takes (the whole batch is ~1
+#: TFLOP a member forward and back, tens of seconds on the CPU)
+POP_CHECK_ROWS = 64
+# f32 on the card against f32 on the CPU: the same function summed in
+# other orders (cuDNN's grouped convolutions): losses within 1e-4
+# relative, each member's gradient leaf within 1e-3 relative L2
+POP_F32_LOSS_RTOL, POP_F32_LEAF_RTOL = 1e-4, 1e-3
+# bf16 on the card (the main path's type) against that f32 step, fixed
+# before any measurement: losses within 2e-2 relative, each leaf within
+# 5e-2 relative L2 (11a's bounds: bf16 rounds every activation, 2^-8
+# relative, through 7 convolutions forward and back)
+POP_BF16_LOSS_RTOL, POP_BF16_LEAF_RTOL = 2e-2, 5e-2
+# a leaf's error relative to its norm, but at least 1e-2 of the member's
+# largest leaf norm (11a's floor: a bias whose gradient is a near-zero
+# sum of signed terms)
+POP_LEAF_FLOOR = 1e-2
+# each member of the f32 population against a DataParallelTrainer of
+# that member alone (f32; cuDNN's grouped against plain convolutions;
+# both through torch.optim.AdamW, the population's with one parameter
+# group a member): one step's gradients within 1e-3 relative L2 a leaf
+# (the f32 step's tolerance above). AdamW's first step moves a weight by
+# lr·g/(|g| + eps), about lr·sign(g), so where rounding flips a
+# near-zero gradient the two updates part by 2·lr (measured on one H100:
+# 1.4e-2 relative L2 over a whole leaf). The first step's update is held
+# over the elements whose two gradients agree in sign and both exceed
+# POP_GRAD_MARGIN (100 eps), within POP_UPDATE_RTOL relative L2 a leaf
+# (measured on one H100: 2.41e-5 at most), and those elements must be
+# at least POP_UPDATE_COVER of every leaf (measured: 0.877 at least, a
+# stage-2 kernel's). The epoch (16 steps, where the flipped elements'
+# updates feed later gradients) is held by each member's mean loss
+# (measured in four runs: 6.84e-4 to 4.37e-3 relative); its update drift
+# is printed.
+POP_SCALAR_RTOL = 1e-3
+POP_GRAD_MARGIN = 1e-6
+POP_UPDATE_COVER = 0.75
+POP_UPDATE_RTOL = 1e-4
+POP_EPOCH_LOSS_RTOL = 2e-2
+#: 14b: the TorchCnn twin's fixed knobs, and the jobs' trial counts
+POP_TWIN_KNOBS = {"epochs": 2, "num_stages": 3, "base_channels": 64,
+                  "batch_size": 128}
+POP_TRIALS, POP_VMAP_K, POP_SCALAR_TRIALS = 8, 4, 4
+#: 14c: the TorchCnnPopulation twin's fixed knobs (one trial)
+POP_TEMPLATE_KNOBS = {"epochs": 2, "base_channels": 32,
+                      "population_size": 8, "batch_size": 256}
+#: 14d: timed JSON requests of 8 sentences on the admin door, each way
+INT8_TIMED = 10
+#: JAX's rule for int8 against bf16 serving (tests/test_quant.py:84-103)
+INT8_AGREE, INT8_ATOL = 0.99, 0.15
+#: the sentences of the int8 forward on the CPU (a BERT-base forward of
+#: 8 x 128 tokens takes ~10 s on 8 cores in bf16)
+INT8_CPU_ROWS = 2
+#: the fused int8 answers against each trial's solo int8 answers: bf16
+#: on the card rounds the stacked (batched) products and a trial's own
+#: apart by up to 9.1e-4 in probability (measured on one H100, a
+#: 2-layer BERT), past tests/test_fused_ensemble.py:125's 1e-4, which
+#: tests/test_torch_cuda.py holds in f32; here PROB_RTOL p + PROB_ATOL,
+#: phase 12b's rule for fused against unfused, with the 1e-4 printed
+
+
+@contextlib.contextmanager
+def _compute(dtype):
+    """The port's layers compute in ``dtype`` (``core.cast_for_compute``)
+    for the block."""
+    from rafiki_tpu_torch.models import core
+
+    saved = core.cast_for_compute
+    core.cast_for_compute = lambda x, _d=dtype: saved(x, _d)
+    try:
+        yield
+    finally:
+        core.cast_for_compute = saved
+
+
+def _pop_trainer(device):
+    from rafiki_tpu_torch.sdk.population import PopulationTrainer
+    from rafiki_tpu_torch.sdk.torch_backend import softmax_classifier_loss
+    from rafiki_tpu_torch.templates import torch_cnn
+
+    return PopulationTrainer(softmax_classifier_loss(torch_cnn._logits),
+                             torch_cnn._adamw(lr=1e-3),
+                             predict_fn=torch_cnn._probs, device=device)
+
+
+def _pop_member(k: int, device):
+    """Member ``k`` of 14a's population: TorchCnn's ``Cnn`` at 3 stages,
+    64 base channels, 10 classes, from its seeded draw."""
+    from rafiki_tpu_torch.convert import from_jax_tree
+    from rafiki_tpu_torch.templates import torch_cnn
+
+    tree = torch_cnn.init_params(np.random.default_rng([SEED + 140, k]),
+                                 POP_STAGES, POP_BASE, 3, CLASSES)
+    with torch.device("meta"):
+        model = torch_cnn.Cnn(POP_STAGES, POP_BASE, 3, CLASSES)
+    return from_jax_tree(model, tree, None, device, train=True)
+
+
+def pop_grads(x: np.ndarray, y: np.ndarray, device) -> dict:
+    """Every member's loss and gradients of one batch (no optimizer step),
+    over this thread's group when it has one (each rank its contiguous
+    part of the batch); {"loss": (K,), "<k>.<leaf>": gradient}."""
+    from rafiki_tpu_torch.parallel import ranks
+
+    group = ranks.current_group()
+    if group is not None:
+        part = len(x) // group.size
+        x = x[group.rank * part:(group.rank + 1) * part]
+        y = y[group.rank * part:(group.rank + 1) * part]
+    trainer = _pop_trainer(device)
+    params, _ = trainer.stack([_pop_member(k, trainer.device)
+                               for k in range(len(POP_LRS))],
+                              {"lr": list(POP_LRS)})
+    grads, losses = trainer.grads(params, (
+        torch.from_numpy(np.ascontiguousarray(x)).to(trainer.device),
+        torch.from_numpy(np.ascontiguousarray(y)).to(trainer.device)))
+    losses = losses.double()
+    if group is not None:
+        losses = group.all_reduce_(losses) / group.size
+    out = {"loss": losses.cpu().numpy()}
+    for name, g in grads.items():
+        for k in range(len(POP_LRS)):
+            out[f"{k}.{name[len('model.'):]}"] = g[k].detach().double().cpu()
+    return out
+
+
+def _pop_errors(got: dict, ref: dict) -> tuple:
+    """(losses' relative errors (K,), {member.leaf: relative L2 error})."""
+    losses = np.abs(got["loss"] - ref["loss"]) / np.abs(ref["loss"])
+    norms = {k: float(v.norm()) for k, v in ref.items() if k != "loss"}
+    floors = {}
+    for k, n in norms.items():
+        member = k.split(".", 1)[0]
+        floors[member] = max(floors.get(member, 0.0), POP_LEAF_FLOOR * n)
+    leaves = {k: float((got[k] - ref[k]).norm())
+              / max(n, floors[k.split(".", 1)[0]], 1e-30)
+              for k, n in norms.items()}
+    return losses, leaves
+
+
+def _pop_compare(label: str, got: dict, ref: dict, loss_rtol: float,
+                 leaf_rtol: float) -> None:
+    losses, leaves = _pop_errors(got, ref)
+    worst = max(leaves, key=leaves.get)
+    print(f"pop: {label}: member losses {np.round(got['loss'], 6).tolist()}"
+          f" vs {np.round(ref['loss'], 6).tolist()} (relative at most "
+          f"{losses.max():.2e}, tol {loss_rtol:g}); gradient relative L2 "
+          f"per member and leaf: median "
+          f"{statistics.median(leaves.values()):.2e}, max {leaves[worst]:.2e}"
+          f" ({worst}) over {len(leaves)} (tol {leaf_rtol:g})", flush=True)
+    require(float(losses.max()) <= loss_rtol,
+            f"{label}: member losses off by {losses.max():.3g}")
+    require(leaves[worst] <= leaf_rtol,
+            f"{label}: gradient of {worst} off by {leaves[worst]:.3g}")
+
+
+def pop_step_gates(card: str, x: np.ndarray, y: np.ndarray) -> None:
+    """14a's step gates on the first ``POP_CHECK_ROWS`` rows of a batch:
+    f32 on the card against f32 on the CPU, bf16 on the card against it."""
+    xb, yb = x[:POP_CHECK_ROWS], y[:POP_CHECK_ROWS]
+    steps = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda:0", torch.float32),
+                       ("cuda:0", torch.bfloat16)):
+        with _compute(dtype):
+            steps[dev, dtype] = pop_grads(xb, yb, dev)
+    ref = steps["cpu", torch.float32]
+    # member 0 alone on the card (no vmap: plain, not grouped,
+    # convolutions), f32, against the same CPU step: where an f32
+    # difference comes from
+    from rafiki_tpu_torch.sdk.torch_backend import softmax_classifier_loss
+    from rafiki_tpu_torch.templates import torch_cnn
+
+    with _compute(torch.float32):
+        model = _pop_member(0, "cuda:0")
+        loss, _ = softmax_classifier_loss(torch_cnn._logits)(model, (
+            torch.from_numpy(xb).cuda(), torch.from_numpy(yb).cuda()))
+        loss.backward()
+    alone = {f"0.{n}": p.grad.double().cpu()
+             for n, p in model.named_parameters()}
+    alone_err = max(float((g - ref[k]).norm() / ref[k].norm())
+                    for k, g in alone.items())
+    print(f"pop: member 0 alone on the card (plain convolutions), f32, "
+          f"against the CPU: gradient relative L2 at most {alone_err:.2e}",
+          flush=True)
+    _pop_compare(f"one population step (K={len(POP_LRS)}, {POP_CHECK_ROWS} "
+                 "rows), f32 on the card against f32 on the CPU",
+                 steps["cuda:0", torch.float32], ref, POP_F32_LOSS_RTOL,
+                 POP_F32_LEAF_RTOL)
+    _pop_compare("the same step, bf16 on the card against f32 on the CPU",
+                 steps["cuda:0", torch.bfloat16], ref, POP_BF16_LOSS_RTOL,
+                 POP_BF16_LEAF_RTOL)
+    print(f"pop: the step gates passed; card {card}", flush=True)
+
+
+def rank_pop_step(x: np.ndarray, y: np.ndarray) -> dict:
+    """Rank side: the f32 population step over this thread's group, and on
+    rank 0 first the same step on one card over the whole batch."""
+    from rafiki_tpu_torch.device import default_device
+    from rafiki_tpu_torch.parallel import ranks
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = ranks.current_group()
+    dev = default_device()
+    one = None
+    with _compute(torch.float32):
+        if group.rank == 0:
+            with ranks.alone():
+                one = pop_grads(x, y, dev)
+        got = pop_grads(x, y, dev)
+    return {"rank": group.rank, "one": one, "got": got}
+
+
+def pop_cards_step(card: str, x: np.ndarray, y: np.ndarray) -> None:
+    """The f32 population step over a group of every visible card up to 4
+    (a group of one rank on a single card) against one card's."""
+    from rafiki_tpu_torch.device import set_device_grant
+    from rafiki_tpu_torch.parallel import ranks
+
+    n = min(torch.cuda.device_count(), MAX_CARDS)
+    devices = list(range(n))
+    set_device_grant(devices)
+    try:
+        with ranks.Ranks(devices) as r:
+            ranks.set_group(r.group)
+            try:
+                out = r.run(rank_pop_step, x[:POP_BATCH], y[:POP_BATCH])
+            finally:
+                ranks.set_group(None)
+    finally:
+        set_device_grant(None)
+    for rec in out:
+        _pop_compare(f"rank {rec['rank']} of {n}: the step over {n} card"
+                     f"{'s' if n > 1 else ''} ({POP_BATCH // n} rows a card, "
+                     f"each member's gradients averaged over the ranks) "
+                     f"against one card's", rec["got"], out[0]["one"],
+                     CARDS_LOSS_RTOL, GAN_CARDS_LEAF_RTOL)
+    print(f"pop: the {n}-card population step equals one card's; card "
+          f"{card}", flush=True)
+
+
+def pop_epoch(card: str, x: np.ndarray, y: np.ndarray) -> None:
+    """14a: one population epoch (f32) against each member's scalar
+    ``DataParallelTrainer`` fit, then the main path's bf16 epoch, the
+    population step's time and profile beside K scalar steps."""
+    from rafiki_tpu_torch.sdk.torch_backend import (
+        DataParallelTrainer,
+        softmax_classifier_loss,
+    )
+    from rafiki_tpu_torch.templates import torch_cnn
+
+    k_members = len(POP_LRS)
+    batch = (torch.from_numpy(x[:POP_BATCH]).cuda(),
+             torch.from_numpy(y[:POP_BATCH]).cuda())
+
+    def scalar_member(k: int):
+        scalar = DataParallelTrainer(
+            softmax_classifier_loss(torch_cnn._logits), torch_cnn._adamw(),
+            device="cuda:0")
+        model, mopt = scalar.init(lambda rng: _pop_member(k, "cuda:0"),
+                                  hyperparams={"lr": POP_LRS[k]})
+        return scalar, model, mopt
+
+    def drift(params, init, models) -> list:
+        """Each member's worst leaf: its update's relative L2 distance
+        from its scalar twin's."""
+        worst = []
+        for k, model in enumerate(models):
+            errs = {}
+            for name, p in model.named_parameters():
+                full = "model." + name
+                want = p.detach().double() - init[full][k].double()
+                got = params.params[full][k].double() - init[full][k].double()
+                errs[name] = float((got - want).norm() / want.norm())
+            worst.append(max((e, n) for n, e in errs.items()))
+        return worst
+
+    with _compute(torch.float32):
+        # one step: each member's gradients are its scalar step's
+        trainer = _pop_trainer("cuda:0")
+        params, opt = trainer.stack([_pop_member(k, "cuda:0")
+                                     for k in range(k_members)],
+                                    {"lr": list(POP_LRS)})
+        init = {n: v.clone() for n, v in params.params.items()}
+        grads, _ = trainer.grads(params, batch)
+        trainer.apply_(params, opt, grads)
+        step_drift, update_drift, cover = [], [], []
+        for k in range(k_members):
+            scalar, model, mopt = scalar_member(k)
+            scalar.train_step(model, mopt, batch)
+            g_errs, u_errs = [], []
+            for n, p in model.named_parameters():
+                full = "model." + n
+                g_pop, g_one = grads[full][k].double(), p.grad.double()
+                g_errs.append((float((g_pop - g_one).norm()
+                                     / g_one.norm()), n))
+                u_pop = params.params[full][k].double() - init[full][k]
+                u_one = p.detach().double() - init[full][k]
+                held = ((torch.sign(g_pop) == torch.sign(g_one))
+                        & (torch.minimum(g_pop.abs(), g_one.abs())
+                           > POP_GRAD_MARGIN))
+                cover.append((float(held.double().mean()), f"{k}.{n}"))
+                u_errs.append((float((u_pop - u_one)[held].norm()
+                                     / u_one[held].norm().clamp_min(1e-30)),
+                               n))
+            step_drift.append(max(g_errs))
+            update_drift.append(max(u_errs))
+            del scalar, model, mopt
+        # one epoch: 16 steps from the same init and batches
+        params, opt = trainer.stack([_pop_member(k, "cuda:0")
+                                     for k in range(k_members)],
+                                    {"lr": list(POP_LRS)})
+        logs = []
+        trainer.fit(params, opt, (x, y), epochs=1, batch_size=POP_BATCH,
+                    seed=SEED, log=lambda **m: logs.append(m))
+        twins, scalar_losses = [scalar_member(k) for k in range(k_members)], []
+        for scalar, model, mopt in twins:
+            scalar_logs = []
+            scalar.fit(model, mopt, (x, y), epochs=1, batch_size=POP_BATCH,
+                       seed=SEED, log=lambda **m: scalar_logs.append(m))
+            scalar_losses.append(scalar_logs[0]["loss"])
+        epoch_drift = drift(params, init, [m for _, m, _ in twins])
+    member_losses = [logs[0][f"member{k}_loss"] for k in range(k_members)]
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(member_losses, scalar_losses))
+    print(f"pop: each member of the f32 population against its own "
+          f"DataParallelTrainer (same init, lr and batches; "
+          f"torch.optim.AdamW): one step's gradients relative L2 at most "
+          f"{max(step_drift)[0]:.2e} ({max(step_drift)[1]}; tol "
+          f"{POP_SCALAR_RTOL:g}); its update, over the elements whose "
+          f"gradients agree in sign past {POP_GRAD_MARGIN:g} (at least "
+          f"{min(cover)[0]:.4f} of a leaf, {min(cover)[1]}; tol "
+          f"{POP_UPDATE_COVER:g}), relative L2 per member "
+          + ", ".join(f"lr {lr:.0e} {e:.2e} ({n})" for lr, (e, n) in
+                      zip(POP_LRS, update_drift))
+          + f" (tol {POP_UPDATE_RTOL:g}); one epoch ({len(x) // POP_BATCH} "
+          f"steps): "
+          f"losses {[round(v, 6) for v in member_losses]} against "
+          f"{[round(v, 6) for v in scalar_losses]} (relative at most "
+          f"{loss_err:.2e}, tol {POP_EPOCH_LOSS_RTOL:g}), each member's "
+          f"worst leaf's update drift "
+          + ", ".join(f"lr {lr:.0e} {e:.2e} ({n})" for lr, (e, n) in
+                      zip(POP_LRS, epoch_drift)), flush=True)
+    require(max(step_drift)[0] <= POP_SCALAR_RTOL,
+            f"a member's step differs from its scalar step: {step_drift}")
+    require(min(cover)[0] >= POP_UPDATE_COVER,
+            f"the update check holds too few elements: {min(cover)}")
+    require(max(update_drift)[0] <= POP_UPDATE_RTOL,
+            f"a member's first update differs from its scalar update: "
+            f"{update_drift}")
+    require(loss_err <= POP_EPOCH_LOSS_RTOL,
+            f"a member's epoch loss differs from its scalar fit's by "
+            f"{loss_err:.3g}")
+    del params, opt, init
+
+    # the main path's type: bf16
+    trainer = _pop_trainer("cuda:0")
+    params, opt = trainer.stack([_pop_member(k, "cuda:0")
+                                 for k in range(k_members)],
+                                {"lr": list(POP_LRS)})
+    logs = []
+    t0 = time.perf_counter()
+    trainer.fit(params, opt, (x, y), epochs=1, batch_size=POP_BATCH,
+                seed=SEED, log=lambda **m: logs.append(m))
+    epoch_s = time.perf_counter() - t0
+    steps = len(x) // POP_BATCH
+    (m,) = logs
+    members = [m[f"member{k}_loss"] for k in range(k_members)]
+    require(all(np.isfinite(members)), f"population losses {members}")
+    grad_fn = trainer._grad_fn(params)
+    step = lambda: trainer.step(params, opt, batch, grad_fn)  # noqa: E731
+    call_ms = median_ms(step, reps=10)
+    card_ms = device_ms(step, reps=3, inner=5, hold_cycles=200_000_000)
+    scalar = DataParallelTrainer(
+        softmax_classifier_loss(torch_cnn._logits),
+        torch_cnn._adamw(), device="cuda:0")
+    alone = [scalar.init(lambda rng: _pop_member(k, "cuda:0"),
+                         hyperparams={"lr": lr})
+             for k, lr in enumerate(POP_LRS)]
+    k_steps = lambda: [scalar.train_step(mm, oo, batch)  # noqa: E731
+                       for mm, oo in alone]
+    k_call_ms = median_ms(k_steps, reps=10)
+    k_card_ms = device_ms(k_steps, reps=3, inner=5,
+                          hold_cycles=200_000_000)
+    print(f"pop: 14a one bf16 population epoch of TorchCnn ({POP_STAGES} "
+          f"stages, {POP_BASE} base channels, 32x32x3, K={k_members} "
+          f"learning rates "
+          f"{[f'{lr:.0e}' for lr in POP_LRS]}, batch {POP_BATCH}, {steps} "
+          f"steps): {epoch_s:.2f} s, member losses "
+          f"{[round(v, 4) for v in members]}; the population step "
+          f"{call_ms:.2f} ms a call, {card_ms:.2f} ms on the card; "
+          f"{k_members} scalar steps {k_call_ms:.2f} ms a call, "
+          f"{k_card_ms:.2f} ms on the card; card {card}", flush=True)
+    print_device_profile(step, f"population step (K={k_members}, batch "
+                         f"{POP_BATCH}, bf16)", shares=(
+                             ("convolutions", "conv"),
+                             ("cuDNN's grouped kernels", "grouped")))
+    print_device_profile(k_steps, f"{k_members} scalar steps (batch "
+                         f"{POP_BATCH}, bf16)", shares=(
+                             ("convolutions", "conv"),))
+    del trainer, params, opt, alone, scalar
+
+
+def cnn_twin(source_name: str, cls: str, new_cls: str, fixed: dict) -> bytes:
+    """A template of ``templates/`` renamed ``new_cls`` with the knobs in
+    ``fixed`` fixed."""
+    source = (TEMPLATES / source_name).read_text()
+    require(source.count(f"class {cls}(BaseModel):") == 1, cls)
+    source = source.replace(f"class {cls}(BaseModel):",
+                            f"class {new_cls}(BaseModel):")
+    for knob, value in fixed.items():
+        found = re.findall(rf'"{knob}": \w+Knob\([^)]*\)', source)
+        require(len(found) == 1, f"knob {knob} in {source_name}")
+        source = source.replace(found[0], f'"{knob}": FixedKnob({value})')
+    return source.encode()
+
+
+def pop_jobs(card: str, train_uri: str, test_uri: str, x: np.ndarray
+             ) -> list:
+    """14b: a TorchCnn twin job whose proposals differ only in the
+    learning rate (K=4 populations), served, beside its scalar twin; 14c:
+    a one-trial TorchCnnPopulation job (population_size 8), served.
+    Returns each kernel's launches on these paths (none is on them)."""
+    from rafiki_tpu_torch.sdk import population
+    from rafiki_tpu_torch.sdk.model import load_model_class
+    from rafiki_tpu_torch.sdk.params import load_params
+
+    twin = cnn_twin("torch_cnn.py", "TorchCnn", "TorchCnnTwin",
+                    POP_TWIN_KNOBS)
+    pop8 = cnn_twin("torch_cnn_population.py", "TorchCnnPopulation",
+                    "TorchCnnPopulation8", POP_TEMPLATE_KNOBS)
+    queries = x[:8]
+    kernels = _kernels()
+    admin, server, new_client = _stack("pop", "pop.sqlite3")
+    try:
+        c = new_client()
+        for name, source, cls in (("cnn-twin", twin, "TorchCnnTwin"),
+                                  ("cnn-pop8", pop8, "TorchCnnPopulation8")):
+            model = c.create_model(name, "IMAGE_CLASSIFICATION", source, cls)
+            require(model["verification"] is not None
+                    and model["verification"]["ok"],
+                    f"{cls} upload not verified: {model['verification']}")
+        # ---- the main path's runs: counts from zero ----
+        for kernel in kernels:
+            kernel.launches = 0
+        population.reset_fit_stats()
+        t0 = time.perf_counter()
+        c.create_train_job("cnnpop", "IMAGE_CLASSIFICATION", train_uri,
+                           test_uri, budget={"MODEL_TRIAL_COUNT": POP_TRIALS,
+                                             "CHIP_COUNT": 1,
+                                             "TRIAL_VMAP_K": POP_VMAP_K},
+                           models=["cnn-twin"])
+        job = c.wait_until_train_job_stopped("cnnpop", timeout_s=900,
+                                             poll_s=0.05)
+        pop_s = time.perf_counter() - t0
+        fits = dict(population.FIT_STATS)
+        with _Env(RAFIKI_TRIAL_VMAP="0"):
+            t0 = time.perf_counter()
+            c.create_train_job("cnnscalar", "IMAGE_CLASSIFICATION",
+                               train_uri, test_uri, budget={
+                                   "MODEL_TRIAL_COUNT": POP_SCALAR_TRIALS,
+                                   "CHIP_COUNT": 1,
+                                   "TRIAL_VMAP_K": POP_VMAP_K},
+                               models=["cnn-twin"])
+            scalar_job = c.wait_until_train_job_stopped(
+                "cnnscalar", timeout_s=900, poll_s=0.05)
+            scalar_s = time.perf_counter() - t0
+        require(population.FIT_STATS["member_counts"] == fits[
+            "member_counts"], "RAFIKI_TRIAL_VMAP=0 still fitted populations")
+        # 14c (trained before the deploys: a train job takes its card
+        # alone, and a stopped inference job's workers free theirs later)
+        population.reset_fit_stats()
+        t0 = time.perf_counter()
+        c.create_train_job("cnnpop8", "IMAGE_CLASSIFICATION", train_uri,
+                           test_uri, budget={"MODEL_TRIAL_COUNT": 1,
+                                             "CHIP_COUNT": 1},
+                           models=["cnn-pop8"])
+        job8 = c.wait_until_train_job_stopped("cnnpop8", timeout_s=900,
+                                              poll_s=0.05)
+        pop8_s = time.perf_counter() - t0
+        fits8 = dict(population.FIT_STATS)
+        (trial8,) = c.get_trials_of_train_job("cnnpop8")
+        winner = [m for m in c.get_trial_logs(trial8["id"])["metrics"]
+                  if "best_member" in m]
+        trials = c.get_trials_of_train_job("cnnpop")
+        epoch_logs = {t["id"]: [m for m in c.get_trial_logs(t["id"])[
+            "metrics"] if "epoch" in m] for t in trials}
+        heads = {t["id"]: load_params(c.download_trial_params(t["id"]))[
+            "params"]["head"]["kernel"].tobytes() for t in trials}
+        inf = c.create_inference_job("cnnpop")
+        served = np.asarray(c.predict("cnnpop", queries.tolist()))
+        best = [t for t in trials if t["id"] in
+                {w["trial_id"] for w in inf["workers"]}]
+        blobs = [load_params(c.download_trial_params(t["id"]))
+                 for t in best]
+        c.stop_inference_job("cnnpop")
+        c.create_inference_job("cnnpop8")
+        served8 = np.asarray(c.predict("cnnpop8", queries.tolist()))
+        blob8 = load_params(c.download_trial_params(trial8["id"]))
+        c.stop_inference_job("cnnpop8")
+        counts = [k.launches for k in kernels]
+        # ---------------------------------------------------------------
+    finally:
+        server.stop()
+        admin.shutdown()
+    require(job["status"] == scalar_job["status"] == job8["status"]
+            == "STOPPED", f"jobs {job['status']}, {scalar_job['status']}, "
+            f"{job8['status']}")
+    # populations that began AND returned: a batch whose fit raised is
+    # re-run member by member as scalar trials under the same ids, which
+    # would pass every check below
+    batches = [POP_VMAP_K] * (POP_TRIALS // POP_VMAP_K)
+    require(fits["member_counts"] == fits["completed_member_counts"]
+            == batches, f"fits begun {fits['member_counts']}, returned "
+            f"{fits['completed_member_counts']}")
+    # each batch's training log is on its lead row, every epoch with each
+    # member's loss; no other row holds an epoch (a scalar fit's log)
+    leads = {tid: logs for tid, logs in epoch_logs.items() if logs}
+    member_keys = {f"member{k}_loss" for k in range(POP_VMAP_K)}
+    epochs = [float(e) for e in range(POP_TWIN_KNOBS["epochs"])]
+    shapes = {tid: [sorted(m) for m in logs]
+              for tid, logs in epoch_logs.items()}
+    require(len(leads) == len(batches) and all(
+        [m["epoch"] for m in logs] == epochs
+        and all(member_keys <= set(m) for m in logs)
+        for logs in leads.values()), f"epoch logs per row: {shapes}")
+    require(len(trials) == POP_TRIALS
+            and all(t["status"] == "COMPLETED" and np.isfinite(t["score"])
+                    for t in trials),
+            f"trials {[(t['status'], t['score']) for t in trials]}")
+    require(len(set(heads.values())) == POP_TRIALS,
+            "two members' parameters artifacts hold the same weights")
+    # the served ensemble against the best trials' own predict on the card
+    clazz = load_model_class(twin, "TorchCnnTwin")
+    own = []
+    for t, blob in zip(best, blobs):
+        m = clazz(**t["knobs"])
+        m.load_parameters(blob)
+        own.append(np.asarray(m.predict(queries.tolist())))
+    err = float(np.abs(served - sum(own) / len(own)).max())
+    require(served.shape == (8, CLASSES) and err <= ENSEMBLE_ATOL,
+            f"/predict/cnnpop off its trials' mean by {err:.3g}")
+    per_hour = POP_TRIALS / pop_s * 3600
+    scalar_per_hour = POP_SCALAR_TRIALS / scalar_s * 3600
+    print(f"pop: 14b TorchCnn twin ({POP_TWIN_KNOBS}; the learning rate "
+          f"free) through Client: {POP_TRIALS} trials at TRIAL_VMAP_K "
+          f"{POP_VMAP_K} fitted as {fits['member_counts']} (each fit "
+          f"returned; {len(leads)} lead rows log each member's loss each "
+          f"epoch, the other {POP_TRIALS - len(leads)} no epoch), every row "
+          f"COMPLETED with its own score and params (scores "
+          f"{[round(t['score'], 4) for t in trials]}), STOPPED in "
+          f"{pop_s:.1f} s ({per_hour:.0f} trials per GPU-hour); the scalar "
+          f"twin (RAFIKI_TRIAL_VMAP=0) {POP_SCALAR_TRIALS} trials in "
+          f"{scalar_s:.1f} s ({scalar_per_hour:.0f} trials per GPU-hour, "
+          f"{per_hour / scalar_per_hour:.2f}x); the best {len(best)} "
+          f"served: /predict of 8 images within {err:.2e} of their own "
+          f"predict (tol {ENSEMBLE_ATOL:g}); card {card}", flush=True)
+    require(job8["status"] == "STOPPED" and trial8["status"] == "COMPLETED"
+            and fits8["member_counts"] == fits8["completed_member_counts"]
+            == [POP_TEMPLATE_KNOBS["population_size"]] and len(winner) == 1,
+            f"14c: trial {trial8['status']}, fits {fits8}, winner {winner}")
+    clazz8 = load_model_class(pop8, "TorchCnnPopulation8")
+    m8 = clazz8(**trial8["knobs"])
+    m8.load_parameters(blob8)
+    own8 = np.asarray(m8.predict(queries.tolist()))
+    err8 = float(np.abs(served8 - own8).max())
+    require(served8.shape == (8, CLASSES) and err8 <= ENSEMBLE_ATOL,
+            f"/predict/cnnpop8 off its trial's own predict by {err8:.3g}")
+    print(f"pop: 14c TorchCnnPopulation ({POP_TEMPLATE_KNOBS}) one trial "
+          f"fitted {fits8['member_counts']} members in {pop8_s:.1f} s; "
+          f"winner member {int(winner[0]['best_member'])} (validation "
+          f"accuracy {winner[0]['best_val_accuracy']:.4f}, lr "
+          f"{blob8['best_lr']:.2e}), test score {trial8['score']:.4f}; "
+          f"served: /predict within {err8:.2e} of the trial's own predict; "
+          f"card {card}", flush=True)
+    return counts
+
+
+def int8_phase(card: str) -> list:
+    """14d: phase 8a's two BERT-base trials (its store, reopened) served
+    under ``RAFIKI_SERVE_INT8=1``, solo and with ``ENSEMBLE_FUSED``.
+    Returns each kernel's launches on this path."""
+    from rafiki_tpu_torch import config, convert
+    from rafiki_tpu_torch.device import set_device_grant
+    from rafiki_tpu_torch.sdk import quant
+    from rafiki_tpu_torch.sdk.model import load_model_class
+    from rafiki_tpu_torch.sdk.params import load_params
+    from rafiki_tpu_torch.sdk.torch_backend import trainer_cache_clear
+
+    queries = BERT_RUN["queries"]
+    eight = {"queries": queries[:8]}
+    kernels = _kernels()
+    source = (TEMPLATES / "torch_bert.py").read_text() + BERT_BASE
+    clazz = load_model_class(source.encode(), "TorchBertBase")
+    # a trainer cached by 8a and 12 serves bf16: cached_trainer does not
+    # key on the switch (as in the JAX package)
+    trainer_cache_clear()
+    admin, server, new_client = _stack("text", "text.sqlite3", fresh=False)
+    try:
+        c = new_client()
+        token = admin.authenticate_user(config.SUPERADMIN_EMAIL,
+                                        config.SUPERADMIN_PASSWORD)["token"]
+        url = f"http://127.0.0.1:{server.port}/predict/sst2"
+        trials = c.get_trials_of_train_job("sst2")
+        blobs = [load_params(c.download_trial_params(t["id"]))
+                 for t in trials]
+        with _Env(RAFIKI_SERVE_INT8="1"):
+            # ---- the main path's run (solo int8): counts from zero ----
+            gc.collect()
+            mem0 = torch.cuda.memory_allocated(0)
+            for kernel in kernels:
+                kernel.launches = 0
+            t0 = time.perf_counter()
+            inf = c.create_inference_job("sst2")
+            deploy_s = time.perf_counter() - t0
+            answers = np.asarray(c.predict("sst2", queries[:8]))
+            lat = []
+            for _ in range(INT8_TIMED):
+                lat.append(_door_post(url, eight, token)[2])
+            solo_counts = [k.launches for k in kernels]
+            # ------------------------------------------------------------
+            held = torch.cuda.memory_allocated(0) - mem0
+            stats = c.get_inference_job_stats("sst2")
+            c.stop_inference_job("sst2")
+            trainer_cache_clear()
+            # ---- the main path's run (fused int8): counts from zero ----
+            for kernel in kernels:
+                kernel.launches = 0
+            t0 = time.perf_counter()
+            finf = c.create_inference_job("sst2",
+                                          budget={"ENSEMBLE_FUSED": 1})
+            fdeploy_s = time.perf_counter() - t0
+            fused = np.asarray(c.predict("sst2", queries[:8]))
+            flat = []
+            for _ in range(INT8_TIMED):
+                flat.append(_door_post(url, eight, token)[2])
+            fused_counts = [k.launches for k in kernels]
+            # ------------------------------------------------------------
+            fstats = c.get_inference_job_stats("sst2")
+            c.stop_inference_job("sst2")
+            trainer_cache_clear()
+            # each trial's solo int8 answers against the fused stack's
+            # answer for it, in this process on the card
+            models = []
+            for t, blob in zip(trials, blobs):
+                m = clazz(**t["knobs"])
+                m.load_parameters(blob)
+                models.append(m)
+            solo = [np.asarray(m.predict(queries[:8])) for m in models]
+            qbytes = quant.quantized_bytes(
+                quant.quantize_jax_layout(models[0]._model))
+            n_params = sum(p.numel() for p in models[0]._model.parameters())
+            stacked = models[0].ensemble_stack(models)
+            require(stacked is not None, "the int8 trials did not fuse")
+            per_model = np.asarray(stacked.predict_all(queries[:8]))
+            del stacked, models, m
+            # the same trials' int8 forward on the CPU
+            trainer_cache_clear()
+            set_device_grant(["cpu"])
+            try:
+                cpu = []
+                for t, blob in zip(trials, blobs):
+                    m = clazz(**t["knobs"])
+                    m.load_parameters(blob)
+                    ids = torch.from_numpy(
+                        m._to_ids(queries[:INT8_CPU_ROWS]))
+                    with torch.inference_mode():  # predict_fn's softmax
+                        cpu.append(m._trainer._forward(
+                            m._model, ids, None).double().numpy())
+                    del m
+            finally:
+                set_device_grant(None)
+                trainer_cache_clear()
+    finally:
+        server.stop()
+        admin.shutdown()
+    require(inf["status"] == "RUNNING" and len(inf["workers"]) == TRIALS,
+            f"int8 job {inf['status']} with {len(inf['workers'])} workers")
+    forwards = stats["batches"] + PREDICT_BUCKETS * TRIALS
+    expect = [DEPTH * forwards, 0, 0, 0]
+    require(solo_counts == expect,
+            f"int8 launches {solo_counts}, expected {expect}")
+    ffwd = fstats["batches"] + PREDICT_BUCKETS
+    fexpect = [DEPTH * ffwd, 0, 0, 0]
+    require(fused_counts == fexpect,
+            f"fused int8 launches {fused_counts}, expected {fexpect}")
+    require(answers.shape == fused.shape == (8, 2)
+            and np.isfinite(answers).all() and np.isfinite(fused).all(),
+            f"int8 /predict answered {answers.shape}, {fused.shape}")
+    ref = BERT_RUN["batch8"]
+    agree = float((answers.argmax(-1) == ref.argmax(-1)).mean())
+    err_bf16 = float(np.abs(answers - ref).max())
+    cpu_mean = sum(cpu) / len(cpu)
+    err_cpu = float(np.abs(answers[:INT8_CPU_ROWS] - cpu_mean).max())
+    err_bf16_rows = float(np.abs(answers[:INT8_CPU_ROWS]
+                                 - ref[:INT8_CPU_ROWS]).max())
+    p50, fp50 = (statistics.median(v) * 1e3 for v in (lat, flat))
+    print(f"int8: 14d RAFIKI_SERVE_INT8=1: BERT-base's serving weights "
+          f"{qbytes / 1e6:.1f} MB int8 with their scales (quantized_bytes) "
+          f"against {n_params * 2 / 1e6:.1f} MB in bf16 and "
+          f"{n_params * 4 / 1e6:.1f} MB f32 masters; the solo job's "
+          f"{TRIALS} workers hold {held / 1e6:.1f} MB more on the card "
+          f"after its requests (torch.cuda.memory_allocated; each keeps its "
+          f"f32 masters and its int8 copy); solo job RUNNING in "
+          f"{deploy_s:.1f} s ({TRIALS} workers), K1 launched "
+          f"{solo_counts[0]} times in {forwards} bucketed forwards ({DEPTH} "
+          f"a forward); p50 of 8 sentences on the admin door {p50:.2f} ms "
+          f"against 8a's bf16 {BERT_RUN['p50_8']:.2f} ms and 12b's fused "
+          f"bf16 {BERT_RUN.get('fused_p50_8', float('nan')):.2f} ms; "
+          f"card {card}", flush=True)
+    print(f"int8: the int8 answers against 8a's bf16 answers: argmax "
+          f"agreement {agree:.3f} (>= {INT8_AGREE}), max |p - p_bf16| "
+          f"{err_bf16:.3g} (<= {INT8_ATOL}); on the first {INT8_CPU_ROWS} "
+          f"sentences against the same trials' int8 forward on the CPU "
+          f"{err_cpu:.3g}, against bf16 {err_bf16_rows:.3g}", flush=True)
+    require(agree >= INT8_AGREE and err_bf16 <= INT8_ATOL,
+            f"int8 answers off 8a's bf16 answers: agreement {agree}, "
+            f"max |dp| {err_bf16:.3g}")
+    require(err_cpu <= err_bf16_rows,
+            f"the card's int8 answers are further from the CPU's int8 "
+            f"forward ({err_cpu:.3g}) than from bf16 ({err_bf16_rows:.3g})")
+    ferr = float(np.abs(per_model - np.asarray(solo)).max())
+    print(f"int8: ENSEMBLE_FUSED job RUNNING in {fdeploy_s:.1f} s (1 worker "
+          f"holding {TRIALS} trials, fused_dispatch "
+          f"{fstats['workers'][0].get('fused_dispatch')}); K1 launched "
+          f"{fused_counts[0]} times in {ffwd} bucketed fused forwards "
+          f"({DEPTH} a forward, not {DEPTH * TRIALS}); p50 of 8 sentences "
+          f"{fp50:.2f} ms; each trial's answer in the fused int8 stack "
+          f"against its solo int8 answer: max |dp| {ferr:.2e} "
+          f"({'within' if ferr <= 1e-4 else 'past'} the JAX test's 1e-4), "
+          + prob_check("fused int8 stack", per_model, np.asarray(solo))
+          + "; /predict fused against solo: "
+          + prob_check("fused int8 /predict/sst2", fused, answers)
+          + f"; card {card}", flush=True)
+    return [a + b for a, b in zip(solo_counts, fused_counts)]
+
+
+def pop_datasets() -> tuple:
+    """14's ``.npz`` sets under ``build/chip_smoke/pop/``: 11a's images
+    (its generator and seed) scaled to [-1, 1] as float32, with their
+    labels; (train uri, test uri, train images, train labels)."""
+    from rafiki_tpu_torch.sdk.dataset import NumpyDataset, write_numpy_dataset
+
+    out = WORK / "pop"
+    out.mkdir(parents=True, exist_ok=True)
+    uris, first = [], None
+    for uri, split in zip(gan_datasets()[:2], ("train", "test")):
+        ds = NumpyDataset(uri)
+        x = ds.x.astype(np.float32) / 127.5 - 1.0
+        if first is None:
+            first = (x, ds.y.astype(np.int32))
+        uris.append(write_numpy_dataset(x, ds.y.astype(np.int32),
+                                        str(out / f"{split}.npz")))
+    return uris[0], uris[1], first[0], first[1]
+
+
+def population_int8_phase(card: str) -> tuple:
+    """Phase 14: 14a-c populations, 14d int8 serving. Returns (each
+    kernel's launches on the population paths, on the int8 path)."""
+    t_phase = time.perf_counter()
+    train_uri, test_uri, x, y = pop_datasets()
+    print(f"pop: 11a's images ({GAN_IMAGES[0]} + {GAN_IMAGES[1]}, 32x32x3) "
+          f"scaled to [-1, 1] and written as .npz in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    pop_step_gates(card, x, y)
+    pop_cards_step(card, x, y)
+    pop_epoch(card, x, y)
+    t_a = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    pop_counts = pop_jobs(card, train_uri, test_uri, x)
+    require(pop_counts == [0] * len(KERNEL_NAMES),
+            f"the population paths launched attention kernels: {pop_counts}")
+    t_bc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    int8_counts = int8_phase(card)
+    print(f"pop: 14a took {t_a:.0f} s, 14b-c {t_bc:.0f} s; int8: 14d took "
+          f"{time.perf_counter() - t0:.0f} s; phase 14 took "
+          f"{time.perf_counter() - t_phase:.0f} s", flush=True)
+    return pop_counts, int8_counts
+
+
 def _alive(pid: int) -> bool:
     try:
         os.kill(pid, 0)
@@ -5713,6 +6538,7 @@ def main() -> int:
     gen_launches = generation_tagging_phase(card)
     fused_shape, control_launches = serving_control_phase(card)
     rest_launches = generation_rest_phase(card)
+    pop_launches, int8_launches = population_int8_phase(card)
     for i, name in enumerate(KERNEL_NAMES):
         by_path = {"train (phase 3)": train_launches[i],
                    "serve (phase 4)": serve_launches[i],
@@ -5725,7 +6551,9 @@ def main() -> int:
                    "several cards (phase 10)": cards_launches[i],
                    "generation and tagging (phase 11)": gen_launches[i],
                    "serving control (phase 12)": control_launches[i],
-                   "generation, the rest (phase 13)": rest_launches[i]}
+                   "generation, the rest (phase 13)": rest_launches[i],
+                   "populations (phase 14a-c)": pop_launches[i],
+                   "int8 serving (phase 14d)": int8_launches[i]}
         require(by_path["stack (phase 5)"] > 0,
                 f"{name} was not launched through the admin")
         require(by_path["process (phase 6)"] > 0,
@@ -5743,6 +6571,8 @@ def main() -> int:
         if name == "flash_fwd":
             require(by_path["serving control (phase 12)"] > 0,
                     "K1 was not launched on the serving-control path")
+            require(by_path["int8 serving (phase 14d)"] > 0,
+                    "K1 was not launched on the int8 serving path")
             entries[name]["shapes"] = [fused_shape]
         entries[name]["launches"] = stack_launches[i]
         entries[name]["launches_by_path"] = by_path

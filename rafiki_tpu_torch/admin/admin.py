@@ -27,19 +27,22 @@ past ``PREDICT_TIMEOUT_S``). An inference job's budget may ask for a
 fused ensemble (``ENSEMBLE_FUSED``: every best trial in each serving
 worker, ``admin/services.py``), and ``RAFIKI_PREDICT_CACHE=1`` puts the
 predict result cache in front of the workers.
-HA leases and admin failover, host placement and the fleet broker, crash
-recovery, rollout, drift, the autoscaler with its fair admission and
-warm pool, int8 serving, request tracing and device profiling are not
-ported. The settings that turn one of them on raise
-:class:`~rafiki_tpu_torch.config.NotPortedError` (``config._UNPORTED``:
-``RAFIKI_ADMIN_HA``, ``RAFIKI_ADMIN_ADDRS``, ``RAFIKI_PLACEMENT=hosts``,
-``RAFIKI_AGENTS``, ``RAFIKI_ORPHAN_SURVIVE``, ``RAFIKI_DRIFT``,
-``RAFIKI_AUTOSCALE``, ``RAFIKI_AUTOSCALE_FAIR``,
-``RAFIKI_AUTOSCALE_WARM_POOL``, ``RAFIKI_SERVE_INT8``,
-``RAFIKI_TRACE_SAMPLE``, ``RAFIKI_PROFILE``, and the sandbox and
-dependency switches); rollout has no switch of its own to refuse
-(ROADMAP.md, queue C). The budget key still refused is ``TRIAL_VMAP_K``
-above 1. A ``TEXT_GENERATION`` inference job's budget may name a draft
+A train job's budget may ask for vectorized population trials
+(``TRIAL_VMAP_K``, proposals drained a round, over ``RAFIKI_TRIAL_VMAP_K``;
+``RAFIKI_TRIAL_VMAP=0`` forces scalar trials; ``worker/train.py``), and
+``RAFIKI_SERVE_INT8=1`` serves every SDK-trainer template from weight-only
+int8 copies (``sdk/quant.py``). HA leases and admin failover, host
+placement and the fleet broker, crash recovery, rollout, drift, the
+autoscaler with its fair admission and warm pool, request tracing and
+device profiling are not ported. The settings that turn one of them on
+raise :class:`~rafiki_tpu_torch.config.NotPortedError`
+(``config._UNPORTED``: ``RAFIKI_ADMIN_HA``, ``RAFIKI_ADMIN_ADDRS``,
+``RAFIKI_PLACEMENT=hosts``, ``RAFIKI_AGENTS``, ``RAFIKI_ORPHAN_SURVIVE``,
+``RAFIKI_DRIFT``, ``RAFIKI_AUTOSCALE``, ``RAFIKI_AUTOSCALE_FAIR``,
+``RAFIKI_AUTOSCALE_WARM_POOL``, ``RAFIKI_TRACE_SAMPLE``,
+``RAFIKI_PROFILE``, and the sandbox and dependency switches); rollout has
+no switch of its own to refuse (ROADMAP.md, queue C). No budget key is
+refused. A ``TEXT_GENERATION`` inference job's budget may name a draft
 trial (``GEN_DRAFT_TRIAL``) for speculative decoding, checked at deploy
 (``admin/services.py``).
 ``TEXT_GENERATION`` takes generation-capable templates only (a
@@ -348,7 +351,6 @@ class Admin:
                          model_names: Optional[List[str]] = None) -> Dict:
         budget = {} if budget is None else budget
         self._validate_budget(budget)
-        _refuse_unported_budget(budget, _UNPORTED_TRAIN_BUDGET)
         # the task's PUBLIC models of others first, then the caller's own:
         # another user's same-named public model never shadows one's own
         all_models = self.db.get_models(task)
@@ -789,20 +791,3 @@ class Admin:
 #: the serving counters a worker process relays
 _RELAYED_STATS = ("batches", "queries", "queue_depth", "expired", "shed",
                   "fused_dispatch")
-
-#: budget keys, and the values of them, that ask for what is not ported:
-#: population trials (ROADMAP.md)
-_UNPORTED_TRAIN_BUDGET = {
-    BudgetType.TRIAL_VMAP_K: lambda v: v not in (0, 1),
-}
-
-
-def _refuse_unported_budget(budget: Dict[str, Any], unported) -> None:
-    """A 400 naming each budget key that asks for what the port lacks: it
-    is never ignored. Runs after ``_validate_budget`` has typed them."""
-    asked = sorted(k for k, asks in unported.items()
-                   if budget.get(k) is not None and asks(budget[k]))
-    if asked:
-        raise InvalidRequestError(
-            f"budget {asked} asks for what rafiki_tpu_torch does not have "
-            "yet (ROADMAP.md); drop it")

@@ -5,7 +5,8 @@ Paths, the settings a live deployment may retune
 (``PREDICT_QUEUE_DEPTH``, the per-job doors ``PREDICTOR_PORTS`` and
 ``PREDICTOR_HOST``, the generation worker's and the door's ``GEN_*``
 (speculation and stream continuity among them), the trial fault
-settings ``TRIAL_*`` and ``PENDING_FEEDBACK_MAX``) and the wall-clock
+settings ``TRIAL_*`` (vectorized trials' ``TRIAL_VMAP`` and
+``TRIAL_VMAP_K`` among them) and ``PENDING_FEEDBACK_MAX``) and the wall-clock
 budgets (``PREDICT_TIMEOUT_S``, ``SERVICE_DEPLOY_TIMEOUT_S``,
 ``DIST_TIMEOUT_S``) are read
 at each use (module ``__getattr__``), so a test or an operator
@@ -179,6 +180,12 @@ _DYNAMIC = {
     "TRIAL_REPROPOSE_MAX": lambda: _env_int("RAFIKI_TRIAL_REPROPOSE_MAX", 8),
     # consecutive user-class faults that error the whole job (0: never)
     "TRIAL_FAULT_LIMIT": lambda: _env_int("RAFIKI_TRIAL_FAULT_LIMIT", 5),
+    # 0: never train a bucket of proposals as one vectorized population,
+    # even for templates that declare a population_spec (worker/train.py)
+    "TRIAL_VMAP": lambda: os.environ.get("RAFIKI_TRIAL_VMAP", "1") != "0",
+    # proposals drained a vectorized round (a job's budget TRIAL_VMAP_K
+    # wins; the template's max_members caps it; below 2 it never engages)
+    "TRIAL_VMAP_K": lambda: _env_int("RAFIKI_TRIAL_VMAP_K", 4),
     # advisor feedback queued for retry, at most (the oldest drop)
     "PENDING_FEEDBACK_MAX": lambda: _env_int(
         "RAFIKI_PENDING_FEEDBACK_MAX", 256),
@@ -228,7 +235,6 @@ _UNPORTED = (
     ("RAFIKI_AUTOSCALE_FAIR", _is_one, "weighted fair admission"),
     ("RAFIKI_AUTOSCALE_WARM_POOL", _positive, "the warm pool"),
     ("RAFIKI_DRIFT", _is_one, "drift detection and retraining"),
-    ("RAFIKI_SERVE_INT8", _is_one, "int8 serving"),
     ("RAFIKI_AGENTS", bool, "host placement (agents)"),
     ("RAFIKI_ADMIN_ADDRS", bool, "admin failover (HA)"),
     ("RAFIKI_ORPHAN_SURVIVE", _is_one, "crash recovery (orphan survival)"),

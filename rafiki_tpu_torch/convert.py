@@ -20,11 +20,16 @@ kernel and a :class:`~rafiki_tpu_torch.models.pggan.EqConv` weight are
 HWIO there and OIHW (``channels_last``) here. The BatchNorm
 state tree (``<bn>/mean``, ``<bn>/var``) maps to the buffers. Both
 directions are exact.
+
+A population's member-stacked trees (:func:`stacked_from_jax_tree`,
+:func:`stacked_to_jax_tree`) carry the same layouts with a leading member
+axis on every leaf. :func:`jax_layout` says where each parameter sits in
+the JAX tree without copying it (int8 serving quantizes in those axes).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -146,3 +151,71 @@ def to_jax_tree(model: torch.nn.Module) -> Tuple[Dict[str, Any],
             name.replace(".", SEP)] = t.numpy()
     return (_unflatten_lists(unflatten(params)),
             _unflatten_lists(unflatten(state)))
+
+
+def jax_layout(model: torch.nn.Module) -> List[Tuple[str, List[str], str]]:
+    """Where each of ``model``'s parameters sits in its JAX-layout tree:
+    ``(tree path, parameter names, kind)`` a leaf of the tree. ``kind``
+    is ``"stack"`` for a transformer family's block leaf, which stacks
+    the named per-layer parameters on a new leading axis
+    (:func:`from_jax_params`), ``"conv"`` for a kernel that is OIHW here
+    and HWIO there (:func:`from_jax_tree`), else ``"plain"``."""
+    names = [name for name, _ in model.named_parameters()]
+    if not isinstance(model, tuple(FAMILIES.values())):
+        convs = _conv_kernels(model)
+        return [(name.replace(".", SEP), [name],
+                 "conv" if name in convs else "plain") for name in names]
+    layout: List[Tuple[str, List[str], str]] = []
+    blocks: Dict[str, list] = {}
+    for name in names:
+        if name.startswith("blocks."):
+            _, index, rest = name.split(".", 2)
+            path = "blocks" + SEP + rest.replace(".", SEP)
+            if path not in blocks:
+                blocks[path] = []
+                layout.append((path, blocks[path], "stack"))
+            blocks[path].append((int(index), name))
+        else:
+            layout.append((name.replace(".", SEP), [name], "plain"))
+    return [(path, [n for _, n in sorted(items)] if kind == "stack"
+             else items, kind) for path, items, kind in layout]
+
+
+def stacked_from_jax_tree(model: torch.nn.Module, params: Dict[str, Any],
+                          device=None) -> Dict[str, torch.Tensor]:
+    """A member-stacked JAX-layout tree (every leaf with a leading member
+    axis, as ``jax.vmap`` and the JAX ``PopulationTrainer`` hold it) as
+    ``model``'s parameters stacked the same way, ``{name: (K, ...)}`` f32
+    on ``device`` (the default device when None); a conv kernel (K, H,
+    W, I, O) becomes (K, O, I, H, W). ``model`` gives the names and may
+    be on the ``meta`` device. Names and shapes are checked strictly."""
+    dev = default_device(device)
+    convs = _conv_kernels(model)
+    want = {name: tuple(p.shape) for name, p in model.named_parameters()}
+    out = {}
+    for path, value in flatten(params).items():
+        name = path.replace(SEP, ".")
+        t = torch.from_numpy(np.array(value, np.float32))
+        if name in convs:
+            t = t.permute(0, 4, 3, 1, 2)
+        if name not in want or tuple(t.shape[1:]) != want[name]:
+            raise ValueError(f"stacked leaf {path} {tuple(t.shape)} does "
+                             "not fit the model")
+        out[name] = t.contiguous().to(dev)
+    if set(out) != set(want):
+        raise ValueError(f"stacked tree misses {sorted(set(want) - set(out))}")
+    return out
+
+
+def stacked_to_jax_tree(model: torch.nn.Module,
+                        params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`stacked_from_jax_tree`: numpy copies in the
+    JAX layout, the member axis leading every leaf."""
+    convs = _conv_kernels(model)
+    flat = {}
+    for name, value in params.items():
+        t = value.detach().to("cpu", torch.float32, copy=True)
+        if name in convs:
+            t = t.permute(0, 3, 4, 2, 1)
+        flat[name.replace(".", SEP)] = t.contiguous().numpy()
+    return _unflatten_lists(unflatten(flat))

@@ -14,8 +14,12 @@ advisor, parameter serialization and ensemble). The generation contract:
 overrides (the ring, the paged pool, the sampled steps and speculative
 decoding's ``paged_verify_step``; a draft's optional fused burst
 ``decode_steps_sampled``) and the capability oracles the admin and the
-generation worker consult. The population hooks, the fused-ensemble
-hook and dependency provisioning wait (ROADMAP.md).
+generation worker consult. The population contract:
+``PopulationSpec``, the three population methods a template overrides
+to train several proposals as one vectorized program
+(``sdk/population.py``, ``worker/train.py``) and
+``population_capability``, which the train worker consults. Dependency
+provisioning waits (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,6 +50,42 @@ class InvalidModelClassError(Exception):
 #: pip names whose import name differs (``rafiki_tpu/sdk/deps.py``)
 IMPORT_ALIASES = {"scikit-learn": "sklearn", "pillow": "PIL",
                   "pyyaml": "yaml", "opencv-python": "cv2"}
+
+
+class PopulationSpec:
+    """Declares that a template can train a POPULATION of knob
+    assignments as one vectorized program (``torch.func.vmap`` over
+    member-stacked parameters, ``sdk/population.PopulationTrainer``). Set
+    as a class attribute::
+
+        class MyModel(BaseModel):
+            population_spec = PopulationSpec(dynamic_knobs=("learning_rate",))
+
+    ``dynamic_knobs`` names the knobs that may differ across the members
+    of one program: pure hyperparameters that ride the per-member
+    optimizer state. Every other knob shapes the program (architecture,
+    batch size, epochs): the train worker's partitioner
+    (``worker/vmap_partition.py``) stacks only proposals whose other knobs
+    are identical. ``max_members`` caps the members of one program (the
+    stacked parameters and optimizer state grow with it).
+
+    A template advertising a spec must also override the three
+    population methods of :class:`BaseModel` (``train_population``,
+    ``evaluate_population``, ``dump_member_parameters``);
+    :func:`population_capability` refuses a spec whose methods are the
+    base stubs, so a half-wired template runs scalar trials instead of
+    crashing the worker."""
+
+    def __init__(self, dynamic_knobs, max_members: int = 8):
+        self.dynamic_knobs = tuple(dynamic_knobs)
+        if not self.dynamic_knobs:
+            raise ValueError(
+                "PopulationSpec needs at least one dynamic knob name")
+        self.max_members = max(int(max_members), 1)
+
+    def __repr__(self) -> str:
+        return (f"PopulationSpec(dynamic_knobs={self.dynamic_knobs!r}, "
+                f"max_members={self.max_members})")
 
 
 class GenerationSpec:
@@ -138,6 +178,35 @@ class BaseModel(abc.ABC):
         parameter shapes, a stateful trainer); the fused worker then
         serves the models one after another. Default: None."""
         return None
+
+    # -- vectorized trial execution (opt-in through ``population_spec``) ---
+
+    #: a :class:`PopulationSpec` advertises that the train worker may
+    #: drain several proposals a round and train each bucket of them that
+    #: shares its program through ``train_population`` (worker/train.py)
+    population_spec: Optional[PopulationSpec] = None
+
+    def train_population(self, dataset_uri: str,
+                         member_knobs: List[Dict[str, Any]]) -> None:
+        """Train every member of ``member_knobs`` at once (one vectorized
+        program, ``sdk/population.PopulationTrainer``). The instance was
+        built with ``member_knobs[0]``; the members differ only in the
+        spec's ``dynamic_knobs``. ``self.checkpoint_path`` checkpoints the
+        stacked members, so the whole batch resumes mid-trial as a scalar
+        trial does."""
+        raise NotImplementedError
+
+    def evaluate_population(self, dataset_uri: str) -> List[float]:
+        """One score a member, in ``member_knobs`` order. A member whose
+        score is NaN or infinite is failed alone by the worker (a typed
+        INVALID_SCORE and infeasible feedback for it), never the batch."""
+        raise NotImplementedError
+
+    def dump_member_parameters(self, member: int) -> Any:
+        """Member ``member``'s parameters in the format ``dump_parameters``
+        produces: each member becomes its own trial row with its own
+        parameters artifact, served by the unchanged ``load_parameters``."""
+        raise NotImplementedError
 
     # -- the generation contract (worker/generation.py drives it) ----------
 
@@ -245,6 +314,32 @@ ROLE_ACCEPT = 2
 
 def _overrides(clazz: type, name: str) -> bool:
     return getattr(clazz, name, None) is not getattr(BaseModel, name)
+
+
+#: the three methods a population-capable template must override
+POPULATION_METHODS = ("train_population", "evaluate_population",
+                      "dump_member_parameters")
+
+
+def population_capability(clazz: type) -> Optional[PopulationSpec]:
+    """The template's :class:`PopulationSpec` when it is fully wired (a
+    spec and the three population methods overridden), else None: the
+    worker then runs scalar trials."""
+    spec = getattr(clazz, "population_spec", None)
+    if spec is None:
+        return None
+    if not isinstance(spec, PopulationSpec):
+        _log.warning("%s.population_spec is not a PopulationSpec (%s); "
+                     "ignoring: trials run scalar", clazz.__name__,
+                     type(spec).__name__)
+        return None
+    for name in POPULATION_METHODS:
+        if not _overrides(clazz, name):
+            _log.warning("%s declares population_spec but does not "
+                         "override %s(); ignoring: trials run scalar",
+                         clazz.__name__, name)
+            return None
+    return spec
 
 
 def generation_capability(clazz: type) -> Optional[GenerationSpec]:

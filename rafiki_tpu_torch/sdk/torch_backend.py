@@ -9,7 +9,15 @@ the fused ensemble's stacked predict (``stack_ensemble_params``,
 ``trainer_cache_clear``, ``tunable_optimizer`` and
 ``set_opt_hyperparams``, ``shuffled_batches``,
 ``softmax_classifier_loss`` and ``classification_accuracy``. The class
-keeps its name.
+keeps its name. ``DataParallelTrainer(serve_int8=True)`` (or
+``RAFIKI_SERVE_INT8=1``) predicts from weight-only int8 copies
+(``sdk/quant.py``): quantized once a module object (each module its own
+entry, dropped with the module and when the trainer trains it), on its
+device, and dequantized in the source dtype into the module through
+``functional_call`` at each forward; a fused ensemble quantizes each
+trial on its own and stacks the int8 values and scales, and each vmap
+instance dequantizes its own. BERT's embedding table is dequantized
+whole, as the JAX graph asks.
 
 Over several devices each rank of the thread's data group
 (``parallel/ranks.py``) runs the same calls on its own device, and the
@@ -60,6 +68,7 @@ import logging
 import os
 import threading
 import time
+import weakref
 from typing import (Any, Callable, Dict, Hashable, Iterator, List, Optional,
                     Tuple)
 
@@ -168,6 +177,20 @@ def shuffled_batches(n: int, batch_size: int, rng: np.random.Generator,
         yield perm[n_full * batch_size:]
 
 
+def broadcast_bytes(group, blob: Optional[bytes], device
+                    ) -> Optional[bytes]:
+    """Rank 0's ``blob`` (or None) on every rank of ``group``."""
+    size = torch.tensor([-1 if blob is None else len(blob)],
+                        dtype=torch.int64, device=device)
+    n = int(group.broadcast_(size).item())
+    if n < 0:
+        return None
+    buf = (torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(device)
+           if group.rank == 0 else
+           torch.empty(n, dtype=torch.uint8, device=device))
+    return group.broadcast_(buf).cpu().numpy().tobytes()
+
+
 class DataParallelTrainer:
     # padding 1 query to 8 wastes little, and bounds the shapes served
     MIN_PREDICT_BUCKET = 8
@@ -175,16 +198,28 @@ class DataParallelTrainer:
     def __init__(self, loss_fn: Optional[LossFn] = None,
                  optimizer: Optional[OptimizerFactory] = None,
                  predict_fn: Optional[Callable[..., torch.Tensor]] = None,
-                 device=None, stateful: bool = False):
+                 device=None, stateful: bool = False,
+                 serve_int8: Optional[bool] = None):
         """``loss_fn`` and ``optimizer`` are needed to train, ``predict_fn``
         to predict; ``device`` defaults to :func:`default_device`.
         ``stateful`` threads a state the optimizer never sees through
-        training and prediction (see the module docstring)."""
+        training and prediction (see the module docstring).
+        ``serve_int8`` (default: ``RAFIKI_SERVE_INT8=1``) predicts from
+        weight-only int8 copies (``sdk/quant.py``)."""
+        from rafiki_tpu_torch.sdk.quant import serve_int8_enabled
+
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.predict_fn = predict_fn
         self.stateful = stateful
         self.device = default_device(device)
+        self.serve_int8 = (serve_int8 if serve_int8 is not None
+                           else serve_int8_enabled())
+        # module -> its int8 copy: quantized once a module object, each
+        # served module its own entry, dropped with the module (and by
+        # train_step, which changes its weights)
+        self._qcache: "weakref.WeakKeyDictionary[torch.nn.Module, Any]" = \
+            weakref.WeakKeyDictionary()
         # (ids of the host arrays, the host arrays, their device copies):
         # the trials of one job fit the same arrays (dataset_utils caches
         # them); holding the host arrays keeps their ids from being reused
@@ -246,6 +281,7 @@ class DataParallelTrainer:
         """One forward, backward and optimizer step, and for a stateful
         trainer the new state copied into ``state``; returns the loss (a
         device scalar, not synchronised)."""
+        self._qcache.pop(model, None)  # an int8 copy of the old weights
         if self.stateful:
             loss, (_, new_state) = self.loss_fn(model, state, batch)
         else:
@@ -418,16 +454,7 @@ class DataParallelTrainer:
 
     def _broadcast_bytes(self, group, blob: Optional[bytes]
                          ) -> Optional[bytes]:
-        """Rank 0's ``blob`` (or None) on every rank."""
-        size = torch.tensor([-1 if blob is None else len(blob)],
-                            dtype=torch.int64, device=self.device)
-        n = int(group.broadcast_(size).item())
-        if n < 0:
-            return None
-        buf = (torch.frombuffer(bytearray(blob), dtype=torch.uint8)
-               .to(self.device) if group.rank == 0 else
-               torch.empty(n, dtype=torch.uint8, device=self.device))
-        return group.broadcast_(buf).cpu().numpy().tobytes()
+        return broadcast_bytes(group, blob, self.device)
 
     def _restore_checkpoint(self, path: str, model: torch.nn.Module,
                             opt: torch.optim.Optimizer,
@@ -505,6 +532,35 @@ class DataParallelTrainer:
             yield chunk, pad
             i += len(chunk) - pad
 
+    def _serving_params(self, params: torch.nn.Module) -> Any:
+        """With ``serve_int8``, the int8 copy of ``params`` that predict
+        dequantizes (``quant.quantize_module``, on the module's device),
+        quantized once a module object; else ``params``."""
+        if not self.serve_int8:
+            return params
+        qp = self._qcache.get(params)
+        if qp is None:
+            from rafiki_tpu_torch.sdk.quant import quantize_module
+
+            qp = quantize_module(params)
+            self._qcache[params] = qp
+        return qp
+
+    def _forward(self, params: torch.nn.Module, x: torch.Tensor,
+                 state: Optional[State]) -> torch.Tensor:
+        """``predict_fn`` on one batch; with ``serve_int8`` over the int8
+        copy, dequantized in the source dtype into the module through
+        ``functional_call``."""
+        args = (state, x) if self.stateful else (x,)
+        if not self.serve_int8:
+            return self.predict_fn(params, *args)
+        from rafiki_tpu_torch.sdk.quant import dequantize_pytree
+
+        weights = dequantize_pytree(self._serving_params(params))
+        return torch.func.functional_call(
+            _Predict(params, self.predict_fn),
+            {"model." + k: v for k, v in weights.items()}, args)
+
     def _run_predict(self, params: Any, chunk: np.ndarray,
                      state: Optional[State] = None) -> np.ndarray:
         """The answer to a bucket; over several ranks each answers its
@@ -513,10 +569,7 @@ class DataParallelTrainer:
         chunk = chunk[self._shard(len(chunk))]
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-            if self.stateful:
-                out = self.predict_fn(params, state, x)
-            else:
-                out = self.predict_fn(params, x)
+            out = self._forward(params, x, state)
             if group is not None:
                 out = group.all_gather(out).flatten(0, 1)
             return out.cpu().numpy()
@@ -555,8 +608,17 @@ class DataParallelTrainer:
         """N models of one architecture as one stacked ensemble on the
         trainer's device: every parameter and buffer stacked along a new
         leading axis (the co-resident ensemble's device layout), the first
-        model as the structure :func:`torch.func.functional_call` runs."""
-        return StackedModels(params_list, self.device)
+        model as the structure :func:`torch.func.functional_call` runs.
+        With ``serve_int8`` each model is quantized on its own (its own
+        scales and pass-through gates, as it serves alone) and the int8
+        values and scales are stacked; each vmap instance dequantizes
+        its own."""
+        quantized = None
+        if self.serve_int8:
+            from rafiki_tpu_torch.sdk.quant import quantize_module
+
+            quantized = [quantize_module(m) for m in params_list]
+        return StackedModels(params_list, self.device, quantized)
 
     def _run_predict_stacked(self, stacked: "StackedModels",
                              chunk: np.ndarray) -> np.ndarray:
@@ -614,8 +676,8 @@ class _Predict(torch.nn.Module):
         self.model = model
         self.predict_fn = predict_fn
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.predict_fn(self.model, x)
+    def forward(self, *args: Any) -> torch.Tensor:
+        return self.predict_fn(self.model, *args)
 
 
 class StackedModels:
@@ -626,31 +688,43 @@ class StackedModels:
     ``jax.vmap(predict_fn, in_axes=(0, None))``. The attention of a
     transformer inside runs K1 once a layer over every model's rows (the
     kernel's vmap rule, ``ops/flash_attention.py``); the other products are
-    batched products."""
+    batched products. A parameter may be an int8 leaf (``{"q", "scale"}``
+    stacked; ``sdk/quant.py``), dequantized by each vmap instance. A
+    population (``sdk/population.py``) trains ``params`` in place."""
 
-    def __init__(self, models: List[torch.nn.Module], device):
+    def __init__(self, models: List[torch.nn.Module], device,
+                 quantized: Optional[List[Dict[str, Any]]] = None):
         self.n_models = len(models)
 
         def stacked(named):
             # "model.": the parameters' names inside _Predict
-            return {"model." + k: torch.stack([
-                t[k].detach().to(device) for t in named])
-                for k in named[0]}
+            out = {}
+            for k, first in named[0].items():
+                if isinstance(first, dict):  # an int8 leaf
+                    out["model." + k] = {part: torch.stack([
+                        t[k][part].to(device) for t in named])
+                        for part in first}
+                else:
+                    out["model." + k] = torch.stack([
+                        t[k].detach().to(device) for t in named])
+            return out
 
         with torch.no_grad():
-            self.params = stacked([dict(m.named_parameters())
-                                   for m in models])
+            self.params = stacked(quantized or [dict(m.named_parameters())
+                                                for m in models])
             self.buffers = stacked([dict(m.named_buffers())
                                     for m in models])
         self._structure = models[0]
 
     def forward(self, predict_fn: Callable, x: torch.Tensor) -> torch.Tensor:
         """(n_models, B, ...): ``predict_fn(model_i, x)`` for every i."""
+        from rafiki_tpu_torch.sdk.quant import dequantize_pytree
+
         wrapper = _Predict(self._structure, predict_fn)
 
         def one(params, buffers, x):
-            return torch.func.functional_call(wrapper, (params, buffers),
-                                              (x,))
+            return torch.func.functional_call(
+                wrapper, (dequantize_pytree(params), buffers), (x,))
 
         return torch.func.vmap(one, in_dims=(0, 0, None))(
             self.params, self.buffers, x)

@@ -5,8 +5,15 @@ stem, then ``num_stages`` stages of two 3x3 relu convolutions closed by a
 2x2 mean pool, a global average pool and a dense head; the same knobs
 (epochs, stages, base channels, learning rate, batch size, image size);
 AdamW with optax.adamw's defaults (``weight_decay=1e-4``).
-``dump_parameters`` hands back the JAX-layout tree. The vectorized
-population path of ``JaxCnn`` (``train_population``) waits (ROADMAP.md).
+``dump_parameters`` hands back the JAX-layout tree.
+
+Its ``population_spec`` lets the train worker train up to 8 proposals
+that share their architecture knobs as one vectorized program
+(``train_population`` through ``sdk/population.PopulationTrainer``, the
+learning rate a member's own); ``evaluate_population`` scores every
+member in one vmapped forward, and ``dump_member_parameters`` gives a
+member's tree in ``dump_parameters``' format, so it serves through the
+unchanged ``load_parameters``.
 """
 
 from __future__ import annotations
@@ -17,7 +24,11 @@ import numpy as np
 import torch
 
 from rafiki_tpu_torch import config
-from rafiki_tpu_torch.convert import from_jax_tree, to_jax_tree
+from rafiki_tpu_torch.convert import (
+    from_jax_tree,
+    stacked_to_jax_tree,
+    to_jax_tree,
+)
 from rafiki_tpu_torch.models import core
 from rafiki_tpu_torch.sdk.dataset import dataset_utils
 from rafiki_tpu_torch.sdk.knob import (
@@ -26,7 +37,8 @@ from rafiki_tpu_torch.sdk.knob import (
     FloatKnob,
     IntegerKnob,
 )
-from rafiki_tpu_torch.sdk.model import BaseModel
+from rafiki_tpu_torch.sdk.model import BaseModel, PopulationSpec
+from rafiki_tpu_torch.sdk.population import PopulationTrainer
 from rafiki_tpu_torch.sdk.torch_backend import (
     DataParallelTrainer,
     cached_trainer,
@@ -81,6 +93,13 @@ class Cnn(torch.nn.Module):
         return self.head(x).float()
 
 
+def _first(tree):
+    """Each leaf's first row along the member axis."""
+    if isinstance(tree, dict):
+        return {k: _first(v) for k, v in tree.items()}
+    return tree[0]
+
+
 def _logits(model, x):
     return model(x)
 
@@ -89,7 +108,18 @@ def _probs(model, x):
     return torch.softmax(model(x), dim=-1)
 
 
+def _adamw(**hyperparams):
+    # optax.adamw's defaults
+    return tunable_optimizer(torch.optim.AdamW, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=1e-4, **hyperparams)
+
+
 class TorchCnn(BaseModel):
+    # vectorized trials: proposals that differ only in the learning rate
+    # train as one population (worker/train.py)
+    population_spec = PopulationSpec(dynamic_knobs=("learning_rate",),
+                                     max_members=8)
+
     @staticmethod
     def get_knob_config():
         return {
@@ -111,10 +141,7 @@ class TorchCnn(BaseModel):
         key = ("TorchCnn", self._knobs["num_stages"],
                self._knobs["base_channels"], self._knobs["image_size"])
         return cached_trainer(key, lambda: DataParallelTrainer(
-            softmax_classifier_loss(_logits),
-            tunable_optimizer(torch.optim.AdamW, betas=(0.9, 0.999),
-                              eps=1e-8, weight_decay=1e-4),
-            predict_fn=_probs))
+            softmax_classifier_loss(_logits), _adamw(), predict_fn=_probs))
 
     def _load(self, dataset_uri: str):
         size = self._knobs["image_size"]
@@ -152,6 +179,50 @@ class TorchCnn(BaseModel):
     def evaluate(self, dataset_uri: str) -> float:
         x, y = self._load(dataset_uri)
         return classification_accuracy(self._trainer, self._model, x, y)
+
+    # -- vectorized trial execution (population_spec above) ----------------
+
+    def _build_pop_trainer(self, n_members: int) -> PopulationTrainer:
+        # the member count shapes the stacked program, so it joins the key
+        key = ("TorchCnnPop", self._knobs["num_stages"],
+               self._knobs["base_channels"], self._knobs["image_size"],
+               n_members)
+        return cached_trainer(key, lambda: PopulationTrainer(
+            softmax_classifier_loss(_logits), _adamw(lr=1e-3),
+            predict_fn=_probs))
+
+    def train_population(self, dataset_uri: str,
+                         member_knobs: List[Dict[str, Any]]) -> None:
+        x, y = self._load(dataset_uri)
+        self._num_classes = int(y.max()) + 1
+        lrs = [float(k["learning_rate"]) for k in member_knobs]
+        self._pop_trainer = self._build_pop_trainer(len(lrs))
+        params, opt_state = self._pop_trainer.init(
+            lambda rng: self._build(
+                init_params(rng, self._knobs["num_stages"],
+                            self._knobs["base_channels"], x.shape[-1],
+                            self._num_classes),
+                self._pop_trainer.device, train=True),
+            {"lr": lrs})
+        self.logger.define_plot("Population loss", ["loss"], x_axis="epoch")
+        self._pop_params, _ = self._pop_trainer.fit(
+            params, opt_state, (x, y),
+            epochs=self._knobs["epochs"],
+            batch_size=self._knobs["batch_size"],
+            log=self.logger.log,
+            checkpoint_path=self.checkpoint_path)
+
+    def evaluate_population(self, dataset_uri: str) -> List[float]:
+        x, y = self._load(dataset_uri)
+        return [float(s) for s in self._pop_trainer.member_scores(
+            self._pop_params, x, y)]
+
+    def dump_member_parameters(self, member: int) -> Dict[str, Any]:
+        stacked = self._pop_params
+        tree = stacked_to_jax_tree(stacked._structure, {
+            k[len("model."):]: v[member: member + 1]
+            for k, v in stacked.params.items()})
+        return {"params": _first(tree), "num_classes": self._num_classes}
 
     def predict(self, queries: List[Any]) -> List[Any]:
         x = np.asarray(queries, dtype=np.float32)

@@ -43,10 +43,29 @@ trials, and starts them again after a fault broke them (a follower's
 exception comes back here and is classified as rank 0's own would be; a
 dead or silent follower is an INFRA fault).
 
-Not ported (ROADMAP.md): vectorized population trials, the sandbox (and
-its STALL and watchdog TIMEOUT kinds), warm start and the drift loop's
-seeding, the compile cache, dependency provisioning, and the tracer (its
-spans; the phase breakdown it logs is kept).
+Vectorized trials: when the template declares a fully wired
+``PopulationSpec`` (``sdk/model.population_capability``), populations are
+on (``RAFIKI_TRIAL_VMAP``, default 1), K >= 2 (the budget's
+``TRIAL_VMAP_K``, else ``RAFIKI_TRIAL_VMAP_K``, default 4) and the spec's
+dynamic knobs are all in the knob config, each round drains up to K
+proposals in one advisor call (clamped by the budget left and the spec's
+``max_members``), buckets them by their other knobs
+(``worker/vmap_partition.py``), reserves a trial row a member
+(``reserve_trial`` stays the only authority over the budget) and trains
+each bucket of two or more as one ``train_population`` call, then
+settles every member's row on its own: its score, its params artifact,
+its feedback; a member whose score is not finite is an INVALID_SCORE
+fault with infeasible feedback for it alone. A failure of the batch
+re-runs every member as a scalar trial under its id. ASHA's rungs are
+reported a member (``member{k}_loss``), the batch stops when every
+member's verdict says stop, and ``TRIAL_TIMEOUT_S`` and the job's
+deadline stop the batch. Over several devices the batch runs on the
+ranks as a scalar trial does.
+
+Not ported (ROADMAP.md): the sandbox (and its STALL and watchdog TIMEOUT
+kinds), warm start and the drift loop's seeding, the compile cache,
+dependency provisioning, and the tracer (its spans; the phase breakdowns
+it logs are kept).
 """
 
 from __future__ import annotations
@@ -72,7 +91,10 @@ from rafiki_tpu_torch.parallel.ranks import (
 )
 from rafiki_tpu_torch.sdk.artifact import write_artifact
 from rafiki_tpu_torch.sdk.log import ModelLogger, StopTrialEarly
-from rafiki_tpu_torch.sdk.model import load_model_class
+from rafiki_tpu_torch.sdk.model import (
+    load_model_class,
+    population_capability,
+)
 from rafiki_tpu_torch.sdk.params import dump_params
 from rafiki_tpu_torch.utils import chaos
 from rafiki_tpu_torch.worker import faults
@@ -81,6 +103,7 @@ from rafiki_tpu_torch.worker.faults import (
     TrialChaosError,
     validate_score,
 )
+from rafiki_tpu_torch.worker.vmap_partition import partition_for_vmap
 
 logger = logging.getLogger(__name__)
 
@@ -136,6 +159,9 @@ class TrainWorker:
         self._model_row: Optional[Dict[str, Any]] = None
         self._ranks: Optional[Ranks] = None
         self._devices: list = []
+        # vectorized trials: the template's spec when they are on, and K
+        self._pop_spec = None
+        self._vmap_k = 0
 
     def start(self, ctx: ServiceContext) -> None:
         """The trial loop, in the calling thread, on the devices ``ctx``
@@ -195,6 +221,21 @@ class TrainWorker:
                                  model["model_class"])
         self._model_row = model
         knob_config = clazz.get_knob_config()
+        # vectorized trials: every gate below leaves the scalar path as is
+        self._pop_spec = population_capability(clazz)
+        vk = budget.get(BudgetType.TRIAL_VMAP_K)
+        self._vmap_k = int(vk) if vk is not None else int(config.TRIAL_VMAP_K)
+        if self._pop_spec is not None:
+            if not config.TRIAL_VMAP:
+                self._pop_spec = None  # the operator's kill switch
+            elif self._vmap_k < 2:
+                self._pop_spec = None  # a population of one is a trial
+            elif not set(self._pop_spec.dynamic_knobs) <= set(knob_config):
+                logger.warning(
+                    "population_spec dynamic knobs %s are not all in the "
+                    "knob config %s; trials run scalar",
+                    self._pop_spec.dynamic_knobs, sorted(knob_config))
+                self._pop_spec = None
         # one advisor session per sub-train-job, shared by its workers
         advisor_id = self._advisors.create_advisor(
             knob_config, advisor_id=self._sub_id)
@@ -260,8 +301,22 @@ class TrainWorker:
                 return
 
         while not ctx.stopping:
+            over_time = deadline is not None and time.time() >= deadline
+            if self._pop_spec is not None and not over_time:
+                verdict = self._population_round(ctx, clazz, job, model,
+                                                 advisor_id, max_trials)
+                if verdict == "stop":
+                    return
+                if verdict == "budget":
+                    logger.info("sub-train-job %s: budget spent",
+                                self._sub_id)
+                    self._send_event(EVENT_BUDGET_REACHED, {
+                        "sub_train_job_id": self._sub_id,
+                        "train_job_id": job["id"]})
+                    return
+                continue
             trial = None
-            if deadline is None or time.time() < deadline:
+            if not over_time:
                 try:
                     self._retry_pending_feedback(advisor_id)
                 except Exception:
@@ -615,6 +670,322 @@ class TrainWorker:
                     # the next trial
                     logger.warning("a rank failed to drop trial %s's model",
                                    trial_id, exc_info=True)
+
+    # -- vectorized trial execution ----------------------------------------
+
+    def _propose_batch_clear_of_quarantine(self, advisor_id: str,
+                                           k: int) -> list:
+        """K proposals in one advisor call (the GP spreads them with
+        pending fantasies), each through the scalar path's quarantine
+        filter. An advisor store without ``propose_batch`` gives K single
+        proposals."""
+        draws = None
+        fn = getattr(self._advisors, "propose_batch", None)
+        if fn is not None:
+            try:
+                draws = fn(advisor_id, k)
+            except Exception:
+                logger.warning("propose_batch failed; falling back to "
+                               "single proposals", exc_info=True)
+        if draws is None:
+            draws = [self._advisors.propose(advisor_id) for _ in range(k)]
+        if not self._quarantine:
+            return draws
+        return [self._propose_clear_of_quarantine(advisor_id, knobs=d)
+                for d in draws]
+
+    def _population_round(self, ctx: ServiceContext, clazz: type,
+                          job: Dict[str, Any], model: Dict[str, Any],
+                          advisor_id: str, max_trials: int) -> str:
+        """One vectorized round: drain up to K proposals, bucket them,
+        reserve a trial row a member and train each bucket of two or more
+        as one population (a bucket of one runs the scalar path).
+        Returns "stop" (the worker leaves its loop), "budget" (the caller
+        reports the budget spent) or "ok" (next round)."""
+        try:
+            self._retry_pending_feedback(advisor_id)
+        except Exception:
+            logger.warning("pending feedback retry failed; proposing "
+                           "without it", exc_info=True)
+        # the drain is clamped by what the budget has left (a best-effort
+        # count; each reserve below stays the authority), so a nearly spent
+        # job strands no never-scored fantasies in the shared GP
+        live = sum(1 for t in self._db.get_trials_of_sub_train_job(
+            self._sub_id) if t["status"] != TrialStatus.TERMINATED)
+        remaining = max_trials - live
+        if remaining <= 0:
+            return "budget"
+        k = min(self._vmap_k, remaining,
+                max(int(self._pop_spec.max_members), 1))
+        draws = self._propose_batch_clear_of_quarantine(advisor_id,
+                                                        max(k, 1))
+        buckets = partition_for_vmap(draws, self._pop_spec.dynamic_knobs,
+                                     self._pop_spec.max_members)
+        budget_out = False
+        for bucket in buckets:
+            if ctx.stopping:
+                return "stop"
+            members = []
+            for knobs in bucket:
+                trial = self._db.reserve_trial(
+                    self._sub_id, model["id"], knobs,
+                    worker_id=ctx.service_id, max_trials=max_trials)
+                if trial is None:
+                    budget_out = True
+                    break
+                members.append((trial["id"], knobs))
+            if members:
+                if len(members) == 1:
+                    ok = self._execute_trial(ctx, clazz, job, advisor_id,
+                                             members[0][0], members[0][1])
+                else:
+                    ok = self._execute_population_trial(
+                        ctx, clazz, job, advisor_id, members)
+                if not ok:
+                    return "stop"
+            if budget_out:
+                return "budget"
+        return "ok"
+
+    def _execute_population_trial(self, ctx: ServiceContext, clazz: type,
+                                  job: Dict[str, Any], advisor_id: str,
+                                  members: list) -> bool:
+        """Train a bucket as one population, then settle each member's
+        row on its own. A failure of the batch re-runs every member as a
+        scalar trial under its id (the whole fault taxonomy then applies);
+        a member's own fault (its score, its artifact) is that member's.
+        Returns False when the worker leaves its loop."""
+        lead_id = members[0][0]
+        trial_logger = ModelLogger()
+        # the batch's training log lands on the lead member's row
+        trial_logger.set_sink(
+            lambda line: self._db.add_trial_log(lead_id, line))
+        self._install_population_stop_check(trial_logger, advisor_id,
+                                            [tid for tid, _ in members])
+        try:
+            self._chaos_trial(lead_id)
+            ranks = self._ensure_ranks()
+            results = self._run_population_trial(clazz, members, job,
+                                                 trial_logger, ranks)
+        except Exception:
+            if ctx.stopping:
+                self._terminate_members(members)
+                return False
+            logger.warning(
+                "population batch %s failed; re-running its %d members "
+                "as scalar trials (same ids, full fault taxonomy):\n%s",
+                lead_id, len(members), traceback.format_exc())
+            self._cleanup_ckpt(lead_id)
+            if self._ranks is not None and self._ranks.broken:
+                self._close_ranks()
+            release_device_memory()
+            for idx, (tid, knobs) in enumerate(members):
+                if ctx.stopping:
+                    # never-started siblings must not stay RUNNING
+                    self._terminate_members(members[idx:])
+                    return False
+                if not self._execute_trial(ctx, clazz, job, advisor_id,
+                                           tid, knobs):
+                    self._terminate_members(members[idx + 1:])
+                    return False
+            return not ctx.stopping
+        # the completed members first (writes to the store only): a scalar
+        # re-run or a fail-fast verdict below never costs a sibling its
+        # finished, persisted work
+        for tid, knobs, score, params_path, err in results:
+            if err is None:
+                # feedback BEFORE mark-complete, as on the scalar path
+                self._feedback_best_effort(advisor_id, knobs, score)
+                self._db.mark_trial_as_complete(tid, score, params_path)
+                self._fault_streak = 0
+                faults.record_counter(self._sub_id,
+                                      "consecutive_user_faults", 0,
+                                      absolute=True)
+        faulted = [r for r in results if r[4] is not None]
+        for idx, (tid, knobs, _, _, err) in enumerate(faulted):
+            kind, detail = faults.classify_failure(err)
+            if kind in faults.RETRYABLE_KINDS:
+                # a platform fault on one member is no verdict on its
+                # knobs or its siblings': that member alone re-runs scalar
+                # under its id (retries, no budget burnt)
+                logger.warning("population member %s hit retryable %s "
+                               "fault; re-running it as a scalar trial:\n%s",
+                               tid, kind, detail)
+                if not self._execute_trial(ctx, clazz, job, advisor_id,
+                                           tid, knobs):
+                    self._terminate_members(
+                        [(t, k) for t, k, _, _, _ in faulted[idx + 1:]])
+                    return False
+                continue
+            logger.error("population member %s fault %s:\n%s", tid, kind,
+                         detail)
+            self._db.mark_trial_as_errored(tid, kind, detail)
+            faults.record_fault(self._sub_id, kind)
+            self._feedback_infeasible_best_effort(advisor_id, knobs, kind,
+                                                  trial_id=tid)
+            if not self._note_user_fault(job, tid, knobs, kind):
+                self._terminate_members(
+                    [(t, k) for t, k, _, _, _ in faulted[idx + 1:]])
+                return False  # the job's fail-fast tripped
+        return not ctx.stopping
+
+    def _terminate_members(self, members: list) -> None:
+        """TERMINATE a batch's members not settled yet when the worker
+        leaves mid-settle: a reserved row must never stay RUNNING."""
+        for tid, _ in members:
+            try:
+                self._db.mark_trial_as_terminated(tid)
+                self._cleanup_ckpt(tid)
+            except Exception:
+                logger.warning("failed to terminate batch member %s", tid,
+                               exc_info=True)
+
+    def _run_population_trial(self, clazz: type, members: list,
+                              job: Dict[str, Any],
+                              trial_logger: ModelLogger,
+                              ranks: Optional[Ranks] = None) -> list:
+        """The population's ``_run_trial``: one instance built with the
+        lead member's knobs (every member shares the others by
+        bucketing), one ``train_population`` and one
+        ``evaluate_population`` call, then each member's score checked
+        and its parameters written. ``[(trial_id, knobs, score,
+        params_path, error)]``, one a member; ``error`` is the member's
+        own fault. The stacked checkpoint takes the lead member's
+        ``.ckpt`` slot (a resume with another K starts fresh)."""
+        lead_id = members[0][0]
+        member_knobs = [dict(knobs) for _, knobs in members]
+        model = clazz(**member_knobs[0])
+        model.logger = trial_logger
+        os.makedirs(self._params_dir, exist_ok=True)
+        model.checkpoint_path = os.path.join(self._params_dir,
+                                             f"{lead_id}.ckpt")
+        if ranks is not None:
+            ranks.new_model(self._model_row["model_file_bytes"],
+                            self._model_row["model_class"], member_knobs[0],
+                            checkpoint_path=model.checkpoint_path)
+
+        def call(method: str, *args: Any) -> Any:
+            if ranks is None:
+                return getattr(model, method)(*args)
+            return ranks.call(model, method, *args)
+
+        phases: Dict[str, float] = {}
+        t0 = time.time()
+        try:
+            try:
+                call("train_population", job["train_dataset_uri"],
+                     member_knobs)
+            except StopTrialEarly:
+                trial_logger.log("population batch stopped early by "
+                                 "scheduler")
+            t0 = _phase(phases, "train", t0)
+            trial_logger.set_stop_check(None)
+            raw_scores = call("evaluate_population", job["test_dataset_uri"])
+            t0 = _phase(phases, "evaluate", t0)
+            if raw_scores is None or len(raw_scores) != len(members):
+                # the population contract is broken: the batch fails, and
+                # the scalar re-run judges each member alone
+                raise faults.TrialFault(
+                    f"evaluate_population returned "
+                    f"{0 if raw_scores is None else len(raw_scores)} "
+                    f"score(s) for {len(members)} members",
+                    kind=FaultKind.USER)
+            results = []
+            for i, (tid, knobs) in enumerate(members):
+                try:
+                    score = validate_score(raw_scores[i])
+                except faults.TrialFault as e:
+                    # this member is infeasible; its siblings' scores stand
+                    results.append((tid, knobs, None, None, e))
+                    continue
+                params_path = os.path.join(self._params_dir,
+                                           f"{tid}.params")
+                try:
+                    # a member's dump and write are its own: one that
+                    # fails (the template's code, or the disk) fails that
+                    # member alone
+                    write_artifact(params_path, dump_params(
+                        model.dump_member_parameters(i)))
+                except OSError as e:
+                    results.append((tid, knobs, None, None, faults.TrialFault(
+                        f"params persist failed: {e}",
+                        kind=FaultKind.INFRA)))
+                    continue
+                except Exception as e:  # classified by the caller
+                    results.append((tid, knobs, None, None, e))
+                    continue
+                results.append((tid, knobs, score, params_path, None))
+            _phase(phases, "persist_params", t0)
+            self._cleanup_ckpt(lead_id)
+            return results
+        finally:
+            trial_logger.set_stop_check(None)
+            trial_logger.log("population batch phase breakdown",
+                             members=float(len(members)), **{
+                                 f"trace_{k}_s": round(v, 4)
+                                 for k, v in phases.items()})
+            if ranks is None or ranks.broken:
+                model.destroy()
+            else:
+                try:
+                    ranks.drop_model(model)
+                except Exception:
+                    logger.warning("a rank failed to drop batch %s's model",
+                                   lead_id, exc_info=True)
+
+    def _install_population_stop_check(self, trial_logger: ModelLogger,
+                                       advisor_id: str,
+                                       member_ids: list) -> None:
+        """``_install_stop_check`` for a batch. The wall caps
+        (``TRIAL_TIMEOUT_S``, the job's deadline) act on the whole batch:
+        one program, one clock. ASHA's rungs are a member's: each
+        ``member{k}_loss`` is reported under that member's trial id (a
+        template logging only the mean ``loss`` reports it under each),
+        and the batch stops only when every member's verdict says stop:
+        a population is competitive while any member is."""
+        early_stop = self._early_stop
+        job_deadline = self._job_deadline
+        trial_timeout = self._trial_timeout_s
+        if not (early_stop or job_deadline is not None
+                or trial_timeout is not None):
+            return
+        batch_start = time.time()
+
+        def check(metrics: Dict[str, Any]) -> bool:
+            if not in_step():
+                return False
+            now = time.time()
+            if trial_timeout is not None \
+                    and now - batch_start > trial_timeout:
+                logger.info("population batch %s hit TRIAL_TIMEOUT_S=%.0f; "
+                            "stopping", member_ids[0], trial_timeout)
+                return True
+            if job_deadline is not None and now >= job_deadline:
+                logger.info("population batch %s crossed the job "
+                            "TIME_HOURS deadline; stopping", member_ids[0])
+                return True
+            if not (early_stop and "epoch" in metrics):
+                return False
+            rung = int(metrics["epoch"]) + 1
+            keep_any, reported = False, False
+            for i, tid in enumerate(member_ids):
+                value = metrics.get(f"member{i}_loss", metrics.get("loss"))
+                if value is None:
+                    continue
+                reported = True
+                try:
+                    if self._advisors.report_rung(
+                            advisor_id, tid, rung, value,
+                            min_resource=self._asha_min,
+                            eta=self._asha_eta):
+                        keep_any = True
+                except Exception:
+                    logger.warning("ASHA rung report failed for member "
+                                   "%s; keeping it", tid, exc_info=True)
+                    keep_any = True
+            return reported and not keep_any
+
+        trial_logger.set_stop_check(check)
 
     def _cleanup_ckpt(self, trial_id: str) -> None:
         """Drop a trial's mid-trial checkpoint once it reached a state it

@@ -1421,3 +1421,92 @@ def test_cuda_a_follower_fault_faults_its_trial_and_the_admin_goes_on(
         admin.shutdown()
         if marker.exists():
             marker.unlink()
+
+
+def _pop_cnn(k, device):
+    from rafiki_tpu_torch.convert import from_jax_tree
+    from rafiki_tpu_torch.templates import torch_cnn
+
+    tree = torch_cnn.init_params(np.random.default_rng([7, k]), 2, 16, 3, 10)
+    with torch.device("meta"):
+        model = torch_cnn.Cnn(2, 16, 3, 10)
+    return from_jax_tree(model, tree, None, device, train=True)
+
+
+@pytest.mark.cuda
+def test_cuda_population_step_matches_cpu(monkeypatch):
+    """The vmapped population step (K=3 TorchCnn members, cuDNN's grouped
+    convolutions) on the card against the CPU, both in f32: each member's
+    loss within 1e-4 relative and each gradient leaf within 1e-3
+    relative L2 (phase 14a's tolerances); a step leaves the member at
+    lr 0 as it was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rafiki_tpu_torch.models import core
+    from rafiki_tpu_torch.sdk.population import PopulationTrainer
+    from rafiki_tpu_torch.templates import torch_cnn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cast = core.cast_for_compute
+    monkeypatch.setattr(core, "cast_for_compute",
+                        lambda x, dtype=None: cast(x, torch.float32))
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((32, 16, 16, 3)).astype(np.float32)
+    y = rng.integers(0, 10, 32).astype(np.int32)
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        t = PopulationTrainer(torch_cnn.softmax_classifier_loss(
+            torch_cnn._logits), torch_cnn._adamw(), device=dev)
+        params, opt = t.stack([_pop_cnn(k, dev) for k in range(3)],
+                              {"lr": [0.0, 1e-3, 1e-2]})
+        batch = (torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+        grads, losses = t.grads(params, batch)
+        out[dev] = (losses.cpu(), {k: v.cpu() for k, v in grads.items()})
+        before = {k: v.clone() for k, v in params.params.items()}
+        t.step(params, opt, batch)
+        for name, p in params.params.items():
+            assert torch.equal(p[0], before[name][0]), name
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["cuda:0"]
+    torch.testing.assert_close(l_card, l_cpu, rtol=1e-4, atol=0)
+    for name, want in g_cpu.items():
+        for k in range(3):
+            err = float((g_card[name][k] - want[k]).norm() / want[k].norm())
+            assert err <= 1e-3, (name, k, err)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_int8_bert_is_one_k1_launch_a_layer(monkeypatch):
+    """Int8 serving of two stacked BERT trials: each vmap instance
+    dequantizes its own int8 weights, K1 launches once a layer over both
+    trials' rows, and each trial's answer equals its solo int8 answer
+    within 1e-4 (``tests/test_fused_ensemble.py``'s rule; the embedding
+    computes in f32 here, as bf16 products batched and alone round
+    apart)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rafiki_tpu_torch import convert
+    from rafiki_tpu_torch.models import bert, core
+    from rafiki_tpu_torch.sdk import quant
+    from rafiki_tpu_torch.sdk.torch_backend import DataParallelTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emb = core.embedding
+    monkeypatch.setattr(core, "embedding",
+                        lambda p, ids, dtype=None: emb(p, ids, torch.float32))
+    cfg = bert.tiny(vocab=2000, max_len=64, dim=128, depth=2, heads=2)
+    models = [convert.from_jax_params(bert.init(
+        np.random.default_rng(s), cfg), cfg, "cuda:0") for s in (0, 1)]
+    t8 = DataParallelTrainer(
+        predict_fn=lambda m, ids: torch.softmax(m(ids), -1),
+        device="cuda:0", serve_int8=True)
+    ids = np.random.default_rng(2).integers(2, 2000, (8, 64)).astype(
+        np.int32)
+    solo = [t8.predict_batched(m, ids, batch_size=8) for m in models]
+    stacked = t8.stack_ensemble_params(models)
+    assert quant.is_quantized_leaf(stacked.params["model.embed.table"])
+    flash_attention.launches = 0
+    fused = t8.predict_batched_stacked(stacked, ids, batch_size=8)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == cfg.encoder.depth
+    np.testing.assert_allclose(fused, np.stack(solo), atol=1e-4, rtol=0)

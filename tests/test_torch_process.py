@@ -13,6 +13,9 @@
 - A fused ensemble (``ENSEMBLE_FUSED``) in a serving child: the group
   reaches it as ``RAFIKI_TRIAL_IDS``, it fuses and relays
   ``fused_dispatch``, and answers as the thread-placed fused worker.
+- A population job (``PopFixtureModel``'s twin, ``TRIAL_VMAP_K`` 2) in a
+  train child: the child's worker takes the vectorized path, as the JAX
+  child does: 4 COMPLETED trials trained as two 2-member batches.
 - A train child SIGKILLed after its first checkpoint is started again
   under the same service id and resumes its trial from the checkpoint.
 - The monitor: a child that crashes is started again, then marked
@@ -283,6 +286,42 @@ def test_a_fused_worker_process_serves_the_group(workdir, monkeypatch):
 
 #: the tiny ViT at 3 epochs, each epoch's report held 1 s, so a trial is
 #: still training when its first checkpoint lands
+def test_a_population_job_in_a_train_child(workdir, monkeypatch):
+    from test_torch_population import POP_TEMPLATE, write_pop_datasets
+
+    monkeypatch.setenv("RAFIKI_PLACEMENT", "process")
+    monkeypatch.setenv("SERVICE_DEPLOY_TIMEOUT_S", str(BUDGET_S))
+    monkeypatch.delenv("RAFIKI_TRIAL_VMAP", raising=False)
+    admin = Admin(db=Database(str(workdir / "store.sqlite3")),
+                  params_dir=str(workdir / "params"),
+                  placement=ProcessPlacementManager(
+                      allocator=ChipAllocator(["cpu"])))
+    srv = AdminServer(admin).start()
+    try:
+        c = Client("127.0.0.1", srv.port, timeout_s=BUDGET_S)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        c.create_model("popfix", "IMAGE_CLASSIFICATION", POP_TEMPLATE,
+                       "PopFixtureModel")
+        train_uri, test_uri = write_pop_datasets(workdir)
+        c.create_train_job("pop", "IMAGE_CLASSIFICATION", train_uri,
+                           test_uri, budget={"MODEL_TRIAL_COUNT": 4,
+                                             "CHIP_COUNT": 1,
+                                             "TRIAL_VMAP_K": 2})
+        job = c.wait_until_train_job_stopped("pop", timeout_s=BUDGET_S)
+        trials = c.get_trials_of_train_job("pop")
+        batches = [m["members"] for t in trials
+                   for m in admin.get_trial_logs(t["id"])["metrics"]
+                   if "members" in m]
+    finally:
+        srv.stop()
+        admin.shutdown()
+    assert job["status"] == "STOPPED"
+    assert [t["status"] for t in trials] == ["COMPLETED"] * 4
+    assert sorted(batches) == [2.0, 2.0]  # on each batch's lead row
+    started = _log_records(workdir / "logs", "startup")
+    assert len(started) == 1 and not any(_alive(p) for p in started)
+
+
 _SLOW_TINY = b"""
 import time
 
