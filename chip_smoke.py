@@ -138,7 +138,7 @@ Phases, each of which must pass (any failure exits non-zero):
    quarantined after 2, the third fault errors the job with the
    fail-fast reason and stops its worker, and ``memory_allocated``
    returns within 64 MiB of its level before the job. 9b: ASHA
-   (``EARLY_STOP``, eta 2, 4 trials of 4 epochs on phase 3's set) with
+   (``EARLY_STOP``, eta 2, 4 trials of 2 epochs on phase 3's set) with
    ``RAFIKI_CHAOS=site=trial;action=error;times=1``: the first trial
    absorbs the INFRA fault at ``attempt`` 1 in its own row, all 4
    COMPLETED, at least one stopped at a rung, and every keep/stop verdict
@@ -292,6 +292,36 @@ Phases, each of which must pass (any failure exits non-zero):
    CPU; ``quantized_bytes`` beside the bf16 bytes, the device memory
    the job's workers hold, p50 beside 8a's and 12b's; then ``ENSEMBLE_FUSED``: K1 12 times a fused forward, each
    trial's answer in the int8 stack against its solo int8 answer.
+
+15. model-parallel training, on every visible card up to 4 (``n``; on
+   one card every leg runs on a mesh of one, and says so). 15a:
+   ``parallel/dryrun.py``'s ``dryrun_multichip(n, full=True)``, the entry
+   point a user calls, one process a card (NCCL): ViT-B/16 (224/16, 768
+   x 12, 12 heads) over dp x tp x sp, 3 AdamW steps on a seeded batch of
+   64; the LM at ``LMConfig``'s widths (768 x 12, 12 heads, vocabulary
+   32,000) with 8 experts a layer (capacity factor 1.25) over pp x dp x
+   ep on (8, 512) tokens; the LM with ring attention over dp x sp at S =
+   2,048 (4 rows); the LM with GPipe (12 layers, 4 microbatches) over pp
+   x dp on (8, 512); ViT-B/16's tensor-split predict. A line a leg and
+   the OK line; every rank's launches a leg held to its count (K1-LSE,
+   K2 and K3 once a layer a step: every layer on every rank, a stage's
+   layers once a microbatch under GPipe, none under ring attention over
+   several cards; K1 once a layer in the predict). 15b: on n > 1 cards
+   rank 0 first takes each leg's step alone (one card: bf16 and f32,
+   SGD at lr 1 from the same parameters and global batch), then every
+   rank the n-card bf16 step: the loss within 1e-3 relative of one
+   card's (or 1.5 times its distance from f32), each gathered leaf
+   (less its gradient) no farther from the f32 step than 1.5 times one
+   card's; each leg's AdamW step timed on one card and on n (median of
+   3, host clock a call); ViT-B/16 at ``remat="dots"`` and ``"full"``,
+   the same SGD step as the n-card one from the same parameters, batch
+   and key: its loss within 1e-6 relative of the step without remat and
+   each leaf's update within 1e-3 of its gradient's norm and two f32
+   ulps an element (K1-LSE twice a layer, K2 and K3 once);
+   K1, K1-LSE, K2 and K3 against their plain versions on every card at
+   every leg's shapes (local heads, sequence-sharded queries against
+   gathered keys, a microbatch). Phase 15 alone: ``python3 -c "import
+   chip_smoke as cs; cs.model_parallel_only()"``.
 
 The line before the last is ``{"kernels": [...]}``, each kernel's
 ``launches`` from phase 5 and ``launches_by_path`` from every path; the
@@ -929,6 +959,9 @@ def timed_training_kernels(fa, randn, entries, args, out32, errs,
 # ---------------------------------------------------------------------------
 
 KERNEL_NAMES = ("flash_fwd", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+# their wrappers' launch counters, in the same order
+COUNTERS = ("flash_attention", "flash_attention_lse", "flash_attention_dq",
+            "flash_attention_dkv")
 
 
 def _kernels():
@@ -3870,9 +3903,10 @@ OOM_IMAGES = 4096
 #: what a failed trial may leave allocated: a worker thread's first cuBLAS
 #: calls allocate its workspaces through the caching allocator
 OOM_SLACK_BYTES = 64 << 20
-#: 9b: ASHA over 4 trials of 4 epochs (rungs 1, 2, 4 at eta 2); 6
-#: trials until phase 12 needed the run's time (PERF.md, section 4)
-ASHA_TRIALS, ASHA_EPOCHS, ASHA_ETA = 4, 4, 2
+#: 9b: ASHA over 4 trials of 2 epochs (rungs 1, 2 at eta 2); 6 trials
+#: until phase 12 and 4 epochs until phase 15 needed the run's time
+#: (PERF.md, section 4)
+ASHA_TRIALS, ASHA_EPOCHS, ASHA_ETA = 4, 2, 2
 #: 9c: epochs budgeted, and the cap past a trial's first report in
 #: epoch-plus-checkpoint times of 9b. The trial's clock starts before its
 #: set-up (ViT-B/16's init and the dataset read, seconds on the card), so
@@ -3886,8 +3920,9 @@ CAP_TRIALS = 1
 #: datetime_started (reserve, then the logger and the check are made):
 #: an epoch before the stop may read up to this much past the cap
 CAP_SLACK_S = 0.25
-#: 9d: epochs of the resumed job
-RESUME_EPOCHS = 3
+#: 9d: epochs of the resumed job (3 until phase 15 needed the run's time:
+#: the kill lands after the first, so one is left to resume)
+RESUME_EPOCHS = 2
 
 
 def twin_template(cls: str, learning_rate: str, batch_size: int,
@@ -4220,7 +4255,9 @@ def asha_drill(card: str, uris: dict) -> tuple:
                       phases["trace_evaluate_s"],
                       phases["trace_persist_params_s"]))
     tail = [statistics.median(x) for x in zip(*tails)]
-    print(f"loop: 9b ASHA (eta {ASHA_ETA}, rungs 1, 2, 4): "
+    rungs = ", ".join(str(ASHA_ETA ** i) for i in range(
+        ASHA_EPOCHS.bit_length()) if ASHA_ETA ** i <= ASHA_EPOCHS)
+    print(f"loop: 9b ASHA (eta {ASHA_ETA}, rungs {rungs}): "
           f"{sum(trained.values())} epochs trained of "
           f"{ASHA_TRIALS * ASHA_EPOCHS} budgeted ({sorted(trained.values())}"
           f"), every one of {len(verdicts)} verdicts equal to "
@@ -6503,6 +6540,399 @@ def population_int8_phase(card: str) -> tuple:
     return pop_counts, int8_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: model-parallel training
+# ---------------------------------------------------------------------------
+
+MP_SEED = SEED + 50
+MP_TIMED = 3  # AdamW steps timed a leg, after one untimed
+# remat only recomputes: the loss as without it, and each leaf's update
+# (its gradient, at lr 1) within 1e-3 of the gradient's norm (L2 over the
+# leaf) plus the f32 rounding of the update (two ulps an element); a
+# recompute that lost a tensor-parallel sum would be off by the size of
+# the gradient
+REMAT_LOSS_RTOL = 1e-6
+REMAT_GRAD_RTOL = 1e-3
+
+
+def _flat_tree(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, name))
+        else:
+            out[name] = np.asarray(v, np.float64)
+    return out
+
+
+def mp_expected(leg, axes: dict, steps: int = 1, remat: bool = False) -> list:
+    """Each kernel's launches on a rank in ``steps`` of ``leg`` under
+    ``axes``, in ``KERNEL_NAMES`` order: a layer's attention once forward
+    (twice under remat) and once backward, every layer on every rank but
+    under GPipe (a stage's layers, once a microbatch) and ring attention
+    (no kernel)."""
+    enc = leg.cfg.encoder
+    if enc.seq_parallel == "ring" and axes.get("sp", 1) > 1:
+        return [0, 0, 0, 0]
+    per = enc.depth
+    if enc.pipeline == "gpipe" and axes.get("pp", 1) > 1:
+        per = enc.depth // axes["pp"] * enc.n_microbatches
+    return [0, per * steps * (2 if remat else 1), per * steps, per * steps]
+
+
+def mp_shapes(leg, axes: dict) -> list:
+    """The attention shapes a rank's kernels see in ``leg``: (B, H, Sq,
+    Skv, causal) a shape; none for ring attention over several ranks."""
+    enc = leg.cfg.encoder
+    dp, tp, sp = (axes.get(k, 1) for k in ("dp", "tp", "sp"))
+    b = leg.batch[0].shape[0] // dp
+    h = enc.heads // tp
+    if leg.family == "vit":
+        s = leg.cfg.seq_len
+        return [(b, h, s // sp, s, False)]
+    if enc.seq_parallel == "ring" and sp > 1:
+        return []
+    s = leg.batch[0].shape[1]
+    if enc.pipeline == "gpipe" and axes.get("pp", 1) > 1:
+        b //= enc.n_microbatches
+    return [(b, h, s // sp, s, True)]
+
+
+def rank_mp_kernels(shapes: list, seed: int) -> dict:
+    """Rank side: K1-LSE, K2 and K3 (and K1) on this rank's card against
+    their plain versions at each of ``shapes`` (bf16, Dh = 64); each
+    error with its tolerance (phase 2's)."""
+    from rafiki_tpu_torch.device import default_device
+
+    fa = importlib.import_module("rafiki_tpu_torch.ops.flash_attention")
+    dev = default_device()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf16 = torch.bfloat16
+    errs = {}
+    for b, h, sq, skv, causal in shapes:
+        q, dout = (torch.randn(b, h, sq, 64, generator=gen, device=dev,
+                               dtype=bf16) for _ in range(2))
+        k, v = (torch.randn(b, h, skv, 64, generator=gen, device=dev,
+                            dtype=bf16) for _ in range(2))
+        with torch.inference_mode():
+            out = fa.flash_attention(q, k, v, causal=causal)
+        o, lse, o32 = fa.flash_attention_lse(q, k, v, causal=causal)
+        r_out, r_lse, r_o32 = fa.flash_attention_plain(q, k, v, causal,
+                                                       return_lse=True)
+        delta = fa._delta(r_o32, dout)
+        dq, _ = fa.flash_attention_dq(q, k, v, dout, r_lse, r_o32, causal)
+        dk, dv = fa.flash_attention_dkv(q, k, v, dout, r_lse, delta, causal)
+        torch.cuda.synchronize(dev)
+        r_dq = fa.flash_attention_dq_plain(q, k, v, dout, r_lse, delta,
+                                           causal)
+        r_dk, r_dv = fa.flash_attention_dkv_plain(q, k, v, dout, r_lse,
+                                                  delta, causal)
+        tag = f"B={b} H={h} Sq={sq} Skv={skv}{' causal' if causal else ''}"
+        # a causal row that sees a key or two outputs ~|v|: its error
+        # over max(1, |ref|), as phase 2's causal cases (_out_err)
+        errs[tag] = {
+            "K1": (_out_err(out, r_out, causal)[0], TOL[bf16]),
+            "K1-LSE out": (max(_out_err(o, r_out, causal)[0],
+                               _out_err(o32, r_o32, causal)[0]),
+                           TOL[bf16]),
+            "K1-LSE lse": (float((lse - r_lse).abs().max()), LSE_TOL[bf16]),
+            "K2 dq": (_rel_err(dq, r_dq), TOL[bf16]),
+            "K3 dk": (_rel_err(dk, r_dk), TOL[bf16]),
+            "K3 dv": (_rel_err(dv, r_dv), TOL[bf16])}
+        del q, k, v, dout, out, o, lse, o32, r_out, r_lse, r_o32
+    return {"device": str(dev), "errs": errs}
+
+
+@contextlib.contextmanager
+def _f32_compute():
+    """The ViT and the LM computing in f32 (images not cast to bf16, the
+    embedding in f32): the reference a bf16 step's rounding is measured
+    against."""
+    from rafiki_tpu_torch.models import core
+
+    cast, emb = core.cast_for_compute, core.embedding
+    core.cast_for_compute = lambda x, dtype=None: x
+    core.embedding = lambda p, ids, dtype=None: emb(p, ids, torch.float32)
+    try:
+        yield
+    finally:
+        core.cast_for_compute, core.embedding = cast, emb
+
+
+def _sgd_step(leg, groups, tree: dict) -> tuple:
+    """(loss, the whole updated tree as float64 leaves) of one SGD step
+    at lr 1 from ``tree``: each leaf less its gradient."""
+    from rafiki_tpu_torch import convert
+    from rafiki_tpu_torch.parallel import dryrun
+
+    trainer = dryrun.trainer_for(leg, groups, lambda ps: torch.optim.SGD(
+        ps, lr=1.0))
+    params, opt = trainer.init(lambda rng: tree)
+    params, opt, loss, _ = trainer.step(params, opt, leg.batch,
+                                        np.array([0, leg.key], np.uint32))
+    whole = convert.gather_tree(params, trainer.param_specs, groups)
+    return float(loss), _flat_tree(whole)
+
+
+def _timed_steps(leg, groups, tree: dict) -> float:
+    """Median ms a step (host clock, a call to its synchronise) of
+    MP_TIMED AdamW steps (the dryrun's optimizer) after one untimed. A
+    step waits on the card for its loss, so a span of CUDA events around
+    the steps would hold the host's time too: none is reported."""
+    from rafiki_tpu_torch.parallel import dryrun
+
+    trainer = dryrun.trainer_for(leg, groups)
+    params, opt = trainer.init(lambda rng: tree)
+    dev = groups.device
+    key = np.array([0, leg.key], np.uint32)
+    trainer.step(params, opt, leg.batch, key)
+    torch.cuda.synchronize(dev)
+    calls = []
+    for _ in range(MP_TIMED):
+        t = time.perf_counter()
+        trainer.step(params, opt, leg.batch, key)
+        torch.cuda.synchronize(dev)
+        calls.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(calls)
+
+
+def rank_mp(devices: list, seed: int) -> dict:
+    """Rank side of 15b. For each training leg of the full-width dryrun:
+    rank 0 first takes on one card (the others waiting in the group) one
+    SGD step at lr 1 in bf16 and one in f32 and times the leg's AdamW
+    step; then every rank the n-card bf16 SGD step and the timed AdamW
+    steps. Then leg 1 at ``remat="dots"`` and ``"full"``, the n-card SGD
+    step again from the same tree, batch and key, with its launches and
+    its distance from the step without remat; and each kernel against
+    its plain version at every leg's shapes."""
+    from rafiki_tpu_torch.parallel import dryrun, ranks
+    from rafiki_tpu_torch.parallel.collectives import MeshGroups
+    from rafiki_tpu_torch.parallel.sharding import make_train_mesh
+
+    world = ranks.current_group()
+    n, first = len(devices), world.rank == 0
+    out = {"rank": world.rank, "legs": [], "remat": []}
+    shapes = []
+    for leg in dryrun.legs(n, full=True, seed=seed):
+        tree = dryrun.init_fn(leg)(np.random.default_rng(seed))
+        rec = {"name": leg.name, "axes": leg.axes}
+        shapes += [s for s in mp_shapes(leg, leg.axes) if s not in shapes]
+        if first and n > 1:
+            with ranks.alone():
+                one = MeshGroups.create(make_train_mesh(
+                    devices=[str(world.device)]), None)
+                rec["one"] = _sgd_step(leg, one, tree)
+                with _f32_compute():
+                    rec["f32"] = _sgd_step(leg, one, tree)
+                rec["one_ms"] = _timed_steps(leg, one, tree)
+                gc.collect()
+                torch.cuda.empty_cache()
+        world.all_reduce_(torch.zeros(1, device=world.device))  # wait here
+        groups = dryrun.mesh_groups(leg, devices)
+        try:
+            ranks.reset_launches()
+            rec["many"] = _sgd_step(leg, groups, tree)
+            rec["launches"] = ranks.launch_counts()
+            rec["ms"] = _timed_steps(leg, groups, tree)
+        finally:
+            groups.close()
+        if not out["legs"]:
+            base, base_tree = rec["many"], tree
+        if not first:
+            rec.pop("many")
+        out["legs"].append(rec)
+        del tree
+        gc.collect()
+        torch.cuda.empty_cache()
+    leg = dryrun.legs(n, full=True, seed=seed)[0]
+    start = _flat_tree(base_tree)
+    for remat in ("dots", "full"):
+        rleg = dataclasses.replace(leg, cfg=dataclasses.replace(
+            leg.cfg, encoder=dataclasses.replace(leg.cfg.encoder,
+                                                 remat=remat)))
+        groups = dryrun.mesh_groups(rleg, devices)
+        try:
+            ranks.reset_launches()
+            loss, whole = _sgd_step(rleg, groups, base_tree)
+            launches = ranks.launch_counts()
+        finally:
+            groups.close()
+        # each leaf holds its start less its gradient: (distance from
+        # the step without remat, the gradient's norm, the tolerance)
+        errs = {}
+        for k in start:
+            d = np.linalg.norm(whole[k] - base[1][k])
+            g = np.linalg.norm(start[k] - base[1][k])
+            ulps = np.linalg.norm(np.spacing(base[1][k].astype(np.float32)))
+            errs[k] = (float(d), float(g),
+                       float(REMAT_GRAD_RTOL * g + 2 * ulps))
+        worst = max(errs, key=lambda k: errs[k][0] / errs[k][2])
+        out["remat"].append({"remat": remat, "loss": loss,
+                             "base_loss": base[0], "launches": launches,
+                             "worst": worst, "grad_err": errs[worst]})
+        del whole
+    del base, base_tree, start
+    out["kernels"] = rank_mp_kernels(shapes, seed)
+    return out
+
+
+def _mp_gates(rec: dict, n: int) -> None:
+    """15b's comparison of one leg on rank 0: the n-card bf16 step
+    against one card's, each measured against the one-card f32 step.
+    The loss within CARDS_LOSS_RTOL of one card's, or within 1.5 times
+    one card's distance from f32, whichever is larger; each leaf's
+    update (its gradient) no farther from f32 than BF16_GRAD_RATIO times
+    one card's bf16 update is (the bf16 steps round at other places on n
+    cards: the tensor-parallel sums, the sequence shards, ring attention
+    in f32 against the kernels)."""
+    loss_1, one = rec["one"]
+    loss_32, f32 = rec["f32"]
+    loss_n, many = rec["many"]
+    label = f"{rec['name']} {_axes_str(rec['axes'])}"
+    tol = max(CARDS_LOSS_RTOL * abs(loss_1), 1.5 * abs(loss_1 - loss_32))
+    errs = {}
+    for k in f32:
+        # each tree holds the leaf less its gradient, from the same start
+        errs[k] = (np.linalg.norm(many[k] - f32[k]),
+                   np.linalg.norm(one[k] - f32[k]),
+                   np.linalg.norm(many[k] - one[k]))
+    worst = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-30))
+    print(f"model parallel: {label}: the {n}-card bf16 step against one "
+          f"card's: loss {loss_n:.6f} vs {loss_1:.6f} (f32 {loss_32:.6f}; "
+          f"|diff| {abs(loss_n - loss_1):.3g}, tol {tol:.3g}); each leaf's "
+          f"distance from the f32 step, {n} cards / one card (ratio; tol "
+          f"{BF16_GRAD_RATIO:g}): " + ", ".join(
+              f"{k} {en:.3g}/{e1:.3g}"
+              f" ({en / max(e1, 1e-30):.2f})"
+              for k, (en, e1, _) in sorted(errs.items()))
+          + f"; worst ratio {worst}", flush=True)
+    require(abs(loss_n - loss_1) <= tol, f"{label}: the n-card loss differs")
+    for k, (en, e1, direct) in errs.items():
+        require(en <= BF16_GRAD_RATIO * e1 or direct == 0.0,
+                f"{label}: {k} {en:.3g} from f32 on {n} "
+                f"cards, {en / max(e1, 1e-30):.3g} times one card's {e1:.3g}")
+
+
+def _axes_str(axes: dict) -> str:
+    return " ".join(f"{k}={v}" for k, v in axes.items())
+
+
+def model_parallel_phase(card: str) -> list:
+    """Phase 15; each kernel's launches on the dryrun's main path (15a),
+    summed over the ranks and legs, in ``KERNEL_NAMES`` order."""
+    from rafiki_tpu_torch.device import set_device_grant
+    from rafiki_tpu_torch.parallel import dryrun, ranks
+
+    t_phase = time.perf_counter()
+    n = min(torch.cuda.device_count(), MAX_CARDS)
+    print(f"model parallel: n = {n} of {torch.cuda.device_count()} visible "
+          f"card{'s' if torch.cuda.device_count() > 1 else ''}"
+          + ("" if n > 1 else ": one card, so every leg runs on a mesh of "
+             "one (MoE, remat and the trainer at full width) and no "
+             "several-card result is claimed from this run"), flush=True)
+    legs = dryrun.legs(n, full=True, seed=MP_SEED)
+
+    # ---- 15a: the entry point a user calls, at full width ----
+    ranks.reset_launches()
+    t0 = time.perf_counter()
+    records = dryrun.dryrun_multichip(n, device="cuda", full=True,
+                                      seed=MP_SEED)
+    dry_s = time.perf_counter() - t0
+    totals = [0, 0, 0, 0]
+    for r, rank_recs in enumerate(records):
+        for leg, rec in zip(legs + [None], rank_recs):
+            got = [rec["launches"][k] for k in COUNTERS]
+            totals = [a + b for a, b in zip(totals, got)]
+            if leg is None:
+                want = [DEPTH, 0, 0, 0]
+                what = "serve-predict"
+            else:
+                want = mp_expected(leg, leg.axes, leg.steps)
+                what = leg.name
+            require(got == want, f"rank {r} launched {got} in {what}, "
+                    f"expected {want}")
+    print(f"model parallel: dryrun_multichip({n}, full width) in "
+          f"{dry_s:.1f} s; every rank launched, a leg: " + "; ".join(
+              f"{rec['name']} {[rec['launches'][k] for k in COUNTERS]}"
+              for rec in records[0]) + " (K1, K1-LSE, K2, K3)", flush=True)
+
+    # ---- 15b: n cards against one, remat, the kernels at every shape ----
+    devices = [f"cuda:{i}" for i in range(n)]
+    set_device_grant(devices)
+    try:
+        with ranks.Ranks(devices) as r:
+            ranks.set_group(r.group)
+            try:
+                recs = r.run(rank_mp, devices, MP_SEED)
+            finally:
+                ranks.set_group(None)
+    finally:
+        set_device_grant(None)
+    for i, leg in enumerate(legs):
+        rec0 = recs[0]["legs"][i]
+        if n > 1:
+            _mp_gates(rec0, n)
+        for rec in (x["legs"][i] for x in recs):
+            got = [rec["launches"][k] for k in COUNTERS]
+            want = mp_expected(leg, leg.axes)
+            require(got == want, f"{leg.name}: a rank launched {got} in the "
+                    f"compared step, expected {want}")
+        one_call = rec0["one_ms"] if n > 1 else rec0["ms"]
+        print(f"model parallel: {leg.name} {_axes_str(leg.axes)}: AdamW "
+              f"step (median of {MP_TIMED}, host clock a call) on 1 card "
+              f"{one_call:.2f} ms"
+              + ("" if n == 1 else f"; on {n} cards " + ", ".join(
+                  f"rank {x['rank']} {x['legs'][i]['ms']:.2f}"
+                  for x in recs) + " ms") + f"; card {card}", flush=True)
+    for x in recs:
+        for rr in x["remat"]:
+            got = [rr["launches"][k] for k in COUNTERS]
+            want = mp_expected(legs[0], legs[0].axes, remat=True)
+            require(got == want, f"rank {x['rank']} remat={rr['remat']} "
+                    f"launched {got}, expected {want}")
+            what = f"rank {x['rank']} remat={rr['remat']}"
+            d, g, tol = rr["grad_err"]
+            print(f"model parallel: ViT-B/16 {_axes_str(legs[0].axes)} at "
+                  f"{what}, the SGD step against the one without remat: "
+                  f"loss {rr['loss']:.6f} vs {rr['base_loss']:.6f} (|diff| "
+                  f"{abs(rr['loss'] - rr['base_loss']):.3g}, tol "
+                  f"{REMAT_LOSS_RTOL:g} relative); worst leaf "
+                  f"{rr['worst']}: its update {d:.3g} from the one without "
+                  f"remat, {d / max(g, 1e-30):.3g} of its gradient's norm "
+                  f"{g:.3g} (tol {tol:.3g}: {REMAT_GRAD_RTOL:g} of the "
+                  f"norm and two f32 ulps an element); launches {got}",
+                  flush=True)
+            require(abs(rr["loss"] - rr["base_loss"])
+                    <= REMAT_LOSS_RTOL * abs(rr["base_loss"]),
+                    f"{what}: the loss differs from the step without remat")
+            require(d <= tol,
+                    f"{what}: {rr['worst']}'s gradient differs from the "
+                    f"step without remat")
+    for x in recs:
+        k = x["kernels"]
+        for shape, errs in k["errs"].items():
+            line = ", ".join(f"{name} {e:.3g} (tol {tol:g})"
+                             for name, (e, tol) in errs.items())
+            print(f"model parallel: kernels against their plain versions "
+                  f"on {k['device']} at {shape}: {line}", flush=True)
+            require(all(e <= tol for e, tol in errs.values()),
+                    f"a kernel disagrees on {k['device']} at {shape}")
+    print(f"model parallel: phase 15 in {time.perf_counter() - t_phase:.0f}"
+          f" s", flush=True)
+    return totals
+
+
+def model_parallel_only() -> None:
+    """Phase 15 alone (TF32 off, as in ``main``): the card's line, the
+    kernel build, then the phase."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model_parallel_phase(header())
+
+
 def _alive(pid: int) -> bool:
     try:
         os.kill(pid, 0)
@@ -6539,6 +6969,7 @@ def main() -> int:
     fused_shape, control_launches = serving_control_phase(card)
     rest_launches = generation_rest_phase(card)
     pop_launches, int8_launches = population_int8_phase(card)
+    mp_launches = model_parallel_phase(card)
     for i, name in enumerate(KERNEL_NAMES):
         by_path = {"train (phase 3)": train_launches[i],
                    "serve (phase 4)": serve_launches[i],
@@ -6553,7 +6984,8 @@ def main() -> int:
                    "serving control (phase 12)": control_launches[i],
                    "generation, the rest (phase 13)": rest_launches[i],
                    "populations (phase 14a-c)": pop_launches[i],
-                   "int8 serving (phase 14d)": int8_launches[i]}
+                   "int8 serving (phase 14d)": int8_launches[i],
+                   "model parallel (phase 15)": mp_launches[i]}
         require(by_path["stack (phase 5)"] > 0,
                 f"{name} was not launched through the admin")
         require(by_path["process (phase 6)"] > 0,
@@ -6568,6 +7000,8 @@ def main() -> int:
                 f"{name} was not launched on the several-card path")
         require(by_path["generation, the rest (phase 13)"] > 0,
                 f"{name} was not launched on phase 13's path (the draft)")
+        require(by_path["model parallel (phase 15)"] > 0,
+                f"{name} was not launched on the model-parallel path")
         if name == "flash_fwd":
             require(by_path["serving control (phase 12)"] > 0,
                     "K1 was not launched on the serving-control path")

@@ -21,6 +21,11 @@ HWIO there and OIHW (``channels_last``) here. The BatchNorm
 state tree (``<bn>/mean``, ``<bn>/var``) maps to the buffers. Both
 directions are exact.
 
+A train mesh's trees (:func:`shard_tree`, :func:`gather_tree`): a
+rank's part of a JAX-layout tree by the model's spec tree
+(``partition_specs``), each leaf cut as ``parallel/sharding.py``'s
+``local_index`` says, and the parts gathered back whole over the ranks.
+
 A population's member-stacked trees (:func:`stacked_from_jax_tree`,
 :func:`stacked_to_jax_tree`) carry the same layouts with a leading member
 axis on every leaf. :func:`jax_layout` says where each parameter sits in
@@ -219,3 +224,47 @@ def stacked_to_jax_tree(model: torch.nn.Module,
             t = t.permute(0, 3, 4, 2, 1)
         flat[name.replace(".", SEP)] = t.contiguous().numpy()
     return _unflatten_lists(unflatten(flat))
+
+
+def shard_tree(tree: Dict[str, Any], specs: Dict[str, Any], mesh,
+               rank: int) -> Dict[str, Any]:
+    """Rank ``rank``'s part of the numpy ``tree`` on ``mesh`` (a
+    ``parallel.mesh.Mesh``) under ``specs``: for each leaf, the slice
+    that its spec gives the rank's coordinates (copies, f32)."""
+    from rafiki_tpu_torch.parallel.sharding import local_index, tree_map
+
+    coords = mesh.coords(rank)
+
+    def part(value, spec):
+        value = np.asarray(value, np.float32)
+        return np.ascontiguousarray(
+            value[local_index(value.shape, spec, mesh, coords)])
+
+    return tree_map(part, tree, specs)
+
+
+def gather_tree(local: Dict[str, Any], specs: Dict[str, Any],
+                groups) -> Dict[str, Any]:
+    """The inverse of :func:`shard_tree` on every rank of ``groups`` (a
+    ``parallel.collectives.MeshGroups``): each leaf's parts (tensors or
+    arrays) gathered over the axes of its spec, innermost first, as a
+    numpy f32 tree. Every rank of the mesh calls it together."""
+    from rafiki_tpu_torch.parallel.sharding import filter_pspec, tree_map
+
+    def whole(value, spec):
+        t = torch.as_tensor(np.asarray(value) if not isinstance(
+            value, torch.Tensor) else value.detach()).float()
+        t = t.to(groups.device).contiguous()
+        spec = filter_pspec(spec, groups.mesh)
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            names = tuple(entry) if isinstance(entry, (tuple, list)) \
+                else (entry,)
+            for name in reversed(names):
+                g = groups.group(name)
+                if g is not None:
+                    t = torch.cat(g.all_gather(t).unbind(0), dim)
+        return t.cpu().numpy()
+
+    return tree_map(whole, local, specs)

@@ -87,6 +87,37 @@ def layernorm(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     return y.to(x.dtype)
 
 
+def dropout(rng, x: torch.Tensor, rate: float,
+            deterministic: bool) -> torch.Tensor:
+    """``x`` with each element kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``: the JAX package's ``core.dropout``,
+    its mask ``jax.random.bernoulli(rng, 1 - rate, x.shape)`` bit for bit
+    (drawn on the host, ``utils/jrandom.py``; ``rng`` a key there). Under
+    a train mesh ``x`` is this rank's shard of a (batch, sequence, ...)
+    activation, its rows on ``data`` and positions on ``seq``: the mask
+    is the same region of the global draw."""
+    if deterministic or rate <= 0.0:
+        return x
+    if rng is None:
+        raise ValueError("dropout needs a key (rng) when not deterministic")
+    from rafiki_tpu_torch.parallel.sharding import current_mesh
+    from rafiki_tpu_torch.utils import jrandom
+
+    shape, region = tuple(x.shape), None
+    mesh = current_mesh()
+    if mesh is not None:
+        shape, region = list(shape), [slice(None)] * x.dim()
+        for dim, axis in ((0, "data"), (1, "seq")):
+            n, at = mesh.size(axis), mesh.index(axis)
+            region[dim] = slice(at * shape[dim], (at + 1) * shape[dim])
+            shape[dim] *= n
+    keep = jrandom.bernoulli(rng, 1.0 - rate, shape, region)
+    keep = torch.from_numpy(np.ascontiguousarray(keep)).to(x.device)
+    # JAX divides by the weakly typed 1 - rate in x's own type
+    scale = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, 0.0).to(x.dtype)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")

@@ -39,7 +39,13 @@ Differences of form, not of result:
 ``apply`` (training and evaluation) runs attention through the flash
 kernels on a CUDA tensor (``ops/attention.py``); the cached forward is
 plain products and softmax, as the JAX package's is (no Pallas there).
-MoE and the partition specs are not ported (ROADMAP.md).
+``apply`` and ``loss_fn`` take the module or its JAX-layout tree (a
+train mesh's shard of it, ``parallel/sharding.py``); they exercise every
+mesh axis: data (batch), model (TP heads and MLP, the embedding's
+columns gathered whole), seq (a sequence shard: its positions and its
+next-token targets across the shard's edge; ring attention), expert
+(MoE, whose aux term the loss adds at ``aux_weight``), pipe (the
+stacked depth, GPipe). The caches take dense blocks only, as in JAX.
 """
 
 from __future__ import annotations
@@ -57,8 +63,12 @@ from rafiki_tpu_torch.models.transformer import (
     Stack,
     TransformerConfig,
     block_init,
+    block_partition_specs,
+    stack_apply,
     stack_trees,
 )
+from rafiki_tpu_torch.parallel import collectives as C
+from rafiki_tpu_torch.parallel.sharding import P, current_mesh, mean_share
 # the draws' roles: a target draw, a draft's proposal, an accept test
 from rafiki_tpu_torch.sdk.model import (  # noqa: F401
     ROLE_ACCEPT,
@@ -79,11 +89,13 @@ class LMConfig:
 
 
 def tiny(vocab: int = 256, max_len: int = 128, dim: int = 64, depth: int = 2,
-         heads: int = 4, **encoder_kw) -> LMConfig:
-    """``encoder_kw`` passes through to TransformerConfig."""
+         heads: int = 4, moe_experts: int = 0, **encoder_kw) -> LMConfig:
+    """``encoder_kw`` passes through to TransformerConfig (seq_parallel,
+    pipeline, n_microbatches, ...)."""
     return LMConfig(vocab=vocab, max_len=max_len,
                     encoder=TransformerConfig(dim=dim, depth=depth,
                                               heads=heads, causal=True,
+                                              moe_experts=moe_experts,
                                               **encoder_kw))
 
 
@@ -114,36 +126,85 @@ class LM(torch.nn.Module):
         self.blocks = Stack(cfg.encoder, device)
         self.ln_f = core.LayerNorm(dim, device)
 
+    def tree(self) -> dict:
+        """The parameters as the JAX layout's tree, a block a list item."""
+        return {"embed": core.own_params(self.embed), "pos": self.pos,
+                "blocks": [b.tree() for b in self.blocks],
+                "ln_f": core.own_params(self.ln_f)}
+
     def forward(self, ids: torch.Tensor,
                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-        x = self.embed(ids.long(), dtype)
-        x = x + self.pos[:, :ids.shape[1]].to(x.dtype)
-        x = self.ln_f(self.blocks(x))
-        # tied output head
-        logits = torch.einsum("bsd,vd->bsv", x, self.embed.table.to(x.dtype))
-        return logits.float()
+        return apply(self.tree(), ids, self.cfg, dtype=dtype)[0]
 
 
-def apply(model: LM, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(logits (B, S, V) f32, the MoE aux loss: 0 for dense blocks)."""
-    logits = model(ids)
-    return logits, torch.zeros((), device=logits.device)
+def apply(params, ids: torch.Tensor, cfg: Optional[LMConfig] = None,
+          rng: Optional[np.ndarray] = None, deterministic: bool = True,
+          dtype: torch.dtype = torch.bfloat16
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ids (B, S) int -> (logits (B, S, V) f32, the MoE aux loss: 0 for
+    dense blocks). ``params`` is an :class:`LM` (``cfg`` its own) or a
+    JAX-layout tree; ``rng`` a ``utils/jrandom`` key for dropout. Under a
+    train mesh ``ids`` is this rank's (rows, positions) shard."""
+    if isinstance(params, LM):
+        params, cfg = params.tree(), params.cfg
+    mesh = current_mesh()
+    tp = sp = None
+    if mesh is not None:
+        tp, sp = mesh.group("model"), mesh.group("seq")
+    s = ids.shape[1]
+    start = 0 if sp is None else sp.rank * s
+    table = C.gather_whole(params["embed"]["table"], tp, 1)
+    x = core.embedding({"table": table}, ids.long(), dtype)
+    x = x + params["pos"][:, start:start + s].to(x.dtype)
+    x, aux = stack_apply(params["blocks"], x, cfg.encoder, rng,
+                         deterministic)
+    x = core.layernorm(params["ln_f"], x)
+    # tied output head: logits = x @ E^T
+    logits = torch.einsum("bsd,vd->bsv", x, table.to(x.dtype))
+    return logits.float(), aux
 
 
-def loss_fn(model: LM, batch: Tuple[torch.Tensor, torch.Tensor],
+def loss_fn(params, batch: Tuple[torch.Tensor, torch.Tensor],
+            rng: Optional[np.ndarray] = None, cfg: Optional[LMConfig] = None,
             aux_weight: float = 1e-2) -> Tuple[torch.Tensor, dict]:
     """Next-token cross-entropy, the masked mean over the targets
     (optax's per-token loss, summed under the mask, over the mask's
-    count); batch = (ids, mask)."""
+    count), plus ``aux_weight`` times the MoE aux loss; batch = (ids,
+    mask). Under a train mesh, this rank's share of each
+    (``sharding.mean_share``): the count is the global one, and a
+    sequence shard's last target is the next shard's first token."""
     ids, mask = batch
-    logits, aux = apply(model, ids)
-    targets = ids[:, 1:].long()
-    lm_mask = mask[:, 1:].float()
-    ce = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+    logits, aux = apply(params, ids, cfg, rng, deterministic=False)
+    mesh = current_mesh()
+    sp = mesh.group("seq") if mesh is not None else None
+    targets, lm_mask = ids[:, 1:].long(), mask[:, 1:].float()
+    firsts = None
+    if sp is not None:  # every shard's first token, from every seq rank
+        firsts = C.gather_over(torch.stack([ids[:, 0].long(),
+                                            mask[:, 0].long()]), mesh, "seq")
+    if firsts is not None and sp.rank < sp.size - 1:
+        nxt = firsts[sp.rank + 1]
+        targets = torch.cat([targets, nxt[0][:, None]], 1)
+        lm_mask = torch.cat([lm_mask, nxt[1][:, None].float()], 1)
+    else:
+        logits = logits[:, :-1]
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                          targets.reshape(-1), reduction="none")
-    ce = ce.reshape(targets.shape)
-    loss = (ce * lm_mask).sum() / lm_mask.sum().clamp_min(1.0)
+    loss = mean_share(ce.reshape(targets.shape), lm_mask)
     return loss + aux_weight * aux, {"ce": loss, "moe_aux": aux}
+
+
+def partition_specs(cfg: LMConfig) -> dict:
+    return {
+        "embed": {"table": P(None, "model")},
+        "pos": P(None, None, None),
+        "blocks": block_partition_specs(cfg.encoder, stacked=True),
+        "ln_f": {"scale": P(None), "bias": P(None)},
+    }
+
+
+def batch_spec() -> Any:
+    return (P("data", "seq"), P("data", "seq"))
 
 
 # -- the decode path -----------------------------------------------------------
@@ -155,11 +216,20 @@ def _host_ints(a: Any) -> np.ndarray:
     return np.ascontiguousarray(a, np.int64)
 
 
+def _dense_only(cfg: LMConfig) -> None:
+    if cfg.encoder.moe_experts > 0:
+        raise ValueError(
+            "KV-cached decode supports dense blocks only (moe_experts=0): "
+            "MoE top-k routing is per-token and the fixed-shape decode "
+            "program cannot carry its dispatch state in the cache")
+
+
 def init_kv_cache(cfg: LMConfig, max_slots: int,
                   max_len: Optional[int] = None, dtype=torch.float32,
                   device=None) -> Cache:
     """The ring: per-layer K/V of ``(depth, max_slots, max_len, heads,
     head_dim)``, zeros; ``max_len`` defaults to ``cfg.max_len``."""
+    _dense_only(cfg)
     enc = cfg.encoder
     shape = (enc.depth, int(max_slots), int(max_len or cfg.max_len),
              enc.heads, enc.dim // enc.heads)
@@ -271,6 +341,7 @@ def init_paged_kv_cache(cfg: LMConfig, pool_blocks: int, block_tokens: int,
                         dtype=torch.float32, device=None) -> Cache:
     """The pool: per-layer K/V of ``(depth, pool_blocks, block_tokens,
     heads, head_dim)``, zeros."""
+    _dense_only(cfg)
     enc = cfg.encoder
     shape = (enc.depth, int(pool_blocks), int(block_tokens), enc.heads,
              enc.dim // enc.heads)

@@ -4,11 +4,19 @@ Counterpart of ``rafiki_tpu/models/vit.py``: patchify as one product,
 learned position embeddings, the pre-LN transformer stack, a final
 layernorm, global average pooling (no cls token, so S = 196 at 224/16)
 and a dense head. Images are cast to bf16; logits come out in f32.
+
+:func:`apply` takes the module's tree or a JAX-layout one (a train
+mesh's shard of it, ``parallel/sharding.py``). Under a mesh the batch is
+split over ``data`` and the patch sequence over ``seq``: each rank runs
+the encoder on its positions, and the pooled mean is a ``psum`` of the
+shards' sums (its backward a ``psum`` too: the rows, and so the loss, are
+the same on every ``seq`` rank, each holding a share).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -18,8 +26,12 @@ from rafiki_tpu_torch.models.transformer import (
     Stack,
     TransformerConfig,
     block_init,
+    block_partition_specs,
+    stack_apply,
     stack_trees,
 )
+from rafiki_tpu_torch.parallel import collectives as C
+from rafiki_tpu_torch.parallel.sharding import P, current_mesh
 
 
 @dataclass(frozen=True)
@@ -64,6 +76,44 @@ def init(rng: np.random.Generator, cfg: ViTConfig) -> dict:
     }
 
 
+def apply(params: dict, images: torch.Tensor, cfg: ViTConfig,
+          rng: Optional[np.ndarray] = None,
+          deterministic: bool = True) -> torch.Tensor:
+    """images (B, H, W, C) float -> logits (B, num_classes) f32;
+    ``params`` in the JAX layout (blocks stacked, or a list of per-layer
+    trees), ``rng`` a ``utils/jrandom`` key for dropout."""
+    x = core.patch_project(params["patch"], core.cast_for_compute(images))
+    x = x + params["pos"].to(x.dtype)
+    mesh = current_mesh()
+    sp = mesh.group("seq") if mesh is not None else None
+    if sp is not None:
+        x = x.chunk(sp.size, 1)[sp.rank]
+    x, _ = stack_apply(params["blocks"], x, cfg.encoder, rng, deterministic)
+    x = core.layernorm(params["ln_f"], x)
+    if sp is None:
+        x = x.mean(dim=1)  # GAP
+    else:
+        x = (C.psum(x.float().sum(1), sp) / cfg.seq_len).to(x.dtype)
+    return core.dense(params["head"], x).float()
+
+
+def partition_specs(cfg: ViTConfig) -> dict:
+    """Param PartitionSpecs: transformer blocks TP-sharded (and pipe-sharded
+    on their stacked depth axis); everything else replicated."""
+    return {
+        "patch": {"kernel": P(None, None, None, None), "bias": P(None)},
+        "pos": P(None, None, None),
+        "blocks": block_partition_specs(cfg.encoder, stacked=True),
+        "ln_f": {"scale": P(None), "bias": P(None)},
+        "head": {"kernel": P(None, None), "bias": P(None)},
+    }
+
+
+def batch_spec() -> Any:
+    """Activations: batch over data, sequence over seq (SP), features full."""
+    return P("data", None, None, None)
+
+
 class ViT(torch.nn.Module):
     """images (B, H, W, C) float -> logits (B, num_classes) f32."""
 
@@ -79,8 +129,14 @@ class ViT(torch.nn.Module):
         self.ln_f = core.LayerNorm(dim, device)
         self.head = core.Dense(dim, cfg.num_classes, device)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = self.patch(core.cast_for_compute(images))
-        x = x + self.pos.to(x.dtype)
-        x = self.ln_f(self.blocks(x))
-        return self.head(x.mean(dim=1)).float()
+    def tree(self) -> dict:
+        """The parameters as the JAX layout's tree, a block a list item."""
+        own = core.own_params
+        return {"patch": own(self.patch), "pos": self.pos,
+                "blocks": [b.tree() for b in self.blocks],
+                "ln_f": own(self.ln_f), "head": own(self.head)}
+
+    def forward(self, images: torch.Tensor,
+                rng: Optional[np.ndarray] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        return apply(self.tree(), images, self.cfg, rng, deterministic)

@@ -10,6 +10,23 @@ TPU and does not carry over); ``use_flash=False`` runs
 :func:`mha_reference`. On a CPU tensor ``None`` runs :func:`mha_reference`,
 as the JAX package does off the TPU, and ``True`` runs the flash kernel's
 plain version.
+
+Under a train mesh (``parallel/sharding.py``'s ``activation_mesh``) the
+layer works on this rank's shards, the collectives written out
+(``parallel/collectives.py``):
+
+- tensor-parallel heads: ``wq/wk/wv`` hold this rank's heads and ``wo``
+  their rows; the input enters the split region (its gradient summed
+  over ``model``), and the output projection's partial sums are summed
+  over ``model`` before ``bo``;
+- a sequence shard (``seq`` > 1, no ``attn_fn``): the local queries
+  attend to the keys and values gathered over ``seq`` (their gradients
+  reduce-scattered back), through the same kernels. Causal attention
+  gathers only the keys up to the shard's end: the kernels' end-aligned
+  mask then puts each query at its global position.
+
+``attn_fn(q, k, v, causal)`` replaces the inner attention (ring
+attention's seam, ``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +39,8 @@ import torch
 
 from rafiki_tpu_torch.models.core import own_params, xavier_uniform
 from rafiki_tpu_torch.ops.flash_attention import flash_attention
+from rafiki_tpu_torch.parallel import collectives as C
+from rafiki_tpu_torch.parallel.sharding import current_mesh
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,10 +77,15 @@ def attention_init(rng: np.random.Generator, dim: int, heads: int) -> dict:
 def multi_head_attention(params: Mapping[str, torch.Tensor],
                          x: torch.Tensor, causal: bool = False,
                          use_flash: Optional[bool] = None,
-                         fused_qkv: bool = False) -> torch.Tensor:
+                         fused_qkv: bool = False,
+                         attn_fn=None) -> torch.Tensor:
     """Self-attention over (B, S, D). ``fused_qkv`` computes the three
     projections as one (BS, D) x (D, 3HDh) product over weights stacked at
     run time; the parameter layout is unchanged."""
+    mesh = current_mesh()
+    tp = mesh.group("model") if mesh is not None else None
+    sp = mesh.group("seq") if mesh is not None else None
+    x = C.copy_to(x, tp)
     dt = x.dtype
     wq, wk, wv = params["wq"], params["wk"], params["wv"]
     if fused_qkv:
@@ -71,7 +95,14 @@ def multi_head_attention(params: Mapping[str, torch.Tensor],
         q = torch.einsum("bsd,dhk->bhsk", x, wq.to(dt))
         k = torch.einsum("bsd,dhk->bhsk", x, wk.to(dt))
         v = torch.einsum("bsd,dhk->bhsk", x, wv.to(dt))
-    if use_flash or (use_flash is None and x.is_cuda):
+    if sp is not None and attn_fn is None:
+        k, v = (C.all_gather(t, sp, 2) for t in (k, v))
+        if causal:
+            end = (sp.rank + 1) * q.shape[2]
+            k, v = k[:, :, :end], v[:, :, :end]
+    if attn_fn is not None:
+        o = attn_fn(q, k, v, causal)
+    elif use_flash or (use_flash is None and x.is_cuda):
         if dt == torch.float32:
             # the f32 kernel takes contiguous tensors; bf16 K1 reads the
             # einsum's (B, H, S, Dh) views as they are
@@ -79,7 +110,8 @@ def multi_head_attention(params: Mapping[str, torch.Tensor],
         o = flash_attention(q, k, v, causal=causal)
     else:
         o = mha_reference(q, k, v, causal=causal)
-    out = torch.einsum("bhsk,hkd->bsd", o, params["wo"].to(dt))
+    out = C.reduce_from(torch.einsum("bhsk,hkd->bsd", o, params["wo"].to(dt)),
+                        tp)
     return out + params["bo"].to(dt)
 
 

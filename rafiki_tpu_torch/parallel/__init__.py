@@ -1,3 +1,5 @@
-"""Several devices: mesh shapes (``mesh.py``) and the ranks of a data
-group under ``torch.distributed``, one process a device (``ranks.py``).
-Counterpart of the data-parallel part of ``rafiki_tpu/parallel/``."""
+"""Several devices, one rank a device: mesh shapes (``mesh.py``), the
+ranks of a group under ``torch.distributed`` (``ranks.py``), and the
+model split over them (``sharding.py``, ``collectives.py``, ``ring.py``,
+``pipeline.py``, ``moe.py``; the dry run of every mode, ``dryrun.py``).
+Counterpart of ``rafiki_tpu/parallel/``."""

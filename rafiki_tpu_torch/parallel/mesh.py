@@ -4,9 +4,11 @@ Counterpart of ``rafiki_tpu/parallel/mesh.py``'s axis names,
 :class:`MeshSpec` (copied with its cases) and :func:`make_mesh`. In JAX a
 mesh is one program's view of its devices; here it is the shape of the
 process group that a grant becomes, rank ``r`` running on ``devices[r]``
-(``parallel/ranks.py`` starts the ranks). Only the data axis is ported
-(the batch is split over the ranks, the parameters are copied); a mesh
-that gives another axis more than one device is item 5b of ROADMAP.md.
+(``parallel/ranks.py`` starts the ranks). Every axis is taken: the data
+axis splits the batch (``parallel/ranks.py``'s data group); the model,
+seq, expert and pipe axes split the model over the ranks
+(``parallel/sharding.py``), each rank finding its coordinates with
+:meth:`Mesh.coords` and its fellows along an axis with :meth:`Mesh.line`.
 The thread grant (``set_device_grant``, ``visible_devices``) stays in
 ``rafiki_tpu_torch/device.py``.
 """
@@ -65,6 +67,25 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self.shape)
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank ``rank``'s index on each axis: ranks fill the mesh in row-
+        major order over the axes as declared (``np.reshape``'s order, as
+        a JAX mesh's device array)."""
+        idx = np.unravel_index(rank, tuple(self.shape.values()))
+        return {k: int(i) for k, i in zip(self.shape, idx)}
+
+    def line(self, axis: str, rank: int) -> Tuple[int, ...]:
+        """The ranks that differ from ``rank`` on ``axis`` alone, in the
+        order of their index on it (``rank``'s group along ``axis``)."""
+        grid = np.arange(self.size).reshape(tuple(self.shape.values()))
+        at = self.coords(rank)
+        index = tuple(slice(None) if k == axis else at[k] for k in self.shape)
+        return tuple(int(r) for r in grid[index])
+
 
 def make_mesh(spec: Optional[MeshSpec] = None,
               devices: Optional[Sequence[DeviceSpec]] = None) -> Mesh:
@@ -72,10 +93,4 @@ def make_mesh(spec: Optional[MeshSpec] = None,
     devices, pure data-parallel)."""
     devices = tuple(_as_device(d) for d in (
         devices if devices is not None else visible_devices()))
-    shape = (spec or MeshSpec()).resolve(len(devices))
-    split = sorted(k for k, v in shape.items() if k != DATA_AXIS and v > 1)
-    if split:
-        raise NotImplementedError(
-            f"mesh axes {split} split the model over ranks; rafiki_tpu_torch "
-            "has the data axis only (ROADMAP.md, item 5b)")
-    return Mesh(devices, shape)
+    return Mesh(devices, (spec or MeshSpec()).resolve(len(devices)))

@@ -127,14 +127,18 @@ def _timeout() -> datetime.timedelta:
 class DataGroup:
     """One rank's handle on the process group: its rank, the group's
     size, its device, and the collectives the trainer uses (sum, copy
-    from a root, gather in rank order)."""
+    from a root, gather in rank order, an exchange between pairs).
+    :meth:`subgroup` makes the group of a few of its ranks (a line of a
+    train mesh, ``parallel/collectives.py``)."""
 
     def __init__(self, backend: Any, rank: int, size: int,
-                 device: torch.device):
+                 device: torch.device, store: Any = None):
         self._backend = backend
         self.rank = rank
         self.size = size
         self.device = device
+        self._store = store
+        self._subgroups = 0
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place."""
@@ -157,6 +161,47 @@ class DataGroup:
         outs = [torch.empty_like(t) for _ in range(self.size)]
         self._run(lambda: self._backend.allgather([outs], [t]))
         return torch.stack(outs)
+
+    def exchange(self, send: Optional[torch.Tensor], dst: Optional[int],
+                 src: Optional[int], shape: Sequence[int] = (),
+                 dtype: Optional[torch.dtype] = None
+                 ) -> Optional[torch.Tensor]:
+        """One step of a permutation: send ``send`` to rank ``dst`` and
+        receive a tensor of ``shape`` and ``dtype`` from rank ``src``
+        (either may be None: nothing to send, or to receive). Every rank
+        of the group calls it together; it is one all-to-all with a part
+        for each pair that talks, so a ring of sends cannot deadlock."""
+        dtype = dtype or (send.dtype if send is not None else torch.float32)
+        n = self.size
+        into, out_of = [0] * n, [0] * n
+        flat = (send.contiguous().reshape(-1) if send is not None else
+                torch.empty(0, dtype=dtype, device=self.device))
+        if send is not None:
+            out_of[dst] = flat.numel()
+        numel = 1
+        for d in shape:
+            numel *= int(d)
+        got = torch.empty(numel if src is not None else 0, dtype=dtype,
+                          device=self.device)
+        if src is not None:
+            into[src] = numel
+        self._run(lambda: self._backend.alltoall_base(
+            got, flat, into, out_of, dist.AllToAllOptions()))
+        return got.view(tuple(shape)) if src is not None else None
+
+    def subgroup(self, ranks: Sequence[int]) -> "DataGroup":
+        """The group of ``ranks`` (this rank among them), made by those
+        ranks alone, which must make their common groups in the same
+        order: the store's keys are numbered by this group's count of
+        subgroups made so far."""
+        if self._store is None:
+            raise ValueError("this group keeps no store to make a "
+                             "subgroup with")
+        self._subgroups += 1
+        tag = f"sub{self._subgroups}/" + ",".join(str(r) for r in ranks)
+        return _make_group(dist.PrefixStore(tag, self._store),
+                           list(ranks).index(self.rank), len(ranks),
+                           self.device)
 
     def _run(self, start: Callable[[], Any]) -> None:
         """Start a collective and wait for it (on the card: queue it on
@@ -209,7 +254,7 @@ def _make_group(store: Any, rank: int, size: int,
         opts._devices = [dist.ProcessGroupGloo.create_device(
             hostname="127.0.0.1")]
         backend = dist.ProcessGroupGloo(store, rank, size, opts)
-    return DataGroup(backend, rank, size, device)
+    return DataGroup(backend, rank, size, device, store)
 
 
 def _fn_name(fn: Callable) -> str:

@@ -9,7 +9,8 @@ port can be held draw for draw against the JAX package's:
 
 - :func:`PRNGKey` (a non-negative seed below 2**32) and :func:`split`:
   bit for bit;
-- :func:`uniform` (f32 in [minval, maxval)): bit for bit;
+- :func:`uniform` (f32 in [minval, maxval)) and :func:`bernoulli` (or a
+  region of it, a rank's shard of a global draw): bit for bit;
 - :func:`normal` (f32): JAX's ``sqrt(2) * erfinv(u)`` for ``u`` uniform
   on the open interval (-1, 1), with ``erfinv`` written out as XLA's CPU
   backend computes it (Giles' polynomials over Cephes' ``log1p`` and
@@ -27,7 +28,7 @@ mixing weight a sample) and are copied to the device by the caller.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -90,12 +91,41 @@ def _random_bits(key: np.ndarray, shape: Sequence[int]) -> np.ndarray:
     return b1 ^ b2
 
 
+def _bits_to_unit(bits: np.ndarray) -> np.ndarray:
+    """``jax.random.uniform``'s mantissa trick: f32 in [0, 1)."""
+    return ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(
+        np.float32) - np.float32(1.0)
+
+
+def bernoulli(key: np.ndarray, p: float, shape: Sequence[int],
+              region: Optional[Sequence[slice]] = None) -> np.ndarray:
+    """``jax.random.bernoulli(key, p, shape)`` (its ``mode="low"``:
+    a uniform below f32 ``p``), or only its ``region`` (a slice a
+    dimension) without drawing the rest: each element's bits depend on
+    the key and its flat index in ``shape`` alone."""
+    shape = tuple(int(d) for d in shape)
+    if region is None:
+        bits = _random_bits(key, shape)
+    else:
+        axes = [np.arange(n, dtype=np.uint64)[r]
+                for n, r in zip(shape, region)]
+        strides = np.cumprod((1,) + shape[:0:-1], dtype=np.uint64)[::-1]
+        idx = np.zeros((), np.uint64)
+        for ax, stride, dim in zip(axes, strides, range(len(shape))):
+            view = [1] * len(shape)
+            view[dim] = -1
+            idx = idx + ax.reshape(view) * np.uint64(stride)
+        hi = (idx >> np.uint64(32)).astype(np.uint32)
+        lo = (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+        bits = b1 ^ b2
+    return _bits_to_unit(bits) < np.float32(p)
+
+
 def uniform(key: np.ndarray, shape: Sequence[int] = (),
             minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    bits = _random_bits(key, shape)
-    floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(
-        np.float32) - np.float32(1.0)
+    floats = _bits_to_unit(_random_bits(key, shape))
     lo, hi = np.float32(minval), np.float32(maxval)
     return np.maximum(lo, floats * (hi - lo) + lo).reshape(tuple(shape))
 

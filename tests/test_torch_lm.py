@@ -339,9 +339,37 @@ def test_sampled_steps_match_jax_and_temperature_zero_is_greedy(models,
     assert int(tok[1]) == int(lm.greedy_token(logits)[1])
 
 
-def test_moe_is_refused():
-    with pytest.raises(NotImplementedError, match="moe_experts"):
-        lm.tiny(moe_experts=2)
+def test_moe_is_refused(monkeypatch):
+    """MoE blocks now build and train: an LM of 2 experts gives JAX's
+    logits, aux term and loss (f32, within 1e-5); only the KV caches
+    refuse them, with JAX's ValueError."""
+    _f32_embedding(monkeypatch)
+    cfg, jcfg = _cfgs(moe_experts=2)
+    tree = lm.init(np.random.default_rng(0), cfg)
+    assert tree["blocks"]["moe"]["w1"].shape == (DEPTH, 2, DIM, 4 * DIM)
+    model = convert.from_jax_params(tree, cfg, "cpu", train=True)
+    ids, mask = _ids((2, 16)), np.ones((2, 16), np.int32)
+    jp = jax.tree.map(jnp.asarray, tree)
+    jlogits, jaux = jlm.apply(jp, jnp.asarray(ids), jcfg)
+    jloss, jparts = jlm.loss_fn(jp, (jnp.asarray(ids), jnp.asarray(mask)),
+                                jax.random.key(0), jcfg)
+    logits, aux = lm.apply(model, torch.from_numpy(ids))
+    loss, parts = lm.loss_fn(model, (torch.from_numpy(ids),
+                                     torch.from_numpy(mask)))
+    loss.backward()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               atol=F32_ATOL, rtol=F32_ATOL)
+    assert float(aux) > 0
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=F32_ATOL)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=F32_ATOL)
+    assert model.blocks[0].moe.w1.grad is not None
+    for name, args in (("init_kv_cache", (2, 8)),
+                       ("init_paged_kv_cache", (4, 4))):
+        with pytest.raises(ValueError) as theirs:
+            getattr(jlm, name)(jcfg, *args)
+        with pytest.raises(ValueError) as ours:
+            getattr(lm, name)(cfg, *args)
+        assert str(ours.value) == str(theirs.value)
 
 
 def test_kv_caches_hold_f32_rows_of_the_config(models):

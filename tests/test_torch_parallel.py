@@ -128,12 +128,23 @@ def test_mesh_spec_resolves_as_jax(axes, n):
 
 
 def test_make_mesh_is_the_data_axis_over_the_grant():
+    """The default mesh is the data axis over the grant; a model axis is
+    taken too (model parallelism, ``parallel/sharding.py``), the ranks
+    laid out as JAX lays out its devices."""
     m = mesh.make_mesh(devices=CPUS)
     assert m.shape == {"data": 4} and m.size == 4
     assert [str(d) for d in m.devices] == CPUS
-    with pytest.raises(NotImplementedError, match="model"):
-        mesh.make_mesh(mesh.MeshSpec({"data": -1, "model": 2}),
+    m = mesh.make_mesh(mesh.MeshSpec({"data": -1, "model": 2}),
                        devices=CPUS)
+    jm = jmesh.make_mesh(jmesh.MeshSpec({"data": -1, "model": 2}),
+                         devices=jax.devices()[:4])
+    assert m.shape == dict(jm.shape) == {"data": 2, "model": 2}
+    ids = [d.id for d in jax.devices()[:4]]
+    for rank in range(4):
+        at = np.argwhere(np.vectorize(lambda d: d.id)(jm.devices)
+                         == ids[rank])[0]
+        assert tuple(m.coords(rank).values()) == tuple(at)
+    assert m.line("model", 2) == (2, 3) and m.line("data", 1) == (1, 3)
 
 
 # ---------------------------------------------------------------------------

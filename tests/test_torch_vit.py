@@ -18,6 +18,7 @@ from rafiki_tpu_torch import convert
 from rafiki_tpu_torch.models import vit
 from rafiki_tpu_torch.models.transformer import TransformerConfig
 from rafiki_tpu_torch.sdk.params import dump_params, load_params
+from rafiki_tpu_torch.utils import jrandom
 
 # bf16 activations through 2 blocks: the frameworks round at different
 # places (matmul accumulation order, where casts fall), which moves O(1)
@@ -111,5 +112,31 @@ def test_params_refuse_pickled_arrays():
     dict(moe_experts=4), dict(seq_parallel="ring"), dict(pipeline="gpipe"),
     dict(remat="dots"), dict(dropout=0.1)])
 def test_unported_transformer_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerConfig(**option)
+    """Each option the port once refused now builds and runs: the module
+    with it (its own MoE tree when it asks for experts) gives JAX's
+    logits on one device (ring and GPipe without a mesh are the plain
+    stack; dropout from the same key: the same masks), at the bf16 bound
+    of the forward test above."""
+    cfg = vit.tiny()
+    cfg = dataclasses.replace(cfg, encoder=TransformerConfig(
+        dim=cfg.encoder.dim, depth=cfg.encoder.depth,
+        heads=cfg.encoder.heads, **option))
+    jcfg = jvit.tiny()
+    jcfg = dataclasses.replace(jcfg, encoder=dataclasses.replace(
+        jcfg.encoder, **option))
+    tree = vit.init(np.random.default_rng(0), cfg)
+    images = np.random.default_rng(1).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32)
+    train = "dropout" in option
+    key = jax.random.key(3) if train else None
+    ref = np.asarray(jvit.apply(jax.tree.map(jnp.asarray, tree),
+                                jnp.asarray(images), jcfg, key,
+                                deterministic=not train))
+    model = convert.from_jax_params(tree, cfg, "cpu", train=train)
+    logits = model(torch.from_numpy(images),
+                   jrandom.PRNGKey(3) if train else None,
+                   deterministic=not train)
+    logits.sum().backward()
+    np.testing.assert_allclose(logits.detach().numpy(), ref,
+                               atol=LOGIT_ATOL, rtol=0)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
