@@ -83,8 +83,9 @@ Phases, each of which must pass (any failure exits non-zero):
    ``TorchResNet``, ``NpDecisionTree``, ``NpLinearSvm``) on cuda:0, knobs
    from the port's advisor, on a seeded synthetic set of 512 train and
    128 test images (32x32x3) written as image zips. 7b: a synthetic set
-   at CIFAR-10's own size (50,000 + 10,000 images, 32x32x3, 10 classes, a
-   prototype a class plus noise) written as image zips by the port's PNG
+   of CIFAR-10's shape at 1/5 of its size (10,000 + 2,000 images,
+   32x32x3, 10 classes, a prototype a class plus noise; cut for time from
+   CIFAR-10's 50,000 + 10,000) written as image zips by the port's PNG
    writer; ``TorchResNet`` with ``depth`` fixed to ResNet-50 and one
    epoch uploaded through ``Client`` (enforce), a 2-trial job
    (``CHIP_COUNT=1``, the GP over the learning rate and the batch size),
@@ -97,8 +98,9 @@ Phases, each of which must pass (any failure exits non-zero):
    the deploy time, the p50s, and the train step at the best trial's
    batch, per call, on the card and by kernel. No attention kernel is on
    this path: every count must read 0.
-8. text. 8a: an SST-2-sized synthetic corpus (6,920 + 1,821 sentences of
-   5-40 words, two disjoint pools) written as corpus zips; ``TorchBert``
+8. text. 8a: an SST-2-shaped synthetic corpus (2,300 + 1,821 sentences of
+   5-40 words, two disjoint pools; the train set cut for time from
+   SST-2's 6,920) written as corpus zips; ``TorchBert``
    at BERT-base's widths (12 x 768, 12 heads, vocabulary 30,522, 128
    tokens, one epoch) uploaded through ``Client`` (enforce), a 2-trial job
    (GP over the learning rate and the batch size), both trials above
@@ -205,9 +207,9 @@ Phases, each of which must pass (any failure exits non-zero):
    5,000 words, 45 tags) as corpus zips; one ``TorchBiLstm`` step at its
    widest knobs, f32 on the card against the CPU (loss 1e-4, leaves
    1e-3), its time and profile; a 2-trial ``TorchBiLstm`` job (batch
-   fixed at 128) and a 1-trial ``NpBigramHmm`` job (score >= 0.9)
-   through ``Client``, each deployed and tagging 8 sentences, a tag a
-   token. Printed: the job times, each trial's knobs, score and split,
+   fixed at 128, 4 epochs: the template's 10 cut for time) and a 1-trial
+   ``NpBigramHmm`` job (score >= 0.9) through ``Client``, each deployed
+   and tagging 8 sentences, a tag a token. Printed: the job times, each trial's knobs, score and split,
    kimg/s, the p50s.
 
 12. serving control, on phase 8a's two trained BERT-base trials (its
@@ -322,6 +324,41 @@ Phases, each of which must pass (any failure exits non-zero):
    every leg's shapes (local heads, sequence-sharded queries against
    gathered keys, a microbatch). Phase 15 alone: ``python3 -c "import
    chip_smoke as cs; cs.model_parallel_only()"``.
+
+16. fleet operations, on phase 8a's two trained BERT-base trials (its
+   store, reopened), the job deployed serving its best trial
+   (``INFERENCE_MAX_BEST_TRIALS=1``, one replica) on its own door.
+   16a: ``Client.update_inference_job`` to the other trial under a steady
+   stream of 8-sentence requests from a client thread (judge window 2 s,
+   3 canary requests): DONE, no request failed, a second update while it
+   is live answers 409, the serving version is 1 and the result cache
+   holds no entry of version 0 (8 filled before), the new replica ran K1
+   12 times a batch and the answers equal that trial's own from 8a (the
+   ``PROB_RTOL``/``PROB_ATOL`` rule); then an update back with the
+   ``deploy`` chaos site armed: ROLLED_BACK with its reason, no request
+   failed, the answers still the incumbent's. 16b
+   (``RAFIKI_AUTOSCALE=1``, a 0.25 s tick, a 3 s window, short
+   cooldowns, at most 2 replicas): 8 clients flood the job's door at an
+   in-flight cap of 2; the loop scales up by one replica ("sustained
+   shed", its signals in the event; on one card the new replica shares
+   the card: the floor of 1 lends none); after 16c, idle drains it back
+   to one replica, every request sent meanwhile answered. 16c
+   (``RAFIKI_AUTOSCALE_WARM_POOL=1``): a standby placed and warmed (K1 in
+   its warm-up, 12 a bucket), never routed; a routed replica killed under
+   a steady stream (its worker stopped, then the ERRORED verdict): the
+   standby promoted, no client error; the next tick places a new
+   standby. 16d, on two or more cards only (on one, a line says so): a
+   scale-up borrows an idle card above the floor (an exclusive grant),
+   and a train job of one-card ``TorchFeedForward`` trials that cannot
+   allocate reclaims it (the borrowed replica drained, the loan
+   returned); 8b's LM served under ``CHIPS_PER_WORKER=2`` (grant [0, 1])
+   streams 8b's greedy tokens up to their held positions, its memory on
+   cuda:0 alone. Printed: the deploy times of the canary, the scaled-up
+   replica and the standby, the rollout's wall time, the p50 of 8
+   sentences before, during and after it, the time from the kill to the
+   promotion. Phase 16 with what it stands on: ``python3 -c "import
+   chip_smoke as cs; cs.fleet_only()"`` (phase 8, then 16; 16d on four
+   cards).
 
 The line before the last is ``{"kernels": [...]}``, each kernel's
 ``launches`` from phase 5 and ``launches_by_path`` from every path; the
@@ -1253,7 +1290,9 @@ def post(url: str, body: bytes, headers: dict,
 
 
 #: the JSON requests both doors are timed on in turns (phase 5)
-JSON_TIMED = [("json", 1)] * 10 + [("json", 8)] * 10
+#: JSON requests of 1 and of 8 images timed on each door (phases 5-6):
+#: five a size (ten before; cut for the run's time limit)
+JSON_TIMED = [("json", 1)] * 5 + [("json", 8)] * 5
 
 
 def p50_ms(lat: dict) -> dict:
@@ -2043,7 +2082,9 @@ ZOO_TWINS = (("torch_feedforward", "TorchFeedForward"),
              ("np_decision_tree", "NpDecisionTree"),
              ("np_linear_svm", "NpLinearSvm"))
 ZOO_SMALL = (512, 128)         # 7a: train and test images
-CIFAR_SIZES = (50_000, 10_000)  # 7b: CIFAR-10's own train and test sizes
+#: 7b: 1/5 of CIFAR-10's own train and test sizes (50,000 + 10,000), cut
+#: for the run's time limit
+CIFAR_SIZES = (10_000, 2_000)
 #: TorchResNet with the plan and the epochs fixed: the GP tunes the
 #: learning rate and the batch size
 RESNET50 = """
@@ -2185,7 +2226,7 @@ def zoo_step_time(card: str, batch: int, train_uri: str) -> None:
 
 
 def zoo_phase(card: str) -> list:
-    """7a, then 7b: a 2-trial ResNet-50 job on a CIFAR-10-sized image-zip
+    """7a, then 7b: a 2-trial ResNet-50 job on a CIFAR-10-shaped image-zip
     set through ``Client`` (GP over the learning rate and the batch
     size), served. Returns each kernel's launches on this path, in
     ``KERNEL_NAMES`` order (none is on it)."""
@@ -2202,7 +2243,7 @@ def zoo_phase(card: str) -> list:
     t0 = time.perf_counter()
     train_uri, test_uri, x = zoo_datasets("cifar", CIFAR_SIZES, SEED + 71)
     mb = sum(Path(u).stat().st_size for u in (train_uri, test_uri)) / 1e6
-    print(f"zoo: CIFAR-10-sized synthetic set ({CIFAR_SIZES[0]} + "
+    print(f"zoo: CIFAR-10-shaped synthetic set ({CIFAR_SIZES[0]} + "
           f"{CIFAR_SIZES[1]} images, 32x32x3, {CLASSES} classes) made and "
           f"written as image zips (PNG, filter 0) in "
           f"{time.perf_counter() - t0:.1f} s ({mb:.0f} MB)", flush=True)
@@ -2337,7 +2378,9 @@ def zoo_phase(card: str) -> list:
 # phase 8: text
 # ---------------------------------------------------------------------------
 
-SST2_SIZES = (6920, 1821)  # SST-2's train and test sentences
+#: train and test sentences: SST-2's test size, its train set (6,920)
+#: cut to a third for the run's time limit
+SST2_SIZES = (2300, 1821)
 SENTENCE_TOKENS = (5, 40)
 POOL_WORDS = 1000          # each class's words; the pools are disjoint
 #: TorchBert at BERT-base's published widths (12 x 768, 12 heads, the
@@ -2401,7 +2444,7 @@ DRAW_MARGIN = 1e-5
 
 
 def text_corpus():
-    """SST-2-sized synthetic corpus zips under ``build/chip_smoke/text/``:
+    """SST-2-shaped synthetic corpus zips under ``build/chip_smoke/text/``:
     two classes, each sentence 5-40 words of its class's pool (the pools
     disjoint), the label in the first tag column. Returns the train and
     test URIs and the test sentences as strings."""
@@ -2458,7 +2501,7 @@ def _stack(name: str, port_store: str, fresh: bool = True,
 
 
 def bert_phase(card: str) -> list:
-    """8a: a 2-trial BERT-base job on the SST-2-sized corpus through
+    """8a: a 2-trial BERT-base job on the SST-2-shaped corpus through
     ``Client``, served; returns each kernel's launches on this path."""
     from rafiki_tpu_torch import config, convert
     from rafiki_tpu_torch.models import bert
@@ -2472,7 +2515,7 @@ def bert_phase(card: str) -> list:
 
     t0 = time.perf_counter()
     train_uri, test_uri, queries = text_corpus()
-    print(f"bert: SST-2-sized synthetic corpus ({SST2_SIZES[0]} + "
+    print(f"bert: SST-2-shaped synthetic corpus ({SST2_SIZES[0]} + "
           f"{SST2_SIZES[1]} sentences of {SENTENCE_TOKENS[0]}-"
           f"{SENTENCE_TOKENS[1]} words, two disjoint pools of {POOL_WORDS}) "
           f"written as corpus zips in {time.perf_counter() - t0:.1f} s",
@@ -2595,7 +2638,8 @@ def bert_phase(card: str) -> list:
             f"{err:.3g} (tol {ENSEMBLE_ATOL:g})")
     # phase 12 serves these trials again, fused
     BERT_RUN.update(queries=queries, batch8=batch8, own8=sum(own) / TRIALS,
-                    p50_8=p50["json", 8])
+                    p50_8=p50["json", 8],
+                    own_by_trial={t["id"]: o for t, o in zip(trials, own)})
     print(f"bert: Client.predict of 8 sentences: the ensemble within "
           f"{err:.3g} of its trials' mean (tol {ENSEMBLE_ATOL:g}); against "
           f"the plain-attention forward: "
@@ -2989,8 +3033,9 @@ def text_phase(card: str) -> tuple:
 #: what lm_phase hands phase 13: its trial and parameters, prompts and
 #: seeds, the greedy and sampled streams and how far each was held
 LM_RUN: dict = {}
-#: what bert_phase hands phase 12: its queries, the unfused ensemble's
-#: answers to the first 8 and the trials' mean of them, and its p50 of 8
+#: what bert_phase hands phases 12 and 16: its queries, the unfused
+#: ensemble's answers to the first 8, the trials' mean of them and each
+#: trial's own, and its p50 of 8
 BERT_RUN: dict = {}
 #: 12a: the fused ensemble's attention: T trials of phase 8's BERT-base
 #: serving batch
@@ -5147,13 +5192,17 @@ POS_TOKENS = (5, 48)
 POS_TAGS, POS_WORDS = 45, 5000  # the Penn Treebank's tagset size
 #: TorchBiLstm with the batch fixed at its widest (the GP tunes the
 #: widths, the word dropout and the learning rate): 31 steps an epoch
-BILSTM_WIDE = """
+#: 11b's BiLSTM epochs: 4, cut for the run's time limit from the
+#: template's 10 (the gates read the job's rows and answers, not a score)
+BILSTM_EPOCHS = 4
+BILSTM_WIDE = f"""
 
 class TorchBiLstmWide(TorchBiLstm):
     @staticmethod
     def get_knob_config():
         knobs = TorchBiLstm.get_knob_config()
         knobs["batch_size"] = FixedKnob(128)
+        knobs["epochs"] = FixedKnob({BILSTM_EPOCHS})
         return knobs
 """
 # one BiLSTM step at its widest knobs, f32 on the card against f32 on
@@ -5668,7 +5717,8 @@ def pos_jobs(card: str, train_uri: str, test_uri: str,
         torch.cuda.synchronize()
         train_counts = [k.launches for k in kernels]
         # ---------------------------------------------------------------
-        print(f"pos: the BiLSTM job ({TRIALS} trials, 10 epochs of "
+        print(f"pos: the BiLSTM job ({TRIALS} trials, {BILSTM_EPOCHS} epochs "
+              f"of "
               f"{POS_SIZES[0]} sentences each) STOPPED in {bilstm_s:.1f} s, "
               f"the HMM job (1 trial) in {hmm_s:.1f} s; card {card}",
               flush=True)
@@ -6923,6 +6973,524 @@ def model_parallel_phase(card: str) -> list:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 16: fleet operations (rollout, autoscaler, warm pool, arbiter)
+# ---------------------------------------------------------------------------
+
+#: 16a: requests of 8 sentences timed sequentially before and after the
+#: rollout, and the judge's knobs (a short window, few requests)
+FLEET_TIMED = 10
+FLEET_JUDGE = {"RAFIKI_ROLLOUT_JUDGE_WINDOW_S": "2",
+               "RAFIKI_ROLLOUT_MIN_REQUESTS": "3"}
+#: 16b: the loop's knobs (short interval, window and cooldowns; a
+#: shed-driven flood past a door cap of 2, bounded by 2 replicas)
+FLEET_SCALER = {"RAFIKI_AUTOSCALE": "1",
+                "RAFIKI_AUTOSCALE_INTERVAL_S": "0.25",
+                "RAFIKI_AUTOSCALE_WINDOW_S": "3",
+                "RAFIKI_AUTOSCALE_SHED_THRESHOLD": "2",
+                "RAFIKI_AUTOSCALE_DEPTH_HIGH": "1000",
+                "RAFIKI_AUTOSCALE_DEPTH_LOW": "1",
+                "RAFIKI_AUTOSCALE_MIN_REPLICAS": "1",
+                "RAFIKI_AUTOSCALE_MAX_REPLICAS": "2",
+                "RAFIKI_AUTOSCALE_COOLDOWN_UP_S": "0.5",
+                "RAFIKI_AUTOSCALE_COOLDOWN_DOWN_S": "1",
+                "RAFIKI_AUTOSCALE_DRAIN_S": "10"}
+FLOOD_CLIENTS, FLOOD_CAP = 8, 2
+#: 16d: the small image set of phase 7a, for the train job that reclaims
+FLEET_FF = ("torch_feedforward", "TorchFeedForward")
+
+
+@contextlib.contextmanager
+def _fleet_sizing(best_trials: int, replicas: int):
+    """The deploy's sizing settings (read at import, so set on the
+    module), restored after."""
+    from rafiki_tpu_torch import config
+
+    saved = (config.INFERENCE_MAX_BEST_TRIALS,
+             config.INFERENCE_WORKER_REPLICAS_PER_TRIAL)
+    config.INFERENCE_MAX_BEST_TRIALS = best_trials
+    config.INFERENCE_WORKER_REPLICAS_PER_TRIAL = replicas
+    try:
+        yield
+    finally:
+        (config.INFERENCE_MAX_BEST_TRIALS,
+         config.INFERENCE_WORKER_REPLICAS_PER_TRIAL) = saved
+
+
+class _Steady:
+    """A client thread sending requests of 8 sentences to a door, one at
+    a time: each one's time and status."""
+
+    def __init__(self, url: str, body: dict, token: str):
+        self.lat, self.failed = [], []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, args=(url, body, token), daemon=True)
+        self._thread.start()
+
+    def _run(self, url, body, token):
+        while not self._stop.is_set():
+            status, _, secs, raw = _door_post(url, body, token)
+            if status == 200:
+                got = np.asarray(json.loads(raw)["data"]["predictions"])
+                if got.shape == (8, 2) and np.isfinite(got).all():
+                    self.lat.append((time.perf_counter(), secs))
+                    continue
+            self.failed.append((status, raw[:200]))
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(120)
+        require(not self._thread.is_alive(), "the load thread hung")
+
+
+def _answers(c, queries) -> np.ndarray:
+    got = np.asarray(c.predict("sst2", queries[:8]))
+    require(got.shape == (8, 2) and np.isfinite(got).all(),
+            f"/predict/sst2 answered {got.shape}")
+    return got
+
+
+def _deploy_s(admin, sid: str, until: float) -> float:
+    """A replica's deploy time: its service row's creation to ``until``
+    (the event that routed it)."""
+    return until - admin.db.get_service(sid)["datetime_started"]
+
+
+def fleet_rollout(card: str, admin, c, token: str, inf: dict,
+                  port: int) -> dict:
+    """16a: the job (one trial, one replica) moved to 8a's other trial
+    under a steady stream of 8-sentence requests; then a second update
+    with the ``deploy`` chaos site armed. Returns what 16b-c use."""
+    from rafiki_tpu_torch.client.client import RolloutInFlightError
+    from rafiki_tpu_torch.predictor import result_cache
+    from rafiki_tpu_torch.utils import chaos
+    from rafiki_tpu_torch.worker.inference import serving_stats
+
+    queries = BERT_RUN["queries"]
+    eight = {"queries": queries[:8]}
+    admin_url = f"http://127.0.0.1:{port}/predict/sst2"
+    (w0,) = inf["workers"]
+    incumbent = w0["trial_id"]
+    target = next(t for t in BERT_RUN["own_by_trial"] if t != incumbent)
+    before = [_door_post(admin_url, eight, token) for _ in range(FLEET_TIMED)]
+    require(all(r[0] == 200 for r in before), "a request before the "
+            f"rollout failed: {[r[0] for r in before]}")
+    # version-0 entries in the result cache, which DONE must flush
+    with _Env(RAFIKI_PREDICT_CACHE="1"):
+        c.predict("sst2", queries[:8])
+    cache = result_cache.get_cache()
+    v0 = sum(1 for k in list(cache._entries) if k[:2] == (inf["id"], 0))
+    require(v0 == 8, f"{v0} version-0 cache entries, expected 8")
+    with _Env(**FLEET_JUDGE):
+        load = _Steady(admin_url, eight, token)
+        time.sleep(1.0)  # incumbent samples for the judge
+        t0 = time.perf_counter()
+        row = c.update_inference_job("sst2", target, canary_fraction=0.5)
+        require(row["phase"] == "CANARY" and row["to_version"] == 1,
+                f"update answered {row}")
+        try:
+            c.update_inference_job("sst2", target)
+            conflict = None
+        except RolloutInFlightError as e:
+            conflict = e.status
+        require(conflict == 409, f"a second update during a live rollout "
+                f"answered {conflict}, not 409")
+        done = c.wait_until_rollout_done("sst2", timeout_s=300)
+        rollout_s = time.perf_counter() - t0
+        t_done = time.perf_counter()
+        time.sleep(0.5)
+        load.stop()
+    require(not load.failed, f"{len(load.failed)} requests failed during "
+            f"the rollout: {load.failed[:3]}")
+    live = admin.services.live_inference_workers(inf["id"])
+    require([(w["trial_id"], w["model_version"]) for w in live]
+            == [(target, 1)], f"after DONE the fleet is {live}")
+    predictor = admin.services.get_predictor(inf["id"])
+    require(predictor.serving_version() == 1,
+            f"serving version {predictor.serving_version()} after DONE")
+    left = [k for k in list(cache._entries)
+            if k[0] == inf["id"] and k[1] != 1]
+    require(not left, f"{len(left)} cache entries of the old version left")
+    events = {e["event"]: e for e in done["events"]}
+    canary_sid = live[0]["service_id"]
+    canary_s = _deploy_s(admin, canary_sid, events["canary_deployed"]["ts"])
+    kernels = _kernels()
+    k1 = kernels[0].launches
+    b0 = serving_stats().get(canary_sid, {}).get("batches", 0)
+    after_answers = _answers(c, queries)
+    k1_new = kernels[0].launches - k1
+    batches = serving_stats()[canary_sid]["batches"] - b0
+    require(batches > 0 and k1_new == DEPTH * batches,
+            f"the new-version replica ran {batches} batches and K1 "
+            f"{k1_new} times (expected {DEPTH} a batch)")
+    check = prob_check("16a after DONE", after_answers,
+                       BERT_RUN["own_by_trial"][target])
+    after = [_door_post(admin_url, eight, token) for _ in range(FLEET_TIMED)]
+    require(all(r[0] == 200 for r in after), "a request after the rollout "
+            "failed")
+    during = [s for t, s in load.lat if t <= t_done]
+    p50 = [statistics.median(v) * 1e3 for v in (
+        [r[2] for r in before], during, [r[2] for r in after])]
+    print(f"fleet: 16a rollout of sst2 from trial {incumbent[:8]} (v0) to "
+          f"{target[:8]} (v1) under a steady stream of 8-sentence requests "
+          f"({len(load.lat)} answered, {len(load.failed)} failed): DONE in "
+          f"{rollout_s:.2f} s (update to DONE; events "
+          f"{[e['event'] for e in done['events']]}); the canary deployed "
+          f"in {canary_s:.2f} s (service row to routed, warm-up included); "
+          f"a second update while it was live answered {conflict}; serving "
+          f"version 1, {v0} cache entries of version 0 flushed, none left; "
+          f"p50 of 8 sentences before {p50[0]:.2f} ms, during {p50[1]:.2f} "
+          f"ms, after {p50[2]:.2f} ms; the new replica ran K1 {k1_new} "
+          f"times in {batches} batch(es); card {card}", flush=True)
+    print(f"fleet: 16a answers after DONE against trial {target[:8]}'s own "
+          f"(8a): {check}", flush=True)
+    # the second update, back to the first trial, its canary's placement
+    # failed by the deploy chaos site
+    load = _Steady(admin_url, eight, token)
+    try:
+        chaos.install([chaos.ChaosRule(site=chaos.SITE_DEPLOY,
+                                       action=chaos.ACTION_ERROR,
+                                       match=incumbent)])
+        with _Env(**FLEET_JUDGE):
+            c.update_inference_job("sst2", incumbent)
+            rb = None
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                rb = c.get_rollout("sst2")
+                if rb["phase"] not in ("CANARY", "ROLLING"):
+                    break
+                time.sleep(0.05)
+    finally:
+        chaos.clear()
+        time.sleep(0.5)
+        load.stop()
+    require(rb["phase"] == "ROLLED_BACK" and "deploy" in (rb["reason"] or ""),
+            f"the chaos update ended {rb['phase']}: {rb['reason']}")
+    require(not load.failed, f"{len(load.failed)} requests failed during "
+            f"the rolled-back update: {load.failed[:3]}")
+    require([(w["trial_id"], w["model_version"]) for w in
+             admin.services.live_inference_workers(inf["id"])]
+            == [(target, 1)], "the rollback changed the fleet")
+    check = prob_check("16a after the rollback", _answers(c, queries),
+                       BERT_RUN["own_by_trial"][target])
+    print(f"fleet: 16a a second update (to {incumbent[:8]}) with the deploy "
+          f"chaos site armed: {rb['phase']} ({rb['reason']}); "
+          f"{len(load.lat)} requests answered, none failed; the answers "
+          f"stay the incumbent's: {check}", flush=True)
+    return {"target": target, "canary_s": canary_s, "rollout_s": rollout_s,
+            "p50": p50}
+
+
+def fleet_phase(card: str) -> list:
+    """Phase 16 on phase 8a's two trained BERT-base trials (its store): 16a
+    a live rollout and a rolled-back one; 16b the autoscaler, a flood up
+    and idle back down; 16c the warm pool, a standby warmed, a replica
+    killed under load and replaced, the pool topped up; 16d on two or more
+    cards only. Returns each kernel's launches on this path."""
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.worker.inference import serving_stats
+
+    t_phase = time.perf_counter()
+    queries = BERT_RUN["queries"]
+    eight = {"queries": queries[:8]}
+    kernels = _kernels()
+    admin, server, new_client = _stack("text", "text.sqlite3", fresh=False)
+    try:
+        c = new_client()
+        token = admin.authenticate_user(config.SUPERADMIN_EMAIL,
+                                        config.SUPERADMIN_PASSWORD)["token"]
+        # ---- the main path's run (16a-c): counts from zero ----
+        for kernel in kernels:
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        with _fleet_sizing(1, 1), _Env(RAFIKI_PREDICTOR_PORTS="1"):
+            inf = c.create_inference_job("sst2")
+        deploy_s = time.perf_counter() - t0
+        require(inf["status"] == "RUNNING" and len(inf["workers"]) == 1,
+                f"inference job {inf['status']} with {inf['workers']}")
+        print(f"fleet: sst2 deployed serving its best trial "
+              f"(INFERENCE_MAX_BEST_TRIALS=1) on "
+              f"{inf['workers'][0]['chips']} in {deploy_s:.2f} s; card "
+              f"{card}", flush=True)
+        fleet_rollout(card, admin, c, token, inf, server.port)
+        t_a = time.perf_counter()
+        # ---- 16b up: a flood past the job's door cap ----
+        door = f"http://{inf['predictor_host']}:{inf['predictor_port']}" \
+               f"/predict"
+        scaler = admin.autoscaler
+        with _Env(**FLEET_SCALER):
+            scaler.start()
+            statuses, stop = [], threading.Event()
+
+            def flood():
+                while not stop.is_set():
+                    statuses.append(_door_post(door, eight, token)[0])
+
+            with _Env(RAFIKI_PREDICT_MAX_INFLIGHT=str(FLOOD_CAP)):
+                threads = [threading.Thread(target=flood)
+                           for _ in range(FLOOD_CLIENTS)]
+                for th in threads:
+                    th.start()
+                deadline = time.monotonic() + 60
+                while time.monotonic() < deadline and not any(
+                        e["action"] == "scale_up" for e in scaler.events):
+                    time.sleep(0.05)
+                stop.set()
+                for th in threads:
+                    th.join(60)
+            scaler.stop()
+        ups = [e for e in scaler.events if e["action"] == "scale_up"]
+        require(len(ups) == 1 and ups[0]["result"].get("added"),
+                f"the flood's scale-up: {ups}")
+        up = ups[0]
+        (added,) = up["result"]["added"]
+        live = admin.services.live_inference_workers(inf["id"])
+        require(len(live) == 2 == int(FLEET_SCALER[
+            "RAFIKI_AUTOSCALE_MAX_REPLICAS"]), f"{len(live)} replicas")
+        require(set(statuses) <= {200, 503, 429} and 200 in statuses
+                and 503 in statuses, f"flood statuses {sorted(set(statuses))}")
+        new_chips = admin.db.get_service(added)["chips"]
+        on_one = torch.cuda.device_count() == 1
+        require(not on_one or (new_chips == [0]
+                               and up["result"]["borrowed_chips"] == 0),
+                f"on one card the new replica is on {new_chips}, borrowed "
+                f"{up['result']['borrowed_chips']}")
+        require(up["reason"] == "sustained shed" and {
+            "shed_in_window", "mean_backlog", "max_backlog", "replicas"}
+            <= set(up["signals"]), f"the scale-up event {up}")
+        up_s = _deploy_s(admin, added, up["ts"])
+        print(f"fleet: 16b a flood of {FLOOD_CLIENTS} clients on the job's "
+              f"door at RAFIKI_PREDICT_MAX_INFLIGHT={FLOOD_CAP}: "
+              f"{statuses.count(200)} answered, {statuses.count(503)} shed "
+              f"503, {statuses.count(429)} shed 429; the loop scaled up by "
+              f"1 ({up['reason']}; signals {up['signals']}) to 2 replicas "
+              f"(MAX_REPLICAS 2), the new one deployed in {up_s:.2f} s on "
+              f"{new_chips} (borrowed {up['result']['borrowed_chips']}: "
+              f"{'one card, the floor of 1 lends none, so it shares the card' if on_one else 'above the floor'}"
+              f"); card {card}", flush=True)
+        t_b = time.perf_counter()
+        # ---- 16c the warm pool ----
+        pool = admin.warm_pool
+        with _Env(RAFIKI_AUTOSCALE_WARM_POOL="1"):
+            k1 = kernels[0].launches
+            t0 = time.perf_counter()
+            placed = pool.tick()
+            standby_s = time.perf_counter() - t0
+            warm_k1 = kernels[0].launches - k1
+            require([a["action"] for a in placed] == ["place"],
+                     f"the pool's tick: {placed}")
+            stby = placed[0]["service_id"]
+            require(warm_k1 >= DEPTH * PREDICT_BUCKETS,
+                    f"the standby's warm-up launched K1 {warm_k1} times "
+                    f"(expected {DEPTH} x {PREDICT_BUCKETS} buckets)")
+            for _ in range(4):
+                require(_door_post(door, eight, token)[0] == 200,
+                        "a request beside the standby failed")
+            require(serving_stats().get(stby, {}).get("queries", 0) == 0,
+                    "the standby was routed")
+            load = _Steady(door, eight, token)
+            time.sleep(1.0)
+            victim = next(w["service_id"] for w in
+                          admin.services.live_inference_workers(inf["id"])
+                          if w["service_id"] != added)
+            t_kill = time.perf_counter()
+            admin.placement.destroy_service(victim)  # the replica dies
+            admin._on_service_status(victim, "ERRORED")
+            promote_s = time.perf_counter() - t_kill
+            time.sleep(1.0)
+            load.stop()
+            live = [w["service_id"] for w in
+                    admin.services.live_inference_workers(inf["id"])]
+            require(stby in live and victim not in live,
+                    f"after the kill the fleet is {live}")
+            require(not load.failed, f"{len(load.failed)} client errors "
+                    f"after the kill: {load.failed[:3]}")
+            require(serving_stats()[stby]["queries"] > 0,
+                    "the promoted standby took no request")
+            t0 = time.perf_counter()
+            topped = pool.tick()
+            topup_s = time.perf_counter() - t0
+            require([a["action"] for a in topped] == ["place"],
+                    f"the next tick: {topped}")
+            require(admin.db.get_inference_job(inf["id"])["status"]
+                    == "RUNNING", "the job left RUNNING")
+        print(f"fleet: 16c RAFIKI_AUTOSCALE_WARM_POOL=1: a standby placed "
+              f"and warmed in {standby_s:.2f} s (K1 {warm_k1} launches in "
+              f"its warm-up), never routed; a routed replica killed under a "
+              f"steady stream ({len(load.lat)} answered, "
+              f"{len(load.failed)} failed): the standby promoted "
+              f"{promote_s * 1e3:.1f} ms after the kill (the worker's stop "
+              f"and the ERRORED verdict included); the next tick placed a "
+              f"new standby in {topup_s:.2f} s; events "
+              f"{[e['action'] for e in pool.events]}; card {card}",
+              flush=True)
+        t_c = time.perf_counter()
+        # ---- 16b down: idle drains back to MIN_REPLICAS ----
+        with _Env(**FLEET_SCALER):
+            scaler.start()
+            answered, failed = 0, []
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline and not any(
+                    e["action"] == "scale_down" for e in scaler.events):
+                status = _door_post(door, eight, token)[0]
+                if status == 200:
+                    answered += 1
+                else:
+                    failed.append(status)
+                time.sleep(0.2)
+            scaler.stop()
+        downs = [e for e in scaler.events if e["action"] == "scale_down"]
+        require(downs and downs[0]["result"].get("removed"),
+                f"no scale-down: {downs}")
+        require(not failed, f"requests failed while draining: {failed}")
+        live = admin.services.live_inference_workers(inf["id"])
+        require(len(live) == 1, f"{len(live)} replicas after the drain")
+        require(downs[0]["reason"] == "sustained idle"
+                and "replicas" in downs[0]["signals"],
+                f"the scale-down event {downs[0]}")
+        report = scaler.report()
+        print(f"fleet: 16b idle: the loop drained back to MIN_REPLICAS 1 "
+              f"({downs[0]['reason']}; signals {downs[0]['signals']}); "
+              f"{answered} requests sent while it drained, all answered; "
+              f"the loan book {report['chip_budget']}; card {card}",
+              flush=True)
+        fleet_counts = [k.launches for k in kernels]
+        # ---------------------------------------------------------------
+        c.stop_inference_job("sst2")
+    finally:
+        server.stop()
+        admin.shutdown()
+    require(fleet_counts[0] > 0 and fleet_counts[1:] == [0, 0, 0],
+            f"fleet launches {fleet_counts}")
+    t_end = time.perf_counter()
+    print(f"fleet: 16a took {t_a - t_phase:.0f} s, 16b {t_b - t_a + t_end - t_c:.0f}"
+          f" s, 16c {t_c - t_b:.0f} s; phase 16 took {t_end - t_phase:.0f} s "
+          f"(K1 {fleet_counts[0]} launches); card {card}", flush=True)
+    if torch.cuda.device_count() < 2:
+        print("fleet: 16d (a borrow above the training floor and its "
+              "reclaim; generation on a CHIPS_PER_WORKER=2 grant) needs two "
+              "cards: skipped on one", flush=True)
+    else:
+        fleet_cards(card)
+    return fleet_counts
+
+
+def fleet_cards(card: str) -> None:
+    """16d, on two or more cards: a scale-up borrows an idle card above
+    ``RAFIKI_AUTOSCALE_TRAIN_FLOOR`` (an exclusive grant), and a train job
+    that cannot allocate its cards reclaims it; 8b's LM served under
+    ``CHIPS_PER_WORKER=2`` streams what it streamed on one card, from the
+    grant's first card."""
+    n = torch.cuda.device_count()
+    # the floor of 1 leaves nothing to lend on two cards (one serves)
+    floor = str(min(1, n - 2))
+    admin, server, new_client = _stack("text", "text.sqlite3", fresh=False)
+    try:
+        c = new_client()
+        with _fleet_sizing(1, 1):
+            inf = c.create_inference_job("sst2")
+        free0 = admin.placement.allocator.free_chips
+        t0 = time.perf_counter()
+        with _Env(RAFIKI_AUTOSCALE_TRAIN_FLOOR=floor):
+            out = c.scale_inference_job("sst2", 1)
+        up_s = time.perf_counter() - t0
+        (borrowed,) = out["added"]
+        chips = admin.db.get_service(borrowed)["chips"]
+        require(out["borrowed_chips"] == 1 and len(chips) == 1
+                and chips != inf["workers"][0]["chips"]
+                and admin.chip_arbiter.borrowed_chips() == 1
+                and admin.placement.allocator.free_chips == free0 - 1,
+                f"the scale-up on {n} cards: {out}, chips {chips}")
+        train_uri, test_uri, _ = zoo_datasets("small", ZOO_SMALL, SEED + 70)
+        name, cls = FLEET_FF
+        c.create_model("ff", "IMAGE_CLASSIFICATION",
+                       (TEMPLATES / f"{name}.py").read_bytes(), cls)
+        want = admin.placement.allocator.free_chips + 1
+        t0 = time.perf_counter()
+        c.create_train_job("ff", "IMAGE_CLASSIFICATION", train_uri, test_uri,
+                           budget={"MODEL_TRIAL_COUNT": want,
+                                   "CHIP_COUNT": want})
+        reclaim_s = time.perf_counter() - t0
+        live = [w["service_id"] for w in
+                admin.services.live_inference_workers(inf["id"])]
+        require(admin.chip_arbiter.borrowed_chips() == 0
+                and borrowed not in live and len(live) == 1,
+                f"after the train job: loans "
+                f"{admin.chip_arbiter.borrowed()}, live {live}")
+        job = c.wait_until_train_job_stopped("ff", timeout_s=600)
+        require(job["status"] == "STOPPED" and sorted(
+            ch for w in job["workers"] for ch in w["chips"])
+            == sorted(set(range(n)) - set(inf["workers"][0]["chips"])),
+            f"the train job {job['status']} on "
+            f"{[w['chips'] for w in job['workers']]}")
+        _answers(c, BERT_RUN["queries"])
+        c.stop_inference_job("sst2")
+        print(f"fleet: 16d on {n} cards: a scale-up borrowed card {chips} "
+              f"above the floor of {floor} ({up_s:.2f} s); a train job of "
+              f"{want} "
+              f"one-card trials then reclaimed it ({reclaim_s:.2f} s to "
+              f"its services; the borrowed replica drained, the loan "
+              f"returned) and ran on {[w['chips'] for w in job['workers']]}"
+              f"; the job kept serving; card {card}", flush=True)
+    finally:
+        server.stop()
+        admin.shutdown()
+    admin, server, new_client = _stack("lm", "text_lm.sqlite3", fresh=False)
+    try:
+        c = new_client()
+        before = [torch.cuda.memory_allocated(i) for i in range(2)]
+        with _fleet_sizing(1, 1), _Env(RAFIKI_PREDICTOR_PORTS="1"):
+            t0 = time.perf_counter()
+            inf = c.create_inference_job("lm",
+                                         budget={"CHIPS_PER_WORKER": 2})
+            deploy_s = time.perf_counter() - t0
+            after = [torch.cuda.memory_allocated(i) for i in range(2)]
+            got = generate_pass(c, "lm", LM_RUN["prompts"])
+        c.stop_inference_job("lm")
+    finally:
+        server.stop()
+        admin.shutdown()
+    (w,) = inf["workers"]
+    require(w["chips"] == [0, 1], f"the LM's grant {w['chips']}")
+    require(after[0] - before[0] > 1 << 28 and after[1] == before[1],
+            f"device memory {before} -> {after}: the LM is not on the "
+            "grant's first card alone")
+    for a, b, h in zip(got["tokens"], LM_RUN["greedy"]["tokens"],
+                       LM_RUN["held"]):
+        same_until(a, b, h, "CHIPS_PER_WORKER=2 and one-card greedy streams")
+    same = sum(a == b for a, b in zip(got["tokens"],
+                                      LM_RUN["greedy"]["tokens"]))
+    print(f"fleet: 16d 8b's LM under CHIPS_PER_WORKER=2 on grant "
+          f"{w['chips']} (deploy {deploy_s:.1f} s): "
+          f"{(after[0] - before[0]) / 2**20:.0f} MiB on cuda:0, "
+          f"{(after[1] - before[1]) / 2**20:.0f} MiB on cuda:1; "
+          f"{STREAMS} greedy streams of {GEN_TOKENS} tokens equal the "
+          f"one-card streams up to their held positions {LM_RUN['held']} "
+          f"({same} of {STREAMS} whole); card {card}", flush=True)
+
+
+def fleet_only() -> None:
+    """Phase 16 with what it stands on (8a's trials, 8b's LM), and 16d
+    on two or more cards: the card's line, the kernel build, phase 8, then
+    phase 16."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = header()
+    from rafiki_tpu_torch import config
+
+    # one replica a trial, so phase 8's one-card deploy shapes hold on
+    # several cards
+    with _fleet_sizing(config.INFERENCE_MAX_BEST_TRIALS, 1):
+        text_phase(card)
+    counts = fleet_phase(card)
+    require(counts[0] > 0, "K1 was not launched on the fleet path")
+    print(f"chip_smoke: fleet_only passed; K1 launches on the fleet path "
+          f"{counts[0]}", flush=True)
+
+
 def model_parallel_only() -> None:
     """Phase 15 alone (TF32 off, as in ``main``): the card's line, the
     kernel build, then the phase."""
@@ -6970,6 +7538,7 @@ def main() -> int:
     rest_launches = generation_rest_phase(card)
     pop_launches, int8_launches = population_int8_phase(card)
     mp_launches = model_parallel_phase(card)
+    fleet_launches = fleet_phase(card)
     for i, name in enumerate(KERNEL_NAMES):
         by_path = {"train (phase 3)": train_launches[i],
                    "serve (phase 4)": serve_launches[i],
@@ -6985,7 +7554,8 @@ def main() -> int:
                    "generation, the rest (phase 13)": rest_launches[i],
                    "populations (phase 14a-c)": pop_launches[i],
                    "int8 serving (phase 14d)": int8_launches[i],
-                   "model parallel (phase 15)": mp_launches[i]}
+                   "model parallel (phase 15)": mp_launches[i],
+                   "fleet operations (phase 16)": fleet_launches[i]}
         require(by_path["stack (phase 5)"] > 0,
                 f"{name} was not launched through the admin")
         require(by_path["process (phase 6)"] > 0,
@@ -7007,6 +7577,8 @@ def main() -> int:
                     "K1 was not launched on the serving-control path")
             require(by_path["int8 serving (phase 14d)"] > 0,
                     "K1 was not launched on the int8 serving path")
+            require(by_path["fleet operations (phase 16)"] > 0,
+                    "K1 was not launched on the fleet path")
             entries[name]["shapes"] = [fused_shape]
         entries[name]["launches"] = stack_launches[i]
         entries[name]["launches_by_path"] = by_path

@@ -31,20 +31,32 @@ A train job's budget may ask for vectorized population trials
 (``TRIAL_VMAP_K``, proposals drained a round, over ``RAFIKI_TRIAL_VMAP_K``;
 ``RAFIKI_TRIAL_VMAP=0`` forces scalar trials; ``worker/train.py``), and
 ``RAFIKI_SERVE_INT8=1`` serves every SDK-trainer template from weight-only
-int8 copies (``sdk/quant.py``). HA leases and admin failover, host
-placement and the fleet broker, crash recovery, rollout, drift, the
-autoscaler with its fair admission and warm pool, request tracing and
-device profiling are not ported. The settings that turn one of them on
-raise :class:`~rafiki_tpu_torch.config.NotPortedError`
-(``config._UNPORTED``: ``RAFIKI_ADMIN_HA``, ``RAFIKI_ADMIN_ADDRS``,
-``RAFIKI_PLACEMENT=hosts``, ``RAFIKI_AGENTS``, ``RAFIKI_ORPHAN_SURVIVE``,
-``RAFIKI_DRIFT``, ``RAFIKI_AUTOSCALE``, ``RAFIKI_AUTOSCALE_FAIR``,
-``RAFIKI_AUTOSCALE_WARM_POOL``, ``RAFIKI_TRACE_SAMPLE``,
-``RAFIKI_PROFILE``, and the sandbox and dependency switches); rollout has
-no switch of its own to refuse (ROADMAP.md, queue C). No budget key is
-refused. A ``TEXT_GENERATION`` inference job's budget may name a draft
-trial (``GEN_DRAFT_TRIAL``) for speculative decoding, checked at deploy
-(``admin/services.py``).
+int8 copies (``sdk/quant.py``).
+
+The live fleet: the admin builds the chip arbiter
+(``placement/hosts.py``), the autoscaler (its loop runs with
+``RAFIKI_AUTOSCALE=1``), the warm pool (``RAFIKI_AUTOSCALE_WARM_POOL=K``)
+and the rollout controller, as the JAX admin does. An operator scales a
+running job (``scale_inference_job``) and moves it to another trial under
+traffic (``update_inference_job``: canary, judge, rolling replace or
+rollback; ``get_rollout_status``, ``abort_rollout``, ``ack_rollout``). A
+job's stop aborts its rollout first; a dead routed replica is replaced
+from the warm pool; shutdown stops the loops before the teardown.
+``RAFIKI_AUTOSCALE_FAIR=1`` turns on weighted fair admission at the
+``/predict/<app>`` door.
+
+HA leases and admin failover, host placement and the fleet broker, crash
+recovery, drift, request tracing and device profiling are not ported. The
+settings that turn one of them on raise
+:class:`~rafiki_tpu_torch.config.NotPortedError` (``config._UNPORTED``:
+``RAFIKI_ADMIN_HA``, ``RAFIKI_ADMIN_ADDRS``, ``RAFIKI_PLACEMENT=hosts``,
+``RAFIKI_AGENTS``, ``RAFIKI_ORPHAN_SURVIVE``, ``RAFIKI_DRIFT``,
+``RAFIKI_TRACE_SAMPLE``, ``RAFIKI_PROFILE``, and the sandbox and
+dependency switches). No budget key is refused: a ``TEXT_GENERATION``
+job under ``CHIPS_PER_WORKER`` > 1 is served from its grant's first card,
+as in the JAX package. A ``TEXT_GENERATION`` inference job's budget may
+name a draft trial (``GEN_DRAFT_TRIAL``) for speculative decoding,
+checked at deploy (``admin/services.py``).
 ``TEXT_GENERATION`` takes generation-capable templates only (a
 ``GenerationSpec`` and the decode methods; checked at upload and again,
 statically, at a train job), and its inference job streams from the
@@ -64,7 +76,12 @@ import time
 from typing import Any, Dict, List, Optional
 
 from rafiki_tpu_torch import analysis, config
-from rafiki_tpu_torch.admin.services import ServicesManager
+from rafiki_tpu_torch.admin.autoscaler import Autoscaler
+from rafiki_tpu_torch.admin.services import (
+    ServiceDeploymentError,
+    ServicesManager,
+)
+from rafiki_tpu_torch.admin.warm_pool import WarmPool
 from rafiki_tpu_torch.advisor.advisor import AdvisorStore
 from rafiki_tpu_torch.cache.queue import QueueFullError
 from rafiki_tpu_torch.cache.shm_broker import ShmBroker, make_broker
@@ -78,6 +95,7 @@ from rafiki_tpu_torch.constants import (
     UserType,
 )
 from rafiki_tpu_torch.db.database import Database
+from rafiki_tpu_torch.placement.hosts import ChipBudgetArbiter
 from rafiki_tpu_torch.placement.manager import (
     LocalPlacementManager,
     PlacementManager,
@@ -152,9 +170,24 @@ class Admin:
         self.placement = placement or LocalPlacementManager()
         if self.placement.on_status is None:
             self.placement.on_status = self._on_service_status
+        # serving may borrow idle cards above RAFIKI_AUTOSCALE_TRAIN_FLOOR;
+        # a train executor that cannot allocate reclaims them
+        self.chip_arbiter = ChipBudgetArbiter(self.placement.allocator)
         self.services = ServicesManager(
             self.db, self.placement, self.advisor_store, self.broker,
-            send_event=self.handle_event, params_dir=params_dir)
+            send_event=self.handle_event, params_dir=params_dir,
+            arbiter=self.chip_arbiter)
+        # the fleet's controllers always exist (the scale API and their
+        # reports go through them); their loops run when switched on
+        from rafiki_tpu_torch.admin.rollout import RolloutController
+
+        self.autoscaler = Autoscaler(self)
+        if config.AUTOSCALE:
+            self.autoscaler.start()
+        self.warm_pool = WarmPool(self)
+        if int(config.AUTOSCALE_WARM_POOL) > 0:
+            self.warm_pool.start()
+        self.rollouts = RolloutController(self)
         self._seed_superadmin()
 
     # -- users ---------------------------------------------------------------
@@ -551,13 +584,6 @@ class Admin:
                              budget: Optional[Dict[str, Any]] = None) -> Dict:
         self._validate_budget(budget or {})
         job = self._train_job(user_id, app, app_version)
-        if (job["task"] == TaskType.TEXT_GENERATION
-                and int((budget or {}).get(BudgetType.CHIPS_PER_WORKER,
-                                           1)) > 1):
-            raise InvalidRequestError(
-                "budget ['CHIPS_PER_WORKER'] > 1 asks for generation "
-                "across cards, which rafiki_tpu_torch does not have yet "
-                "(ROADMAP.md); drop it")
         if job["status"] != TrainJobStatus.STOPPED:
             raise InvalidRequestError(
                 f"Train job must be STOPPED, is {job['status']}")
@@ -626,9 +652,102 @@ class Admin:
         inf = self.db.get_running_inference_job_of_train_job(job["id"])
         if inf is None:
             raise InvalidRequestError("No running inference job")
+        # a rollout in flight ends first (ABORTED, no rollback pass), so
+        # its thread never races the teardown placing replicas
+        self.rollouts.abort_for_job(inf["id"], "inference job stopped")
         self.services.stop_inference_services(inf["id"])
         self._drop_predict_routes(inf["id"])
         return self.get_inference_job(user_id, app, job["app_version"])
+
+    # -- the live fleet ------------------------------------------------------
+
+    def scale_inference_job(self, user_id: str, app: str,
+                            app_version: int = -1, delta: int = 1) -> Dict:
+        """Add (``delta`` > 0) or drain (``delta`` < 0) replicas of the
+        app's RUNNING inference job without a redeploy: the primitive the
+        autoscaler drives (``admin/services.py``)."""
+        if not delta:
+            raise InvalidRequestError("delta must be a non-zero integer")
+        # each added replica is a placement and a deploy wait on this
+        # request's thread
+        limit = max(int(config.AUTOSCALE_MAX_REPLICAS), 8)
+        if abs(int(delta)) > limit:
+            raise InvalidRequestError(
+                f"delta {delta} out of range (|delta| <= {limit}; raise "
+                "RAFIKI_AUTOSCALE_MAX_REPLICAS to scale further)")
+        job = self._train_job(user_id, app, app_version)
+        inf = self.db.get_running_inference_job_of_train_job(job["id"])
+        if inf is None:
+            raise InvalidRequestError("No running inference job")
+        try:
+            report = self.services.scale_inference_job(inf["id"], int(delta))
+        except ServiceDeploymentError as e:
+            raise InvalidRequestError(str(e))
+        return {"inference_job_id": inf["id"], **report,
+                "replicas": len(self.services.live_inference_workers(
+                    inf["id"]))}
+
+    def _running_inference_job(self, user_id: str, app: str,
+                               app_version: int) -> Dict:
+        """The app's serving job; version -1 is the newest version that
+        serves."""
+        if app_version == -1:
+            for job in self.db.get_train_jobs_of_app(user_id, app):
+                inf = self.db.get_running_inference_job_of_train_job(
+                    job["id"])
+                if inf is not None:
+                    return inf
+            raise InvalidRequestError("No running inference job")
+        job = self._train_job(user_id, app, app_version)
+        inf = self.db.get_running_inference_job_of_train_job(job["id"])
+        if inf is None:
+            raise InvalidRequestError("No running inference job")
+        return inf
+
+    def update_inference_job(self, user_id: str, app: str,
+                             app_version: int = -1,
+                             trial_id: Optional[str] = None,
+                             canary_fraction: Optional[float] = None,
+                             batch: Optional[int] = None) -> Dict:
+        """Move the app's RUNNING inference job to ``trial_id`` in place
+        (``admin/rollout.py``). Answers at once with the rollout row (phase
+        CANARY); a second update while one is live raises
+        :class:`~rafiki_tpu_torch.admin.rollout.RolloutInFlightError`
+        (409)."""
+        if not trial_id:
+            raise InvalidRequestError("missing rollout target trial_id")
+        inf = self._running_inference_job(user_id, app, app_version)
+        return self.rollouts.start(inf["id"], trial_id,
+                                   canary_fraction=canary_fraction,
+                                   batch=batch)
+
+    def get_rollout_status(self, user_id: str, app: str,
+                           app_version: int = -1) -> Dict:
+        """The newest rollout of the app version's inference jobs (a live
+        one carries the judge's signals)."""
+        job = self._train_job(user_id, app, app_version)
+        for inf in self.db.get_inference_jobs_of_train_job(job["id"]):
+            status = self.rollouts.status(inf["id"])
+            if status is not None:
+                return status
+        raise InvalidRequestError(
+            f"no rollout recorded for {app} v{job['app_version']}")
+
+    def abort_rollout(self, user_id: str, app: str,
+                      app_version: int = -1) -> Dict:
+        inf = self._running_inference_job(user_id, app, app_version)
+        return self.rollouts.abort(inf["id"])
+
+    def ack_rollout(self, user_id: str, app: str,
+                    app_version: int = -1) -> Dict:
+        """Acknowledge the newest rolled-back rollout."""
+        job = self._train_job(user_id, app, app_version)
+        for inf in self.db.get_inference_jobs_of_train_job(job["id"]):
+            try:
+                return self.rollouts.ack(inf["id"])
+            except InvalidRequestError:
+                continue
+        raise InvalidRequestError(f"no unacknowledged rollback for {app}")
 
     def _drop_predict_routes(self, inference_job_id: str) -> None:
         """Forget cached routes to a stopped job's predictor; the epoch
@@ -721,6 +840,7 @@ class Admin:
         rows too, then any service still live."""
         for inf in self.db.get_inference_jobs_by_statuses(
                 [InferenceJobStatus.STARTED, InferenceJobStatus.RUNNING]):
+            self.rollouts.abort_for_job(inf["id"], "stop_all_jobs")
             self.services.stop_inference_services(inf["id"])
             self._drop_predict_routes(inf["id"])
         for job in self.db.get_train_jobs_by_statuses(
@@ -768,6 +888,11 @@ class Admin:
             self.db.mark_service_as_errored(service_id)
         if status not in (ServiceStatus.STOPPED, ServiceStatus.ERRORED):
             return
+        # a dead replica's loan comes home however it died (getattr: a
+        # status may come before the arbiter is built)
+        arbiter = getattr(self, "chip_arbiter", None)
+        if arbiter is not None:
+            arbiter.note_return(service_id)
         # a train worker ending may end its job; the last serving replica
         # ending ends its inference job
         worker = self.db.get_train_job_worker(service_id)
@@ -777,11 +902,27 @@ class Admin:
                 self.services.refresh_train_job_status(sub["train_job_id"])
             return
         iworker = self.db.get_inference_job_worker(service_id)
-        if iworker is not None and self.services.refresh_inference_job_status(
+        if iworker is None:
+            return
+        pool = getattr(self, "warm_pool", None)
+        if status == ServiceStatus.ERRORED and pool is not None:
+            # a dead routed replica is replaced by a standby at once
+            try:
+                pool.on_replica_errored(service_id,
+                                        iworker["inference_job_id"])
+            except Exception:
+                logger.exception("warm-pool replacement for %s failed",
+                                 service_id[:8])
+        if self.services.refresh_inference_job_status(
                 iworker["inference_job_id"]) is not None:
             self._drop_predict_routes(iworker["inference_job_id"])
 
     def shutdown(self) -> None:
+        # the loops stop deciding first: a tick or a rollout racing the
+        # teardown would place replicas nothing stops
+        self.autoscaler.stop()
+        self.warm_pool.stop()
+        self.rollouts.stop()
         self.stop_all_jobs()
         self.placement.stop_all()
         if isinstance(self.broker, ShmBroker):

@@ -9,9 +9,11 @@ standard library's threading HTTP server; every route body is one
 The advisor routes a process-placed train worker uses (create, propose,
 propose_batch, feedback, feedback_batch, infeasible, replay, report_rung,
 delete) are carried; ``start`` tells a process placement the door's
-address (``admin_addr``). Not carried (ROADMAP.md): the trace, scale,
-rollout and drift routes, fleet health, metrics, the web UI, and the
-standby and recovery gates.
+address (``admin_addr``). The live fleet's routes are carried: ``scale``,
+``update`` (a rollout; a second while one is live answers 409),
+``rollout``, ``rollout/abort`` and ``rollout/ack``. Not carried
+(ROADMAP.md): the trace and drift routes, fleet health, metrics, the web
+UI, and the standby and recovery gates.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from urllib.parse import parse_qs, urlparse
 
 from rafiki_tpu_torch import config
 from rafiki_tpu_torch.admin.admin import Admin, InvalidRequestError
+from rafiki_tpu_torch.admin.rollout import RolloutInFlightError
 from rafiki_tpu_torch.cache.queue import FrameTooLargeError, QueueFullError
 from rafiki_tpu_torch.constants import UserType
 from rafiki_tpu_torch.placement.manager import InsufficientChipsError
@@ -257,6 +260,32 @@ class AdminServer:
             r("POST", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/stop",
                 _APP_DEVS, lambda au, m, b, q: A.stop_inference_job(
                     au["user_id"], m["app"], int(m["v"]))),
+            # the live fleet: add or drain replicas; move the job to
+            # another trial under traffic (admin/rollout.py)
+            r("POST", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/scale",
+                _APP_DEVS, lambda au, m, b, q: A.scale_inference_job(
+                    au["user_id"], m["app"], int(m["v"]),
+                    delta=_num_field(b, "delta", int))),
+            r("POST", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/update",
+                _APP_DEVS, lambda au, m, b, q: A.update_inference_job(
+                    au["user_id"], m["app"], int(m["v"]),
+                    trial_id=_field(b, "trial_id"),
+                    canary_fraction=(
+                        _num_field(b, "canary_fraction", float, -1.0)
+                        if "canary_fraction" in b else None),
+                    batch=(_num_field(b, "batch", int, 1)
+                           if "batch" in b else None))),
+            r("GET", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/rollout",
+                _ANY, lambda au, m, b, q: A.get_rollout_status(
+                    au["user_id"], m["app"], int(m["v"]))),
+            r("POST",
+                r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/rollout/abort",
+                _APP_DEVS, lambda au, m, b, q: A.abort_rollout(
+                    au["user_id"], m["app"], int(m["v"]))),
+            r("POST",
+                r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/rollout/ack",
+                _APP_DEVS, lambda au, m, b, q: A.ack_rollout(
+                    au["user_id"], m["app"], int(m["v"]))),
             # serving
             r("POST", r"/predict/(?P<app>[^/]+)", _ANY, lambda au, m, b, q:
                 {"predictions": A.predict(
@@ -362,6 +391,9 @@ class AdminServer:
             self._respond(handler, 401, {"error": str(e)})
         except (InvalidRequestError, InvalidModelClassError) as e:
             self._respond(handler, 400, {"error": f"{type(e).__name__}: {e}"})
+        except RolloutInFlightError as e:
+            # one live rollout a job: retry once it ends, or abort it
+            self._respond(handler, 409, {"error": f"{type(e).__name__}: {e}"})
         except FrameTooLargeError as e:
             # permanent for this payload: 413, never the retryable 429
             self._respond(handler, 413, {"error": f"{type(e).__name__}: {e}"})

@@ -6,11 +6,15 @@ users, models (upload from a file path or bytes, download, dry-run
 verification), train jobs, trials (logs, params, ``load_trial_model``),
 inference jobs and ``predict``, ``predict_direct`` and ``generate``
 (through the job's own door), and the advisor sessions a process-placed
-train worker uses (``advisor/remote.py``). It speaks HTTP with the standard library's
-``urllib.request``, and ``http.client`` for the chunked streams; a
-non-200 answer raises :class:`RafikiError` with the status, and an admin
-that cannot be reached raises :class:`AdminUnavailableError`.
-Multi-address failover, rollout and drift are not ported (ROADMAP.md).
+train worker uses (``advisor/remote.py``), and the live fleet: scaling a
+running job, and rollouts (``update_inference_job``, ``get_rollout``,
+``abort_rollout``, ``ack_rollout``, ``wait_until_rollout_done``). It
+speaks HTTP with the standard library's ``urllib.request``, and
+``http.client`` for the chunked streams; a non-200 answer raises
+:class:`RafikiError` with the status (409 as
+:class:`RolloutInFlightError`), and an admin that cannot be reached
+raises :class:`AdminUnavailableError`. Multi-address failover and drift
+are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -53,6 +57,23 @@ class GenerationStreamError(RafikiError):
     transport."""
 
 
+class RolloutInFlightError(RafikiError):
+    """The admin answered 409: a rollout of this inference job is already
+    live. Wait it out (:meth:`Client.wait_until_rollout_done`) or abort it
+    (:meth:`Client.abort_rollout`), then retry."""
+
+
+class RolloutRolledBackError(RafikiError):
+    """The rollout ended short of DONE: ``phase`` is ``ROLLED_BACK`` (the
+    judge fired, or the canary's deploy failed: ``reason`` says which) or
+    ``ABORTED``. The job serves the incumbent version."""
+
+    def __init__(self, message: str, phase: str, reason: Optional[str]):
+        super().__init__(message)
+        self.phase = phase
+        self.reason = reason
+
+
 class Client:
     def __init__(self, admin_host: str = "127.0.0.1", admin_port: int = 3000,
                  timeout_s: Optional[float] = None):
@@ -92,6 +113,10 @@ class Client:
         except ValueError:
             raise RafikiError(f"Bad response ({status}): {raw[:200]!r}",
                               status=status)
+        if status == 409:
+            raise RolloutInFlightError(
+                payload.get("error", "rollout already in flight"),
+                status=409)
         if status != 200:
             raise RafikiError(payload.get("error", f"HTTP {status}"),
                               status=status)
@@ -254,6 +279,72 @@ class Client:
     def get_inference_job_stats(self, app: str, app_version: int = -1) -> Dict:
         """Per-worker batches and queries, and the batch occupancy."""
         return self._call("GET", f"/inference_jobs/{app}/{app_version}/stats")
+
+    def scale_inference_job(self, app: str, delta: int,
+                            app_version: int = -1) -> Dict:
+        """Add (``delta`` > 0) or drain (``delta`` < 0) replicas of the
+        app's running inference job, without a redeploy. The answer: the
+        replicas added and removed, those promoted from the warm pool, the
+        cards borrowed and returned, and the live replica count."""
+        return self._call(
+            "POST", f"/inference_jobs/{app}/{app_version}/scale",
+            {"delta": int(delta)})
+
+    def update_inference_job(self, app: str, trial_id: str,
+                             app_version: int = -1,
+                             canary_fraction: Optional[float] = None,
+                             batch: Optional[int] = None) -> Dict:
+        """Move the app's running inference job to ``trial_id`` under
+        traffic: a canary takes ``canary_fraction`` of it while the judge
+        compares, then a rolling replace in ``batch``-sized steps, or a
+        rollback. Returns the rollout row (phase ``CANARY``) at once;
+        raises :class:`RolloutInFlightError` while another is live."""
+        body: Dict[str, Any] = {"trial_id": trial_id}
+        if canary_fraction is not None:
+            body["canary_fraction"] = float(canary_fraction)
+        if batch is not None:
+            body["batch"] = int(batch)
+        return self._call(
+            "POST", f"/inference_jobs/{app}/{app_version}/update", body)
+
+    def get_rollout(self, app: str, app_version: int = -1) -> Dict:
+        """The app's newest rollout (a live one carries the judge's
+        signals)."""
+        return self._call(
+            "GET", f"/inference_jobs/{app}/{app_version}/rollout")
+
+    def abort_rollout(self, app: str, app_version: int = -1) -> Dict:
+        """Abort the live rollout: the new version drained, the incumbents
+        restored (``ROLLED_BACK``, "operator abort")."""
+        return self._call(
+            "POST", f"/inference_jobs/{app}/{app_version}/rollout/abort")
+
+    def ack_rollout(self, app: str, app_version: int = -1) -> Dict:
+        """Acknowledge the newest rolled-back rollout."""
+        return self._call(
+            "POST", f"/inference_jobs/{app}/{app_version}/rollout/ack")
+
+    def wait_until_rollout_done(self, app: str, app_version: int = -1,
+                                timeout_s: float = 300.0) -> Dict:
+        """Poll until the rollout ends: its row on ``DONE``;
+        :class:`RolloutRolledBackError` (with the reason) on
+        ``ROLLED_BACK`` or ``ABORTED``; ``TimeoutError`` past
+        ``timeout_s``."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            rollout = self.get_rollout(app, app_version)
+            phase = rollout.get("phase")
+            if phase == "DONE":
+                return rollout
+            if phase in ("ROLLED_BACK", "ABORTED"):
+                raise RolloutRolledBackError(
+                    f"rollout {rollout.get('id', '?')[:8]} ended "
+                    f"{phase}: {rollout.get('reason')}",
+                    phase=phase, reason=rollout.get("reason"))
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"rollout still {phase} after {timeout_s:.0f}s")
+            time.sleep(0.1)
 
     def stop_inference_job(self, app: str, app_version: int = -1) -> Dict:
         return self._call("POST",

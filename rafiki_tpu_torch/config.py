@@ -6,7 +6,10 @@ Paths, the settings a live deployment may retune
 ``PREDICTOR_HOST``, the generation worker's and the door's ``GEN_*``
 (speculation and stream continuity among them), the trial fault
 settings ``TRIAL_*`` (vectorized trials' ``TRIAL_VMAP`` and
-``TRIAL_VMAP_K`` among them) and ``PENDING_FEEDBACK_MAX``) and the wall-clock
+``TRIAL_VMAP_K`` among them), ``PENDING_FEEDBACK_MAX``, and the fleet's
+knobs: the autoscaler's, fair admission's and the warm pool's
+``AUTOSCALE_*``, ``GEN_OCCUPANCY_HIGH`` and the rollouts' ``ROLLOUT_*``)
+and the wall-clock
 budgets (``PREDICT_TIMEOUT_S``, ``SERVICE_DEPLOY_TIMEOUT_S``,
 ``DIST_TIMEOUT_S``) are read
 at each use (module ``__getattr__``), so a test or an operator
@@ -192,6 +195,76 @@ _DYNAMIC = {
     # -- several devices (parallel/ranks.py): seconds a rank waits on the
     # others, in a collective or for a reply, before the call fails
     "DIST_TIMEOUT_S": lambda: _env_float("RAFIKI_DIST_TIMEOUT_S", 300.0),
+    # -- the serving autoscaler (admin/autoscaler.py), off by default:
+    # its tick, the signal window, the shed count and mean backlog that
+    # read overload, the backlog that still reads idle, the replica
+    # bounds and step, the cooldowns after an action (down much longer
+    # than up), a drained replica's window, and the cards serving may
+    # never borrow into
+    "AUTOSCALE": lambda: os.environ.get("RAFIKI_AUTOSCALE", "0") == "1",
+    "AUTOSCALE_INTERVAL_S": lambda: _env_float(
+        "RAFIKI_AUTOSCALE_INTERVAL_S", 2.0),
+    "AUTOSCALE_WINDOW_S": lambda: _env_float(
+        "RAFIKI_AUTOSCALE_WINDOW_S", 15.0),
+    "AUTOSCALE_SHED_THRESHOLD": lambda: _env_int(
+        "RAFIKI_AUTOSCALE_SHED_THRESHOLD", 3),
+    "AUTOSCALE_DEPTH_HIGH": lambda: _env_float(
+        "RAFIKI_AUTOSCALE_DEPTH_HIGH", 8.0),
+    "AUTOSCALE_DEPTH_LOW": lambda: _env_float(
+        "RAFIKI_AUTOSCALE_DEPTH_LOW", 1.0),
+    "AUTOSCALE_MIN_REPLICAS": lambda: _env_int(
+        "RAFIKI_AUTOSCALE_MIN_REPLICAS", 1),
+    "AUTOSCALE_MAX_REPLICAS": lambda: _env_int(
+        "RAFIKI_AUTOSCALE_MAX_REPLICAS", 8),
+    "AUTOSCALE_STEP": lambda: _env_int("RAFIKI_AUTOSCALE_STEP", 1),
+    "AUTOSCALE_COOLDOWN_UP_S": lambda: _env_float(
+        "RAFIKI_AUTOSCALE_COOLDOWN_UP_S", 5.0),
+    "AUTOSCALE_COOLDOWN_DOWN_S": lambda: _env_float(
+        "RAFIKI_AUTOSCALE_COOLDOWN_DOWN_S", 30.0),
+    "AUTOSCALE_DRAIN_S": lambda: _env_float("RAFIKI_AUTOSCALE_DRAIN_S", 10.0),
+    "AUTOSCALE_TRAIN_FLOOR": lambda: _env_int(
+        "RAFIKI_AUTOSCALE_TRAIN_FLOOR", 1),
+    # weighted fair admission at the shared door: the half-life of a
+    # tenant's admitted-query charge, the queries it may run past its
+    # share, and the weights ("appA=3,appB=1"; unlisted tenants weigh 1)
+    "AUTOSCALE_FAIR": lambda: os.environ.get(
+        "RAFIKI_AUTOSCALE_FAIR", "0") == "1",
+    "AUTOSCALE_FAIR_WINDOW_S": lambda: _env_float(
+        "RAFIKI_AUTOSCALE_FAIR_WINDOW_S", 10.0),
+    "AUTOSCALE_FAIR_BURST": lambda: _env_float(
+        "RAFIKI_AUTOSCALE_FAIR_BURST", 32.0),
+    "AUTOSCALE_FAIR_WEIGHTS": lambda: os.environ.get(
+        "RAFIKI_AUTOSCALE_FAIR_WEIGHTS", ""),
+    # the warm pool (admin/warm_pool.py): standbys kept a RUNNING job (0:
+    # off), its tick, the failed placements in a row before a job's pool
+    # is DEGRADED, and how long it then waits
+    "AUTOSCALE_WARM_POOL": lambda: _env_int(
+        "RAFIKI_AUTOSCALE_WARM_POOL", 0),
+    "AUTOSCALE_WARM_POOL_INTERVAL_S": lambda: _env_float(
+        "RAFIKI_AUTOSCALE_WARM_POOL_INTERVAL_S", 5.0),
+    "AUTOSCALE_WARM_RETRY_MAX": lambda: _env_int(
+        "RAFIKI_AUTOSCALE_WARM_RETRY_MAX", 3),
+    "AUTOSCALE_WARM_RETRY_COOLDOWN_S": lambda: _env_float(
+        "RAFIKI_AUTOSCALE_WARM_RETRY_COOLDOWN_S", 30.0),
+    # mean generation occupancy over the autoscaler's window that reads
+    # saturated (the binding resource: pool pages, or slots)
+    "GEN_OCCUPANCY_HIGH": lambda: _env_float(
+        "RAFIKI_GEN_OCCUPANCY_HIGH", 0.85),
+    # -- live rollouts (admin/rollout.py): the canary's share of traffic,
+    # the judge's trailing window, the canary requests a verdict needs,
+    # the error-rate delta and p95 factor that breach, and the replicas
+    # replaced a rolling batch
+    "ROLLOUT_CANARY_FRACTION": lambda: _env_float(
+        "RAFIKI_ROLLOUT_CANARY_FRACTION", 0.1),
+    "ROLLOUT_JUDGE_WINDOW_S": lambda: _env_float(
+        "RAFIKI_ROLLOUT_JUDGE_WINDOW_S", 10.0),
+    "ROLLOUT_MIN_REQUESTS": lambda: _env_int(
+        "RAFIKI_ROLLOUT_MIN_REQUESTS", 5),
+    "ROLLOUT_ERR_DELTA": lambda: _env_float(
+        "RAFIKI_ROLLOUT_ERR_DELTA", 0.1),
+    "ROLLOUT_P95_FACTOR": lambda: _env_float(
+        "RAFIKI_ROLLOUT_P95_FACTOR", 3.0),
+    "ROLLOUT_BATCH": lambda: _env_int("RAFIKI_ROLLOUT_BATCH", 1),
 }
 
 
@@ -231,9 +304,6 @@ _UNPORTED = (
     ("RAFIKI_PLACEMENT", lambda v: v == "hosts", "host placement (agents)"),
     ("RAFIKI_SANDBOX", _is_one, "the trial sandbox"),
     ("RAFIKI_INSTALL_DEPS", _is_one, "dependency provisioning"),
-    ("RAFIKI_AUTOSCALE", _is_one, "the serving autoscaler"),
-    ("RAFIKI_AUTOSCALE_FAIR", _is_one, "weighted fair admission"),
-    ("RAFIKI_AUTOSCALE_WARM_POOL", _positive, "the warm pool"),
     ("RAFIKI_DRIFT", _is_one, "drift detection and retraining"),
     ("RAFIKI_AGENTS", bool, "host placement (agents)"),
     ("RAFIKI_ADMIN_ADDRS", bool, "admin failover (HA)"),

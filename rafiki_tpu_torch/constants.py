@@ -84,6 +84,22 @@ class ServiceType:
     ADVISOR = "ADVISOR"
 
 
+class RolloutPhase:
+    """A live rollout's phases (admin/rollout.py): CANARY and ROLLING are
+    live (one a job at most), the other three terminal; ABORTED ended
+    without a rollback pass (the job stopped, the admin shut down, a stale
+    row was swept)."""
+
+    CANARY = "CANARY"
+    ROLLING = "ROLLING"
+    DONE = "DONE"
+    ROLLED_BACK = "ROLLED_BACK"
+    ABORTED = "ABORTED"
+
+    LIVE = (CANARY, ROLLING)
+    TERMINAL = (DONE, ROLLED_BACK, ABORTED)
+
+
 class ModelAccessRight:
     PUBLIC = "PUBLIC"
     PRIVATE = "PRIVATE"

@@ -3,7 +3,8 @@
 Own copy of ``rafiki_tpu/db/database.py`` for the tables this slice uses
 (``user``, ``model``, ``train_job``, ``sub_train_job``, ``service``,
 ``trial``, ``train_job_worker``, ``inference_job``,
-``inference_job_worker``, ``trial_log``), with the same columns, types,
+``inference_job_worker``, ``rollout``, ``trial_log``), with the same
+columns, types,
 method names and row shapes. JSON columns (``budget``, ``knobs``,
 ``dependencies``, ``chips``) come back decoded. Job status changes are
 guarded transitions (``WHERE status IN ...``): a late write that would
@@ -12,7 +13,7 @@ inserts in one IMMEDIATE transaction, so parallel workers never overshoot
 a trial budget.
 
 Not ported (ROADMAP.md): the PostgreSQL backend, epoch fencing and its
-lease table, the rollout and drift tables, chaos hooks and the migrations
+lease table, the drift table, chaos hooks and the migrations
 for stores written by older versions.
 """
 
@@ -30,6 +31,7 @@ from rafiki_tpu_torch import config
 from rafiki_tpu_torch.config import NotPortedError
 from rafiki_tpu_torch.constants import (
     InferenceJobStatus,
+    RolloutPhase,
     ServiceStatus,
     TrainJobStatus,
     TrialStatus,
@@ -129,6 +131,21 @@ CREATE TABLE IF NOT EXISTS inference_job_worker (
     borrowed_chips INTEGER NOT NULL DEFAULT 0,
     standby INTEGER NOT NULL DEFAULT 0
 );
+CREATE TABLE IF NOT EXISTS rollout (
+    id TEXT PRIMARY KEY,
+    inference_job_id TEXT NOT NULL REFERENCES inference_job(id),
+    from_trial_id TEXT,
+    to_trial_id TEXT NOT NULL,
+    from_version INTEGER NOT NULL,
+    to_version INTEGER NOT NULL,
+    n_replicas_before INTEGER NOT NULL DEFAULT 0,
+    phase TEXT NOT NULL,
+    reason TEXT,
+    events TEXT NOT NULL DEFAULT '[]',
+    operator_ack INTEGER NOT NULL DEFAULT 0,
+    datetime_started REAL NOT NULL,
+    datetime_stopped REAL
+);
 CREATE TABLE IF NOT EXISTS trial_log (
     id INTEGER PRIMARY KEY AUTOINCREMENT,
     trial_id TEXT NOT NULL REFERENCES trial(id),
@@ -141,7 +158,7 @@ CREATE INDEX IF NOT EXISTS idx_trial_log_trial ON trial_log(trial_id);
 #: the tables of :data:`_SCHEMA`, in creation order
 TABLES = ("user", "model", "train_job", "sub_train_job", "service", "trial",
           "train_job_worker", "inference_job", "inference_job_worker",
-          "trial_log")
+          "rollout", "trial_log")
 
 
 def _decode(row: Optional[Dict[str, Any]], *columns: str,
@@ -596,6 +613,85 @@ class Database:
         return self._all(
             "SELECT * FROM inference_job_worker WHERE inference_job_id=?",
             (inference_job_id,))
+
+    def set_worker_borrowed_chips(self, service_id: str,
+                                  n_chips: int) -> None:
+        """The cards a serving replica borrowed above the training floor
+        (0: none), the durable twin of the arbiter's loan book."""
+        self._exec("UPDATE inference_job_worker SET borrowed_chips=?"
+                   " WHERE service_id=?", (int(n_chips), service_id))
+
+    def set_worker_standby(self, service_id: str, standby: bool) -> None:
+        """A replica's warm-standby flag (0: routable). A promotion clears
+        it before the predictor routes to the replica."""
+        self._exec(
+            "UPDATE inference_job_worker SET standby=? WHERE service_id=?",
+            (1 if standby else 0, service_id))
+
+    # -- rollouts (admin/rollout.py) -----------------------------------------
+
+    @staticmethod
+    def _parse_rollout(row: Optional[Dict]) -> Optional[Dict]:
+        if row is not None:
+            try:
+                row["events"] = json.loads(row.get("events") or "[]")
+            except ValueError:
+                row["events"] = []
+            row["operator_ack"] = bool(row.get("operator_ack"))
+        return row
+
+    def create_rollout(self, inference_job_id: str,
+                       from_trial_id: Optional[str], to_trial_id: str,
+                       from_version: int, to_version: int,
+                       n_replicas_before: int, phase: str) -> Dict:
+        rid = uuid.uuid4().hex
+        self._exec(
+            "INSERT INTO rollout (id, inference_job_id, from_trial_id,"
+            " to_trial_id, from_version, to_version, n_replicas_before,"
+            " phase, datetime_started) VALUES (?,?,?,?,?,?,?,?,?)",
+            (rid, inference_job_id, from_trial_id, to_trial_id,
+             int(from_version), int(to_version), int(n_replicas_before),
+             phase, time.time()))
+        return self.get_rollout(rid)
+
+    def get_rollout(self, rollout_id: str) -> Optional[Dict]:
+        return self._parse_rollout(self._one(
+            "SELECT * FROM rollout WHERE id=?", (rollout_id,)))
+
+    def get_rollouts_of_inference_job(self,
+                                      inference_job_id: str) -> List[Dict]:
+        """The job's rollouts, newest first."""
+        return [self._parse_rollout(r) for r in self._all(
+            "SELECT * FROM rollout WHERE inference_job_id=?"
+            " ORDER BY datetime_started DESC", (inference_job_id,))]
+
+    def get_rollouts_by_phases(self, phases: List[str]) -> List[Dict]:
+        marks = ",".join("?" * len(phases))
+        return [self._parse_rollout(r) for r in self._all(
+            f"SELECT * FROM rollout WHERE phase IN ({marks})",
+            tuple(phases))]
+
+    def mark_rollout_phase(self, rollout_id: str, phase: str,
+                           reason: Optional[str] = None) -> None:
+        """A phase move; a terminal phase stamps ``datetime_stopped`` and
+        keeps the reason (the rollback's trigger, the abort's cause)."""
+        if phase in RolloutPhase.TERMINAL:
+            self._exec("UPDATE rollout SET phase=?, reason=?,"
+                       " datetime_stopped=? WHERE id=?",
+                       (phase, reason, time.time(), rollout_id))
+        else:
+            self._exec("UPDATE rollout SET phase=? WHERE id=?",
+                       (phase, rollout_id))
+
+    def update_rollout_events(self, rollout_id: str,
+                              events: List[Dict]) -> None:
+        self._exec("UPDATE rollout SET events=? WHERE id=?",
+                   (json.dumps(events), rollout_id))
+
+    def ack_rollout(self, rollout_id: str) -> None:
+        """An operator saw the rollback."""
+        self._exec("UPDATE rollout SET operator_ack=1 WHERE id=?",
+                   (rollout_id,))
 
     # -- services ------------------------------------------------------------
 

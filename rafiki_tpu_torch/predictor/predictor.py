@@ -28,15 +28,22 @@ Own copy of the serving core of ``rafiki_tpu/predictor/predictor.py``:
   replica dies (its queue gone at the door's stall window) or hands the
   stream back ``migrating`` it resumes the stream on a sibling of the
   same model version; the keyed draws make the continuation the same
-  tokens (``gen_continuity_stats``).
+  tokens (``gen_continuity_stats``);
+- version lanes while a rollout is in flight (``admin/rollout.py``): a
+  deterministic weighted counter sends each request to ONE lane, the
+  incumbents or the new-version replicas, never an ensemble across
+  versions; a canary-lane failure fails over to the incumbents, an
+  incumbent failure never reaches the canary; each lane's outcomes and
+  latencies feed the judge (``rollout_stats``); a generation stream draws
+  its lane once and a resume stays on its version; the serving version
+  (the cache's key) moves with :meth:`Predictor.set_serving_version`.
 
-Rollout lanes and drift are not ported yet (ROADMAP.md, item 8): a
-resume targets the fleet's ``serving_version``, which, like the version
-the cache keys on, stays 0 until rollouts.
+The drift tap is not ported (ROADMAP.md, item 8b).
 """
 
 from __future__ import annotations
 
+import collections
 import itertools
 import logging
 import random
@@ -58,8 +65,13 @@ from rafiki_tpu_torch.predictor.ensemble import (
     _PROB_TASKS,
     ensemble_predictions,
 )
+from rafiki_tpu_torch.utils.metrics import REGISTRY
 
 logger = logging.getLogger(__name__)
+
+#: the version lanes of a rollout: every request is served by exactly one
+LANE_INCUMBENT = "incumbent"
+LANE_CANARY = "canary"
 
 
 class CrossVersionResumeError(GenerationError):
@@ -76,15 +88,18 @@ class _JournalEntry:
     ``resumable``/``cancelled``/``closed`` flags are shared with the
     predictor, under its ``_journal_lock``."""
 
-    __slots__ = ("query", "tokens", "deadline", "version", "worker_id",
-                 "t0", "bytes", "resumable", "attempts", "cancelled",
-                 "closed")
+    __slots__ = ("query", "tokens", "deadline", "lane", "version",
+                 "worker_id", "t0", "bytes", "resumable", "attempts",
+                 "cancelled", "closed")
 
-    def __init__(self, query: Dict[str, Any], worker_id: str, version: int,
+    def __init__(self, query: Dict[str, Any], worker_id: str,
+                 lane: Optional[str], version: int,
                  deadline: float) -> None:
         self.query = query
         self.tokens: List[int] = []
         self.deadline = deadline
+        # the rollout lane the stream drew (None: no rollout)
+        self.lane = lane
         self.version = version
         self.worker_id = worker_id
         self.t0 = time.monotonic()
@@ -105,7 +120,8 @@ class Predictor:
         map stands alone as its own trial, unless a map exists: then an
         unmapped queue is a replica still warming up, and it joins the
         fan-out when :meth:`add_worker` maps it. ``serving_version`` is
-        the fleet's model version, the cache's key (0 until rollouts)."""
+        the fleet's model version, the cache's key (0 for a first deploy;
+        a finished rollout moves it, :meth:`set_serving_version`)."""
         self._job_id = inference_job_id
         self._broker = broker
         self._task = task
@@ -122,6 +138,26 @@ class Predictor:
             "trials_shed": 0,        # trials dropped: every replica full
             "requests_shed": 0,      # requests refused: every trial shed
         }
+        # the job's shed series, which the autoscaler reads
+        self._ring_shed = REGISTRY.ring(f"shed_rate:job:{inference_job_id}")
+        # -- rollout lanes: the new-version replicas, their share of the
+        # traffic in permille, the weighted counter, the lane's version
+        self._lane_new: Optional[set] = None  # guarded-by: _route_lock
+        self._lane_permille = 0  # guarded-by: _route_lock
+        self._lane_counter = itertools.count()
+        self._lane_version: Optional[int] = None  # guarded-by: _route_lock
+        # (monotonic ts, duration s, outcome) a lane, the judge's input
+        self._lane_stats: Dict[str, collections.deque] = {  # guarded-by: _route_lock
+            LANE_INCUMBENT: collections.deque(maxlen=4096),
+            LANE_CANARY: collections.deque(maxlen=4096),
+        }
+        self._m_lane_req = REGISTRY.counter(
+            "rafiki_rollout_requests_total",
+            "requests served per rollout version lane",
+            ("job", "lane", "outcome"))
+        self._m_lane_lat = REGISTRY.histogram(
+            "rafiki_rollout_request_seconds",
+            "request latency per rollout version lane", ("job", "lane"))
         # sampled duplicate-query probe while the cache is off
         self._share_rr = itertools.count()
         self._cache_degraded_logged = False
@@ -144,6 +180,8 @@ class Predictor:
     def _bump(self, key: str, n: int = 1) -> None:
         with self._ol_lock:
             self._overload[key] += n
+        if key in ("trials_shed", "requests_shed"):
+            self._ring_shed.add(n)
 
     # -- membership --------------------------------------------------------
 
@@ -177,6 +215,81 @@ class Predictor:
     def serving_version(self) -> int:
         with self._route_lock:
             return self._serving_version
+
+    # -- rollout lanes -----------------------------------------------------
+
+    def set_rollout_lane(self, new_workers, fraction: float,
+                         new_version: Optional[int] = None) -> None:
+        """Start (or re-weight) lane routing: ``fraction`` of requests go
+        to ``new_workers``, by the weighted counter. A lane started from
+        none clears both lanes' outcomes, so the judge never reads an
+        earlier rollout's window; a re-weight keeps them.
+        ``new_version`` keys the canary lane's cache traffic (None keeps
+        the lane's version)."""
+        permille = max(0, min(int(round(float(fraction) * 1000)), 1000))
+        with self._route_lock:
+            fresh = self._lane_new is None
+            self._lane_new = set(new_workers)
+            self._lane_permille = permille
+            if new_version is not None:
+                self._lane_version = int(new_version)
+            if fresh:
+                for dq in self._lane_stats.values():
+                    dq.clear()
+
+    def clear_rollout_lane(self) -> None:
+        """End lane routing: every routable replica serves again."""
+        with self._route_lock:
+            self._lane_new = None
+            self._lane_permille = 0
+            self._lane_version = None
+
+    def set_serving_version(self, version: int) -> None:
+        """The incumbents' version moved (a rollout's DONE, or a
+        rollback's restore): the cache keys on it from now on."""
+        with self._route_lock:
+            self._serving_version = int(version)
+
+    def _lane_snapshot(self):
+        with self._route_lock:
+            return (set(self._lane_new) if self._lane_new is not None
+                    else None), self._lane_permille
+
+    def _lane_take_new(self, permille: int) -> bool:
+        """The weighted counter, error-diffusion style: the canary's picks
+        spread evenly through the stream (``n % 1000 < permille`` would
+        send them in one burst)."""
+        n = next(self._lane_counter)
+        return (n + 1) * permille // 1000 > n * permille // 1000
+
+    def _lane_record(self, lane: str, outcome: str,
+                     duration_s: float) -> None:
+        # under the route lock: the judge iterates these deques
+        with self._route_lock:
+            self._lane_stats[lane].append(
+                (time.monotonic(), duration_s, outcome))
+        self._m_lane_req.labels(self._job_id, lane, outcome).inc()
+        if outcome == "ok":
+            self._m_lane_lat.labels(self._job_id, lane).observe(duration_s)
+
+    def rollout_stats(self, window_s: float) -> Dict[str, Dict[str, Any]]:
+        """Each lane over the trailing ``window_s``: requests, oks, errors,
+        sheds and the p95 of the oks' latency (the judge's input)."""
+        cutoff = time.monotonic() - max(window_s, 0.0)
+        with self._route_lock:
+            snapshots = {lane: list(dq)
+                         for lane, dq in self._lane_stats.items()}
+        out: Dict[str, Dict[str, Any]] = {}
+        for lane, entries_all in snapshots.items():
+            entries = [e for e in entries_all if e[0] >= cutoff]
+            oks = sorted(d for _, d, o in entries if o == "ok")
+            errors = sum(1 for e in entries if e[2] == "error")
+            shed = sum(1 for e in entries if e[2] == "shed")
+            p95 = oks[min(int(len(oks) * 0.95), len(oks) - 1)] if oks \
+                else None
+            out[lane] = {"requests": len(entries), "ok": len(oks),
+                         "errors": errors, "shed": shed, "p95_s": p95}
+        return out
 
     def _route_snapshot(self):
         with self._route_lock:
@@ -239,14 +352,72 @@ class Predictor:
         trials, draining = self._route_snapshot()
         routable = [w for w in queues
                     if not trials or w in trials] or list(queues)
-        version = self._cache_plan()
-        if version is None:
+        # one lane draw a request, and one split that both the cache plan
+        # and the serving path use: the cache keys on the lane that serves
+        lane_new, permille = self._lane_snapshot()
+        take_new = (self._lane_take_new(permille)
+                    if lane_new is not None else False)
+        split = self._lane_split(routable, lane_new, take_new, draining)
+        plan = self._cache_plan(split)
+        if plan is None:
             self._take_digest_stash(queries)
             self._maybe_note_shareable(queries)
+            return self._serve_lanes(queries, queues, routable, trials,
+                                     draining, deadline, split)[0]
+        return self._serve_cached(plan, queries, queues, routable,
+                                  trials, draining, deadline, split)
+
+    @staticmethod
+    def _lane_split(routable: List[str], lane_new: Optional[set],
+                    take_new: bool, draining: "frozenset[str]" = frozenset()):
+        """None with no lane set, else ``(primary, fallback, lane,
+        pure)``; ``pure`` is False when the canary label serves a set
+        that may hold incumbents (no new-version replica is left). When
+        every incumbent is draining (the rolling phase retires them), the
+        new version serves: a request sent to the last incumbent while
+        its drain closes the queue would be lost (the JAX package routes
+        it there; ROADMAP.md, queue C)."""
+        if lane_new is None:
+            return None
+        new_r = [w for w in routable if w in lane_new]
+        old_r = [w for w in routable if w not in lane_new]
+        retired = bool(old_r) and all(w in draining for w in old_r)
+        if new_r and (take_new or retired):
+            return new_r, old_r, LANE_CANARY, True
+        if old_r:
+            return old_r, [], LANE_INCUMBENT, True
+        # only new-version replicas are left (the end of the rolling
+        # phase): they serve everything
+        return new_r or routable, [], LANE_CANARY, bool(new_r)
+
+    def _serve_lanes(self, queries: List[Any], queues, routable: List[str],
+                     trials: Dict[str, str], draining: set,
+                     deadline: float, split) -> "tuple[List[Any], bool]":
+        """Serve over one lane (or the whole fan-out with no lane) and
+        record the lane's outcome. Returns ``(predictions, fillable)``:
+        not fillable when the ensemble was incomplete or a canary failure
+        was served by the incumbents (their answer must never be kept
+        under the new version)."""
+        if split is None:
             return self._predict_on(queries, queues, routable, trials,
-                                    draining, deadline)[0]
-        return self._serve_cached(version, queries, queues, routable,
-                                  trials, draining, deadline)
+                                    draining, deadline)
+        primary, fallback, lane, _pure = split
+        t0 = time.monotonic()
+        try:
+            preds, fillable = self._predict_on(queries, queues, primary,
+                                               trials, draining, deadline)
+        except Exception as e:
+            self._lane_record(
+                lane, "shed" if isinstance(e, QueueFullError) else "error",
+                time.monotonic() - t0)
+            if lane == LANE_CANARY and fallback \
+                    and time.monotonic() < deadline:
+                preds, _ = self._predict_on(queries, queues, fallback,
+                                            trials, draining, deadline)
+                return preds, False
+            raise
+        self._lane_record(lane, "ok", time.monotonic() - t0)
+        return preds, fillable
 
     def _predict_on(self, queries: List[Any], queues, routable: List[str],
                     trials: Dict[str, str], draining: set,
@@ -395,11 +566,22 @@ class Predictor:
         with self._route_lock:
             return len(set(self._worker_trials.values())) <= 1
 
-    def _cache_plan(self) -> Optional[int]:
-        """The version to key on, or None to bypass the cache."""
+    def _cache_plan(self, split) -> "Optional[tuple[int, bool]]":
+        """None to bypass the cache, else ``(version, read_ok)``: the
+        version to key on and whether hits may be served. The canary lane
+        only fills (the judge needs real forwards), under its own version;
+        an impure canary split bypasses the cache."""
         if not config.PREDICT_CACHE or not self._cacheable_task():
             return None
-        return self.serving_version()
+        if split is not None and split[2] == LANE_CANARY:
+            if not split[3]:
+                return None
+            with self._route_lock:
+                lane_version = self._lane_version
+                serving = self._serving_version
+            return (lane_version if lane_version is not None
+                    else serving), False
+        return self.serving_version(), True
 
     def _cache_op(self, fn, fallback):
         """Run one cache operation; a fault in it serves the miss path,
@@ -417,20 +599,22 @@ class Predictor:
             result_cache.get_cache().note_degraded()
             return fallback
 
-    def _serve_cached(self, version: int, queries: List[Any], queues,
-                      routable: List[str], trials: Dict[str, str],
-                      draining: set, deadline: float) -> List[Any]:
+    def _serve_cached(self, plan: "tuple[int, bool]", queries: List[Any],
+                      queues, routable: List[str], trials: Dict[str, str],
+                      draining: set, deadline: float,
+                      split) -> List[Any]:
         """Hits from the cache, identical misses behind one leader's
         forward, the rest forwarded as one sub-batch, then a fill for
-        each resolved query (unless the ensemble was incomplete)."""
+        each resolved query (unless the answer is not fillable)."""
         from rafiki_tpu_torch.predictor import result_cache
 
+        version, read_ok = plan
         cache = result_cache.get_cache()
         job = self._job_id
         epoch = self._cache_op(lambda: cache.epoch(job), 0)
         digests = self._request_digests(queries)
         results: List[Any] = [None] * len(queries)
-        single_flight = bool(config.PREDICT_SINGLEFLIGHT)
+        single_flight = read_ok and bool(config.PREDICT_SINGLEFLIGHT)
         followers: Dict[int, QueryFuture] = {}
         lead: Dict[str, List[int]] = {}  # digest -> this request's indices
         flights: Dict[str, Any] = {}     # digest -> a flight this leads
@@ -442,11 +626,13 @@ class Predictor:
             if d in lead:
                 lead[d].append(i)  # a duplicate within the request
                 continue
-            hit, value = self._cache_op(
-                lambda d=d: cache.lookup(job, version, d), (False, None))
-            if hit:
-                results[i] = value
-                continue
+            if read_ok:
+                hit, value = self._cache_op(
+                    lambda d=d: cache.lookup(job, version, d),
+                    (False, None))
+                if hit:
+                    results[i] = value
+                    continue
             if single_flight:
                 role = self._cache_op(
                     lambda d=d: cache.join_flight(job, version, d), None)
@@ -461,9 +647,9 @@ class Predictor:
         complete = False
         if miss_idx:
             try:
-                miss_preds, complete = self._predict_on(
+                miss_preds, complete = self._serve_lanes(
                     [queries[i] for i in miss_idx], queues, routable,
-                    trials, draining, deadline)
+                    trials, draining, deadline, split)
             except BaseException as e:
                 # this leader's followers fail now, not at their deadline
                 for d, flight in flights.items():
@@ -510,10 +696,15 @@ class Predictor:
 
     def admission_cost(self, queries: List[Any]) -> int:
         """The queries that will reach a worker (the cache's misses):
-        the doors' admission cost. All of them with the cache off."""
-        version = self._cache_plan()
-        if version is None:
+        the doors' admission cost. All of them with the cache off or
+        while a rollout lane is set (the lane is drawn later)."""
+        lane_new, _permille = self._lane_snapshot()
+        if lane_new is not None:
             return len(queries)
+        plan = self._cache_plan(None)
+        if plan is None:
+            return len(queries)
+        version = plan[0]
 
         def peek() -> int:
             from rafiki_tpu_torch.predictor import result_cache
@@ -568,16 +759,16 @@ class Predictor:
             sampled = False
         if sampled and query.get("seed") is None:
             query["seed"] = uuid.uuid4().int & 0x7FFF_FFFF
-        stream, wid, version = self._generate_submit(query, deadline,
-                                                     frozenset())
-        entry = self._journal_open(query, wid, version, deadline)
+        stream, wid, lane, version = self._generate_submit(
+            query, deadline, frozenset())
+        entry = self._journal_open(query, wid, lane, version, deadline)
         return _ResumableStream(self, entry, stream)
 
     def _generate_submit(self, query: Dict[str, Any], deadline: float,
                          exclude: "frozenset[str]"):
-        """One admission pass: walk the routable replicas (less
-        ``exclude``) past full queues and wait for a slot. Returns
-        ``(stream, worker_id, model_version)``."""
+        """One admission pass: draw the lane, walk the routable replicas
+        (less ``exclude``) past full queues and wait for a slot. Returns
+        ``(stream, worker_id, lane, model_version)``."""
         queues = self._broker.get_worker_queues(self._job_id)
         if not queues:
             raise RuntimeError(
@@ -590,8 +781,22 @@ class Predictor:
             routable = [w for w in queues
                         if (not trials or w in trials) and w not in exclude] \
                 or [w for w in queues if w not in exclude] or list(queues)
+        # a stream answers from ONE version: a canary-lane stream goes to
+        # the new-version replicas only
+        lane_new, permille = self._lane_snapshot()
+        lane = None
+        if lane_new is not None:
+            take_new = self._lane_take_new(permille)
+            picked = [w for w in routable if (w in lane_new) == take_new]
+            if picked:
+                routable = picked
+                lane = LANE_CANARY if take_new else LANE_INCUMBENT
+            else:
+                lane = (LANE_CANARY if all(w in lane_new for w in routable)
+                        else LANE_INCUMBENT)
         rr = next(self._rr) % len(routable)
         timeout_s = max(deadline - time.monotonic(), 0.0)
+        fut = wid = None
         for wid in routable[rr:] + routable[:rr]:
             try:
                 fut = queues[wid].submit_many(
@@ -599,17 +804,37 @@ class Predictor:
                     deadline=deadline)[0]
             except QueueFullError:
                 continue
+            break
+        if fut is None:
+            self._bump("requests_shed")
+            if lane is not None:
+                self._lane_record(lane, "shed", 0.0)
+            raise QueueFullError(
+                f"all serving queues for job {self._job_id} are full")
+        t0 = time.monotonic()
+        try:
             stream = fut.result(max(deadline - time.monotonic(), 0.0))
-            return stream, wid, self.serving_version()
-        self._bump("requests_shed")
-        raise QueueFullError(
-            f"all serving queues for job {self._job_id} are full")
+        except Exception:
+            if lane is not None:
+                self._lane_record(lane, "error", time.monotonic() - t0)
+            raise
+        if lane is not None:
+            self._lane_record(lane, "ok", time.monotonic() - t0)
+        # the version the stream is pinned to: a resume stays on it
+        with self._route_lock:
+            if (self._lane_new is not None and wid in self._lane_new
+                    and self._lane_version is not None):
+                version = self._lane_version
+            else:
+                version = self._serving_version
+        return stream, wid, lane, version
 
     # -- stream continuity: the journal and the resume -----------------------
 
     def _journal_open(self, query: Dict[str, Any], worker_id: str,
-                      version: int, deadline: float) -> _JournalEntry:
-        entry = _JournalEntry(query, worker_id, version, deadline)
+                      lane: Optional[str], version: int,
+                      deadline: float) -> _JournalEntry:
+        entry = _JournalEntry(query, worker_id, lane, version, deadline)
         prompt = query.get("prompt_ids")
         n_prompt = len(prompt) if isinstance(prompt, (list, tuple)) else 0
         cost = 8 * n_prompt + 96  # ~8 B a token id and the record
@@ -657,31 +882,50 @@ class Predictor:
 
     def _journal_fail(self, entry: _JournalEntry) -> None:
         """The client lost the stream (a typed fault, or no resume
-        left): retire the entry and count the loss."""
+        left): retire the entry, count the loss and charge it to the
+        stream's lane, so the judge sees deaths mid-stream."""
         with self._journal_lock:
             already = entry.closed
         self._journal_close(entry)
         if not already:
             with self._journal_lock:
                 self._continuity["resume_failures"] += 1
+            if entry.lane is not None:
+                self._lane_record(entry.lane, "error", 0.0)
 
     def _resume_candidates(self, entry: _JournalEntry):
         """The replicas a stream may resume on: routable, not draining,
-        not the one it left, and serving its version. Raises
+        not the one it left, and serving its version (during a rollout
+        the lanes are separate resume domains). Raises
         :class:`CrossVersionResumeError` when there is none."""
         queues = self._broker.get_worker_queues(self._job_id)
         trials, draining = self._route_snapshot()
-        serving = self.serving_version()
+        with self._route_lock:
+            lane_new = (set(self._lane_new)
+                        if self._lane_new is not None else None)
+            lane_version = self._lane_version
+            serving = self._serving_version
         routable = [w for w in queues
                     if (not trials or w in trials) and w not in draining
                     and w != entry.worker_id]
-        cands = routable if entry.version == serving else []
+        if lane_new is not None:
+            if lane_version is not None and entry.version == lane_version \
+                    and lane_version != serving:
+                cands = [w for w in routable if w in lane_new]
+            elif entry.version == serving:
+                cands = [w for w in routable if w not in lane_new]
+            else:
+                cands = []
+        else:
+            cands = routable if entry.version == serving else []
         if not cands:
             with self._journal_lock:
                 self._continuity["cross_version_refusals"] += 1
             raise CrossVersionResumeError(
                 f"stream cannot resume: no routable sibling serves its "
-                f"model_version {entry.version} (fleet serves {serving})")
+                f"model_version {entry.version} (fleet serves "
+                f"{serving}" + (f", canary lane {lane_version}"
+                                if lane_version is not None else "") + ")")
         return cands, queues
 
     def _resume_stream(self, entry: _JournalEntry, reason: str):

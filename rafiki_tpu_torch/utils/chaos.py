@@ -18,7 +18,7 @@ of the requests a rule has seen, never on randomness; the controller
 re-parses ``RAFIKI_CHAOS`` whenever its value changes (counters reset
 with it).
 
-Three sites have their hooks in the port:
+Four sites have their hooks in the port:
 
 - ``trial`` (``worker/train.py``, one ask per trial attempt, target
   ``"{sub_train_job_id} {trial_id}"``): ``delay`` sleeps, ``oom`` raises
@@ -33,7 +33,13 @@ Three sites have their hooks in the port:
   ``"{job}/{service}/slot{i}/{seq_id}"`` (``drop`` mutes the stream,
   ``error`` fails it), and at the draft a speculative round, target
   ``"draft/{job}/{service}"`` (``drop`` skips speculation that round,
-  ``error`` degrades it for good).
+  ``error`` degrades it for good);
+- ``deploy`` (``admin/services.py``, one ask each time a serving replica
+  is placed: the initial deploy, a scale-up, a standby, a rollout's
+  canary, rolling and restoring replicas; target
+  ``"{inference_job_id}/{trial_id}"``): ``delay`` sleeps (a slow deploy),
+  ``error`` and ``drop`` raise the typed deploy failure (the canary
+  rollback drill).
 
 A rule naming any other site of the original raises
 :class:`~rafiki_tpu_torch.config.NotPortedError` when it is made,
@@ -74,7 +80,7 @@ SITES = (SITE_CALL_AGENT, SITE_AGENT, SITE_WORKER, SITE_WIRE, SITE_DB,
          SITE_TRIAL, SITE_GENERATE, SITE_DEPLOY, SITE_CACHE, SITE_DRIFT,
          SITE_COMPILE, SITE_LEASE)
 #: the sites whose hook the port has
-HOOKED_SITES = (SITE_TRIAL, SITE_WORKER, SITE_GENERATE)
+HOOKED_SITES = (SITE_TRIAL, SITE_WORKER, SITE_GENERATE, SITE_DEPLOY)
 
 ACTION_DROP = "drop"
 ACTION_DELAY = "delay"

@@ -42,8 +42,13 @@ back typed ``migrating`` for the door to resume on a sibling; a
 resume request (``resume_tokens``, the committed tokens) prefills the
 prompt and those tokens under the stream's seed and goes on from them.
 
-The metrics registry is not ported: the counters ride the worker's
-``serving_stats`` row.
+The counters ride the worker's ``serving_stats`` row (a drain waits out
+its ``gen_resident_streams``); the job's ``slot_occupancy:job:<id>`` ring
+in the metrics registry carries the share of the binding resource (pool
+pages, or slots) in use each round, the autoscaler's signal. The worker
+serves from its grant's first card, under a ``CHIPS_PER_WORKER`` grant
+too: the JAX worker only sets the grant, and its model sits on the
+default device.
 """
 
 from __future__ import annotations
@@ -72,6 +77,7 @@ from rafiki_tpu_torch.sdk.model import (
     spec_verify_capability,
 )
 from rafiki_tpu_torch.utils import chaos
+from rafiki_tpu_torch.utils.metrics import REGISTRY
 from rafiki_tpu_torch.worker.inference import (
     SERVING_STATS,
     InferenceWorker,
@@ -196,6 +202,10 @@ class GenerationWorker(InferenceWorker):
             ctx.ready()
             self._queue = queue
             slots: List[Optional[_Slot]] = [None] * max_slots
+            # the job's occupancy series, the autoscaler's generation
+            # signal
+            occupancy_ring = REGISTRY.ring(
+                f"slot_occupancy:job:{self._job_id}")
             self._tokens_emitted = 0
             self._seq = 0
             self._pending: List[_Pending] = []
@@ -246,6 +256,7 @@ class GenerationWorker(InferenceWorker):
                 if self._alloc is not None:
                     cache = self._prefill_round(model, spec, cache, slots)
                 n_active = sum(1 for s in slots if s is not None)
+                occupancy_ring.record(self._occupancy(slots, max_slots))
                 self._stats_row(slots, max_slots)
                 if n_active == 0 and not self._pending:
                     continue
@@ -1149,6 +1160,14 @@ class GenerationWorker(InferenceWorker):
         return list(raw)
 
     # -- stats -----------------------------------------------------------------
+
+    def _occupancy(self, slots, max_slots: int) -> float:
+        """The share of the binding resource in use: pool pages under the
+        paged layout (a few long streams can exhaust the pool with slots
+        to spare), else slots."""
+        if self._alloc is not None:
+            return self._alloc.used_blocks() / self._alloc.pool_blocks
+        return sum(1 for s in slots if s is not None) / max_slots
 
     def _stats_row(self, slots, max_slots: int) -> None:
         """Fold the slot table into this worker's ``serving_stats`` row

@@ -468,3 +468,169 @@ def test_the_admin_door_sheds_429_on_an_unmeetable_deadline(admin_door):
     assert payload["error"].startswith("DeadlineUnmeetableError")
     assert int(headers["Retry-After"]) >= 30
     assert admin._predict_admission.stats()["shed_deadline"] == 1
+
+
+# -- weighted fair admission (RAFIKI_AUTOSCALE_FAIR) ---------------------------
+
+#: (controller kwargs, environment, script) of each fair-admission case
+FAIR_SCRIPTS = {
+    # the hot tenant past its share is shed, the cold one admitted
+    "hot_and_cold": (
+        {"max_inflight": 4, "shared_tenants": True},
+        {"RAFIKI_AUTOSCALE_FAIR_BURST": "8"},
+        [("admit", 10.0), ("admit", 10.0)]
+        + [("admit", 10.0, None, "hot"), ("release", "hot")] * 50
+        + [("admit", 10.0, None, "cold"), ("release", "cold"),
+           ("admit", 10.0, None, "hot"), ("admit", 10.0, None, "cold"),
+           ("release", "cold"), ("release",), ("release",)]),
+    # a weighted tenant's share is larger
+    "weights": (
+        {"max_inflight": 2, "shared_tenants": True},
+        {"RAFIKI_AUTOSCALE_FAIR_BURST": "2",
+         "RAFIKI_AUTOSCALE_FAIR_WEIGHTS": "vip=3, junk, bad=x, zero=0"},
+        [("admit", 10.0)]
+        + [("admit", 10.0, None, "vip"), ("release", "vip")] * 12
+        + [("admit", 10.0, None, "peasant"), ("release", "peasant")] * 8
+        + [("admit", 10.0, None, "vip", 3), ("release",)]),
+    # no tenant holds every slot but one
+    "ceiling": (
+        {"max_inflight": 4, "shared_tenants": True}, {},
+        [("admit", 10.0, None, "hog")] * 4
+        + [("admit", 10.0, None, "newcomer"), ("release", "newcomer")]
+        + [("release", "hog")] * 3 + [("admit", 10.0, None, "hog")]),
+    # a door of one tenant is never rationed
+    "dedicated": (
+        {"max_inflight": 2}, {},
+        [("admit", 10.0, None, "only"), ("admit", 10.0, None, "only", 500),
+         ("release", "only"), ("release", "only")]),
+    # a backend shed opens the pressure window; cost 0 charges nothing
+    "pressure": (
+        {"max_inflight": 64, "shared_tenants": True},
+        {"RAFIKI_AUTOSCALE_FAIR_BURST": "4"},
+        [("admit", 10.0, None, "a", 10), ("release", "a"),
+         ("admit", 10.0, None, "b", 0), ("release", "b"),
+         ("admit", 10.0, None, "b", 1), ("release", "b"),
+         ("note_backend_shed",), ("admit", 10.0, None, "a", 6),
+         ("admit", 10.0, None, "b", 1), ("release", "b")]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FAIR_SCRIPTS))
+def test_fair_admission_sheds_alike_in_both_packages(name, monkeypatch):
+    """The same script under ``RAFIKI_AUTOSCALE_FAIR=1`` gives the same
+    sheds, stats and per-tenant charges (to 3 decimals, as
+    ``fair_shares`` rounds; the decay runs on each package's clock) in
+    both controllers."""
+    kw, env, script = FAIR_SCRIPTS[name]
+    monkeypatch.setenv("RAFIKI_AUTOSCALE_FAIR", "1")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+
+    def run(mod):
+        adm = mod.AdmissionController(door=_door(), **kw)
+        out = []
+        for op, *args in script:
+            if op == "admit":
+                try:
+                    adm.admit(*args)
+                    out.append(None)
+                except RuntimeError as e:
+                    out.append(type(e).__name__)
+            else:
+                getattr(adm, op)(*args)
+        shares = {t: round(v) for t, v in adm.fair_shares().items()}
+        return out, adm.stats(), shares
+
+    ours = run(tadm)
+    assert ours == run(jadm)
+    shed = ours[1]["shed_fairness"]
+    assert (shed > 0) == (name in ("hot_and_cold", "weights", "ceiling",
+                                   "pressure"))
+    if name == "hot_and_cold":
+        assert ours[0][-3:] == [None, "TenantOverShareError", None]
+        assert ours[2]["hot"] > ours[2]["cold"]
+
+
+def test_fair_charges_decay_with_the_half_life(monkeypatch):
+    monkeypatch.setenv("RAFIKI_AUTOSCALE_FAIR", "1")
+    monkeypatch.setenv("RAFIKI_AUTOSCALE_FAIR_BURST", "2")
+    monkeypatch.setenv("RAFIKI_AUTOSCALE_FAIR_WINDOW_S", "0.5")
+    adm = tadm.AdmissionController(max_inflight=2, door=_door(),
+                                   shared_tenants=True)
+    adm.admit(10.0)  # pressure: one of two slots held
+    try:
+        for _ in range(12):
+            adm.admit(10.0, tenant="a")
+            adm.release(tenant="a")
+        adm.admit(10.0, tenant="b")
+        adm.release(tenant="b")
+        with pytest.raises(tadm.TenantOverShareError):
+            adm.admit(10.0, tenant="a")
+        time.sleep(1.2)  # past two half-lives
+        assert adm.fair_shares()["a"] > 2.0  # decayed only when touched
+        adm.admit(10.0, tenant="b")  # the gate decays the book: b is in
+        adm.release(tenant="b")
+        assert adm.fair_shares()["a"] < 12 * 0.25
+    finally:
+        adm.release()
+    # off by default: nothing is charged or shed
+    monkeypatch.delenv("RAFIKI_AUTOSCALE_FAIR")
+    off = tadm.AdmissionController(max_inflight=64, door=_door(),
+                                   shared_tenants=True)
+    for _ in range(100):
+        off.admit(10.0, tenant="hog")
+        off.release(tenant="hog")
+    assert off.stats()["shed_fairness"] == 0 and off.fair_shares() == {}
+
+
+def test_a_hot_tenant_is_shed_at_the_admin_door_and_a_cold_one_served(
+        tmp_path, monkeypatch):
+    """Through the admin's shared ``/predict/<app>`` door: one app floods
+    past its share (its replicas stalled by the worker chaos site) and is
+    shed 429 per tenant; the other app's requests are all admitted and
+    answered fast."""
+    from rafiki_tpu_torch.utils import chaos
+
+    from test_torch_rollout import fake_app, job_id_of
+
+    for k, v in (("RAFIKI_PREDICT_QUEUE_DEPTH", "2"),
+                 ("RAFIKI_PREDICT_MAX_INFLIGHT", "4"),
+                 ("RAFIKI_AUTOSCALE_FAIR", "1"),
+                 ("RAFIKI_AUTOSCALE_FAIR_BURST", "4")):
+        monkeypatch.setenv(k, v)
+    admin = Admin(db=Database(str(tmp_path / "s.sqlite3")),
+                  placement=LocalPlacementManager(ChipAllocator(["cpu"])),
+                  params_dir=str(tmp_path))
+    try:
+        uid = fake_app(admin, "hot")
+        fake_app(admin, "cold")
+        chaos.install([chaos.ChaosRule(
+            site=chaos.SITE_WORKER, action=chaos.ACTION_DELAY,
+            match=job_id_of(admin, uid, "hot"), delay_s=0.8)])
+        stop = threading.Event()
+
+        def hot_client():
+            while not stop.is_set():
+                try:
+                    admin.predict(uid, "hot", [[0.0]])
+                except Exception:
+                    time.sleep(0.02)
+
+        flood = [threading.Thread(target=hot_client) for _ in range(6)]
+        for t in flood:
+            t.start()
+        time.sleep(1.0)
+        lat = []
+        for _ in range(5):
+            t0 = time.monotonic()
+            assert admin.predict(uid, "cold", [[0.0]])
+            lat.append(time.monotonic() - t0)
+        stop.set()
+        for t in flood:
+            t.join(timeout=10)
+        assert max(lat) < 0.7, lat
+        assert admin._predict_admission.stats()["shed_fairness"] > 0
+        assert {"hot", "cold"} <= set(admin._predict_admission.fair_shares())
+    finally:
+        chaos.clear()
+        admin.shutdown()

@@ -1510,3 +1510,178 @@ def test_cuda_fused_int8_bert_is_one_k1_launch_a_layer(monkeypatch):
     torch.cuda.synchronize()
     assert flash_attention.launches == cfg.encoder.depth
     np.testing.assert_allclose(fused, np.stack(solo), atol=1e-4, rtol=0)
+
+
+def _narrow_vit_admin(tmp_path, n_trials):
+    """An admin on ``cuda:0`` alone (a one-card host, whatever the
+    machine has) holding a STOPPED train job of ``n_trials`` COMPLETED
+    narrow-ViT trials whose parameters are seeded ``vit.init`` trees (no
+    training)."""
+    from pathlib import Path
+
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.models import vit
+    from rafiki_tpu_torch.models.transformer import TransformerConfig
+    from rafiki_tpu_torch.placement.manager import (
+        ChipAllocator,
+        LocalPlacementManager,
+    )
+    from rafiki_tpu_torch.sdk.artifact import write_artifact
+    from rafiki_tpu_torch.sdk.params import dump_params
+
+    source = (Path(flash_mod.__file__).parents[1] / "templates"
+              / "torch_vit.py").read_text()
+    for old, new in _NARROW_EDITS:
+        source = source.replace(old, new)
+    admin = Admin(db=Database(str(tmp_path / "store.sqlite3")),
+                  placement=LocalPlacementManager(ChipAllocator([0])),
+                  params_dir=str(tmp_path / "params"))
+    uid = admin.authenticate_user(config.SUPERADMIN_EMAIL,
+                                  config.SUPERADMIN_PASSWORD)["user_id"]
+    admin.create_model(uid, "narrow", "IMAGE_CLASSIFICATION",
+                       source.encode(), "NarrowViT")
+    model = admin.db.get_model_by_name(uid, "narrow")
+    tj = admin.db.create_train_job(uid, "narrow", 1, "IMAGE_CLASSIFICATION",
+                                   "t", "e", {})
+    sub = admin.db.create_sub_train_job(tj["id"], model["id"])
+    cfg = vit.ViTConfig(image_size=32, patch_size=4, num_classes=10,
+                        encoder=TransformerConfig(dim=128, depth=2, heads=2))
+    knobs = {"image_size": 32, "patch_size": 4, "dim": 128, "depth": 2,
+             "heads": 2, "num_classes": 10, "learning_rate": 1e-4,
+             "batch_size": 16, "epochs": 1}
+    for i in range(n_trials):
+        trial = admin.db.create_trial(sub["id"], model["id"], knobs)
+        path = str(tmp_path / f"{trial['id']}.params")
+        write_artifact(path, dump_params(vit.init(
+            np.random.default_rng(i), cfg)))
+        admin.db.mark_trial_as_complete(trial["id"], 0.9 - 0.1 * i, path)
+    admin.db.mark_train_job_as_stopped(tj["id"])
+    return admin, uid
+
+
+@pytest.mark.cuda
+def test_cuda_a_narrow_vit_rollout_launches_k1_in_the_new_replica(
+        tmp_path, monkeypatch):
+    """A rollout of a narrow ViT on the card: CANARY -> DONE under load
+    with no failed request, every replica on the card, K1 launched by the
+    new-version replica (its warm-up and its forwards)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import threading
+    import time
+
+    monkeypatch.setenv("RAFIKI_ROLLOUT_JUDGE_WINDOW_S", "1.0")
+    monkeypatch.setenv("RAFIKI_ROLLOUT_MIN_REQUESTS", "3")
+    admin, uid = _narrow_vit_admin(tmp_path, 2)
+    try:
+        from rafiki_tpu_torch import config
+
+        monkeypatch.setattr(config, "INFERENCE_MAX_BEST_TRIALS", 1)
+        inf = admin.create_inference_job(uid, "narrow")
+        (w0,) = inf["workers"]
+        assert admin.db.get_service(w0["service_id"])["chips"] == [0]
+        target = next(t["id"] for t in admin.get_trials_of_train_job(
+            uid, "narrow") if t["id"] != w0["trial_id"])
+        x = np.random.default_rng(1).random((4, 32, 32, 3),
+                                            dtype=np.float32).tolist()
+        errors, stop = [], threading.Event()
+
+        def load():
+            while not stop.is_set():
+                try:
+                    admin.predict(uid, "narrow", x)
+                except Exception as e:
+                    errors.append(repr(e))
+
+        threads = [threading.Thread(target=load) for _ in range(2)]
+        for t in threads:
+            t.start()
+        time.sleep(0.3)
+        k1 = flash_attention.launches
+        admin.update_inference_job(uid, "narrow", -1, trial_id=target,
+                                   canary_fraction=0.5)
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            st = admin.get_rollout_status(uid, "narrow")
+            if st["phase"] in ("DONE", "ROLLED_BACK", "ABORTED"):
+                break
+            time.sleep(0.1)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        assert st["phase"] == "DONE", st
+        assert errors == []
+        (w1,) = admin.services.live_inference_workers(inf["id"])
+        assert (w1["trial_id"], w1["model_version"]) == (target, 1)
+        assert w1["chips"] == [0]
+        assert flash_attention.launches > k1
+        k1 = flash_attention.launches
+        assert np.isfinite(admin.predict(uid, "narrow", x)).all()
+        assert flash_attention.launches == k1 + 2  # depth 2, one bucket
+    finally:
+        admin.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_a_standby_warms_up_through_k1_and_is_never_routed(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rafiki_tpu_torch.worker.inference import serving_stats
+
+    admin, uid = _narrow_vit_admin(tmp_path, 1)
+    try:
+        inf = admin.create_inference_job(uid, "narrow")
+        k1 = flash_attention.launches
+        sid = admin.services.create_standby_replica(inf["id"])
+        assert flash_attention.launches > k1  # its warm-up ran K1
+        assert admin.db.get_service(sid)["chips"] == [0]
+        x = np.zeros((2, 32, 32, 3), np.float32).tolist()
+        for _ in range(5):
+            admin.predict(uid, "narrow", x)
+        assert serving_stats().get(sid, {}).get("queries", 0) == 0
+        assert admin.services.standby_workers(inf["id"])[0][
+            "service_id"] == sid
+    finally:
+        admin.shutdown()
+
+
+def _settled_memory() -> int:
+    """``cuda:0``'s allocated bytes once two reads 0.2 s apart agree (an
+    earlier test's workers may still be letting go of theirs)."""
+    import gc
+    import time
+
+    last = None
+    for _ in range(50):
+        gc.collect()
+        torch.cuda.synchronize()
+        now = torch.cuda.memory_allocated(0)
+        if now == last:
+            return now
+        last = now
+        time.sleep(0.2)
+    return last
+
+
+@pytest.mark.cuda
+def test_cuda_a_drained_replica_gives_its_memory_back(tmp_path):
+    """Scale a narrow-ViT job up by one replica on the card and drain it:
+    the device memory its parameters held comes back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    admin, uid = _narrow_vit_admin(tmp_path, 1)
+    try:
+        inf = admin.create_inference_job(uid, "narrow")
+        base = _settled_memory()
+        report = admin.services.scale_inference_job(inf["id"], 1)
+        (added,) = report["added"]
+        held = _settled_memory()
+        assert held > base, (base, held)
+        freed, removed = admin.services.drain_replicas(inf["id"], [added])
+        assert removed == [added]
+        after = _settled_memory()
+        assert after - base <= 0.1 * (held - base), (base, held, after)
+    finally:
+        admin.shutdown()

@@ -840,3 +840,81 @@ def test_generation_under_process_placement_is_refused_typed(tmp_path):
                 uid, "g", budget={"GEN_DRAFT_TRIAL": trial["id"]})
     finally:
         admin.shutdown()
+
+
+def _streams(predictor, prompts, max_tokens=8):
+    out = []
+    for prompt in prompts:
+        stream = predictor.generate({"prompt_ids": prompt,
+                                     "max_tokens": max_tokens})
+        toks = []
+        while True:
+            delta = stream.next_delta(timeout=60)
+            toks += list(delta.tokens)
+            if delta.finished:
+                break
+        out.append(toks)
+    return out
+
+
+def test_a_generation_job_on_a_two_card_grant_matches_jax(tmp_path):
+    """``CHIPS_PER_WORKER=2`` on a TEXT_GENERATION job, on a host of four
+    devices: the same replica count and grants as the JAX admin (2
+    replicas of 2), and on the same weights (JAX's ``TinyGenLM`` trained
+    by the JAX admin, carried into the port's trial) the same greedy
+    streams."""
+    from rafiki_tpu.admin.admin import Admin as JaxAdmin
+    from rafiki_tpu.db.database import Database as JaxDatabase
+    from rafiki_tpu.placement import manager as jmanager
+    from rafiki_tpu.sdk.params import load_params as jax_load_params
+    from rafiki_tpu_torch.sdk.artifact import write_artifact
+    from rafiki_tpu_torch.sdk.params import dump_params
+
+    budget = {"CHIPS_PER_WORKER": 2}
+    prompts = [[2, 3, 4], [5, 6, 7, 8, 9]]
+    jadmin = JaxAdmin(
+        db=JaxDatabase(":memory:"),
+        placement=jmanager.LocalPlacementManager(
+            jmanager.ChipAllocator([0, 1, 2, 3])),
+        params_dir=str(tmp_path / "jax"), recover=False)
+    try:
+        juid = jadmin.authenticate_user(
+            config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)["user_id"]
+        with open(os.path.join(HERE, "fixtures", "gen_model.py"), "rb") as f:
+            jadmin.create_model(juid, "gen", "TEXT_GENERATION", f.read(),
+                                "TinyGenLM")
+        jadmin.create_train_job(juid, "g", "TEXT_GENERATION", "t", "e",
+                                budget={"MODEL_TRIAL_COUNT": 1})
+        jadmin.wait_until_train_job_stopped(juid, "g", timeout_s=120)
+        jinf = jadmin.create_inference_job(juid, "g", budget=budget)
+        (jtrial,) = jadmin.get_trials_of_train_job(juid, "g")
+        tree = jax_load_params(jadmin.get_trial_params(jtrial["id"]))
+        want = _streams(jadmin.services.get_predictor(jinf["id"]), prompts)
+    finally:
+        jadmin.shutdown()
+    admin = Admin(db=Database(":memory:"),
+                  placement=LocalPlacementManager(
+                      ChipAllocator([f"cpu:{i}" for i in range(4)])),
+                  params_dir=str(tmp_path / "torch"))
+    try:
+        uid = admin.authenticate_user(
+            config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)["user_id"]
+        with open(TEMPLATE, "rb") as f:
+            admin.create_model(uid, "gen", "TEXT_GENERATION", f.read(),
+                               "TorchGenLM")
+        admin.create_train_job(uid, "g", "TEXT_GENERATION", "t", "e",
+                               budget={"MODEL_TRIAL_COUNT": 1})
+        admin.wait_until_train_job_stopped(uid, "g", timeout_s=120)
+        (trial,) = admin.db.get_trials_of_train_job(
+            admin.db.get_train_job_by_app_version(uid, "g", -1)["id"])
+        write_artifact(trial["params_file_path"], dump_params(tree))
+        inf = admin.create_inference_job(uid, "g", budget=budget)
+        got = _streams(admin.services.get_predictor(inf["id"]), prompts)
+    finally:
+        admin.shutdown()
+    assert len(inf["workers"]) == len(jinf["workers"]) == 2
+    assert sorted([int(str(c).split(":")[1]) for c in w["chips"]]
+                  for w in inf["workers"]) == sorted(
+        w["chips"] for w in jinf["workers"])
+    assert got == want
+    assert all(len(t) == 8 for t in got)

@@ -48,7 +48,7 @@ from rafiki_tpu.models import vit as jvit
 from rafiki_tpu.parallel import mesh as jmesh
 from rafiki_tpu.sdk import jax_backend
 from rafiki_tpu_torch import config, convert
-from rafiki_tpu_torch.admin.admin import Admin, InvalidRequestError
+from rafiki_tpu_torch.admin.admin import Admin
 from rafiki_tpu_torch.constants import TrialStatus
 from rafiki_tpu_torch.db.database import Database
 from rafiki_tpu_torch.device import set_device_grant
@@ -791,16 +791,23 @@ def test_chips_per_worker_serves_what_one_card_serves(cpu4_admin):
 
 
 def test_generation_across_cards_is_refused_typed(cpu4_admin):
-    """A TEXT_GENERATION deploy over several cards is a 400 before any
-    row is made (JAX serves it: ``rafiki_tpu/worker/generation.py``)."""
+    """A TEXT_GENERATION deploy over several cards is no longer a 400:
+    the budget is accepted, as the JAX admin accepts it, and the deploy
+    reaches the services, which refuse this job typed for having no
+    completed trial (its job ERRORED with the budget kept). The grant and
+    the streams of a served one: ``tests/test_torch_generation.py``."""
+    from rafiki_tpu_torch.admin.services import ServiceDeploymentError
+
     admin, uid = cpu4_admin
     job = admin.db.create_train_job(uid, "gen", 1, "TEXT_GENERATION", "t",
                                     "e", {})
     admin.db.mark_train_job_as_stopped(job["id"])
-    with pytest.raises(InvalidRequestError, match="generation across cards"):
+    with pytest.raises(ServiceDeploymentError, match="no completed trials"):
         admin.create_inference_job(uid, "gen",
                                    budget={"CHIPS_PER_WORKER": 2})
-    assert admin.db.get_inference_jobs_of_train_job(job["id"]) == []
+    (inf,) = admin.db.get_inference_jobs_of_train_job(job["id"])
+    assert inf["status"] == "ERRORED"
+    assert inf["budget"] == {"CHIPS_PER_WORKER": 2}
 
 
 def test_a_killed_follower_faults_its_trial_and_the_worker_goes_on(

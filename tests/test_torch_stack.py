@@ -111,11 +111,6 @@ class FakeModel(BaseModel):
 #: JAX routes whose Admin method is not ported yet (ROADMAP.md, queue A)
 LATER = {
     ("GET", r"/trials/(?P<tid>[^/]+)/trace"),
-    ("POST", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/scale"),
-    ("POST", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/update"),
-    ("GET", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/rollout"),
-    ("POST", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/rollout/abort"),
-    ("POST", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/rollout/ack"),
     ("GET", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/drift"),
     ("POST", r"/inference_jobs/(?P<app>[^/]+)/(?P<v>-?\d+)/drift/ack"),
     ("GET", "/fleet/health"),
@@ -519,9 +514,9 @@ def test_the_admin_process_refuses_without_cuda(tmp_path):
 ])
 def test_unported_settings_raise(monkeypatch, name, value, subsystem):
     """A setting that selects a subsystem the port lacks refuses the
-    admin's start, typed. Speculative decoding, stream resume and int8
-    serving are ported: their settings are read, with the JAX package's
-    defaults."""
+    admin's start, typed. Speculative decoding, stream resume, int8
+    serving, the autoscaler, fair admission and the warm pool are ported:
+    their settings are read, with the JAX package's defaults."""
     if name == "RAFIKI_SERVE_INT8":
         from rafiki_tpu.sdk import quant as jax_quant
         from rafiki_tpu_torch.sdk import quant, torch_backend
@@ -537,22 +532,48 @@ def test_unported_settings_raise(monkeypatch, name, value, subsystem):
             is True
         assert torch_backend.DataParallelTrainer(device="cpu").serve_int8
         return
-    if name in ("RAFIKI_GEN_SPEC", "RAFIKI_GEN_RESUME_MAX"):
+    fleet = {
+        "RAFIKI_AUTOSCALE": (
+            "AUTOSCALE", "AUTOSCALE_INTERVAL_S", "AUTOSCALE_WINDOW_S",
+            "AUTOSCALE_SHED_THRESHOLD", "AUTOSCALE_DEPTH_HIGH",
+            "AUTOSCALE_DEPTH_LOW", "AUTOSCALE_MIN_REPLICAS",
+            "AUTOSCALE_MAX_REPLICAS", "AUTOSCALE_STEP",
+            "AUTOSCALE_COOLDOWN_UP_S", "AUTOSCALE_COOLDOWN_DOWN_S",
+            "AUTOSCALE_DRAIN_S", "AUTOSCALE_TRAIN_FLOOR",
+            "GEN_OCCUPANCY_HIGH", "ROLLOUT_CANARY_FRACTION",
+            "ROLLOUT_JUDGE_WINDOW_S", "ROLLOUT_MIN_REQUESTS",
+            "ROLLOUT_ERR_DELTA", "ROLLOUT_P95_FACTOR", "ROLLOUT_BATCH"),
+        "RAFIKI_AUTOSCALE_FAIR": (
+            "AUTOSCALE_FAIR", "AUTOSCALE_FAIR_WINDOW_S",
+            "AUTOSCALE_FAIR_BURST", "AUTOSCALE_FAIR_WEIGHTS"),
+        "RAFIKI_AUTOSCALE_WARM_POOL": (
+            "AUTOSCALE_WARM_POOL", "AUTOSCALE_WARM_POOL_INTERVAL_S",
+            "AUTOSCALE_WARM_RETRY_MAX", "AUTOSCALE_WARM_RETRY_COOLDOWN_S"),
+    }
+    if name in ("RAFIKI_GEN_SPEC", "RAFIKI_GEN_RESUME_MAX") or name in fleet:
         from rafiki_tpu import config as jax_config
 
         knobs = {"RAFIKI_GEN_SPEC": ("GEN_SPEC", "GEN_SPEC_K"),
                  "RAFIKI_GEN_RESUME_MAX": (
                      "GEN_RESUME_MAX", "GEN_RESUME_BACKOFF_S",
-                     "GEN_JOURNAL_MAX_KB", "GEN_JOURNAL_TTL_S")}[name]
+                     "GEN_JOURNAL_MAX_KB", "GEN_JOURNAL_TTL_S"),
+                 **fleet}[name]
         monkeypatch.delenv(name, raising=False)
         for knob in knobs:
             assert getattr(config, knob) == getattr(jax_config, knob), knob
         monkeypatch.setenv(name, value)
         admin = Admin(db=Database(":memory:"),
                       placement=LocalPlacementManager(ChipAllocator(["cpu"])))
+        # the loops a setting switches on run, and stop with the admin
+        running = (admin.autoscaler.running, admin.warm_pool.running)
         admin.shutdown()
+        assert running == (name == "RAFIKI_AUTOSCALE",
+                           name == "RAFIKI_AUTOSCALE_WARM_POOL")
+        assert not admin.autoscaler.running and not admin.warm_pool.running
         assert getattr(config, knobs[0]) == getattr(jax_config, knobs[0]) \
-            == (True if name == "RAFIKI_GEN_SPEC" else int(value))
+            == (int(value) if name in ("RAFIKI_GEN_RESUME_MAX",
+                                       "RAFIKI_AUTOSCALE_WARM_POOL")
+                else True)
         monkeypatch.setenv(name, "0")
         assert not getattr(config, knobs[0])
         return
@@ -769,17 +790,17 @@ def _jax_budget_refusal(tmp_path, budget) -> str:
 
 
 def test_chaos_rule_at_an_unhooked_site_is_refused(tmp_path, monkeypatch):
-    """Only the trial, worker and generate sites have their chaos hooks: a
-    rule naming another site raises NotPortedError when it is made, and a
-    RAFIKI_CHAOS holding one refuses the admin's start, never silently
-    inert; a rule at a hooked site passes."""
+    """Only the trial, worker, generate and deploy sites have their chaos
+    hooks: a rule naming another site raises NotPortedError when it is
+    made, and a RAFIKI_CHAOS holding one refuses the admin's start, never
+    silently inert; a rule at a hooked site passes."""
     from rafiki_tpu_torch.utils import chaos
 
     try:
-        for site in ("trial", "worker", "generate"):
+        for site in ("trial", "worker", "generate", "deploy"):
             (rule,) = chaos.parse_rules(f"site={site};action=delay")
             assert rule.site == site
-        for site in ("db", "wire", "deploy", "cache",
+        for site in ("db", "wire", "cache",
                      "drift", "compile", "lease", "agent", "call_agent"):
             with pytest.raises(NotPortedError, match=f"site={site}"):
                 chaos.parse_rules(f"site={site};action=delay")
