@@ -49,15 +49,16 @@ Phases, each of which must pass (any failure exits non-zero):
    K1 12 times an evaluate. Then an inference job of the two trials (both
    workers on cuda:0), ``Client.predict`` on ``/predict/<app>`` with 1
    and 8 images (JSON) against the plain-attention ensemble of the
-   trials' parameters as ``Client.download_trial_params`` returns them,
-   and K1 launched 12 times a bucketed forward. Printed: the job's wall
-   time and each trial's set-up, beside phase 3's direct job (which ran
-   first, on a cold process), the p50 of ``/predict/<app>`` on the admin
-   door beside a ``PredictorServer`` on the same job's ``Predictor``,
-   the two doors taking the same JSON bodies in turns, and the parameter
-   download's time and bytes with the verified read's share. Last,
-   ``python -m rafiki_tpu_torch.admin`` boots on port 0, answers ``GET /``
-   and a login, and exits 0 on SIGTERM;
+   trials' parameters (the first as ``Client.download_trial_params``
+   returns it, the other as the admin reads it), and K1 launched 12
+   times a bucketed forward. Printed: the job's wall time and each
+   trial's set-up, beside phase 3's direct job (which ran first, on a
+   cold process), the p50 of ``/predict/<app>`` on the admin door beside
+   a ``PredictorServer`` on the same job's ``Predictor``, the two doors
+   taking the same JSON bodies in turns, and the parameter download's
+   time and bytes with the verified read's share. (``python -m
+   rafiki_tpu_torch.admin`` booting, answering ``GET /`` and a login and
+   exiting 0 on SIGTERM is phase 18b's, three boots of it);
 6. process: the cycle of phase 5 under ``RAFIKI_PLACEMENT=process``
    (store ``build/chip_smoke/process.sqlite3``, the children's logs in
    ``build/chip_smoke/process_logs/``). The shm ring is chosen from
@@ -132,7 +133,7 @@ Phases, each of which must pass (any failure exits non-zero):
    drills through ``Client`` -> ``AdminServer`` -> ``Admin``, each with
    a store of its own under ``build/chip_smoke/`` and a twin of
    ``TorchViT`` at full width whose learning rate, batch size and epochs
-   suit it. 9a: every trial of a job (batch 4,096 of a 4,096-image set
+   suit it. 9a: every trial of a job (batch 2,048 of a 2,048-image set
    written with ``np.savez``) raises the allocator's own
    ``OutOfMemoryError``; with ``RAFIKI_TRIAL_QUARANTINE_K=2`` and
    ``RAFIKI_TRIAL_FAULT_LIMIT=3`` each trial is ERRORED ``USER`` with its
@@ -140,12 +141,12 @@ Phases, each of which must pass (any failure exits non-zero):
    quarantined after 2, the third fault errors the job with the
    fail-fast reason and stops its worker, and ``memory_allocated``
    returns within 64 MiB of its level before the job. 9b: ASHA
-   (``EARLY_STOP``, eta 2, 4 trials of 2 epochs on phase 3's set) with
+   (``EARLY_STOP``, eta 2, 3 trials of 2 epochs on phase 3's set) with
    ``RAFIKI_CHAOS=site=trial;action=error;times=1``: the first trial
-   absorbs the INFRA fault at ``attempt`` 1 in its own row, all 4
+   absorbs the INFRA fault at ``attempt`` 1 in its own row, all 3
    COMPLETED, at least one stopped at a rung, and every keep/stop verdict
    equal to ``AshaScheduler`` replayed on the logged losses. 9c:
-   ``TRIAL_TIMEOUT_S`` (9b's first report plus 2.5 of its epochs with
+   ``TRIAL_TIMEOUT_S`` (9b's first report plus 1.5 of its epochs with
    their checkpoints) stops an 8-epoch trial at the first epoch
    boundary past it. 9d: under ``RAFIKI_PLACEMENT=process`` the train
    child is SIGKILLed once the second trial's checkpoint exists; the
@@ -198,7 +199,7 @@ Phases, each of which must pass (any failure exits non-zero):
    whichever is larger); the f32 step over every visible card up to 4
    against one card's (``minibatch_stddev`` over the global batch;
    phase 10's tolerances); then a 2-trial ``TorchProGan`` job through
-   ``Client`` (2 kimg each, lod 3 -> 0; the minibatch fixed at 16),
+   ``Client`` (1 kimg each, lod 3 -> 0; the minibatch fixed at 16),
    served: ``/predict`` of
    ``[[4, 4, 16], [2, 2, 4]]`` writes (128, 128, 3) and (64, 64, 3)
    uint8 grids, each within 1 of a trial's own ``generate`` at seeds
@@ -389,6 +390,39 @@ Phases, each of which must pass (any failure exits non-zero):
    refused with ``ServiceDeploymentError`` and the job ERRORED. Phase 17
    with what it stands on: ``python3 -c "import chip_smoke as cs;
    cs.drift_sandbox_only()"`` (the dataset, phase 5, then 17).
+
+18. control-plane HA and crash recovery, on phase 3's images, every admin
+   a process of its own over one SQLite store under ``build/chip_smoke/
+   ha/`` with ``RAFIKI_PLACEMENT=process``. 18a: a leader (``python -m
+   rafiki_tpu_torch.admin`` under ``RAFIKI_ADMIN_HA=1``, a lease TTL of
+   3 s) and a hot standby (a ``python -c`` main of ``StandbyAdmin`` and
+   ``AdminServer``), a ``Client`` over both addresses (which the train
+   child's own client walks too, ``RAFIKI_ADMIN_ADDRS``); a ViT-B/16
+   (224/16, 768 x 12) job of 2 trials of 1 epoch at batch 64 in one
+   process-placed train child (``CHIPS_PER_TRIAL=2`` on two or more
+   cards). After the first epoch's report the leader is SIGSTOPped: the
+   standby promotes at epoch 2, its recovery adopts the child by pid (the
+   report ``adopted`` 1, the adoption's grant in its log); the leader is
+   SIGCONTed and its write, and an advisor route, answer the
+   standby-style 503 with the new leader's address (``StaleEpochError``),
+   landing nothing; then SIGKILLed. Every call the child's client walked
+   (its log) landed on the promoted leader, the first an advisor call.
+   The child, reparented, trains on and finishes: the job
+   STOPPED with 2 COMPLETED trials, no client call failed once
+   ``wait_until_admin_ready`` returned; its launches (K1-LSE, K2, K3 12 a
+   step; K1 12 an evaluate) read from its log at the promotion (SIGUSR1)
+   and at its exit, some after the promotion; the card's memory before
+   the stop, after the adoption and after the trial's end. 18b: an admin
+   without HA serves the job (one replica in a serving child) and
+   answers 8 images; it is SIGKILLed and booted again on its port; the
+   dead admin's serving child is gone (its watchdog stops it on
+   reparenting; a survivor would be fenced by recovery), the job
+   terminal, the recovery report and the ``/dev/shm`` bytes the dead
+   admin left under its broker's prefix printed (then removed: only
+   those names); the client redeploys and the same
+   8 images get answers within the ``PROB_RTOL``/``PROB_ATOL`` rule of
+   the first (K1 in the new replica). Phase 18 with what it stands on:
+   ``python3 -c "import chip_smoke as cs; cs.ha_only()"``.
 
 The line before the last is ``{"kernels": [...]}``, each kernel's
 ``launches`` from phase 5 and ``launches_by_path`` from every path; the
@@ -1321,8 +1355,8 @@ def post(url: str, body: bytes, headers: dict,
 
 #: the JSON requests both doors are timed on in turns (phase 5)
 #: JSON requests of 1 and of 8 images timed on each door (phases 5-6):
-#: five a size (ten before; cut for the run's time limit)
-JSON_TIMED = [("json", 1)] * 5 + [("json", 8)] * 5
+#: three a size (ten, then five before; cut for the run's time limit)
+JSON_TIMED = [("json", 1)] * 3 + [("json", 8)] * 3
 
 
 def p50_ms(lat: dict) -> dict:
@@ -1609,21 +1643,21 @@ def stack_phase(card: str, uris: dict, direct_job_s: float):
         t0 = time.perf_counter()
         raw = admin.get_trial_params(trials[0]["id"])
         read_s = time.perf_counter() - t0
+        # one trial through the client (the other trials read here: the
+        # reference below needs every trial's parameters)
         t0 = time.perf_counter()
-        trees, nbytes = [], 0
-        for t in trials:
-            data = c.download_trial_params(t["id"])
-            nbytes += len(data)
-            trees.append(load_params(data))
+        data = c.download_trial_params(trials[0]["id"])
         dl_s = time.perf_counter() - t0
-        print(f"stack: Client.download_trial_params of {TRIALS} trials: "
-              f"{nbytes / 1e6:.1f} MB of artifacts in {dl_s:.2f} s "
-              f"({nbytes / 1e6 / dl_s:.0f} MB/s; base64 inside JSON on the "
-              f"wire, {nbytes * 4 / 3 / 1e6:.1f} MB); of one trial's "
-              f"{dl_s / TRIALS:.2f} s, the verified read of its "
-              f"{len(raw) / 1e6:.1f} MB artifact (Admin.get_trial_params) "
-              f"takes {read_s:.2f} s", flush=True)
-        del raw
+        trees = [load_params(data)] + [
+            load_params(admin.get_trial_params(t["id"])) for t in trials[1:]]
+        print(f"stack: Client.download_trial_params of one trial: "
+              f"{len(data) / 1e6:.1f} MB of artifact in {dl_s:.2f} s "
+              f"({len(data) / 1e6 / dl_s:.0f} MB/s; base64 inside JSON on "
+              f"the wire, {len(data) * 4 / 3 / 1e6:.1f} MB); the verified "
+              f"read of the {len(raw) / 1e6:.1f} MB artifact "
+              f"(Admin.get_trial_params) takes {read_s:.2f} s of it",
+              flush=True)
+        del raw, data
 
         cap = config.PREDICT_MAX_BATCH_SIZE
         buckets = DataParallelTrainer(device="cpu").predict_buckets(cap)
@@ -1716,60 +1750,7 @@ def stack_phase(card: str, uris: dict, direct_job_s: float):
             direct.stop()
         server.stop()
         admin.shutdown()
-    admin_process(card)
     return [a + b for a, b in zip(train_counts, serve_counts)], job_s
-
-
-def admin_process(card: str) -> None:
-    """``python -m rafiki_tpu_torch.admin`` on port 0: its banner, ``GET /``,
-    a login, then SIGTERM and exit code 0."""
-    from rafiki_tpu_torch import config
-    from rafiki_tpu_torch.client.client import Client
-
-    workdir = WORK / "admin_process"
-    workdir.mkdir(parents=True, exist_ok=True)
-    for path in workdir.glob("rafiki_torch.sqlite3*"):
-        path.unlink()
-    env = {**os.environ, "RAFIKI_WORKDIR": str(workdir),
-           "RAFIKI_ADMIN_PORT": "0", "PYTHONPATH": str(REPO)}
-    log = workdir / "admin.log"
-    t0 = time.perf_counter()
-    with open(log, "w") as err:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "rafiki_tpu_torch.admin"], cwd=REPO,
-            env=env, stdout=subprocess.PIPE, stderr=err, text=True)
-    try:
-        # the banner, read off-thread so a hung boot cannot hang the smoke
-        lines = []
-        reader = threading.Thread(
-            target=lambda: lines.append(proc.stdout.readline()), daemon=True)
-        reader.start()
-        reader.join(timeout=120)
-        banner = lines[0].strip() if lines else ""
-        m = re.search(r"admin on http://([\d.]+):(\d+)", banner)
-        require(m is not None, f"no banner from the admin process in "
-                f"{time.perf_counter() - t0:.0f} s: {banner!r}; "
-                f"{log.read_text()[-2000:]}")
-        boot_s = time.perf_counter() - t0
-        with urllib.request.urlopen(f"http://{m.group(1)}:{m.group(2)}/",
-                                    timeout=30) as resp:
-            root = json.loads(resp.read())["data"]
-        require(root["status"] == "ok", f"GET / answered {root}")
-        user = Client(m.group(1), int(m.group(2)), timeout_s=30).login(
-            config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
-        require(user["user_type"] == "SUPERADMIN", f"login gave {user}")
-        proc.send_signal(signal.SIGTERM)
-        code = proc.wait(timeout=60)
-        require(code == 0, f"admin process exited {code}: "
-                f"{log.read_text()[-2000:]}")
-        print(f"stack: python -m rafiki_tpu_torch.admin: {banner!r} after "
-              f"{boot_s:.1f} s; GET / {root['status']}; login as "
-              f"{user['user_type']}; exit {code} on SIGTERM; card {card}",
-              flush=True)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=30)
 
 
 # ---------------------------------------------------------------------------
@@ -3972,22 +3953,24 @@ def generation_rest_phase(card: str) -> list:
 # ---------------------------------------------------------------------------
 
 #: 9a: images in the set whose one batch does not fit the card (ViT-B/16's
-#: activations at batch 4,096 come to hundreds of GB; the set itself,
-#: 2.47 GB of f32, does fit)
-OOM_IMAGES = 4096
+#: activations at batch 2,048 come to ~190 GB, ~94 MB an image as phase
+#: 18's batch-64 child holds; the set itself, 1.23 GB of f32, does fit;
+#: 4,096 until phase 18 needed the run's time)
+OOM_IMAGES = 2048
 #: what a failed trial may leave allocated: a worker thread's first cuBLAS
 #: calls allocate its workspaces through the caching allocator
 OOM_SLACK_BYTES = 64 << 20
-#: 9b: ASHA over 4 trials of 2 epochs (rungs 1, 2 at eta 2); 6 trials
-#: until phase 12 and 4 epochs until phase 15 needed the run's time
-#: (PERF.md, section 4)
-ASHA_TRIALS, ASHA_EPOCHS, ASHA_ETA = 4, 2, 2
+#: 9b: ASHA over 3 trials of 2 epochs (rungs 1, 2 at eta 2); 6 trials
+#: until phase 12, 4 epochs until phase 15 and 4 trials until phase 18
+#: needed the run's time (PERF.md, section 4)
+ASHA_TRIALS, ASHA_EPOCHS, ASHA_ETA = 3, 2, 2
 #: 9c: epochs budgeted, and the cap past a trial's first report in
 #: epoch-plus-checkpoint times of 9b. The trial's clock starts before its
 #: set-up (ViT-B/16's init and the dataset read, seconds on the card), so
-#: the cap is 9b's median first report plus 2.5 of its epochs: the stop
-#: then falls mid-run, where the first-boundary rule can be seen
-CAP_EPOCHS, CAP_EPOCHS_OF_9B = 8, 2.5
+#: the cap is 9b's median first report plus 1.5 of its epochs: the stop
+#: then falls mid-run, where the first-boundary rule can be seen (2.5
+#: until phase 18 needed the run's time)
+CAP_EPOCHS, CAP_EPOCHS_OF_9B = 8, 1.5
 #: 9c: trials of the job; 2 until phase 14 needed the run's time (PERF.md,
 #: section 4): each is stopped by its own clock, so one shows the rule
 CAP_TRIALS = 1
@@ -4230,7 +4213,7 @@ def oom_drill(card: str) -> list:
 
 
 def asha_drill(card: str, uris: dict) -> tuple:
-    """9b: ASHA on a 6-trial job with one chaos fault. Returns (the
+    """9b: ASHA on an ASHA_TRIALS-trial job with one chaos fault. Returns (the
     kernels' launches, the median epoch-plus-checkpoint seconds, the
     median seconds from a trial's start to its first report)."""
     from rafiki_tpu_torch.advisor.asha import AshaScheduler
@@ -5176,8 +5159,9 @@ def cards_phase(card: str) -> list:
 
 GAN_IMAGES = (4096, 512)        # 11a: train and test images (32x32x3)
 #: the run length each trial reads: lod 3 -> 0 (4x4 -> 32x32) within it
-#: (4 kimg with 0.5-kimg phases until phase 17 needed the run's time)
-GAN_ENV = {"TORCHPROGAN_TOTAL_KIMG": "2", "TORCHPROGAN_PHASE_KIMG": "0.25"}
+#: (4 kimg with 0.5-kimg phases until phase 17, 2 with 0.25-kimg phases
+#: until phase 18 needed the run's time)
+GAN_ENV = {"TORCHPROGAN_TOTAL_KIMG": "1", "TORCHPROGAN_PHASE_KIMG": "0.125"}
 #: the step the gates take: mb 16 at lod 1.5 (stages 1 and 2 blended)
 GAN_MB, GAN_LOD = 16, 1.5
 # f32 on the card against the port's f32 step on the CPU: the same
@@ -8011,6 +7995,528 @@ def drift_sandbox_phase(card: str, uris: dict) -> list:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 18: control-plane HA and crash recovery
+# ---------------------------------------------------------------------------
+
+HA_TTL_S = 3.0      # the leadership lease's TTL (a renewal every 1 s)
+HA_EPOCHS = 1       # 18a's trials: 1 epoch of 512 images at batch 64
+HA_BATCH = 64
+HA_IMAGES = 8       # 18b's requests: 8 images as JSON, in requests that fit
+HA_WAIT_S = 600     # any wait of the phase (a job, a boot, a deploy)
+
+_HA_STANDBY = """
+import logging, signal, sys, threading
+logging.basicConfig(level=logging.INFO,
+                    format="%(levelname)s:%(asctime)s:%(name)s: %(message)s")
+from rafiki_tpu_torch import config
+from rafiki_tpu_torch.admin.admin import Admin
+from rafiki_tpu_torch.admin.http import AdminServer
+from rafiki_tpu_torch.admin.standby import StandbyAdmin
+from rafiki_tpu_torch.db.database import Database
+
+port = int(sys.argv[1])
+server = None
+
+
+def promote(lease):
+    # the promoted admin's children reach the advisor through this door
+    admin = Admin(db=Database(config.DB_PATH), lease=lease)
+    admin.placement.admin_addr = ("127.0.0.1", server.port)
+    return admin
+
+
+standby = StandbyAdmin(Database(config.DB_PATH), factory=promote,
+                       addr=f"127.0.0.1:{port}")
+server = AdminServer(standby, port=port).start()
+print(f"standby on http://127.0.0.1:{server.port}", flush=True)
+stop = threading.Event()
+signal.signal(signal.SIGTERM, lambda *a: stop.set())
+stop.wait()
+server.stop()
+standby.shutdown()
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ha_start(env: dict, log: Path, argv: list) -> tuple:
+    """Start a process of the phase, its errors to ``log``, and a thread
+    reading its first line of output; pass the handle to ``_ha_line``."""
+    t0 = time.perf_counter()
+    with open(log, "a") as err:
+        proc = subprocess.Popen(argv, cwd=REPO, env=env,
+                                stdout=subprocess.PIPE, stderr=err, text=True)
+    lines = []
+
+    def read():
+        lines.append(proc.stdout.readline())
+        lines.append(time.perf_counter())
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return proc, reader, lines, t0, log, argv
+
+
+def _ha_line(handle: tuple) -> tuple:
+    """(process, its first line of output, seconds from its start to
+    it)."""
+    proc, reader, lines, t0, log, argv = handle
+    reader.join(timeout=180)
+    line = lines[0].strip() if lines else ""
+    require(bool(line), f"no first line from {argv[-1]!r} in "
+            f"{time.perf_counter() - t0:.0f} s: {log.read_text()[-3000:]}")
+    return proc, line, lines[1] - t0
+
+
+def _ha_proc(env: dict, log: Path, argv: list) -> tuple:
+    return _ha_line(_ha_start(env, log, argv))
+
+
+def _root(port: int) -> dict:
+    """The public root of the door on ``port`` (None when it does not
+    answer within 5 s)."""
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                    timeout=5) as resp:
+            return json.loads(resp.read())["data"]
+    except (OSError, ValueError):
+        return None
+
+
+def _door_call(port: int, method: str, path: str, body: dict,
+               token: str) -> tuple:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json",
+                 "Authorization": f"Bearer {token}"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _stop_proc(proc, sig=signal.SIGTERM, timeout: float = 120) -> int:
+    if proc.poll() is None:
+        proc.send_signal(sig)
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        return proc.wait(timeout=30)
+
+
+def _wait_until(cond, timeout_s: float, what: str, poll_s: float = 0.05):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = cond()
+        if got:
+            return got
+        require(time.monotonic() < deadline, what)
+        time.sleep(poll_s)
+
+
+def _running(pid: int) -> bool:
+    """Is ``pid`` a live process (not gone, not a zombie no one reaped:
+    a child of a killed admin is reparented)?"""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _card_mib() -> str:
+    """The card's used memory and each process's, from nvidia-smi."""
+    free, total = torch.cuda.mem_get_info(0)
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    return (f"{(total - free) / 2**20:.0f} MiB used of {total / 2**20:.0f}"
+            f" (the processes on it: " + "; ".join(
+                ln.strip() for ln in apps.splitlines() if ln.strip())
+            + ")")
+
+
+def _shm_files(prefix: str) -> dict:
+    """Size of each ``/dev/shm`` entry whose name starts ``prefix``."""
+    return {p.name: p.stat().st_size for p in Path("/dev/shm").glob(
+        prefix + "*")}
+
+
+def _one_record(logs: Path, sid: str, kind: str) -> list:
+    return [json.loads(m.group(2)) | {"pid": int(m.group(1))}
+            for m in re.finditer(kind + r" \(pid (\d+)\): (\{.*\})",
+                                 (logs / f"service-{sid}.log").read_text())]
+
+
+def ha_failover(card: str, uris: dict, env: dict, logs: Path,
+                store: str) -> tuple:
+    """18a: a leader and a hot standby, each a process, over one store,
+    under ``RAFIKI_ADMIN_HA=1``; a ViT-B/16 train job of 2 trials of
+    ``HA_EPOCHS`` epochs in one process-placed train child; the leader
+    SIGSTOPped past its TTL after the first epoch's report, the standby
+    promoted, the leader SIGCONTed (fenced) and SIGKILLed; the promoted
+    leader adopts the child by pid. Returns (each kernel's launches in
+    the train child, the train job's id, the seconds it took)."""
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.db.database import Database
+
+    p1, p2 = _free_port(), _free_port()
+    addrs = [f"127.0.0.1:{p1}", f"127.0.0.1:{p2}"]
+    cards = torch.cuda.device_count()
+    ha_env = {**env, "RAFIKI_ADMIN_HA": "1",
+              "RAFIKI_ADMIN_LEASE_TTL_S": str(HA_TTL_S),
+              "RAFIKI_ADMIN_ADDRS": ",".join(addrs)}
+    t_phase = time.perf_counter()
+    leader, banner, boot_s = _ha_proc(
+        {**ha_env, "RAFIKI_ADMIN_PORT": str(p1)}, logs / "leader.log",
+        [sys.executable, "-m", "rafiki_tpu_torch.admin"])
+    require(f"admin on http://127.0.0.1:{p1}" in banner, banner)
+    standby = child_pid = None
+    try:
+        # the standby boots (after the leader took the lease) while the
+        # job starts
+        booting = _ha_start({**ha_env, "RAFIKI_ADMIN_PORT": str(p2)},
+                            logs / "standby.log",
+                            [sys.executable, "-c", _HA_STANDBY, str(p2)])
+        standby = booting[0]
+        c = Client(admin_addrs=addrs, timeout_s=HA_WAIT_S)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        token = c._token
+        c.create_model("vit-b16", "IMAGE_CLASSIFICATION", twin_template(
+            "HaViT", "FloatKnob(1e-5, 1e-3, is_exp=True)", HA_BATCH,
+            HA_EPOCHS), "HaViT")
+        budget = {"MODEL_TRIAL_COUNT": TRIALS, "CHIP_COUNT": 1}
+        if cards >= 2:
+            budget.update(CHIP_COUNT=2, CHIPS_PER_TRIAL=2)
+        t0 = time.perf_counter()
+        c.create_train_job("ha", "IMAGE_CLASSIFICATION", uris["train"],
+                           uris["test"], budget=budget)
+        db = Database(store)  # reads only: this process writes nothing
+        job = db.get_train_jobs_of_app(
+            db.get_user_by_email(config.SUPERADMIN_EMAIL)["id"], "ha")[0]
+        (worker,) = db.get_workers_of_train_job(job["id"])
+        sid = worker["service_id"]
+        first = _wait_until(
+            lambda: [t for t in db.get_trials_of_train_job(job["id"])
+                     if any('"epoch":' in line
+                            for line in db.get_trial_logs(t["id"]))],
+            HA_WAIT_S, "no epoch report of the first trial")[0]
+        standby, line, standby_s = _ha_line(booting)
+        root = _root(p2)
+        require(root and root["ha"]["role"] == "standby"
+                and root["ha"]["leader"] == addrs[0],
+                f"the standby's root {root}")
+        print(f"ha: leader {banner!r} in {boot_s:.1f} s (lease TTL "
+              f"{HA_TTL_S:g} s); standby {line!r} in {standby_s:.1f} s "
+              f"(booted beside the job's start), role {root['ha']['role']},"
+              f" leader hint {root['ha']['leader']}; card {card}",
+              flush=True)
+        svc = db.get_service(sid)
+        child_pid = svc["pid"]
+        fds = {n: os.readlink(f"/proc/{child_pid}/fd/{n}")
+               for n in (0, 1, 2)}
+        require(fds[1] == fds[2] == str(logs / f"service-{sid}.log")
+                and fds[0] == "/dev/null",
+                f"the train child's stdio {fds}")
+        mem_before = _card_mib()
+
+        # ---- the leader stops past its TTL; the standby promotes ----
+        t_stop = time.perf_counter()
+        leader.send_signal(signal.SIGSTOP)
+        _wait_until(lambda: (_root(p2) or {}).get("ha", {}).get("role")
+                    == "leader", HA_WAIT_S, "the standby never promoted",
+                    poll_s=0.02)
+        t_promoted = time.perf_counter()
+        os.kill(child_pid, signal.SIGUSR1)  # its launches so far
+        _wait_until(lambda: (_root(p2) or {}).get("recovery", {}).get(
+            "state") == "ready", HA_WAIT_S, "the promoted leader never "
+            "reached ready", poll_s=0.02)
+        t_ready = time.perf_counter()
+        require(db.read_lease()["epoch"] == 2, f"lease {db.read_lease()}")
+        # ---- the old leader comes back: fenced, its write refused ----
+        leader.send_signal(signal.SIGCONT)
+        status, body = _door_call(p1, "POST", "/users", {
+            "email": "stale@ha", "password": "p", "user_type": "ADMIN"},
+            token)
+        require(status == 503 and body.get("standby") is True
+                and body.get("leader") == addrs[1]
+                and "StaleEpochError" in body.get("error", ""),
+                f"the old leader answered {status} {body}")
+        require(db.get_user_by_email("stale@ha") is None,
+                "the fenced leader's write landed")
+        # a route that writes nothing to the store is shed too: its stale
+        # advisor session answers no one
+        (sub,) = db.get_sub_train_jobs_of_train_job(job["id"])
+        adv_status, adv_body = _door_call(
+            p1, "POST", f"/advisors/{sub['id']}/propose", {}, token)
+        require(adv_status == 503 and adv_body.get("standby") is True
+                and adv_body.get("leader") == addrs[1],
+                f"the old leader's advisor route answered {adv_status} "
+                f"{adv_body}")
+        role = _wait_until(lambda: ((_root(p1) or {}).get("ha") or {}).get(
+            "role") == "fenced", 5 * HA_TTL_S, "the old leader's role")
+        leader.send_signal(signal.SIGKILL)
+        leader.wait(timeout=60)
+        mem_adopted = _card_mib()
+        print(f"ha: SIGSTOP of the leader to the promotion "
+              f"{t_promoted - t_stop:.2f} s, promotion to ready "
+              f"{t_ready - t_promoted:.2f} s; the SIGCONTed leader answered "
+              f"{status} ({body['error'][:40]}...; leader hint "
+              f"{body['leader']}), role fenced={role}, and its write did "
+              f"not land; its advisor route answered {adv_status} too; "
+              f"SIGKILLed", flush=True)
+
+        # ---- from here no client call may fail ----
+        failed = []
+        c.wait_until_admin_ready(timeout_s=HA_WAIT_S)
+
+        def polled():
+            try:
+                return c.get_train_job("ha")["status"] == "STOPPED"
+            except Exception as e:
+                failed.append(repr(e))
+                return False
+
+        _wait_until(polled, HA_WAIT_S, "the train job never STOPPED",
+                    poll_s=0.5)
+        job_s = time.perf_counter() - t0
+        trials = c.get_trials_of_train_job("ha")
+        _wait_until(lambda: not _running(child_pid), 120,
+                    "the adopted child never exited")
+        mem_after = _card_mib()
+    finally:
+        if leader.poll() is None:
+            leader.send_signal(signal.SIGCONT)
+            _stop_proc(leader, signal.SIGKILL)
+        if standby is not None:
+            _stop_proc(standby)
+        if child_pid is not None and _running(child_pid):
+            os.kill(child_pid, signal.SIGKILL)
+    report = json.loads((logs / "recovery-e2.json").read_text())
+    require(report["adopted"] == 1 and report["errored"] == 0
+            and not report.get("failed"), f"the promoted leader's report "
+            f"{report}")
+    require(not failed, f"client calls failed after ready: {failed}")
+    require([t["status"] for t in trials] == ["COMPLETED"] * TRIALS
+            and all(np.isfinite(t["score"]) for t in trials),
+            f"trials {trials}")
+    standby_log = (logs / "standby.log").read_text()
+    adopted = re.search(r"adopted surviving worker \S+ \(pid (\d+), grant "
+                        r"(\[.*?\])\)", standby_log)
+    require(adopted and int(adopted.group(1)) == child_pid,
+            f"no adoption line for pid {child_pid} in the standby's log")
+    log = (logs / f"service-{sid}.log").read_text()
+    require("surviving for the next admin" in log,
+            "the child never noticed its parent's death")
+    # the child's client logs each call answered by another address than
+    # the last: every one after the leader's stop is the promoted one's
+    walks = re.findall(r"admin call (\S+ \S+) answered by (\S+), walked "
+                       r"on from (\S+)", log)
+    require(walks and all(w[1:] == (addrs[1], addrs[0]) for w in walks)
+            and walks[0][0].startswith("POST /advisors/"),
+            f"the child's calls walked {walks}")
+    (so_far,) = _one_record(logs, sid, "kernel launches so far")
+    # the child's own line (a follower on a card of its own writes one too)
+    (total,) = [r for r in _one_record(logs, sid, "kernel launches")
+                if r["pid"] == child_pid]
+    steps = (TRAIN_IMAGES // HA_BATCH) * HA_EPOCHS * TRIALS
+    got = [total[k] for k in COUNTERS]
+    expect = [DEPTH * TRIALS] + [DEPTH * steps] * 3
+    require(got == expect, f"the train child launched {got}, expected "
+            f"{expect}")
+    before = [so_far[k] for k in COUNTERS]
+    after = [g - b for g, b in zip(got, before)]
+    require(all(a > 0 for a in after[1:]), f"the adopted child launched "
+            f"no training kernel after the promotion: {before} then {got}")
+    print(f"ha: the train child (pid {child_pid}, stdio {fds[1]}) adopted by"
+          f" pid with grant {adopted.group(2)}: report {json.dumps({k: report[k] for k in ('scanned', 'adopted', 'rescheduled', 'fenced', 'errored', 'jobs_closed', 'duration_s')})};"
+          f" its launches [K1, K1-LSE, K2, K3] {before} at the promotion, "
+          f"{after} after, {got} in all ({steps} steps, {TRIALS} "
+          f"evaluates); its calls walked to the promoted leader: "
+          f"{[w[0] for w in walks]}; job STOPPED in {job_s:.1f} s with "
+          f"scores {[round(t['score'], 4) for t in trials]}; "
+          f"{len(failed)} client calls failed after ready; card memory: "
+          f"before the stop {mem_before}; after the adoption {mem_adopted};"
+          f" after the trial's end {mem_after}; card {card}", flush=True)
+    print(f"ha: 18a in {time.perf_counter() - t_phase:.1f} s (the standby "
+          f"exited {standby.returncode} on SIGTERM)", flush=True)
+    return got, job["id"]
+
+
+def ha_restart(card: str, env: dict, logs: Path, store: str,
+               sizes: list) -> list:
+    """18b: an admin without HA serves 18a's job (one ViT-B/16 replica, a
+    serving child), is SIGKILLed and booted again on its port; recovery
+    (and the child's own watchdog) leave no replica of the dead admin, the
+    job terminal; the client redeploys and the same images get the same
+    answers. Returns each kernel's launches in the redeployed replica."""
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.db.database import Database
+
+    port = _free_port()
+    plain = {**env, "RAFIKI_ADMIN_PORT": str(port)}
+    argv = [sys.executable, "-m", "rafiki_tpu_torch.admin"]
+    t_phase = time.perf_counter()
+    admin, banner, boot_s = _ha_proc(plain, logs / "plain.log", argv)
+    db = Database(store)  # reads only
+    rng = np.random.default_rng(SEED + 18)
+    images = rng.standard_normal((HA_IMAGES, 224, 224, 3)).astype(np.float32)
+    chunk = max(sizes)
+    try:
+        c = Client("127.0.0.1", port, timeout_s=HA_WAIT_S)
+        c.wait_until_admin_ready(timeout_s=HA_WAIT_S)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        t0 = time.perf_counter()
+        inf = c.create_inference_job("ha")
+        deploy_s = time.perf_counter() - t0
+        require(len(inf["workers"]) == 1, f"replicas {inf['workers']}")
+        old_sid = inf["workers"][0]["service_id"]
+
+        def answers(client):
+            return np.concatenate([np.asarray(client.predict(
+                "ha", images[i:i + chunk].tolist()))
+                for i in range(0, HA_IMAGES, chunk)])
+
+        first = answers(c)
+        old_pid = db.get_service(old_sid)["pid"]
+        # the dead admin's rings, by its broker's prefix (its serving
+        # child's environment): never a name another run made
+        with open(f"/proc/{old_pid}/environ", "rb") as f:
+            (prefix,) = [e.split(b"=", 1)[1].decode()
+                         for e in f.read().split(b"\0")
+                         if e.startswith(b"RAFIKI_BROKER_PREFIX=")]
+        shm_before = _shm_files(prefix + "-")
+        require(bool(shm_before), f"no /dev/shm/{prefix}-* ring")
+        mem_before = _card_mib()
+        gone = []
+
+        def watch():  # when the dead admin's serving child exits
+            while _running(old_pid):
+                time.sleep(0.02)
+            gone.append(time.perf_counter())
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        t_kill = time.perf_counter()
+        admin.send_signal(signal.SIGKILL)
+        watcher.start()
+        admin.wait(timeout=60)
+        admin, banner2, reboot_s = _ha_proc(plain, logs / "plain.log", argv)
+        c.wait_until_admin_ready(timeout_s=HA_WAIT_S)
+        t_ready = time.perf_counter()
+        watcher.join(timeout=120)
+        require(bool(gone), "the dead admin's serving child lives on")
+        exited = gone[0]
+        mem_gone = _card_mib()
+        report = json.loads((logs / "recovery.json").read_text())
+        inf_row = db.get_inference_job(inf["id"])
+        svc = db.get_service(old_sid)
+        require(not report.get("failed") and inf_row["status"] in (
+            "STOPPED", "ERRORED") and svc["status"] in ("STOPPED", "ERRORED"),
+            f"after the restart: job {inf_row['status']}, replica "
+            f"{svc['status']}, report {report}")
+        left = _shm_files(prefix + "-")
+        require(set(left) <= set(shm_before), f"rings {sorted(left)} of "
+                f"/dev/shm/{prefix}-* appeared after the kill")
+        t1 = time.perf_counter()
+        inf2 = c.create_inference_job("ha")
+        redeploy_s = time.perf_counter() - t1
+        (new_sid,) = [w["service_id"] for w in inf2["workers"]]
+        second = answers(c)
+        c.stop_inference_job("ha")
+        _wait_until(lambda: _one_record(logs, new_sid, "kernel launches"),
+                    120, "the redeployed replica wrote no exit line")
+    finally:
+        _stop_proc(admin)
+    code = admin.returncode
+    require(code == 0, f"the admin exited {code}")
+    held = prob_check("ha: the redeploy's answers", second, first)
+    (counts,) = _one_record(logs, new_sid, "kernel launches")
+    got = [counts[k] for k in COUNTERS]
+    require(got[0] > 0 and got[1:] == [0, 0, 0],
+            f"the redeployed replica launched {got}")
+    fenced = "fenced" in " ".join(report["reasons"])
+    print(f"ha: 18b admin without HA {banner!r} in {boot_s:.1f} s; one "
+          f"replica deployed in {deploy_s:.1f} s; SIGKILL, then booted "
+          f"again on port {port} in {reboot_s:.1f} s ({banner2!r}), ready "
+          f"{t_ready - t_kill:.1f} s after the kill; the dead admin's "
+          f"serving child (pid {old_pid}) gone {exited - t_kill:.2f} s "
+          f"after the kill ("
+          + ("fenced by recovery" if fenced else
+             "its own watchdog: its parent died, so it stopped before "
+             "the reboot's recovery ran")
+          + f"), its row {svc['status']}, the job {inf_row['status']}; "
+          f"recovery report {json.dumps({k: report[k] for k in ('scanned', 'adopted', 'fenced', 'closed', 'errored', 'jobs_closed', 'duration_s')})},"
+          f" reasons {report['reasons']}; /dev/shm left by the dead admin "
+          f"(/dev/shm/{prefix}-*): {sum(left.values())} bytes in "
+          f"{len(left)} rings of the {len(shm_before)} it held (as in JAX, "
+          f"the next boot leaves them; removed here); card memory before "
+          f"the kill {mem_before}, after the child's exit {mem_gone}; the "
+          f"redeploy in {redeploy_s:.1f} s, its {HA_IMAGES} answers against"
+          f" the first: {held}; K1 {got[0]} in the new replica; card {card}",
+          flush=True)
+    for name in left:
+        (Path("/dev/shm") / name).unlink(missing_ok=True)
+    print(f"ha: 18b in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return got
+
+
+def ha_phase(card: str, uris: dict) -> list:
+    """Phase 18: 18a then 18b; each kernel's launches on the phase's path
+    (the children's exit lines), in ``KERNEL_NAMES`` order."""
+    t0 = time.perf_counter()
+    work = WORK / "ha"
+    logs = work / "logs"
+    if work.exists():
+        import shutil
+
+        shutil.rmtree(work)
+    logs.mkdir(parents=True)
+    ring, sizes = choose_ring()
+    store = str(work / "store.sqlite3")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RAFIKI_")}
+    env.update({"PYTHONPATH": os.pathsep.join(
+                    p for p in (str(REPO), os.environ.get("PYTHONPATH"))
+                    if p),
+                "RAFIKI_WORKDIR": str(work),
+                "RAFIKI_LOGS_DIR": str(logs), "RAFIKI_DB_PATH": store,
+                "RAFIKI_PLACEMENT": "process",
+                "RAFIKI_SHM_RING_BYTES": str(ring),
+                "INFERENCE_MAX_BEST_TRIALS": "1",
+                "SERVICE_DEPLOY_TIMEOUT_S": str(HA_WAIT_S)})
+    train, _ = ha_failover(card, uris, env, logs, store)
+    serve = ha_restart(card, env, logs, store, sizes)
+    counts = [a + b for a, b in zip(train, serve)]
+    print(f"ha: phase 18 in {time.perf_counter() - t0:.1f} s; launches on "
+          f"its path {counts}", flush=True)
+    return counts
+
+
+def ha_only() -> None:
+    """Phase 18 with what it stands on (the dataset): the card's line,
+    the kernel build, the dataset, then phase 18."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = header()
+    counts = ha_phase(card, write_train_dataset())
+    print(f"chip_smoke: ha_only passed; launches on phase 18's path "
+          f"{counts}", flush=True)
+
+
 def drift_sandbox_only() -> None:
     """Phase 17 with what it stands on (phase 5's store and trials): the
     card's line, the kernel build, the dataset, phase 5, then phase 17."""
@@ -8096,6 +8602,7 @@ def main() -> int:
     mp_launches = model_parallel_phase(card)
     fleet_launches = fleet_phase(card)
     drift_launches = drift_sandbox_phase(card, uris)
+    ha_launches = ha_phase(card, uris)
     for i, name in enumerate(KERNEL_NAMES):
         by_path = {"train (phase 3)": train_launches[i],
                    "serve (phase 4)": serve_launches[i],
@@ -8113,7 +8620,8 @@ def main() -> int:
                    "int8 serving (phase 14d)": int8_launches[i],
                    "model parallel (phase 15)": mp_launches[i],
                    "fleet operations (phase 16)": fleet_launches[i],
-                   "drift and sandbox (phase 17)": drift_launches[i]}
+                   "drift and sandbox (phase 17)": drift_launches[i],
+                   "control-plane HA (phase 18)": ha_launches[i]}
         require(by_path["stack (phase 5)"] > 0,
                 f"{name} was not launched through the admin")
         require(by_path["process (phase 6)"] > 0,
@@ -8132,6 +8640,8 @@ def main() -> int:
                 f"{name} was not launched on the model-parallel path")
         require(by_path["drift and sandbox (phase 17)"] > 0,
                 f"{name} was not launched on the drift and sandbox path")
+        require(by_path["control-plane HA (phase 18)"] > 0,
+                f"{name} was not launched on the control-plane HA path")
         if name == "flash_fwd":
             require(by_path["serving control (phase 12)"] > 0,
                     "K1 was not launched on the serving-control path")

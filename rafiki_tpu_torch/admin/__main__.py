@@ -11,6 +11,13 @@ stops every job and exits 0. Settings, from the environment:
 Services run as threads of this process on the visible CUDA devices, or
 as child processes under ``RAFIKI_PLACEMENT=process``; it refuses to
 start without a CUDA device.
+
+On a store a dead admin left, the boot reconciles it (crash recovery) and
+the banner says ``recovery=recovering``. Under ``RAFIKI_ADMIN_HA=1`` it
+takes the leadership lease first (``LeaseNotAcquiredError`` while another
+admin holds a live one: a standby is built from ``StandbyAdmin`` and
+``AdminServer``, ``admin/standby.py``) and advertises its bound address
+on the lease row, the leader hint of standby 503s.
 """
 
 from __future__ import annotations
@@ -36,9 +43,15 @@ def main() -> int:
     host = os.environ.get("RAFIKI_ADMIN_HOST", "127.0.0.1")
     port = int(os.environ.get("RAFIKI_ADMIN_PORT", "3000"))
     server = AdminServer(admin, host=host, port=port).start()
+    if admin.lease is not None:
+        # the address is known once bound; the next renewal carries it
+        admin.lease.addr = f"{host}:{server.port}"
+    rec = admin.recovery_status()
+    rec_note = ("" if rec.get("state") == "ready" and not rec.get("scanned")
+                else f", recovery={rec.get('state')}")
     print(f"rafiki_tpu_torch admin on http://{host}:{server.port} "
           f"(db={admin.db.path}, placement="
-          f"{type(admin.placement).__name__})", flush=True)
+          f"{type(admin.placement).__name__}{rec_note})", flush=True)
 
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *a: stop.set())

@@ -54,13 +54,27 @@ read and re-arm a job's loop. Under ``RAFIKI_SANDBOX=1`` trials and
 serving replicas run the template in a locked-down child
 (``sdk/sandbox.py``), and a fused ensemble is refused typed.
 
-HA leases and admin failover, host placement and the fleet broker, crash
-recovery, request tracing, device profiling and dependency provisioning
-are not ported. The settings that turn one of them on raise
-:class:`~rafiki_tpu_torch.config.NotPortedError` (``config._UNPORTED``:
-``RAFIKI_ADMIN_HA``, ``RAFIKI_ADMIN_ADDRS``, ``RAFIKI_PLACEMENT=hosts``,
-``RAFIKI_AGENTS``, ``RAFIKI_ORPHAN_SURVIVE``, ``RAFIKI_TRACE_SAMPLE``,
-``RAFIKI_PROFILE`` and ``RAFIKI_INSTALL_DEPS``). No budget key is
+Crash recovery and control-plane HA: an admin's boot is idempotent on an
+existing store (``recover=True``, the default): the non-terminal jobs
+and services a dead admin left are scanned in the constructor and
+reconciled off-thread (``admin/recovery.py``: adopt, fence, reschedule,
+error, sweep) behind a ``recovering → ready`` state the door gates on
+(``recovery_status``, ``recovery_public``). Under ``RAFIKI_ADMIN_HA=1``
+the admin takes the leadership lease before its first store write
+(``admin/lease.py``; ``LeaseNotAcquiredError`` while another admin holds
+a live one) and every write is fenced by its epoch; a standby
+(``admin/standby.py``) builds its admin with the lease it promoted with
+(``lease=``). ``ha_role``, ``leader_hint`` and ``ha_public`` are what the
+door serves; ``shutdown`` releases the lease last. Under
+``RAFIKI_PLACEMENT=process`` the admin's engine lets train children
+outlive it (``orphan_survivable``), for the next admin to adopt by pid.
+
+Host placement and the fleet broker, request tracing, device profiling
+and dependency provisioning are not ported. The settings that turn one
+of them on raise :class:`~rafiki_tpu_torch.config.NotPortedError`
+(``config._UNPORTED``: ``RAFIKI_PLACEMENT=hosts``, ``RAFIKI_AGENTS``,
+``RAFIKI_TRACE_SAMPLE``, ``RAFIKI_PROFILE`` and
+``RAFIKI_INSTALL_DEPS``). No budget key is
 refused: a ``TEXT_GENERATION`` job under ``CHIPS_PER_WORKER`` > 1 is
 served from its grant's first card, as in the JAX package. A ``TEXT_GENERATION`` inference job's budget may
 name a draft trial (``GEN_DRAFT_TRIAL``) for speculative decoding,
@@ -85,6 +99,8 @@ from typing import Any, Dict, List, Optional
 
 from rafiki_tpu_torch import analysis, config
 from rafiki_tpu_torch.admin.autoscaler import Autoscaler
+from rafiki_tpu_torch.admin.lease import LeaseManager, LeaseNotAcquiredError
+from rafiki_tpu_torch.admin.recovery import ControlPlaneRecovery
 from rafiki_tpu_torch.admin.services import (
     ServiceDeploymentError,
     ServicesManager,
@@ -103,7 +119,7 @@ from rafiki_tpu_torch.constants import (
     TrialStatus,
     UserType,
 )
-from rafiki_tpu_torch.db.database import Database
+from rafiki_tpu_torch.db.database import Database, StaleEpochError
 from rafiki_tpu_torch.placement.hosts import ChipBudgetArbiter
 from rafiki_tpu_torch.placement.manager import (
     LocalPlacementManager,
@@ -150,13 +166,40 @@ class InvalidRequestError(Exception):
 class Admin:
     def __init__(self, db: Optional[Database] = None,
                  placement: Optional[PlacementManager] = None,
-                 params_dir: Optional[str] = None):
+                 params_dir: Optional[str] = None,
+                 recover: bool = True, lease=None,
+                 advertise_addr: Optional[str] = None):
+        """``recover``: reconcile what a dead admin left in the store
+        (the scan here, the reconcile off-thread). ``lease``: a
+        ``LeaseManager`` that already holds the leadership (a standby's
+        promotion); without one, ``RAFIKI_ADMIN_HA=1`` takes the lease
+        here, waiting up to ``RAFIKI_ADMIN_LEASE_ACQUIRE_TIMEOUT_S``.
+        ``advertise_addr`` (``host:port``) rides the lease row as the
+        leader hint."""
         config.refuse_unported()
         self.db = db or Database()
+        # the lease before the first store write: a leader's writes carry
+        # its epoch from the first one on
+        self._lease: Optional[LeaseManager] = lease
+        if self._lease is None and config.ADMIN_HA:
+            self._lease = LeaseManager(self.db, addr=advertise_addr)
+            if not self._lease.acquire(
+                    block=True,
+                    timeout_s=config.ADMIN_LEASE_ACQUIRE_TIMEOUT_S):
+                raise LeaseNotAcquiredError(
+                    "another admin holds a live leadership lease (row: "
+                    f"{self._lease.leader_row()}); boot this one as a "
+                    "standby (admin/standby.py) instead")
+        if self._lease is not None:
+            # a promoted standby's lease is bound to its watcher's handle:
+            # arm this admin's too (the renewal thread starts at the end
+            # of the constructor; the take armed a whole TTL)
+            self._lease.bind(self.db)
         self.advisor_store = AdvisorStore()
         if placement is None and os.environ.get(
                 "RAFIKI_PLACEMENT", "").strip() == "process":
-            placement = ProcessPlacementManager()
+            # train children outlive this admin, to be adopted by pid
+            placement = ProcessPlacementManager(orphan_survivable=True)
         if isinstance(placement, ProcessPlacementManager):
             # the children open this store and attach to the shm rings
             placement.db = placement.db or self.db
@@ -205,6 +248,74 @@ class Admin:
         if config.DRIFT:
             self.drift.start()
         self._seed_superadmin()
+        # -- crash recovery: the scan here, so nothing made after this
+        # constructor is reconciled; the reconcile off-thread
+        self._recovery: Dict[str, Any] = {"state": "ready"}
+        self._recovery_thread: Optional[threading.Thread] = None
+        self._recovery_runner = None
+        if recover:
+            rec = ControlPlaneRecovery(self)
+            snapshot = rec.snapshot()
+            if rec.needed(snapshot):
+                self._recovery = {"state": "recovering",
+                                  "started_at": time.time()}
+                self._recovery_runner = rec
+                self._recovery_thread = threading.Thread(
+                    target=self._run_recovery, args=(rec, snapshot),
+                    name="admin-recovery", daemon=True)
+                self._recovery_thread.start()
+            else:
+                self._recovery = rec.empty_report()
+        if self._lease is not None:
+            self._lease.start()  # a no-op for a promoted standby's
+
+    def _run_recovery(self, rec, snapshot) -> None:
+        try:
+            # run() folds a failed reconcile into its report: the doors
+            # open either way
+            self._recovery = rec.run(snapshot)
+        except Exception:
+            logger.exception("control-plane recovery failed")
+            self._recovery = {**rec.report, "state": "ready",
+                              "failed": True}
+
+    def recovery_status(self) -> Dict[str, Any]:
+        """The boot reconciliation's state and report (``recovering``
+        while it runs; the door answers 503 until ``ready``)."""
+        return dict(self._recovery)
+
+    def recovery_public(self) -> Dict[str, Any]:
+        """The state alone, for callers without credentials (the report
+        carries ids and reasons)."""
+        return {"state": self._recovery.get("state", "ready")}
+
+    # -- control-plane HA (admin/lease.py, admin/standby.py) ---------------
+
+    @property
+    def lease(self):
+        """This admin's ``LeaseManager`` (None with HA off)."""
+        return self._lease
+
+    def ha_role(self) -> str:
+        """``leader`` (with HA off there is no one else), or ``fenced``
+        once the lease lapsed or was taken over."""
+        return "leader" if self._lease is None else self._lease.role()
+
+    def ha_epoch(self) -> Optional[int]:
+        return self._lease.last_epoch() if self._lease is not None else None
+
+    def leader_hint(self) -> Optional[str]:
+        """The lease holder's advertised address."""
+        if self._lease is None:
+            return None
+        row = self._lease.leader_row()
+        return row.get("addr") if row else None
+
+    def ha_public(self) -> Dict[str, Any]:
+        """The role and the leader hint, for the public root."""
+        if self._lease is None:
+            return {"role": "leader"}
+        return {"role": self._lease.role(), "leader": self.leader_hint()}
 
     # -- users ---------------------------------------------------------------
 
@@ -1020,10 +1131,34 @@ class Admin:
         # the drift loop before the rollouts it starts
         self.drift.stop()
         self.rollouts.stop()
-        self.stop_all_jobs()
-        self.placement.stop_all()
+        # a reconcile racing the teardown would place services again: it
+        # aborts at its next check, and is waited out
+        if self._recovery_runner is not None:
+            self._recovery_runner.abort()
+        if self._recovery_thread is not None:
+            self._recovery_thread.join(timeout=30)
+        # a fenced ex-leader has nothing to tear down: the new leader owns
+        # the fleet
+        fenced = self.ha_role() == "fenced"
+        if not fenced:
+            try:
+                self.stop_all_jobs()
+            except StaleEpochError as e:
+                fenced = True
+                logger.warning("shutdown teardown cut short (fenced): %s", e)
+        if fenced and hasattr(self.placement, "detach_all"):
+            # a fenced ex-leader's children are the new leader's (a train
+            # child is adopted by pid): let go of them unsignalled. JAX
+            # stops them here (ROADMAP.md, C)
+            self.placement.detach_all()
+        else:
+            self.placement.stop_all()
         if isinstance(self.broker, ShmBroker):
             self.broker.close()  # unlinks every ring
+        # last: the release clears the fences, so every write above ran
+        # under the epoch
+        if self._lease is not None:
+            self._lease.stop(release=True)
 
 
 #: the serving counters a worker process relays

@@ -19,10 +19,10 @@ it); its loop thread runs with ``RAFIKI_DRIFT=1``. The loop's state is
 one ``drift_state`` row a job, written before the launch (the retrain's
 id is the idempotency key): :meth:`DriftController.recover_on_boot`
 resumes a dead admin's live rows, adopting or parking a launch of
-unknown fate, never launching twice. Its caller, crash recovery, and the
-``/fleet/health`` section that :meth:`DriftController.report` feeds are
-not ported (ROADMAP.md, items 10 and 12); so the tick does not wait on a
-recovery pass.
+unknown fate, never launching twice; crash recovery calls it
+(``admin/recovery.py``), and a tick does nothing while the admin's
+recovery runs. The ``/fleet/health`` section that
+:meth:`DriftController.report` feeds is not ported (ROADMAP.md, item 12).
 
 Chaos (``RAFIKI_CHAOS``, site ``drift``): a failed tick (target
 ``tick/<job>``) is absorbed for that job and never touches serving; a
@@ -146,6 +146,11 @@ class DriftController:
         side-effect-complete, so tests (and operators via the loop
         thread) drive the whole state machine through repeated calls."""
         self._m_ticks.inc()
+        if self._admin.recovery_status().get("state") == "recovering":
+            # recovery owns the loop's live rows until it is done (its
+            # recover_on_boot settles a launch of unknown fate; a tick
+            # before that could launch the retrain twice)
+            return []
         actions: List[Dict[str, Any]] = []
         predictors = self._services.predictors()
         with self._lock:

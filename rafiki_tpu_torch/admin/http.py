@@ -12,9 +12,24 @@ delete) are carried; ``start`` tells a process placement the door's
 address (``admin_addr``). The live fleet's routes are carried: ``scale``,
 ``update`` (a rollout; a second while one is live answers 409),
 ``rollout``, ``rollout/abort`` and ``rollout/ack``, and the drift
-loop's ``drift`` and ``drift/ack``. Not carried (ROADMAP.md): the trace
-route, fleet health, metrics, the web UI, and the standby and recovery
-gates.
+loop's ``drift`` and ``drift/ack``.
+
+The public root carries the admin's recovery state and its HA role and
+leader hint. Two gates answer before a route runs (after the body is
+read, so a keep-alive connection stays framed): a standby
+(``admin/standby.py``) answers only the root and ``/tokens``, and sheds
+the rest with a 503 carrying ``standby`` and the ``leader`` hint; an
+admin whose boot reconciliation runs (``admin/recovery.py``) sheds with a
+503 carrying its public ``recovery`` state, letting through the root,
+``/tokens``, worker events and the advisor routes (a surviving train
+worker keeps proposing while it is adopted). A fenced ex-leader (its
+lease lapsed or taken over) sheds as a standby does, its answer typed as
+the fence's (``StaleEpochError``), and so does a write the fence refuses
+mid-request: a client walks to the leader. JAX's door sheds only as a
+standby, so its fenced ex-leader goes on answering the routes that write
+nothing to the store, the advisor sessions among them, from its stale
+memory (ROADMAP.md, C). Not carried (ROADMAP.md): the trace route, fleet
+health, metrics and the web UI.
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ from rafiki_tpu_torch.admin.admin import Admin, InvalidRequestError
 from rafiki_tpu_torch.admin.rollout import RolloutInFlightError
 from rafiki_tpu_torch.cache.queue import FrameTooLargeError, QueueFullError
 from rafiki_tpu_torch.constants import UserType
+from rafiki_tpu_torch.db.database import StaleEpochError
 from rafiki_tpu_torch.placement.manager import InsufficientChipsError
 from rafiki_tpu_torch.predictor.admission import (
     DeadlineUnmeetableError,
@@ -60,6 +76,9 @@ _ANY = None  # any authenticated user
 _ADMINS = [UserType.ADMIN, UserType.SUPERADMIN]
 _MODEL_DEVS = [UserType.MODEL_DEVELOPER] + _ADMINS
 _APP_DEVS = [UserType.APP_DEVELOPER] + _ADMINS
+#: what a fenced ex-leader answers, before a route runs or when the fence
+#: refuses a write mid-request
+_FENCED = "StaleEpochError: admin lost leadership; retry against the leader"
 
 Route = Tuple[str, re.Pattern, Optional[List[str]], Callable]
 
@@ -155,9 +174,11 @@ class AdminServer:
         self._httpd = DoorHTTPServer((self.host, self.port), Handler)
         self.port = self._httpd.server_address[1]
         # worker processes reach the advisor and send events through this
-        # door: tell a process placement where it is
-        if hasattr(self.admin.placement, "admin_addr"):
-            self.admin.placement.admin_addr = (self.host, self.port)
+        # door: tell a process placement where it is (a standby has no
+        # placement until it promotes)
+        placement = getattr(self.admin, "placement", None)
+        if placement is not None and hasattr(placement, "admin_addr"):
+            placement.admin_addr = (self.host, self.port)
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="admin-door", daemon=True)
         self._thread.start()
@@ -180,9 +201,12 @@ class AdminServer:
             return (method, re.compile(f"^{pattern}$"), allowed, fn)
 
         return [
+            # the recovery state and the HA role are public: a client
+            # without credentials waits out a restart, and walks the
+            # addresses, on them
             r("GET", "/", "public", lambda au, m, b, q: {
                 "name": "rafiki_tpu_torch admin", "status": "ok",
-                "recovery": {"state": "ready"}, "ha": {"role": "leader"}}),
+                "recovery": A.recovery_public(), "ha": A.ha_public()}),
             r("POST", "/tokens", "public", lambda au, m, b, q:
                 A.authenticate_user(_field(b, "email"),
                                     _field(b, "password"))),
@@ -371,6 +395,24 @@ class AdminServer:
             raw, berr = read_bounded_body(handler, config.ADMIN_MAX_BODY_MB)
             if berr:
                 raise InvalidRequestError(f"{berr[1]} (ADMIN_MAX_BODY_MB)")
+            role = self.admin.ha_role()
+            if role in ("standby", "fenced") and path not in ("/",
+                                                              "/tokens"):
+                self._shed_to_leader(handler, (
+                    "admin is a hot standby; mutations go to the leader"
+                    if role == "standby" else _FENCED))
+                return
+            if (self.admin.recovery_status().get("state") == "recovering"
+                    and not (path in ("/", "/tokens")
+                             or path.startswith("/event/")
+                             or path.startswith("/advisors"))):
+                self._respond(
+                    handler, 503,
+                    {"error": "admin is recovering (boot reconciliation "
+                              "in progress); retry shortly",
+                     "recovery": self.admin.recovery_public()},
+                    headers={"Retry-After": "1"})
+                return
             query = {k: v[0] for k, v in parse_qs(parsed.query).items()}
             body: Dict[str, Any] = {}
             try:
@@ -421,11 +463,21 @@ class AdminServer:
             self._respond(handler, 504, {"error": f"{type(e).__name__}: {e}"})
         except InsufficientChipsError as e:
             self._respond(handler, 503, {"error": f"{type(e).__name__}: {e}"})
+        except StaleEpochError:
+            # the fence fired: this admin lost the leadership mid-request
+            self._shed_to_leader(handler, _FENCED)
         except Exception:
             # the traceback stays in the server's log, never in an answer
             logger.error("unhandled error on %s %s:\n%s", method,
                          handler.path, traceback.format_exc())
             self._respond(handler, 500, {"error": "internal server error"})
+
+    def _shed_to_leader(self, handler, error: str) -> None:
+        """A 503 the client walks on from: ``standby`` and the leader's
+        address."""
+        self._respond(handler, 503, {"error": error, "standby": True,
+                                     "leader": self.admin.leader_hint()},
+                      headers={"Retry-After": "1"})
 
     @staticmethod
     def _respond(handler, code: int, payload: Dict[str, Any],

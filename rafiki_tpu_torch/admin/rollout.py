@@ -36,8 +36,7 @@ a job mid-rollout. ``TEXT_GENERATION`` jobs roll with stream lanes (a
 stream draws its lane once; a drain waits out resident streams and hands
 the rest back ``MIGRATING``). :meth:`RolloutController.recover_on_boot`
 resolves a dead admin's live rows (DONE when the fleet is all new, else a
-rollback); its caller, crash recovery, is not ported (ROADMAP.md, item
-10). The events go to the row and to :meth:`RolloutController.report`.
+rollback); crash recovery calls it (``admin/recovery.py``). The events go to the row and to :meth:`RolloutController.report`.
 """
 
 from __future__ import annotations

@@ -58,8 +58,16 @@ A ``TEXT_GENERATION`` job under ``CHIPS_PER_WORKER`` > 1 takes the same
 sizing as a classification job (the clamp to the largest host, and
 ``min(replicas, cards // (trials x cards a worker))`` replicas); its
 worker serves from the grant's first card, as the JAX worker does.
-Generation in worker processes is refused, typed, and recovery's adoption
-of running services is not ported (ROADMAP.md).
+Generation in worker processes is refused, typed (ROADMAP.md).
+
+Crash recovery (``admin/recovery.py``) calls two methods here:
+``adopt_inference_job`` rebuilds the serving head (a ``Predictor`` over
+the adopted replicas, warm standbys left out of the fan-out; the job's
+door again under ``RAFIKI_PREDICTOR_PORTS=1``) of a job whose replicas
+survived the admin, and ``restart_train_worker`` places a lost train
+executor again under its own service id (the stale-trial resume
+continues its work; a grant of several cards starts its followers again,
+``parallel/ranks.py``).
 """
 
 from __future__ import annotations
@@ -480,6 +488,80 @@ class ServicesManager:
             self._destroy_service(service["id"], wait=False)
             raise
         return service["id"]
+
+    # -- crash recovery (admin/recovery.py) -----------------------------------
+
+    def adopt_inference_job(self, inference_job_id: str
+                            ) -> Optional[Predictor]:
+        """Rebuild the serving head of a job whose replicas survived an
+        admin restart: a fresh ``Predictor`` over the queues the recovery
+        pass registered again, at the adopted fleet's model version, and
+        the job's door under ``RAFIKI_PREDICTOR_PORTS=1``, so ``predict``
+        answers with no redeploy. Idempotent (recovery retries it)."""
+        inf = self._db.get_inference_job(inference_job_id)
+        if inf is None:
+            return None
+        train_job = self._db.get_train_job(inf["train_job_id"])
+        if train_job is None:
+            return None
+        group = self._group_of(inference_job_id)
+        workers = self._db.get_workers_of_inference_job(inference_job_id)
+        # a standby is adopted as a replica is, but it takes traffic only
+        # once promoted
+        worker_trials = {w["service_id"]: group(w["trial_id"])
+                         for w in workers if not int(w.get("standby") or 0)}
+        # the adopted fleet may differ from what the dead admin served
+        get_cache().flush_job(inference_job_id, reason="adoption")
+        version = max((int(w.get("model_version") or 0) for w in workers),
+                      default=0)
+        predictor = Predictor(inference_job_id, self._broker,
+                              train_job["task"], worker_trials=worker_trials,
+                              serving_version=version)
+        with self._lock:
+            self._predictors[inference_job_id] = predictor
+            stale = self._servers.pop(inference_job_id, None)
+        if stale is not None:
+            stale.stop(drain_timeout_s=0.0)  # an earlier attempt's door
+        psid = inf.get("predictor_service_id")
+        if config.PREDICTOR_PORTS:
+            server = PredictorServer(predictor, train_job["app"],
+                                     host=config.PREDICTOR_HOST).start()
+            with self._lock:
+                self._servers[inference_job_id] = server
+            if psid:
+                # the door moved with the admin: publish its address
+                self._db.update_service_host_port(psid, server.host,
+                                                  server.port)
+        if psid:
+            self._db.mark_service_as_running(psid)
+        self._db.mark_inference_job_as_running(inference_job_id)
+        return predictor
+
+    def restart_train_worker(self, service_id: str, sub_train_job_id: str,
+                             n_chips: int = 0) -> bool:
+        """Place a train executor again under its existing service id
+        after an admin restart (its executor died with the old admin): the
+        stale-RUNNING-trial resume re-runs what it left. The cards are
+        best effort: a busy grant downsizes the executor rather than
+        erroring its job a second time."""
+        worker = TrainWorker(sub_train_job_id, self._db, self._advisors,
+                             send_event=self._send_event,
+                             params_dir=self._params_dir)
+        try:
+            ctx = self._placement.create_service(
+                service_id, ServiceType.TRAIN, worker.start,
+                n_chips=n_chips, best_effort_chips=True,
+                extra={"sub_train_job_id": sub_train_job_id})
+        except Exception:
+            logger.exception("restarting train worker %s failed",
+                             service_id[:8])
+            return False
+        try:
+            self._db.update_service_chips(service_id, ctx.chips)
+        except Exception:
+            logger.exception("chip bookkeeping failed for restarted %s",
+                             service_id[:8])
+        return True
 
     def get_predictor(self, inference_job_id: str) -> Optional[Predictor]:
         with self._lock:

@@ -8,15 +8,18 @@ the train workers of one sub-train-job, each its own process, still share
 one GP.
 
 An advisor call rides out an admin that cannot be reached for a while
-(connection refused or reset) or that answers 5xx: it retries with
-jittered backoff for ``RAFIKI_ADVISOR_RETRY_S`` seconds (default 60; 0
-retries never), then raises the last error. A retried call whose first
+(a transport failure: connection refused or reset, or no address of the
+list answering) or that is still recovering (the recovering 503,
+:class:`~rafiki_tpu_torch.client.client.AdminRecoveringError`): it
+retries with jittered backoff for ``RAFIKI_ADVISOR_RETRY_S`` seconds
+(default 60; 0 retries never), then raises the last error. Any other
+answer, a 500 among them, raises at once, as in the JAX package (the
+port retried every 5xx before crash recovery landed). A retried call whose first
 answer was lost after the admin applied it is applied twice; a duplicate
 observation is noise the GP tolerates.
 
 Differences from the original: it speaks through the port's ``urllib``
-``Client`` (``requests`` is not on the card's machine); the HA
-recovering-503 is not ported (any 5xx is retried); and the worker's
+``Client`` (``requests`` is not on the card's machine); and the worker's
 per-trial feedback goes through the batch route, which returns no
 proposal. The original's ``/feedback`` answers with a next proposal that
 the GP registers as pending and no trial ever takes, so a process-placed
@@ -28,6 +31,7 @@ penalized cell of the GP.
 
 from __future__ import annotations
 
+import http.client
 import logging
 import os
 import random
@@ -35,9 +39,9 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, TypeVar
 
 from rafiki_tpu_torch.client.client import (
+    AdminRecoveringError,
     AdminUnavailableError,
     Client,
-    RafikiError,
 )
 from rafiki_tpu_torch.sdk.knob import serialize_knob_config
 
@@ -50,21 +54,22 @@ def _retry_window_s() -> float:
     return float(os.environ.get("RAFIKI_ADVISOR_RETRY_S", "60"))
 
 
-def _retryable(e: RafikiError) -> bool:
-    return isinstance(e, AdminUnavailableError) or (
-        e.status is not None and e.status >= 500)
+#: what an advisor call rides out: transport failures and the recovering
+#: 503
+RETRYABLE = (AdminUnavailableError, AdminRecoveringError, OSError,
+             http.client.HTTPException)
 
 
 def _ride_out(fn: Callable[[], T], what: str) -> T:
-    """Run one advisor call, retrying an unreachable or failing (5xx)
-    admin until the window closes; then the last error propagates."""
+    """Run one advisor call, retrying an unreachable or recovering admin
+    until the window closes; then the last error propagates."""
     deadline = time.monotonic() + _retry_window_s()
     delay = 0.2
     while True:
         try:
             return fn()
-        except RafikiError as e:
-            if not _retryable(e) or time.monotonic() >= deadline:
+        except RETRYABLE as e:
+            if time.monotonic() >= deadline:
                 raise
             logger.warning("advisor call %s failed (%s: %s); retrying for "
                            "up to RAFIKI_ADVISOR_RETRY_S", what,

@@ -13,9 +13,21 @@ the drift loop (``get_drift_status``, ``ack_drift``). It
 speaks HTTP with the standard library's ``urllib.request``, and
 ``http.client`` for the chunked streams; a non-200 answer raises
 :class:`RafikiError` with the status (409 as
-:class:`RolloutInFlightError`), and an admin that cannot be reached
-raises :class:`AdminUnavailableError`. Multi-address failover is not
-ported (ROADMAP.md).
+:class:`RolloutInFlightError`, a recovering admin's 503 as
+:class:`AdminRecoveringError`), and an admin that cannot be reached
+raises :class:`AdminUnavailableError`.
+
+Control-plane HA: a client given several addresses (``admin_addrs``, or
+``RAFIKI_ADMIN_ADDRS`` for a client built without a host and port) walks
+them on a refused connection and on a standby's 503, whose leader hint
+it tries first, and (with several addresses) on a promoted leader's
+recovering 503: in each case the request provably did not run. With
+several addresses it also walks past one that gives no answer within
+``timeout_s`` (a hung leader): that request may have run there. It logs
+each call that an address other than the last one answered. It
+raises :class:`AdminUnavailableError` once no address answered within
+``RAFIKI_ADMIN_FAILOVER_TIMEOUT_S``. :meth:`Client.wait_until_admin_ready`
+polls the public root, without credentials, until no recovery runs.
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ import base64
 import http.client
 import io
 import json
+import logging
 import time
 import urllib.error
 import urllib.parse
@@ -37,6 +50,7 @@ from rafiki_tpu_torch.cache import wire
 from rafiki_tpu_torch.sdk.model import load_model_class
 from rafiki_tpu_torch.sdk.params import load_params
 
+logger = logging.getLogger(__name__)
 
 class RafikiError(Exception):
     """An admin API error; ``status`` is the HTTP status when the admin
@@ -47,8 +61,15 @@ class RafikiError(Exception):
         self.status = status
 
 
+class AdminRecoveringError(RafikiError):
+    """The admin answered 503 because its boot reconciliation (crash
+    recovery) is still running: retry, or wait with
+    :meth:`Client.wait_until_admin_ready`."""
+
+
 class AdminUnavailableError(RafikiError):
-    """The admin could not be reached (connection refused or reset)."""
+    """No admin address answered: each refused the connection (or was
+    reset) or shed as a standby, within the failover window."""
 
 
 class GenerationStreamError(RafikiError):
@@ -77,10 +98,23 @@ class RolloutRolledBackError(RafikiError):
 
 class Client:
     def __init__(self, admin_host: str = "127.0.0.1", admin_port: int = 3000,
-                 timeout_s: Optional[float] = None):
+                 timeout_s: Optional[float] = None,
+                 admin_addrs: Optional[List[str]] = None):
         """``timeout_s`` bounds each call's socket waits (None: no bound;
-        deploying an inference job waits for its workers' warm-up)."""
-        self._base = f"http://{admin_host}:{admin_port}"
+        deploying an inference job waits for its workers' warm-up).
+        ``admin_addrs`` (``host:port`` each), or ``RAFIKI_ADMIN_ADDRS`` when
+        neither host nor port is given, are the admins a call walks."""
+        explicit = (admin_host != "127.0.0.1" or admin_port != 3000)
+        if admin_addrs:
+            addrs = list(admin_addrs)
+        elif not explicit and config.ADMIN_ADDRS:
+            addrs = [a.strip() for a in config.ADMIN_ADDRS.split(",")
+                     if a.strip()]
+        else:
+            addrs = []
+        self._addrs: List[str] = addrs or [f"{admin_host}:{admin_port}"]
+        self._active = 0  # the address that answered last
+        self._base = f"http://{self._addrs[0]}"
         self._timeout_s = timeout_s
         self._token: Optional[str] = None
         self.user: Optional[Dict[str, Any]] = None
@@ -92,28 +126,87 @@ class Client:
     def _call(self, method: str, path: str,
               body: Optional[Dict[str, Any]] = None,
               params: Optional[Dict[str, Any]] = None) -> Any:
-        url = self._base + path
-        if params:
-            url += "?" + urllib.parse.urlencode(params)
+        """One call, walking the admin addresses: the last one that
+        answered first, then the rest in order; a standby's leader hint
+        jumps the queue."""
+        suffix = path + ("?" + urllib.parse.urlencode(params)
+                         if params else "")
         headers = {"Content-Type": "application/json"}
         if self._token:
             headers["Authorization"] = f"Bearer {self._token}"
         data = json.dumps(body).encode() if body is not None else None
-        req = urllib.request.Request(url, data=data, method=method,
-                                     headers=headers)
-        try:
-            with urllib.request.urlopen(req, timeout=self._timeout_s) as resp:
-                status, raw = resp.status, resp.read()
-        except urllib.error.HTTPError as e:
-            status, raw = e.code, e.read()
-        except (urllib.error.URLError, ConnectionError) as e:
-            raise AdminUnavailableError(f"admin unreachable at {self._base}: "
-                                        f"{e}") from e
-        try:
-            payload = json.loads(raw)
-        except ValueError:
-            raise RafikiError(f"Bad response ({status}): {raw[:200]!r}",
-                              status=status)
+        multi = len(self._addrs) > 1
+        deadline = time.monotonic() + float(config.ADMIN_FAILOVER_TIMEOUT_S)
+        last_refusal: Optional[str] = None
+        first = self._addrs[self._active]
+        while True:
+            order = [self._addrs[(self._active + i) % len(self._addrs)]
+                     for i in range(len(self._addrs))]
+            for addr in order:
+                req = urllib.request.Request(
+                    f"http://{addr}{suffix}", data=data, method=method,
+                    headers=headers)
+                try:
+                    with urllib.request.urlopen(
+                            req, timeout=self._timeout_s) as resp:
+                        status, raw = resp.status, resp.read()
+                except urllib.error.HTTPError as e:
+                    status, raw = e.code, e.read()
+                except (urllib.error.URLError, ConnectionError) as e:
+                    # refused or reset before an answer: walk on
+                    last_refusal = f"{addr}: {e}"
+                    continue
+                except TimeoutError as e:
+                    if not multi:
+                        raise
+                    # no answer in timeout_s: a hung admin is walked past
+                    last_refusal = f"{addr}: {e!r}"
+                    continue
+                try:
+                    payload = json.loads(raw)
+                except ValueError:
+                    raise RafikiError(
+                        f"Bad response ({status}): {raw[:200]!r}",
+                        status=status)
+                if (status == 503 and isinstance(payload, dict)
+                        and payload.get("standby")):
+                    # a standby, or a fenced ex-leader, shed the call
+                    # before running it: its hint goes first
+                    last_refusal = f"{addr}: {payload.get('error')}"
+                    hint = payload.get("leader")
+                    if hint:
+                        if hint not in self._addrs:
+                            self._addrs.append(hint)
+                        self._active = self._addrs.index(hint)
+                    continue
+                if (multi and status == 503 and isinstance(payload, dict)
+                        and "recovery" in payload):
+                    # a promoted leader still reconciling shed the call
+                    # before running it (one address: the typed error)
+                    last_refusal = f"{addr}: {payload.get('error')}"
+                    continue
+                if addr != first:
+                    logger.info("admin call %s %s answered by %s, walked on "
+                                "from %s", method, path, addr, first)
+                self._active = self._addrs.index(addr)
+                self._base = f"http://{addr}"
+                return self._finish_call(status, payload)
+            if not multi and len(self._addrs) == 1:
+                raise AdminUnavailableError(
+                    f"admin unreachable: {last_refusal}")
+            if time.monotonic() >= deadline:
+                raise AdminUnavailableError(
+                    "no admin address answered within "
+                    f"{float(config.ADMIN_FAILOVER_TIMEOUT_S):.0f} s (last: "
+                    f"{last_refusal}); tried {self._addrs}")
+            time.sleep(0.1)
+
+    @staticmethod
+    def _finish_call(status: int, payload: Any) -> Any:
+        if (status == 503 and isinstance(payload, dict)
+                and "recovery" in payload):
+            raise AdminRecoveringError(
+                payload.get("error", "admin is recovering"))
         if status == 409:
             raise RolloutInFlightError(
                 payload.get("error", "rollout already in flight"),
@@ -613,6 +706,25 @@ class Client:
         self._call("DELETE", f"/advisors/{advisor_id}")
 
     # -- admin ---------------------------------------------------------------
+
+    def wait_until_admin_ready(self, timeout_s: float = 60.0
+                               ) -> Dict[str, Any]:
+        """Poll the public root (no credentials) until the admin's boot
+        reconciliation is over, walking the addresses, so a failover is
+        waited out too; returns the public recovery state."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            try:
+                data = self._call("GET", "/")
+                rec = (data or {}).get("recovery") or {"state": "ready"}
+                if rec.get("state") != "recovering":
+                    return rec
+            except (RafikiError, OSError):
+                pass  # not up yet (the socket rebinds), or transient
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"admin still recovering after {timeout_s:.0f}s")
+            time.sleep(0.1)
 
     def send_event(self, name: str, **payload: Any) -> None:
         self._call("POST", f"/event/{name}", payload)

@@ -9,7 +9,10 @@ settings ``TRIAL_*`` (vectorized trials' ``TRIAL_VMAP`` and
 ``TRIAL_VMAP_K`` among them), ``PENDING_FEEDBACK_MAX``, and the fleet's
 knobs: the autoscaler's, fair admission's and the warm pool's
 ``AUTOSCALE_*``, ``GEN_OCCUPANCY_HIGH``, the rollouts' ``ROLLOUT_*`` and
-the drift loop's ``DRIFT_*``)
+the drift loop's ``DRIFT_*``, crash recovery's ``RECOVER_*`` and
+control-plane HA's ``ADMIN_HA``, ``ADMIN_LEASE_*``, ``ADMIN_ADDRS``,
+``ADMIN_FAILOVER_TIMEOUT_S``, ``ADMIN_STANDBY_POLL_S`` and
+``RECOVERY_REPORT_KEEP``)
 and the wall-clock
 budgets (``PREDICT_TIMEOUT_S``, ``SERVICE_DEPLOY_TIMEOUT_S``,
 ``DIST_TIMEOUT_S``) are read
@@ -286,6 +289,34 @@ _DYNAMIC = {
     "DRIFT_COOLDOWN_S": lambda: _env_float("RAFIKI_DRIFT_COOLDOWN_S", 60.0),
     "DRIFT_LAUNCH_RETRY_MAX": lambda: _env_int(
         "RAFIKI_DRIFT_LAUNCH_RETRY_MAX", 2),
+    # -- crash recovery (admin/recovery.py): adopt surviving workers (0:
+    # fence them instead), and the bounded retry of a store step. The
+    # agents' probe budget, RAFIKI_RECOVER_PROBE_TIMEOUT_S, comes with
+    # host placement (_UNPORTED)
+    "RECOVER_ADOPT": lambda: os.environ.get(
+        "RAFIKI_RECOVER_ADOPT", "1") != "0",
+    "RECOVER_RETRY_MAX": lambda: _env_int("RAFIKI_RECOVER_RETRY_MAX", 4),
+    "RECOVER_RETRY_BACKOFF_S": lambda: _env_float(
+        "RAFIKI_RECOVER_RETRY_BACKOFF_S", 0.2),
+    # -- control-plane HA (admin/lease.py, admin/standby.py), off by
+    # default: a leader acquires the lease at boot; its TTL and renewal
+    # period (0: TTL/3); how long a booting leader waits out a
+    # predecessor's lease; the clients' address list and how long a call
+    # walks it; the standby's watch period (0: the renewal period); the
+    # epoch-suffixed recovery reports kept
+    "ADMIN_HA": lambda: _env_int("RAFIKI_ADMIN_HA", 0),
+    "ADMIN_LEASE_TTL_S": lambda: _env_float("RAFIKI_ADMIN_LEASE_TTL_S", 10.0),
+    "ADMIN_LEASE_RENEW_S": lambda: _env_float(
+        "RAFIKI_ADMIN_LEASE_RENEW_S", 0.0),
+    "ADMIN_LEASE_ACQUIRE_TIMEOUT_S": lambda: _env_float(
+        "RAFIKI_ADMIN_LEASE_ACQUIRE_TIMEOUT_S", 30.0),
+    "ADMIN_ADDRS": lambda: os.environ.get("RAFIKI_ADMIN_ADDRS", ""),
+    "ADMIN_FAILOVER_TIMEOUT_S": lambda: _env_float(
+        "RAFIKI_ADMIN_FAILOVER_TIMEOUT_S", 20.0),
+    "ADMIN_STANDBY_POLL_S": lambda: _env_float(
+        "RAFIKI_ADMIN_STANDBY_POLL_S", 0.0),
+    "RECOVERY_REPORT_KEEP": lambda: _env_int(
+        "RAFIKI_RECOVERY_REPORT_KEEP", 5),
 }
 
 
@@ -321,12 +352,10 @@ def _positive(value: str) -> bool:
 #: (environment name, whether a value selects a missing subsystem, its
 #: name)
 _UNPORTED = (
-    ("RAFIKI_ADMIN_HA", _is_one, "control-plane HA (lease, standby)"),
     ("RAFIKI_PLACEMENT", lambda v: v == "hosts", "host placement (agents)"),
     ("RAFIKI_INSTALL_DEPS", _is_one, "dependency provisioning"),
     ("RAFIKI_AGENTS", bool, "host placement (agents)"),
-    ("RAFIKI_ADMIN_ADDRS", bool, "admin failover (HA)"),
-    ("RAFIKI_ORPHAN_SURVIVE", _is_one, "crash recovery (orphan survival)"),
+    ("RAFIKI_RECOVER_PROBE_TIMEOUT_S", bool, "host placement (agents)"),
     ("RAFIKI_TRACE_SAMPLE", _positive, "request tracing"),
     ("RAFIKI_PROFILE", lambda v: v not in ("0", "false"),
      "device profiling"),

@@ -3,19 +3,30 @@
 Own copy of ``rafiki_tpu/db/database.py`` for the tables this slice uses
 (``user``, ``model``, ``train_job``, ``sub_train_job``, ``service``,
 ``trial``, ``train_job_worker``, ``inference_job``,
-``inference_job_worker``, ``rollout``, ``drift_state``, ``trial_log``),
-with the same
-columns, types,
-method names and row shapes. JSON columns (``budget``, ``knobs``,
+``inference_job_worker``, ``rollout``, ``drift_state``, ``trial_log``,
+``control_lease``), with the same columns, types, method names and row
+shapes. JSON columns (``budget``, ``knobs``,
 ``dependencies``, ``chips``) come back decoded. Job status changes are
 guarded transitions (``WHERE status IN ...``): a late write that would
 move a job backwards loses. :meth:`Database.reserve_trial` counts and
 inserts in one IMMEDIATE transaction, so parallel workers never overshoot
 a trial budget.
 
-Not ported (ROADMAP.md): the PostgreSQL backend, epoch fencing and its
-lease table, chaos hooks and the migrations
-for stores written by older versions.
+Control-plane HA (``admin/lease.py``): the ``control_lease`` row is taken
+and renewed by compare-and-set in an IMMEDIATE transaction, and every
+take bumps its epoch. :meth:`Database.set_fence` arms the epoch
+write-fence on a handle: from then on each INSERT, UPDATE or DELETE (and
+``reserve_trial``, inside its transaction) first checks that the fence's
+``time.monotonic()`` validity has not lapsed and that the lease row still
+holds the fence's epoch, else raises :class:`StaleEpochError`; reads are
+never fenced. The ``db`` chaos site (``RAFIKI_CHAOS``, target the SQL
+text) and the ``lease`` site (target ``acquire`` or ``renew``) raise
+:class:`MetadataStoreChaosError` or sleep before the statement runs.
+``get_non_terminal_services`` is crash recovery's one scan, and
+``update_service_pid`` records a process-placed service's child.
+
+Not ported (ROADMAP.md): the PostgreSQL backend and the migrations for
+stores written by older versions.
 """
 
 from __future__ import annotations
@@ -37,6 +48,29 @@ from rafiki_tpu_torch.constants import (
     TrainJobStatus,
     TrialStatus,
 )
+from rafiki_tpu_torch.utils import chaos
+
+
+class MetadataStoreChaosError(RuntimeError):
+    """A chaos-injected transient store failure (``RAFIKI_CHAOS`` site
+    ``db`` or ``lease``): the drillable stand-in for a flaky store."""
+
+
+class StaleEpochError(RuntimeError):
+    """The epoch fence refused a mutating write: a newer admin holds the
+    leadership lease, or this writer could not renew its own within the
+    TTL and fenced itself. Terminal for the caller: a fenced ex-leader
+    stops mutating, it does not retry."""
+
+    def __init__(self, message: str, expected: Optional[int] = None,
+                 current: Optional[int] = None):
+        super().__init__(message)
+        self.expected = expected
+        self.current = current
+
+
+#: the one row of ``control_lease``
+LEASE_ID = "admin"
 
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS "user" (
@@ -168,12 +202,20 @@ CREATE TABLE IF NOT EXISTS trial_log (
     datetime REAL NOT NULL
 );
 CREATE INDEX IF NOT EXISTS idx_trial_log_trial ON trial_log(trial_id);
+CREATE TABLE IF NOT EXISTS control_lease (
+    id TEXT PRIMARY KEY,
+    holder TEXT NOT NULL,
+    addr TEXT,
+    epoch INTEGER NOT NULL,
+    expires_at REAL NOT NULL,
+    datetime_updated REAL NOT NULL
+);
 """
 
 #: the tables of :data:`_SCHEMA`, in creation order
 TABLES = ("user", "model", "train_job", "sub_train_job", "service", "trial",
           "train_job_worker", "inference_job", "inference_job_worker",
-          "rollout", "drift_state", "trial_log")
+          "rollout", "drift_state", "trial_log", "control_lease")
 
 
 def _decode(row: Optional[Dict[str, Any]], *columns: str,
@@ -207,6 +249,9 @@ class Database:
         self._conn.execute("PRAGMA foreign_keys=ON")
         self._conn.execute("PRAGMA busy_timeout=15000")
         self._conn.executescript(_SCHEMA)
+        # the epoch write-fence (set_fence); None: not armed
+        self._fence_epoch: Optional[int] = None  # guarded-by: _lock
+        self._fence_valid_until = 0.0  # guarded-by: _lock (monotonic)
         if path != ":memory:":
             # owner-only: the store holds password hashes and uploads
             os.chmod(path, 0o600)
@@ -217,19 +262,181 @@ class Database:
 
     # -- low-level helpers -------------------------------------------------
 
-    def _exec(self, sql: str, args: tuple = ()) -> None:
+    @staticmethod
+    def _chaos(sql: str) -> None:
+        """The ``db`` chaos site, asked before every statement (target
+        the SQL text): ``delay`` is a slow store, anything else a typed
+        transient failure the callers retry on."""
+        rule = chaos.hit(chaos.SITE_DB, sql)
+        if rule is None:
+            return
+        if rule.action == chaos.ACTION_DELAY:
+            chaos.sleep_for(rule)
+            return
+        raise MetadataStoreChaosError(
+            f"chaos-injected metadata-store fault on {sql.split(None, 1)[0]}")
+
+    #: the statements the epoch fence guards (reads are always served)
+    _MUTATING_VERBS = ("INSERT", "UPDATE", "DELETE")
+
+    def _fence_check_locked(self) -> None:  # guarded-by: _lock
+        """The fence's check, with the lock held, right before a mutating
+        statement or inside an exclusive transaction: the validity first
+        (a writer paused past its TTL refuses before trusting the store),
+        then the lease row's epoch."""
+        epoch = self._fence_epoch
+        if epoch is None:
+            return
+        if time.monotonic() >= self._fence_valid_until:
+            raise StaleEpochError(
+                f"self-fenced: leadership lease (epoch {epoch}) was not "
+                "renewed within its TTL; refusing to mutate the store",
+                expected=epoch)
+        row = self._conn.execute(
+            "SELECT epoch FROM control_lease WHERE id=?",
+            (LEASE_ID,)).fetchone()
+        current = row["epoch"] if row else 0
+        if current != epoch:
+            raise StaleEpochError(
+                f"stale epoch {epoch}: the leadership lease is now held at "
+                f"epoch {current}; this admin must stop mutating",
+                expected=epoch, current=current)
+
+    def set_fence(self, epoch: int, valid_until: float) -> None:
+        """Arm or extend the epoch write-fence; ``valid_until`` is a
+        ``time.monotonic()`` deadline (a renewal extends it by the TTL)."""
         with self._lock:
+            self._fence_epoch = int(epoch)
+            self._fence_valid_until = float(valid_until)
+
+    def clear_fence(self) -> None:
+        """Disarm the fence (a graceful shutdown, after the release)."""
+        with self._lock:
+            self._fence_epoch = None
+
+    def _exec(self, sql: str, args: tuple = ()) -> None:
+        self._chaos(sql)
+        with self._lock:
+            if (self._fence_epoch is not None
+                    and sql.lstrip()[:6].upper() in self._MUTATING_VERBS):
+                self._fence_check_locked()
             self._conn.execute(sql, args)
 
     def _one(self, sql: str, args: tuple = ()) -> Optional[Dict[str, Any]]:
+        self._chaos(sql)
         with self._lock:
             row = self._conn.execute(sql, args).fetchone()
         return dict(row) if row else None
 
     def _all(self, sql: str, args: tuple = ()) -> List[Dict[str, Any]]:
+        self._chaos(sql)
         with self._lock:
             rows = self._conn.execute(sql, args).fetchall()
         return [dict(r) for r in rows]
+
+    # -- the leadership lease ------------------------------------------------
+
+    @staticmethod
+    def _lease_chaos(op: str) -> None:
+        """The ``lease`` chaos site at acquisition and renewal (target
+        ``acquire`` or ``renew``): ``delay`` is a slow store near the TTL's
+        edge, anything else the false-lease-loss drill's error."""
+        rule = chaos.hit(chaos.SITE_LEASE, op)
+        if rule is None:
+            return
+        if rule.action == chaos.ACTION_DELAY:
+            chaos.sleep_for(rule)
+            return
+        raise MetadataStoreChaosError(f"chaos-injected lease fault on {op}")
+
+    def _lease_txn(self, fn):
+        """Run ``fn(row)`` on the lease row in one IMMEDIATE transaction:
+        it returns its result, or None to roll back."""
+        with self._lock:
+            self._conn.execute("BEGIN IMMEDIATE")
+            try:
+                row = self._conn.execute(
+                    "SELECT * FROM control_lease WHERE id=?",
+                    (LEASE_ID,)).fetchone()
+                out = fn(dict(row) if row else None)
+                self._conn.execute("COMMIT" if out is not None
+                                   else "ROLLBACK")
+            except BaseException:
+                self._conn.execute("ROLLBACK")
+                raise
+        return out
+
+    def acquire_lease(self, holder: str, ttl_s: float,
+                      addr: Optional[str] = None) -> Optional[Dict]:
+        """Take the lease when it is absent, expired or already
+        ``holder``'s; every take bumps the epoch (a re-take by the same
+        holder too: its earlier incarnation's writes must fence). Returns
+        the new row, or None while another holder's lease is live."""
+        self._lease_chaos("acquire")
+        now = time.time()
+
+        def take(row):
+            if row is None:
+                epoch = 1
+                self._conn.execute(
+                    "INSERT INTO control_lease (id, holder, addr, epoch,"
+                    " expires_at, datetime_updated) VALUES (?,?,?,?,?,?)",
+                    (LEASE_ID, holder, addr, epoch, now + ttl_s, now))
+            elif row["holder"] == holder or row["expires_at"] <= now:
+                epoch = row["epoch"] + 1
+                self._conn.execute(
+                    "UPDATE control_lease SET holder=?, addr=?, epoch=?,"
+                    " expires_at=?, datetime_updated=? WHERE id=?",
+                    (holder, addr, epoch, now + ttl_s, now, LEASE_ID))
+            else:
+                return None
+            return {"id": LEASE_ID, "holder": holder, "addr": addr,
+                    "epoch": epoch, "expires_at": now + ttl_s,
+                    "datetime_updated": now}
+
+        return self._lease_txn(take)
+
+    def renew_lease(self, holder: str, epoch: int, ttl_s: float,
+                    addr: Optional[str] = None) -> bool:
+        """Extend the lease iff (holder, epoch) still match: expiry alone
+        does not fail it (nobody else took the lease). False means the
+        leadership is gone for good."""
+        self._lease_chaos("renew")
+        now = time.time()
+
+        def extend(row):
+            if (row is None or row["holder"] != holder
+                    or row["epoch"] != epoch):
+                return None
+            self._conn.execute(
+                "UPDATE control_lease SET addr=?, expires_at=?,"
+                " datetime_updated=? WHERE id=?",
+                (addr if addr is not None else row["addr"], now + ttl_s,
+                 now, LEASE_ID))
+            return True
+
+        return bool(self._lease_txn(extend))
+
+    def release_lease(self, holder: str, epoch: int) -> bool:
+        """Expire the lease now (compare-and-set on holder and epoch), so a
+        standby promotes without waiting out the TTL; the row and its
+        epoch stay."""
+        now = time.time()
+
+        def expire(row):
+            if (row is None or row["holder"] != holder
+                    or row["epoch"] != epoch):
+                return None
+            self._conn.execute(
+                "UPDATE control_lease SET expires_at=?, datetime_updated=?"
+                " WHERE id=?", (now, now, LEASE_ID))
+            return True
+
+        return bool(self._lease_txn(expire))
+
+    def read_lease(self) -> Optional[Dict]:
+        return self._one("SELECT * FROM control_lease WHERE id=?",
+                         (LEASE_ID,))
 
     # -- users -------------------------------------------------------------
 
@@ -443,6 +650,9 @@ class Database:
         with self._lock:
             self._conn.execute("BEGIN IMMEDIATE")
             try:
+                # the fence inside the transaction: a fenced admin never
+                # mints a trial row
+                self._fence_check_locked()
                 if max_trials is not None:
                     row = self._conn.execute(
                         "SELECT COUNT(*) AS c FROM trial"
@@ -801,6 +1011,43 @@ class Database:
         else:
             rows = self._all("SELECT * FROM service")
         return [_decode(s, "chips") for s in rows]
+
+    def get_non_terminal_services(self) -> List[Dict]:
+        """Crash recovery's scan in one query: every non-terminal service
+        joined to its job linkage (a train worker's sub-train-job, train
+        job and its status; a serving worker's inference job, trial,
+        version, borrowed cards and its job's status; a predictor's job
+        and its status)."""
+        live = (ServiceStatus.STARTED, ServiceStatus.DEPLOYING,
+                ServiceStatus.RUNNING)
+        marks = ",".join("?" * len(live))
+        rows = self._all(
+            "SELECT s.*,"
+            " tw.sub_train_job_id AS sub_train_job_id,"
+            " st.train_job_id AS train_job_id,"
+            " tj.status AS train_job_status,"
+            " iw.inference_job_id AS inference_job_id,"
+            " iw.trial_id AS trial_id,"
+            " iw.model_version AS model_version,"
+            " iw.borrowed_chips AS borrowed_chips,"
+            " ij.status AS inference_job_status,"
+            " pj.id AS predictor_job_id,"
+            " pj.status AS predictor_job_status"
+            " FROM service s"
+            " LEFT JOIN train_job_worker tw ON tw.service_id = s.id"
+            " LEFT JOIN sub_train_job st ON st.id = tw.sub_train_job_id"
+            " LEFT JOIN train_job tj ON tj.id = st.train_job_id"
+            " LEFT JOIN inference_job_worker iw ON iw.service_id = s.id"
+            " LEFT JOIN inference_job ij ON ij.id = iw.inference_job_id"
+            " LEFT JOIN inference_job pj ON pj.predictor_service_id = s.id"
+            f" WHERE s.status IN ({marks})", live)
+        return [_decode(s, "chips") for s in rows]
+
+    def update_service_pid(self, service_id: str,
+                           pid: Optional[int]) -> None:
+        """The child process backing a process-placed service, so a
+        restarted admin can adopt or fence it."""
+        self._exec("UPDATE service SET pid=? WHERE id=?", (pid, service_id))
 
     def update_service_chips(self, service_id: str,
                              chips: List[Any]) -> None:

@@ -90,6 +90,16 @@ class ChipAllocator:
         first of the inventory, marked busy for no one."""
         return list(self._total[:max(n, 1)])
 
+    def claim(self, chips: List[DeviceSpec]) -> List[DeviceSpec]:
+        """Mark these devices busy (crash recovery: an adopted worker
+        already holds its grant, so no later grant may land on it).
+        Devices outside the inventory or already busy are ignored; returns
+        the ones this call took."""
+        with self._lock:
+            taken = [c for c in self._free if c in chips]
+            self._free = [c for c in self._free if c not in taken]
+            return taken
+
     def release(self, chips: List[DeviceSpec]) -> None:
         with self._lock:
             for c in chips:

@@ -30,19 +30,29 @@ child is gone. The child marks its own service RUNNING (when ready),
 STOPPED or ERRORED in the store; the monitor thread here reports the
 terminal status through ``on_status`` in every case, so a child that dies
 without writing (SIGKILL) still ends its job. Each child's output goes to
-``LOGS_DIR/service-<id>.log``.
+``LOGS_DIR/service-<id>.log``, and its pid to its service row.
 
-Not ported (ROADMAP.md A.10): adopting a surviving child by pid after a
-control-plane restart, and children that outlive their admin.
+Crash recovery: an admin's engine is built ``orphan_survivable``, so its
+TRAIN children carry ``RAFIKI_ORPHAN_SURVIVE=1`` and outlive their admin
+(``worker/bootstrap.py``); a serving child never does (its shm data plane
+dies with the admin). A restarted admin's recovery hands such a child's
+recorded pid to :meth:`ProcessPlacementManager.adopt_pid`, which checks
+that the pid is this package's worker bootstrap of that very service
+(``/proc/<pid>/cmdline`` and its ``RAFIKI_SERVICE_ID``: a recycled pid,
+another service's child or a JAX worker is never adopted or signalled),
+takes its grant back in the allocator and watches it like a spawned
+child (:class:`_AdoptedRunner`: a stop is SIGTERM, then SIGKILL).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import signal
 import subprocess
 import sys
 import threading
+import time
 from typing import Any, Dict, List, Optional
 
 from rafiki_tpu_torch import config
@@ -70,6 +80,8 @@ class _ProcRunner:
         self.log_path = log_path
         self.proc: Optional[subprocess.Popen] = None
         self._proc_lock = threading.Lock()
+        #: let go of the child: its stop signals and reports nothing
+        self.detached = False
         self.thread = threading.Thread(
             target=self._run, name=f"proc-svc-{ctx.service_id[:8]}",
             daemon=True)
@@ -91,7 +103,17 @@ class _ProcRunner:
             while not self.ctx.stop_event.is_set():
                 with self._proc_lock:
                     self.proc = self._spawn()
+                # the pid on the row, so a restarted admin can adopt (or
+                # fence) the child; written again on every restart
+                try:
+                    mgr.db.update_service_pid(self.ctx.service_id,
+                                              self.proc.pid)
+                except Exception:
+                    logger.exception("pid record failed for %s",
+                                     self.ctx.service_id)
                 rc = self._wait_current()
+                if self.detached:
+                    return
                 if self.ctx.stop_event.is_set() or rc == 0:
                     break
                 logger.error("service %s process exited rc=%s (log: %s)",
@@ -118,6 +140,8 @@ class _ProcRunner:
             try:
                 return proc.wait(timeout=0.5)
             except subprocess.TimeoutExpired:
+                if self.detached:
+                    return None
                 if self.ctx.stop_event.is_set():
                     return self._terminate(proc)
 
@@ -155,6 +179,118 @@ class _ProcRunner:
                              self.ctx.service_id)
 
 
+#: the module a worker child runs, as it stands in /proc/<pid>/cmdline
+_BOOTSTRAP = b"rafiki_tpu_torch.worker.bootstrap"
+
+
+def _pid_is_worker(pid: Optional[int],
+                   service_id: Optional[str] = None) -> bool:
+    """Is ``pid`` a live worker bootstrap of this package, and with
+    ``service_id``, the one of that very service? Its cmdline must run
+    ``rafiki_tpu_torch.worker.bootstrap`` (a JAX worker's does not) and
+    its environment must carry the matching ``RAFIKI_SERVICE_ID``, so a
+    recycled pid is never adopted or signalled. Without a readable /proc
+    nothing can be checked, and nothing is ours."""
+    if not pid:
+        return False
+    try:
+        os.kill(pid, 0)
+    except OSError:
+        return False
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            if _BOOTSTRAP not in f.read().split(b"\0"):
+                return False
+        if service_id is not None:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+            return b"RAFIKI_SERVICE_ID=" + service_id.encode() in env
+        return True
+    except OSError:
+        return False
+
+
+def terminate_worker_pid(pid: int, service_id: str, grace_s: float) -> None:
+    """SIGTERM a worker that is not this process's child, wait up to
+    ``grace_s`` for it to go, then SIGKILL; the pid's identity is checked
+    again before every signal. ``grace_s <= 0`` sends SIGTERM alone (the
+    child deserves its own store write)."""
+    if not _pid_is_worker(pid, service_id=service_id):
+        return
+    try:
+        os.kill(pid, signal.SIGTERM)
+    except OSError:
+        return
+    if grace_s <= 0:
+        return
+    deadline = time.monotonic() + grace_s
+    while time.monotonic() < deadline:
+        if not _pid_is_worker(pid, service_id=service_id):
+            return
+        time.sleep(0.1)
+    if _pid_is_worker(pid, service_id=service_id):
+        logger.warning("worker %s (pid %d) ignored SIGTERM; killing",
+                       service_id[:8], pid)
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+
+
+class _AdoptedRunner:
+    """The monitor of a child that outlived its admin: as
+    :class:`_ProcRunner` (a stop is SIGTERM then SIGKILL; the terminal
+    status goes through ``on_status``, the child's own row winning) with
+    no ``Popen`` to wait on, so it polls the pid's identity: the pid
+    cannot be reaped here and may be recycled."""
+
+    def __init__(self, manager: "ProcessPlacementManager",
+                 ctx: ServiceContext, pid: int, owned: List[Any]):
+        self.manager = manager
+        self.ctx = ctx
+        self.pid = pid
+        self.owned = owned
+        self.detached = False  # as _ProcRunner's
+        self.thread = threading.Thread(
+            target=self._run, name=f"adopted-svc-{ctx.service_id[:8]}",
+            daemon=True)
+
+    def _alive(self) -> bool:
+        return _pid_is_worker(self.pid, service_id=self.ctx.service_id)
+
+    def _run(self) -> None:
+        mgr = self.manager
+        try:
+            while self._alive():
+                if self.ctx.stop_event.wait(0.5):
+                    if self.detached:
+                        return
+                    terminate_worker_pid(self.pid, self.ctx.service_id,
+                                         mgr.stop_grace_s)
+                    break
+            self._report_final()
+        finally:
+            mgr._on_runner_exit(self)
+
+    def _report_final(self) -> None:
+        """The exit code is unknowable here: the child's own terminal row
+        decides, else STOPPED after a stop and ERRORED after a death that
+        wrote nothing (SIGKILL)."""
+        mgr = self.manager
+        final = (ServiceStatus.STOPPED if self.ctx.stop_event.is_set()
+                 else ServiceStatus.ERRORED)
+        try:
+            svc = mgr.db.get_service(self.ctx.service_id)
+            if svc is not None and svc["status"] in (ServiceStatus.STOPPED,
+                                                     ServiceStatus.ERRORED):
+                final = svc["status"]
+            if mgr.on_status:
+                mgr.on_status(self.ctx.service_id, final)
+        except Exception:
+            logger.exception("final status report failed for adopted %s",
+                             self.ctx.service_id)
+
+
 class ProcessPlacementManager(PlacementManager):
     """Places services as child processes on this host.
 
@@ -163,15 +299,20 @@ class ProcessPlacementManager(PlacementManager):
     ``Admin`` fills in ``db`` and ``broker`` when they are not given, and
     ``AdminServer.start`` sets ``admin_addr`` (host, port): a train child
     reaches the advisor through it, so train services are refused until
-    it is set."""
+    it is set.
+
+    ``orphan_survivable`` (an admin's own engine): TRAIN children outlive
+    their admin, to be adopted by pid at its restart."""
 
     def __init__(self, db=None, broker=None,
                  allocator: Optional[ChipAllocator] = None,
                  on_status: Optional[StatusFn] = None,
-                 max_restarts: int = 3, stop_grace_s: float = 15.0):
+                 max_restarts: int = 3, stop_grace_s: float = 15.0,
+                 orphan_survivable: bool = False):
         super().__init__(allocator, on_status, max_restarts)
         self.db = db
         self.broker = broker
+        self.orphan_survivable = orphan_survivable
         #: (host, port) of the admin's door, set by ``AdminServer.start``
         self.admin_addr: Optional[tuple] = None
         self.stop_grace_s = stop_grace_s
@@ -213,6 +354,28 @@ class ProcessPlacementManager(PlacementManager):
         runner.thread.start()
         return ctx
 
+    def adopt_pid(self, service_id: str, service_type: str, pid: int,
+                  extra: Optional[Dict[str, Any]] = None,
+                  chips: Optional[List[Any]] = None) -> bool:
+        """Adopt a child that survived its admin: check that ``pid`` is
+        this service's worker, take its grant back in the allocator and
+        watch it as a spawned child. False when the pid is gone or not
+        ours (the caller reschedules or errors the service)."""
+        if not _pid_is_worker(pid, service_id=service_id):
+            return False
+        chips = list(chips or [])
+        owned = self.allocator.claim(chips)
+        ctx = ServiceContext(service_id=service_id, chips=chips,
+                             service_type=service_type,
+                             extra=dict(extra or {}))
+        runner = _AdoptedRunner(self, ctx, pid, owned)
+        with self._lock:
+            self._runners[service_id] = runner
+        runner.thread.start()
+        logger.info("adopted surviving worker %s (pid %d, grant %s)",
+                    service_id[:8], pid, chips)
+        return True
+
     def destroy_service(self, service_id: str, wait: bool = True) -> None:
         with self._lock:
             runner = self._runners.pop(service_id, None)
@@ -232,6 +395,22 @@ class ProcessPlacementManager(PlacementManager):
             except Exception:
                 logger.exception("broker unregister failed for %s",
                                  service_id)
+
+    def detach_all(self) -> None:
+        """Let go of every child without signalling it or writing its
+        status: a fenced ex-leader's children belong to the new leader. A
+        train child that survives orphaning is adopted there by pid; any
+        other stops on its own once this process exits."""
+        with self._lock:
+            runners = list(self._runners.values())
+            self._runners.clear()
+        for runner in runners:
+            runner.detached = True
+            runner.ctx.stop_event.set()
+        for runner in runners:
+            runner.thread.join(timeout=5)
+        logger.warning("detached %d children unsignalled (fenced)",
+                       len(runners))
 
     def stop_all(self) -> None:
         with self._lock:
@@ -276,6 +455,9 @@ class ProcessPlacementManager(PlacementManager):
                     "through the admin's REST door: start the AdminServer "
                     "before creating train jobs")
             env["RAFIKI_SUB_TRAIN_JOB_ID"] = ctx.extra["sub_train_job_id"]
+            if self.orphan_survivable:
+                # outlive the admin, to be adopted by pid at its restart
+                env["RAFIKI_ORPHAN_SURVIVE"] = "1"
         elif ctx.service_type == ServiceType.INFERENCE:
             prefix = getattr(self.broker, "prefix", None)
             if prefix is None:

@@ -18,7 +18,7 @@ of the requests a rule has seen, never on randomness; the controller
 re-parses ``RAFIKI_CHAOS`` whenever its value changes (counters reset
 with it).
 
-Five sites have their hooks in the port:
+Seven sites have their hooks in the port:
 
 - ``trial`` (``worker/train.py``, one ask per trial attempt, target
   ``"{sub_train_job_id} {trial_id}"``): ``delay`` sleeps, ``oom`` raises
@@ -44,7 +44,14 @@ Five sites have their hooks in the port:
   ``"tick/{inference_job_id}"`` (``delay`` sleeps, anything else fails
   that job's tick, which serving never sees), and at each retrain launch,
   target ``"launch/{inference_job_id}"`` (``delay`` sleeps, anything else
-  fails the launch: bounded retries, then the loop parks).
+  fails the launch: bounded retries, then the loop parks);
+- ``db`` (``db/database.py``, before every statement, target the SQL
+  text): ``delay`` sleeps (a slow store), anything else raises the typed
+  transient ``MetadataStoreChaosError`` (crash recovery retries it);
+- ``lease`` (``db/database.py``, at the lease's acquisition and renewal,
+  target ``acquire`` or ``renew``): ``delay`` sleeps (a slow store near
+  the TTL's edge), anything else raises ``MetadataStoreChaosError`` (the
+  false-lease-loss drill: a renewal error never demotes a leader).
 
 A rule naming any other site of the original raises
 :class:`~rafiki_tpu_torch.config.NotPortedError` when it is made,
@@ -86,7 +93,7 @@ SITES = (SITE_CALL_AGENT, SITE_AGENT, SITE_WORKER, SITE_WIRE, SITE_DB,
          SITE_COMPILE, SITE_LEASE)
 #: the sites whose hook the port has
 HOOKED_SITES = (SITE_TRIAL, SITE_WORKER, SITE_GENERATE, SITE_DEPLOY,
-                SITE_DRIFT)
+                SITE_DRIFT, SITE_DB, SITE_LEASE)
 
 ACTION_DROP = "drop"
 ACTION_DELAY = "delay"

@@ -13,6 +13,8 @@ starts it with what it needs in the environment:
     RAFIKI_INFERENCE_JOB_ID, RAFIKI_TRIAL_ID  (INFERENCE; a fused
     ensemble's RAFIKI_TRIAL_IDS too)
     RAFIKI_ADMIN_ADDR                         host:port of the admin's door
+    RAFIKI_ADMIN_ADDRS                        (HA) every admin's host:port
+    RAFIKI_ORPHAN_SURVIVE                     (TRAIN) "1": outlive the admin
     RAFIKI_BROKER_PREFIX                      the shm data plane's namespace
 
 Status protocol: the service's row goes RUNNING on ``ctx.ready()``, STOPPED
@@ -20,18 +22,28 @@ on a clean exit or SIGTERM, ERRORED on a crash, and the exit code mirrors
 it (0 or 1) for the parent's monitor. A worker granted several devices
 starts its followers here, one process a device, as rank 0 of their data
 group (``parallel/ranks.py``); they write their own ``startup`` and
-``kernel launches`` lines into this child's log. A child whose parent dies stops (the
-orphan watchdog). A child granted a card that finds no CUDA raises before
-it reports ready.
+``kernel launches`` lines into this child's log. A child granted a card
+that finds no CUDA raises before it reports ready.
+
+The orphan watchdog: a child whose parent dies (it is reparented) stops,
+unless it is a TRAIN child with ``RAFIKI_ORPHAN_SURVIVE=1`` (set by an
+admin's engine): that one keeps training for the restarted or promoted
+admin to adopt by pid, and stops only when its service row goes terminal
+(a fence, a stop, or its own end). The admin client walks
+``RAFIKI_ADMIN_ADDR`` and then every address of ``RAFIKI_ADMIN_ADDRS``,
+so a surviving child's advisor calls reach a standby promoted at another
+address (the JAX child's client holds ``RAFIKI_ADMIN_ADDR`` alone).
 
 Log lines the smoke test reads, each with the pid: ``startup`` (JSON of
 wall-clock stamps: the process's start, ``main``, torch imported, CUDA
 ready, kernel libraries loaded, ready; and the grant) and, at exit,
 ``kernel launches`` (JSON of the four attention kernels' launch counters
-in this process, which the parent cannot see).
+in this process, which the parent cannot see). SIGUSR1 adds a ``kernel
+launches so far`` line of the same counters (read by the next beat of
+the watchdog, within 2 s), so a caller can split a long-lived child's
+launches at a moment of its choosing.
 
-Not ported: the JAX platform override, and surviving the parent for
-control-plane recovery (ROADMAP.md A.10).
+Not ported: the JAX platform override.
 """
 
 from __future__ import annotations
@@ -120,20 +132,14 @@ def main() -> int:
 
     signal.signal(signal.SIGTERM, on_signal)
     signal.signal(signal.SIGINT, on_signal)
+    snapshot = threading.Event()
+    signal.signal(signal.SIGUSR1, lambda *a: snapshot.set())
 
-    # orphan watchdog: a child whose parent died without stopping it (hard
-    # kill) must not linger on a torn-down data plane; reparenting tells
-    parent0 = os.getppid()
-
-    def watch_parent():
-        while not stop_event.wait(2.0):
-            if os.getppid() != parent0:
-                logger.warning("parent %d died; stopping", parent0)
-                stop_event.set()
-                return
-
-    threading.Thread(target=watch_parent, name="orphan-watchdog",
-                     daemon=True).start()
+    survivable = (os.environ.get("RAFIKI_ORPHAN_SURVIVE") == "1"
+                  and service_type == ServiceType.TRAIN)
+    threading.Thread(target=_watch_parent, args=(
+        stop_event, snapshot, db, service_id, survivable, os.getppid()),
+        name="orphan-watchdog", daemon=True).start()
 
     def on_ready():
         db.mark_service_as_running(service_id)
@@ -145,13 +151,8 @@ def main() -> int:
     ctx = ServiceContext(service_id=service_id, chips=chips,
                          stop_event=stop_event, on_ready=on_ready,
                          service_type=service_type)
-    admin_client = None
-    addr = os.environ.get("RAFIKI_ADMIN_ADDR")
-    if addr:
-        from rafiki_tpu_torch.client.client import Client
-
-        host, port = addr.rsplit(":", 1)
-        admin_client = Client(admin_host=host, admin_port=int(port))
+    admin_client = _admin_client()
+    if admin_client is not None:
         admin_client.login(config.SUPERADMIN_EMAIL,
                            config.SUPERADMIN_PASSWORD)
     try:
@@ -174,10 +175,62 @@ def main() -> int:
     return 0
 
 
-def _log_launches() -> None:
+def _watch_parent(stop_event, snapshot, db, service_id: str,
+                  survivable: bool, parent0: int,
+                  beat_s: float = 2.0) -> None:
+    """The orphan watchdog, a beat every ``beat_s``: a child whose parent
+    died without stopping it (a hard kill) must not linger on a torn-down
+    data plane, and reparenting tells. A survivable train child works on
+    for the next admin and watches its row instead. Each beat also logs
+    the launch counters a SIGUSR1 asked for."""
+    orphaned = False
+    while not stop_event.wait(beat_s):
+        if snapshot.is_set():
+            snapshot.clear()
+            _log_launches("kernel launches so far")
+        if not orphaned and os.getppid() != parent0:
+            if not survivable:
+                logger.warning("parent %d died; stopping", parent0)
+                stop_event.set()
+                return
+            orphaned = True
+            logger.warning("parent %d died; surviving for the next admin "
+                           "(stopping when the store says so)", parent0)
+        if orphaned:
+            try:
+                svc = db.get_service(service_id)
+            except Exception:  # a store hiccup: keep working
+                continue
+            if svc is None or svc["status"] in ("STOPPED", "ERRORED"):
+                logger.warning("service row is terminal while orphaned; "
+                               "stopping")
+                stop_event.set()
+                return
+
+
+def _admin_client():
+    """The client of the admin's door (None without ``RAFIKI_ADMIN_ADDR``):
+    that address first, then the rest of ``RAFIKI_ADMIN_ADDRS``, since
+    after a failover the leader answers at another address. With several
+    addresses a call waits at most two lease TTLs for an answer: by then
+    a hung leader's lease has lapsed and a standby has had a TTL to
+    promote, so the walk goes on to it."""
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.client.client import Client
+
+    addr = os.environ.get("RAFIKI_ADMIN_ADDR")
+    if not addr:
+        return None
+    addrs = [addr] + [a.strip() for a in config.ADMIN_ADDRS.split(",")
+                      if a.strip() and a.strip() != addr]
+    return Client(admin_addrs=addrs, timeout_s=(
+        2 * float(config.ADMIN_LEASE_TTL_S) if len(addrs) > 1 else None))
+
+
+def _log_launches(label: str = "kernel launches") -> None:
     from rafiki_tpu_torch.parallel.ranks import launch_counts
 
-    logger.info("kernel launches (pid %d): %s", os.getpid(),
+    logger.info("%s (pid %d): %s", label, os.getpid(),
                 json.dumps(launch_counts()))
 
 

@@ -32,9 +32,9 @@ not fit the card is a verdict on its knobs, so the infeasible feedback
 and the quarantine steer away from it.
 
 Left out of ``classify_failure``: the ``psycopg2`` branch (the PostgreSQL
-store is not ported), ``MetadataStoreChaosError`` (with the ``db`` chaos
-hook) and the metrics registry's counters (with ``utils/metrics.py``);
-the in-process ``TRAINING_STATS`` keep the same keys.
+store is not ported) and the metrics registry's counters (with
+``utils/metrics.py``); the in-process ``TRAINING_STATS`` keep the same
+keys.
 """
 
 from __future__ import annotations
@@ -124,8 +124,9 @@ def classify_failure(exc: BaseException) -> Tuple[str, str]:
     """Map a trial-execution exception to ``(fault_kind, detail)``. Typed
     faults carry their kind; otherwise only a ``MemoryError`` (MEM) and a
     SQLite operational error (INFRA: a locked store under concurrent
-    workers) are the platform's, and everything else is USER, because a
-    template bug taken for INFRA would retry forever at no budget cost."""
+    workers) and a chaos-injected store fault (the ``db`` site) are the
+    platform's, and everything else is USER, because a template bug taken
+    for INFRA would retry forever at no budget cost."""
     detail = f"{type(exc).__name__}: {exc}"
     tb = traceback.format_exc()
     if tb and tb != "NoneType: None\n":
@@ -137,6 +138,10 @@ def classify_failure(exc: BaseException) -> Tuple[str, str]:
     if isinstance(exc, MemoryError):
         return FaultKind.MEM, detail
     if isinstance(exc, sqlite3.OperationalError):
+        return FaultKind.INFRA, detail
+    from rafiki_tpu_torch.db.database import MetadataStoreChaosError
+
+    if isinstance(exc, MetadataStoreChaosError):
         return FaultKind.INFRA, detail
     # torch.cuda.OutOfMemoryError lands here (module docstring)
     return FaultKind.USER, detail

@@ -1771,3 +1771,215 @@ def test_cuda_a_sandboxed_child_launches_the_kernels(tmp_path, monkeypatch):
     assert served["devices"] == ["cuda:0"]
     assert float(np.abs(got - ref).max()) <= 1e-3
     assert [os.stat(p).st_mode for p in ancestors] == modes, ancestors
+
+
+# ---------------------------------------------------------------------------
+# crash recovery on the card: an adopted train child, a fenced serving one
+# ---------------------------------------------------------------------------
+
+_ADMIN1 = """
+import sys, time
+from rafiki_tpu_torch.admin.admin import Admin
+from rafiki_tpu_torch.admin.http import AdminServer
+from rafiki_tpu_torch.db.database import Database
+from rafiki_tpu_torch.placement.process import ProcessPlacementManager
+
+admin = Admin(db=Database(sys.argv[1]), params_dir=sys.argv[2],
+              placement=ProcessPlacementManager(orphan_survivable=True))
+print(AdminServer(admin).start().port, flush=True)
+time.sleep(3600)
+"""
+
+#: a narrow ViT that holds each epoch's report for a second: its trial
+#: outlives the admin's death
+_SLOW_NARROW = b"""
+import time
+
+
+class SlowNarrowViT(NarrowViT):
+    def train(self, dataset_uri):
+        report = self.logger.log
+
+        def held(*args, **metrics):
+            report(*args, **metrics)
+            time.sleep(1.0)
+
+        self.logger.log = held
+        super().train(dataset_uri)
+"""
+
+
+def _service_records(logs, sid, kind):
+    import json
+    import re
+
+    return [json.loads(m.group(2)) | {"pid": int(m.group(1))}
+            for m in re.finditer(kind + r" \(pid (\d+)\): (\{.*\})",
+                                 (logs / f"service-{sid}.log").read_text())]
+
+
+def _gone(pid):
+    """Not running (gone, or a zombie its new parent has not reaped)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def _until(cond, timeout_s):
+    import time
+
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        assert time.monotonic() < deadline, "timed out"
+        time.sleep(0.05)
+
+
+@pytest.mark.cuda
+def test_cuda_an_orphan_surviving_child_is_adopted_and_trains_on(
+        tmp_path, monkeypatch):
+    """The admin, a process of its own, is SIGKILLed mid-trial; its
+    narrow-ViT train child on the card (``RAFIKI_ORPHAN_SURVIVE=1``)
+    trains on; an admin booted on the same store and port adopts it by
+    pid with its card, and it finishes: K1-LSE, K2 and K3 2 a step in
+    all, some after its admin's death (its SIGUSR1 line), K1 2 (its
+    evaluate)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import os
+    import signal
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.http import AdminServer
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.placement.process import ProcessPlacementManager
+
+    root = str(Path(flash_mod.__file__).resolve().parents[2])
+    logs = tmp_path / "logs"
+    monkeypatch.setenv("RAFIKI_WORKDIR", str(tmp_path))
+    monkeypatch.setenv("RAFIKI_LOGS_DIR", str(logs))
+    store, params = str(tmp_path / "store.sqlite3"), str(tmp_path / "params")
+    source, uris = _narrow_source_and_data(tmp_path)
+    source = source.replace(b'"epochs": FixedKnob(1)',
+                            b'"epochs": FixedKnob(3)') + _SLOW_NARROW
+    admin1 = subprocess.Popen(
+        [sys.executable, "-c", _ADMIN1, store, params], cwd=root,
+        env={**os.environ, "PYTHONPATH": root}, stdout=subprocess.PIPE,
+        text=True)
+    admin2 = srv2 = pid = None
+    try:
+        port = int(admin1.stdout.readline())
+        c = Client("127.0.0.1", port, timeout_s=300)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        c.create_model("slow", "IMAGE_CLASSIFICATION", source,
+                       "SlowNarrowViT")
+        c.create_train_job("slow", "IMAGE_CLASSIFICATION", *uris,
+                           budget={"MODEL_TRIAL_COUNT": 1, "CHIP_COUNT": 1})
+        db = Database(store)
+        job_id = c.get_train_job("slow")["id"]
+        (sid,) = [w["service_id"] for w in c.get_train_job("slow")["workers"]]
+        _until(lambda: db.get_trials_of_train_job(job_id), 300)
+        pid = db.get_service(sid)["pid"]
+        admin1.kill()
+        admin1.wait(timeout=30)
+        os.kill(pid, signal.SIGUSR1)  # its launches when its admin died
+        admin2 = Admin(db=Database(store), params_dir=params,
+                       placement=ProcessPlacementManager(
+                           orphan_survivable=True))
+        srv2 = AdminServer(admin2, port=port).start()
+        _until(lambda: admin2.recovery_status()["state"] == "ready", 60)
+        assert admin2.recovery_status()["adopted"] == 1
+        assert admin2.placement.allocator.free_chips == (
+            admin2.placement.allocator.total_chips - 1)
+        _until(lambda: db.get_train_job(job_id)["status"] == "STOPPED", 300)
+        _until(lambda: _gone(pid), 60)
+        trial = db.get_trials_of_train_job(job_id)[0]
+    finally:
+        if srv2 is not None:
+            srv2.stop()
+        if admin2 is not None:
+            admin2.shutdown()
+        if admin1.poll() is None:
+            admin1.kill()
+        admin1.wait(timeout=30)
+        if pid is not None and not _gone(pid):
+            os.kill(pid, signal.SIGKILL)
+    assert trial["status"] == "COMPLETED"
+    steps = 3 * (64 // trial["knobs"]["batch_size"])
+    (so_far,) = _service_records(logs, sid, "kernel launches so far")
+    (total,) = _service_records(logs, sid, "kernel launches")
+    names = ("flash_attention_lse", "flash_attention_dq",
+             "flash_attention_dkv")
+    assert [total[k] for k in names] == [2 * steps] * 3
+    assert total["flash_attention"] == 2
+    assert all(total[k] > so_far[k] for k in names), (so_far, total)
+    log = (logs / f"service-{sid}.log").read_text()
+    assert "surviving for the next admin" in log
+
+
+@pytest.mark.cuda
+def test_cuda_a_fenced_serving_child_gives_the_card_its_memory_back(
+        tmp_path, monkeypatch):
+    """A narrow-ViT serving child outlives its abandoned admin (its door
+    closed, its engine silent); an admin booted on the same store fences
+    it (SIGTERM: its data plane died with the old admin), errors the
+    replica and its job, and the child's memory on the card comes
+    back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.http import AdminServer
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.placement.process import ProcessPlacementManager
+
+    monkeypatch.setenv("RAFIKI_PLACEMENT", "process")
+    monkeypatch.setenv("RAFIKI_LOGS_DIR", str(tmp_path / "logs"))
+    monkeypatch.setenv("RAFIKI_SHM_RING_BYTES", str(4 << 20))
+    monkeypatch.setenv("INFERENCE_MAX_BEST_TRIALS", "1")
+    monkeypatch.setattr(config, "INFERENCE_MAX_BEST_TRIALS", 1)
+    store = str(tmp_path / "store.sqlite3")
+    source, uris = _narrow_source_and_data(tmp_path)
+    admin1 = Admin(db=Database(store), params_dir=str(tmp_path / "params"))
+    srv1 = AdminServer(admin1).start()
+    admin2 = None
+    try:
+        c = Client("127.0.0.1", srv1.port, timeout_s=300)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        c.create_model("narrow", "IMAGE_CLASSIFICATION", source, "NarrowViT")
+        c.create_train_job("narrow", "IMAGE_CLASSIFICATION", *uris,
+                           budget={"MODEL_TRIAL_COUNT": 1, "CHIP_COUNT": 1})
+        assert c.wait_until_train_job_stopped(
+            "narrow", timeout_s=300)["status"] == "STOPPED"
+        inf = c.create_inference_job("narrow")
+        (sid,) = [w["service_id"] for w in inf["workers"]]
+        pid = admin1.db.get_service(sid)["pid"]
+        held = torch.cuda.mem_get_info(0)[0]
+        # the first admin dies: its door dark, its engine silent
+        srv1.stop()
+        admin1.placement.on_status = None
+        admin2 = Admin(db=Database(store), params_dir=str(tmp_path / "p2"))
+        _until(lambda: admin2.recovery_status()["state"] == "ready", 60)
+        report = admin2.recovery_status()
+        _until(lambda: _gone(pid), 60)
+        _until(lambda: torch.cuda.mem_get_info(0)[0] > held, 30)
+        freed = torch.cuda.mem_get_info(0)[0] - held
+        db = Database(store)
+        assert report["errored"] == 1 and report["adopted"] == 0, report
+        # ERRORED by recovery, or STOPPED by the child's own SIGTERM
+        # handling after it, as in JAX
+        assert db.get_service(sid)["status"] in ("ERRORED", "STOPPED")
+        assert db.get_inference_job(inf["id"])["status"] == "ERRORED"
+        assert freed >= 100 << 20, freed  # at least its CUDA context
+    finally:
+        if admin2 is not None:
+            admin2.shutdown()
+        admin1.placement.on_status = None
+        admin1.shutdown()

@@ -1,0 +1,976 @@
+"""Crash recovery: ``rafiki_tpu_torch/admin/recovery.py`` and process
+adoption against ``rafiki_tpu``'s, on the CPU.
+
+- Boot reconciliation, the twins of ``tests/test_restart_recovery.py``
+  as far as they go without host agents (ROADMAP.md, item 11): the same
+  store rows are seeded, through each package's ``Database``, into each
+  package's store, and each package's ``Admin`` boots on its store with
+  one fake placement (``FakeHosts`` below) carrying the duck-typed
+  surface recovery reads of a host placement (``probe_inventories``,
+  ``adopt_service``, ``fence_service``, ``reschedule_service``,
+  ``quarantine_on_rejoin``). Compared exactly: the report's counts, its
+  reasons with the ids replaced by their labels, the placement's calls,
+  every seeded row's status, the rollout rows' phases and the drift
+  rows' phases and event names, the chip arbiter's loan book.
+- ``db`` chaos retried through the scan; an aborted reconcile shows in
+  the report and in ``recovery.json``; the door's recovering gate
+  answers as JAX's does route by route; the drift tick waits while the
+  admin recovers; the rebuilt advisor proposes what JAX's rebuilt
+  advisor proposes from the same replayed trials (exact knobs: both GPs
+  seed 0).
+- Real children: an admin process (CPU, process placement) is SIGKILLed
+  mid-trial; its train child, carrying ``RAFIKI_ORPHAN_SURVIVE=1``, is
+  reparented and trains on, a second admin on the same store and door
+  adopts it by pid, and it finishes its trial with the score of the same
+  trial run in-process (exact: an accuracy over 16 test images); the
+  same under HA with the first admin fenced (stopped past its lease)
+  rather than killed, then SIGTERMed: its shutdown leaves the adopted
+  child training;
+  ``_pid_is_worker`` refuses a dead pid, another service's pid and a JAX
+  bootstrap; the bootstrap's watchdog stops a child without the flag on
+  reparenting and keeps a survivable one until its row is terminal; a
+  two-rank gloo trial placed again by ``restart_train_worker`` trains
+  over both ranks again.
+"""
+
+import json
+import os
+import re
+import signal
+import socket
+import subprocess
+import sys
+import time
+import types
+import urllib.request
+from pathlib import Path
+
+import pytest
+
+from rafiki_tpu import config as jax_config
+from rafiki_tpu.admin.admin import Admin as JaxAdmin
+from rafiki_tpu.admin.http import AdminServer as JaxAdminServer
+from rafiki_tpu.admin.recovery import ControlPlaneRecovery as JaxRecovery
+from rafiki_tpu.db.database import Database as JaxDatabase
+from rafiki_tpu.placement import manager as jax_manager
+from rafiki_tpu.utils import chaos as jax_chaos
+from rafiki_tpu_torch import config
+from rafiki_tpu_torch.admin.admin import Admin
+from rafiki_tpu_torch.admin.http import AdminServer
+from rafiki_tpu_torch.admin.recovery import ControlPlaneRecovery
+from rafiki_tpu_torch.client.client import Client
+from rafiki_tpu_torch.db.database import Database
+from rafiki_tpu_torch.device import set_device_grant
+from rafiki_tpu_torch.placement import manager
+from rafiki_tpu_torch.placement.process import (
+    ProcessPlacementManager,
+    _pid_is_worker,
+)
+from rafiki_tpu_torch.sdk.model import load_model_class
+from rafiki_tpu_torch.utils import chaos
+from test_torch_process import _SLOW_TINY, _dataset, _tiny_template
+from test_torch_stack import FAKE_TEMPLATE, JAX_FAKE
+
+PACKAGES = {
+    "jax": types.SimpleNamespace(
+        Admin=JaxAdmin, AdminServer=JaxAdminServer, Database=JaxDatabase,
+        ChipAllocator=jax_manager.ChipAllocator, chaos=jax_chaos,
+        config=jax_config, Recovery=JaxRecovery,
+        template=JAX_FAKE.read_bytes()),
+    "torch": types.SimpleNamespace(
+        Admin=Admin, AdminServer=AdminServer, Database=Database,
+        ChipAllocator=manager.ChipAllocator, chaos=chaos, config=config,
+        Recovery=ControlPlaneRecovery, template=FAKE_TEMPLATE),
+}
+KNOBS = {"int_knob": 4, "float_knob": 0.01, "cat_knob": "a",
+         "fixed_knob": "fixed"}
+#: a wait for a state a background thread reaches in well under a
+#: second here; generous for a loaded host
+WAIT_S = 60.0
+
+
+@pytest.fixture(autouse=True)
+def _clean_chaos():
+    for p in PACKAGES.values():
+        p.chaos.clear()
+    yield
+    for p in PACKAGES.values():
+        p.chaos.clear()
+
+
+def wait_for(cond, timeout_s=WAIT_S):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.02)
+    return cond()
+
+
+def wait_ready(admin, timeout_s=WAIT_S):
+    assert wait_for(lambda: admin.recovery_status()["state"] != "recovering",
+                    timeout_s), admin.recovery_status()
+    return admin.recovery_status()
+
+
+class FakeHosts:
+    """What recovery reads of a host placement: each host's inventory
+    (``None`` for a host that does not answer) and the adopt, fence,
+    reschedule and quarantine calls, recorded. A destroyed service reports
+    STOPPED through ``on_status``, as a placement's monitor does."""
+
+    def __init__(self, allocator, inventories, fence_ok=True,
+                 reschedule_ok=True):
+        self.allocator = allocator
+        self.inventories = inventories
+        self.fence_ok = fence_ok
+        self.reschedule_ok = reschedule_ok
+        self.on_status = None
+        self.max_restarts = 0
+        self.calls = []
+
+    def probe_inventories(self):
+        return {addr: None if sids is None else {"services": [
+                    {"service_id": s, "status": "RUNNING"} for s in sids]}
+                for addr, sids in self.inventories.items()}
+
+    def adopt_service(self, service_id, addr, service_type, n_chips=0,
+                      extra=None, best_effort_chips=False):
+        self.calls.append(("adopt", service_id, addr, service_type, n_chips,
+                           best_effort_chips))
+        return True
+
+    def fence_service(self, service_id, addr, wait=False):
+        self.calls.append(("fence", service_id, addr, wait))
+        return self.fence_ok
+
+    def reschedule_service(self, service_id, service_type, n_chips=0,
+                           extra=None, exclude=()):
+        self.calls.append(("reschedule", service_id, service_type, n_chips,
+                           sorted(exclude)))
+        return self.reschedule_ok
+
+    def quarantine_on_rejoin(self, addrs, service_id):
+        self.calls.append(("quarantine", sorted(addrs), service_id))
+
+    def create_service(self, service_id, service_type, run_fn=None,
+                       n_chips=0, extra=None, best_effort_chips=False):
+        self.calls.append(("create", service_id, service_type, n_chips))
+        raise RuntimeError("this drill places nothing")
+
+    def destroy_service(self, service_id, wait=True):
+        self.calls.append(("destroy", service_id))
+        if self.on_status is not None:
+            self.on_status(service_id, "STOPPED")
+
+    def stop_all(self):
+        pass
+
+
+# ---------------------------------------------------------------------------
+# the seeded stores
+# ---------------------------------------------------------------------------
+
+
+class Seed:
+    """The rows one scenario seeds into a package's store, by label."""
+
+    def __init__(self, p, db):
+        self.p, self.db = p, db
+        self.ids = {}
+        user = db.create_user("u@x", "h", "APP_DEVELOPER")
+        model = db.create_model(user["id"], "fake", "IMAGE_CLASSIFICATION",
+                                p.template, "FakeModel", {}, "PUBLIC")
+        self.ids.update(user=user["id"], model=model["id"])
+
+    def train_job(self, label, app, running=False, trials=(0.3, 0.8),
+                  version=1):
+        tj = self.db.create_train_job(
+            self.ids["user"], app, version, "IMAGE_CLASSIFICATION", "u://t",
+            "u://e", {"MODEL_TRIAL_COUNT": 4})
+        sub = self.db.create_sub_train_job(tj["id"], self.ids["model"])
+        self.ids[label], self.ids[label + ".sub"] = tj["id"], sub["id"]
+        for i, score in enumerate(trials):
+            t = self.db.create_trial(sub["id"], self.ids["model"],
+                                     dict(KNOBS, int_knob=4 + i))
+            self.db.mark_trial_as_complete(t["id"], score, None)
+            self.ids[f"{label}.t{i + 1}"] = t["id"]
+        if running:
+            self.db.mark_train_job_as_running(tj["id"])
+        else:
+            self.db.mark_train_job_as_stopped(tj["id"])
+        return tj["id"]
+
+    def service(self, label, stype, chips=(), status="RUNNING"):
+        svc = self.db.create_service(stype, chips=list(chips))
+        if status == "RUNNING":
+            self.db.mark_service_as_running(svc["id"])
+        self.ids[label] = svc["id"]
+        return svc["id"]
+
+    def train_worker(self, label, job, chips=(0,)):
+        sid = self.service(label, "TRAIN", chips)
+        self.db.create_train_job_worker(sid, self.ids[job + ".sub"])
+        return sid
+
+    def inference_job(self, label, job, status="RUNNING"):
+        inf = self.db.create_inference_job(self.ids["user"], self.ids[job])
+        if status in ("RUNNING", "STOPPED"):
+            self.db.mark_inference_job_as_running(inf["id"])
+        if status == "STOPPED":
+            self.db.mark_inference_job_as_stopped(inf["id"])
+        self.ids[label] = inf["id"]
+        psid = self.service(label + ".predictor", "PREDICT")
+        self.db.update_inference_job_predictor(inf["id"], psid)
+        return inf["id"]
+
+    def replica(self, label, inf, trial, chips, version=0, borrowed=0):
+        sid = self.service(label, "INFERENCE", chips)
+        self.db.create_inference_job_worker(sid, self.ids[inf],
+                                            self.ids[trial],
+                                            model_version=version)
+        if borrowed:
+            self.db.set_worker_borrowed_chips(sid, borrowed)
+        return sid
+
+
+def _serving(s, fleet=(("r1", "a.t2", [0]), ("r2", "a.t1", [1]))):
+    s.train_job("a", "app")
+    s.inference_job("ij", "a")
+    for label, trial, chips in fleet:
+        s.replica(label, "ij", trial, chips)
+
+
+def sc_adopt_serving(s):
+    _serving(s)
+    return {"h1": ["r1"], "h2": ["r2"]}, {}
+
+
+def sc_fence_orphans(s):
+    _serving(s)
+    s.db.mark_inference_job_as_stopped(s.ids["ij"])
+    return {"h1": ["r1"], "h2": ["r2"]}, {}
+
+
+def sc_failed_fence(s):
+    inv, _ = sc_fence_orphans(s)
+    return inv, {"fence_ok": False}
+
+
+def sc_adopt_disabled(s):
+    _serving(s)
+    s.train_job("b", "app2", running=True)
+    s.train_worker("tw", "b", chips=[2])
+    return {"h1": ["r1", "tw"], "h2": ["r2"]}, {"adopt": "0"}
+
+
+def sc_dead_host_train(s):
+    s.train_job("b", "app2", running=True)
+    s.train_worker("tw", "b", chips=[2])
+    return {"h1": [], "h2": None}, {}
+
+
+def sc_dead_host_no_capacity(s):
+    inv, _ = sc_dead_host_train(s)
+    return inv, {"reschedule_ok": False}
+
+
+def sc_chip_loan(s):
+    _serving(s, fleet=(("r1", "a.t2", [0]), ("r2", "a.t1", [1]),
+                       ("r3", "a.t2", [2])))
+    s.db.set_worker_borrowed_chips(s.ids["r3"], 1)
+    return {"h1": ["r1", "r2"], "h2": ["r3"]}, {}
+
+
+def sc_mid_canary(s):
+    s.train_job("a", "app", trials=(0.3, 0.8, 0.9))
+    s.inference_job("ij", "a")
+    s.replica("r1", "ij", "a.t2", [0])
+    s.replica("r2", "ij", "a.t2", [1])
+    s.replica("canary", "ij", "a.t3", [2], version=1)
+    s.db.create_rollout(s.ids["ij"], s.ids["a.t2"], s.ids["a.t3"], 0, 1, 2,
+                        "CANARY")
+    return {"h1": ["r1", "r2", "canary"]}, {}
+
+
+def sc_after_rolling(s):
+    s.train_job("a", "app", trials=(0.3, 0.8, 0.9))
+    s.inference_job("ij", "a")
+    for label in ("old1", "old2"):  # drained by the rolling replace
+        s.db.mark_service_as_stopped(s.replica(label, "ij", "a.t2", [0]))
+    s.replica("n1", "ij", "a.t3", [0], version=1)
+    s.replica("n2", "ij", "a.t3", [1], version=1)
+    s.db.create_rollout(s.ids["ij"], s.ids["a.t2"], s.ids["a.t3"], 0, 1, 2,
+                        "ROLLING")
+    return {"h1": ["n1", "n2"]}, {}
+
+
+def sc_drift_resumed(s):
+    _serving(s)
+    retrain = s.train_job("retrain", "app", version=2)
+    s.db.create_drift_state(s.ids["ij"], "RETRAINING")
+    s.db.update_drift_state(s.ids["ij"], retrain_job_id=retrain)
+    return {"h1": ["r1"], "h2": ["r2"]}, {}
+
+
+def sc_drift_parked(s):
+    _serving(s)
+    s.db.create_drift_state(s.ids["ij"], "RETRAINING")
+    return {"h1": ["r1"], "h2": ["r2"]}, {}
+
+
+def sc_orphaned_linkage(s):
+    s.train_job("a", "app")
+    s.service("lost", "TRAIN")
+    return {"h1": []}, {}
+
+
+SCENARIOS = {
+    "adoption_of_serving_replicas": sc_adopt_serving,
+    "orphans_of_jobs_stopped_while_down_are_fenced": sc_fence_orphans,
+    "a_failed_fence_leaves_the_row_non_terminal": sc_failed_fence,
+    "adopt_disabled_fences_instead": sc_adopt_disabled,
+    "a_dead_hosts_train_service_is_rescheduled": sc_dead_host_train,
+    "no_capacity_to_reschedule_errors_the_job": sc_dead_host_no_capacity,
+    "chip_loans_are_rebuilt_for_adopted_borrowed_replicas": sc_chip_loan,
+    "mid_canary_rollout_rolls_back": sc_mid_canary,
+    "after_rolling_rollout_resumes_as_done": sc_after_rolling,
+    "a_drift_retrain_resumes_by_its_id": sc_drift_resumed,
+    "a_drift_intent_with_no_retrain_parks": sc_drift_parked,
+    "a_service_no_job_references_is_errored": sc_orphaned_linkage,
+}
+
+
+def _relabel(value, ids):
+    """``value`` with every seeded id (or its 8-character prefix, as
+    the reasons print them) replaced by its label."""
+    if isinstance(value, str):
+        for label, full in sorted(ids.items(), key=lambda kv: -len(kv[1])):
+            value = value.replace(full, f"<{label}>")
+            value = value.replace(full[:8], f"<{label}>")
+        return value
+    if isinstance(value, (list, tuple)):
+        return [_relabel(v, ids) for v in value]
+    if isinstance(value, dict):
+        return {_relabel(k, ids): _relabel(v, ids) for k, v in value.items()}
+    return value
+
+
+def _boot(p, name, scenario, tmp_path, monkeypatch, before_boot=None):
+    """Seed the scenario into ``p``'s store, boot its admin on the fake
+    placement (``before_boot(p)`` first), and record what recovery
+    did."""
+    work = tmp_path / name
+    (work / "logs").mkdir(parents=True)
+    monkeypatch.setenv("RAFIKI_WORKDIR", str(work))
+    monkeypatch.setenv("RAFIKI_LOGS_DIR", str(work / "logs"))
+    db = p.Database(str(work / "meta.sqlite3"))
+    seed = Seed(p, db)
+    inventories, opts = SCENARIOS[scenario](seed)
+    if opts.get("adopt"):
+        monkeypatch.setenv("RAFIKI_RECOVER_ADOPT", opts["adopt"])
+    else:
+        monkeypatch.delenv("RAFIKI_RECOVER_ADOPT", raising=False)
+    hosts = FakeHosts(
+        p.ChipAllocator([0, 1, 2, 3]),
+        {addr: None if sids is None else [seed.ids[s] for s in sids]
+         for addr, sids in inventories.items()},
+        fence_ok=opts.get("fence_ok", True),
+        reschedule_ok=opts.get("reschedule_ok", True))
+    if before_boot is not None:
+        before_boot(p)
+    admin = p.Admin(db=db, placement=hosts, params_dir=str(work / "params"))
+    try:
+        report = wait_ready(admin)
+        calls = list(hosts.calls)
+        ids = seed.ids
+        rows = {label: (db.get_service(i) or {}).get("status")
+                for label, i in ids.items() if db.get_service(i)}
+        jobs = {label: (db.get_train_job(i) or db.get_inference_job(i)
+                        )["status"]
+                for label, i in ids.items()
+                if db.get_train_job(i) or db.get_inference_job(i)}
+        rollouts, drift = [], None
+        if "ij" in ids:
+            rollouts = [(r["phase"], "restart" in (r["reason"] or ""),
+                         "recovery" in (r["reason"] or ""))
+                        for r in db.get_rollouts_of_inference_job(ids["ij"])]
+            st = db.get_drift_state(ids["ij"])
+            if st is not None:
+                drift = (st["phase"], [e["event"] for e in st["events"]],
+                         st["retrain_job_id"] == ids.get("retrain"))
+        loans = admin.chip_arbiter.borrowed()
+        persisted = json.loads((work / "logs" / "recovery.json").read_text())
+    finally:
+        admin.shutdown()
+    counts = {k: report[k] for k in (
+        "state", "scanned", "adopted", "rescheduled", "fenced", "closed",
+        "errored", "jobs_closed", "agents_probed", "agents_unreachable",
+        "db_retries")}
+    return _relabel({
+        "counts": counts, "reasons": report["reasons"],
+        "failed": report.get("failed", False), "calls": calls,
+        "services": rows, "jobs": jobs, "rollouts": rollouts,
+        "drift": drift, "loans": {k: list(v) for k, v in loans.items()},
+        "persisted": {k: persisted[k] for k in counts}}, ids)
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_boot_reconciliation_matches_jax(scenario, tmp_path, monkeypatch):
+    """The same seeded rows, the same fake placement: the same report,
+    calls and statuses after each package's recovery (exact)."""
+    got = {name: _boot(p, name, scenario, tmp_path, monkeypatch)
+           for name, p in PACKAGES.items()}
+    assert got["torch"] == got["jax"]
+    ours = got["torch"]
+    assert ours["counts"]["state"] == "ready" and not ours["failed"]
+    assert ours["persisted"] == ours["counts"]
+    expect = {
+        "adoption_of_serving_replicas": ("adopted", 2),
+        "orphans_of_jobs_stopped_while_down_are_fenced": ("fenced", 2),
+        "a_failed_fence_leaves_the_row_non_terminal": ("fenced", 0),
+        "adopt_disabled_fences_instead": ("fenced", 3),
+        "a_dead_hosts_train_service_is_rescheduled": ("rescheduled", 1),
+        "no_capacity_to_reschedule_errors_the_job": ("errored", 1),
+        "chip_loans_are_rebuilt_for_adopted_borrowed_replicas": (
+            "adopted", 3),
+        "mid_canary_rollout_rolls_back": ("adopted", 3),
+        "after_rolling_rollout_resumes_as_done": ("adopted", 2),
+        "a_drift_retrain_resumes_by_its_id": ("adopted", 2),
+        "a_drift_intent_with_no_retrain_parks": ("adopted", 2),
+        "a_service_no_job_references_is_errored": ("errored", 1),
+    }[scenario]
+    assert ours["counts"][expect[0]] == expect[1], ours
+    if scenario == "a_failed_fence_leaves_the_row_non_terminal":
+        assert ours["services"]["r1"] == "RUNNING"
+    if scenario == "chip_loans_are_rebuilt_for_adopted_borrowed_replicas":
+        assert ours["loans"] == {"<r3>": ["<ij>", 1]}
+    if scenario == "mid_canary_rollout_rolls_back":
+        assert ours["rollouts"] == [["ROLLED_BACK", True, False]]
+        assert ours["services"]["canary"] == "STOPPED"
+    if scenario == "after_rolling_rollout_resumes_as_done":
+        assert ours["rollouts"] == [["DONE", False, True]]
+    if scenario == "a_drift_retrain_resumes_by_its_id":
+        assert ours["drift"][0] == "RETRAINING" and ours["drift"][2]
+        assert "resumed" in ours["drift"][1]
+    if scenario == "a_drift_intent_with_no_retrain_parks":
+        assert ours["drift"][0] == "PARKED"
+
+
+def test_db_chaos_is_retried_through_the_scan(tmp_path, monkeypatch):
+    """The first two statements on the service table fail: the scan
+    retries with backoff and the reconcile completes, in both packages."""
+    monkeypatch.setenv("RAFIKI_RECOVER_RETRY_BACKOFF_S", "0.01")
+    got = {}
+    for name, p in PACKAGES.items():
+        got[name] = _boot(
+            p, name, "a_dead_hosts_train_service_is_rescheduled", tmp_path,
+            monkeypatch, before_boot=lambda p: p.chaos.install([
+                p.chaos.ChaosRule(site="db", action="error",
+                                  match="FROM service", times=2)]))
+        p.chaos.clear()
+    assert got["torch"] == got["jax"]
+    assert got["torch"]["counts"]["db_retries"] >= 2
+    assert got["torch"]["counts"]["rescheduled"] == 1
+
+
+def test_an_aborted_reconcile_shows_in_the_report_and_on_disk(
+        tmp_path, monkeypatch):
+    got = {}
+    for name, p in PACKAGES.items():
+        monkeypatch.setenv("RAFIKI_LOGS_DIR", str(tmp_path / name))
+        os.makedirs(tmp_path / name)
+        db = p.Database(":memory:")
+        admin = p.Admin(db=db, recover=False,
+                        placement=FakeHosts(p.ChipAllocator([0]), {}),
+                        params_dir=str(tmp_path / name / "params"))
+        try:
+            rec = p.Recovery(admin)
+            rec._reconcile = lambda snap: (_ for _ in ()).throw(
+                RuntimeError("store exploded mid-pass"))
+            report = rec.run({"services": [], "train_jobs": [],
+                              "inference_jobs": []})
+            persisted = json.loads(
+                (tmp_path / name / "recovery.json").read_text())
+        finally:
+            admin.shutdown()
+        got[name] = [(r["state"], r["failed"], r["error"], r["reasons"])
+                     for r in (report, persisted)]
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0][:3] == ("ready", True,
+                                   "RuntimeError: store exploded mid-pass")
+
+
+def _door_script(p, name, tmp_path):
+    """Routes through the door while the admin is forced recovering, then
+    ready: each answer's status and, for a 503, its body's keys."""
+    import urllib.request
+
+    admin = p.Admin(db=p.Database(":memory:"), placement=FakeHosts(
+        p.ChipAllocator([0]), {}), params_dir=str(tmp_path / name))
+    server = p.AdminServer(admin).start()
+    base = f"http://127.0.0.1:{server.port}"
+    out = []
+
+    def call(method, path, body=None, token=None):
+        req = urllib.request.Request(
+            base + path, method=method,
+            data=json.dumps(body).encode() if body is not None else None,
+            headers={"Content-Type": "application/json",
+                     **({"Authorization": f"Bearer {token}"} if token
+                        else {})})
+        try:
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                return resp.status, json.loads(resp.read()), resp.headers
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read()), e.headers
+
+    try:
+        creds = {"email": config.SUPERADMIN_EMAIL,
+                 "password": config.SUPERADMIN_PASSWORD}
+        token = call("POST", "/tokens", creds)[1]["data"]["token"]
+        admin._recovery = {"state": "recovering", "started_at": time.time()}
+        for method, path, body in (
+                ("GET", "/train_jobs", None), ("GET", "/", None),
+                ("POST", "/tokens", creds),
+                ("POST", "/event/train_job_worker_stopped",
+                 {"train_job_id": "none"}),
+                ("POST", "/advisors", {"knob_config": "{}"}),
+                ("GET", "/models", None)):
+            status, payload, headers = call(method, path, body, token)
+            out.append((method, path, status,
+                        sorted(payload) if status == 503 else None,
+                        headers.get("Retry-After"),
+                        (payload.get("data") or {}).get("recovery")
+                        if path == "/" else None,
+                        payload.get("recovery")))
+        admin._recovery = {"state": "ready"}
+        out.append(call("GET", "/train_jobs", None, token)[0])
+    finally:
+        server.stop()
+        admin.shutdown()
+    return out
+
+
+def test_the_door_sheds_503_while_recovering_as_jax_does(tmp_path):
+    """Route by route, the recovering gate answers as JAX's: 503 with
+    ``Retry-After`` and the public state on the gated routes; the root,
+    login, worker events and the advisor routes pass."""
+    got = {name: _door_script(p, name, tmp_path)
+           for name, p in PACKAGES.items()}
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0][2] == 503 and got["torch"][-1] == 200
+
+
+def test_the_client_waits_out_a_recovering_admin(tmp_path):
+    """The port's client: a gated call raises the typed
+    ``AdminRecoveringError``, and ``wait_until_admin_ready`` returns once
+    the state is ready."""
+    from rafiki_tpu_torch.client.client import AdminRecoveringError
+
+    admin = Admin(db=Database(":memory:"), placement=FakeHosts(
+        manager.ChipAllocator([0]), {}), params_dir=str(tmp_path))
+    server = AdminServer(admin).start()
+    try:
+        c = Client("127.0.0.1", server.port, timeout_s=30)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        admin._recovery = {"state": "recovering"}
+        with pytest.raises(AdminRecoveringError):
+            c.get_train_jobs()
+        admin._recovery = {"state": "ready"}
+        assert c.wait_until_admin_ready(timeout_s=10) == {"state": "ready"}
+        assert c.get_train_jobs() == []
+    finally:
+        server.stop()
+        admin.shutdown()
+
+
+def test_a_drift_tick_waits_while_the_admin_recovers(tmp_path):
+    """Both packages' tick does nothing while recovery owns the loop's
+    rows, and ticks again once ready."""
+    got = {}
+    for name, p in PACKAGES.items():
+        admin = p.Admin(db=p.Database(":memory:"), placement=FakeHosts(
+            p.ChipAllocator([0]), {}), params_dir=str(tmp_path / name))
+        try:
+            seen = []
+            admin.services.predictors = lambda: seen.append(1) or {}
+            admin._recovery = {"state": "recovering"}
+            waiting = (admin.drift.tick(), len(seen))
+            admin._recovery = {"state": "ready"}
+            ready = (admin.drift.tick(), len(seen))
+        finally:
+            admin.shutdown()
+        got[name] = (waiting, ready)
+    assert got["torch"] == got["jax"] == (([], 0), ([], 1))
+
+
+def test_the_rebuilt_advisor_proposes_what_jaxs_does(tmp_path):
+    """The session a dead admin held is rebuilt from the store's scored
+    and infeasible trials: the first proposals after the replay are
+    JAX's, knob for knob (both GPs seed 0), and a second restore does not
+    feed twice."""
+    got = {}
+    for name, p in PACKAGES.items():
+        db = p.Database(str(tmp_path / f"{name}.sqlite3"))
+        seed = Seed(p, db)
+        seed.train_job("a", "app", running=True, trials=(0.3, 0.8, 0.5))
+        t = db.create_trial(seed.ids["a.sub"], seed.ids["model"],
+                            dict(KNOBS, int_knob=30, cat_knob="c"))
+        db.mark_trial_as_errored(t["id"])
+        db.record_trial_fault(t["id"], "USER", "boom")
+        admin = p.Admin(db=db, recover=False, placement=FakeHosts(
+            p.ChipAllocator([0]), {}), params_dir=str(tmp_path / name))
+        try:
+            rec = p.Recovery(admin)
+            rec._restore_advisor(seed.ids["a.sub"])
+            rec._restored_advisors.clear()
+            rec._restore_advisor(seed.ids["a.sub"])  # no double feed
+            advisor = admin.advisor_store.get(seed.ids["a.sub"])
+            got[name] = (advisor.observation_count,
+                         advisor.infeasible_count,
+                         [admin.advisor_store.propose(seed.ids["a.sub"])
+                          for _ in range(3)])
+        finally:
+            admin.shutdown()
+    assert got["torch"] == got["jax"]
+    assert got["torch"][:2] == (3, 1)
+
+
+# ---------------------------------------------------------------------------
+# real children
+# ---------------------------------------------------------------------------
+
+
+def _alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def _startup_pids(logs):
+    out = {}
+    for path in Path(logs).glob("service-*.log"):
+        for m in re.finditer(r"startup \(pid (\d+)\)", path.read_text()):
+            out[path.stem[len("service-"):]] = int(m.group(1))
+    return out
+
+
+_ADMIN1 = """
+import signal, sys, threading
+from rafiki_tpu_torch.admin.admin import Admin
+from rafiki_tpu_torch.admin.http import AdminServer
+from rafiki_tpu_torch.db.database import Database
+from rafiki_tpu_torch.placement.manager import ChipAllocator
+from rafiki_tpu_torch.placement.process import ProcessPlacementManager
+
+admin = Admin(db=Database(sys.argv[1]), params_dir=sys.argv[2],
+              placement=ProcessPlacementManager(
+                  allocator=ChipAllocator(["cpu"]), orphan_survivable=True))
+server = AdminServer(admin, port=int(sys.argv[3])).start()
+if admin.lease is not None:
+    admin.lease.addr = f"127.0.0.1:{server.port}"
+print(server.port, flush=True)
+# as python -m rafiki_tpu_torch.admin: SIGTERM shuts the admin down
+stop = threading.Event()
+signal.signal(signal.SIGTERM, lambda *a: stop.set())
+stop.wait()
+server.stop()
+admin.shutdown()
+print("shut down", flush=True)
+"""
+
+
+_GATED = b"""
+import os
+
+
+class GatedTinyViT(SlowTinyViT):
+    def train(self, dataset_uri):
+        super().train(dataset_uri)
+        deadline = time.monotonic() + 600
+        while (not os.path.exists(os.environ["TRAIN_GATE"])
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+"""
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _root_role(port):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                    timeout=5) as resp:
+            return json.loads(resp.read())["data"]["ha"]["role"]
+    except OSError:
+        return None
+
+
+def test_an_orphan_surviving_child_is_adopted_by_pid_and_finishes(
+        tmp_path, monkeypatch):
+    """The admin is SIGKILLed mid-trial: see ``_adoption``."""
+    _adoption(tmp_path, monkeypatch, "sigkill")
+
+
+def test_a_fenced_ex_leaders_shutdown_leaves_the_adopted_child(
+        tmp_path, monkeypatch):
+    """The admin is fenced, then SIGTERMed: see ``_adoption``."""
+    _adoption(tmp_path, monkeypatch, "fenced_sigterm")
+
+
+def _adoption(tmp_path, monkeypatch, loss):
+    """The admin, a process of its own, loses its train child mid-trial;
+    the child (``RAFIKI_ORPHAN_SURVIVE=1``) keeps training; a second
+    admin on the same store adopts the child by pid (the report reads
+    adopted 1) with its grant and its advisor session, and the child
+    finishes the trial with the score the same trial gives run
+    in-process; the job STOPs and the grant comes back.
+
+    ``sigkill``: the admin is SIGKILLed and the second one's door takes
+    its port. ``fenced_sigterm`` (HA, a lease TTL of 1 s): the admin is
+    SIGSTOPped past its TTL, the second admin takes the lease at another
+    address and adopts the child, then the first is SIGCONTed (fenced)
+    and SIGTERMed: its shutdown lets the adopted child go unsignalled
+    (JAX's stops it, ROADMAP.md C), and the child's advisor feedback
+    walks past the fenced admin to the new leader."""
+    import rafiki_tpu_torch
+
+    root = str(Path(rafiki_tpu_torch.__file__).resolve().parents[1])
+    logs = tmp_path / "logs"
+    monkeypatch.setenv("RAFIKI_WORKDIR", str(tmp_path))
+    monkeypatch.setenv("RAFIKI_LOGS_DIR", str(logs))
+    store = str(tmp_path / "store.sqlite3")
+    params = tmp_path / "params"
+    fenced = loss == "fenced_sigterm"
+    source = _tiny_template().replace(b'"epochs": FixedKnob(1)',
+                                      b'"epochs": FixedKnob(3)') + _SLOW_TINY
+    cls = "SlowTinyViT"
+    train_uri, test_uri = _dataset(tmp_path)
+    env = {**os.environ, "PYTHONPATH": root}
+    p1 = p2 = 0
+    gate = tmp_path / "gate"
+    if fenced:
+        p1, p2 = _free_port(), _free_port()
+        env.update(RAFIKI_ADMIN_HA="1", RAFIKI_ADMIN_LEASE_TTL_S="1",
+                   RAFIKI_ADMIN_ADDRS=f"127.0.0.1:{p1},127.0.0.1:{p2}",
+                   TRAIN_GATE=str(gate))
+        # the trial ends only once the handover is done
+        source, cls = source + _GATED, "GatedTinyViT"
+    admin1 = subprocess.Popen(
+        [sys.executable, "-c", _ADMIN1, store, str(params), str(p1)],
+        cwd=root, env=env, stdout=subprocess.PIPE, text=True)
+    admin2 = srv2 = None
+    pid = None
+    try:
+        port = int(admin1.stdout.readline())
+        c = Client("127.0.0.1", port, timeout_s=600)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        c.create_model("tiny", "IMAGE_CLASSIFICATION", source, cls)
+        c.create_train_job("vit", "IMAGE_CLASSIFICATION", train_uri,
+                           test_uri, budget={"MODEL_TRIAL_COUNT": 1,
+                                             "CHIP_COUNT": 1})
+        db = Database(store)
+        job_id = c.get_train_job("vit")["id"]
+        assert wait_for(lambda: db.get_trials_of_train_job(job_id), 600)
+        (trial,) = db.get_trials_of_train_job(job_id)
+        assert wait_for(lambda: _startup_pids(logs), 600)
+        ((sid, pid),) = _startup_pids(logs).items()
+        assert db.get_service(sid)["pid"] == pid
+        log = logs / f"service-{sid}.log"
+        if fenced:
+            admin1.send_signal(signal.SIGSTOP)  # past its TTL
+            assert wait_for(lambda: db.read_lease()["expires_at"]
+                            <= time.time(), 5.0)
+            monkeypatch.setenv("RAFIKI_ADMIN_HA", "1")
+            monkeypatch.setenv("RAFIKI_ADMIN_LEASE_TTL_S", "1")
+            port = p2
+        else:
+            admin1.kill()  # mid-trial: three epochs of a second each
+            admin1.wait(timeout=30)
+            assert wait_for(lambda: "surviving for the next admin"
+                            in log.read_text(), 60), log.read_text()[-2000:]
+        assert db.get_trial(trial["id"])["status"] == "RUNNING"
+        admin2 = Admin(db=Database(store), params_dir=str(params),
+                       placement=ProcessPlacementManager(
+                           allocator=manager.ChipAllocator(["cpu"]),
+                           orphan_survivable=True),
+                       advertise_addr=f"127.0.0.1:{port}")
+        srv2 = AdminServer(admin2, port=port).start()
+        report = wait_ready(admin2)
+        assert report["adopted"] == 1 and report["errored"] == 0, report
+        assert admin2.placement.allocator.free_chips == 0  # grant re-held
+        if fenced:
+            assert admin2.ha_epoch() == 2
+            admin1.send_signal(signal.SIGCONT)
+            assert wait_for(lambda: _root_role(p1) == "fenced", 5.0)
+            admin1.send_signal(signal.SIGTERM)
+            assert admin1.wait(timeout=60) == 0
+            assert "shut down" in admin1.stdout.read()
+            # the fenced admin let its child go: still training, its row
+            # and its trial as they were
+            assert _pid_is_worker(pid, service_id=sid)
+            assert db.get_service(sid)["status"] == "RUNNING"
+            assert db.get_trial(trial["id"])["status"] == "RUNNING"
+            gate.touch()
+        assert wait_for(lambda: db.get_train_job(job_id)["status"]
+                        == "STOPPED", 600)
+        assert wait_for(lambda: admin2.placement.allocator.free_chips == 1)
+        done = db.get_trial(trial["id"])
+    finally:
+        if srv2 is not None:
+            srv2.stop()
+        if admin2 is not None:
+            admin2.shutdown()
+        if admin1.poll() is None:
+            admin1.send_signal(signal.SIGCONT)
+            admin1.kill()
+        admin1.wait(timeout=30)
+        gate.touch()
+        if pid is not None and _pid_is_worker(pid):
+            os.kill(pid, signal.SIGKILL)
+    assert done["status"] == "COMPLETED" and done["worker_id"] == sid
+    # gone (or a zombie its new parent has not reaped: no cmdline left)
+    assert not _pid_is_worker(pid, service_id=sid)
+    text = log.read_text()
+    assert "kernel launches (pid" in text
+    if fenced:
+        # the trial's feedback went past the fenced admin to the new one
+        assert (f"answered by 127.0.0.1:{p2}, walked on from "
+                f"127.0.0.1:{p1}") in text, text[-3000:]
+    # the same trial in-process: the same knobs, data and seed
+    model = load_model_class(source, "TinyViT")(**done["knobs"])
+    set_device_grant(["cpu"])
+    try:
+        model.train(train_uri)
+        want = model.evaluate(test_uri)
+    finally:
+        set_device_grant(None)
+    assert done["score"] == want
+
+
+def test_pid_checks_refuse_what_is_not_this_services_worker(tmp_path):
+    """``_pid_is_worker``: a live child of this package's bootstrap with
+    the service's id passes; another service's id, a dead pid, this
+    process, and a child that runs JAX's bootstrap do not."""
+    env = {**os.environ, "RAFIKI_SERVICE_ID": "svc-a"}
+    script = "import time; time.sleep(60)"
+    ours = subprocess.Popen([sys.executable, "-c", script,
+                             "rafiki_tpu_torch.worker.bootstrap"], env=env)
+    theirs = subprocess.Popen([sys.executable, "-c", script,
+                               "rafiki_tpu.worker.bootstrap"], env=env)
+    try:
+        for child, marker in ((ours, b"rafiki_tpu_torch.worker.bootstrap"),
+                              (theirs, b"rafiki_tpu.worker.bootstrap")):
+            # the exec must have finished before /proc shows the cmdline
+            assert wait_for(lambda: marker in open(
+                f"/proc/{child.pid}/cmdline", "rb").read(), 10)
+        assert _pid_is_worker(ours.pid)
+        assert _pid_is_worker(ours.pid, service_id="svc-a")
+        assert not _pid_is_worker(ours.pid, service_id="svc-b")
+        assert not _pid_is_worker(theirs.pid)
+        assert not _pid_is_worker(theirs.pid, service_id="svc-a")
+        assert not _pid_is_worker(os.getpid())
+        db = Database(str(tmp_path / "s.sqlite3"))
+        pm = ProcessPlacementManager(db=db,
+                                     allocator=manager.ChipAllocator(["cpu"]),
+                                     stop_grace_s=2.0)
+        assert not pm.adopt_pid("svc-a", "TRAIN", theirs.pid, chips=["cpu"])
+        assert pm.adopt_pid("svc-a", "TRAIN", ours.pid, chips=["cpu"])
+        assert pm.allocator.free_chips == 0
+        pm.destroy_service("svc-a")  # SIGTERM, identity checked
+        assert ours.wait(timeout=10) == -signal.SIGTERM
+        assert pm.allocator.free_chips == 1
+        assert not _pid_is_worker(ours.pid, service_id="svc-a")
+        assert not pm.adopt_pid("svc-a", "TRAIN", ours.pid, chips=["cpu"])
+    finally:
+        for child in (ours, theirs):
+            if child.poll() is None:
+                child.kill()
+            child.wait(timeout=10)
+
+
+class _Rows:
+    """A store stand-in for the watchdog: the service row's status."""
+
+    def __init__(self):
+        self.status = "RUNNING"
+
+    def get_service(self, service_id):
+        return {"id": service_id, "status": self.status}
+
+
+@pytest.mark.parametrize("survivable", [False, True])
+def test_the_watchdog_stops_on_reparenting_unless_survivable(
+        monkeypatch, survivable):
+    """``worker/bootstrap.py``'s watchdog, its beat shortened: once the
+    parent is gone (``getppid`` changes), a child without the flag stops
+    at the next beat, as before; a survivable train child works on and
+    stops only when its row goes terminal."""
+    import threading
+
+    from rafiki_tpu_torch.worker import bootstrap
+
+    stop, snapshot, rows = threading.Event(), threading.Event(), _Rows()
+    ppid = [4242]
+    monkeypatch.setattr(bootstrap.os, "getppid", lambda: ppid[0])
+    t = threading.Thread(target=bootstrap._watch_parent, args=(
+        stop, snapshot, rows, "svc", survivable, 4242, 0.02), daemon=True)
+    t.start()
+    try:
+        time.sleep(0.1)
+        assert not stop.is_set()  # the parent lives
+        ppid[0] = 1  # reparented
+        if not survivable:
+            assert stop.wait(10)
+            return
+        time.sleep(0.2)
+        assert not stop.is_set()  # works on for the next admin
+        rows.status = "STOPPED"  # a fence, or its own end
+        assert stop.wait(10)
+    finally:
+        stop.set()
+        t.join(10)
+
+
+def test_a_two_rank_trial_is_placed_again_with_its_follower(tmp_path,
+                                                           monkeypatch):
+    """A train service left RUNNING on a grant of two gloo ranks, with no
+    executor behind it: recovery places it again under its id through
+    ``restart_train_worker``, the executor starts its follower again, and
+    the trial trains over both ranks (the probe scores the ranks it
+    trained over: 2.0)."""
+    from test_torch_parallel import PROBE
+
+    monkeypatch.setenv("RAFIKI_DIST_TIMEOUT_S", "120")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    db = Database(":memory:")
+    user = db.create_user("u@x", "h", "APP_DEVELOPER")
+    model = db.create_model(user["id"], "probe", "IMAGE_CLASSIFICATION",
+                            PROBE, "MeshProbe", {}, "PUBLIC")
+    tj = db.create_train_job(user["id"], "mesh", 1, "IMAGE_CLASSIFICATION",
+                             "u://t", "u://e", {"MODEL_TRIAL_COUNT": 1})
+    db.mark_train_job_as_running(tj["id"])
+    sub = db.create_sub_train_job(tj["id"], model["id"])
+    svc = db.create_service("TRAIN", chips=["cpu:0", "cpu:1"])
+    db.mark_service_as_running(svc["id"])
+    db.create_train_job_worker(svc["id"], sub["id"])
+    admin = Admin(db=db, params_dir=str(tmp_path),
+                  placement=manager.LocalPlacementManager(
+                      manager.ChipAllocator(["cpu:0", "cpu:1"])))
+    try:
+        report = wait_ready(admin)
+        assert report["rescheduled"] == 1, report
+        assert db.get_service(svc["id"])["chips"] == ["cpu:0", "cpu:1"]
+        assert wait_for(lambda: db.get_train_job(tj["id"])["status"]
+                        == "STOPPED", 240)
+        trials = db.get_trials_of_train_job(tj["id"])
+    finally:
+        admin.shutdown()
+    assert [(t["status"], t["score"], t["worker_id"]) for t in trials] == [
+        ("COMPLETED", 2.0, svc["id"])]

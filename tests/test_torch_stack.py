@@ -505,17 +505,84 @@ def test_the_admin_process_refuses_without_cuda(tmp_path):
     ("RAFIKI_DRIFT", "1", "drift"),
     ("RAFIKI_SERVE_INT8", "1", "int8 serving"),
     ("RAFIKI_AGENTS", "10.0.0.2:7000", "host placement"),
+    ("RAFIKI_RECOVER_PROBE_TIMEOUT_S", "5", "host placement"),
     ("RAFIKI_ADMIN_ADDRS", "127.0.0.1:3000,127.0.0.1:3001", "failover"),
     ("RAFIKI_ORPHAN_SURVIVE", "1", "crash recovery"),
     ("RAFIKI_TRACE_SAMPLE", "0.5", "request tracing"),
     ("RAFIKI_PROFILE", "1", "device profiling"),
 ])
-def test_unported_settings_raise(monkeypatch, name, value, subsystem):
+def test_unported_settings_raise(monkeypatch, tmp_path, name, value,
+                                 subsystem):
     """A setting that selects a subsystem the port lacks refuses the
     admin's start, typed. Speculative decoding, stream resume, int8
     serving, the autoscaler, fair admission, the warm pool, the drift
-    loop and the sandbox are ported: their settings are read, with the
-    JAX package's defaults."""
+    loop, the sandbox, control-plane HA, admin failover and crash
+    recovery are ported: their settings are read, with the JAX package's
+    defaults."""
+    if name in ("RAFIKI_ADMIN_HA", "RAFIKI_ADMIN_ADDRS",
+                "RAFIKI_ORPHAN_SURVIVE"):
+        from rafiki_tpu import config as jax_config
+
+        knobs = ("ADMIN_HA", "ADMIN_LEASE_TTL_S", "ADMIN_LEASE_RENEW_S",
+                 "ADMIN_LEASE_ACQUIRE_TIMEOUT_S", "ADMIN_ADDRS",
+                 "ADMIN_FAILOVER_TIMEOUT_S", "ADMIN_STANDBY_POLL_S",
+                 "RECOVERY_REPORT_KEEP", "RECOVER_ADOPT",
+                 "RECOVER_RETRY_MAX", "RECOVER_RETRY_BACKOFF_S")
+        monkeypatch.delenv(name, raising=False)
+        for knob in knobs:
+            assert getattr(config, knob) == getattr(jax_config, knob), knob
+        monkeypatch.setenv(name, value)
+        if name == "RAFIKI_ADMIN_ADDRS":
+            from rafiki_tpu.client.client import Client as JaxClient
+
+            # a client built without a host and port walks the list
+            assert Client()._addrs == JaxClient()._addrs == value.split(",")
+            assert Client("10.0.0.9", 4000)._addrs == ["10.0.0.9:4000"]
+        admin = Admin(db=Database(str(tmp_path / "s.sqlite3")),
+                      placement=LocalPlacementManager(ChipAllocator(["cpu"])))
+        try:
+            if name == "RAFIKI_ADMIN_HA":
+                # the admin took the lease before its first write
+                assert admin.ha_role() == "leader"
+                assert admin.db.read_lease()["epoch"] == 1
+            else:
+                assert admin.lease is None and admin.ha_role() == "leader"
+        finally:
+            admin.shutdown()
+        if name == "RAFIKI_ADMIN_HA":
+            # the shutdown released it: expired now, its epoch kept
+            row = admin.db.read_lease()
+            assert row["epoch"] == 1 and row["expires_at"] <= time.time()
+        if name == "RAFIKI_ORPHAN_SURVIVE":
+            # read by the train child (worker/bootstrap.py); an admin's
+            # engine sets it on its train children, as JAX's does
+            from rafiki_tpu.placement.process import (
+                ProcessPlacementManager as JaxProcess,
+            )
+            from rafiki_tpu_torch.device import ServiceContext
+
+            monkeypatch.delenv(name)
+            pm = ProcessPlacementManager(
+                db=Database(str(tmp_path / "s.sqlite3")),
+                allocator=ChipAllocator(["cpu"]), orphan_survivable=True)
+            pm.admin_addr = ("127.0.0.1", 1)
+            jpm = JaxProcess(db=JaxDatabase(str(tmp_path / "j.sqlite3")),
+                             allocator=jax_manager.ChipAllocator([0]),
+                             admin_addr=("127.0.0.1", 1),
+                             orphan_survivable=True)
+            extra = {"sub_train_job_id": "sub"}
+            ours = pm._child_env(ServiceContext(
+                service_id="s", chips=["cpu"], service_type="TRAIN",
+                extra=extra))
+            theirs = jpm._child_env(jax_manager.ServiceContext(
+                service_id="s", service_type="TRAIN", chips=[0],
+                stop_event=None, extra=extra))
+            assert ours[name] == theirs[name] == value
+            pm.orphan_survivable = False
+            assert name not in pm._child_env(ServiceContext(
+                service_id="s", chips=["cpu"], service_type="TRAIN",
+                extra=extra))
+        return
     if name == "RAFIKI_DRIFT":
         from rafiki_tpu import config as jax_config
 
@@ -823,27 +890,28 @@ def _jax_budget_refusal(tmp_path, budget) -> str:
 
 
 def test_chaos_rule_at_an_unhooked_site_is_refused(tmp_path, monkeypatch):
-    """Only the trial, worker, generate, deploy and drift sites have their
-    chaos hooks: a rule naming another site raises NotPortedError when it is
-    made, and a RAFIKI_CHAOS holding one refuses the admin's start, never
-    silently inert; a rule at a hooked site passes."""
+    """Only the trial, worker, generate, deploy, drift, db and lease sites
+    have their chaos hooks: a rule naming another site raises
+    NotPortedError when it is made, and a RAFIKI_CHAOS holding one refuses
+    the admin's start, never silently inert; a rule at a hooked site
+    passes."""
     from rafiki_tpu_torch.utils import chaos
 
     try:
-        for site in ("trial", "worker", "generate", "deploy", "drift"):
+        for site in ("trial", "worker", "generate", "deploy", "drift", "db",
+                     "lease"):
             (rule,) = chaos.parse_rules(f"site={site};action=delay")
             assert rule.site == site
-        for site in ("db", "wire", "cache",
-                     "compile", "lease", "agent", "call_agent"):
+        for site in ("wire", "cache", "compile", "agent", "call_agent"):
             with pytest.raises(NotPortedError, match=f"site={site}"):
                 chaos.parse_rules(f"site={site};action=delay")
             with pytest.raises(NotPortedError):
                 chaos.install([chaos.ChaosRule(site=site, action="delay")])
         monkeypatch.setenv("RAFIKI_CHAOS",
-                           "site=trial;action=error|site=db;action=error")
-        with pytest.raises(NotPortedError, match="site=db"):
+                           "site=trial;action=error|site=wire;action=error")
+        with pytest.raises(NotPortedError, match="site=wire"):
             chaos.hit(chaos.SITE_TRIAL, "sub trial")
-        with pytest.raises(NotPortedError, match="site=db"):
+        with pytest.raises(NotPortedError, match="site=wire"):
             Admin(db=Database(":memory:"),
                   placement=LocalPlacementManager(ChipAllocator(["cpu"])),
                   params_dir=str(tmp_path))
