@@ -4,7 +4,13 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each of which must pass (any failure exits non-zero):
+Phases, each of which must pass (any failure exits non-zero). Phases 7
+and 11, which launch no attention kernel, run on a thread beside the
+kernel build of phase 1, and phase 2 starts once they are done; phase
+19 runs on a thread beside phase 18 (both count their launches from
+their children's exit lines, and share no store, port, ring or log;
+phase 18's card-memory readings then include phase 19's processes).
+Each phase's time is printed (``chip_smoke: phase N took ...``):
 
 1. header: the card (nvidia-smi name and power limit), the torch and CUDA
    versions, the kernel build (one nvcc per source, started together,
@@ -424,6 +430,33 @@ Phases, each of which must pass (any failure exits non-zero):
    the first (K1 in the new replica). Phase 18 with what it stands on:
    ``python3 -c "import chip_smoke as cs; cs.ha_only()"``.
 
+19. hosts and agents, on phase 3's images: two agent processes (``python
+   -m rafiki_tpu_torch.placement.agent``, a key, the one card listed by
+   both; on several cards disjoint sets) and an admin process in hosts
+   mode (``RAFIKI_PLACEMENT=hosts``, ``RAFIKI_ADMIN_HA=1``, a 0.5-s
+   heartbeat) over one store under ``build/chip_smoke/hosts/``. 19a: a
+   ViT-B/16 (224/16, 768 x 12) job of two models of one trial of 1 epoch
+   at batch 64, ``CHIP_COUNT`` 2: the least-loaded choice puts one train
+   child on each agent (each a child of its agent's process, from the
+   agents' ``/inventory``); both trials COMPLETED, and each child's exit
+   line reads K1 12 (its evaluate) and K1-LSE, K2, K3 96 (8 steps). 19b:
+   the job deployed, one replica a trial, one on each agent; 8 images
+   through the admin door cross ``FleetBroker``, ``HttpWorkerQueue`` and
+   ``/predict_relay`` into each agent's shm rings: every relay a binary
+   frame (the agents' relay counts), the answers within the
+   ``PROB_RTOL``/``PROB_ATOL`` rule of the in-process plain-attention
+   ensemble, the relayed p50 beside phase 5's admin door. 19c: one
+   agent's process group SIGKILLed under a one-image load: the admin's
+   DOWN verdict (its log), its relay queue evicted, its replica
+   ERRORED, no request failed after the verdict, the survivor's answers
+   against its trial's forward; the agent started again on its address
+   rejoins. 19d: the admin SIGKILLed and booted again: the agents live
+   on, recovery (epoch 2) probes both, adopts the surviving replica
+   (same pid, no new serving row), the same images get the same answers,
+   and a stop carrying epoch 1 is refused 412 by both agents. Each
+   serving child's exit line reads K1 only. Phase 19 with what it stands
+   on: ``python3 -c "import chip_smoke as cs; cs.hosts_only()"``.
+
 The line before the last is ``{"kernels": [...]}``, each kernel's
 ``launches`` from phase 5 and ``launches_by_path`` from every path; the
 last is ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
@@ -573,6 +606,7 @@ def print_device_profile(fn, label: str, top: int = 8,
     the share of each ``(label, name fragment)`` in ``shares``."""
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -585,7 +619,8 @@ def print_device_profile(fn, label: str, top: int = 8,
         print(f"profile of one {label}: the profiler saw no device time")
         return
     print(f"profile of one {label}: {total:.3f} ms of kernels in "
-          f"{sum(c for _, _, c in rows)} launches")
+          f"{sum(c for _, _, c in rows)} launches (the profile took "
+          f"{time.perf_counter() - t0:.1f} s)")
     for name, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"  {ms:8.3f} ms {100 * ms / total:5.1f}% x{count:<4d} "
               f"{name[:110]}")
@@ -655,6 +690,15 @@ PTXAS = (("K1", "flash_fwd", "flash_fwd_wgmma_kernelILi64ELb0EE"),
 
 
 def header() -> str:
+    """The card's line, then the kernel build."""
+    card = card_line()
+    build_kernels()
+    return card
+
+
+def card_line() -> str:
+    """The card's name and power limit (``nvidia-smi``), printed with the
+    versions; returned for every phase's lines."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -664,6 +708,12 @@ def header() -> str:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, python "
           f"{sys.version.split()[0]}")
+    return card
+
+
+def build_kernels() -> None:
+    """Every kernel library built from the checkout's sources, one
+    ``nvcc`` a source, all at once; each kernel's ptxas report."""
     from rafiki_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -680,7 +730,30 @@ def header() -> str:
               + (f"{m.group(2)}; {m.group(1)}" if m else
                  "library was already built (no report)" if log is None
                  else "symbol not found in the build log"))
-    return card
+
+
+class _Beside:
+    """Phases run on a thread beside the main one (while ``nvcc``
+    builds): their results, or their error raised, at :meth:`join`."""
+
+    def __init__(self, fn):
+        self._out = {}
+
+        def run():
+            try:
+                self._out["result"] = fn()
+            except BaseException as e:  # raised again at join
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run, name="beside",
+                                        daemon=True)
+        self._thread.start()
+
+    def join(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["result"]
 
 
 # ---------------------------------------------------------------------------
@@ -1353,6 +1426,8 @@ def post(url: str, body: bytes, headers: dict,
         return np.asarray(json.loads(data)["data"]["predictions"])
 
 
+#: phase 5's admin-door p50 (ms) by request size, beside phase 19's
+STACK_P50: dict = {}
 #: the JSON requests both doors are timed on in turns (phase 5)
 #: JSON requests of 1 and of 8 images timed on each door (phases 5-6):
 #: three a size (ten, then five before; cut for the run's time limit)
@@ -1736,6 +1811,7 @@ def stack_phase(card: str, uris: dict, direct_job_s: float):
                   f"shape {probs.shape}, {held}; against the plain-attention "
                   f"ensemble of the downloaded trials", flush=True)
         p50 = {door: p50_ms(v) for door, v in lat.items()}
+        STACK_P50.update({n: p50["admin"]["json", n] for n in (1, 8)})
         print("stack: p50 of the same JSON bodies in turns, /predict/vit on "
               "the admin door vs POST /predict on a PredictorServer over "
               "the job's Predictor: "
@@ -3984,18 +4060,24 @@ RESUME_EPOCHS = 2
 
 
 def twin_template(cls: str, learning_rate: str, batch_size: int,
-                  epochs: int) -> bytes:
+                  epochs: int, checkpoint: bool = True) -> bytes:
     """``templates/torch_vit.py`` renamed ``cls`` with its learning rate,
     batch size and epochs knobs replaced; the architecture stays
-    ViT-B/16's."""
+    ViT-B/16's. ``checkpoint=False`` fits with no per-epoch checkpoint (a
+    1.04 GB write each, 3.7 s on the card's disk), for a drill that is
+    not about resuming a trial."""
     source = TEMPLATE.read_text()
-    for old, new in (
-            ("class TorchViT(BaseModel):", f"class {cls}(BaseModel):"),
-            ('"learning_rate": FloatKnob(1e-5, 1e-3, is_exp=True)',
-             f'"learning_rate": {learning_rate}'),
-            ('"batch_size": CategoricalKnob([64, 128])',
-             f'"batch_size": FixedKnob({batch_size})'),
-            ('"epochs": FixedKnob(1)', f'"epochs": FixedKnob({epochs})')):
+    edits = [
+        ("class TorchViT(BaseModel):", f"class {cls}(BaseModel):"),
+        ('"learning_rate": FloatKnob(1e-5, 1e-3, is_exp=True)',
+         f'"learning_rate": {learning_rate}'),
+        ('"batch_size": CategoricalKnob([64, 128])',
+         f'"batch_size": FixedKnob({batch_size})'),
+        ('"epochs": FixedKnob(1)', f'"epochs": FixedKnob({epochs})')]
+    if not checkpoint:
+        edits.append(("checkpoint_path=self.checkpoint_path",
+                      "checkpoint_path=None"))
+    for old, new in edits:
         require(source.count(old) == 1, f"template edit {old!r}")
         source = source.replace(old, new)
     return source.encode()
@@ -8004,6 +8086,24 @@ HA_EPOCHS = 1       # 18a's trials: 1 epoch of 512 images at batch 64
 HA_BATCH = 64
 HA_IMAGES = 8       # 18b's requests: 8 images as JSON, in requests that fit
 HA_WAIT_S = 600     # any wait of the phase (a job, a boot, a deploy)
+#: 18a's model: HaViT whose train, once its epoch is reported, waits for
+#: the drill's gate file (at most HA_WAIT_S), so the first trial's
+#: evaluation and the whole second trial fall after the promotion however
+#: fast the card trains
+_HA_GATED = f"""
+
+import os as _os
+import time as _time
+
+
+class GatedHaViT(HaViT):
+    def train(self, dataset_uri):
+        super().train(dataset_uri)
+        deadline = _time.monotonic() + {HA_WAIT_S}
+        while (not _os.path.exists(_os.environ["CHIP_SMOKE_HA_GATE"])
+               and _time.monotonic() < deadline):
+            _time.sleep(0.05)
+"""
 
 _HA_STANDBY = """
 import logging, signal, sys, threading
@@ -8046,13 +8146,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _ha_start(env: dict, log: Path, argv: list) -> tuple:
-    """Start a process of the phase, its errors to ``log``, and a thread
-    reading its first line of output; pass the handle to ``_ha_line``."""
+def _ha_start(env: dict, log: Path, argv: list,
+              session: bool = False) -> tuple:
+    """Start a process of the phase (``session``: in a session and process
+    group of its own), its errors to ``log``, and a thread reading its
+    first line of output; pass the handle to ``_ha_line``."""
     t0 = time.perf_counter()
     with open(log, "a") as err:
         proc = subprocess.Popen(argv, cwd=REPO, env=env,
-                                stdout=subprocess.PIPE, stderr=err, text=True)
+                                stdout=subprocess.PIPE, stderr=err, text=True,
+                                start_new_session=session)
     lines = []
 
     def read():
@@ -8163,9 +8266,10 @@ def ha_failover(card: str, uris: dict, env: dict, logs: Path,
     """18a: a leader and a hot standby, each a process, over one store,
     under ``RAFIKI_ADMIN_HA=1``; a ViT-B/16 train job of 2 trials of
     ``HA_EPOCHS`` epochs in one process-placed train child; the leader
-    SIGSTOPped past its TTL after the first epoch's report, the standby
-    promoted, the leader SIGCONTed (fenced) and SIGKILLed; the promoted
-    leader adopts the child by pid. Returns (each kernel's launches in
+    SIGSTOPped past its TTL after the first trial's epoch report (the
+    trial then waits on a gate file, opened once the promotion's launch
+    counts are logged), the standby promoted, the leader SIGCONTed
+    (fenced) and SIGKILLed; the promoted leader adopts the child by pid. Returns (each kernel's launches in
     the train child, the train job's id, the seconds it took)."""
     from rafiki_tpu_torch import config
     from rafiki_tpu_torch.client.client import Client
@@ -8174,7 +8278,9 @@ def ha_failover(card: str, uris: dict, env: dict, logs: Path,
     p1, p2 = _free_port(), _free_port()
     addrs = [f"127.0.0.1:{p1}", f"127.0.0.1:{p2}"]
     cards = torch.cuda.device_count()
-    ha_env = {**env, "RAFIKI_ADMIN_HA": "1",
+    gate = logs / "gate"
+    ha_env = {**env, "CHIP_SMOKE_HA_GATE": str(gate),
+              "RAFIKI_ADMIN_HA": "1",
               "RAFIKI_ADMIN_LEASE_TTL_S": str(HA_TTL_S),
               "RAFIKI_ADMIN_ADDRS": ",".join(addrs)}
     t_phase = time.perf_counter()
@@ -8195,7 +8301,8 @@ def ha_failover(card: str, uris: dict, env: dict, logs: Path,
         token = c._token
         c.create_model("vit-b16", "IMAGE_CLASSIFICATION", twin_template(
             "HaViT", "FloatKnob(1e-5, 1e-3, is_exp=True)", HA_BATCH,
-            HA_EPOCHS), "HaViT")
+            HA_EPOCHS, checkpoint=False) + _HA_GATED.encode(),
+            "GatedHaViT")
         budget = {"MODEL_TRIAL_COUNT": TRIALS, "CHIP_COUNT": 1}
         if cards >= 2:
             budget.update(CHIP_COUNT=2, CHIPS_PER_TRIAL=2)
@@ -8239,6 +8346,9 @@ def ha_failover(card: str, uris: dict, env: dict, logs: Path,
                     poll_s=0.02)
         t_promoted = time.perf_counter()
         os.kill(child_pid, signal.SIGUSR1)  # its launches so far
+        _wait_until(lambda: _one_record(logs, sid, "kernel launches so far"),
+                    60, "no launch counts from the train child")
+        gate.touch()  # the first trial goes on to its evaluation
         _wait_until(lambda: (_root(p2) or {}).get("recovery", {}).get(
             "state") == "ready", HA_WAIT_S, "the promoted leader never "
             "reached ready", poll_s=0.02)
@@ -8337,8 +8447,12 @@ def ha_failover(card: str, uris: dict, env: dict, logs: Path,
             f"{expect}")
     before = [so_far[k] for k in COUNTERS]
     after = [g - b for g, b in zip(got, before)]
-    require(all(a > 0 for a in after[1:]), f"the adopted child launched "
-            f"no training kernel after the promotion: {before} then {got}")
+    # the gate holds the first trial, trained, until after the promotion
+    require(before == [0] + [DEPTH * steps // TRIALS] * 3,
+            f"the train child had launched {before} at the promotion, "
+            f"not the first trial's training alone")
+    require(all(a > 0 for a in after), f"the adopted child launched "
+            f"no kernel after the promotion: {before} then {got}")
     print(f"ha: the train child (pid {child_pid}, stdio {fds[1]}) adopted by"
           f" pid with grant {adopted.group(2)}: report {json.dumps({k: report[k] for k in ('scanned', 'adopted', 'rescheduled', 'fenced', 'errored', 'jobs_closed', 'duration_s')})};"
           f" its launches [K1, K1-LSE, K2, K3] {before} at the promotion, "
@@ -8504,6 +8618,449 @@ def ha_phase(card: str, uris: dict) -> list:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 19: hosts and agents
+# ---------------------------------------------------------------------------
+
+HOSTS_KEY = "chip-smoke-fleet-key"
+#: the admin's heartbeat of each agent; DOWN after 3 misses in a row
+#: (``RAFIKI_AGENT_DOWN_THRESHOLD``'s default)
+HOSTS_HEARTBEAT_S = 0.5
+HOSTS_IMAGES = 8    # 19b-d's requests: 8 images as JSON
+HOSTS_TIMED = 3     # relayed requests of 1 image timed, one after another
+HOSTS_WAIT_S = 600  # any wait of the phase (a job, a boot, a deploy)
+_AGENT_READY = "rafiki_tpu_torch agent on http://"
+
+
+def _stamp(line: str) -> float:
+    """The wall-clock time of a log line in the port's logging format
+    (``LEVEL:YYYY-MM-DD HH:MM:SS,mmm:...``)."""
+    import datetime
+
+    m = re.match(r"\w+:(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3})", line)
+    require(m is not None, f"no time stamp in {line!r}")
+    return datetime.datetime.strptime(
+        m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp()
+
+
+def _log_line(log: Path, pattern: str, after: int = 0):
+    """The first line of ``log`` past byte ``after`` matching
+    ``pattern``, or None."""
+    if not log.exists():
+        return None
+    text = log.read_bytes()[after:].decode(errors="replace")
+    return next((ln for ln in text.splitlines() if re.search(pattern, ln)),
+                None)
+
+
+def _ppid(pid: int) -> int:
+    with open(f"/proc/{pid}/stat") as f:
+        return int(f.read().rsplit(")", 1)[1].split()[1])
+
+
+def _agents_of(sids: list, agents: dict, kind: str) -> dict:
+    """{service id: the address of the agent running it}, from each live
+    agent's ``/inventory``; every one must be there, a child of that
+    agent's process (never of the admin: no local fallback)."""
+    from rafiki_tpu_torch.utils.agent_http import call_agent
+
+    where = {}
+    for addr, proc in agents.items():
+        if proc.poll() is not None:
+            continue
+        inv = call_agent(addr, "GET", "/inventory", key=HOSTS_KEY,
+                         timeout_s=30)
+        for e in inv["services"]:
+            if e["service_id"] in sids:
+                require(e["service_type"] == kind and e["pid"]
+                        and _ppid(e["pid"]) == proc.pid,
+                        f"{kind} {e['service_id'][:8]} on {addr}: {e}, "
+                        f"the agent's pid {proc.pid}")
+                where[e["service_id"]] = addr
+    require(sorted(where) == sorted(sids), f"{kind} services {sids} not all "
+            f"on the agents' inventories: {where}")
+    return where
+
+
+def _start_agent(env: dict, logs: Path, i: int, chips: str,
+                 port: int) -> tuple:
+    return _ha_start({**env, "RAFIKI_AGENT_CHIPS": chips,
+                      "RAFIKI_AGENT_PORT": str(port)},
+                     logs / f"agent{i}.log",
+                     [sys.executable, "-m", "rafiki_tpu_torch.placement.agent"],
+                     session=True)
+
+
+def _agent_up(handle: tuple) -> tuple:
+    """(process, address, seconds to its ready line, the line)."""
+    proc, line, boot_s = _ha_line(handle)
+    require(line.startswith(_AGENT_READY), f"agent: {line!r}")
+    return proc, line[len(_AGENT_READY):].split()[0], boot_s, line
+
+
+def hosts_phase(card: str, uris: dict) -> list:
+    """Phase 19: two agent processes and an admin in hosts mode over one
+    store. 19a a ViT-B/16 job placed on both agents; 19b its trials served
+    from the agents through the relay; 19c an agent SIGKILLed under
+    traffic; 19d the admin SIGKILLed and booted again, adopting the
+    surviving replica. Returns each kernel's launches in the agents'
+    children (their exit lines)."""
+    import shutil
+
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.sdk.artifact import read_artifact
+    from rafiki_tpu_torch.sdk.model import load_model_class
+    from rafiki_tpu_torch.sdk.params import load_params
+    from rafiki_tpu_torch.utils.agent_http import AgentHTTPError, call_agent
+
+    t_phase = time.perf_counter()
+    work = WORK / "hosts"
+    logs = work / "logs"
+    if work.exists():
+        shutil.rmtree(work)
+    logs.mkdir(parents=True)
+    ring, sizes = choose_ring()
+    chunk = max(sizes)
+    store = str(work / "store.sqlite3")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RAFIKI_")}
+    env.update({"PYTHONPATH": os.pathsep.join(
+                    p for p in (str(REPO), os.environ.get("PYTHONPATH"))
+                    if p),
+                "RAFIKI_WORKDIR": str(work), "RAFIKI_LOGS_DIR": str(logs),
+                "RAFIKI_DB_PATH": store, "RAFIKI_SHM_RING_BYTES": str(ring),
+                "RAFIKI_AGENT_KEY": HOSTS_KEY,
+                "SERVICE_DEPLOY_TIMEOUT_S": str(HOSTS_WAIT_S)})
+    cards = torch.cuda.device_count()
+    # one card: both agents list it and share it; on several, disjoint sets
+    chip_sets = (["0", "0"] if cards < 2 else
+                 [",".join(str(c) for c in range(i, cards, 2))
+                  for i in (0, 1)])
+    admin_port = _free_port()
+    ports = [_free_port() for _ in chip_sets]
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    agent_env = {**env, "RAFIKI_ADMIN_ADDR": f"127.0.0.1:{admin_port}"}
+    admin_env = {**env, "RAFIKI_PLACEMENT": "hosts",
+                 "RAFIKI_AGENTS": ",".join(addrs),
+                 "RAFIKI_ADMIN_PORT": str(admin_port),
+                 "RAFIKI_ADMIN_HA": "1",
+                 "RAFIKI_ADMIN_LEASE_TTL_S": str(HA_TTL_S),
+                 "RAFIKI_AGENT_HEARTBEAT_S": str(HOSTS_HEARTBEAT_S),
+                 "INFERENCE_MAX_BEST_TRIALS": "2"}
+    admin_argv = [sys.executable, "-m", "rafiki_tpu_torch.admin"]
+    admin_log = logs / "admin.log"
+    agents: dict = {}  # address -> process
+    started: list = []  # every process the phase starts, for the teardown
+    admin = code = None
+    rng = np.random.default_rng(SEED + 19)
+    images = rng.standard_normal(
+        (HOSTS_IMAGES, 224, 224, 3)).astype(np.float32)
+    try:
+        # ---- the agents and the admin boot together, on a store made
+        # first (two processes making one SQLite file at once may both
+        # find it locked as they switch it to WAL) ----
+        Database(store).close()
+        handles = [_start_agent(agent_env, logs, i, chips, port)
+                   for i, (chips, port) in enumerate(zip(chip_sets, ports))]
+        booting = _ha_start(admin_env, admin_log, admin_argv)
+        started += [h[0] for h in handles] + [booting[0]]
+        lines = []
+        for addr, handle in zip(addrs, handles):
+            proc, got, boot_s, line = _agent_up(handle)
+            require(got == addr, f"agent at {got}, asked {addr}")
+            agents[addr] = proc
+            lines.append(f"{line!r} in {boot_s:.1f} s")
+        admin, banner, admin_s = _ha_line(booting)
+        require(f"admin on http://127.0.0.1:{admin_port}" in banner
+                and "placement=HostAgentPlacementManager" in banner, banner)
+        # every agent UP on the admin's heartbeat before a placement: one
+        # that booted after the admin may have been marked DOWN first
+        time.sleep(3 * HOSTS_HEARTBEAT_S)
+        _wait_until(lambda: all(
+            _log_line(admin_log, rf"agent {re.escape(a)} DOWN") is None
+            or _log_line(admin_log, rf"agent {re.escape(a)} recovered")
+            for a in addrs), 60, "an agent stayed DOWN on the admin's "
+            "heartbeat")
+        print(f"hosts: agents {lines} (chips {chip_sets} of {cards} "
+              f"card(s)); admin {banner!r} in {admin_s:.1f} s, heartbeat "
+              f"{HOSTS_HEARTBEAT_S:g} s; card {card}", flush=True)
+        c = Client("127.0.0.1", admin_port, timeout_s=HOSTS_WAIT_S)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        db = Database(store)  # reads only
+
+        # ---- 19a: a train job placed on both agents ----
+        names = ["HostsViTA", "HostsViTB"]
+        for name in names:
+            c.create_model(name, "IMAGE_CLASSIFICATION", twin_template(
+                name, "FloatKnob(1e-5, 1e-3, is_exp=True)", 64, 1,
+                checkpoint=False), name)
+        t0 = time.perf_counter()
+        c.create_train_job("hosts", "IMAGE_CLASSIFICATION", uris["train"],
+                           uris["test"], budget={"MODEL_TRIAL_COUNT": 1,
+                                                 "CHIP_COUNT": 2},
+                           models=names)
+        job = c.get_train_job("hosts")
+        train_sids = [w["service_id"] for w in job["workers"]]
+        trained_on = _agents_of(train_sids, agents, "TRAIN")
+        require(len(train_sids) == 2
+                and sorted(trained_on.values()) == sorted(addrs),
+                f"19a placements {trained_on}")
+        job = c.wait_until_train_job_stopped("hosts",
+                                             timeout_s=HOSTS_WAIT_S)
+        job_s = time.perf_counter() - t0
+        trials = c.get_trials_of_train_job("hosts")
+        require(job["status"] == "STOPPED" and len(trials) == 2
+                and all(t["status"] == "COMPLETED"
+                        and np.isfinite(t["score"]) for t in trials),
+                f"19a job {job['status']}, trials "
+                f"{[(t['status'], t['score']) for t in trials]}")
+        steps = TRAIN_IMAGES // 64
+        train_counts = []
+        for sid in train_sids:
+            (rec,) = _wait_until(
+                lambda: _one_record(logs, sid, "kernel launches"), 120,
+                f"train child {sid[:8]} wrote no exit line")
+            got = [rec[k] for k in COUNTERS]
+            require(got == [DEPTH] + [DEPTH * steps] * 3,
+                    f"train child {sid[:8]} on {trained_on[sid]} launched "
+                    f"{got}, expected {[DEPTH] + [DEPTH * steps] * 3}")
+            train_counts.append(got)
+        print(f"hosts: 19a placements (least loaded): "
+              f"{ {sid[:8]: a for sid, a in trained_on.items()} }; job "
+              f"STOPPED in {job_s:.1f} s, scores "
+              f"{[round(t['score'], 4) for t in trials]}; launches [K1, "
+              f"K1-LSE, K2, K3] in each agent's train child {train_counts} "
+              f"(1 evaluate, {steps} steps); card {card}", flush=True)
+
+        # ---- 19b: serving through the agents' relay ----
+        t0 = time.perf_counter()
+        inf = c.create_inference_job("hosts")
+        deploy_s = time.perf_counter() - t0
+        serve_sids = [w["service_id"] for w in inf["workers"]]
+        served_on = _agents_of(serve_sids, agents, "INFERENCE")
+        require(sorted(set(served_on.values())) == sorted(addrs),
+                f"19b replicas {served_on}")
+
+        def answers():
+            return np.concatenate([np.asarray(c.predict(
+                "hosts", images[i:i + chunk].tolist()))
+                for i in range(0, HOSTS_IMAGES, chunk)])
+
+        first = answers()
+        relays = {a: call_agent(a, "GET", "/inventory", key=HOSTS_KEY,
+                                timeout_s=30)["relays"] for a in addrs}
+        require(all(r["binary"] > 0 and r["json"] == 0
+                    for r in relays.values()),
+                f"19b relays {relays}: not all binary frames")
+        lat = []
+        for _ in range(HOSTS_TIMED):
+            t = time.perf_counter()
+            c.predict("hosts", images[:1].tolist())
+            lat.append(time.perf_counter() - t)
+        relayed_p50 = statistics.median(lat) * 1e3
+        # each trial's own forward in this process (its template, its
+        # parameters, the kernels), the admin's ensemble their mean
+        refs = {}
+        for t in trials:
+            row = db.get_trial(t["id"])
+            model_row = db.get_model(row["model_id"])
+            m = load_model_class(model_row["model_file_bytes"],
+                                 model_row["model_class"])(**row["knobs"])
+            m.load_parameters(load_params(read_artifact(
+                row["params_file_path"])))
+            refs[t["id"]] = np.asarray(m.predict(images))
+            m.destroy()
+        require(first.shape == (HOSTS_IMAGES, refs[trials[0]["id"]].shape[1])
+                and bool(np.isfinite(first).all()), f"19b answers "
+                f"{first.shape}")
+        held = prob_check("hosts: 19b relayed answers", first,
+                          sum(refs.values()) / len(refs))
+        phase5 = STACK_P50.get(1)
+        print(f"hosts: 19b the inference job RUNNING in {deploy_s:.1f} s, "
+              f"replicas on the agents "
+              f"{ {sid[:8]: a for sid, a in served_on.items()} } (each a "
+              f"child of its agent's process); {HOSTS_IMAGES} images "
+              f"through the admin door, FleetBroker, HttpWorkerQueue and "
+              f"/predict_relay: relays by agent {relays} (binary frames: "
+              f"yes); against the trials' own forward in this process "
+              f"(their ensemble): {held}; relayed p50 of 1 image "
+              f"{relayed_p50:.1f} ms ({HOSTS_TIMED} requests) beside phase "
+              f"5's admin door "
+              + (f"{phase5:.1f} ms" if phase5 is not None
+                 else "(phase 5 not run)") + f"; card {card}", flush=True)
+
+        # ---- 19c: an agent SIGKILLed under traffic ----
+        victim = addrs[1]
+        dead = [s for s in serve_sids if served_on[s] == victim]
+        live_trials = {db.get_inference_job_worker(s)["trial_id"]
+                       for s in serve_sids if served_on[s] != victim}
+        results = []  # (wall start, wall end, error or None)
+        stop_load = threading.Event()
+
+        def load():
+            one = images[:1].tolist()
+            while not stop_load.is_set():
+                t = time.time()
+                try:
+                    c.predict("hosts", one)
+                    results.append((t, time.time(), None))
+                except Exception as e:  # counted and reported
+                    results.append((t, time.time(), repr(e)))
+                time.sleep(0.02)
+
+        loader = threading.Thread(target=load, daemon=True)
+        mark = admin_log.stat().st_size
+        loader.start()
+        _wait_until(lambda: len(results) >= 5, 60, "19c: no load")
+        t_kill = time.time()
+        os.killpg(agents[victim].pid, signal.SIGKILL)
+        agents[victim].wait(timeout=60)
+        down = _wait_until(lambda: _log_line(
+            admin_log, rf"agent {re.escape(victim)} DOWN", mark), 60,
+            "19c: no DOWN verdict")
+        t_down = _stamp(down)
+        evicted = _wait_until(lambda: _log_line(
+            admin_log, rf"evicted \d+ relay queue\(s\) of dead agent "
+            rf"{re.escape(victim)}", mark), 60, "19c: no eviction")
+        _wait_until(lambda: all(db.get_service(s)["status"] == "ERRORED"
+                                for s in dead), 60,
+                    f"19c: the dead agent's replicas "
+                    f"{[db.get_service(s)['status'] for s in dead]}")
+        # the agent comes back on its address (a new process) while the
+        # load goes on past the verdict
+        mark_back = admin_log.stat().st_size
+        restarting = _start_agent(agent_env, logs, 2, chip_sets[1], ports[1])
+        started.append(restarting[0])
+        time.sleep(2.0)
+        stop_load.set()
+        loader.join(timeout=60)
+        before = [r for r in results if r[0] < t_down]
+        after = [r for r in results if r[0] >= t_down]
+        require(after and not any(r[2] for r in after),
+                f"19c: requests failed after the DOWN verdict: "
+                f"{[r[2] for r in after if r[2]][:3]}")
+        survivor = answers()
+        held_c = prob_check("hosts: 19c the survivor's answers", survivor,
+                            sum(refs[t] for t in live_trials)
+                            / len(live_trials))
+        print(f"hosts: 19c agent {victim} SIGKILLed (its process group): "
+              f"DOWN {t_down - t_kill:.2f} s after the kill; "
+              f"{evicted.split(': ', 1)[1]!r}; its replicas "
+              f"{[s[:8] for s in dead]} ERRORED; requests failed before the "
+              f"verdict {sum(1 for r in before if r[2])} of {len(before)}, "
+              f"after it {sum(1 for r in after if r[2])} of {len(after)}; "
+              f"the survivor's {HOSTS_IMAGES} answers against its trial's "
+              f"forward: {held_c}; the agent started again on its "
+              f"address; card {card}", flush=True)
+
+        proc, _, back_s, _ = _agent_up(restarting)
+        agents[victim] = proc
+        _wait_until(lambda: _log_line(
+            admin_log, rf"agent {re.escape(victim)} recovered", mark_back),
+            60, "19d: the restarted agent never rejoined")
+
+        # ---- 19d: the admin SIGKILLed and booted again ----
+        survivors = [s for s in serve_sids if s not in dead]
+        pids = {s: db.get_service(s)["pid"] for s in survivors}
+
+        def serving_rows():
+            return sorted(r["id"] for r in db.get_services()
+                          if r["service_type"] == "INFERENCE")
+
+        rows_before = serving_rows()
+        t_kill = time.perf_counter()
+        admin.send_signal(signal.SIGKILL)
+        admin.wait(timeout=60)
+        require(all(p.poll() is None for p in agents.values()),
+                "19d: an agent died with the admin")
+        admin, banner2, reboot_s = _ha_proc(admin_env, admin_log,
+                                            admin_argv)
+        started.append(admin)
+        c.wait_until_admin_ready(timeout_s=HOSTS_WAIT_S)
+        t_ready = time.perf_counter()
+        report = json.loads((logs / "recovery-e2.json").read_text())
+        require(report["adopted"] >= 1 and report["errored"] == 0
+                and report["agents_probed"] == 2
+                and report["agents_unreachable"] == 0
+                and not report.get("failed"),
+                f"19d recovery report {report}")
+        require(all(p.poll() is None for p in agents.values()),
+                "19d: an agent died across the admin's restart")
+        adopted_on = _agents_of(survivors, agents, "INFERENCE")
+        require({s: db.get_service(s)["pid"] for s in survivors} == pids
+                and serving_rows() == rows_before,
+                "19d: a serving child was started again")
+        again = answers()
+        held_d = prob_check("hosts: 19d answers after the restart", again,
+                            survivor)
+        # the ex-leader's epoch is refused by the agents
+        refused = []
+        for addr in addrs:
+            try:
+                call_agent(addr, "POST", f"/services/{survivors[0]}/stop",
+                           {"wait": False}, key=HOSTS_KEY, timeout_s=30,
+                           epoch=1)
+                refused.append(200)
+            except AgentHTTPError as e:
+                refused.append(e.code)
+        require(refused == [412, 412], f"19d: epoch-1 stops answered "
+                f"{refused}")
+        require(db.get_service(survivors[0])["status"] == "RUNNING",
+                "19d: the stale stop landed")
+        print(f"hosts: 19d (the restarted agent ready in {back_s:.1f} s and "
+              f"rejoined) admin SIGKILLed and booted again "
+              f"({banner2!r}) in {reboot_s:.1f} s, ready "
+              f"{t_ready - t_kill:.1f} s after the kill; the agents lived "
+              f"on; recovery report "
+              f"{json.dumps({k: report[k] for k in ('scanned', 'adopted', 'rescheduled', 'fenced', 'errored', 'agents_probed', 'agents_unreachable', 'duration_s')})};"
+              f" replicas adopted on "
+              f"{ {s[:8]: a for s, a in adopted_on.items()} } with the same "
+              f"pids (no new serving child); the same {HOSTS_IMAGES} "
+              f"images: {held_d}; a stop carrying epoch 1 answered "
+              f"{refused} by the agents; card {card}", flush=True)
+        c.stop_inference_job("hosts")
+        serve_counts = []
+        for sid in serve_sids:
+            (rec,) = _wait_until(
+                lambda: _one_record(logs, sid, "kernel launches"), 120,
+                f"serving child {sid[:8]} wrote no exit line")
+            got = [rec[k] for k in COUNTERS]
+            require(got[0] > 0 and got[0] % DEPTH == 0
+                    and got[1:] == [0, 0, 0],
+                    f"serving child {sid[:8]} launched {got}")
+            serve_counts.append(got)
+    finally:
+        if admin is not None:
+            code = _stop_proc(admin)
+        for proc in started:
+            _stop_proc(proc)
+    require(code == 0, f"the admin exited {code}")
+    codes = [p.returncode for p in agents.values()]
+    require(codes == [0, 0], f"the agents exited {codes}")
+    counts = [sum(c[i] for c in train_counts + serve_counts)
+              for i in range(4)]
+    print(f"hosts: launches in the serving children (warm-up and requests) "
+          f"{serve_counts}; phase 19 in {time.perf_counter() - t_phase:.1f}"
+          f" s; launches on its path {counts}; the agents exited {codes}",
+          flush=True)
+    return counts
+
+
+def hosts_only() -> None:
+    """Phase 19 with what it stands on (the dataset): the card's line,
+    the kernel build, the dataset, then phase 19."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = header()
+    counts = hosts_phase(card, write_train_dataset())
+    print(f"chip_smoke: hosts_only passed; launches on phase 19's path "
+          f"{counts}", flush=True)
+
+
 def ha_only() -> None:
     """Phase 18 with what it stands on (the dataset): the card's line,
     the kernel build, the dataset, then phase 18."""
@@ -8571,6 +9128,67 @@ def _alive(pid: int) -> bool:
     return True
 
 
+#: set in the run's environment before it starts anything: every process
+#: of the run inherits it (the phases' own environments copy it), orphans
+#: and processes in sessions of their own included
+RUN_MARK = "CHIP_SMOKE_RUN"
+
+
+def _strays() -> list:
+    """Live processes of this run but this one: the run's mark in their
+    environment, or this process among their ancestors."""
+    me = os.getpid()
+    mark = f"{RUN_MARK}={os.environ[RUN_MARK]}".encode()
+    parents, marked = {}, set()
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        pid = int(entry)
+        try:
+            with open(f"/proc/{pid}/stat", "rb") as f:
+                fields = f.read().rsplit(b")", 1)[1].split()
+            if fields[0] == b"Z":
+                continue
+            parents[pid] = int(fields[1])
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                if mark in f.read().split(b"\0"):
+                    marked.add(pid)
+        except (OSError, IndexError, ValueError):
+            continue
+
+    def descends(pid: int) -> bool:
+        seen = set()
+        while pid > 1 and pid not in seen:
+            if pid == me:
+                return True
+            seen.add(pid)
+            pid = parents.get(pid, 0)
+        return False
+
+    return sorted(pid for pid in parents
+                  if pid != me and (pid in marked or descends(pid)))
+
+
+def stop_strays() -> None:
+    """SIGKILL every process the run left (a failed phase's, or one on a
+    thread beside it), and say which on standard error."""
+    for _ in range(3):  # a thread beside may start one meanwhile
+        strays = _strays()
+        if not strays:
+            return
+        for pid in strays:
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    argv = f.read().replace(b"\0", b" ").decode(
+                        errors="replace").strip()
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                continue
+            print(f"chip_smoke: stopped pid {pid} the run left: "
+                  f"{argv[:200]}", file=sys.stderr, flush=True)
+        time.sleep(0.5)
+
+
 def _count(tree) -> int:
     return sum(_count(v) if isinstance(v, dict) else v.size
                for v in tree.values())
@@ -8585,24 +9203,60 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    card = header()
+    marks = [t0]
+
+    def mark(phases: str) -> None:
+        """Each phase's share of the run, for the time limit's budget."""
+        marks.append(time.perf_counter())
+        print(f"chip_smoke: phase {phases} took {marks[-1] - marks[-2]:.1f}"
+              f" s ({marks[-1] - t0:.0f} s in)", flush=True)
+
+    card = card_line()
+    # phases 7 and 11 launch no attention kernel (their launches are held
+    # to 0): they run while nvcc builds, and phase 2 times the kernels
+    # once they are done
+    beside = _Beside(lambda: (zoo_phase(card),
+                              generation_tagging_phase(card)))
+    build_kernels()
+    mark("1 (the build)")
+    zoo_launches, gen_launches = beside.join()
+    mark("7 and 11 (beside the build, from its end)")
     entries, kernel_ms = kernel_phase()
+    mark("2")
     db, uris, trials, job_s, train_launches = train_phase(card)
+    mark("3")
     serve_launches = serve_phase(card, kernel_ms, db, trials)
+    mark("4")
     stack_launches, stack_job_s = stack_phase(card, uris, job_s)
+    mark("5")
     process_launches = process_phase(card, uris, stack_job_s)
-    zoo_launches = zoo_phase(card)
+    mark("6")
     bert_launches, lm_launches = text_phase(card)
+    mark("8")
     loop_launches = trial_loop_phase(card, uris)
+    mark("9")
     cards_launches = cards_phase(card)
-    gen_launches = generation_tagging_phase(card)
+    mark("10")
     fused_shape, control_launches = serving_control_phase(card)
+    mark("12")
     rest_launches = generation_rest_phase(card)
+    mark("13")
     pop_launches, int8_launches = population_int8_phase(card)
+    mark("14")
     mp_launches = model_parallel_phase(card)
+    mark("15")
     fleet_launches = fleet_phase(card)
+    mark("16")
     drift_launches = drift_sandbox_phase(card, uris)
+    mark("17")
+    # phases 18 and 19 count their launches from their children's exit
+    # lines and share nothing (their own stores, ports, rings and logs):
+    # 19 runs on a thread beside 18
+    beside = _Beside(lambda: hosts_phase(card, uris))
     ha_launches = ha_phase(card, uris)
+    mark("18 (19 beside it)")
+    hosts_launches = beside.join()
+    mark("19 (beside 18, from its end)")
     for i, name in enumerate(KERNEL_NAMES):
         by_path = {"train (phase 3)": train_launches[i],
                    "serve (phase 4)": serve_launches[i],
@@ -8621,7 +9275,8 @@ def main() -> int:
                    "model parallel (phase 15)": mp_launches[i],
                    "fleet operations (phase 16)": fleet_launches[i],
                    "drift and sandbox (phase 17)": drift_launches[i],
-                   "control-plane HA (phase 18)": ha_launches[i]}
+                   "control-plane HA (phase 18)": ha_launches[i],
+                   "hosts and agents (phase 19)": hosts_launches[i]}
         require(by_path["stack (phase 5)"] > 0,
                 f"{name} was not launched through the admin")
         require(by_path["process (phase 6)"] > 0,
@@ -8642,6 +9297,8 @@ def main() -> int:
                 f"{name} was not launched on the drift and sandbox path")
         require(by_path["control-plane HA (phase 18)"] > 0,
                 f"{name} was not launched on the control-plane HA path")
+        require(by_path["hosts and agents (phase 19)"] > 0,
+                f"{name} was not launched on the hosts and agents path")
         if name == "flash_fwd":
             require(by_path["serving control (phase 12)"] > 0,
                     "K1 was not launched on the serving-control path")
@@ -8662,4 +9319,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    os.environ[RUN_MARK] = f"{os.getpid()}-{time.time_ns()}"
+    try:
+        code = main()
+    finally:
+        stop_strays()
+    sys.exit(code)

@@ -10,7 +10,10 @@ stops every job and exits 0. Settings, from the environment:
 
 Services run as threads of this process on the visible CUDA devices, or
 as child processes under ``RAFIKI_PLACEMENT=process``; it refuses to
-start without a CUDA device.
+start without a CUDA device. Under ``RAFIKI_PLACEMENT=hosts`` they run on
+the host agents of ``RAFIKI_AGENTS`` (``python -m
+rafiki_tpu_torch.placement.agent`` on each host, with the fleet's
+``RAFIKI_AGENT_KEY``), and the admin itself needs no card.
 
 On a store a dead admin left, the boot reconciles it (crash recovery) and
 the banner says ``recovery=recovering``. Under ``RAFIKI_ADMIN_HA=1`` it

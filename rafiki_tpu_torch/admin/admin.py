@@ -69,10 +69,21 @@ door serves; ``shutdown`` releases the lease last. Under
 ``RAFIKI_PLACEMENT=process`` the admin's engine lets train children
 outlive it (``orphan_survivable``), for the next admin to adopt by pid.
 
-Host placement and the fleet broker, request tracing, device profiling
-and dependency provisioning are not ported. The settings that turn one
-of them on raise :class:`~rafiki_tpu_torch.config.NotPortedError`
-(``config._UNPORTED``: ``RAFIKI_PLACEMENT=hosts``, ``RAFIKI_AGENTS``,
+Host placement: under ``RAFIKI_PLACEMENT=hosts`` (agents in
+``RAFIKI_AGENTS``, their key in ``RAFIKI_AGENT_KEY``) train and serving
+executors go to the per-host agents (``placement/hosts.py``,
+``placement/agent.py``); the broker is wrapped in a ``FleetBroker``
+(``cache/fleet.py``) whose relay queues reach the agents' serving
+workers, every agent call carries the lease's epoch, and an agent's
+forwarded ``service_status`` event reaches the status callback. This
+host's process engine is the serving fallback the original keeps (its
+children never outlive the admin: recovery adopts through the agents),
+and there is none without a CUDA device. A host placement passed in
+gets the same wiring.
+
+Request tracing, device profiling and dependency provisioning are not
+ported. The settings that turn one of them on raise
+:class:`~rafiki_tpu_torch.config.NotPortedError` (``config._UNPORTED``:
 ``RAFIKI_TRACE_SAMPLE``, ``RAFIKI_PROFILE`` and
 ``RAFIKI_INSTALL_DEPS``). No budget key is
 refused: a ``TEXT_GENERATION`` job under ``CHIPS_PER_WORKER`` > 1 is
@@ -107,6 +118,7 @@ from rafiki_tpu_torch.admin.services import (
 )
 from rafiki_tpu_torch.admin.warm_pool import WarmPool
 from rafiki_tpu_torch.advisor.advisor import AdvisorStore
+from rafiki_tpu_torch.cache.fleet import FleetBroker
 from rafiki_tpu_torch.cache.queue import QueueFullError
 from rafiki_tpu_torch.cache.shm_broker import ShmBroker, make_broker
 from rafiki_tpu_torch.constants import (
@@ -120,7 +132,11 @@ from rafiki_tpu_torch.constants import (
     UserType,
 )
 from rafiki_tpu_torch.db.database import Database, StaleEpochError
-from rafiki_tpu_torch.placement.hosts import ChipBudgetArbiter
+from rafiki_tpu_torch.placement.hosts import (
+    ChipBudgetArbiter,
+    HostAgentPlacementManager,
+    StaleAdminEpochError,
+)
 from rafiki_tpu_torch.placement.manager import (
     LocalPlacementManager,
     PlacementManager,
@@ -196,17 +212,30 @@ class Admin:
             # of the constructor; the take armed a whole TTL)
             self._lease.bind(self.db)
         self.advisor_store = AdvisorStore()
-        if placement is None and os.environ.get(
-                "RAFIKI_PLACEMENT", "").strip() == "process":
+        mode = os.environ.get("RAFIKI_PLACEMENT", "").strip()
+        if placement is None and mode == "process":
             # train children outlive this admin, to be adopted by pid
             placement = ProcessPlacementManager(orphan_survivable=True)
-        if isinstance(placement, ProcessPlacementManager):
+        elif placement is None and mode == "hosts":
+            placement = self._host_placement()
+        engine = (placement.local
+                  if isinstance(placement, HostAgentPlacementManager)
+                  else placement)
+        if isinstance(engine, ProcessPlacementManager):
             # the children open this store and attach to the shm rings
-            placement.db = placement.db or self.db
-            placement.broker = placement.broker or ShmBroker()
-            self.broker = placement.broker
+            engine.db = engine.db or self.db
+            engine.broker = engine.broker or ShmBroker()
+            self.broker = engine.broker
         else:
             self.broker = make_broker()
+        if isinstance(placement, HostAgentPlacementManager):
+            # agent-placed serving workers are reached through relay
+            # queues merged over the local data plane
+            self.broker = FleetBroker(self.broker)
+            placement.set_broker(self.broker)
+            placement.db = placement.db or self.db
+            if engine is not None and engine.on_status is None:
+                engine.on_status = self._on_service_status
         # serving counters relayed by worker processes (the
         # inference_worker_stats event), by service id
         self._remote_stats_lock = threading.Lock()
@@ -223,6 +252,11 @@ class Admin:
         self.placement = placement or LocalPlacementManager()
         if self.placement.on_status is None:
             self.placement.on_status = self._on_service_status
+        if self._lease is not None and hasattr(self.placement,
+                                               "set_epoch_provider"):
+            # agent calls carry the epoch; last_epoch, so a fenced
+            # ex-leader still gets the agents' typed 412
+            self.placement.set_epoch_provider(self._lease.last_epoch)
         # serving may borrow idle cards above RAFIKI_AUTOSCALE_TRAIN_FLOOR;
         # a train executor that cannot allocate reclaims them
         self.chip_arbiter = ChipBudgetArbiter(self.placement.allocator)
@@ -268,6 +302,25 @@ class Admin:
                 self._recovery = rec.empty_report()
         if self._lease is not None:
             self._lease.start()  # a no-op for a promoted standby's
+
+    def _host_placement(self) -> HostAgentPlacementManager:
+        """``RAFIKI_PLACEMENT=hosts``: train and serving executors go to
+        the agents of ``RAFIKI_AGENTS`` (``host:port,...``). This host's
+        own process engine is the serving fallback the original keeps; its
+        children never outlive the admin (recovery adopts through the
+        agents, never by a local pid), and an admin without a CUDA device
+        has none."""
+        agents = [a.strip() for a in
+                  os.environ.get("RAFIKI_AGENTS", "").split(",") if a.strip()]
+        try:
+            local: Optional[ProcessPlacementManager] = \
+                ProcessPlacementManager(orphan_survivable=False)
+        except RuntimeError as e:
+            logger.info("hosts mode with no local engine: %s", e)
+            local = None
+        return HostAgentPlacementManager(
+            agents, local=local, key=os.environ.get("RAFIKI_AGENT_KEY"),
+            on_status=self._on_service_status, db=self.db)
 
     def _run_recovery(self, rec, snapshot) -> None:
         try:
@@ -1059,9 +1112,9 @@ class Admin:
             self.services._destroy_service(svc["id"], wait=False)
 
     def handle_event(self, name: str, payload: Dict[str, Any]) -> None:
-        """Worker events drive job status, and carry the serving counters
-        of worker processes. (The JAX package's agent events wait for
-        host placement.)"""
+        """Worker events drive job status and carry the serving counters
+        of worker processes; a host agent forwards its children's
+        statuses (``service_status``)."""
         try:
             if name == EVENT_BUDGET_REACHED:
                 # the workers exit on their own once the shared budget is
@@ -1077,6 +1130,11 @@ class Admin:
                     payload["train_job_id"], payload.get("fault_kind"),
                     payload.get("reason"))
                 self.services.stop_train_services(payload["train_job_id"])
+            elif name == "service_status":
+                # forwarded by the host agents, so the job's refresh runs
+                # for a remotely placed worker too
+                self._on_service_status(payload["service_id"],
+                                        payload["status"])
             elif name == EVENT_INFERENCE_WORKER_STATS:
                 with self._remote_stats_lock:
                     self._remote_serving_stats[payload["service_id"]] = {
@@ -1143,7 +1201,7 @@ class Admin:
         if not fenced:
             try:
                 self.stop_all_jobs()
-            except StaleEpochError as e:
+            except (StaleEpochError, StaleAdminEpochError) as e:
                 fenced = True
                 logger.warning("shutdown teardown cut short (fenced): %s", e)
         if fenced and hasattr(self.placement, "detach_all"):
@@ -1153,7 +1211,7 @@ class Admin:
             self.placement.detach_all()
         else:
             self.placement.stop_all()
-        if isinstance(self.broker, ShmBroker):
+        if isinstance(self.broker, (ShmBroker, FleetBroker)):
             self.broker.close()  # unlinks every ring
         # last: the release clears the fences, so every write above ran
         # under the epoch

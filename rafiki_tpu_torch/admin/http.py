@@ -50,6 +50,7 @@ from rafiki_tpu_torch.admin.rollout import RolloutInFlightError
 from rafiki_tpu_torch.cache.queue import FrameTooLargeError, QueueFullError
 from rafiki_tpu_torch.constants import UserType
 from rafiki_tpu_torch.db.database import StaleEpochError
+from rafiki_tpu_torch.placement.hosts import StaleAdminEpochError
 from rafiki_tpu_torch.placement.manager import InsufficientChipsError
 from rafiki_tpu_torch.predictor.admission import (
     DeadlineUnmeetableError,
@@ -463,8 +464,9 @@ class AdminServer:
             self._respond(handler, 504, {"error": f"{type(e).__name__}: {e}"})
         except InsufficientChipsError as e:
             self._respond(handler, 503, {"error": f"{type(e).__name__}: {e}"})
-        except StaleEpochError:
-            # the fence fired: this admin lost the leadership mid-request
+        except (StaleEpochError, StaleAdminEpochError):
+            # the fence fired (the store's, or an agent's 412): this admin
+            # lost the leadership mid-request
             self._shed_to_leader(handler, _FENCED)
         except Exception:
             # the traceback stays in the server's log, never in an answer

@@ -37,12 +37,9 @@ idempotently:
    live service is closed.
 
 The probe, fence, adopt and reschedule passes are duck-typed on the
-placement, as in the JAX package. The branches that ask a host placement
-(``probe_inventories``, ``fence_service``, ``adopt_service``,
-``reschedule_service``, ``quarantine_on_rejoin`` and the ``agents``
-checks) are ROADMAP.md item 11's: the port has no host agents yet, so
-only the tests' fake placement reaches them, and they stay for item 11
-to drive. A store step retries with bounded jittered backoff (the ``db`` chaos site
+placement, as in the JAX package: under host placement
+(``placement/hosts.py``) they go through the agents' ``/inventory`` and
+``/services`` routes, and a local pid is never adopted there. A store step retries with bounded jittered backoff (the ``db`` chaos site
 drills it); a reconcile that fails anyway still opens the doors, marked
 ``failed`` in its report. The report is ``recovery_status()`` and
 ``<LOGS_DIR>/recovery.json``, and under a lease also
@@ -237,7 +234,7 @@ class ControlPlaneRecovery:
         # -- the hosts' own account -------------------------------------
         running_on: Dict[str, str] = {}  # service id -> agent address
         inventories: Dict[str, Optional[Dict[str, Any]]] = {}
-        if hasattr(placement, "probe_inventories"):  # item 11's (agents)
+        if hasattr(placement, "probe_inventories"):  # host agents
             inventories = placement.probe_inventories()
             self.report["agents_probed"] = len(inventories)
             self.report["agents_unreachable"] = sum(
@@ -246,8 +243,8 @@ class ControlPlaneRecovery:
                 for entry in (inv or {}).get("services", []):
                     running_on[entry["service_id"]] = addr
 
-        # -- fence the running orphans: a terminal row or job, or none ----
-        # (over the agents' inventories: item 11's)
+        # -- fence the running orphans: a terminal row or job, or none,
+        # over the agents' inventories
         for addr, inv in inventories.items():
             for entry in (inv or {}).get("services", []):
                 sid = entry["service_id"]
@@ -335,7 +332,7 @@ class ControlPlaneRecovery:
             extra = _extra_of(row)
             n_chips = len(row.get("chips") or [])
             addr = running_on.get(sid)
-            # a host agent's survivor (item 11's)
+            # a host agent's survivor
             if addr is not None and hasattr(placement, "adopt_service"):
                 if placement.adopt_service(
                         sid, addr, stype, n_chips=n_chips, extra=extra,
@@ -361,7 +358,6 @@ class ControlPlaneRecovery:
                                            "quarantine_on_rejoin"):
                     # the old executor may live on a host whose probe only
                     # timed out: fence it there when the host is back
-                    # (item 11's)
                     placement.quarantine_on_rejoin(unreachable, sid)
                 if self._restart_train(row, extra, n_chips,
                                        exclude=unreachable):
@@ -443,8 +439,8 @@ class ControlPlaneRecovery:
         handled as lost."""
         placement = self.admin.placement
         if hasattr(placement, "agents"):
-            # host placement (item 11's): a local pid may be an agent's
-            # child, which the probe reconciles
+            # host placement: a local pid may be an agent's child, which
+            # the probe reconciles
             return False
         if not hasattr(placement, "adopt_pid"):
             return False
@@ -535,7 +531,7 @@ class ControlPlaneRecovery:
         placement's ``reschedule_service`` (never on an ``exclude``d
         host), else ``restart_train_worker`` here."""
         placement = self.admin.placement
-        if hasattr(placement, "reschedule_service"):  # item 11's (agents)
+        if hasattr(placement, "reschedule_service"):  # host agents
             try:
                 return bool(placement.reschedule_service(
                     row["id"], row["service_type"], n_chips=n_chips,

@@ -95,6 +95,7 @@ from rafiki_tpu_torch.placement.manager import (
     InsufficientChipsError,
     PlacementManager,
 )
+from rafiki_tpu_torch.placement.hosts import HostAgentPlacementManager
 from rafiki_tpu_torch.placement.process import ProcessPlacementManager
 from rafiki_tpu_torch.predictor.predictor import Predictor
 from rafiki_tpu_torch.predictor.result_cache import get_cache
@@ -321,7 +322,9 @@ class ServicesManager:
                 f"Train job {train_job['id']} has no completed trials")
         generative = train_job["task"] == TaskType.TEXT_GENERATION
         if generative:
-            if isinstance(self._placement, ProcessPlacementManager):
+            if isinstance(self._placement, (ProcessPlacementManager,
+                                            HostAgentPlacementManager)):
+                # an agent's relay carries no token stream either
                 self._db.mark_inference_job_as_errored(inference_job_id)
                 raise ServiceDeploymentError(
                     "TEXT_GENERATION serving in worker processes is not "

@@ -69,20 +69,6 @@ def _qname(prefix: str, *parts: str) -> str:
     return f"/{prefix}-{digest}"
 
 
-def _stack_rows(queries: List[Any]) -> Optional[np.ndarray]:
-    """One ``(n, ...)`` array for the request: its ndarray rows stacked
-    (``wire.stack_batch``), or JSON rows that form one float array, as
-    float64; None when neither."""
-    stacked = wire.stack_batch(queries)
-    if stacked is not None or not all(isinstance(q, list) for q in queries):
-        return stacked
-    try:
-        arr = np.asarray(queries)
-    except ValueError:  # ragged rows
-        return None
-    return arr if arr.dtype.kind == "f" and arr.ndim >= 2 else None
-
-
 def _encode_query_frame(ids: List[str], queries: List[Any],
                         deadline: Optional[float]) -> bytes:
     """One binary frame for a whole request, its rows stacked into one
@@ -90,7 +76,7 @@ def _encode_query_frame(ids: List[str], queries: List[Any],
     msg: Dict[str, Any] = {"ids": ids}
     if deadline is not None:
         msg["deadline"] = deadline
-    stacked = _stack_rows(queries)
+    stacked = wire.stack_rows(queries)
     if stacked is not None:
         msg["qarr"] = stacked
     else:

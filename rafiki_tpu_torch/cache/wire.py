@@ -319,3 +319,17 @@ def stack_batch(queries: List[Any]) -> Any:
     if not stackable(queries):
         return None
     return queries[0][None] if len(queries) == 1 else np.stack(queries)
+
+
+def stack_rows(queries: List[Any]) -> Any:
+    """One ``(n, ...)`` array for a request: its ndarray rows stacked
+    (:func:`stack_batch`), or JSON rows that form one float array, as
+    float64 (which holds every JSON number exactly); None when neither."""
+    stacked = stack_batch(queries)
+    if stacked is not None or not all(isinstance(q, list) for q in queries):
+        return stacked
+    try:
+        arr = np.asarray(queries)
+    except ValueError:  # ragged rows
+        return None
+    return arr if arr.dtype.kind == "f" and arr.ndim >= 2 else None

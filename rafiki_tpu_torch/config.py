@@ -9,7 +9,8 @@ settings ``TRIAL_*`` (vectorized trials' ``TRIAL_VMAP`` and
 ``TRIAL_VMAP_K`` among them), ``PENDING_FEEDBACK_MAX``, and the fleet's
 knobs: the autoscaler's, fair admission's and the warm pool's
 ``AUTOSCALE_*``, ``GEN_OCCUPANCY_HIGH``, the rollouts' ``ROLLOUT_*`` and
-the drift loop's ``DRIFT_*``, crash recovery's ``RECOVER_*`` and
+the drift loop's ``DRIFT_*``, crash recovery's ``RECOVER_*`` (the
+agents' probe budget ``RECOVER_PROBE_TIMEOUT_S`` among them) and
 control-plane HA's ``ADMIN_HA``, ``ADMIN_LEASE_*``, ``ADMIN_ADDRS``,
 ``ADMIN_FAILOVER_TIMEOUT_S``, ``ADMIN_STANDBY_POLL_S`` and
 ``RECOVERY_REPORT_KEEP``)
@@ -65,6 +66,22 @@ PREDICT_ROUTE_TTL_S = _env_float("PREDICT_ROUTE_TTL_S", 5.0)
 ADMIN_MAX_BODY_MB = _env_float("ADMIN_MAX_BODY_MB", 256.0)
 #: trials per train job when its budget names no MODEL_TRIAL_COUNT
 DEFAULT_TRIAL_COUNT = _env_int("DEFAULT_TRIAL_COUNT", 5)
+
+
+# -- fleet health of host placement (placement/hosts.py): each agent's
+# /healthz is probed every AGENT_HEARTBEAT_INTERVAL_S (0: no monitor),
+# AGENT_DOWN_THRESHOLD misses in a row mark it DOWN; an idempotent agent
+# call retries a transport failure up to AGENT_RETRY_MAX times (backoff
+# from AGENT_RETRY_BACKOFF_S, full jitter); AGENT_BREAKER_THRESHOLD
+# transport failures in a row open an agent's circuit, which lets one
+# probe through after AGENT_BREAKER_COOLDOWN_S
+AGENT_HEARTBEAT_INTERVAL_S = _env_float("RAFIKI_AGENT_HEARTBEAT_S", 5.0)
+AGENT_DOWN_THRESHOLD = _env_int("RAFIKI_AGENT_DOWN_THRESHOLD", 3)
+AGENT_HEARTBEAT_TIMEOUT_S = _env_float("RAFIKI_AGENT_HEARTBEAT_TIMEOUT_S", 2.0)
+AGENT_RETRY_MAX = _env_int("RAFIKI_AGENT_RETRY_MAX", 2)
+AGENT_RETRY_BACKOFF_S = _env_float("RAFIKI_AGENT_RETRY_BACKOFF_S", 0.1)
+AGENT_BREAKER_THRESHOLD = _env_int("RAFIKI_AGENT_BREAKER_THRESHOLD", 3)
+AGENT_BREAKER_COOLDOWN_S = _env_float("RAFIKI_AGENT_BREAKER_COOLDOWN_S", 5.0)
 
 
 def workdir() -> str:
@@ -290,11 +307,12 @@ _DYNAMIC = {
     "DRIFT_LAUNCH_RETRY_MAX": lambda: _env_int(
         "RAFIKI_DRIFT_LAUNCH_RETRY_MAX", 2),
     # -- crash recovery (admin/recovery.py): adopt surviving workers (0:
-    # fence them instead), and the bounded retry of a store step. The
-    # agents' probe budget, RAFIKI_RECOVER_PROBE_TIMEOUT_S, comes with
-    # host placement (_UNPORTED)
+    # fence them instead), each host agent's inventory probe budget, and
+    # the bounded retry of a store step
     "RECOVER_ADOPT": lambda: os.environ.get(
         "RAFIKI_RECOVER_ADOPT", "1") != "0",
+    "RECOVER_PROBE_TIMEOUT_S": lambda: _env_float(
+        "RAFIKI_RECOVER_PROBE_TIMEOUT_S", 5.0),
     "RECOVER_RETRY_MAX": lambda: _env_int("RAFIKI_RECOVER_RETRY_MAX", 4),
     "RECOVER_RETRY_BACKOFF_S": lambda: _env_float(
         "RAFIKI_RECOVER_RETRY_BACKOFF_S", 0.2),
@@ -352,10 +370,7 @@ def _positive(value: str) -> bool:
 #: (environment name, whether a value selects a missing subsystem, its
 #: name)
 _UNPORTED = (
-    ("RAFIKI_PLACEMENT", lambda v: v == "hosts", "host placement (agents)"),
     ("RAFIKI_INSTALL_DEPS", _is_one, "dependency provisioning"),
-    ("RAFIKI_AGENTS", bool, "host placement (agents)"),
-    ("RAFIKI_RECOVER_PROBE_TIMEOUT_S", bool, "host placement (agents)"),
     ("RAFIKI_TRACE_SAMPLE", _positive, "request tracing"),
     ("RAFIKI_PROFILE", lambda v: v not in ("0", "false"),
      "device profiling"),

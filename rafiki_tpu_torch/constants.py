@@ -3,8 +3,7 @@
 Own copy of ``rafiki_tpu/constants.py``, with the same string values, so
 the rows and JSON answers of the two packages read alike. Kept: user
 types, budget keys, task types, and the job, trial and service status
-machines, the rollout and drift loop phases. The agent-health states
-wait for host placement (ROADMAP.md).
+machines, the rollout and drift loop phases, and a host agent's health.
 """
 
 
@@ -121,3 +120,11 @@ class DriftPhase:
 class ModelAccessRight:
     PUBLIC = "PUBLIC"
     PRIVATE = "PRIVATE"
+
+
+class AgentHealth:
+    """A host agent's heartbeat state (``placement/hosts.py``); UNKNOWN
+    until its first probe."""
+    UNKNOWN = "UNKNOWN"
+    UP = "UP"
+    DOWN = "DOWN"

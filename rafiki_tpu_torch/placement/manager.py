@@ -233,6 +233,16 @@ class LocalPlacementManager(PlacementManager):
         if wait:
             runner.thread.join(timeout=30)
 
+    def list_services(self) -> List[Dict[str, Any]]:
+        """This host's live executors (a host agent's ``/inventory``): a
+        thread has no pid of its own."""
+        with self._lock:
+            runners = dict(self._runners)
+        return [{"service_id": sid, "service_type": r.ctx.service_type,
+                 "status": "RUNNING", "chips": list(r.ctx.chips),
+                 "pid": None}
+                for sid, r in runners.items() if r.thread.is_alive()]
+
     def stop_all(self) -> None:
         with self._lock:
             ids = list(self._runners)

@@ -376,6 +376,24 @@ class ProcessPlacementManager(PlacementManager):
                     service_id[:8], pid, chips)
         return True
 
+    def list_services(self) -> List[Dict[str, Any]]:
+        """This host's live executors with their pid and grant, what a
+        host agent's ``/inventory`` answers (a finished child wrote its
+        terminal row already and is not listed)."""
+        with self._lock:
+            runners = dict(self._runners)
+        out = []
+        for sid, r in runners.items():
+            if not r.thread.is_alive():
+                continue
+            proc = getattr(r, "proc", None)
+            out.append({
+                "service_id": sid, "service_type": r.ctx.service_type,
+                "status": "RUNNING", "chips": list(r.ctx.chips),
+                "pid": (proc.pid if proc is not None
+                        else getattr(r, "pid", None))})
+        return out
+
     def destroy_service(self, service_id: str, wait: bool = True) -> None:
         with self._lock:
             runner = self._runners.pop(service_id, None)

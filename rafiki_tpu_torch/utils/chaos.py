@@ -18,7 +18,7 @@ of the requests a rule has seen, never on randomness; the controller
 re-parses ``RAFIKI_CHAOS`` whenever its value changes (counters reset
 with it).
 
-Seven sites have their hooks in the port:
+Nine sites have their hooks in the port:
 
 - ``trial`` (``worker/train.py``, one ask per trial attempt, target
   ``"{sub_train_job_id} {trial_id}"``): ``delay`` sleeps, ``oom`` raises
@@ -51,7 +51,14 @@ Seven sites have their hooks in the port:
 - ``lease`` (``db/database.py``, at the lease's acquisition and renewal,
   target ``acquire`` or ``renew``): ``delay`` sleeps (a slow store near
   the TTL's edge), anything else raises ``MetadataStoreChaosError`` (the
-  false-lease-loss drill: a renewal error never demotes a leader).
+  false-lease-loss drill: a renewal error never demotes a leader);
+- ``agent`` (``placement/agent.py``, each request a host agent takes,
+  target its path): ``drop`` closes the connection unanswered (the
+  caller sees a dead host), ``error`` answers ``code``, ``delay`` sleeps;
+- ``call_agent`` (``utils/agent_http.py``, each attempt inside the retry
+  loop, target ``"{addr} {path}"``): ``drop`` is a transport failure
+  (retried when the call is idempotent, counted by the breaker),
+  ``error`` an answer with ``code``, ``delay`` sleeps.
 
 A rule naming any other site of the original raises
 :class:`~rafiki_tpu_torch.config.NotPortedError` when it is made,
@@ -93,7 +100,7 @@ SITES = (SITE_CALL_AGENT, SITE_AGENT, SITE_WORKER, SITE_WIRE, SITE_DB,
          SITE_COMPILE, SITE_LEASE)
 #: the sites whose hook the port has
 HOOKED_SITES = (SITE_TRIAL, SITE_WORKER, SITE_GENERATE, SITE_DEPLOY,
-                SITE_DRIFT, SITE_DB, SITE_LEASE)
+                SITE_DRIFT, SITE_DB, SITE_LEASE, SITE_AGENT, SITE_CALL_AGENT)
 
 ACTION_DROP = "drop"
 ACTION_DELAY = "delay"

@@ -25,9 +25,11 @@ group (``parallel/ranks.py``); they write their own ``startup`` and
 ``kernel launches`` lines into this child's log. A child granted a card
 that finds no CUDA raises before it reports ready.
 
-The orphan watchdog: a child whose parent dies (it is reparented) stops,
-unless it is a TRAIN child with ``RAFIKI_ORPHAN_SURVIVE=1`` (set by an
-admin's engine): that one keeps training for the restarted or promoted
+The orphan watchdog: a child whose parent dies (it is reparented) stops
+and marks its row ERRORED, a replica lost with its admin or host agent
+(the original's writes STOPPED), unless it is a TRAIN child with
+``RAFIKI_ORPHAN_SURVIVE=1`` (set by an admin's engine): that one keeps
+training for the restarted or promoted
 admin to adopt by pid, and stops only when its service row goes terminal
 (a fence, a stop, or its own end). The admin client walks
 ``RAFIKI_ADMIN_ADDR`` and then every address of ``RAFIKI_ADMIN_ADDRS``,
@@ -137,9 +139,10 @@ def main() -> int:
 
     survivable = (os.environ.get("RAFIKI_ORPHAN_SURVIVE") == "1"
                   and service_type == ServiceType.TRAIN)
+    lost = threading.Event()  # stopped because the parent died
     threading.Thread(target=_watch_parent, args=(
-        stop_event, snapshot, db, service_id, survivable, os.getppid()),
-        name="orphan-watchdog", daemon=True).start()
+        stop_event, snapshot, db, service_id, survivable, os.getppid(),
+        2.0, lost), name="orphan-watchdog", daemon=True).start()
 
     def on_ready():
         db.mark_service_as_running(service_id)
@@ -171,13 +174,25 @@ def main() -> int:
         return 1
     finally:
         _log_launches()
+    return _final_status(db, service_id, lost.is_set())
+
+
+def _final_status(db, service_id: str, lost: bool) -> int:
+    """A clean end: STOPPED and 0; a child stopped because its parent
+    (its admin or host agent) died is a replica lost with its host:
+    ERRORED and 1, whichever of it and the host's DOWN verdict writes
+    first (the original's child writes STOPPED then)."""
+    if lost:
+        logger.warning("lost with its parent: marking the service ERRORED")
+        db.mark_service_as_errored(service_id)
+        return 1
     db.mark_service_as_stopped(service_id)
     return 0
 
 
 def _watch_parent(stop_event, snapshot, db, service_id: str,
                   survivable: bool, parent0: int,
-                  beat_s: float = 2.0) -> None:
+                  beat_s: float = 2.0, lost=None) -> None:
     """The orphan watchdog, a beat every ``beat_s``: a child whose parent
     died without stopping it (a hard kill) must not linger on a torn-down
     data plane, and reparenting tells. A survivable train child works on
@@ -191,6 +206,8 @@ def _watch_parent(stop_event, snapshot, db, service_id: str,
         if not orphaned and os.getppid() != parent0:
             if not survivable:
                 logger.warning("parent %d died; stopping", parent0)
+                if lost is not None:
+                    lost.set()
                 stop_event.set()
                 return
             orphaned = True

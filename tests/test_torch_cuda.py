@@ -636,6 +636,131 @@ def test_cuda_process_placement_cycle(tmp_path, monkeypatch):
                for v in by_service.values())
 
 
+@pytest.mark.cuda
+def test_cuda_host_agent_cycle(tmp_path, monkeypatch):
+    """On the card, under host placement: an agent process (``python -m
+    rafiki_tpu_torch.placement.agent`` on card 0) takes a narrow-ViT
+    train child, whose steps launch K1-LSE, K2 and K3 (2 a step), and a
+    serving child reached through ``/predict_relay`` in binary frames,
+    whose answers (K1 in every forward) agree with the downloaded trial's
+    own forward in this process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    import os
+    import re
+    import socket
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.http import AdminServer
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.placement.agent import READY_PREFIX
+    from rafiki_tpu_torch.placement.hosts import HostAgentPlacementManager
+    from rafiki_tpu_torch.sdk.dataset import write_numpy_dataset
+    from rafiki_tpu_torch.sdk.model import load_model_class
+    from rafiki_tpu_torch.sdk.params import load_params
+    from rafiki_tpu_torch.utils.agent_http import call_agent
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = Path(flash_mod.__file__).parents[2]
+    logs = tmp_path / "logs"
+    monkeypatch.setenv("RAFIKI_LOGS_DIR", str(logs))
+    monkeypatch.setenv("RAFIKI_WORKDIR", str(tmp_path))
+    source = (root / "rafiki_tpu_torch" / "templates" / "torch_vit.py"
+              ).read_text()
+    for old, new in _NARROW_EDITS:
+        source = source.replace(old, new)
+    rng = np.random.default_rng(0)
+    uris = []
+    for name, n in (("train", 64), ("test", 16)):
+        x = rng.random((n, 32, 32, 3), dtype=np.float32)
+        y = rng.integers(0, 10, n).astype(np.int32)
+        uris.append(write_numpy_dataset(x, y, str(tmp_path / f"{name}.npz")))
+    store = str(tmp_path / "store.sqlite3")
+    db = Database(store)
+    with socket.socket() as s:  # a free port for the admin's door
+        s.bind(("127.0.0.1", 0))
+        admin_port = s.getsockname()[1]
+    env = {**os.environ, "RAFIKI_AGENT_CHIPS": "0", "RAFIKI_AGENT_KEY": "k",
+           "RAFIKI_DB_PATH": store, "RAFIKI_WORKDIR": str(tmp_path),
+           "RAFIKI_LOGS_DIR": str(logs),
+           "RAFIKI_SHM_RING_BYTES": str(4 << 20),
+           "RAFIKI_ADMIN_ADDR": f"127.0.0.1:{admin_port}",
+           "PYTHONPATH": os.pathsep.join(
+               p for p in (str(root), os.environ.get("PYTHONPATH")) if p)}
+    agent = subprocess.Popen(
+        [sys.executable, "-m", "rafiki_tpu_torch.placement.agent"], env=env,
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        text=True)
+    line = agent.stdout.readline()
+    assert line.startswith(READY_PREFIX), line
+    addr = line[len(READY_PREFIX):].split()[0]
+    placement = HostAgentPlacementManager([addr], key="k", db=db,
+                                          heartbeat_interval_s=0)
+    admin = Admin(db=db, placement=placement,
+                  params_dir=str(tmp_path / "params"))
+    server = AdminServer(admin, port=admin_port).start()
+    try:
+        c = Client("127.0.0.1", server.port, timeout_s=300)
+        c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+        c.create_model("narrow", "IMAGE_CLASSIFICATION", source.encode(),
+                       "NarrowViT")
+        c.create_train_job("narrow", "IMAGE_CLASSIFICATION", *uris,
+                           budget={"MODEL_TRIAL_COUNT": 1, "CHIP_COUNT": 1})
+        job = c.wait_until_train_job_stopped("narrow", timeout_s=300)
+        assert job["status"] == "STOPPED"
+        (trial,) = c.get_trials_of_train_job("narrow")
+        assert trial["status"] == "COMPLETED"
+        steps = 64 // trial["knobs"]["batch_size"]
+        tree = load_params(c.download_trial_params(trial["id"]))
+        inf = c.create_inference_job("narrow")
+        (replica,) = [w["service_id"] for w in inf["workers"]]
+        assert replica in placement.placements()  # on the agent
+        with np.load(uris[1]) as z:
+            images = z["x"][:8]
+        probs = np.asarray(c.predict("narrow", images.tolist()))
+        relays = call_agent(addr, "GET", "/inventory", key="k",
+                            timeout_s=30)["relays"]
+        assert relays["binary"] >= 1 and relays["json"] == 0
+        c.stop_inference_job("narrow")
+    finally:
+        server.stop()
+        admin.shutdown()
+        agent.terminate()
+        assert agent.wait(timeout=120) == 0
+    deadline = time.monotonic() + 60
+    by_service = {}
+    while time.monotonic() < deadline and len(by_service) < 2:
+        by_service = {}
+        for path in logs.glob("service-*.log"):
+            found = re.findall(r"kernel launches \(pid \d+\): (\{.*\})",
+                               path.read_text())
+            if found:
+                by_service[path.stem[len("service-"):]] = json.loads(
+                    found[0])
+        time.sleep(0.2)
+    train = by_service.pop(job["workers"][0]["service_id"])
+    assert train["flash_attention"] == 2  # one evaluate
+    assert [train[k] for k in ("flash_attention_lse", "flash_attention_dq",
+                               "flash_attention_dkv")] == [2 * steps] * 3
+    assert list(by_service) == [replica]
+    assert by_service[replica]["flash_attention"] > 0
+    assert by_service[replica]["flash_attention_lse"] == 0
+    # the same trial's forward in this process: its template, the kernels
+    model = load_model_class(source.encode(), "NarrowViT")(**trial["knobs"])
+    model.load_parameters(tree)
+    ref = np.asarray(model.predict(images))
+    model.destroy()
+    assert probs.shape == (8, 10) and np.isfinite(probs).all()
+    assert float(np.abs(probs - ref).max()) <= 1e-3
+
+
 # ---------------------------------------------------------------------------
 # the image-classification zoo: ResNet on the card against the CPU path
 # ---------------------------------------------------------------------------

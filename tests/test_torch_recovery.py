@@ -1,17 +1,26 @@
 """Crash recovery: ``rafiki_tpu_torch/admin/recovery.py`` and process
 adoption against ``rafiki_tpu``'s, on the CPU.
 
-- Boot reconciliation, the twins of ``tests/test_restart_recovery.py``
-  as far as they go without host agents (ROADMAP.md, item 11): the same
-  store rows are seeded, through each package's ``Database``, into each
-  package's store, and each package's ``Admin`` boots on its store with
-  one fake placement (``FakeHosts`` below) carrying the duck-typed
-  surface recovery reads of a host placement (``probe_inventories``,
-  ``adopt_service``, ``fence_service``, ``reschedule_service``,
-  ``quarantine_on_rejoin``). Compared exactly: the report's counts, its
-  reasons with the ids replaced by their labels, the placement's calls,
-  every seeded row's status, the rollout rows' phases and the drift
-  rows' phases and event names, the chip arbiter's loan book.
+- Boot reconciliation on seeded stores: the same store rows are seeded,
+  through each package's ``Database``, into each package's store, and
+  each package's ``Admin`` boots on its store with one fake placement
+  (``FakeHosts`` below) carrying the duck-typed surface recovery reads
+  of a host placement (``probe_inventories``, ``adopt_service``,
+  ``fence_service``, ``reschedule_service``, ``quarantine_on_rejoin``).
+  Compared exactly: the report's counts, its reasons with the ids
+  replaced by their labels, the placement's calls, every seeded row's
+  status, the rollout rows' phases and the drift rows' phases and event
+  names, the chip arbiter's loan book.
+- The restart drills of ``tests/test_restart_recovery.py`` over real
+  host agents (at the end of this file): each package's admin places a
+  fleet on its ``AgentServer``s (thread engines,
+  ``test_torch_hosts.ThreadEngine``), is dropped, and a second admin
+  reconciles through the agents: adoption without a redeploy, the job's
+  door rebound, a dead host's train service placed again, orphans
+  fenced (or not, when the fence cannot land, or all of them under
+  ``RAFIKI_RECOVER_ADOPT=0``), a rollout resolved, chip loans rebuilt,
+  and the drift loop resumed or parked; reports, rows and answers
+  compared.
 - ``db`` chaos retried through the scan; an aborted reconcile shows in
   the report and in ``recovery.json``; the door's recovering gate
   answers as JAX's does route by route; the drift tick waits while the
@@ -938,6 +947,55 @@ def test_the_watchdog_stops_on_reparenting_unless_survivable(
         t.join(10)
 
 
+@pytest.mark.parametrize("survivable", [False, True])
+def test_a_child_lost_with_its_parent_ends_errored(monkeypatch, survivable):
+    """A difference from the original (ROADMAP.md, C): a child that stops
+    because its parent (an admin, or a host agent) died marks its row
+    ERRORED, a replica lost with its host, where the original's writes
+    STOPPED; a clean end is still STOPPED, and a survivable train child,
+    which stops only when its row is already terminal, is never marked
+    lost."""
+    import threading
+
+    from rafiki_tpu_torch.worker import bootstrap
+
+    stop, snapshot, rows, lost = (threading.Event(), threading.Event(),
+                                  _Rows(), threading.Event())
+    ppid = [4242]
+    monkeypatch.setattr(bootstrap.os, "getppid", lambda: ppid[0])
+    t = threading.Thread(target=bootstrap._watch_parent, args=(
+        stop, snapshot, rows, "svc", survivable, 4242, 0.02, lost),
+        daemon=True)
+    t.start()
+    try:
+        ppid[0] = 1
+        if survivable:
+            time.sleep(0.2)
+            rows.status = "STOPPED"
+        assert stop.wait(10)
+    finally:
+        stop.set()
+        t.join(10)
+    assert lost.is_set() is (not survivable)
+
+    class Marks:
+        def __init__(self):
+            self.marks = []
+
+        def mark_service_as_errored(self, sid):
+            self.marks.append(("ERRORED", sid))
+
+        def mark_service_as_stopped(self, sid):
+            self.marks.append(("STOPPED", sid))
+
+    db = Marks()
+    codes = [bootstrap._final_status(db, "svc", lost.is_set()),
+             bootstrap._final_status(db, "svc", False)]
+    assert db.marks == [("STOPPED" if survivable else "ERRORED", "svc"),
+                        ("STOPPED", "svc")]
+    assert codes == [0 if survivable else 1, 0]
+
+
 def test_a_two_rank_trial_is_placed_again_with_its_follower(tmp_path,
                                                            monkeypatch):
     """A train service left RUNNING on a grant of two gloo ranks, with no
@@ -974,3 +1032,492 @@ def test_a_two_rank_trial_is_placed_again_with_its_follower(tmp_path,
         admin.shutdown()
     assert [(t["status"], t["score"], t["worker_id"]) for t in trials] == [
         ("COMPLETED", 2.0, svc["id"])]
+
+
+# ---------------------------------------------------------------------------
+# the restart drills over real host agents: the twins of
+# tests/test_restart_recovery.py:160-1115 that need agents. Each drill runs
+# through both packages: real AgentServers over thread engines
+# (test_torch_hosts.ThreadEngine), so the agents live on when an admin is
+# dropped; the reports, rows and answers are compared
+# ---------------------------------------------------------------------------
+
+from test_torch_hosts import KEY  # noqa: E402
+from test_torch_hosts import PACKAGES as HOSTS  # noqa: E402
+from test_torch_hosts import host_placement, seed_app, spawn_host  # noqa: E402
+from test_torch_hosts import superadmin  # noqa: E402
+
+_tokens = {"jax": __import__("rafiki_tpu.utils.auth",
+                             fromlist=["x"]).generate_token,
+           "torch": __import__("rafiki_tpu_torch.utils.auth",
+                               fromlist=["x"]).generate_token}
+_COUNTS = ("adopted", "rescheduled", "fenced", "errored", "closed",
+           "agents_probed", "agents_unreachable")
+
+
+def crash(admin):
+    """An admin process's death: nothing stopped or drained, its pollers
+    silenced and its per-job doors closed as a dead process's sockets."""
+    admin.placement._closed.set()
+    servers = getattr(admin.services, "_predict_servers", None)
+    if servers is None:
+        servers = admin.services._servers
+    for psrv in list(servers.values()):
+        psrv.stop(drain_timeout_s=0.0)
+
+
+class Drill:
+    """One package's drill: its store, agents and admins under a
+    workdir of its own."""
+
+    def __init__(self, p, tmp_path, monkeypatch, hosts=((0, 1),)):
+        self.p = p
+        self.work = tmp_path / p.name
+        (self.work / "logs").mkdir(parents=True)
+        monkeypatch.setenv("RAFIKI_WORKDIR", str(self.work))
+        monkeypatch.setenv("RAFIKI_LOGS_DIR", str(self.work / "logs"))
+        self.db = p.Database(str(self.work / "meta.sqlite3"))
+        self.hosts = [spawn_host(p, self.db, ids) for ids in hosts]
+        self.addrs = [h[2] for h in self.hosts]
+        self.admins = []
+
+    def admin(self, **kw):
+        admin = self.p.Admin(
+            db=kw.pop("db", self.db),
+            placement=host_placement(self.p, self.addrs, self.db),
+            params_dir=str(self.work / "params"), **kw)
+        self.admins.append(admin)
+        return admin
+
+    def close(self):
+        if self.admins:
+            self.admins[-1].shutdown()
+        for _, srv, _ in self.hosts:
+            srv.stop()
+
+    def live_ids(self):
+        return {e["service_id"] for h in self.hosts
+                for e in h[0].list_services()}
+
+
+def run_drill(drill_fn, tmp_path, monkeypatch, hosts=((0, 1),)):
+    got = {}
+    for name, p in HOSTS.items():
+        p.chaos.clear()
+        p.http.reset_breaker()
+        d = Drill(p, tmp_path, monkeypatch, hosts)
+        try:
+            got[name] = drill_fn(d)
+        finally:
+            p.chaos.clear()
+            d.close()
+    return got
+
+
+def _serving_job(d, app, trials=2):
+    admin = d.admin()
+    uid = superadmin(d.p, admin)
+    assert seed_app(d.p, admin, uid, app, trials=trials)["status"] == \
+        "STOPPED"
+    admin.create_inference_job(uid, app)
+    inf = d.db.get_inference_jobs_by_statuses(["RUNNING"])[0]
+    sids = sorted(w["service_id"]
+                  for w in d.db.get_workers_of_inference_job(inf["id"]))
+    return admin, uid, inf["id"], sids
+
+
+def test_a_restart_adopts_the_agents_replicas_without_redeploy(
+        tmp_path, monkeypatch):
+    def drill(d):
+        admin1, uid, inf, sids = _serving_job(d, "restartserve")
+        assert len(admin1.predict(uid, "restartserve", [[1.0]])) == 1
+        inv = d.p.http.call_agent(d.addrs[0], "GET", "/inventory", key=KEY,
+                                  timeout_s=5)
+        listed = {e["service_id"] for e in inv["services"]}
+        crash(admin1)
+        admin2 = d.admin()
+        report = wait_ready(admin2)
+        backed = set(admin2.placement.placements())
+        inf_row = d.db.get_inference_job(inf)
+        unbacked = [s["id"] for s in d.db.get_services(
+            statuses=["STARTED", "DEPLOYING", "RUNNING"])
+            if s["id"] not in backed
+            and s["id"] != inf_row.get("predictor_service_id")]
+        persisted = json.loads((d.work / "logs" / "recovery.json")
+                               .read_text())
+        out = {
+            "counts": {k: report[k] for k in _COUNTS},
+            "adopted_all": report["adopted"] == len(sids),
+            "listed": listed <= {s["id"] for s in d.db.get_services()},
+            "job": inf_row["status"],
+            "same_fleet": sorted(
+                w["service_id"] for w in d.db.get_workers_of_inference_job(
+                    inf)) == sids,
+            "predictions": admin2.predict(uid, "restartserve",
+                                          [[1.0], [2.0]]),
+            "unbacked": unbacked,
+            "persisted": persisted["adopted"] == report["adopted"],
+        }
+        admin2.stop_all_jobs()
+        return out
+
+    got = run_drill(drill, tmp_path, monkeypatch, hosts=((0, 1), (2, 3)))
+    assert got["torch"] == got["jax"]
+    ours = got["torch"]
+    assert ours["counts"]["adopted"] == 4 and ours["counts"]["errored"] == 0
+    assert ours["adopted_all"] and ours["same_fleet"] and ours["persisted"]
+    assert ours["predictions"] == [[0.5, 0.5], [0.5, 0.5]]
+    assert ours["unbacked"] == []
+
+
+def test_a_restart_rebinds_the_jobs_own_door(tmp_path, monkeypatch):
+    """``RAFIKI_PREDICTOR_PORTS=1``: the adopted job's door is bound again
+    in the new admin, its address republished, and it answers. (On one
+    two-card agent the port deploys one replica a trial, JAX two: the
+    replica count is clamped to the inventory, ROADMAP.md C.)"""
+    monkeypatch.setenv("RAFIKI_PREDICTOR_PORTS", "1")
+
+    def drill(d):
+        admin1, uid, inf, sids = _serving_job(d, "portapp")
+        assert admin1.get_inference_job(uid, "portapp")["predictor_port"]
+        crash(admin1)
+        admin2 = d.admin()
+        report = wait_ready(admin2)
+        job2 = admin2.get_inference_job(uid, "portapp")
+        token = _tokens[d.p.name]({"user_id": uid,
+                                   "user_type": "SUPERADMIN"})
+        req = urllib.request.Request(
+            f"http://{job2['predictor_host']}:{job2['predictor_port']}"
+            "/predict", data=json.dumps({"queries": [[3.0]]}).encode(),
+            headers={"Content-Type": "application/json",
+                     "Authorization": f"Bearer {token}"})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            answer = (resp.status,
+                      json.loads(resp.read())["data"]["predictions"])
+        return {"adopted_all": report["adopted"] == len(sids),
+                "errored": report["errored"], "answer": answer,
+                "republished": bool(job2["predictor_port"])}
+
+    got = run_drill(drill, tmp_path, monkeypatch)
+    assert got["torch"] == got["jax"] == {
+        "adopted_all": True, "errored": 0,
+        "answer": (200, [[0.5, 0.5]]), "republished": True}
+
+
+def test_a_restart_reschedules_a_dead_hosts_train_service(tmp_path,
+                                                          monkeypatch):
+    """A train service whose host died while no admin ran is placed again
+    under its id on the survivor; its new worker resumes the stale trial,
+    and the job ends with exactly its budget of trials."""
+    def drill(d):
+        db, p = d.db, d.p
+        user = db.create_user("u@x", "h", "APP_DEVELOPER")
+        model = db.create_model(user["id"], "fake", "IMAGE_CLASSIFICATION",
+                                p.template, "FakeModel", {"numpy": None},
+                                "PUBLIC")
+        tj = db.create_train_job(user["id"], "app", 1,
+                                 "IMAGE_CLASSIFICATION", "uri://t",
+                                 "uri://e", {"MODEL_TRIAL_COUNT": 2})
+        db.mark_train_job_as_running(tj["id"])
+        sub = db.create_sub_train_job(tj["id"], model["id"])
+        svc = db.create_service("TRAIN", chips=p.chips([0]))
+        db.mark_service_as_running(svc["id"])
+        db.create_train_job_worker(svc["id"], sub["id"])
+        stale = db.create_trial(sub["id"], model["id"], dict(KNOBS),
+                                worker_id=svc["id"])
+        admin = d.admin()
+        report = wait_ready(admin)
+        placed = admin.placement.placements().get(svc["id"]) == d.addrs[0]
+        assert wait_for(lambda: db.get_train_job(tj["id"])["status"]
+                        == "STOPPED")
+        resumed = db.get_trial(stale["id"])
+        return {"counts": {k: report[k] for k in _COUNTS},
+                "placed_on_survivor": placed,
+                "resumed": (resumed["status"],
+                            resumed["score"] is not None),
+                "trials": len(db.get_trials_of_sub_train_job(sub["id"]))}
+
+    got = run_drill(drill, tmp_path, monkeypatch)
+    assert got["torch"] == got["jax"]
+    assert got["torch"]["counts"]["rescheduled"] == 1
+    assert got["torch"]["resumed"] == ("COMPLETED", True)
+    assert got["torch"]["trials"] == 2
+
+
+@pytest.mark.parametrize("case", ["stopped_job", "fence_fails",
+                                  "adopt_disabled"])
+def test_a_restart_fences_what_it_must_not_adopt(case, tmp_path,
+                                                 monkeypatch):
+    """The replicas of a job stopped while no admin ran are fenced on
+    their agent and their rows closed; a fence that cannot reach the agent
+    (every stop dropped) leaves the rows RUNNING and the executors
+    untouched; under ``RAFIKI_RECOVER_ADOPT=0`` survivors are fenced and
+    the job ends."""
+    if case == "adopt_disabled":
+        monkeypatch.setenv("RAFIKI_RECOVER_ADOPT", "0")
+
+    def drill(d):
+        admin1, uid, inf, sids = _serving_job(d, "fenceapp")
+        assert d.live_ids() >= set(sids)
+        crash(admin1)
+        if case != "adopt_disabled":
+            d.db.mark_inference_job_as_stopped(inf)
+        if case == "fence_fails":
+            d.p.chaos.install([d.p.chaos.ChaosRule(
+                site="call_agent", action="drop", match="/stop")])
+        admin2 = d.admin()
+        report = wait_ready(admin2)
+        d.p.chaos.clear()
+        if case != "fence_fails":
+            assert wait_for(lambda: not d.live_ids())
+            assert wait_for(lambda: d.db.get_inference_job(inf)["status"]
+                            in ("STOPPED", "ERRORED"))
+        return {"fenced_all": report["fenced"] == len(sids),
+                "adopted": report["adopted"],
+                "reasons": sorted({
+                    tag for r in report["reasons"] for tag in (
+                        "could not fence", "RAFIKI_RECOVER_ADOPT=0")
+                    if tag in r}),
+                "rows": sorted({d.db.get_service(s)["status"]
+                                for s in sids}),
+                "executors_left": bool(d.live_ids()),
+                "placements": admin2.placement.placements()}
+
+    got = run_drill(drill, tmp_path, monkeypatch)
+    assert got["torch"] == got["jax"]
+    ours = got["torch"]
+    if case == "stopped_job":
+        assert ours["fenced_all"] and ours["rows"] == ["STOPPED"]
+    elif case == "fence_fails":
+        assert not ours["fenced_all"] and ours["rows"] == ["RUNNING"]
+        assert ours["reasons"] == ["could not fence"]
+        assert ours["executors_left"]
+    else:
+        assert ours["adopted"] == 0 and ours["fenced_all"]
+        assert ours["reasons"] == ["RAFIKI_RECOVER_ADOPT=0"]
+
+
+def _rollout_target(db, inf_id):
+    inf = db.get_inference_job(inf_id)
+    serving = {w["trial_id"]
+               for w in db.get_workers_of_inference_job(inf_id)}
+    return next(t["id"] for t in db.get_best_trials_of_train_job(
+        inf["train_job_id"], max_count=10) if t["id"] not in serving)
+
+
+@pytest.mark.parametrize("phase", ["CANARY", "ROLLING"])
+def test_a_restart_mid_rollout_resolves_it(phase, tmp_path, monkeypatch):
+    """The admin dies in the canary (the successor adopts both versions,
+    then rolls back: the canary drained, the incumbents serving), or
+    after the rolling replace finished but before DONE was written (the
+    successor marks it DONE)."""
+    def drill(d):
+        admin1, uid, inf, _ = _serving_job(d, "midroll", trials=3)
+        target = _rollout_target(d.db, inf)
+        old = admin1.services.live_inference_workers(inf)
+        n = len(old)
+        if phase == "CANARY":
+            canary = admin1.services.deploy_version_replica(inf, target, 1)
+        else:
+            for _ in range(n):
+                sid = admin1.services.deploy_version_replica(inf, target, 1)
+                admin1.services.get_predictor(inf).add_worker(sid, target)
+            admin1.services.drain_replicas(
+                inf, [w["service_id"] for w in old])
+        d.db.create_rollout(inf, old[0]["trial_id"], target, 0, 1, n, phase)
+        crash(admin1)
+        admin2 = d.admin()
+        report = wait_ready(admin2)
+        ro = d.db.get_rollouts_of_inference_job(inf)[0]
+        out = {"phase": ro["phase"],
+               "reason": ("restart" in ro["reason"],
+                          "recovery" in ro["reason"]),
+               "adopted": report["adopted"] - n}
+        if phase == "CANARY":
+            assert wait_for(lambda: d.db.get_service(canary)["status"]
+                            in ("STOPPED", "ERRORED"))
+        live = admin2.services.live_inference_workers(inf)
+        out.update(
+            live=(len(live) == n,
+                  sorted({w["model_version"] for w in live}),
+                  all(w["trial_id"] == target for w in live)),
+            job=d.db.get_inference_job(inf)["status"],
+            predictions=admin2.predict(uid, "midroll", [[1.0]]),
+            lane=admin2.services.get_predictor(inf)._lane_snapshot())
+        return out
+
+    got = run_drill(drill, tmp_path, monkeypatch)
+    assert got["torch"] == got["jax"]
+    ours = got["torch"]
+    if phase == "CANARY":
+        assert ours["phase"] == "ROLLED_BACK" and ours["reason"][0]
+        assert ours["adopted"] == 1 and ours["live"] == (True, [0], False)
+        assert ours["lane"] == (None, 0)
+    else:
+        assert ours["phase"] == "DONE" and ours["reason"][1]
+        assert ours["live"] == (True, [1], True)
+
+
+def test_a_restart_rebuilds_the_chip_loans_of_adopted_replicas(
+        tmp_path, monkeypatch):
+    """A replica that borrowed a card above the training floor is adopted
+    with its loan: the successor's loan book has it, and a training
+    reclaim drains exactly that replica."""
+    monkeypatch.setenv("RAFIKI_AUTOSCALE_TRAIN_FLOOR", "1")
+
+    def drill(d):
+        admin1, uid, job, _ = _serving_job(d, "loans")
+        report = admin1.services.scale_inference_job(job, 1)
+        sid = report["added"][0]
+        row = next(w for w in d.db.get_workers_of_inference_job(job)
+                   if w["service_id"] == sid)
+        before = (report["borrowed_chips"], row["borrowed_chips"],
+                  admin1.chip_arbiter.borrowed()[sid] == (job, 1))
+        crash(admin1)
+        admin2 = d.admin()
+        report2 = wait_ready(admin2)
+        after = (report2["errored"],
+                 admin2.chip_arbiter.borrowed().get(sid) == (job, 1),
+                 admin2.chip_arbiter.borrowed_chips())
+        freed = admin2.chip_arbiter.reclaim_for_training(1)
+        assert wait_for(lambda: next(
+            (w for w in d.db.get_workers_of_inference_job(job)
+             if w["service_id"] == sid), {}).get("borrowed_chips") == 0)
+        live = {w["service_id"]
+                for w in admin2.services.live_inference_workers(job)}
+        out = (before, after, freed, admin2.chip_arbiter.borrowed_chips(),
+               sid in live, admin2.predict(uid, "loans", [[1.0]]))
+        admin2.stop_all_jobs()
+        return out
+
+    got = run_drill(drill, tmp_path, monkeypatch,
+                    hosts=((0, 1, 2), (3, 4, 5)))
+    assert got["torch"] == got["jax"] == (
+        (1, 1, True), (0, True, 1), 1, 0, False, [[0.5, 0.5]])
+
+
+def _drift_env(monkeypatch, extra=None):
+    env = {"RAFIKI_DRIFT": "1", "RAFIKI_DRIFT_INTERVAL_S": "3600",
+           "RAFIKI_DRIFT_WINDOW_S": "2.0",
+           "RAFIKI_DRIFT_BASELINE_WINDOW_S": "2.0",
+           "RAFIKI_DRIFT_MIN_SAMPLES": "8", "RAFIKI_DRIFT_THRESHOLD": "0.5",
+           "RAFIKI_DRIFT_RETRAIN_BUDGET": "2",
+           "RAFIKI_DRIFT_COOLDOWN_S": "60",
+           "RAFIKI_ROLLOUT_JUDGE_WINDOW_S": "1.0",
+           "RAFIKI_ROLLOUT_MIN_REQUESTS": "3", "DRIFT_FIXTURE_SCORE": "0.5"}
+    env.update(extra or {})
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+
+
+def _drift_template(p):
+    from test_torch_drift import DRIFT_TEMPLATE, JAX_DRIFT
+
+    return JAX_DRIFT.read_bytes() if p.name == "jax" else DRIFT_TEMPLATE
+
+
+def _drift_to_retraining(d, admin, uid, app, monkeypatch):
+    """Seed a served app, freeze a baseline, shift the traffic and tick
+    to the drift verdict (RETRAINING)."""
+    admin.create_model(uid, "driftm", "IMAGE_CLASSIFICATION",
+                       _drift_template(d.p), "DriftModel")
+    admin.create_train_job(uid, app, "IMAGE_CLASSIFICATION", "uri://t",
+                           "uri://e", budget={"MODEL_TRIAL_COUNT": 2,
+                                              "CHIP_COUNT": 0})
+    job = admin.wait_until_train_job_stopped(uid, app, timeout_s=60)
+    admin.create_inference_job(uid, app)
+    job_id = d.db.get_running_inference_job_of_train_job(job["id"])["id"]
+    deadline = time.monotonic() + 30
+    st = None
+    while time.monotonic() < deadline:
+        for _ in range(4):
+            admin.predict(uid, app, [[0.0]])
+        admin.drift.tick()
+        st = admin.drift.status(job_id)
+        if st and st.get("baseline"):
+            break
+        time.sleep(0.05)
+    assert st and st.get("baseline"), st
+    monkeypatch.setenv("DRIFT_FIXTURE_SCORE", "0.9")
+    time.sleep(2.2)  # the old mix ages out of the window
+    for i in range(1, 13):
+        admin.predict(uid, app, [[float(i) + 0.5]])
+    admin.drift.tick()
+    st = admin.drift.status(job_id)
+    assert st["phase"] == "RETRAINING", st
+    return job_id, st
+
+
+@pytest.mark.parametrize("case", ["resumed", "parked"])
+def test_a_restart_mid_drift_loop_never_launches_twice(
+        case, tmp_path, monkeypatch):
+    """The admin dies after the drift verdict: with the retrain launched
+    and its id written, the successor resumes that retrain and carries
+    its candidate through the rollout to DONE, with no second launch;
+    with only the write-ahead intent (the launch failed), it parks the
+    loop, and an operator's ack re-arms it."""
+    # the judge's p95 rule is not this drill's subject: on a loaded host
+    # a canary's tail can breach it and roll the candidate back
+    _drift_env(monkeypatch, {"RAFIKI_DRIFT_LAUNCH_RETRY_MAX": "5"}
+               if case == "parked" else {"RAFIKI_ROLLOUT_P95_FACTOR": "1000"})
+
+    def drill(d):
+        monkeypatch.setenv("DRIFT_FIXTURE_SCORE", "0.5")
+        admin1 = d.admin()
+        uid = superadmin(d.p, admin1)
+        if case == "parked":
+            d.p.chaos.install([d.p.chaos.ChaosRule(
+                site="drift", action="error", match="launch/")])
+        job_id, st = _drift_to_retraining(d, admin1, uid, "drillapp",
+                                          monkeypatch)
+        rid = st["retrain_job_id"]
+        if case == "resumed":
+            assert admin1.wait_until_train_job_stopped(
+                uid, "drillapp", timeout_s=60)["id"] == rid
+        crash(admin1)
+        d.p.chaos.clear()
+        admin2 = d.admin()
+        wait_ready(admin2)
+        st2 = admin2.drift.status(job_id)
+        out = {"intent": rid is None, "phase": st2["phase"],
+               "same_retrain": st2["retrain_job_id"] == rid,
+               "events": [e for e in ("resumed",)
+                          if e in [x["event"] for x in st2["events"]]]}
+        if case == "parked":
+            for _ in range(3):
+                admin2.drift.tick()
+            out["sticky"] = admin2.drift.status(job_id)["phase"]
+            acked = admin2.ack_drift(uid, "drillapp")
+            out["acked"] = (acked["phase"], acked["operator_ack"])
+        else:
+            deadline = time.monotonic() + 60
+            n, errors = 100, []
+            while time.monotonic() < deadline:
+                try:
+                    admin2.predict(uid, "drillapp", [[float(n)]])
+                except Exception as e:  # any error fails the drill
+                    errors.append(repr(e))
+                n += 1
+                admin2.drift.tick()
+                if admin2.drift.status(job_id)["phase"] == "WATCHING":
+                    break
+                time.sleep(0.02)
+            out["after"] = (admin2.drift.status(job_id)["phase"],
+                            admin2.rollouts.status(job_id)["phase"], errors)
+        out["train_jobs"] = len(d.db.get_train_jobs_of_app(uid, "drillapp"))
+        admin2.stop_all_jobs()
+        return out
+
+    got = run_drill(drill, tmp_path, monkeypatch)
+    assert got["torch"] == got["jax"]
+    ours = got["torch"]
+    if case == "resumed":
+        assert not ours["intent"] and ours["phase"] == "RETRAINING"
+        assert ours["events"] == ["resumed"]
+        assert ours["after"] == ("WATCHING", "DONE", [])
+        assert ours["train_jobs"] == 2
+    else:
+        assert ours["intent"] and ours["phase"] == "PARKED"
+        assert ours["sticky"] == "PARKED"
+        assert ours["acked"] == ("WATCHING", True)
+        assert ours["train_jobs"] == 1

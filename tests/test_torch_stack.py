@@ -516,9 +516,42 @@ def test_unported_settings_raise(monkeypatch, tmp_path, name, value,
     """A setting that selects a subsystem the port lacks refuses the
     admin's start, typed. Speculative decoding, stream resume, int8
     serving, the autoscaler, fair admission, the warm pool, the drift
-    loop, the sandbox, control-plane HA, admin failover and crash
-    recovery are ported: their settings are read, with the JAX package's
-    defaults."""
+    loop, the sandbox, control-plane HA, admin failover, crash recovery
+    and host placement are ported: their settings are read, with the JAX
+    package's defaults."""
+    if name in ("RAFIKI_PLACEMENT", "RAFIKI_AGENTS",
+                "RAFIKI_RECOVER_PROBE_TIMEOUT_S"):
+        from rafiki_tpu import config as jax_config
+        from rafiki_tpu_torch.placement.hosts import (
+            HostAgentPlacementManager,
+        )
+
+        knobs = ("RECOVER_PROBE_TIMEOUT_S", "AGENT_HEARTBEAT_INTERVAL_S",
+                 "AGENT_DOWN_THRESHOLD", "AGENT_HEARTBEAT_TIMEOUT_S",
+                 "AGENT_RETRY_MAX", "AGENT_RETRY_BACKOFF_S",
+                 "AGENT_BREAKER_THRESHOLD", "AGENT_BREAKER_COOLDOWN_S")
+        monkeypatch.delenv(name, raising=False)
+        for knob in knobs:
+            assert getattr(config, knob) == getattr(jax_config, knob), knob
+        monkeypatch.setenv(name, value)
+        if name == "RAFIKI_PLACEMENT":
+            # hosts mode needs its agents' addresses; none answers here
+            monkeypatch.setenv("RAFIKI_AGENTS", "127.0.0.1:9")
+            monkeypatch.setenv("RAFIKI_AGENT_HEARTBEAT_S", "0")
+            admin = Admin(db=Database(str(tmp_path / "s.sqlite3")))
+        else:
+            admin = Admin(db=Database(str(tmp_path / "s.sqlite3")),
+                          placement=LocalPlacementManager(
+                              ChipAllocator(["cpu"])))
+        try:
+            assert isinstance(admin.placement, HostAgentPlacementManager) \
+                is (name == "RAFIKI_PLACEMENT")
+        finally:
+            admin.shutdown()
+        if name == "RAFIKI_RECOVER_PROBE_TIMEOUT_S":
+            assert config.RECOVER_PROBE_TIMEOUT_S == \
+                jax_config.RECOVER_PROBE_TIMEOUT_S == 5.0
+        return
     if name in ("RAFIKI_ADMIN_HA", "RAFIKI_ADMIN_ADDRS",
                 "RAFIKI_ORPHAN_SURVIVE"):
         from rafiki_tpu import config as jax_config
@@ -890,19 +923,19 @@ def _jax_budget_refusal(tmp_path, budget) -> str:
 
 
 def test_chaos_rule_at_an_unhooked_site_is_refused(tmp_path, monkeypatch):
-    """Only the trial, worker, generate, deploy, drift, db and lease sites
-    have their chaos hooks: a rule naming another site raises
-    NotPortedError when it is made, and a RAFIKI_CHAOS holding one refuses
-    the admin's start, never silently inert; a rule at a hooked site
-    passes."""
+    """Only the trial, worker, generate, deploy, drift, db, lease, agent
+    and call_agent sites have their chaos hooks: a rule naming another
+    site raises NotPortedError when it is made, and a RAFIKI_CHAOS
+    holding one refuses the admin's start, never silently inert; a rule
+    at a hooked site passes."""
     from rafiki_tpu_torch.utils import chaos
 
     try:
         for site in ("trial", "worker", "generate", "deploy", "drift", "db",
-                     "lease"):
+                     "lease", "agent", "call_agent"):
             (rule,) = chaos.parse_rules(f"site={site};action=delay")
             assert rule.site == site
-        for site in ("wire", "cache", "compile", "agent", "call_agent"):
+        for site in ("wire", "cache", "compile"):
             with pytest.raises(NotPortedError, match=f"site={site}"):
                 chaos.parse_rules(f"site={site};action=delay")
             with pytest.raises(NotPortedError):
