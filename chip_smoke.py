@@ -7,9 +7,12 @@ Run from the root of a checkout, with no arguments:
 Phases, each of which must pass (any failure exits non-zero). Phases 7
 and 11, which launch no attention kernel, run on a thread beside the
 kernel build of phase 1, and phase 2 starts once they are done; phase
-19 runs on a thread beside phase 18 (both count their launches from
-their children's exit lines, and share no store, port, ring or log;
-phase 18's card-memory readings then include phase 19's processes).
+19 and phase 9's drill 9d run on threads beside phase 18 (each counts its
+launches from its children's exit lines, and they share no store, port,
+ring or log; phase 18's card-memory readings then include theirs). The
+ViT-B/16 and BERT-base trials of phases 3, 5, 6, 8a and 17 fit with no
+per-epoch checkpoint (nothing there reads one; phase 9 drills the
+checkpoint with the templates as shipped).
 Each phase's time is printed (``chip_smoke: phase N took ...``):
 
 1. header: the card (nvidia-smi name and power limit), the torch and CUDA
@@ -152,18 +155,19 @@ Each phase's time is printed (``chip_smoke: phase N took ...``):
    absorbs the INFRA fault at ``attempt`` 1 in its own row, all 3
    COMPLETED, at least one stopped at a rung, and every keep/stop verdict
    equal to ``AshaScheduler`` replayed on the logged losses. 9c:
-   ``TRIAL_TIMEOUT_S`` (9b's first report plus 1.5 of its epochs with
-   their checkpoints) stops an 8-epoch trial at the first epoch
-   boundary past it. 9d: under ``RAFIKI_PLACEMENT=process`` the train
-   child is SIGKILLed once the second trial's checkpoint exists; the
+   ``TRIAL_TIMEOUT_S`` (9b's first report plus 1.5 of its epochs) stops
+   an 8-epoch trial at the first epoch boundary past it (9b and 9c fit
+   with no per-epoch checkpoint; 9d drills it). 9d: under
+   ``RAFIKI_PLACEMENT=process`` the train child is SIGKILLed once the
+   second trial's checkpoint exists; the
    placement starts it again under the same service id, it resumes that
    trial from its checkpoint under its id and knobs, the admin's advisor
    session survived (``replay_feedback`` returned False), the job counts
    2 trials and no checkpoint is left. Launches: 12 a step and an
    evaluate in 9b-9d (the restarted child's exit line in 9d), none of
    K1, K2, K3 in 9a. Printed: each drill's wall time, each trial's
-   epochs, attempt, kind and score, the epoch with and without its
-   checkpoint, the child's restart time.
+   epochs, attempt, kind and score, 9b's epoch, the child's restart
+   time.
 
 10. several cards, on every visible card up to 4 (``n``; on one card the
    same runs at a grant of one, and says so). 10a: this process is rank
@@ -454,8 +458,35 @@ Each phase's time is printed (``chip_smoke: phase N took ...``):
    on, recovery (epoch 2) probes both, adopts the surviving replica
    (same pid, no new serving row), the same images get the same answers,
    and a stop carrying epoch 1 is refused 412 by both agents. Each
-   serving child's exit line reads K1 only. Phase 19 with what it stands
-   on: ``python3 -c "import chip_smoke as cs; cs.hosts_only()"``.
+   serving child's exit line reads K1 only. 19b also sends one sampled
+   one-image request (``X-Rafiki-Trace``) to the job's own door
+   (``RAFIKI_PREDICTOR_PORTS=1``): its exemplar holds the door's spans
+   and the agents' (queue wait, decode, assembly, forward), grafted from
+   their ``trace_spans``; each agent's ``GET /metrics`` parses. Phase 19
+   with what it stands on: ``python3 -c "import chip_smoke as cs;
+   cs.hosts_only()"``.
+
+20. observability, on phase 3's images, a store under
+   ``build/chip_smoke/observability/``. 20a: a one-trial ViT-B/16 job (1
+   epoch of 512 images at batch 64) through the admin under
+   ``RAFIKI_PROFILE=1``: the trial's Chrome trace
+   (``logs/profiles/trial-<id>-<pid>.json``, ``torch.profiler`` with the
+   CUDA activity) holds K1-LSE, K2 and K3 by their kernels' names, each
+   as many times as its wrapper launched it (12 a step), and K1 never;
+   each one's device time summed from the profile is printed beside
+   phase 2's CUDA-event time; ``get_trial_trace`` returns its propose,
+   train, evaluate and persist_params spans. 20b: that trial served by
+   one child under process placement with ``RAFIKI_TRACE_SAMPLE=1``: 8
+   one-image ``.npy`` requests with an ``X-Rafiki-Trace`` header at the
+   job's door, over the shm rings; each header echoed, each exemplar
+   holding admission_wait, queue_wait, codec_decode, batch_assembly,
+   model_forward and respond, summing to 0.3-1.3x the request's wall
+   time; the child's K1 12 a forward (warm-up buckets and the 8). 20c:
+   ``/metrics`` of the admin's door and of the job's door parsed with
+   ``parse_prometheus``, every metric name the JAX package publishes
+   present, the door's admitted, served and traced counts 8; every
+   section of ``/fleet/health``. Phase 20 with what it stands on:
+   ``python3 -c "import chip_smoke as cs; cs.observability_only()"``.
 
 The line before the last is ``{"kernels": [...]}``, each kernel's
 ``launches`` from phase 5 and ``launches_by_path`` from every path; the
@@ -1241,7 +1272,8 @@ def direct_train_job(uris: dict, params_dir: Path):
     db, advisors = Database(":memory:"), AdvisorStore()
     user = db.create_user("smoke@rafiki", "-", "MODEL_DEVELOPER")
     model = db.create_model(user["id"], "vit", "IMAGE_CLASSIFICATION",
-                            TEMPLATE.read_bytes(), "TorchViT", {}, "PRIVATE")
+                            no_checkpoint(TEMPLATE.read_bytes()), "TorchViT",
+                            {}, "PRIVATE")
     job = db.create_train_job(user["id"], "vit", 1, "IMAGE_CLASSIFICATION",
                               uris["train"], uris["test"],
                               {"MODEL_TRIAL_COUNT": TRIALS})
@@ -1660,7 +1692,8 @@ def stack_phase(card: str, uris: dict, direct_job_s: float):
         c = Client("127.0.0.1", server.port, timeout_s=900)
         c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
         model = c.create_model("vit-b16", "IMAGE_CLASSIFICATION",
-                               TEMPLATE.read_bytes(), "TorchViT")
+                               no_checkpoint(TEMPLATE.read_bytes()),
+                               "TorchViT")
         require(model["verification"] is not None
                 and model["verification"]["ok"],
                 f"TorchViT upload not verified: {model['verification']}")
@@ -1914,7 +1947,8 @@ def thread_twin(uris: dict, trials: list, store: Path):
     auth = admin.authenticate_user(config.SUPERADMIN_EMAIL,
                                    config.SUPERADMIN_PASSWORD)
     model = db.create_model(auth["user_id"], "vit-b16",
-                            "IMAGE_CLASSIFICATION", TEMPLATE.read_bytes(),
+                            "IMAGE_CLASSIFICATION",
+                            no_checkpoint(TEMPLATE.read_bytes()),
                             "TorchViT", {}, "PRIVATE")
     job = db.create_train_job(auth["user_id"], "vit", 1,
                               "IMAGE_CLASSIFICATION", uris["train"],
@@ -1971,7 +2005,7 @@ def process_phase(card: str, uris: dict, thread_job_s: float):
         c = Client("127.0.0.1", server.port, timeout_s=900)
         c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
         c.create_model("vit-b16", "IMAGE_CLASSIFICATION",
-                       TEMPLATE.read_bytes(), "TorchViT")
+                       no_checkpoint(TEMPLATE.read_bytes()), "TorchViT")
         for kernel in kernels:
             kernel.launches = 0
 
@@ -2607,7 +2641,8 @@ def bert_phase(card: str) -> list:
           f"{SENTENCE_TOKENS[1]} words, two disjoint pools of {POOL_WORDS}) "
           f"written as corpus zips in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    source = (TEMPLATES / "torch_bert.py").read_text() + BERT_BASE
+    source = no_checkpoint(
+        (TEMPLATES / "torch_bert.py").read_bytes()).decode() + BERT_BASE
     admin, server, new_client = _stack("text", "text.sqlite3")
     kernels = _kernels()
     try:
@@ -4040,8 +4075,9 @@ OOM_SLACK_BYTES = 64 << 20
 #: until phase 12, 4 epochs until phase 15 and 4 trials until phase 18
 #: needed the run's time (PERF.md, section 4)
 ASHA_TRIALS, ASHA_EPOCHS, ASHA_ETA = 3, 2, 2
-#: 9c: epochs budgeted, and the cap past a trial's first report in
-#: epoch-plus-checkpoint times of 9b. The trial's clock starts before its
+#: 9c: epochs budgeted, and the cap past a trial's first report in epoch
+#: times of 9b (report to report: 9b and 9c fit with no per-epoch
+#: checkpoint, which 9d drills). The trial's clock starts before its
 #: set-up (ViT-B/16's init and the dataset read, seconds on the card), so
 #: the cap is 9b's median first report plus 1.5 of its epochs: the stop
 #: then falls mid-run, where the first-boundary rule can be seen (2.5
@@ -4059,6 +4095,16 @@ CAP_SLACK_S = 0.25
 RESUME_EPOCHS = 2
 
 
+def no_checkpoint(source: bytes) -> bytes:
+    """A template's ``source`` fitting with no per-epoch checkpoint (a
+    ViT-B/16 one is a 1.04 GB write, 3.7 s on the card's disk; BERT-base's
+    larger), for a phase whose checks never read one (phase 9 drills
+    resumes and checkpoint costs with the template as shipped)."""
+    old = b"checkpoint_path=self.checkpoint_path"
+    require(source.count(old) == 1, "template edit: its checkpoint path")
+    return source.replace(old, b"checkpoint_path=None")
+
+
 def twin_template(cls: str, learning_rate: str, batch_size: int,
                   epochs: int, checkpoint: bool = True) -> bytes:
     """``templates/torch_vit.py`` renamed ``cls`` with its learning rate,
@@ -4074,13 +4120,10 @@ def twin_template(cls: str, learning_rate: str, batch_size: int,
         ('"batch_size": CategoricalKnob([64, 128])',
          f'"batch_size": FixedKnob({batch_size})'),
         ('"epochs": FixedKnob(1)', f'"epochs": FixedKnob({epochs})')]
-    if not checkpoint:
-        edits.append(("checkpoint_path=self.checkpoint_path",
-                      "checkpoint_path=None"))
     for old, new in edits:
         require(source.count(old) == 1, f"template edit {old!r}")
         source = source.replace(old, new)
-    return source.encode()
+    return source.encode() if checkpoint else no_checkpoint(source.encode())
 
 
 def _loop_stack(store: str, params: Path):
@@ -4322,7 +4365,7 @@ def asha_drill(card: str, uris: dict) -> tuple:
             # which is not competitive at rung 1 against the first
             c.create_model("vit-asha", "IMAGE_CLASSIFICATION", twin_template(
                 "AshaViT", "FloatKnob(1e-6, 1e-1, is_exp=True)", 64,
-                ASHA_EPOCHS), "AshaViT")
+                ASHA_EPOCHS, checkpoint=False), "AshaViT")
             for kernel in kernels:
                 kernel.launches = 0
 
@@ -4405,10 +4448,10 @@ def asha_drill(card: str, uris: dict) -> tuple:
           f"absorbed by trial 1 at attempt 1 in its own row; job "
           f"{job_s:.1f} s; an epoch's steps {statistics.median(steps_s):.3f}"
           f" s (epoch_time, median of {len(steps_s)}), report to report "
-          f"with the checkpoint between {epoch_ckpt:.3f} s (median of "
-          f"{len(gaps)}), a trial's start to its first report {first:.3f} "
+          f"{epoch_ckpt:.3f} s (median of {len(gaps)}; no checkpoint), a "
+          f"trial's start to its first report {first:.3f} "
           f"s (median, the chaos-retried trial aside); after the last "
-          f"report, the fit's last checkpoint {tail[0]:.3f} s, evaluate "
+          f"report, the rest of its fit {tail[0]:.3f} s, evaluate "
           f"{tail[1]:.3f} s, the params write {tail[2]:.3f} s (medians); "
           f"launches {counts} (= "
           f"{DEPTH} x {steps} steps, {DEPTH} x {ASHA_TRIALS} evaluates); "
@@ -4418,15 +4461,15 @@ def asha_drill(card: str, uris: dict) -> tuple:
 
 def cap_drill(card: str, uris: dict, epoch_ckpt_s: float,
               first_s: float) -> list:
-    """9c: ``TRIAL_TIMEOUT_S`` at 9b's first report plus 2.5 of its
-    epoch-plus-checkpoint times stops an 8-epoch trial at the first epoch
-    boundary past it."""
+    """9c: ``TRIAL_TIMEOUT_S`` at 9b's first report plus 1.5 of its epoch
+    times stops an 8-epoch trial at the first epoch boundary past it."""
     kernels = _kernels()
     cap = round(first_s + CAP_EPOCHS_OF_9B * epoch_ckpt_s, 3)
     admin, server, c = _loop_stack("loop_cap.sqlite3", WORK / "loop_params")
     try:
         c.create_model("vit-cap", "IMAGE_CLASSIFICATION", twin_template(
-            "CapViT", "FloatKnob(1e-5, 1e-3, is_exp=True)", 64, CAP_EPOCHS),
+            "CapViT", "FloatKnob(1e-5, 1e-3, is_exp=True)", 64, CAP_EPOCHS,
+            checkpoint=False),
             "CapViT")
         for kernel in kernels:
             kernel.launches = 0
@@ -4476,17 +4519,20 @@ def cap_drill(card: str, uris: dict, epoch_ckpt_s: float,
     require(counts == expect, f"9c launches {counts}, expected {expect}")
     print(f"loop: 9c TRIAL_TIMEOUT_S={cap} (9b's first report at "
           f"{first_s:.3f} s + {CAP_EPOCHS_OF_9B} x its {epoch_ckpt_s:.3f} s "
-          f"epoch with checkpoint): {CAP_TRIALS} trial(s) COMPLETED after "
+          f"epoch): {CAP_TRIALS} trial(s) COMPLETED after "
           f"{epochs} epochs of {CAP_TRIALS * CAP_EPOCHS} budgeted; job "
           f"{job_s:.1f} s; card {card}", flush=True)
     return counts
 
 
-def resume_drill(card: str, uris: dict) -> list:
+def resume_drill(card: str, uris: dict,
+                 entered: threading.Event = None) -> list:
     """9d: the train child SIGKILLed mid-trial under process placement,
     restarted under its service id, resumes the trial from its checkpoint.
     Returns the launches of the restarted child (the killed one's are
-    lost with it)."""
+    lost with it). ``entered`` is set once its settings are in this
+    process's environment (a phase beside it copies the environment
+    after that, never while it changes)."""
     from rafiki_tpu_torch.worker import bootstrap
 
     logs = WORK / "loop_logs"
@@ -4495,6 +4541,8 @@ def resume_drill(card: str, uris: dict) -> list:
         path.unlink()
     with _Env(RAFIKI_PLACEMENT="process", RAFIKI_LOGS_DIR=str(logs),
               RAFIKI_PARAMS_DIR=str(params)):
+        if entered is not None:
+            entered.set()
         admin, server, c = _loop_stack("loop_proc.sqlite3", params)
         replays = []
         replay = admin.advisor_store.replay_feedback
@@ -4592,8 +4640,18 @@ def resume_drill(card: str, uris: dict) -> list:
     return counts
 
 
-def trial_loop_phase(card: str, uris: dict) -> list:
-    """Phase 9; each kernel's launches on its paths, summed."""
+def timed_resume_drill(card: str, uris: dict,
+                       entered: threading.Event = None) -> list:
+    t = time.perf_counter()
+    counts = resume_drill(card, uris, entered)
+    print(f"loop: 9d took {time.perf_counter() - t:.1f} s", flush=True)
+    return counts
+
+
+def trial_loop_phase(card: str, uris: dict, resume: bool = True) -> list:
+    """Phase 9; each kernel's launches on its paths, summed. Without
+    ``resume``, 9d is left to the caller (``main`` runs it beside phases
+    18 and 19)."""
     t0 = time.perf_counter()
     checkpoint_cost(card)
     drills = {}
@@ -4606,9 +4664,8 @@ def trial_loop_phase(card: str, uris: dict) -> list:
     t = time.perf_counter()
     drills["9c"] = cap_drill(card, uris, epoch_ckpt, first)
     print(f"loop: 9c took {time.perf_counter() - t:.1f} s", flush=True)
-    t = time.perf_counter()
-    drills["9d"] = resume_drill(card, uris)
-    print(f"loop: 9d took {time.perf_counter() - t:.1f} s", flush=True)
+    if resume:
+        drills["9d"] = timed_resume_drill(card, uris)
     totals = [sum(c[i] for c in drills.values()) for i in range(4)]
     print(f"loop: launches by drill {json.dumps(drills)}; phase 9 took "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
@@ -8698,6 +8755,52 @@ def _agent_up(handle: tuple) -> tuple:
     return proc, line[len(_AGENT_READY):].split()[0], boot_s, line
 
 
+def hosts_observability(c, addrs: list, logs: Path,
+                        image: np.ndarray) -> tuple:
+    """19b's observability (phase 20's, over the relay): one sampled
+    one-image request at the job's door (``RAFIKI_PREDICTOR_PORTS=1``)
+    whose exemplar holds the agents' spans grafted into the door's tree
+    (the worker-side spans come only from an agent's answer), and each
+    live agent's ``/metrics`` parsed. Returns the two report strings."""
+    from rafiki_tpu_torch.utils import trace as rtrace
+
+    inf = c.get_inference_job("hosts")
+    door = f"http://{inf['predictor_host']}:{inf['predictor_port']}"
+    body, headers = request_body("npy", image)
+    trace_id = "a9e17" * 6 + "00"
+    req = urllib.request.Request(door + "/predict", data=body, method="POST",
+                                 headers={**headers,
+                                          "Authorization":
+                                              f"Bearer {c._token}",
+                                          rtrace.TRACE_HEADER:
+                                              f"{trace_id};s=1"})
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        echoed = resp.headers.get(rtrace.TRACE_HEADER)
+        resp.read()
+    wall = time.perf_counter() - t
+    require(echoed == f"{trace_id};s=1", f"19b: the door echoed {echoed!r}")
+    ex = _wait_until(
+        lambda: _exemplars(logs / "predict_exemplars.jsonl").get(trace_id),
+        30, "19b: no exemplar of the sampled request")
+    names = [sp["name"] for sp in ex["spans"]]
+    missing = [ph for ph in TRACE_PHASES if ph not in names]
+    require(not missing, f"19b: the relayed request's tree lacks {missing} "
+            f"(the agents' spans not grafted): {names}")
+    total = sum(sp["duration_s"] for sp in ex["spans"])
+    scraped = {}
+    for a in addrs:
+        _, samples, metric_names = _scrape(f"http://{a}/metrics")
+        require("rafiki_queue_rejected_total" in metric_names
+                and "rafiki_wire_errors_total" in metric_names,
+                f"19b: agent {a}'s /metrics {sorted(metric_names)}")
+        scraped[a] = (len(metric_names), len(samples))
+    return (f"{len(names)} spans {sorted(set(names))} summing to "
+            f"{total * 1e3:.1f} ms of a {wall * 1e3:.1f}-ms request (door "
+            f"e2e {ex['e2e_s'] * 1e3:.1f} ms)",
+            f"(metrics, samples) by agent {scraped}")
+
+
 def hosts_phase(card: str, uris: dict) -> list:
     """Phase 19: two agent processes and an admin in hosts mode over one
     store. 19a a ViT-B/16 job placed on both agents; 19b its trials served
@@ -8748,7 +8851,9 @@ def hosts_phase(card: str, uris: dict) -> list:
                  "RAFIKI_ADMIN_HA": "1",
                  "RAFIKI_ADMIN_LEASE_TTL_S": str(HA_TTL_S),
                  "RAFIKI_AGENT_HEARTBEAT_S": str(HOSTS_HEARTBEAT_S),
-                 "INFERENCE_MAX_BEST_TRIALS": "2"}
+                 "INFERENCE_MAX_BEST_TRIALS": "2",
+                 # the job's own door too: 19b's sampled request
+                 "RAFIKI_PREDICTOR_PORTS": "1"}
     admin_argv = [sys.executable, "-m", "rafiki_tpu_torch.admin"]
     admin_log = logs / "admin.log"
     agents: dict = {}  # address -> process
@@ -8877,6 +8982,7 @@ def hosts_phase(card: str, uris: dict) -> list:
                 f"{first.shape}")
         held = prob_check("hosts: 19b relayed answers", first,
                           sum(refs.values()) / len(refs))
+        traced, scraped = hosts_observability(c, addrs, logs, images[:1])
         phase5 = STACK_P50.get(1)
         print(f"hosts: 19b the inference job RUNNING in {deploy_s:.1f} s, "
               f"replicas on the agents "
@@ -8889,7 +8995,9 @@ def hosts_phase(card: str, uris: dict) -> list:
               f"{relayed_p50:.1f} ms ({HOSTS_TIMED} requests) beside phase "
               f"5's admin door "
               + (f"{phase5:.1f} ms" if phase5 is not None
-                 else "(phase 5 not run)") + f"; card {card}", flush=True)
+                 else "(phase 5 not run)") + f"; a sampled request at the "
+              f"job's door: {traced}; the agents' /metrics: {scraped}; card "
+              f"{card}", flush=True)
 
         # ---- 19c: an agent SIGKILLed under traffic ----
         victim = addrs[1]
@@ -9046,6 +9154,337 @@ def hosts_phase(card: str, uris: dict) -> list:
           f" s; launches on its path {counts}; the agents exited {codes}",
           flush=True)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 20: observability (trial traces, the profile, request traces,
+# /metrics, /fleet/health)
+# ---------------------------------------------------------------------------
+
+#: the door-to-worker phases of a sampled predict over the shm hop
+TRACE_PHASES = ("admission_wait", "queue_wait", "codec_decode",
+                "batch_assembly", "model_forward", "respond")
+#: the spans a trial's worker saves
+TRIAL_SPANS = {"propose", "train", "evaluate", "persist_params"}
+#: the metric names the JAX package publishes (its tests/test_metrics.py)
+PUBLISHED = (
+    "rafiki_admission_admitted_total", "rafiki_admission_shed_total",
+    "rafiki_admission_inflight", "rafiki_admission_ewma_query_seconds",
+    "rafiki_request_seconds", "rafiki_queue_expired_total",
+    "rafiki_queue_rejected_total", "rafiki_predictor_hedges_total",
+    "rafiki_predictor_hedges_suppressed_total",
+    "rafiki_predictor_trials_shed_total",
+    "rafiki_predictor_requests_shed_total", "rafiki_wire_errors_total",
+    "rafiki_phase_seconds")
+#: /fleet/health's sections, as the JAX admin's
+HEALTH_SECTIONS = ("placement", "agents", "agents_down", "chaos_active",
+                   "recovery", "ha", "autoscaler", "warm_pool", "rollouts",
+                   "drift", "serving", "training")
+OBS_REQUESTS = 8
+#: a sampled request's spans against its wall time: at least this share
+#: of the door's own end-to-end time, at most this multiple of the
+#: client's (JAX's drill, tests/test_metrics.py)
+SPAN_SUM_LOW, SPAN_SUM_HIGH = 0.3, 1.3
+
+
+def _kernel_of(name: str):
+    """The KERNEL_NAMES entry a profiled CUDA kernel's name is, or None
+    (demangled, ``flash_fwd_wgmma_kernel<64, true>``, or mangled,
+    ``..._kernelILi64ELb1EE...``)."""
+    if "flash_bwd_dkv" in name:
+        return "flash_bwd_dkv"
+    if "flash_bwd_dq" in name:
+        return "flash_bwd_dq"
+    if "flash_fwd" in name:
+        train = re.search(r",\s*true>|Lb1E", name)
+        serve = re.search(r",\s*false>|Lb0E", name)
+        require(bool(train) != bool(serve),
+                f"20a: cannot tell K1 from K1-LSE in {name!r}")
+        return "flash_fwd_lse" if train else "flash_fwd"
+    return None
+
+
+def _profiled_kernels(path: Path) -> dict:
+    """{kernel name: (launches, device ms summed)} of the attention
+    kernels in a Chrome trace, and the count of every CUDA kernel."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    gpu = [e for e in events if e.get("cat") == "kernel"]
+    out = {name: [0, 0.0] for name in KERNEL_NAMES}
+    for e in gpu:
+        kernel = _kernel_of(e.get("name", ""))
+        if kernel is not None:
+            out[kernel][0] += 1
+            out[kernel][1] += float(e.get("dur", 0.0)) / 1e3
+    return {k: tuple(v) for k, v in out.items()}, len(gpu)
+
+
+def _metric_names(text: str) -> set:
+    return {line.split()[2] for line in text.splitlines()
+            if line.startswith("# TYPE ")}
+
+
+def _scrape(url: str) -> tuple:
+    """(the exposition's text, its samples, its metric names)."""
+    from rafiki_tpu_torch.utils.metrics import parse_prometheus
+
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        require(resp.status == 200
+                and resp.headers["Content-Type"].startswith("text/plain"),
+                f"{url} answered {resp.status} "
+                f"{resp.headers['Content-Type']}")
+        text = resp.read().decode()
+    return text, parse_prometheus(text), _metric_names(text)
+
+
+def _exemplars(path: Path) -> dict:
+    """{trace id: exemplar} of a door's exemplar file."""
+    if not path.exists():
+        return {}
+    return {ex["trace_id"]: ex for ex in
+            (json.loads(line) for line in path.read_text().splitlines()
+             if line.strip())}
+
+
+def observability_phase(card: str, uris: dict, entries: dict) -> list:
+    """Phase 20. 20a: a one-trial ViT-B/16 job (1 epoch of 512 images at
+    batch 64) through the admin under ``RAFIKI_PROFILE=1``: the trial's
+    Chrome trace holds K1-LSE, K2 and K3 by name, as many times as their
+    wrappers launched them, and ``get_trial_trace`` its four spans. 20b:
+    the trial served under process placement with
+    ``RAFIKI_TRACE_SAMPLE=1``: 8 one-image requests with an
+    ``X-Rafiki-Trace`` header at the job's door, over the shm rings, each
+    one span tree door -> worker child -> door; K1 12 a forward in the
+    child. 20c: ``/metrics`` of the admin's door and the job's door, and
+    ``/fleet/health``. Returns each kernel's launches on this path (this
+    process's counters in 20a, the serving child's exit line in 20b)."""
+    import shutil
+
+    from rafiki_tpu_torch import config
+    from rafiki_tpu_torch.admin.admin import Admin
+    from rafiki_tpu_torch.admin.http import AdminServer
+    from rafiki_tpu_torch.client.client import Client
+    from rafiki_tpu_torch.db.database import Database
+    from rafiki_tpu_torch.placement.process import ProcessPlacementManager
+    from rafiki_tpu_torch.sdk.torch_backend import DataParallelTrainer
+    from rafiki_tpu_torch.utils import trace as rtrace
+
+    t_phase = time.perf_counter()
+    work = WORK / "observability"
+    logs = work / "logs"
+    if work.exists():
+        shutil.rmtree(work)
+    logs.mkdir(parents=True)
+    store = str(work / "store.sqlite3")
+    kernels = _kernels()
+    steps = TRAIN_IMAGES // 64
+
+    # ---- 20a: a profiled trial through the admin ----
+    with _Env(RAFIKI_PROFILE="1", RAFIKI_WORKDIR=str(work),
+              RAFIKI_LOGS_DIR=str(logs)):
+        admin = Admin(db=Database(store), params_dir=str(work / "params"))
+        server = AdminServer(admin).start()
+        try:
+            c = Client("127.0.0.1", server.port, timeout_s=900)
+            c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+            c.create_model("obs", "IMAGE_CLASSIFICATION", twin_template(
+                "ObsViT", "FloatKnob(1e-5, 1e-3, is_exp=True)", 64, 1,
+                checkpoint=False), "ObsViT")
+            for kernel in kernels:
+                kernel.launches = 0
+            t0 = time.perf_counter()
+            c.create_train_job("obs", "IMAGE_CLASSIFICATION", uris["train"],
+                               uris["test"], budget={"MODEL_TRIAL_COUNT": 1,
+                                                     "CHIP_COUNT": 1})
+            job = c.wait_until_train_job_stopped("obs", timeout_s=900,
+                                                 poll_s=0.05)
+            torch.cuda.synchronize()
+            job_s = time.perf_counter() - t0
+            train_counts = [k.launches for k in kernels]
+            (trial,) = c.get_trials_of_train_job("obs")
+            spans = c.get_trial_trace(trial["id"])
+        finally:
+            server.stop()
+            admin.shutdown()
+    require(job["status"] == "STOPPED" and trial["status"] == "COMPLETED",
+            f"20a job {job['status']}, trial {trial['status']}")
+    require({s["name"] for s in spans} == TRIAL_SPANS
+            and all(s["depth"] == 0 for s in spans),
+            f"20a: the trial's trace "
+            f"{[(s['name'], s['depth']) for s in spans]}")
+    require(train_counts[1:] == [DEPTH * steps] * 3,
+            f"20a: the wrappers launched {train_counts}, expected K1-LSE, "
+            f"K2, K3 {DEPTH * steps} each ({steps} steps)")
+    profiles = list((logs / "profiles").glob(f"trial-{trial['id']}-*.json"))
+    require(len(profiles) == 1, f"20a: profiles {profiles}")
+    t = time.perf_counter()
+    profiled, gpu_events = _profiled_kernels(profiles[0])
+    read_s = time.perf_counter() - t
+    require(gpu_events > 0, "20a: the profile holds no CUDA kernel: the "
+            "capture had no CUDA activity")
+    for name, launched in zip(KERNEL_NAMES[1:], train_counts[1:]):
+        require(profiled[name][0] == launched,
+                f"20a: the profile holds {profiled[name][0]} {name} "
+                f"kernels, its wrapper launched {launched}")
+    require(profiled["flash_fwd"][0] == 0,
+            f"20a: K1 {profiled['flash_fwd'][0]} times in the train span")
+    train_s = next(s["duration_s"] for s in spans if s["name"] == "train")
+    per = "; ".join(
+        f"{name} x{profiled[name][0]} {profiled[name][1]:.3f} ms summed, "
+        f"{profiled[name][1] / max(profiled[name][0], 1):.4f} ms a launch "
+        f"(phase "
+        f"2: {entries[name]['ms']:.4f} ms at B=64, CUDA events)"
+        for name in KERNEL_NAMES[1:])
+    print(f"observability: 20a a 1-trial ViT-B/16 job under RAFIKI_PROFILE=1 "
+          f"STOPPED in {job_s:.1f} s; the trial's trace "
+          f"{sorted((s['name'], round(s['duration_s'], 3)) for s in spans)}"
+          f"; its Chrome trace {profiles[0].name} "
+          f"({profiles[0].stat().st_size / 1e6:.1f} MB, {gpu_events} CUDA "
+          f"kernels over the {train_s:.2f}-s train span, read in "
+          f"{read_s:.1f} s): {per}; the wrappers' counts {train_counts} "
+          f"[K1 (its evaluate), K1-LSE, K2, K3]; card {card}", flush=True)
+
+    # ---- 20b: the trial served under process placement, traced ----
+    ring, _ = choose_ring()
+    exemplar_file = logs / "predict_exemplars.jsonl"
+    rng = np.random.default_rng(SEED + 20)
+    images = rng.standard_normal((OBS_REQUESTS, 224, 224, 3)).astype(
+        np.float32)
+    cap = config.PREDICT_MAX_BATCH_SIZE
+    buckets = DataParallelTrainer(device="cpu").predict_buckets(cap)
+    with _Env(RAFIKI_PLACEMENT="process", RAFIKI_WORKDIR=str(work),
+              RAFIKI_LOGS_DIR=str(logs), RAFIKI_SHM_RING_BYTES=str(ring),
+              RAFIKI_TRACE_SAMPLE="1", RAFIKI_PREDICTOR_PORTS="1"):
+        admin = Admin(db=Database(store), params_dir=str(work / "params"))
+        server = AdminServer(admin).start()
+        sid = None
+        try:
+            require(isinstance(admin.placement, ProcessPlacementManager),
+                    f"20b placement {type(admin.placement).__name__}")
+            c = Client("127.0.0.1", server.port, timeout_s=900)
+            c.login(config.SUPERADMIN_EMAIL, config.SUPERADMIN_PASSWORD)
+            token = admin.authenticate_user(
+                config.SUPERADMIN_EMAIL,
+                config.SUPERADMIN_PASSWORD)["token"]
+            t0 = time.perf_counter()
+            inf = c.create_inference_job("obs")
+            deploy_s = time.perf_counter() - t0
+            (sid,) = [w["service_id"] for w in inf["workers"]]
+            inf = c.get_inference_job("obs")
+            door = f"http://{inf['predictor_host']}:{inf['predictor_port']}"
+            walls, ids = {}, []
+            for i in range(OBS_REQUESTS):
+                body, headers = request_body("npy", images[i:i + 1])
+                trace_id = f"{0xc0ffee00 + i:08x}" * 4
+                req = urllib.request.Request(
+                    door + "/predict", data=body, method="POST", headers={
+                        **headers, "Authorization": f"Bearer {token}",
+                        rtrace.TRACE_HEADER: f"{trace_id};s=1"})
+                t = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    answer = np.load(io.BytesIO(resp.read()),
+                                     allow_pickle=False)
+                    echoed = resp.headers.get(rtrace.TRACE_HEADER)
+                walls[trace_id] = time.perf_counter() - t
+                ids.append(trace_id)
+                require(echoed == f"{trace_id};s=1",
+                        f"20b: the door echoed {echoed!r}")
+                # the template's 1000 classes' probabilities
+                require(answer.ndim == 2 and answer.shape[0] == 1
+                        and bool(np.isfinite(answer).all())
+                        and abs(float(answer.sum()) - 1.0) < 1e-2,
+                        f"20b answer {answer.shape}, sum {answer.sum()}")
+            exemplars = _wait_until(
+                lambda: (lambda got: got if all(i in got for i in ids)
+                         else None)(_exemplars(exemplar_file)), 30,
+                "20b: an exemplar is missing")
+            sums = []
+            for trace_id in ids:
+                ex = exemplars[trace_id]
+                names = [sp["name"] for sp in ex["spans"]]
+                missing = [ph for ph in TRACE_PHASES if ph not in names]
+                require(not missing, f"20b: request {trace_id[:8]}'s tree "
+                        f"lacks {missing}: {names}")
+                total = sum(sp["duration_s"] for sp in ex["spans"])
+                require(SPAN_SUM_LOW * ex["e2e_s"] <= total
+                        <= SPAN_SUM_HIGH * walls[trace_id],
+                        f"20b: request {trace_id[:8]}'s spans sum to "
+                        f"{total:.4f} s against the door's {ex['e2e_s']:.4f}"
+                        f" and the client's {walls[trace_id]:.4f}")
+                sums.append((total, ex["e2e_s"], walls[trace_id]))
+            last = exemplars[ids[-1]]
+            tree = "; ".join(f"{sp['name']} {sp['duration_s'] * 1e3:.2f}"
+                             for sp in last["spans"])
+
+            # ---- 20c: /metrics on both doors, /fleet/health ----
+            _, admin_samples, admin_names = _scrape(
+                f"http://127.0.0.1:{server.port}/metrics")
+            _, door_samples, door_names = _scrape(door + "/metrics")
+            for where, names in (("the admin's door", admin_names),
+                                 ("the job's door", door_names)):
+                missing = [n for n in PUBLISHED if n not in names]
+                require(not missing, f"20c: {where}'s /metrics lacks "
+                        f"{missing}")
+            label = 'door="predictor:obs"'
+            admitted = door_samples.get(
+                f"rafiki_admission_admitted_total{{{label}}}")
+            served = door_samples.get(
+                f"rafiki_request_seconds_count{{{label}}}")
+            forwards = door_samples.get(
+                'rafiki_phase_seconds_count{phase="model_forward"}')
+            require(admitted == served == OBS_REQUESTS
+                    and forwards == OBS_REQUESTS,
+                    f"20c: the job door's counters admitted {admitted}, "
+                    f"served {served}, traced forwards {forwards}")
+            health = c.get_fleet_health()
+            require(sorted(health) == sorted(HEALTH_SECTIONS),
+                    f"20c: /fleet/health sections {sorted(health)}")
+            job_row = health["serving"]["jobs"].get(inf["id"])
+            require(job_row is not None and job_row["status"] == "ok"
+                    and job_row["workers"] == 1,
+                    f"20c: /fleet/health's serving job {job_row}")
+            require(health["placement"] == "ProcessPlacementManager"
+                    and health["ha"] == {"enabled": False}
+                    and health["recovery"]["state"] == "ready",
+                    f"20c: /fleet/health {health['placement']}, "
+                    f"{health['ha']}, {health['recovery']}")
+            c.stop_inference_job("obs")
+        finally:
+            server.stop()
+            admin.shutdown()
+    (rec,) = _wait_until(lambda: _one_record(logs, sid, "kernel launches"),
+                         120, f"20b: serving child {sid[:8]} wrote no exit "
+                         "line")
+    serve_counts = [rec[k] for k in COUNTERS]
+    n_forwards = len(buckets) + OBS_REQUESTS
+    require(serve_counts == [DEPTH * n_forwards, 0, 0, 0],
+            f"20b: the serving child launched {serve_counts}, expected "
+            f"[{DEPTH * n_forwards}, 0, 0, 0] ({len(buckets)} warm-up "
+            f"buckets + {OBS_REQUESTS} traced forwards)")
+    print(f"observability: 20b the trial served by one child under process "
+          f"placement (deployed in {deploy_s:.1f} s, ring {ring >> 20} MiB); "
+          f"{OBS_REQUESTS} one-image requests with X-Rafiki-Trace at the "
+          f"job's door, each header echoed and each an exemplar whose spans "
+          f"hold {list(TRACE_PHASES)}: span sums / door e2e / client wall "
+          f"(ms) {[tuple(round(x * 1e3, 2) for x in s) for s in sums]}; the "
+          f"last tree (ms): {tree}; the serving child's launches "
+          f"{serve_counts} (K1 {DEPTH} a forward: {len(buckets)} warm-up "
+          f"buckets + {OBS_REQUESTS} traced); card {card}", flush=True)
+    print(f"observability: 20c /metrics parsed on the admin's door "
+          f"({len(admin_samples)} samples, {len(admin_names)} metrics) and "
+          f"the job's door ({len(door_samples)} samples): every name JAX "
+          f"publishes present; the door admitted {admitted:g} and traced "
+          f"{forwards:g} forwards; /fleet/health sections "
+          f"{sorted(health)}; phase 20 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return [a + b for a, b in zip(train_counts, serve_counts)]
+
+
+def observability_only() -> None:
+    """The dataset, phase 2 (for its kernel times) and phase 20."""
+    card = header()
+    entries, _ = kernel_phase()
+    observability_phase(card, write_train_dataset(), entries)
 
 
 def hosts_only() -> None:
@@ -9233,8 +9672,8 @@ def main() -> int:
     mark("6")
     bert_launches, lm_launches = text_phase(card)
     mark("8")
-    loop_launches = trial_loop_phase(card, uris)
-    mark("9")
+    loop_launches = trial_loop_phase(card, uris, resume=False)
+    mark("9 (9d beside 18 and 19)")
     cards_launches = cards_phase(card)
     mark("10")
     fused_shape, control_launches = serving_control_phase(card)
@@ -9249,14 +9688,23 @@ def main() -> int:
     mark("16")
     drift_launches = drift_sandbox_phase(card, uris)
     mark("17")
-    # phases 18 and 19 count their launches from their children's exit
-    # lines and share nothing (their own stores, ports, rings and logs):
-    # 19 runs on a thread beside 18
+    # phases 18, 19 and 9d count their launches from their children's exit
+    # lines and share nothing (their own stores, ports, rings and logs; 18
+    # and 19 pass their processes no RAFIKI_ setting of this one, which
+    # 9d's drill sets, and copy the environment once it is set): 19 and 9d
+    # run on threads beside 18
+    entered = threading.Event()
+    resume = _Beside(lambda: timed_resume_drill(card, uris, entered))
+    require(entered.wait(120), "9d never started")
     beside = _Beside(lambda: hosts_phase(card, uris))
     ha_launches = ha_phase(card, uris)
-    mark("18 (19 beside it)")
+    mark("18 (19 and 9d beside it)")
     hosts_launches = beside.join()
     mark("19 (beside 18, from its end)")
+    loop_launches = [a + b for a, b in zip(loop_launches, resume.join())]
+    mark("9d (beside 18, from 19's end)")
+    obs_launches = observability_phase(card, uris, entries)
+    mark("20")
     for i, name in enumerate(KERNEL_NAMES):
         by_path = {"train (phase 3)": train_launches[i],
                    "serve (phase 4)": serve_launches[i],
@@ -9276,7 +9724,8 @@ def main() -> int:
                    "fleet operations (phase 16)": fleet_launches[i],
                    "drift and sandbox (phase 17)": drift_launches[i],
                    "control-plane HA (phase 18)": ha_launches[i],
-                   "hosts and agents (phase 19)": hosts_launches[i]}
+                   "hosts and agents (phase 19)": hosts_launches[i],
+                   "observability (phase 20)": obs_launches[i]}
         require(by_path["stack (phase 5)"] > 0,
                 f"{name} was not launched through the admin")
         require(by_path["process (phase 6)"] > 0,
@@ -9299,6 +9748,8 @@ def main() -> int:
                 f"{name} was not launched on the control-plane HA path")
         require(by_path["hosts and agents (phase 19)"] > 0,
                 f"{name} was not launched on the hosts and agents path")
+        require(by_path["observability (phase 20)"] > 0,
+                f"{name} was not launched on the observability path")
         if name == "flash_fwd":
             require(by_path["serving control (phase 12)"] > 0,
                     "K1 was not launched on the serving-control path")

@@ -29,7 +29,7 @@ import logging
 import os
 import signal
 import sys
-import threading
+import time
 
 
 def main() -> int:
@@ -56,11 +56,14 @@ def main() -> int:
           f"(db={admin.db.path}, placement="
           f"{type(admin.placement).__name__}{rec_note})", flush=True)
 
-    stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *a: stop.set())
-    signal.signal(signal.SIGINT, lambda *a: stop.set())
+    # the handler takes no lock (an Event.set() in a handler can deadlock
+    # on the Event's own lock), and the wait wakes to look
+    stop: list = []
+    signal.signal(signal.SIGTERM, lambda *a: stop.append(a[0]))
+    signal.signal(signal.SIGINT, lambda *a: stop.append(a[0]))
     try:
-        stop.wait()
+        while not stop:
+            time.sleep(0.2)
     finally:
         print("shutting down...", flush=True)
         server.stop()

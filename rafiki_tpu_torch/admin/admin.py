@@ -81,11 +81,14 @@ children never outlive the admin: recovery adopts through the agents),
 and there is none without a CUDA device. A host placement passed in
 gets the same wiring.
 
-Request tracing, device profiling and dependency provisioning are not
-ported. The settings that turn one of them on raise
-:class:`~rafiki_tpu_torch.config.NotPortedError` (``config._UNPORTED``:
-``RAFIKI_TRACE_SAMPLE``, ``RAFIKI_PROFILE`` and
-``RAFIKI_INSTALL_DEPS``). No budget key is
+Observability: ``get_trial_trace`` reads back a trial's spans
+(``utils/trace.py``), and ``get_fleet_health`` is the operator's view of
+the whole deployment, section by section as JAX's: placement, agents,
+chaos, recovery, HA, the autoscaler, warm pool, rollouts and drift loop,
+serving (per job, the door's admission, per-worker counters,
+generation, the prediction cache) and training. Dependency provisioning
+is not ported: ``RAFIKI_INSTALL_DEPS=1`` raises
+:class:`~rafiki_tpu_torch.config.NotPortedError`. No budget key is
 refused: a ``TEXT_GENERATION`` job under ``CHIPS_PER_WORKER`` > 1 is
 served from its grant's first card, as in the JAX package. A ``TEXT_GENERATION`` inference job's budget may
 name a draft trial (``GEN_DRAFT_TRIAL``) for speculative decoding,
@@ -156,12 +159,15 @@ from rafiki_tpu_torch.sdk.model import (
     load_model_class,
     validate_model_dependencies,
 )
+from rafiki_tpu_torch.utils import chaos
 from rafiki_tpu_torch.utils.auth import (
     UnauthorizedError,
     generate_token,
     hash_password,
     verify_password,
 )
+from rafiki_tpu_torch.utils.trace import load_trace
+from rafiki_tpu_torch.worker import faults
 from rafiki_tpu_torch.worker.faults import is_infeasible_row
 from rafiki_tpu_torch.worker.inference import (
     EVENT_INFERENCE_WORKER_STATS,
@@ -781,6 +787,12 @@ class Admin:
         self._trial(trial_id)
         return parse_logs(self.db.get_trial_logs(trial_id))
 
+    def get_trial_trace(self, trial_id: str) -> List[Dict]:
+        """The trial's spans as its worker saved them (``propose``,
+        ``train``, ``evaluate``, ``persist_params``), [] before any."""
+        self._trial(trial_id)
+        return load_trace(trial_id)
+
     def get_trial_params(self, trial_id: str) -> bytes:
         """The trial's params artifact, verified (a damaged file raises
         ArtifactCorruptError)."""
@@ -1092,6 +1104,70 @@ class Admin:
         self._predict_admission.observe(time.monotonic() - t0, len(queries))
         return preds
 
+    # -- fleet health --------------------------------------------------------
+
+    def get_fleet_health(self) -> Dict[str, Any]:
+        """The operator's view, JAX's sections: the agents' heartbeats and
+        breakers (empty for a single-host placement), chaos, recovery, HA,
+        the fleet controllers' reports, serving (each job's queues and
+        overload counters, a job with no worker queue ``degraded``; the
+        door's admission and fair shares; every worker's counters, local
+        and relayed; generation per job; the prediction cache) and
+        training (fault counts of the live jobs from the store, and this
+        process's worker counters)."""
+        agents: Dict[str, Any] = {}
+        if hasattr(self.placement, "agent_health"):
+            agents = self.placement.agent_health()
+        jobs: Dict[str, Any] = {}
+        predictors = self.services.predictors()
+        for job_id, predictor in predictors.items():
+            try:
+                depths = predictor.queue_depths()
+                jobs[job_id] = {"status": "ok" if depths else "degraded",
+                                "workers": len(depths),
+                                "queue_depths": depths,
+                                "overload": predictor.overload_stats()}
+            except Exception:
+                logger.exception("fleet-health probe of job %s failed",
+                                 job_id)
+        workers = serving_stats()
+        with self._predict_route_lock:
+            for sid, st in self._remote_serving_stats.items():
+                workers.setdefault(sid, {}).update(st)
+        train_jobs: Dict[str, Any] = {}
+        try:
+            summary = self.db.get_trial_fault_summary_of_live_jobs()
+            for j in self.db.get_train_jobs_by_statuses(
+                    [TrainJobStatus.STARTED, TrainJobStatus.RUNNING]):
+                entry = summary.get(j["id"], {"faults": {}, "retries": 0})
+                train_jobs[j["id"]] = {"status": j["status"], **entry}
+        except Exception:
+            logger.exception("fleet-health training scan failed")
+        return {
+            "placement": type(self.placement).__name__,
+            "agents": agents,
+            "agents_down": [a for a, h in agents.items()
+                            if h["state"] == "DOWN"],
+            "chaos_active": chaos.enabled(),
+            "recovery": self.recovery_status(),
+            "ha": ({"enabled": True, **self._lease.status()}
+                   if self._lease is not None else {"enabled": False}),
+            "autoscaler": self.autoscaler.report(),
+            "warm_pool": self.warm_pool.report(),
+            "rollouts": self.rollouts.report(),
+            "drift": self.drift.report(),
+            "serving": {
+                "jobs": jobs,
+                "admission": self._predict_admission.stats(),
+                "fair_shares": self._predict_admission.fair_shares(),
+                "workers": workers,
+                "generation": _generation_health(workers, predictors),
+                "prediction_cache": _prediction_cache_stats(),
+            },
+            "training": {"jobs": train_jobs,
+                         "workers": faults.training_stats()},
+        }
+
     # -- jobs and events -----------------------------------------------------
 
     def stop_all_jobs(self) -> None:
@@ -1222,3 +1298,56 @@ class Admin:
 #: the serving counters a worker process relays
 _RELAYED_STATS = ("batches", "queries", "queue_depth", "expired", "shed",
                   "fused_dispatch")
+
+
+def _generation_health(workers: Dict[str, Dict[str, Any]],
+                       predictors: Dict[str, Any]) -> Dict[str, Any]:
+    """``/fleet/health``'s generation section: the generation workers'
+    rows summed per job (the paged pool, prefix-cache and speculation
+    counters, their rates), and each job's stream-continuity counters
+    from its predictor."""
+    generation: Dict[str, Any] = {}
+    summed = ("slots_busy", "resident_streams", "tokens", "kv_blocks_used",
+              "kv_pool_blocks", "prefix_hits", "prefix_misses",
+              "prefix_hit_tokens", "spec_proposed", "spec_accepted",
+              "spec_rounds")
+    for row in workers.values():
+        job = row.get("gen_job")
+        if not job:
+            continue
+        g = generation.setdefault(job, {
+            "workers": 0, **{k: 0 for k in summed}, "spec_workers": 0,
+            "spec_degraded": []})
+        g["workers"] += 1
+        for k in summed:
+            g[k] += int(row.get(f"gen_{k}", 0))
+        g["spec_workers"] += 1 if row.get("gen_spec_on") else 0
+        if row.get("gen_spec_degraded"):
+            g["spec_degraded"].append(str(row["gen_spec_degraded"]))
+    for job_id, g in generation.items():
+        admitted = g["prefix_hits"] + g["prefix_misses"]
+        g["prefix_hit_rate"] = (round(g["prefix_hits"] / admitted, 3)
+                                if admitted else None)
+        g["spec_acceptance_rate"] = (
+            round(g["spec_accepted"] / g["spec_proposed"], 3)
+            if g["spec_proposed"] else None)
+        cont = getattr(predictors.get(job_id), "gen_continuity_stats", None)
+        if callable(cont):
+            try:
+                g["continuity"] = cont()
+            except Exception:
+                logger.exception("continuity probe of job %s failed",
+                                 job_id)
+    return generation
+
+
+def _prediction_cache_stats() -> Dict[str, Any]:
+    """The prediction cache's section; {} when its probe faults (fleet
+    health answers either way)."""
+    from rafiki_tpu_torch.predictor.result_cache import get_cache
+
+    try:
+        return get_cache().stats()
+    except Exception:
+        logger.exception("prediction-cache stats probe failed")
+        return {}

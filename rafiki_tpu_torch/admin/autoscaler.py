@@ -22,11 +22,10 @@ ring the workers write, and decides over the trailing
   a rollout owns the job's replicas.
 
 Each decision is an event (the action, its reason, the signals, the
-result) in a bounded log that :meth:`Autoscaler.report` returns; the
-``GET /fleet/health`` section that carries it in the JAX package is not
-ported (ROADMAP.md, item 12). A scale-up borrows an idle card through
-the chip arbiter (``placement/hosts.py``) when the training floor allows,
-else shares a device.
+result) in a bounded log that :meth:`Autoscaler.report` returns, the
+``autoscaler`` section of ``GET /fleet/health``. A scale-up borrows an
+idle card through the chip arbiter (``placement/hosts.py``) when the
+training floor allows, else shares a device.
 """
 
 from __future__ import annotations

@@ -21,8 +21,8 @@ id is the idempotency key): :meth:`DriftController.recover_on_boot`
 resumes a dead admin's live rows, adopting or parking a launch of
 unknown fate, never launching twice; crash recovery calls it
 (``admin/recovery.py``), and a tick does nothing while the admin's
-recovery runs. The ``/fleet/health`` section that
-:meth:`DriftController.report` feeds is not ported (ROADMAP.md, item 12).
+recovery runs. :meth:`DriftController.report` is the ``drift`` section
+of ``GET /fleet/health``.
 
 Chaos (``RAFIKI_CHAOS``, site ``drift``): a failed tick (target
 ``tick/<job>``) is absorbed for that job and never touches serving; a

@@ -15,21 +15,25 @@ address (``admin_addr``). The live fleet's routes are carried: ``scale``,
 loop's ``drift`` and ``drift/ack``.
 
 The public root carries the admin's recovery state and its HA role and
-leader hint. Two gates answer before a route runs (after the body is
-read, so a keep-alive connection stays framed): a standby
-(``admin/standby.py``) answers only the root and ``/tokens``, and sheds
-the rest with a 503 carrying ``standby`` and the ``leader`` hint; an
-admin whose boot reconciliation runs (``admin/recovery.py``) sheds with a
-503 carrying its public ``recovery`` state, letting through the root,
-``/tokens``, worker events and the advisor routes (a surviving train
-worker keeps proposing while it is adopted). A fenced ex-leader (its
+leader hint. ``GET /metrics`` answers the process registry's Prometheus
+text (``?format=json``: the snapshot with the rings) before any gate and
+without a token, as JAX's does. ``GET /trials/<id>/trace`` serves a
+trial's spans and ``GET /fleet/health`` (admins) the fleet's health. Two
+gates answer before a route runs (after the body is read, so a
+keep-alive connection stays framed): a standby (``admin/standby.py``)
+answers only the root, ``/tokens`` and ``/fleet/health`` (its snapshot),
+and sheds the rest with a 503 carrying ``standby`` and the ``leader``
+hint; an admin whose boot reconciliation runs (``admin/recovery.py``)
+sheds with a 503 carrying its public ``recovery`` state, letting through
+the root, ``/tokens``, ``/fleet/health``, worker events and the advisor
+routes (a surviving train worker keeps proposing while it is adopted). A
+fenced ex-leader (its
 lease lapsed or taken over) sheds as a standby does, its answer typed as
 the fence's (``StaleEpochError``), and so does a write the fence refuses
 mid-request: a client walks to the leader. JAX's door sheds only as a
 standby, so its fenced ex-leader goes on answering the routes that write
 nothing to the store, the advisor sessions among them, from its stale
-memory (ROADMAP.md, C). Not carried (ROADMAP.md): the trace route, fleet
-health, metrics and the web UI.
+memory (ROADMAP.md, C). Not carried (ROADMAP.md, item 13): the web UI.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from rafiki_tpu_torch.utils.auth import (
     auth_check,
     decode_token,
 )
+from rafiki_tpu_torch.utils.metrics import serve_http
 from rafiki_tpu_torch.utils.reqfields import (
     LowLatencyHandler,
     read_bounded_body,
@@ -267,6 +272,8 @@ class AdminServer:
             # trials
             r("GET", r"/trials/(?P<tid>[^/]+)/logs", _ANY, lambda au, m, b, q:
                 A.get_trial_logs(m["tid"])),
+            r("GET", r"/trials/(?P<tid>[^/]+)/trace", _ANY, lambda au, m, b, q:
+                A.get_trial_trace(m["tid"])),
             r("GET", r"/trials/(?P<tid>[^/]+)/parameters", _ANY,
                 lambda au, m, b, q: {"params_base64": base64.b64encode(
                     A.get_trial_params(m["tid"])).decode()}),
@@ -381,6 +388,9 @@ class AdminServer:
             # admin actions
             r("POST", "/actions/stop_all_jobs", _ADMINS,
                 lambda au, m, b, q: A.stop_all_jobs() or {}),
+            # the fleet's health (a standby answers its snapshot)
+            r("GET", "/fleet/health", _ADMINS,
+                lambda au, m, b, q: A.get_fleet_health()),
             # worker events: workers authenticate as superadmin; plain users
             # must not stop other tenants' services through this
             r("POST", r"/event/(?P<name>[^/]+)", _ADMINS, lambda au, m, b, q:
@@ -391,20 +401,26 @@ class AdminServer:
         try:
             parsed = urlparse(handler.path)
             path = parsed.path.rstrip("/") or "/"
+            if method == "GET" and path == "/metrics":
+                # open, and before the gates: a recovering or standby
+                # admin's counters are what an operator wants to watch
+                serve_http(handler, parsed.query)
+                return
             # the body is read before any answer: an early answer that
             # leaves it unread desyncs keep-alive framing
             raw, berr = read_bounded_body(handler, config.ADMIN_MAX_BODY_MB)
             if berr:
                 raise InvalidRequestError(f"{berr[1]} (ADMIN_MAX_BODY_MB)")
             role = self.admin.ha_role()
-            if role in ("standby", "fenced") and path not in ("/",
-                                                              "/tokens"):
+            if role in ("standby", "fenced") and not (
+                    path in ("/", "/tokens")
+                    or (role == "standby" and path == "/fleet/health")):
                 self._shed_to_leader(handler, (
                     "admin is a hot standby; mutations go to the leader"
                     if role == "standby" else _FENCED))
                 return
             if (self.admin.recovery_status().get("state") == "recovering"
-                    and not (path in ("/", "/tokens")
+                    and not (path in ("/", "/tokens", "/fleet/health")
                              or path.startswith("/event/")
                              or path.startswith("/advisors"))):
                 self._respond(

@@ -143,13 +143,17 @@ class LeaseManager:
                                self.valid_for_s(), e)
                 continue
             if not ok:
-                # a newer epoch holds the row: fence now, not at the TTL
+                # a newer epoch holds the row: fence now, not at the TTL,
+                # and stop: the leadership is gone for good, and a renewal
+                # is a store write (the write lock, up to the busy
+                # timeout) that can never land again. JAX's loop retries
+                # it every period until shutdown (ROADMAP.md, C)
                 logger.error("leadership lost at epoch %d (lease CAS "
                              "refused); fencing all writes", epoch)
                 with self._lock:
                     self._valid_until = 0.0
                     self._arm_fences_locked()
-                continue
+                return
             valid_until = time.monotonic() + self.ttl_s
             with self._lock:
                 self._valid_until = valid_until
@@ -207,10 +211,21 @@ class LeaseManager:
     def stop(self, release: bool = True) -> None:
         """Stop renewing; with ``release`` (a graceful shutdown) expire
         the lease now, so a standby promotes without waiting out the TTL.
-        The fences are cleared last."""
+        The fences are cleared last.
+
+        A fenced manager (its TTL lapsed, or a newer epoch took the row)
+        holds nothing: it neither releases nor clears its fences, and
+        does not wait on a renewal still in the store. It writes nothing
+        more, so a fenced ex-leader's shutdown never waits on the store's
+        write lock, which the new leader and its children hold in turns."""
         self._stop_evt.set()
-        if self._thread is not None:
+        fenced = self.role() == ROLE_FENCED
+        if self._thread is not None and not fenced:
             self._thread.join(timeout=5.0)
+        if fenced:
+            logger.info("lease manager stopped fenced (epoch %s): nothing "
+                        "to release", self.last_epoch())
+            return
         with self._lock:
             epoch = self._epoch
         if release and epoch is not None:

@@ -23,8 +23,8 @@ promotes:
    next request.
 
 The old leader, should it come back, is fenced by the epoch: its store
-writes raise ``StaleEpochError``. The snapshot's view on ``/fleet/health``
-waits for that route (ROADMAP.md, item 12).
+writes raise ``StaleEpochError``. ``GET /fleet/health`` on a standby
+answers its lease status and that snapshot (:meth:`get_fleet_health`).
 """
 
 from __future__ import annotations
@@ -145,6 +145,20 @@ class StandbyAdmin:
         poll from the shared store."""
         with self._lock:
             return dict(self._snapshot)
+
+    def get_fleet_health(self) -> Dict[str, Any]:
+        """The promoted admin's fleet health; before the promotion, the
+        standby's lease status and its snapshot."""
+        admin = self._promoted()
+        if admin is not None:
+            return admin.get_fleet_health()
+        return {
+            "placement": None,
+            "standby": True,
+            "ha": {"enabled": True, **self._lease.status(),
+                   "role": ROLE_STANDBY, "leader": self.leader_hint()},
+            "snapshot": self.snapshot(),
+        }
 
     # -- the watch -------------------------------------------------------------
 

@@ -21,8 +21,12 @@ advertised a codec version this package speaks (one probe a queue); a
 peer that advertises none gets JSON. Differences from the original: JSON
 rows that form one float array (what the admin door's JSON body decodes
 to) cross a binary relay as that array, float64, as the shm rings carry
-them (the original stacks ndarray rows only); a request's trace context
-is not sent, since request tracing is not ported (ROADMAP.md, item 12).
+them (the original stacks ndarray rows only).
+
+A sampled request's trace context rides the relay body as ``trace`` (the
+first sampled entry's, when a relay coalesces several requests); the
+agent answers its half of the span tree as ``trace_spans``, which are
+grafted onto the door's tree, re-anchored at this side's submit time.
 """
 
 from __future__ import annotations
@@ -103,11 +107,13 @@ class HttpWorkerQueue:
         return self.submit_many([query], deadline=deadline)[0]
 
     def submit_many(self, queries: List[Any],
-                    deadline: Optional[float] = None) -> List[QueryFuture]:
+                    deadline: Optional[float] = None,
+                    trace=None) -> List[QueryFuture]:
         """Enqueue one request's queries at once (one lock, one wake-up),
         so they travel in one relay. Bounded as a local queue is
         (``RAFIKI_PREDICT_QUEUE_DEPTH`` counts pending and in-flight): a
-        stalled host sheds here, never grows a relay backlog."""
+        stalled host sheds here, never grows a relay backlog. A sampled
+        request's ``trace`` rides its futures to the sender."""
         with self._cond:
             if self._closed:
                 futs = [QueryFuture() for _ in queries]
@@ -123,6 +129,10 @@ class HttpWorkerQueue:
                     f"relay queue to {self.agent_addr} full "
                     f"({queued}/{cap})")
             futs = [QueryFuture() for _ in queries]
+            if trace is not None:
+                trace.mark_submitted()
+                for fut in futs:
+                    fut.trace = trace
             self._pending.extend(
                 (fut, q, deadline) for fut, q in zip(futs, queries))
             self._cond.notify()
@@ -152,8 +162,11 @@ class HttpWorkerQueue:
             if not batch:
                 continue
             futures = [f for f, _ in batch]
+            # one context a relay: the first sampled entry's
+            trace = next((f.trace for f in futures if f.trace is not None),
+                         None)
             try:
-                preds = self._relay([q for _, q in batch])
+                preds = self._relay([q for _, q in batch], trace=trace)
                 if len(preds) != len(futures):
                     raise RuntimeError(
                         f"relay returned {len(preds)} predictions for "
@@ -183,7 +196,7 @@ class HttpWorkerQueue:
                 return False
         return bool(self._wire_ok)
 
-    def _relay(self, queries: List[Any]) -> List[Any]:
+    def _relay(self, queries: List[Any], trace=None) -> List[Any]:
         binary = self._wire_supported()
         payload: Any = queries
         if binary:
@@ -193,12 +206,22 @@ class HttpWorkerQueue:
             if stacked is not None:
                 payload = stacked
         body = {"queries": payload, "timeout_s": self._worker_timeout_s}
+        if trace is not None:
+            # in the body, not a frame header: an agent that knows no
+            # trace ignores the key and serves the relay
+            body["trace"] = trace.ctx.to_wire()
         try:
             out = call_agent(
                 self.agent_addr, "POST",
                 f"/predict_relay/{self._job_id}/{self._worker_id}",
                 body=body, key=self._key, timeout_s=self._timeout_s,
                 wire_frames=binary)
+            if trace is not None and isinstance(out, dict) \
+                    and out.get("trace_spans") is not None:
+                # the agent's offsets are against its own submit: at ours,
+                # the relay's transit folds into the first span's offset
+                trace.add_wire_spans(out["trace_spans"],
+                                     anchor=trace.t_submit)
             return list(out["predictions"])
         except AgentHTTPError as e:
             raise RuntimeError(

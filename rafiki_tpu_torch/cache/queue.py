@@ -13,6 +13,13 @@ channel the generation worker pushes :class:`TokenDelta` s into and the
 streaming door pulls from. A retiring replica hands an unfinished stream
 back (:meth:`TokenStream.hand_back`, reason ``migrating``): the door's
 journal then resumes it on a sibling (``predictor/predictor.py``).
+
+A sampled request's :class:`~rafiki_tpu_torch.utils.trace.RequestTrace`
+rides its futures (``QueryFuture.trace``): ``submit_many(trace=)`` marks
+the submit, the first dequeue closes its ``queue_wait`` span, and the
+worker records its own spans into it. The queues' expired and rejected
+counts are mirrored into the metrics registry
+(``rafiki_queue_expired_total``, ``rafiki_queue_rejected_total``).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from rafiki_tpu_torch import config
+from rafiki_tpu_torch.utils.metrics import REGISTRY
 
 
 class QueueFullError(RuntimeError):
@@ -42,14 +50,17 @@ class FrameTooLargeError(ValueError):
 
 
 class QueryFuture:
-    """A pending prediction for one query."""
+    """A pending prediction for one query. ``trace`` carries the
+    request's ``RequestTrace`` when it is sampled (None otherwise), the
+    span sink of the worker that serves it."""
 
-    __slots__ = ("_event", "_value", "_error")
+    __slots__ = ("_event", "_value", "_error", "trace")
 
     def __init__(self) -> None:
         self._event = threading.Event()
         self._value: Any = None
         self._error: Optional[BaseException] = None
+        self.trace = None
 
     def set_result(self, value: Any) -> None:
         self._value = value
@@ -221,6 +232,12 @@ class WorkerQueue:
         self._max_depth = max_depth
         self._expired = 0
         self._rejected = 0
+        self._m_expired = REGISTRY.counter(
+            "rafiki_queue_expired_total",
+            "queries dropped past their deadline in a worker queue")
+        self._m_rejected = REGISTRY.counter(
+            "rafiki_queue_rejected_total",
+            "queries refused by a bounded worker queue's depth cap")
 
     def _cap(self) -> int:
         if self._max_depth is not None:
@@ -237,10 +254,13 @@ class WorkerQueue:
                     "rejected": self._rejected}
 
     def submit_many(self, queries: List[Any],
-                    deadline: Optional[float] = None) -> List[QueryFuture]:
+                    deadline: Optional[float] = None,
+                    trace=None) -> List[QueryFuture]:
         """Enqueue a request's queries atomically (one lock, one wake-up),
         so one request stays one batch and the depth cap admits or refuses
-        it whole. ``deadline`` is an absolute ``time.monotonic()``."""
+        it whole. ``deadline`` is an absolute ``time.monotonic()``;
+        ``trace`` (a sampled request's ``RequestTrace``) rides the
+        futures."""
         with self._cond:
             futs = [QueryFuture() for _ in queries]
             if self._closed:
@@ -250,9 +270,14 @@ class WorkerQueue:
             cap = self._cap()
             if cap > 0 and len(self._items) + len(queries) > cap:
                 self._rejected += len(queries)
+                self._m_rejected.inc(len(queries))
                 raise QueueFullError(
                     f"worker queue full ({len(self._items)}/{cap} queued; "
                     f"refusing {len(queries)} more)")
+            if trace is not None:
+                trace.mark_submitted()
+                for fut in futs:
+                    fut.trace = trace
             self._items.extend(
                 (fut, q, deadline) for fut, q in zip(futs, queries))
             self._cond.notify()
@@ -265,9 +290,12 @@ class WorkerQueue:
             fut, query, deadline = self._items.pop(0)
             if deadline is not None and now >= deadline:
                 self._expired += 1
+                self._m_expired.inc()
                 fut.set_error(TimeoutError(
                     "query expired in the worker queue before dispatch"))
                 continue
+            if fut.trace is not None:
+                fut.trace.mark_dequeued(now)
             batch.append((fut, query))
             n -= 1
 

@@ -26,10 +26,21 @@ Differences from the original:
   header: a 224x224x3 image is 1.2 MB of array instead of ~3 MB of text
   parsed again by the worker. The worker's model gets ndarray rows; the
   port's templates take either.
-- Not ported: the chaos hooks (ROADMAP.md A.12), the metrics registry
-  (A.12; the same counters are in :meth:`ShmWorkerQueue.stats` and
-  :meth:`ShmBroker.stats`) and the trace spans (the tracer is not
-  ported).
+
+A sampled request's trace (``utils/trace.py``) crosses the ring in the
+query frame's version-2 header (its id, sampling bit and the submitter's
+monotonic submit time ``ts``); the worker side records ``queue_wait``
+(submit to pop, on the host's shared monotonic clock) and
+``codec_decode`` at the pop, the worker's loop adds ``batch_assembly``
+and ``model_forward`` through ``ResponseHandle.trace``, the responder
+``codec_encode`` (the answer's arrays into frame bytes; JAX records no
+such span), and the spans travel home in the response frame's header,
+where the listener grafts them onto the door's tree. The counters of
+:meth:`ShmWorkerQueue.stats` and :meth:`ShmBroker.stats` are mirrored
+into the metrics registry (``rafiki_wire_errors_total``,
+``rafiki_queue_expired_total``, ``rafiki_queue_rejected_total``). The
+``wire`` chaos site (``RAFIKI_CHAOS``) is asked for each frame popped off
+a ring, before it is decoded.
 """
 
 from __future__ import annotations
@@ -59,7 +70,9 @@ from rafiki_tpu_torch.native.shm_queue import (
     ShmQueueClosed,
     library,
 )
+from rafiki_tpu_torch.utils import chaos
 from rafiki_tpu_torch.utils.jsonutil import json_default
+from rafiki_tpu_torch.utils.metrics import REGISTRY
 
 logger = logging.getLogger(__name__)
 
@@ -69,10 +82,39 @@ def _qname(prefix: str, *parts: str) -> str:
     return f"/{prefix}-{digest}"
 
 
+def _m_wire_errors():
+    return REGISTRY.counter(
+        "rafiki_wire_errors_total",
+        "undecodable wire frames dropped (query + response sides)")
+
+
+def _m_expired():
+    return REGISTRY.counter(
+        "rafiki_queue_expired_total",
+        "queries dropped past their deadline in a worker queue")
+
+
+def _m_rejected():
+    return REGISTRY.counter(
+        "rafiki_queue_rejected_total",
+        "queries refused by a bounded worker queue's depth cap")
+
+
+def _popped(ring: ShmMessageQueue, raw: bytes) -> bytes:
+    """A frame popped off ``ring``, through the ``wire`` chaos site."""
+    rule = chaos.hit(chaos.SITE_WIRE, ring.name)
+    if rule is not None and rule.action == chaos.ACTION_CORRUPT:
+        return chaos.corrupt_bytes(raw, rule)
+    return raw
+
+
 def _encode_query_frame(ids: List[str], queries: List[Any],
-                        deadline: Optional[float]) -> bytes:
+                        deadline: Optional[float],
+                        trace_meta: Optional[Dict[str, Any]] = None
+                        ) -> bytes:
     """One binary frame for a whole request, its rows stacked into one
-    array where they form one."""
+    array where they form one; ``trace_meta`` (a sampled request's wire
+    context and submit time) rides the version-2 header."""
     msg: Dict[str, Any] = {"ids": ids}
     if deadline is not None:
         msg["deadline"] = deadline
@@ -81,20 +123,25 @@ def _encode_query_frame(ids: List[str], queries: List[Any],
         msg["qarr"] = stacked
     else:
         msg["queries"] = queries
-    return wire.encode(msg)
+    return wire.encode(msg, trace=trace_meta)
 
 
 def _decode_query_frame(raw: bytes) -> Tuple[
-        List[Tuple[str, Any, Optional[float]]], bool]:
+        List[Tuple[str, Any, Optional[float]]], bool,
+        Optional[Dict[str, Any]]]:
     """One popped query message -> ([(qid, query, deadline), ...],
-    arrived_binary). Takes the batched binary frame, the batched JSON
-    message (a JAX-package submitter under ``RAFIKI_WIRE_BINARY=0``) and
-    the legacy per-query ``{"id", "query"}`` message. Raises
-    WireFormatError on garbage."""
+    arrived_binary, trace_meta or None). Takes the batched binary frame
+    (version 1, or 2 with trace metadata), the batched JSON message (a
+    JAX-package submitter under ``RAFIKI_WIRE_BINARY=0``, its trace in a
+    ``_trace`` key) and the legacy per-query ``{"id", "query"}`` message.
+    Raises WireFormatError on garbage."""
     binary = wire.is_frame(raw)
-    msg = wire.decode_any(raw)
+    msg, meta = wire.decode_any_meta(raw)
     if not isinstance(msg, dict):
         raise wire.WireFormatError("query frame is not an object")
+    trace_meta = meta.get("trace") or msg.get("_trace")
+    if not isinstance(trace_meta, dict):
+        trace_meta = None
     try:
         # the frame decoded, but each field is still untrusted: ids must be
         # strings and the deadline a number, or the frame is malformed
@@ -104,7 +151,7 @@ def _decode_query_frame(raw: bytes) -> Tuple[
         if "id" in msg:  # legacy single-query message
             if not isinstance(msg["id"], str):
                 raise wire.WireFormatError("query id is not a string")
-            return [(msg["id"], msg["query"], deadline)], binary
+            return [(msg["id"], msg["query"], deadline)], binary, trace_meta
         ids = msg["ids"]
         if (not isinstance(ids, list)
                 or not all(isinstance(i, str) for i in ids)):
@@ -122,7 +169,8 @@ def _decode_query_frame(raw: bytes) -> Tuple[
         if not isinstance(queries, (list, np.ndarray)) \
                 or len(queries) != len(ids):
             raise wire.WireFormatError("queries/ids length mismatch")
-        return [(qid, q, deadline) for qid, q in zip(ids, queries)], binary
+        return ([(qid, q, deadline) for qid, q in zip(ids, queries)],
+                binary, trace_meta)
     except (KeyError, TypeError, ValueError) as e:
         if isinstance(e, wire.WireFormatError):
             raise
@@ -135,16 +183,47 @@ class _FrameResponder:
     response; a legacy JSON message per-id JSON messages), once every id
     is resolved. A push that fails (full ring, broker closing) is logged,
     never raised into the worker loop: the predictor's deadline covers a
-    lost response."""
+    lost response.
 
-    __slots__ = ("_rq", "_ids", "_binary", "_lock", "_out")
+    For a sampled frame (its query frame carried trace metadata) it also
+    collects the worker's spans as ``[name, offset_s, duration_s]``
+    against the submitter's ``ts`` and sends them home in the response
+    frame's header; a legacy JSON response drops them."""
 
-    def __init__(self, rq: ShmMessageQueue, ids: List[str], binary: bool):
+    __slots__ = ("_rq", "_ids", "_binary", "_lock", "_out", "trace_meta",
+                 "_spans")
+
+    def __init__(self, rq: ShmMessageQueue, ids: List[str], binary: bool,
+                 trace_meta: Optional[Dict[str, Any]] = None):
         self._rq = rq
         self._ids = ids
         self._binary = binary
         self._lock = threading.Lock()
         self._out: Dict[str, Tuple[str, Any]] = {}
+        self.trace_meta = trace_meta if (
+            isinstance(trace_meta, dict) and trace_meta.get("s")) else None
+        self._spans: List[List[Any]] = []
+
+    @property
+    def anchor(self) -> Optional[float]:
+        """The submitter's monotonic submit time (one host, one
+        CLOCK_MONOTONIC): the worker's span offsets are against it."""
+        if self.trace_meta is None:
+            return None
+        try:
+            return float(self.trace_meta.get("ts"))
+        except (TypeError, ValueError):
+            return None
+
+    def add_span(self, name: str, start: float, end: float) -> None:
+        """Record one worker-side span (a monotonic interval); a no-op
+        for an unsampled frame."""
+        anchor = self.anchor
+        if anchor is None:
+            return
+        with self._lock:
+            self._spans.append([name, round(start - anchor, 6),
+                                round(max(end - start, 0.0), 6)])
 
     def resolve(self, qid: str, kind: str, value: Any) -> None:
         with self._lock:
@@ -170,7 +249,15 @@ class _FrameResponder:
                 msg: Dict[str, Any] = {"ids": self._ids, "results": results}
                 if errors:
                     msg["errors"] = errors
-                self._rq.push(wire.encode(msg))
+                t_enc = time.monotonic()
+                parts = wire.prepare_frame(msg)
+                trace_out = None
+                if self.trace_meta is not None:
+                    self.add_span("codec_encode", t_enc, time.monotonic())
+                    with self._lock:
+                        trace_out = {"id": self.trace_meta.get("id"),
+                                     "spans": list(self._spans)}
+                self._rq.push(wire.finish_frame(parts, trace=trace_out))
             else:
                 for qid in self._ids:
                     kind, value = self._out[qid]
@@ -198,6 +285,14 @@ class ShmWorkerQueue:
             self._responder = responder
             self._id = qid
 
+        @property
+        def trace(self):
+            """The worker loop's span sink (``QueryFuture.trace``'s
+            counterpart): the frame's responder when the request is
+            sampled, else None."""
+            r = self._responder
+            return r if r.trace_meta is not None else None
+
         def set_result(self, value: Any) -> None:
             self._responder.resolve(self._id, "result", value)
 
@@ -209,6 +304,7 @@ class ShmWorkerQueue:
         self._rq = response_q
         self._wire_errors = 0  # undecodable frames dropped
         self._expired = 0  # queries past their deadline when taken
+        self._m_wire_errors, self._m_expired = _m_wire_errors(), _m_expired()
 
     @classmethod
     def attach(cls, prefix: str, inference_job_id: str,
@@ -234,21 +330,28 @@ class ShmWorkerQueue:
                 "ring_used_bytes_hw": max(qr["used_bytes_hw"],
                                           rr["used_bytes_hw"])}
 
-    def _pop_decoded(self, timeout_s: float) -> Optional[Tuple[
-            List[Tuple[str, Any, Optional[float]]], bool]]:
-        """Pop and decode one query frame; None on timeout. A frame that
-        fails to decode is counted and comes back empty: its submitter's
-        deadline covers its queries, and the worker loop goes on."""
+    def _pop_decoded(self, timeout_s: float) -> Optional[tuple]:
+        """Pop and decode one query frame: ``(entries, binary,
+        trace_meta, t_pop, decode_s)``, or None on timeout; ``t_pop`` and
+        ``decode_s`` are the sampled frame's ``codec_decode`` span. A
+        frame that fails to decode is counted and comes back empty: its
+        submitter's deadline covers its queries, and the worker loop goes
+        on."""
         raw = self._qq.pop(timeout_s=timeout_s)
         if raw is None:
             return None
+        raw = _popped(self._qq, raw)
+        t_pop = time.monotonic()
         try:
-            return _decode_query_frame(raw)
+            entries, binary, trace_meta = _decode_query_frame(raw)
+            return (entries, binary, trace_meta, t_pop,
+                    time.monotonic() - t_pop)
         except wire.WireFormatError as e:
             self._wire_errors += 1
+            self._m_wire_errors.inc()
             logger.error("dropping undecodable query frame on %s: %s",
                          self._qq.name, e)
-            return [], False
+            return [], False, None, t_pop, 0.0
 
     def take_batch(self, max_size: int, deadline_s: float,
                    wait_timeout_s: float = 0.5
@@ -287,17 +390,25 @@ class ShmWorkerQueue:
             n_entries += len(nxt[0])
         out: List[Tuple[ShmWorkerQueue.ResponseHandle, Any]] = []
         now = time.monotonic()
-        for entries, binary in groups:
+        for entries, binary, trace_meta, t_pop, decode_s in groups:
             if not entries:
                 continue  # a corrupt frame, already counted
             responder = _FrameResponder(
-                self._rq, [qid for qid, _, _ in entries], binary)
+                self._rq, [qid for qid, _, _ in entries], binary,
+                trace_meta=trace_meta)
+            anchor = responder.anchor
+            if anchor is not None:
+                # the worker's half of the tree: the wait in the ring,
+                # then the decode at its own interval (they tile)
+                responder.add_span("queue_wait", anchor, t_pop)
+                responder.add_span("codec_decode", t_pop, t_pop + decode_s)
             for qid, query, deadline in entries:
                 handle = self.ResponseHandle(responder, qid)
                 # CLOCK_MONOTONIC is system-wide on one host, so the
                 # submitter's absolute deadline compares here directly
                 if deadline is not None and now >= deadline:
                     self._expired += 1
+                    self._m_expired.inc()
                     handle.set_error(TimeoutError(
                         "query expired in the shm queue before dispatch"))
                     continue
@@ -324,23 +435,31 @@ class _SubmitProxy:
         return self._broker._outstanding_count(self._job_id, self._worker_id)
 
     def submit_many(self, queries: List[Any],
-                    deadline: Optional[float] = None) -> List[QueryFuture]:
+                    deadline: Optional[float] = None,
+                    trace=None) -> List[QueryFuture]:
         """One frame per request, so it lands as one worker batch. The
         depth cap admits or refuses the request whole, and the reservation
         is taken with the check (released on response, push failure or
         expiry). A ring full past the push timeout raises the retryable
         :class:`QueueFullError`; a frame larger than the ring
-        :class:`FrameTooLargeError` (413 at the door)."""
+        :class:`FrameTooLargeError` (413 at the door). A sampled
+        request's ``trace`` crosses in the frame; the worker's spans come
+        home in the response and are grafted onto it."""
         self._broker._reserve_capacity(self._job_id, self._worker_id,
                                        len(queries))
         ids = [uuid.uuid4().hex for _ in queries]
         futs = [QueryFuture() for _ in queries]
+        trace_meta = None
+        if trace is not None:
+            trace.mark_submitted()
+            trace_meta = {**trace.ctx.to_wire(), "ts": trace.t_submit}
         for qid, fut in zip(ids, futs):
             # an absolute monotonic deadline, comparable in the worker
             self._broker._register_pending(self._job_id, self._worker_id,
-                                           qid, fut, deadline)
+                                           qid, fut, deadline, trace=trace)
         try:
-            self._qq.push(_encode_query_frame(ids, queries, deadline))
+            self._qq.push(_encode_query_frame(ids, queries, deadline,
+                                              trace_meta=trace_meta))
         except BaseException as e:
             for qid in ids:
                 self._broker._pop_pending(self._job_id, qid)
@@ -370,17 +489,20 @@ class ShmBroker(Broker):
         self._lock = threading.Lock()
         self._query_qs: Dict[str, Dict[str, ShmMessageQueue]] = {}
         self._response_qs: Dict[str, ShmMessageQueue] = {}
-        # qid -> (future, worker_id, expiry): worker_id feeds the per-worker
-        # outstanding count, expiry lets a query no one answers (its worker
-        # died mid-batch) stop counting against the cap
+        # qid -> (future, worker_id, expiry, trace): worker_id feeds the
+        # per-worker outstanding count, expiry lets a query no one answers
+        # (its worker died mid-batch) stop counting against the cap, trace
+        # takes the worker's spans of a sampled request
         self._pending: Dict[str, Dict[str, Tuple[QueryFuture, str,
-                                                 float]]] = {}
+                                                 float, Any]]] = {}
         self._outstanding: Dict[Tuple[str, str], int] = {}
         self._listeners: Dict[str, threading.Thread] = {}
         self._graveyard: List[ShmMessageQueue] = []
         self._wire_errors = 0  # undecodable response frames dropped
         self._rejected = 0  # queries refused by the depth cap
         self._expired = 0  # outstanding queries pruned unanswered
+        self._m_wire_errors, self._m_expired, self._m_rejected = (
+            _m_wire_errors(), _m_expired(), _m_rejected())
         self._closed = False
         library()  # fails here, not at the first deploy, if it cannot build
 
@@ -438,8 +560,8 @@ class ShmBroker(Broker):
         return self._response_qs[job_id]
 
     def _register_pending(self, job_id: str, worker_id: str, qid: str,
-                          fut: QueryFuture,
-                          deadline: Optional[float]) -> None:
+                          fut: QueryFuture, deadline: Optional[float],
+                          trace=None) -> None:
         """Record one reserved query's future (its outstanding slot was
         taken by _reserve_capacity). It expires 30 s past the request's
         deadline (or the default SLO): a query never answered must stop
@@ -448,16 +570,20 @@ class ShmBroker(Broker):
                   else time.monotonic() + config.PREDICT_TIMEOUT_S) + 30.0
         with self._lock:
             self._pending.setdefault(job_id, {})[qid] = (fut, worker_id,
-                                                         expiry)
+                                                         expiry, trace)
 
     def _pop_pending(self, job_id: str, qid: str) -> Optional[QueryFuture]:
+        return self._pop_pending_traced(job_id, qid)[0]
+
+    def _pop_pending_traced(self, job_id: str, qid: str) -> tuple:
+        """(future, trace) of one pending id; (None, None) if unknown."""
         with self._lock:
             entry = self._pending.get(job_id, {}).pop(qid, None)
             if entry is None:
-                return None
-            fut, worker_id, _ = entry
+                return None, None
+            fut, worker_id, _, trace = entry
             self._dec_outstanding_locked(job_id, worker_id)
-            return fut
+            return fut, trace
 
     def _dec_outstanding_locked(self, job_id: str,  # guarded-by: _lock
                                 worker_id: str) -> None:
@@ -475,11 +601,12 @@ class ShmBroker(Broker):
         queries fill its cap frees itself."""
         now = time.monotonic()
         job_pending = self._pending.get(job_id, {})
-        for qid, (_, wid, expiry) in list(job_pending.items()):
+        for qid, (_, wid, expiry, _trace) in list(job_pending.items()):
             if wid == worker_id and now >= expiry:
                 job_pending.pop(qid)
                 self._dec_outstanding_locked(job_id, wid)
                 self._expired += 1
+                self._m_expired.inc()
 
     def _outstanding_count(self, job_id: str, worker_id: str) -> int:
         with self._lock:
@@ -499,18 +626,24 @@ class ShmBroker(Broker):
             queued = self._outstanding.get(key, 0)
             if cap > 0 and queued + n > cap:
                 self._rejected += n
+                self._m_rejected.inc(n)
                 raise QueueFullError(f"shm worker {worker_id} full "
                                      f"({queued}/{cap} outstanding)")
             self._outstanding[key] = queued + n
 
-    def _resolve_response(self, job_id: str, msg: Any) -> None:
+    def _resolve_response(self, job_id: str, msg: Any,
+                          meta: Optional[Dict[str, Any]] = None) -> None:
         """Resolve the futures of one decoded response: a batched frame
         ({"ids", "results", "errors"}) or a legacy per-id JSON message.
         Every field is checked before pending state is touched: a frame
         that decodes but is malformed raises the one typed error
-        ``_listen`` absorbs."""
+        ``_listen`` absorbs. ``meta``'s trace spans (a sampled request's)
+        are grafted onto its trace before its futures resolve."""
         if not isinstance(msg, dict):
             raise wire.WireFormatError("response frame is not an object")
+        trace_meta = (meta or {}).get("trace")
+        wire_spans = (trace_meta.get("spans")
+                      if isinstance(trace_meta, dict) else None)
         if "id" in msg:  # legacy single-response message
             if not isinstance(msg["id"], str):
                 raise wire.WireFormatError("response id is not a string")
@@ -536,9 +669,13 @@ class ShmBroker(Broker):
             raise wire.WireFormatError(
                 f"malformed response frame: {e}") from e
         for i, qid in enumerate(ids):
-            fut = self._pop_pending(job_id, qid)
+            fut, trace = self._pop_pending_traced(job_id, qid)
             if fut is None:
                 continue
+            if wire_spans is not None and trace is not None:
+                # once a frame: a request's futures share its trace
+                trace.add_wire_spans(wire_spans, anchor=trace.t_submit)
+                wire_spans = None
             err = errors.get(str(i))
             if err is not None:
                 fut.set_error(RuntimeError(err))
@@ -556,13 +693,15 @@ class ShmBroker(Broker):
                 break
             if raw is None:
                 continue
+            raw = _popped(rq, raw)
             try:
-                self._resolve_response(job_id, wire.decode_any(raw))
+                self._resolve_response(job_id, *wire.decode_any_meta(raw))
             except wire.WireFormatError as e:
                 # its futures keep waiting and end with the request's own
                 # TimeoutError; the listener outlives any bad message
                 with self._lock:
                     self._wire_errors += 1
+                self._m_wire_errors.inc()
                 logger.error("dropping undecodable response frame on %s: "
                              "%s", job_id, e)
 
@@ -589,7 +728,7 @@ class ShmBroker(Broker):
                 rq.destroy()
             self._response_qs.clear()
             for pend in self._pending.values():
-                for fut, _, _ in pend.values():
+                for fut, _, _, _ in pend.values():
                     fut.set_error(RuntimeError("broker closed"))
             self._pending.clear()
             self._outstanding.clear()

@@ -38,11 +38,17 @@ delta's int32 token ids (:func:`encode_token_delta`,
 that asks for ``CONTENT_TYPE``; no ring carries them, so :func:`decode`
 (request and response frames) refuses version 3 typed.
 
-Not ported: trace metadata on the encoding side (the tracer is not
-ported; a version-2 frame's ``"t"`` is still decoded), the sender's
-JSON framing switch ``RAFIKI_WIRE_BINARY`` (the port sends frames only;
-its receivers still take JSON). :func:`canonical_digest` keys the predict
-result cache with the JAX package's digest.
+A sampled request's trace metadata (``utils/trace.py``) rides a version-2
+frame's header as ``"t"`` (:func:`encode` with ``trace=``); a frame
+without it is version 1, byte for byte the pre-trace codec, so unsampled
+traffic stays readable by a peer that knows only version 1.
+:func:`decode_meta` and :func:`decode_any_meta` return the header's
+metadata beside the body.
+
+Not ported: the sender's JSON framing switch ``RAFIKI_WIRE_BINARY`` (the
+port sends frames only; its receivers still take JSON).
+:func:`canonical_digest` keys the predict result cache with the JAX
+package's digest.
 """
 
 from __future__ import annotations
@@ -55,8 +61,10 @@ import numpy as np
 from rafiki_tpu_torch.utils.jsonutil import json_default
 
 MAGIC = b"\xabRWF"
+#: the version a frame carrying trace metadata is written as
+VERSION = 2
 #: versions this receiver decodes: 1, and 2 (a "t" trace key in the
-#: header, which is read and set aside)
+#: header)
 SUPPORTED_VERSIONS = frozenset({1, 2})
 #: the version byte of a token-delta frame
 TOKEN_DELTA_VERSION = 3
@@ -127,9 +135,19 @@ def _restore_arrays(obj: Any, views: List[np.ndarray]) -> Any:
     return obj
 
 
-def encode(obj: Any) -> bytes:
-    """One version-1 frame for ``obj`` (any JSON-able structure, ndarrays
-    at any depth). Raises TypeError for leaves that are neither."""
+def encode(obj: Any, trace: Any = None) -> bytes:
+    """One frame for ``obj`` (any JSON-able structure, ndarrays at any
+    depth). Raises TypeError for leaves that are neither. ``trace`` (a
+    JSON-able dict) rides a version-2 header as ``"t"``; without it the
+    frame is version 1."""
+    return finish_frame(prepare_frame(obj), trace=trace)
+
+
+def prepare_frame(obj: Any) -> tuple:
+    """The costly half of :func:`encode`: the body with its arrays taken
+    out, their table and their bytes. A sender that times its encoding
+    (a sampled response's ``codec_encode`` span) measures this, then
+    puts the span in the header :func:`finish_frame` writes."""
     arrays: List[np.ndarray] = []
     body = _strip_arrays(obj, arrays)
     table = []
@@ -138,17 +156,27 @@ def encode(obj: Any) -> bytes:
         off += _pad16(off)
         table.append([a.dtype.str, list(a.shape), off, a.nbytes])
         off += a.nbytes
-    header = json.dumps({"b": body, "a": table},
-                        default=json_default).encode()
-    pieces = [MAGIC, bytes([1, 0]), len(header).to_bytes(4, "little"),
+    return body, table, [a.tobytes() for a in arrays]  # C-contiguous
+
+
+def finish_frame(parts: tuple, trace: Any = None) -> bytes:
+    """The frame of :func:`prepare_frame`'s ``parts``."""
+    body, table, blobs = parts
+    hdr: dict = {"b": body, "a": table}
+    version = 1
+    if trace is not None:
+        hdr["t"] = trace
+        version = VERSION
+    header = json.dumps(hdr, default=json_default).encode()
+    pieces = [MAGIC, bytes([version, 0]), len(header).to_bytes(4, "little"),
               header, b"\x00" * _pad16(len(MAGIC) + 2 + 4 + len(header))]
     pos = 0
-    for a, (_, _, o, _) in zip(arrays, table):
+    for blob, (_, _, o, _) in zip(blobs, table):
         if o > pos:
             pieces.append(b"\x00" * (o - pos))
             pos = o
-        pieces.append(a.tobytes())  # C-contiguous by construction
-        pos += a.nbytes
+        pieces.append(blob)
+        pos += len(blob)
     return b"".join(pieces)
 
 
@@ -161,6 +189,14 @@ def decode(raw: bytes) -> Any:
     views into ``raw`` (they keep the frame alive); callers that mutate
     must copy."""
     return _decode(raw, SUPPORTED_VERSIONS)[0]
+
+
+def decode_meta(raw: bytes) -> tuple:
+    """``(body, meta)`` of one frame: ``meta`` is ``{"trace": ...}`` for a
+    version-2 frame carrying trace metadata, else ``{}``."""
+    body, header = _decode(raw, SUPPORTED_VERSIONS)
+    return body, ({"trace": header["t"]}
+                  if isinstance(header, dict) and "t" in header else {})
 
 
 def _decode(raw: bytes, versions: frozenset) -> tuple:
@@ -213,10 +249,15 @@ def _decode(raw: bytes, versions: frozenset) -> tuple:
 def decode_any(raw: bytes) -> Any:
     """The receiver's sniff: a binary frame goes to :func:`decode`,
     anything else is parsed as JSON (the legacy framing)."""
+    return decode_any_meta(raw)[0]
+
+
+def decode_any_meta(raw: bytes) -> tuple:
+    """:func:`decode_meta` of a frame, ``(json.loads(raw), {})`` of JSON."""
     if is_frame(raw):
-        return decode(raw)
+        return decode_meta(raw)
     try:
-        return json.loads(raw)
+        return json.loads(raw), {}
     except (ValueError, UnicodeDecodeError) as e:
         raise WireFormatError(f"neither wire frame nor JSON: {e}") from e
 

@@ -343,6 +343,11 @@ class Client:
     def get_trial_logs(self, trial_id: str) -> Dict:
         return self._call("GET", f"/trials/{trial_id}/logs")
 
+    def get_trial_trace(self, trial_id: str) -> List[Dict]:
+        """The trial's spans (``propose``, ``train``, ``evaluate``,
+        ``persist_params``: wall-clock start, end and duration)."""
+        return self._call("GET", f"/trials/{trial_id}/trace")
+
     def download_trial_params(self, trial_id: str) -> bytes:
         data = self._call("GET", f"/trials/{trial_id}/parameters")
         return base64.b64decode(data["params_base64"])
@@ -732,3 +737,9 @@ class Client:
     def stop_all_jobs(self) -> None:
         """Stop every running train and inference job (admins only)."""
         self._call("POST", "/actions/stop_all_jobs")
+
+    def get_fleet_health(self) -> Dict[str, Any]:
+        """The fleet's health (admins only; ``GET /fleet/health``): the
+        agents, recovery, HA, the fleet controllers, serving and
+        training."""
+        return self._call("GET", "/fleet/health")

@@ -360,20 +360,10 @@ def _is_one(value: str) -> bool:
     return value == "1"
 
 
-def _positive(value: str) -> bool:
-    try:
-        return float(value) > 0
-    except ValueError:
-        return False
-
-
 #: (environment name, whether a value selects a missing subsystem, its
 #: name)
 _UNPORTED = (
     ("RAFIKI_INSTALL_DEPS", _is_one, "dependency provisioning"),
-    ("RAFIKI_TRACE_SAMPLE", _positive, "request tracing"),
-    ("RAFIKI_PROFILE", lambda v: v not in ("0", "false"),
-     "device profiling"),
 )
 
 

@@ -691,6 +691,30 @@ class Database:
             " WHERE s.train_job_id=? ORDER BY t.datetime_started",
             (train_job_id,))
 
+    def get_trial_fault_summary_of_live_jobs(self) -> Dict[str, Dict]:
+        """One grouped query for ``/fleet/health``'s training section:
+        train job id -> ``{"faults": {kind: count}, "retries": total}``
+        over every STARTED or RUNNING train job. ``faults`` counts the
+        ERRORED rows; absorbed re-runs, on any row, add to ``retries``."""
+        rows = self._all(
+            "SELECT s.train_job_id AS jid, t.fault_kind AS k,"
+            " t.status AS st, COUNT(*) AS c,"
+            " COALESCE(SUM(t.attempt), 0) AS a"
+            " FROM trial t"
+            " JOIN sub_train_job s ON t.sub_train_job_id = s.id"
+            " JOIN train_job j ON s.train_job_id = j.id"
+            " WHERE j.status IN (?,?)"
+            " GROUP BY s.train_job_id, t.fault_kind, t.status",
+            (TrainJobStatus.STARTED, TrainJobStatus.RUNNING))
+        out: Dict[str, Dict] = {}
+        for r in rows:
+            entry = out.setdefault(r["jid"], {"faults": {}, "retries": 0})
+            if r["k"] is not None and r["st"] == TrialStatus.ERRORED:
+                entry["faults"][r["k"]] = \
+                    entry["faults"].get(r["k"], 0) + int(r["c"])
+            entry["retries"] += int(r["a"])
+        return out
+
     def get_best_trials_of_train_job(self, train_job_id: str,
                                      max_count: int = 2) -> List[Dict]:
         """COMPLETED trials, best score first."""

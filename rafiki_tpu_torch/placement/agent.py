@@ -42,10 +42,12 @@ an error), ``RAFIKI_AGENT_KEY`` (required, or ``RAFIKI_AGENT_INSECURE=1``),
 ``RAFIKI_ADMIN_ADDR`` (the admin's door: the train children's advisor,
 and where terminal statuses are forwarded).
 
-Differences from the original: the request trace context of a relay
-(its ``trace`` field) is set aside and no ``trace_spans`` are answered,
-and ``/metrics`` answers 404: request tracing and the metrics exposition
-are ROADMAP.md item 12.
+A relay body carrying a sampled request's ``trace`` context makes the
+agent collect its half of the span tree (the wait in its shm queue and
+the worker's phases over its own ring) and answer it as ``trace_spans``,
+offsets against its own submit time; a body without one answers the
+plain shape. ``GET /metrics`` answers the agent process's registry
+without a key, as ``/healthz`` does.
 """
 
 from __future__ import annotations
@@ -75,12 +77,14 @@ from rafiki_tpu_torch.placement.manager import (
 )
 from rafiki_tpu_torch.placement.process import ProcessPlacementManager
 from rafiki_tpu_torch.utils import chaos
+from rafiki_tpu_torch.utils import trace as rtrace
 from rafiki_tpu_torch.utils.agent_http import (
     ADMIN_EPOCH_HEADER,
     AGENT_KEY_HEADER,
     STALE_EPOCH_STATUS,
 )
 from rafiki_tpu_torch.utils.jsonutil import json_default
+from rafiki_tpu_torch.utils.metrics import serve_http
 from rafiki_tpu_torch.utils.reqfields import (
     LowLatencyHandler,
     SeveringHTTPServer,
@@ -174,10 +178,9 @@ class AgentServer:
                     "admin_epoch": seen,
                     "wire_versions": sorted(wire.SUPPORTED_VERSIONS)})
             if method == "GET" and path == "/metrics":
-                # open in the original, as /healthz is; no exposition here
-                return self._respond(handler, 404, {
-                    "error": "no metrics exposition in rafiki_tpu_torch "
-                             "(ROADMAP.md, item 12)"})
+                # open, as /healthz is: counters and gauges only
+                return serve_http(handler,
+                                  handler.path.partition("?")[2])
             if self.key:
                 provided = handler.headers.get(AGENT_KEY_HEADER) or ""
                 if not hmac.compare_digest(provided, self.key):
@@ -288,7 +291,8 @@ class AgentServer:
         """Submit the relayed batch to the worker's host-local queue and
         answer once the worker resolved it, all or nothing: a worker
         error fails the relay, and the predictor's failover takes it from
-        there. The ``trace`` field is set aside (tracing is item 12)."""
+        there. A sampled ``trace`` context gets this host's spans back as
+        ``trace_spans``."""
         if self.engine.broker is None:
             return self._respond(handler, 503, {
                 "error": "no serving data plane on this agent"})
@@ -314,8 +318,13 @@ class AgentServer:
         if terr:
             return self._respond(handler, 400, {"error": terr})
         deadline = time.monotonic() + timeout_s
+        ctx = rtrace.TraceContext.from_wire(body.get("trace"))
+        rt = (rtrace.RequestTrace(ctx)
+              if ctx is not None and ctx.sampled else None)
         try:
-            futures = queue.submit_many(queries, deadline=deadline)
+            futures = queue.submit_many(
+                queries, deadline=deadline,
+                **({"trace": rt} if rt is not None else {}))
         except QueueFullError as e:
             return self._respond(handler, 429, {"error": str(e)})
         try:
@@ -332,9 +341,14 @@ class AgentServer:
                          "log)"})
         with self._relays_lock:
             self._relays["binary" if binary else "json"] += 1
+        payload: Dict[str, Any] = {"predictions": preds}
+        if rt is not None:
+            # against this agent's submit; the relay re-anchors at its own
+            anchor = rt.t_submit if rt.t_submit is not None else rt.t0
+            payload["trace_spans"] = rt.wire_spans(anchor)
         if binary:
-            return self._respond_frame(handler, {"predictions": preds})
-        self._respond(handler, 200, {"predictions": preds})
+            return self._respond_frame(handler, payload)
+        self._respond(handler, 200, payload)
 
     def relay_counts(self) -> Dict[str, int]:
         with self._relays_lock:

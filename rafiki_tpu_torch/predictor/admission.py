@@ -19,8 +19,11 @@ this gate sheds what the fleet cannot answer in time instead:
   is shed with 429 (:class:`TenantOverShareError`), and no tenant may
   hold every in-flight slot but one;
 - counters, in :meth:`AdmissionController.stats`, which ``/healthz``
-  carries, and the door's shed and EWMA-wait rings in the metrics
-  registry (``shed_rate:<door>``, ``ewma_wait_s:<door>``).
+  carries, mirrored into the metrics registry under JAX's names
+  (``rafiki_admission_{admitted_total,shed_total,inflight,
+  ewma_query_seconds}`` and the door's ``rafiki_request_seconds``
+  histogram), and the door's shed and EWMA-wait rings
+  (``shed_rate:<door>``, ``ewma_wait_s:<door>``).
 
 429 means retry later (``Retry-After`` says when); 503 means no capacity
 now. Neither is sent after work started, and a shed costs microseconds.
@@ -155,6 +158,29 @@ class AdmissionController:
         # seconds a query; 0 until the first observation (no estimate:
         # never shed on a guess)
         self._ewma_query_s = 0.0  # guarded-by: _lock
+        # registry mirrors under JAX's names, bumped with the counters
+        self._m_admitted = REGISTRY.counter(
+            "rafiki_admission_admitted_total",
+            "requests admitted through a serving door", ("door",)
+        ).labels(door)
+        shed = REGISTRY.counter(
+            "rafiki_admission_shed_total",
+            "requests shed at a serving door (reason: capacity=503, "
+            "deadline=429)", ("door", "reason"))
+        self._m_shed = {r: shed.labels(door, r)
+                        for r in ("capacity", "deadline", "fairness")}
+        self._g_inflight = REGISTRY.gauge(
+            "rafiki_admission_inflight",
+            "requests currently in flight behind a serving door",
+            ("door",)).labels(door)
+        self._g_ewma = REGISTRY.gauge(
+            "rafiki_admission_ewma_query_seconds",
+            "EWMA of per-query service seconds (the wait-estimation "
+            "unit)", ("door",)).labels(door)
+        self._h_request = REGISTRY.histogram(
+            "rafiki_request_seconds",
+            "end-to-end served-request latency at a serving door",
+            ("door",)).labels(door)
         self._ring_shed = REGISTRY.ring(f"shed_rate:{door}")
         self._ring_wait = REGISTRY.ring(f"ewma_wait_s:{door}")
         seed = door_median_latency(door)
@@ -182,6 +208,7 @@ class AdmissionController:
                 self._fair_ceiling_locked(tenant, cap)
             if cap > 0 and self._inflight >= cap:
                 self._shed_capacity += 1
+                self._m_shed["capacity"].inc()
                 self._ring_shed.add()
                 self._last_shed_mono = time.monotonic()
                 raise ServerOverloadedError(
@@ -194,6 +221,7 @@ class AdmissionController:
                         if backlog_depth and self._ewma_query_s > 0 else 0.0)
             if est_wait > timeout_s > 0:
                 self._shed_deadline += 1
+                self._m_shed["deadline"].inc()
                 self._ring_shed.add()
                 self._last_shed_mono = time.monotonic()
                 raise DeadlineUnmeetableError(
@@ -202,6 +230,8 @@ class AdmissionController:
                     retry_after_s=math.ceil(est_wait))
             self._inflight += 1
             self._admitted += 1
+            self._m_admitted.inc()
+            self._g_inflight.set(self._inflight)
             if tenant is not None:
                 self._fair_inflight[tenant] = (
                     self._fair_inflight.get(tenant, 0) + 1)
@@ -223,6 +253,7 @@ class AdmissionController:
             # a fairness shed does not renew the pressure window: it is
             # pressure's consequence, and would keep a quiet door shedding
             self._shed_fairness += 1
+            self._m_shed["fairness"].inc()
             self._ring_shed.add()
             raise TenantOverShareError(
                 f"tenant {tenant!r} already holds {held} of the door's "
@@ -263,6 +294,7 @@ class AdmissionController:
             burst = float(config.AUTOSCALE_FAIR_BURST)
             if charge + cost > fair_share + burst:
                 self._shed_fairness += 1
+                self._m_shed["fairness"].inc()
                 self._ring_shed.add()
                 raise TenantOverShareError(
                     f"tenant {tenant!r} is past its weighted fair share "
@@ -296,6 +328,7 @@ class AdmissionController:
         refused: the client saw the same 429 as a deadline shed."""
         with self._lock:
             self._shed_deadline += 1
+            self._m_shed["deadline"].inc()
             self._ring_shed.add()
             self._last_shed_mono = time.monotonic()
 
@@ -309,6 +342,7 @@ class AdmissionController:
                     self._fair_inflight[tenant] = held
                 else:
                     self._fair_inflight.pop(tenant, None)
+            self._g_inflight.set(self._inflight)
 
     def observe(self, latency_s: float, n_queries: int) -> None:
         """Feed one served request's latency into the wait model (an EWMA
@@ -323,6 +357,8 @@ class AdmissionController:
                 self._ewma_query_s += 0.2 * (per_query - self._ewma_query_s)
             ewma = self._ewma_query_s
         _note_latency(self.door, latency_s)
+        self._h_request.observe(latency_s)
+        self._g_ewma.set(ewma)
         self._ring_wait.record(ewma)
 
     @property

@@ -151,6 +151,13 @@ class Predictor:
             "trials_shed": 0,        # trials dropped: every replica full
             "requests_shed": 0,      # requests refused: every trial shed
         }
+        # registry mirrors, by job, bumped with the counters above
+        self._m_overload = {
+            key: REGISTRY.counter(
+                f"rafiki_predictor_{key}_total",
+                f"predictor overload counter: {key}", ("job",)
+            ).labels(inference_job_id)
+            for key in self._overload}
         # the job's shed series, which the autoscaler reads
         self._ring_shed = REGISTRY.ring(f"shed_rate:job:{inference_job_id}")
         # -- rollout lanes: the new-version replicas, their share of the
@@ -198,6 +205,7 @@ class Predictor:
     def _bump(self, key: str, n: int = 1) -> None:
         with self._ol_lock:
             self._overload[key] += n
+        self._m_overload[key].inc(n)
         if key in ("trials_shed", "requests_shed"):
             self._ring_shed.add(n)
 
@@ -354,12 +362,15 @@ class Predictor:
         return self.predict_batch([query], timeout_s)[0]
 
     def predict_batch(self, queries: List[Any],
-                      timeout_s: Optional[float] = None) -> List[Any]:
+                      timeout_s: Optional[float] = None,
+                      trace=None) -> List[Any]:
         """One prediction per query, ensembled across trials. Raises
         :class:`QueueFullError` when every trial's replicas refuse,
         ``TimeoutError`` when no trial answers in time, ``RuntimeError``
         when no worker is registered. With the cache on, hits are
-        answered from it and only the misses are forwarded."""
+        answered from it and only the misses are forwarded. ``trace`` (a
+        sampled request's ``RequestTrace``) rides each trial's first
+        submit, so the worker's spans join the door's tree."""
         if timeout_s is None:
             timeout_s = config.PREDICT_TIMEOUT_S
         deadline = time.monotonic() + timeout_s
@@ -382,11 +393,11 @@ class Predictor:
             digests = self._take_digest_stash(queries)
             self._maybe_note_shareable(queries)
             preds = self._serve_lanes(queries, queues, routable, trials,
-                                      draining, deadline, split)[0]
+                                      draining, deadline, split, trace)[0]
             self._drift_note(queries, digests, preds)
             return preds
         return self._serve_cached(plan, queries, queues, routable,
-                                  trials, draining, deadline, split)
+                                  trials, draining, deadline, split, trace)
 
     @staticmethod
     def _lane_split(routable: List[str], lane_new: Optional[set],
@@ -413,7 +424,8 @@ class Predictor:
 
     def _serve_lanes(self, queries: List[Any], queues, routable: List[str],
                      trials: Dict[str, str], draining: set,
-                     deadline: float, split) -> "tuple[List[Any], bool]":
+                     deadline: float, split,
+                     trace=None) -> "tuple[List[Any], bool]":
         """Serve over one lane (or the whole fan-out with no lane) and
         record the lane's outcome. Returns ``(predictions, fillable)``:
         not fillable when the ensemble was incomplete or a canary failure
@@ -421,12 +433,13 @@ class Predictor:
         under the new version)."""
         if split is None:
             return self._predict_on(queries, queues, routable, trials,
-                                    draining, deadline)
+                                    draining, deadline, trace)
         primary, fallback, lane, _pure = split
         t0 = time.monotonic()
         try:
             preds, fillable = self._predict_on(queries, queues, primary,
-                                               trials, draining, deadline)
+                                               trials, draining, deadline,
+                                               trace)
         except Exception as e:
             self._lane_record(
                 lane, "shed" if isinstance(e, QueueFullError) else "error",
@@ -442,7 +455,8 @@ class Predictor:
 
     def _predict_on(self, queries: List[Any], queues, routable: List[str],
                     trials: Dict[str, str], draining: set,
-                    deadline: float) -> "tuple[List[Any], bool]":
+                    deadline: float,
+                    trace=None) -> "tuple[List[Any], bool]":
         """Serve one request over ``routable``: ``(predictions,
         complete)``, ``complete`` False when a trial was shed or dropped
         (the cache must not keep a degraded answer)."""
@@ -464,8 +478,11 @@ class Predictor:
         for trial, order in list(orders.items()):
             for k, wid in enumerate(order):
                 try:
+                    # the trace keyword only when sampled: an unsampled
+                    # request keeps the call shape queue fakes take
                     inflight[trial] = queues[wid].submit_many(
-                        queries, deadline=deadline)
+                        queries, deadline=deadline,
+                        **({"trace": trace} if trace is not None else {}))
                 except QueueFullError:
                     continue
                 orders[trial] = order[k:] + order[:k]
@@ -623,7 +640,7 @@ class Predictor:
     def _serve_cached(self, plan: "tuple[int, bool]", queries: List[Any],
                       queues, routable: List[str], trials: Dict[str, str],
                       draining: set, deadline: float,
-                      split) -> List[Any]:
+                      split, trace=None) -> List[Any]:
         """Hits from the cache, identical misses behind one leader's
         forward, the rest forwarded as one sub-batch, then a fill for
         each resolved query (unless the answer is not fillable)."""
@@ -670,7 +687,7 @@ class Predictor:
             try:
                 miss_preds, complete = self._serve_lanes(
                     [queries[i] for i in miss_idx], queues, routable,
-                    trials, draining, deadline, split)
+                    trials, draining, deadline, split, trace)
             except BaseException as e:
                 # this leader's followers fail now, not at their deadline
                 for d, flight in flights.items():

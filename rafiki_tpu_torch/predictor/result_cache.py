@@ -19,12 +19,18 @@ it before any worker queue is touched:
   when the epoch moved, so a forward against a torn-down fleet never
   fills the cache after a teardown or a deploy.
 
-The counters that the JAX package keeps in its metrics registry (not
-ported, item 12) are this object's own, and :meth:`ResultCache.stats`
-reads them with the same keys. The cache's chaos site is not hooked: a
-``RAFIKI_CHAOS`` rule naming it raises ``NotPortedError``
-(``utils/chaos.py``). One lock guards all shared state; no method calls
-out or blocks while holding it (waiters block on a flight's future).
+The counters are this object's own (:meth:`ResultCache.counters`;
+:meth:`ResultCache.stats` reads them with the JAX package's keys), and
+each one is mirrored into the metrics registry under JAX's names
+(``rafiki_cache_hits_total``, ``_misses_total``, ``_coalesced_total``,
+``_evictions_total``, ``_bytes``, ``_shareable_total``,
+``_errors_total``). Every lookup, fill and flight join first asks
+``RAFIKI_CHAOS`` at site ``cache`` (target ``"{job}/{op}"``): ``delay``
+sleeps, anything else raises :class:`CacheChaosError`, which the
+predictor absorbs into the miss path. One lock guards all shared state;
+no method calls out or blocks while holding it (waiters block on a
+flight's future; the registry's counters take only their own leaf
+locks).
 """
 
 from __future__ import annotations
@@ -37,11 +43,18 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 
 from rafiki_tpu_torch import config
 from rafiki_tpu_torch.cache.queue import QueryFuture
+from rafiki_tpu_torch.utils import chaos
+from rafiki_tpu_torch.utils.metrics import REGISTRY
 
 logger = logging.getLogger(__name__)
 
 #: bytes counted for an entry beyond its value: the key, the map's slot
 _ENTRY_OVERHEAD = 256
+
+
+class CacheChaosError(RuntimeError):
+    """A ``RAFIKI_CHAOS site=cache`` rule fired on a cache operation;
+    raised only into the predictor's absorb-and-degrade guard."""
 
 
 class _Flight:
@@ -104,6 +117,33 @@ class ResultCache:
         self._job_counts: Dict[str, Dict[str, int]] = {}  # guarded-by: _lock
         self._evictions = {"ttl": 0, "bytes": 0, "flush": 0}  # guarded-by: _lock
         self._errors = 0  # guarded-by: _lock
+        self._m = {
+            "hits": REGISTRY.counter(
+                "rafiki_cache_hits_total",
+                "prediction cache hits (per tenant job)", ("job",)),
+            "misses": REGISTRY.counter(
+                "rafiki_cache_misses_total",
+                "prediction cache misses (per tenant job)", ("job",)),
+            "coalesced": REGISTRY.counter(
+                "rafiki_cache_coalesced_total",
+                "identical in-flight queries answered by a shared "
+                "single-flight forward instead of their own", ("job",)),
+            "shareable": REGISTRY.counter(
+                "rafiki_cache_shareable_total",
+                "sampled duplicate-query observations while the "
+                "prediction cache is OFF", ("job",)),
+        }
+        self._m_evictions = REGISTRY.counter(
+            "rafiki_cache_evictions_total",
+            "prediction cache entries evicted (reason: ttl|bytes|flush)",
+            ("reason",))
+        self._m_bytes = REGISTRY.gauge(
+            "rafiki_cache_bytes",
+            "estimated bytes held by the prediction result cache")
+        self._m_errors = REGISTRY.counter(
+            "rafiki_cache_errors_total",
+            "cache operations absorbed into the miss path (chaos or "
+            "internal faults; serving degraded, never failed)")
 
     def _cap_bytes(self) -> int:
         if self._max_bytes is not None:
@@ -120,6 +160,25 @@ class ResultCache:
         counts = self._job_counts.setdefault(
             job, {"hits": 0, "misses": 0, "coalesced": 0, "shareable": 0})
         counts[key] += n
+        self._m[key].labels(job).inc(n)
+
+    def _evict_locked(self, reason: str,  # guarded-by: _lock
+                      n: int = 1) -> None:
+        self._evictions[reason] += n
+        if n:
+            self._m_evictions.labels(reason).inc(n)
+        self._m_bytes.set(self._bytes)
+
+    @staticmethod
+    def _chaos(job: str, op: str) -> None:
+        rule = chaos.hit(chaos.SITE_CACHE, f"{job}/{op}")
+        if rule is None:
+            return
+        if rule.action == chaos.ACTION_DELAY:
+            chaos.sleep_for(rule)
+            return
+        raise CacheChaosError(
+            f"chaos-injected cache {op} failure for job {job}")
 
     # -- epochs ------------------------------------------------------------
 
@@ -135,13 +194,14 @@ class ResultCache:
                ) -> Tuple[bool, Any]:
         """``(hit, value)``; an expired entry is evicted (``ttl``) and
         reads as a miss."""
+        self._chaos(job, "lookup")
         key = (job, int(version), digest)
         now = time.monotonic()
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None and entry[2] <= now:
                 self._drop_locked(key, entry)
-                self._evictions["ttl"] += 1
+                self._evict_locked("ttl")
                 entry = None
             if entry is None:
                 self._bump_locked(job, "misses")
@@ -176,6 +236,7 @@ class ResultCache:
         """Store one served prediction unless the job's epoch moved past
         ``epoch``, the TTL or the cap is 0, or the entry alone is larger
         than the cap; the oldest entries make room. True when stored."""
+        self._chaos(job, "fill")
         ttl = self._ttl()
         cap = self._cap_bytes()
         if ttl <= 0 or cap <= 0:
@@ -199,7 +260,8 @@ class ResultCache:
                 k, e = self._entries.popitem(last=False)
                 self._bytes -= e[1]
                 self._dec_job_entries_locked(k[0])
-                self._evictions["bytes"] += 1
+                self._evict_locked("bytes")
+            self._m_bytes.set(self._bytes)
         return True
 
     def _drop_locked(self, key, entry) -> None:  # guarded-by: _lock
@@ -221,6 +283,7 @@ class ResultCache:
         """``(is_leader, flight)``. The leader must end the flight with
         :meth:`resolve_flight` or :meth:`fail_flight`; followers wait on
         ``flight.future``."""
+        self._chaos(job, "join")
         key = (job, int(version), digest)
         with self._lock:
             flight = self._flights.get(key)
@@ -268,7 +331,7 @@ class ResultCache:
             for k in [k for k in self._flights if k[0] == job]:
                 del self._flights[k]
             self._share_seen.pop(job, None)
-            self._evictions["flush"] += len(victims)
+            self._evict_locked("flush", len(victims))
         logger.info("predict cache: flushed %d entries of job %s (%s%s)",
                     len(victims), job[:8], reason,
                     f", kept v{keep}" if keep is not None else "")
@@ -295,6 +358,7 @@ class ResultCache:
         """One cache fault absorbed into the miss path."""
         with self._lock:
             self._errors += 1
+        self._m_errors.inc()
 
     # -- observability -----------------------------------------------------
 
@@ -349,6 +413,7 @@ class ResultCache:
             self._job_counts.clear()
             self._evictions = {"ttl": 0, "bytes": 0, "flush": 0}
             self._errors = 0
+            self._m_bytes.set(0)
         for f in flights:
             f.future.set_error(RuntimeError("predict cache cleared"))
 

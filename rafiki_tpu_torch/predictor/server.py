@@ -1,5 +1,5 @@
-"""The per-inference-job HTTP door: ``POST /predict``, ``POST /generate``
-and ``GET /healthz``.
+"""The per-inference-job HTTP door: ``POST /predict``, ``POST /generate``,
+``GET /healthz`` and ``GET /metrics``.
 
 Counterpart of ``PredictorServer`` in ``rafiki_tpu/predictor/server.py``,
 with the same request and response shapes:
@@ -30,10 +30,20 @@ with the same request and response shapes:
   KV blocks, :func:`_generate_cost`), and ``GET /healthz`` carries its
   ``stats()``, the predictor's ``overload_stats()`` and ``queue_depths``;
 - ``stop()`` drains: it stops accepting and waits for the requests in
-  flight, up to ``RAFIKI_PREDICT_DRAIN_S``; a second call does nothing.
+  flight, up to ``RAFIKI_PREDICT_DRAIN_S``; a second call does nothing;
+- ``GET /metrics`` answers the process registry's Prometheus text
+  (``?format=json``: the snapshot with the rings), without a token, as
+  ``/healthz``;
+- request tracing (``utils/trace.py``): a ``/predict`` carrying an
+  ``X-Rafiki-Trace`` header with its sampling bit set, or drawn at
+  ``RAFIKI_TRACE_SAMPLE``, gets a ``RequestTrace``: the door records
+  ``admission_wait`` and ``respond``, the context rides the queue entries
+  to the worker (whose spans come back into the tree), the header is
+  echoed on the answer, each phase lands in ``rafiki_phase_seconds``,
+  and a request at least ``RAFIKI_TRACE_SLOW_MS`` slow is written as an
+  exemplar under ``LOGS_DIR``.
 
-Standard library ``http.server`` only. Tracing and metrics are not ported
-yet (ROADMAP.md, item 12).
+Standard library ``http.server`` only.
 """
 
 from __future__ import annotations
@@ -62,7 +72,9 @@ from rafiki_tpu_torch.predictor.admission import (
     ServerOverloadedError,
     retry_after_headers,
 )
+from rafiki_tpu_torch.utils import trace as rtrace
 from rafiki_tpu_torch.utils.auth import UnauthorizedError, decode_token
+from rafiki_tpu_torch.utils.metrics import REGISTRY, serve_http
 from rafiki_tpu_torch.worker.generation import GenerationRequestError
 
 logger = logging.getLogger(__name__)
@@ -133,8 +145,11 @@ class PredictorServer:
                 logger.debug("%s " + fmt, self.address_string(), *args)
 
             def do_GET(self):
-                if self.path.split("?", 1)[0].rstrip("/") == "/healthz":
+                path, _, query = self.path.partition("?")
+                if path.rstrip("/") == "/healthz":
                     server._healthz(self)
+                elif path.rstrip("/") == "/metrics":
+                    serve_http(self, query)
                 else:
                     server._respond(self, 404, {"error": "no such route"})
 
@@ -267,15 +282,25 @@ class PredictorServer:
         queries, timeout_s, err = self._parse(handler, raw)
         if err:
             return self._respond(handler, 400, {"error": err})
+        # a sampled request (the header's bit, or a draw at
+        # RAFIKI_TRACE_SAMPLE) gets its span tree; an unsampled one costs
+        # a header read
+        rt = rtrace.start_trace(handler.headers.get(rtrace.TRACE_HEADER))
         try:
             # shed here costs microseconds; a doomed admit costs the fleet
+            t_adm = time.monotonic()
             self.admission.admit(
                 timeout_s, backlog_depth=self._backlog(), tenant=self.app,
                 cost=self._cost(queries))
             t0 = time.monotonic()
+            if rt is not None:
+                rt.add_span("admission_wait", t_adm, t0)
             try:
-                preds = self.predictor.predict_batch(queries,
-                                                     timeout_s=timeout_s)
+                # the trace keyword only when sampled: an unsampled
+                # request keeps the call shape predictor fakes take
+                preds = self.predictor.predict_batch(
+                    queries, timeout_s=timeout_s,
+                    **({"trace": rt} if rt is not None else {}))
             finally:
                 self.admission.release(tenant=self.app)
             self.admission.observe(time.monotonic() - t0, len(queries))
@@ -293,6 +318,8 @@ class PredictorServer:
             logger.exception("predict failed for %s", self.app)
             return self._respond(handler, 500,
                                  {"error": "internal server error"})
+        headers = ({rtrace.TRACE_HEADER: rt.ctx.to_header()}
+                   if rt is not None else None)
         if self._accepts_npy(handler):
             try:
                 arr = np.asarray(preds)
@@ -301,8 +328,36 @@ class PredictorServer:
             if arr is not None and arr.dtype.kind in "biuf":
                 buf = io.BytesIO()
                 np.save(buf, arr, allow_pickle=False)
-                return self._respond_bytes(handler, 200, buf.getvalue(), NPY)
-        self._respond(handler, 200, {"data": {"predictions": preds}})
+                t_resp = time.monotonic()
+                self._respond_bytes(handler, 200, buf.getvalue(), NPY,
+                                    headers)
+                return self._finish_trace(rt, t0, t_resp)
+        t_resp = time.monotonic()
+        self._respond(handler, 200, {"data": {"predictions": preds}},
+                      headers)
+        self._finish_trace(rt, t0, t_resp)
+
+    def _finish_trace(self, rt, t0: float, t_resp: float) -> None:
+        """Close a sampled request: its ``respond`` span, each phase into
+        ``rafiki_phase_seconds``, and past ``RAFIKI_TRACE_SLOW_MS`` an
+        exemplar. Never raises: the request is already answered."""
+        if rt is None:
+            return
+        try:
+            now = time.monotonic()
+            rt.add_span("respond", t_resp, now)
+            phase_h = REGISTRY.histogram(
+                "rafiki_phase_seconds",
+                "per-phase latency of sampled predict requests",
+                ("phase",))
+            for name, secs in rt.phase_durations().items():
+                phase_h.labels(name).observe(secs)
+            e2e_s = now - t0
+            if e2e_s >= rtrace.slow_threshold_s():
+                rtrace.record_exemplar(rt, e2e_s,
+                                       door=f"predictor:{self.app}")
+        except Exception:
+            logger.debug("trace finish failed", exc_info=True)
 
     def _authorized(self, handler) -> bool:
         """True when auth is off or the request carries a valid token;

@@ -18,7 +18,7 @@ of the requests a rule has seen, never on randomness; the controller
 re-parses ``RAFIKI_CHAOS`` whenever its value changes (counters reset
 with it).
 
-Nine sites have their hooks in the port:
+Eleven sites have their hooks in the port:
 
 - ``trial`` (``worker/train.py``, one ask per trial attempt, target
   ``"{sub_train_job_id} {trial_id}"``): ``delay`` sleeps, ``oom`` raises
@@ -58,7 +58,16 @@ Nine sites have their hooks in the port:
 - ``call_agent`` (``utils/agent_http.py``, each attempt inside the retry
   loop, target ``"{addr} {path}"``): ``drop`` is a transport failure
   (retried when the call is idempotent, counted by the breaker),
-  ``error`` an answer with ``code``, ``delay`` sleeps.
+  ``error`` an answer with ``code``, ``delay`` sleeps;
+- ``wire`` (``cache/shm_broker.py``, each frame popped off an shm ring,
+  the worker's query ring and the broker's response ring, before it is
+  decoded; target the ring's name): ``corrupt`` truncates (odd hits) or
+  garbles (even hits) the bytes, and the decoder drops the frame typed
+  (its requests end at their deadline), never the loop;
+- ``cache`` (``predictor/result_cache.py``, each lookup, fill and flight
+  join, target ``"{inference_job_id}/{op}"``): ``delay`` sleeps, anything
+  else raises ``CacheChaosError``, which the predictor absorbs into the
+  miss path (a broken cache serves real forwards).
 
 A rule naming any other site of the original raises
 :class:`~rafiki_tpu_torch.config.NotPortedError` when it is made,
@@ -100,7 +109,8 @@ SITES = (SITE_CALL_AGENT, SITE_AGENT, SITE_WORKER, SITE_WIRE, SITE_DB,
          SITE_COMPILE, SITE_LEASE)
 #: the sites whose hook the port has
 HOOKED_SITES = (SITE_TRIAL, SITE_WORKER, SITE_GENERATE, SITE_DEPLOY,
-                SITE_DRIFT, SITE_DB, SITE_LEASE, SITE_AGENT, SITE_CALL_AGENT)
+                SITE_DRIFT, SITE_DB, SITE_LEASE, SITE_AGENT, SITE_CALL_AGENT,
+                SITE_WIRE, SITE_CACHE)
 
 ACTION_DROP = "drop"
 ACTION_DELAY = "delay"
@@ -275,3 +285,17 @@ hit = _controller.hit
 def sleep_for(rule: ChaosRule) -> None:
     """Apply a delay rule (kept here so call sites stay one-liners)."""
     time.sleep(rule.delay_s)
+
+
+def corrupt_bytes(raw: bytes, rule: ChaosRule) -> bytes:
+    """Apply a ``site=wire`` ``corrupt`` rule to popped frame bytes:
+    odd hits truncate (a partial write), even hits garble bytes in place,
+    deterministic in the rule's hit count."""
+    if not raw:
+        return raw
+    if rule.hits % 2:
+        return raw[: max(len(raw) // 2, 1)]
+    buf = bytearray(raw)
+    for i in range(0, len(buf), max(len(buf) // 8, 1)):
+        buf[i] ^= 0xA5
+    return bytes(buf)

@@ -10,23 +10,27 @@ Own copy of the in-process part of ``rafiki_tpu/utils/metrics.py``:
 - ``Ring``: a bounded time series of about one slot a wall-clock second
   over ``ring_window_s()`` seconds (``RAFIKI_METRICS_RING_S``, 300), for
   the signals a control loop reads as a short series;
-- ``REGISTRY``, the process's one registry, and its JSON ``snapshot``.
+- ``REGISTRY``, the process's one registry, its JSON ``snapshot`` and its
+  Prometheus text exposition (format 0.0.4, ``render``);
+- ``serve_http``, the one ``GET /metrics`` answer of the three doors (the
+  admin's, the host agent's and each inference job's), and
+  ``parse_prometheus``, enough of a reader to check the text.
 
-``RAFIKI_METRICS=0`` makes every write a no-op. Writers in the port: the
-autoscaler's ``backlog:job:<id>`` ring, the generation worker's
-``slot_occupancy:job:<id>`` ring, the predictor's per-job shed ring and
-its per-lane request counter and latency histogram, the doors' shed and
-EWMA-wait rings, and the fleet controllers' counters. The Prometheus text
-exposition (``GET /metrics``) is not ported (ROADMAP.md, item 12).
+``RAFIKI_METRICS=0`` makes every write a no-op. Metric names are a
+contract: they are JAX's, and ``tests/test_torch_observability.py`` holds
+the published set.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 # the default buckets: 100 us to ~200 s, a factor of 2 apart
 _DEFAULT_BUCKETS = tuple(1e-4 * (2.0 ** i) for i in range(22))
@@ -201,6 +205,14 @@ class _Metric:
                          for n, v in zip(self.label_names, key))
         return "{" + pairs + "}"
 
+    def render(self) -> List[str]:
+        lines = [f"# HELP {self.name} {self.help}",
+                 f"# TYPE {self.name} {self.kind}"]
+        for key, child in sorted(self.children().items()):
+            lines.append(f"{self.name}{self._label_str(key)} "
+                         f"{_fmt(child.value())}")
+        return lines
+
 
 class Counter(_Metric):
     kind = "counter"
@@ -242,6 +254,20 @@ class Histogram(_Metric):
 
     def observe(self, value: float) -> None:
         self.labels().observe(value)
+
+    def render(self) -> List[str]:
+        lines = [f"# HELP {self.name} {self.help}",
+                 f"# TYPE {self.name} histogram"]
+        for key, child in sorted(self.children().items()):
+            snap = child.snapshot()
+            base = self._label_str(key)
+            for le, cum in snap["buckets"]:
+                lbl = (base[:-1] + f',le="{le}"' + "}" if base
+                       else '{le="' + le + '"}')
+                lines.append(f"{self.name}_bucket{lbl} {cum}")
+            lines.append(f"{self.name}_sum{base} {_fmt(snap['sum'])}")
+            lines.append(f"{self.name}_count{base} {snap['count']}")
+        return lines
 
 
 class Ring:
@@ -326,6 +352,24 @@ class Registry:
         return self._get_or_create(Histogram, name, help_text, label_names,
                                    buckets=buckets)
 
+    def get(self, name: str) -> Optional[_Metric]:
+        with self._lock:
+            return self._metrics.get(name)
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._metrics)
+
+    def render(self) -> str:
+        """The Prometheus text exposition (format 0.0.4) of every
+        metric."""
+        with self._lock:
+            metrics = [self._metrics[n] for n in sorted(self._metrics)]
+        lines: List[str] = []
+        for m in metrics:
+            lines.extend(m.render())
+        return "\n".join(lines) + "\n"
+
     def ring(self, name: str) -> Ring:
         with self._lock:
             r = self._rings.get(name)
@@ -350,5 +394,50 @@ class Registry:
             out["rings"][name] = r.series()
         return out
 
+    def reset(self) -> None:
+        """Drop every metric and ring (test isolation: a child a caller
+        still holds keeps counting, but no longer renders)."""
+        with self._lock:
+            self._metrics.clear()
+            self._rings.clear()
+
+
 #: the process's registry
 REGISTRY = Registry()
+
+
+def http_payload(fmt: str = "text") -> Tuple[bytes, str]:
+    """Body and Content-Type of a ``GET /metrics`` answer: the text
+    exposition, or with ``fmt="json"`` the snapshot with the rings."""
+    if fmt == "json":
+        return (json.dumps(REGISTRY.snapshot()).encode(),
+                "application/json")
+    return REGISTRY.render().encode(), PROMETHEUS_CONTENT_TYPE
+
+
+def serve_http(handler, query: str = "") -> None:
+    """Answer one ``GET /metrics`` on a ``BaseHTTPRequestHandler``
+    (``?format=json`` selects the snapshot)."""
+    data, ctype = http_payload(
+        "json" if "format=json" in (query or "") else "text")
+    handler.send_response(200)
+    handler.send_header("Content-Type", ctype)
+    handler.send_header("Content-Length", str(len(data)))
+    handler.end_headers()
+    handler.wfile.write(data)
+
+
+def parse_prometheus(text: str) -> Dict[str, float]:
+    """``{"name{labels}": value}`` of an exposition; raises ValueError on
+    a line that is not a sample or a comment."""
+    out: Dict[str, float] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        try:
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+        except ValueError as e:
+            raise ValueError(f"unparseable exposition line {line!r}") from e
+    return out

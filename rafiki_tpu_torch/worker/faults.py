@@ -32,9 +32,10 @@ not fit the card is a verdict on its knobs, so the infeasible feedback
 and the quarantine steer away from it.
 
 Left out of ``classify_failure``: the ``psycopg2`` branch (the PostgreSQL
-store is not ported) and the metrics registry's counters (with
-``utils/metrics.py``); the in-process ``TRAINING_STATS`` keep the same
-keys.
+store is not ported). The in-process ``TRAINING_STATS`` keep JAX's keys,
+and the metrics registry mirrors them under JAX's names
+(``rafiki_training_{faults,retries,counter}_total``,
+``rafiki_training_quarantined_signatures``).
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ import sqlite3
 import threading
 import traceback
 from typing import Any, Dict, Iterable, Optional, Tuple
+
+from rafiki_tpu_torch.utils.metrics import REGISTRY
 
 
 class FaultKind:
@@ -230,19 +233,34 @@ def _stats_entry(sub_id: str) -> Dict[str, Any]:  # guarded-by: _STATS_LOCK
 
 def record_fault(sub_id: str, kind: str, retried: bool = False) -> None:
     """Terminal faults count by kind; absorbed (retried) ones only as
-    retries."""
+    retries. The registry's process-wide mirrors keep the same split."""
     with _STATS_LOCK:
         s = _stats_entry(sub_id)
         if retried:
             s["retries"] += 1
         else:
             s["faults"][kind] = s["faults"].get(kind, 0) + 1
+    if retried:
+        REGISTRY.counter(
+            "rafiki_training_retries_total",
+            "infra-class trial faults absorbed by same-id retry").inc()
+    else:
+        REGISTRY.counter(
+            "rafiki_training_faults_total",
+            "terminal trial faults by taxonomy kind", ("kind",)
+        ).labels(kind).inc()
 
 
 def record_quarantine(sub_id: str, signatures: Iterable[str]) -> None:
     with _STATS_LOCK:
         s = _stats_entry(sub_id)
         s["quarantined"] = sorted(set(s["quarantined"]) | set(signatures))
+        total = sum(len(v.get("quarantined", ()))
+                    for v in TRAINING_STATS.values())
+    REGISTRY.gauge(
+        "rafiki_training_quarantined_signatures",
+        "poison-knob signatures currently quarantined in this process"
+    ).set(total)
 
 
 def record_counter(sub_id: str, counter: str, value: int = 1,
@@ -250,6 +268,11 @@ def record_counter(sub_id: str, counter: str, value: int = 1,
     with _STATS_LOCK:
         s = _stats_entry(sub_id)
         s[counter] = value if absolute else s.get(counter, 0) + value
+    if not absolute:
+        REGISTRY.counter(
+            "rafiki_training_counter_total",
+            "training-plane worker counters", ("counter",)
+        ).labels(counter).inc(value)
 
 
 def reset_stats(sub_id: Optional[str] = None) -> None:

@@ -43,7 +43,9 @@ resume request (``resume_tokens``, the committed tokens) prefills the
 prompt and those tokens under the stream's seed and goes on from them.
 
 The counters ride the worker's ``serving_stats`` row (a drain waits out
-its ``gen_resident_streams``); the job's ``slot_occupancy:job:<id>`` ring
+its ``gen_resident_streams``), mirrored each round into the metrics
+registry under JAX's ``rafiki_gen_*`` names; the job's
+``slot_occupancy:job:<id>`` ring
 in the metrics registry carries the share of the binding resource (pool
 pages, or slots) in use each round, the autoscaler's signal. The worker
 serves from its grant's first card, under a ``CHIPS_PER_WORKER`` grant
@@ -57,7 +59,7 @@ import logging
 import time
 import traceback
 import uuid
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -88,6 +90,50 @@ from rafiki_tpu_torch.worker.kv_paging import PagedKVAllocator
 
 logger = logging.getLogger(__name__)
 
+
+
+def _gen_metrics() -> Dict[str, Any]:
+    """The generation plane's registry handles, under JAX's names."""
+    c, g = REGISTRY.counter, REGISTRY.gauge
+    return {
+        "tokens": c("rafiki_gen_tokens_total",
+                    "tokens emitted by generation workers in this process"),
+        "slots": g("rafiki_gen_slots_busy",
+                   "generation slots currently decoding", ("service",)),
+        "evictions": c("rafiki_gen_evictions_total",
+                       "sequences leaving the slot table, by finish reason",
+                       ("reason",)),
+        "kv_used": g("rafiki_gen_kv_blocks_used",
+                     "paged-KV pool blocks currently allocated",
+                     ("service",)),
+        "kv_pool": g("rafiki_gen_kv_pool_blocks",
+                     "paged-KV pool size in blocks", ("service",)),
+        "prefix_hits": c("rafiki_gen_prefix_hits_total",
+                         "admissions that reused cached prompt-prefix "
+                         "blocks"),
+        "prefix_misses": c("rafiki_gen_prefix_misses_total",
+                           "admissions that found no cached prefix"),
+        "prefix_tokens": c("rafiki_gen_prefix_tokens_total",
+                           "prompt tokens served from the prefix cache "
+                           "instead of prefill compute"),
+        "cow": c("rafiki_gen_kv_cow_copies_total",
+                 "copy-on-write page copies (tail-block divergence)"),
+        "preempts": c("rafiki_gen_preemptions_total",
+                      "streams preempted by pool exhaustion"),
+        "spec_proposed": c("rafiki_gen_spec_proposed_total",
+                           "draft tokens proposed to the speculative "
+                           "verify step"),
+        "spec_accepted": c("rafiki_gen_spec_accepted_total",
+                           "draft tokens accepted by the target's verify "
+                           "step"),
+        "spec_rounds": c("rafiki_gen_spec_rounds_total",
+                         "speculative draft-propose/verify rounds run"),
+        "spec_degraded": c("rafiki_gen_spec_degraded_total",
+                           "speculation degradations to plain decode"),
+        "migrated": c("rafiki_gen_streams_migrated_total",
+                      "unfinished streams handed back typed (MIGRATING) "
+                      "by a retiring generation replica"),
+    }
 
 class GenerationUnsupportedError(RuntimeError):
     """The deployed template does not advertise a fully wired generation
@@ -211,6 +257,10 @@ class GenerationWorker(InferenceWorker):
             self._pending: List[_Pending] = []
             self._evictions: Dict[str, int] = {}
             self._preempted = 0
+            # the registry's handles, and the counters' values last
+            # mirrored into them
+            self._gm = _gen_metrics()
+            self._mirrored: Dict[str, int] = {}
             killed = False
             while not ctx.stopping:
                 # the replica drills (RAFIKI_CHAOS site=worker): drop is
@@ -1203,4 +1253,37 @@ class GenerationWorker(InferenceWorker):
                 s["gen_prefix_misses"] = st["prefix_misses"]
                 s["gen_prefix_hit_tokens"] = st["prefix_hit_tokens"]
                 s["gen_cow_copies"] = st["cow_copies"]
+            row = dict(s)
+        self._mirror_row(row)
+
+    def _mirror_row(self, row: Dict[str, Any]) -> None:
+        """The stats row into the metrics registry under JAX's names: the
+        gauges set, the counters advanced by what they gained since the
+        last round."""
+        m = self._gm
+        sid = self._service_id
+        m["slots"].labels(sid).set(row["gen_slots_busy"])
+        if "gen_kv_pool_blocks" in row:
+            m["kv_used"].labels(sid).set(row["gen_kv_blocks_used"])
+            m["kv_pool"].labels(sid).set(row["gen_kv_pool_blocks"])
+        totals = {"tokens": row["gen_tokens"],
+                  "preempts": row["gen_preemptions"],
+                  "spec_proposed": row["gen_spec_proposed"],
+                  "spec_accepted": row["gen_spec_accepted"],
+                  "spec_rounds": row["gen_spec_rounds"],
+                  "spec_degraded": int(bool(row.get("gen_spec_degraded"))),
+                  "migrated": row["gen_evictions"].get("migrating", 0),
+                  "prefix_hits": row.get("gen_prefix_hits", 0),
+                  "prefix_misses": row.get("gen_prefix_misses", 0),
+                  "prefix_tokens": row.get("gen_prefix_hit_tokens", 0),
+                  "cow": row.get("gen_cow_copies", 0)}
+        totals.update({f"evictions:{r}": n
+                       for r, n in row["gen_evictions"].items()})
+        for key, total in totals.items():
+            gained = total - self._mirrored.get(key, 0)
+            if gained <= 0:
+                continue
+            self._mirrored[key] = total
+            name, _, reason = key.partition(":")
+            (m[name].labels(reason) if reason else m[name]).inc(gained)
 

@@ -40,12 +40,21 @@ that died never recovers: the worker fails the batch and exits, and its
 placement starts it again. A fused ensemble is refused under the sandbox
 at deploy (``admin/services.py``). The template's declared dependencies
 are checked before it loads (``sdk/deps.py``).
+
+The serving counters are mirrored into the metrics registry under JAX's
+names (``rafiki_serving_{batches,queries}_total``,
+``rafiki_serving_batch_size``, ``rafiki_queue_depth``,
+``rafiki_worker_phase_seconds``). A batch holding a sampled request
+records its ``batch_assembly`` and ``model_forward`` spans into the
+request's trace (``QueryFuture.trace``, or the shm frame's responder,
+which adds ``codec_encode`` when it writes the answer).
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 from rafiki_tpu_torch import config
@@ -60,6 +69,7 @@ from rafiki_tpu_torch.sdk.artifact import read_artifact
 from rafiki_tpu_torch.sdk.deps import activate_prefix, ensure_dependencies
 from rafiki_tpu_torch.sdk.model import load_model_class
 from rafiki_tpu_torch.utils import chaos
+from rafiki_tpu_torch.utils.metrics import REGISTRY
 
 logger = logging.getLogger(__name__)
 
@@ -72,6 +82,29 @@ EVENT_INFERENCE_WORKER_STATS = "inference_worker_stats"
 # serving counters of this process's workers, by service id
 _stats_lock = threading.Lock()
 SERVING_STATS: Dict[str, Dict[str, int]] = {}  # guarded-by: _stats_lock
+
+
+def _metrics() -> Dict[str, Any]:
+    """The registry mirrors of the serving counters (made at first use;
+    the registry returns the same ones after)."""
+    return {
+        "batches": REGISTRY.counter(
+            "rafiki_serving_batches_total",
+            "batches served by inference workers in this process"),
+        "queries": REGISTRY.counter(
+            "rafiki_serving_queries_total",
+            "queries served by inference workers in this process"),
+        "batch_size": REGISTRY.histogram(
+            "rafiki_serving_batch_size",
+            "queries per served batch (continuous-batching occupancy)",
+            buckets=[1, 2, 4, 8, 16, 32, 64, 128, 256]),
+        "depth": REGISTRY.gauge(
+            "rafiki_queue_depth", "current worker-queue depth",
+            ("service",)),
+        "phase": REGISTRY.histogram(
+            "rafiki_worker_phase_seconds",
+            "worker-side phase latency per served batch", ("phase",)),
+    }
 
 
 def serving_stats() -> Dict[str, Dict[str, int]]:
@@ -97,6 +130,24 @@ def _record_batch(service_id: str, n_queries: int, queue) -> None:
         s["queries"] += n_queries
         s.update(queue_depth=q.get("depth", 0), expired=q["expired"],
                  shed=q.get("rejected", 0))
+    m = _metrics()
+    m["batches"].inc()
+    m["queries"].inc(n_queries)
+    m["batch_size"].observe(n_queries)
+    if "depth" in q:
+        m["depth"].labels(service_id).set(int(q["depth"]))
+        REGISTRY.ring(f"queue_depth:{service_id}").record(int(q["depth"]))
+
+
+def _trace_sinks(futures: List[Any]) -> List[Any]:
+    """The span sinks of a batch's sampled requests, one a request: an
+    in-process future's ``RequestTrace``, an shm handle's responder."""
+    sinks: List[Any] = []
+    for f in futures:
+        sink = getattr(f, "trace", None)
+        if sink is not None and all(x is not sink for x in sinks):
+            sinks.append(sink)
+    return sinks
 
 
 def _resolve_batch(futures: List[Any], predictions: Any,
@@ -344,6 +395,12 @@ class InferenceWorker:
                     continue
                 _record_batch(ctx.service_id, len(batch), queue)
                 futures = [f for f, _ in batch]
+                sinks = _trace_sinks(futures)
+                t_asm = time.monotonic()
+                queries = _assemble([q for _, q in batch])
+                t_fwd = time.monotonic()
+                for sink in sinks:
+                    sink.add_span("batch_assembly", t_asm, t_fwd)
                 rule = chaos.hit(chaos.SITE_WORKER,
                                  f"{self._job_id}/{ctx.service_id}")
                 if rule is not None:
@@ -364,8 +421,16 @@ class InferenceWorker:
                             fut.set_error(err)
                         continue
                 try:
-                    predictions = predict(
-                        _assemble([q for _, q in batch]))
+                    t_pred = time.monotonic()
+                    predictions = predict(queries)
+                    t_done = time.monotonic()
+                    m = _metrics()
+                    m["phase"].labels("batch_assembly").observe(
+                        t_fwd - t_asm)
+                    m["phase"].labels("model_forward").observe(
+                        t_done - t_pred)
+                    for sink in sinks:
+                        sink.add_span("model_forward", t_pred, t_done)
                     _resolve_batch(futures, predictions, ctx.service_id)
                 except Exception as e:
                     logger.exception("predict failed in worker %s",

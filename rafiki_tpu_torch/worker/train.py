@@ -76,8 +76,15 @@ A drift retrain's warm start happens before its services start
 (``Admin.create_train_job(warm_start_from=)``): the replay below finds
 the session fed and does nothing.
 
-Not ported (ROADMAP.md): the compile cache, dependency installs, and the
-tracer (its spans; the phase breakdowns it logs are kept).
+Tracing (``utils/trace.py``): each trial's ``propose``, ``train``,
+``evaluate`` and ``persist_params`` spans are saved under its id
+(``GET /trials/<id>/trace``) and summed into the "trial phase breakdown"
+log line; under ``RAFIKI_PROFILE`` the ``train`` span runs inside a
+``torch.profiler`` capture, written as
+``LOGS_DIR/profiles/trial-<id>-<pid>.json`` (on several devices, rank
+0's).
+
+Not ported (ROADMAP.md): the compile cache and dependency installs.
 """
 
 from __future__ import annotations
@@ -112,6 +119,7 @@ from rafiki_tpu_torch.sdk.model import (
 )
 from rafiki_tpu_torch.sdk.params import dump_params
 from rafiki_tpu_torch.utils import chaos
+from rafiki_tpu_torch.utils.trace import Tracer, torch_profile
 from rafiki_tpu_torch.worker import faults
 from rafiki_tpu_torch.worker.faults import (
     FaultKind,
@@ -134,11 +142,18 @@ EVENT_TRIAL_FAULT_LIMIT = "sub_train_job_fault_limit"
 EventFn = Callable[[str, Dict[str, Any]], None]
 
 
-def _phase(phases: Dict[str, float], name: str, t0: float) -> float:
-    """Record the phase that began at ``t0``; the next one begins now."""
-    now = time.time()
-    phases[name] = now - t0
-    return now
+def _save_trace(tracer: Tracer, trial_logger: ModelLogger, message: str,
+                **fields: Any) -> None:
+    """Save the trial's spans and log their sums by name. Diagnostics
+    only: a failure here never fails the trial or hides its fault."""
+    try:
+        tracer.save()
+        trial_logger.log(message, **fields, **{
+            f"trace_{k}_s": round(v, 4)
+            for k, v in tracer.summary().items()})
+    except Exception:
+        logger.exception("failed to persist trial trace %s",
+                         tracer.trace_id)
 
 
 class TrainWorker:
@@ -342,13 +357,16 @@ class TrainWorker:
                     return
                 continue
             trial = None
+            tracer = Tracer("pending")
             if not over_time:
-                try:
-                    self._retry_pending_feedback(advisor_id)
-                except Exception:
-                    logger.warning("pending feedback retry failed; "
-                                   "proposing without it", exc_info=True)
-                knobs = self._propose_clear_of_quarantine(advisor_id)
+                with tracer.span("propose"):
+                    try:
+                        self._retry_pending_feedback(advisor_id)
+                    except Exception:
+                        logger.warning("pending feedback retry failed; "
+                                       "proposing without it",
+                                       exc_info=True)
+                    knobs = self._propose_clear_of_quarantine(advisor_id)
                 trial = self._db.reserve_trial(
                     self._sub_id, model["id"], knobs,
                     worker_id=ctx.service_id, max_trials=max_trials)
@@ -358,13 +376,15 @@ class TrainWorker:
                     "sub_train_job_id": self._sub_id,
                     "train_job_id": job["id"]})
                 return
+            tracer.trace_id = trial["id"]
             if not self._execute_trial(ctx, clazz, job, advisor_id,
-                                       trial["id"], knobs):
+                                       trial["id"], knobs, tracer=tracer):
                 return
 
     def _execute_trial(self, ctx: ServiceContext, clazz: type,
                        job: Dict[str, Any], advisor_id: str, trial_id: str,
-                       knobs: Dict[str, Any], start_attempt: int = 0) -> bool:
+                       knobs: Dict[str, Any], start_attempt: int = 0,
+                       tracer: Optional[Tracer] = None) -> bool:
         """Run one trial and record its outcome, retrying infra-class
         faults under the same id. Returns False when the worker leaves its
         loop: stopping (the trial is then TERMINATED) or the job's
@@ -372,6 +392,8 @@ class TrainWorker:
         trial_logger = ModelLogger()
         trial_logger.set_sink(
             lambda line: self._db.add_trial_log(trial_id, line))
+        # one tracer over the attempts: a retried trial's spans add up
+        tracer = tracer or Tracer(trial_id)
         retry_max = max(int(config.TRIAL_RETRY_MAX), 0)
         attempt = max(int(start_attempt), 0)
         while True:
@@ -382,7 +404,8 @@ class TrainWorker:
                 self._chaos_trial(trial_id)
                 ranks = self._ensure_ranks()
                 score, params_path = self._run_trial(
-                    clazz, knobs, job, trial_id, trial_logger, ranks)
+                    clazz, knobs, job, trial_id, trial_logger, ranks,
+                    tracer=tracer)
                 # feedback BEFORE mark-complete: a trial visible as
                 # COMPLETED has its observation in the advisor, so a
                 # restarted sibling's empty-only replay cannot feed it
@@ -635,10 +658,12 @@ class TrainWorker:
     def _run_trial(self, clazz: type, knobs: Dict[str, Any],
                    job: Dict[str, Any], trial_id: str,
                    trial_logger: ModelLogger,
-                   ranks: Optional[Ranks] = None) -> tuple:
+                   ranks: Optional[Ranks] = None,
+                   tracer: Optional[Tracer] = None) -> tuple:
+        tracer = tracer or Tracer(trial_id)
         if sandbox.sandbox_enabled():
             return self._run_trial_sandboxed(knobs, job, trial_id,
-                                             trial_logger)
+                                             trial_logger, tracer)
         model = clazz(**knobs)
         model.logger = trial_logger
         # per-trial checkpoint slot, handed by templates to fit()
@@ -656,39 +681,37 @@ class TrainWorker:
                 return getattr(model, method)(*args)
             return ranks.call(model, method, *args)
 
-        # seconds per phase, logged as the JAX worker's tracer summary is
-        phases: Dict[str, float] = {}
-        t0 = time.time()
         try:
             try:
-                call("train", job["train_dataset_uri"])
+                with torch_profile(f"trial-{trial_id}"), \
+                        tracer.span("train"):
+                    call("train", job["train_dataset_uri"])
             except StopTrialEarly:
                 # templates with hand-rolled loops surface the verdict here
                 # (fit() absorbs it); the truncated model is still evaluated
                 trial_logger.log("trial stopped early by scheduler")
-            t0 = _phase(phases, "train", t0)
             # the verdict is delivered: later logs must not raise it again
             trial_logger.set_stop_check(None)
-            score = validate_score(call("evaluate", job["test_dataset_uri"]))
-            t0 = _phase(phases, "evaluate", t0)
-            params_path = os.path.join(self._params_dir,
-                                       f"{trial_id}.params")
-            params_bytes = dump_params(model.dump_parameters())
-            try:
-                write_artifact(params_path, params_bytes)
-            except OSError as e:
-                # the trusted side's I/O (a full disk): the platform's
-                # fault, never the template's knobs
-                raise faults.TrialFault(f"params persist failed: {e}",
-                                        kind=FaultKind.INFRA) from e
-            _phase(phases, "persist_params", t0)
+            with tracer.span("evaluate"):
+                score = validate_score(
+                    call("evaluate", job["test_dataset_uri"]))
+            with tracer.span("persist_params"):
+                params_path = os.path.join(self._params_dir,
+                                           f"{trial_id}.params")
+                params_bytes = dump_params(model.dump_parameters())
+                try:
+                    write_artifact(params_path, params_bytes)
+                except OSError as e:
+                    # the trusted side's I/O (a full disk): the platform's
+                    # fault, never the template's knobs
+                    raise faults.TrialFault(f"params persist failed: {e}",
+                                            kind=FaultKind.INFRA) from e
             # the trial is complete: its mid-trial checkpoint is dead weight
             self._cleanup_ckpt(trial_id)
             return score, params_path
         finally:
             trial_logger.set_stop_check(None)
-            trial_logger.log("trial phase breakdown", **{
-                f"trace_{k}_s": round(v, 4) for k, v in phases.items()})
+            _save_trace(tracer, trial_logger, "trial phase breakdown")
             if ranks is None or ranks.broken:
                 model.destroy()
             else:
@@ -702,7 +725,8 @@ class TrainWorker:
 
     def _run_trial_sandboxed(self, knobs: Dict[str, Any],
                              job: Dict[str, Any], trial_id: str,
-                             trial_logger: ModelLogger) -> tuple:
+                             trial_logger: ModelLogger,
+                             tracer: Tracer) -> tuple:
         """The sandbox path: the template's train, evaluate and dump run
         in a locked-down child on this worker's devices; this side
         forwards its log lines to the trial's log, applies the stop
@@ -714,35 +738,33 @@ class TrainWorker:
         jail = sandbox.make_jail(config.WORKDIR, trial_id)
         stop_check = trial_logger._stop_check
         sink = trial_logger._sink or (lambda line: None)
-        phases: Dict[str, float] = {}
-        t0 = time.time()
         try:
-            score, params_bytes = sandbox.run_trial_sandboxed(
-                self._model_row["model_file_bytes"],
-                self._model_row["model_class"], knobs,
-                job["train_dataset_uri"], job["test_dataset_uri"], jail,
-                on_log_line=sink, stop_check=stop_check,
-                timeout_s=self._trial_timeout_s,
-                extra_pythonpath=self._deps_prefix,
-                devices=self._devices or None)
-            t0 = _phase(phases, "train", t0)
+            # the child's train, evaluate and dump are one span here
+            with tracer.span("train"):
+                score, params_bytes = sandbox.run_trial_sandboxed(
+                    self._model_row["model_file_bytes"],
+                    self._model_row["model_class"], knobs,
+                    job["train_dataset_uri"], job["test_dataset_uri"], jail,
+                    on_log_line=sink, stop_check=stop_check,
+                    timeout_s=self._trial_timeout_s,
+                    extra_pythonpath=self._deps_prefix,
+                    devices=self._devices or None)
             # NaN survives the child's float() and the JSON pipe: the gate
             # makes it a typed INVALID_SCORE fault here
             score = validate_score(score)
-            params_path = os.path.join(self._params_dir,
-                                       f"{trial_id}.params")
-            try:
-                write_artifact(params_path, params_bytes, mode=0o600)
-            except OSError as e:
-                raise faults.TrialFault(f"params persist failed: {e}",
-                                        kind=FaultKind.INFRA) from e
-            _phase(phases, "persist_params", t0)
+            with tracer.span("persist_params"):
+                params_path = os.path.join(self._params_dir,
+                                           f"{trial_id}.params")
+                try:
+                    write_artifact(params_path, params_bytes, mode=0o600)
+                except OSError as e:
+                    raise faults.TrialFault(f"params persist failed: {e}",
+                                            kind=FaultKind.INFRA) from e
             shutil.rmtree(jail, ignore_errors=True)
             return score, params_path
         finally:
             trial_logger.set_stop_check(None)
-            trial_logger.log("trial phase breakdown", **{
-                f"trace_{k}_s": round(v, 4) for k, v in phases.items()})
+            _save_trace(tracer, trial_logger, "trial phase breakdown")
 
     # -- vectorized trial execution ----------------------------------------
 
@@ -926,6 +948,7 @@ class TrainWorker:
         own fault. The stacked checkpoint takes the lead member's
         ``.ckpt`` slot (a resume with another K starts fresh)."""
         lead_id = members[0][0]
+        tracer = Tracer(lead_id)
         member_knobs = [dict(knobs) for _, knobs in members]
         model = clazz(**member_knobs[0])
         model.logger = trial_logger
@@ -942,19 +965,19 @@ class TrainWorker:
                 return getattr(model, method)(*args)
             return ranks.call(model, method, *args)
 
-        phases: Dict[str, float] = {}
-        t0 = time.time()
         try:
             try:
-                call("train_population", job["train_dataset_uri"],
-                     member_knobs)
+                with torch_profile(f"trial-{lead_id}"), \
+                        tracer.span("train"):
+                    call("train_population", job["train_dataset_uri"],
+                         member_knobs)
             except StopTrialEarly:
                 trial_logger.log("population batch stopped early by "
                                  "scheduler")
-            t0 = _phase(phases, "train", t0)
             trial_logger.set_stop_check(None)
-            raw_scores = call("evaluate_population", job["test_dataset_uri"])
-            t0 = _phase(phases, "evaluate", t0)
+            with tracer.span("evaluate"):
+                raw_scores = call("evaluate_population",
+                                  job["test_dataset_uri"])
             if raw_scores is None or len(raw_scores) != len(members):
                 # the population contract is broken: the batch fails, and
                 # the scalar re-run judges each member alone
@@ -964,39 +987,40 @@ class TrainWorker:
                     f"score(s) for {len(members)} members",
                     kind=FaultKind.USER)
             results = []
-            for i, (tid, knobs) in enumerate(members):
-                try:
-                    score = validate_score(raw_scores[i])
-                except faults.TrialFault as e:
-                    # this member is infeasible; its siblings' scores stand
-                    results.append((tid, knobs, None, None, e))
-                    continue
-                params_path = os.path.join(self._params_dir,
-                                           f"{tid}.params")
-                try:
-                    # a member's dump and write are its own: one that
-                    # fails (the template's code, or the disk) fails that
-                    # member alone
-                    write_artifact(params_path, dump_params(
-                        model.dump_member_parameters(i)))
-                except OSError as e:
-                    results.append((tid, knobs, None, None, faults.TrialFault(
-                        f"params persist failed: {e}",
-                        kind=FaultKind.INFRA)))
-                    continue
-                except Exception as e:  # classified by the caller
-                    results.append((tid, knobs, None, None, e))
-                    continue
-                results.append((tid, knobs, score, params_path, None))
-            _phase(phases, "persist_params", t0)
+            with tracer.span("persist_params"):
+                for i, (tid, knobs) in enumerate(members):
+                    try:
+                        score = validate_score(raw_scores[i])
+                    except faults.TrialFault as e:
+                        # this member is infeasible; its siblings'
+                        # scores stand
+                        results.append((tid, knobs, None, None, e))
+                        continue
+                    params_path = os.path.join(self._params_dir,
+                                               f"{tid}.params")
+                    try:
+                        # a member's dump and write are its own: one
+                        # that fails (the template's code, or the disk)
+                        # fails that member alone
+                        write_artifact(params_path, dump_params(
+                            model.dump_member_parameters(i)))
+                    except OSError as e:
+                        results.append((tid, knobs, None, None,
+                                        faults.TrialFault(
+                                            f"params persist failed: {e}",
+                                            kind=FaultKind.INFRA)))
+                        continue
+                    except Exception as e:  # classified by the caller
+                        results.append((tid, knobs, None, None, e))
+                        continue
+                    results.append((tid, knobs, score, params_path, None))
             self._cleanup_ckpt(lead_id)
             return results
         finally:
             trial_logger.set_stop_check(None)
-            trial_logger.log("population batch phase breakdown",
-                             members=float(len(members)), **{
-                                 f"trace_{k}_s": round(v, 4)
-                                 for k, v in phases.items()})
+            _save_trace(tracer, trial_logger,
+                        "population batch phase breakdown",
+                        members=float(len(members)))
             if ranks is None or ranks.broken:
                 model.destroy()
             else:

@@ -305,8 +305,8 @@ def test_a_stale_epoch_is_refused_412_and_never_retried():
 
 def test_the_auth_gate_answers_as_the_originals(monkeypatch):
     """A keyed agent: the right key passes, a wrong or missing one is
-    401; a keyless agent refuses 403 unless insecure; ``/healthz`` is
-    open; ``/metrics`` is a 404 here (item 12) and open there."""
+    401; a keyless agent refuses 403 unless insecure; ``/healthz`` and
+    ``/metrics`` are open, in both packages."""
     def status(p, addr, path, key=None):
         try:
             p.http.call_agent(addr, "GET", path, key=key, timeout_s=5)
@@ -338,6 +338,4 @@ def test_the_auth_gate_answers_as_the_originals(monkeypatch):
         {name: out[0::2] for name, out in got.items()}["jax"] == [
             [200, 401, 401, 200, 404], [403, 403, 403, 200, 403],
             [200, 200, 200, 200, 404]]
-    # a difference held by this test: no metrics exposition in the port
-    assert metrics["jax"] == [200, 200, 200]
-    assert metrics["torch"] == [404, 404, 404]
+    assert metrics["jax"] == metrics["torch"] == [200, 200, 200]

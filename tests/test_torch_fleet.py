@@ -339,8 +339,9 @@ def test_json_rows_cross_a_binary_relay_as_one_array():
     cross the port's binary relay as that array, float64, as the shm
     rings carry them, and the worker gets ndarray rows; the original
     sends them as JSON text inside the frame and its worker gets lists.
-    The answers agree; a ``trace`` field of the body is set aside by the
-    port's agent, which answers no ``trace_spans``."""
+    The answers agree, and a sampled ``trace`` field of the body gets the
+    agent's spans back as ``trace_spans`` in both packages, with the same
+    span names."""
     rows = [[float(i), float(i) + 0.5, -1.0] for i in range(4)]
     seen = {}
     for name, p in PACKAGES.items():
@@ -352,12 +353,15 @@ def test_json_rows_cross_a_binary_relay_as_one_array():
             relayed = sorted(set(engine.row_types))
             out = p.http.call_agent(
                 addr, "POST", "/predict_relay/job/w",
-                {"queries": rows[:1], "trace": None}, key="k", timeout_s=10)
+                {"queries": rows[:1], "trace": {"id": "abc123", "s": 1}},
+                key="k", timeout_s=10)
             seen[name] = (binary, [a[0] for a in answers], relayed,
-                          "trace_spans" in out)
+                          sorted({s[0] for s in out["trace_spans"]})
+                          if "trace_spans" in out else None)
         finally:
             srv.stop()
     assert seen["torch"][0] is seen["jax"][0] is True
     np.testing.assert_allclose(seen["torch"][1], seen["jax"][1])
     assert seen["torch"][2] == ["ndarray"] and seen["jax"][2] == ["list"]
-    assert seen["torch"][3] is False
+    assert seen["torch"][3] == seen["jax"][3]
+    assert "queue_wait" in seen["torch"][3]

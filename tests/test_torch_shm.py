@@ -242,8 +242,8 @@ def test_one_request_is_one_frame_and_one_batch(broker, queries):
     assert proxy.depth() == 5
     raw = wq._qq.pop(timeout_s=1.0)
     assert wq._qq.pop(timeout_s=0.05) is None  # one message for 5 queries
-    entries, binary = shm_broker._decode_query_frame(raw)
-    assert binary and len(entries) == 5
+    entries, binary, trace_meta = shm_broker._decode_query_frame(raw)
+    assert binary and len(entries) == 5 and trace_meta is None
     if not isinstance(queries[0], dict):
         assert "qarr" in shm_broker.wire.decode(raw)
     wq._qq.push(raw)

@@ -108,11 +108,9 @@ class FakeModel(BaseModel):
         self._params = params
 '''
 
-#: JAX routes whose Admin method is not ported yet (ROADMAP.md, queue A)
-LATER = {
-    ("GET", r"/trials/(?P<tid>[^/]+)/trace"),
-    ("GET", "/fleet/health"),
-}
+#: JAX routes whose Admin method is not ported yet (ROADMAP.md, queue A):
+#: none since the trial trace and fleet health landed
+LATER: set = set()
 
 
 def _route_table(server_cls):
@@ -209,8 +207,8 @@ def _quickstart(client_cls, port, template, tmp_path):
     shapes["get_trial"] = c.get_trial(best[0]["id"])
     logs = c.get_trial_logs(best[0]["id"])
     shapes["get_trial_logs"] = logs
-    # the template's own records; the JAX worker's tracer (not ported)
-    # adds a "trial phase breakdown" message and a metrics record of spans
+    # the template's own records; each worker's tracer adds a "trial
+    # phase breakdown" message and a metrics record of spans
     facts["logs"] = ([m["message"] for m in logs["messages"]
                       if m["message"] != "trial phase breakdown"],
                      [p["title"] for p in logs["plots"]],
@@ -514,11 +512,12 @@ def test_the_admin_process_refuses_without_cuda(tmp_path):
 def test_unported_settings_raise(monkeypatch, tmp_path, name, value,
                                  subsystem):
     """A setting that selects a subsystem the port lacks refuses the
-    admin's start, typed. Speculative decoding, stream resume, int8
-    serving, the autoscaler, fair admission, the warm pool, the drift
-    loop, the sandbox, control-plane HA, admin failover, crash recovery
-    and host placement are ported: their settings are read, with the JAX
-    package's defaults."""
+    admin's start, typed: only ``RAFIKI_INSTALL_DEPS`` now. Speculative
+    decoding, stream resume, int8 serving, the autoscaler, fair
+    admission, the warm pool, the drift loop, the sandbox, control-plane
+    HA, admin failover, crash recovery, host placement, request tracing
+    and device profiling are ported: their settings are read, with the
+    JAX package's defaults."""
     if name in ("RAFIKI_PLACEMENT", "RAFIKI_AGENTS",
                 "RAFIKI_RECOVER_PROBE_TIMEOUT_S"):
         from rafiki_tpu import config as jax_config
@@ -649,6 +648,23 @@ def test_unported_settings_raise(monkeypatch, tmp_path, name, value,
                   ChipAllocator(["cpu"]))).shutdown()
         assert sandbox.sandbox_enabled() is jax_sandbox.sandbox_enabled() \
             is True
+        return
+    if name in ("RAFIKI_TRACE_SAMPLE", "RAFIKI_PROFILE"):
+        from rafiki_tpu.utils import trace as jax_trace
+        from rafiki_tpu_torch.utils import trace
+
+        monkeypatch.delenv(name, raising=False)
+        assert trace.sample_rate() == jax_trace.sample_rate() == 0.0
+        assert trace.profiling_enabled() is \
+            jax_trace.profiling_enabled() is False
+        monkeypatch.setenv(name, value)
+        Admin(db=Database(":memory:"),
+              placement=LocalPlacementManager(
+                  ChipAllocator(["cpu"]))).shutdown()
+        assert trace.sample_rate() == jax_trace.sample_rate()
+        assert trace.profiling_enabled() is jax_trace.profiling_enabled()
+        assert (trace.sample_rate() == 0.5 if name == "RAFIKI_TRACE_SAMPLE"
+                else trace.profiling_enabled())
         return
     if name == "RAFIKI_SERVE_INT8":
         from rafiki_tpu.sdk import quant as jax_quant
@@ -923,28 +939,30 @@ def _jax_budget_refusal(tmp_path, budget) -> str:
 
 
 def test_chaos_rule_at_an_unhooked_site_is_refused(tmp_path, monkeypatch):
-    """Only the trial, worker, generate, deploy, drift, db, lease, agent
-    and call_agent sites have their chaos hooks: a rule naming another
-    site raises NotPortedError when it is made, and a RAFIKI_CHAOS
+    """Every site but compile has its chaos hook (the trial, worker,
+    generate, deploy, drift, db, lease, agent, call_agent, wire and cache
+    sites): a rule naming compile, which stays with the JAX compile
+    cache, raises NotPortedError when it is made, and a RAFIKI_CHAOS
     holding one refuses the admin's start, never silently inert; a rule
     at a hooked site passes."""
     from rafiki_tpu_torch.utils import chaos
 
     try:
         for site in ("trial", "worker", "generate", "deploy", "drift", "db",
-                     "lease", "agent", "call_agent"):
+                     "lease", "agent", "call_agent", "wire", "cache"):
             (rule,) = chaos.parse_rules(f"site={site};action=delay")
             assert rule.site == site
-        for site in ("wire", "cache", "compile"):
+        assert set(chaos.SITES) - set(chaos.HOOKED_SITES) == {"compile"}
+        for site in ("compile",):
             with pytest.raises(NotPortedError, match=f"site={site}"):
                 chaos.parse_rules(f"site={site};action=delay")
             with pytest.raises(NotPortedError):
                 chaos.install([chaos.ChaosRule(site=site, action="delay")])
         monkeypatch.setenv("RAFIKI_CHAOS",
-                           "site=trial;action=error|site=wire;action=error")
-        with pytest.raises(NotPortedError, match="site=wire"):
+                           "site=trial;action=error|site=compile;action=error")
+        with pytest.raises(NotPortedError, match="site=compile"):
             chaos.hit(chaos.SITE_TRIAL, "sub trial")
-        with pytest.raises(NotPortedError, match="site=wire"):
+        with pytest.raises(NotPortedError, match="site=compile"):
             Admin(db=Database(":memory:"),
                   placement=LocalPlacementManager(ChipAllocator(["cpu"])),
                   params_dir=str(tmp_path))
